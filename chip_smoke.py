@@ -7,15 +7,24 @@ Phases (each prints its results; any failure exits non-zero):
 1. card: ``nvidia-smi`` name and power limit, on a line of their own;
 2. build: compile the port's CUDA kernels from ``csrc/`` (timed);
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16, at the serving path's shapes (max abs error, and
-   kernel vs plain time from CUDA events);
+   float32 and bfloat16, at the serving and training paths' shapes (max abs
+   error, and kernel vs plain time from CUDA events);
 4. parity: float32 MLLM at full width and reduced depth, ``paged_generate``
    on the card (through both kernels) must give exactly the greedy tokens
    of the same weights on the CPU plain path;
 5. slice: a seeded random-init results dir of the full ``12_colors_3k``
    configuration, served by the port's paged server (``make_server``):
    16 requests from 16 threads, ``/healthz`` and ``/metrics`` over HTTP,
-   launch counts of both kernels.
+   launch counts of both kernels;
+6. training parity: float32 MLLM at full width and reduced depth, three
+   micro-steps with accumulation 2 on the card and on the CPU plain path:
+   the same losses and trained tensors, frozen tensors bitwise unchanged;
+7. training slice: the port's trainer CLI (``multimodal_training.main``)
+   trains the full ``12_colors_3k`` model (seeded random init) for one epoch
+   on a small generated 12-color dataset; launch counts of the K1 forward,
+   dQ and dK/dV kernels per micro-step, finite losses, trained tensors
+   moved, frozen tensors bitwise those of ``initial_model.pt``, the full
+   results layout, and micro-steps/s and samples/s.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -101,6 +110,92 @@ def _flash_cases(torch, gen, dev):
     ]
 
 
+LM_TRAIN_T = 197 + 24  # vision tokens + the collator's pad_to for 12_colors_3k
+
+
+def _flash_bwd_cases(torch, gen, dev):
+    """(name, q, k, v, kwargs, bias needs grad) at the training path's K1
+    shapes: the LM at batch 2 (4q/1kv heads of 256, causal + kv_lens, scale
+    1/16), with a window, with a float32 bias that needs a gradient, and
+    the ViT (12 heads of 64, no mask); then one case at head dim 128."""
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    t = LM_TRAIN_T
+    lens = torch.tensor([t, t - 9], dtype=torch.int32, device=dev)
+    lm = dict(scale=1 / 16, kv_lens=lens, causal=True)
+    lm_qkv = lambda: (randn(2, t, 4, 256), randn(2, t, 1, 256), randn(2, t, 1, 256))  # noqa: E731
+    return [
+        (f"lm [2,{t},4/1,256] causal+kv_lens", *lm_qkv(), lm, False),
+        ("lm window 64", *lm_qkv(), dict(lm, window=64), False),
+        (f"lm + bias [2,1,{t},{t}] (dbias)", *lm_qkv(), dict(lm, bias=randn(2, 1, t, t)), True),
+        ("vit [2,197,12,64]", randn(2, 197, 12, 64), randn(2, 197, 12, 64),
+         randn(2, 197, 12, 64), {}, False),
+        # the kernels' third head dim, group 4 over 2 kv heads, a per-head bias
+        ("d 128 [2,100,8/2,128] causal + window 37 + bias [2,8,100,100]",
+         randn(2, 100, 8, 128), randn(2, 100, 2, 128), randn(2, 100, 2, 128),
+         dict(causal=True, window=37, bias=randn(2, 8, 100, 100)), True),
+    ]
+
+
+def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
+    """Each backward kernel against the plain backward on the same saved
+    (q, k, v, o, lse, dO): float32 <= 1e-4 abs, bf16 <= 2e-2 of the
+    reference's max |value|."""
+    kdq = report.setdefault("flash_attention_bwd_dq", {"max_abs_err": 0.0})
+    kdkv = report.setdefault("flash_attention_bwd_dkv", {"max_abs_err": 0.0})
+    for name, q, k, v, kw, bias_grad in _flash_bwd_cases(torch, gen, dev):
+        do = torch.randn(q.shape, generator=gen, device=dev)
+        mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
+        scale = kw.get("scale", q.shape[-1] ** -0.5)
+        bias = kw.get("bias")
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd, dod = (x.to(dtype) for x in (q, k, v, do))
+            o, lse = fa._launch(qd, kd, vd, bias, scale, mask.get("kv_lens"),
+                                mask.get("causal", False), mask.get("window"), with_lse=True)
+            ref = fa.flash_attention_backward_reference(
+                qd.float(), kd.float(), vd.float(), o.float(), lse, dod.float(), bias,
+                scale=scale, **mask)
+
+            def dq_call():
+                return fa.flash_attention_bwd_dq(qd, kd, vd, o, lse, dod, bias, scale=scale,
+                                                 need_ds=bias_grad, **mask)
+
+            dq, delta, ds = dq_call()
+
+            def dkv_call():
+                return fa.flash_attention_bwd_dkv(qd, kd, vd, dod, lse, delta, bias,
+                                                  scale=scale, **mask)
+
+            dk, dv = dkv_call()
+            torch.cuda.synchronize()
+            tag = str(dtype).replace("torch.", "")
+            pairs = {"dq": (dq, ref[0]), "dk": (dk, ref[1]), "dv": (dv, ref[2])}
+            if bias_grad:
+                pairs["dbias"] = (fa._unbroadcast(ds, bias), ref[3])
+            errs, ok = {}, True
+            for g, (got, want) in pairs.items():
+                errs[g] = (got.float() - want.float()).abs().max().item()
+                limit = TOL[tag] if dtype is torch.float32 else TOL[tag] * want.abs().max().item()
+                ok = ok and errs[g] <= limit
+            dq_ms = cuda_time_ms(dq_call)
+            dkv_ms = cuda_time_ms(dkv_call)
+            plain_ms = cuda_time_ms(lambda: fa.flash_attention_backward_reference(
+                qd, kd, vd, o, lse, dod, bias, scale=scale, **mask))
+            print(f"[kernels] K1 bwd {name} {tag}: max_abs_err "
+                  + " ".join(f"{g} {e:.3e}" for g, e in errs.items())
+                  + f"; dq kernel {dq_ms:.4f} ms, dkv kernel {dkv_ms:.4f} ms, "
+                  f"plain backward {plain_ms:.4f} ms", flush=True)
+            if not ok:
+                fail(f"K1 bwd {name} {tag}: errors {errs}")
+            kdq["max_abs_err"] = max(kdq["max_abs_err"], errs["dq"], errs.get("dbias", 0.0))
+            kdkv["max_abs_err"] = max(kdkv["max_abs_err"], errs["dk"], errs["dv"])
+            if name.startswith("lm [") and dtype is torch.bfloat16:
+                kdq.update(ms=dq_ms, plain_ms=plain_ms)
+                kdkv.update(ms=dkv_ms, plain_ms=plain_ms)
+
+
 def _paged_case(torch, gen, dev, hq, hk, d, ps, np_, lens):
     """(q, pool_k, pool_v, page_table, lens): rows own shuffled pages."""
     b = len(lens)
@@ -173,6 +268,7 @@ def phase_kernels(report: dict) -> None:
                 k3["max_abs_err"] = max(k3["max_abs_err"], err)
                 if w == 512 and dtype is torch.bfloat16:
                     k3.update(ms=ms, plain_ms=plain_ms)
+        _phase_flash_bwd(torch, fa, gen, dev, report)
 
 
 def _circle(rgb, size: int = 224) -> np.ndarray:
@@ -361,9 +457,217 @@ def phase_slice(report: dict, root: str) -> None:
         report[name]["launches"] = n
 
 
+def _train_batch(tokenizer, labels_mapping, seed: int, b: int = 2):
+    """A collated 224px training batch of the 12_colors_3k prompts (numpy)."""
+    from multimodal_concept_learning_tpu_torch.data.collator import MultimodalCollator
+
+    names = sorted(labels_mapping)
+    collator = MultimodalCollator(tokenizer, 197, TRAINING_CONFIG["prompt_template"], names,
+                                  labels_mapping, seed=seed)
+    samples = []
+    for i in range(b):
+        key = names[(seed * b + i) % len(names)]
+        samples.append((_circle([int(x) for x in re.findall(r"\d+", key)]), key))
+    return collator(samples)
+
+
+def phase_train_parity() -> None:
+    """Full widths, 2 ViT + 2 LM layers (one sliding, one global), float32,
+    language_embed_only: three micro-steps with accumulation 2 on the card
+    (K1 forward, dQ and dK/dV kernels) and on the CPU (plain versions) give
+    the same losses and trained tensors; frozen tensors stay bitwise."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.models.mllm import (
+        MLLM,
+        MLLMConfig,
+        copy_init_ood_rows,
+        trainable_mask,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_mllm_train_step,
+    )
+    from multimodal_concept_learning_tpu_torch.serve.loader import build_tokenizer, training_config
+
+    with open(MAPPING) as f:
+        labels_mapping = json.load(f)
+    tokenizer, _ = build_tokenizer(training_config(dict(TRAINING_CONFIG,
+                                                        labels_mapping_path=MAPPING)))
+    base = MLLMConfig.create(vocab_size=len(tokenizer), dtype=torch.float32)
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, num_hidden_layers=2),
+        lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=64,
+                               sliding_window_pattern=2))
+    model0 = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED))
+    copy_init_ood_rows(model0, 6)
+    sd = {k: v.clone() for k, v in model0.state_dict().items()}
+    batches = [_train_batch(tokenizer, labels_mapping, seed=i) for i in range(3)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            model = MLLM(cfg)
+        model.load_state_dict(sd, strict=True)
+        mask = trainable_mask(model, "language_embed_only")
+        opt = build_optimizer(model, 5e-4, weight_decay=1e-4, max_grad_norm=1.0,
+                              accumulation_steps=2)
+        state, step = TrainState(model=model, optimizer=opt), make_mllm_train_step(model)
+        before = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkv.launches)
+        losses = []
+        for batch in batches:
+            state, m = step(state, to_device(batch, dev))
+            losses.append(float(m["loss"]))
+        launched = tuple(n - b for n, b in zip((fa.flash_attention.launches,
+                                               fa.flash_attention_bwd_dq.launches,
+                                               fa.flash_attention_bwd_dkv.launches), before))
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     launched, mask)
+    (cl, csd, claunch, mask), (pl, psd, plaunch, _) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, pl))
+    trained = [n for n, t in mask.items() if t]
+    # Adam's first update is ~lr * g / |g| per element, so an element whose
+    # gradient nearly cancels can flip between two summation orders: hold
+    # each trained tensor to 1e-4 relative in norm, and report the largest
+    # element difference in units of the learning rate
+    param_err = max(((csd[n] - psd[n]).norm() / psd[n].norm()).item() for n in trained)
+    worst = max((csd[n] - psd[n]).abs().max().item() for n in trained) / 5e-4
+    moved = all(not torch.equal(csd[n], sd[n]) for n in trained)
+    frozen_same = all(torch.equal(csd[n], sd[n]) and torch.equal(psd[n], sd[n])
+                      for n, t in mask.items() if not t)
+    print(f"[train-parity] losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; trained "
+          f"tensors {trained}: max norm-relative err {param_err:.2e} (largest element "
+          f"difference {worst:.3f} lr), moved {moved}; frozen bitwise "
+          f"unchanged {frozen_same}; kernel launches (fwd, dq, dkv) cuda {claunch} "
+          f"cpu {plaunch}", flush=True)
+    if not (loss_err <= 1e-4 and param_err <= 1e-4 and moved and frozen_same):
+        fail("training parity CUDA vs CPU")
+    if min(claunch) == 0 or max(plaunch) != 0:
+        fail(f"training parity launches: cuda {claunch}, cpu {plaunch}")
+
+
+def _write_train_config(root: str, data_dir: str) -> str:
+    """experiments/multimodal/color/12_colors_3k.yaml with the paths under
+    ``root``, epochs 1 and 2 loader workers, as a YAML file."""
+    from multimodal_concept_learning_tpu_torch import miniyaml
+
+    with open(os.path.join(REPO, "experiments/multimodal/color/12_colors_3k.yaml")) as f:
+        text = f.read()
+    overrides = {
+        "mapping_path": os.path.join(data_dir, "train_mapping.csv"),
+        "image_root": data_dir,
+        "labels_mapping_path": MAPPING,
+        "results_dir": os.path.join(root, "results"),
+        "epochs": "1",
+        "num_workers": "2",
+    }
+    lines = []
+    for line in text.splitlines():
+        key = line.split(":", 1)[0]
+        lines.append(f"{key}: {overrides[key]}" if key in overrides and not line.startswith(" ")
+                     else line)
+    path = os.path.join(root, "12_colors_3k.yaml")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(path) as f:
+        parsed = miniyaml.safe_load(f)
+    assert parsed["epochs"] == 1 and parsed["batch_size"] == 2 and parsed["image_root"] == data_dir
+    return path
+
+
+def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> None:
+    """The port's trainer CLI on the full 12_colors_3k model, one epoch."""
+    import csv
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.checkpoint import changed_frozen, load_state_dict
+    from multimodal_concept_learning_tpu_torch.data.color_generator import (
+        ColorDatasetConfig,
+        generate_color_dataset,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.multimodal_training import main as train_main
+
+    t0 = time.perf_counter()
+    with open(os.path.join(REPO, "experiments/datasets/color/12_colors_3k.yaml")) as f:
+        ds = dict(miniyaml.safe_load(f), n_images_per_color=images_per_color,
+                  data_dir=os.path.join(root, "data"))
+    data_dir = generate_color_dataset(ColorDatasetConfig.from_params(ds), verbose=False)
+    sizes = {}
+    for split in ("train", "val", "test"):
+        with open(os.path.join(data_dir, f"{split}_mapping.csv")) as f:
+            sizes[split] = sum(1 for _ in csv.DictReader(f))
+    cfg_path = _write_train_config(root, data_dir)
+    print(f"[train] {images_per_color} images per color generated ({sizes}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.empty_cache()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, test_metrics, logged = train_main(["--config_path", cfg_path, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in zip(
+        ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"), counters)}
+
+    micro = sizes["train"] // 2  # batch 2, drop_last
+    evals = -(-sizes["val"] // 2) + -(-sizes["test"] // 2)
+    expected = {"flash_attention_fwd": 38 * (micro + evals),  # 12 ViT + 26 LM layers
+                "flash_attention_bwd_dq": 26 * micro, "flash_attention_bwd_dkv": 26 * micro}
+    epoch = logged[0] if logged else {}
+    models = os.path.join(root, "results", "models")
+    layout = ["initial_model.pt", "best_model.pt", "epoch_0_model.pt", "training_config.json",
+              "tokenizer"]
+    missing = [n for n in layout if not os.path.exists(os.path.join(models, n))]
+    init_sd = load_state_dict(os.path.join(models, "initial_model.pt"))
+    best_sd = load_state_dict(os.path.join(models, "best_model.pt"))
+    trained = ("language_model.model.embed_tokens.weight", "projector.weight", "projector.bias")
+    moved = all(not torch.equal(init_sd[n], best_sd[n]) for n in trained)
+    # the checkpoints' layout: frozen leaves bitwise those of initial_model.pt
+    frozen_same = all(torch.equal(init_sd[n], best_sd[n]) for n in init_sd if n not in trained)
+    float32 = all(t.dtype == torch.float32 for t in best_sd.values())
+    # the card's own frozen parameters, after the epoch, against initial_model.pt
+    # cast to their storage dtype: nothing on the card wrote to them
+    changed_on_card = changed_frozen(state.model, init_sd)
+    del init_sd, best_sd, state
+    finite = all(np.isfinite(epoch.get(k, float("nan"))) for k in ("train_loss", "val_loss"))
+    finite = finite and np.isfinite(test_metrics["test_loss"])
+    steps_per_s = epoch.get("micro_steps", 0) / epoch["train_time"] if epoch else 0.0
+    print(f"[train] one epoch: {epoch.get('micro_steps')} micro-steps (batch 2, 4 per update) "
+          f"in {epoch.get('train_time', float('nan')):.3f} s: {steps_per_s:.3f} micro-steps/s, "
+          f"{2 * steps_per_s:.3f} samples/s; epoch wall time (train + val) "
+          f"{epoch.get('epoch_time', float('nan')):.3f} s; whole CLI run {wall:.1f} s",
+          flush=True)
+    print(f"[train] train loss {epoch.get('train_loss')}, val loss {epoch.get('val_loss')}, "
+          f"test {test_metrics}; kernel launches {launches} (expected {expected}); "
+          f"trained tensors moved {moved}, frozen bitwise == initial_model.pt {frozen_same}, "
+          f"frozen on the card changed {changed_on_card}, float32 leaves {float32}, "
+          f"missing files {missing}", flush=True)
+    if not (finite and moved and frozen_same and not changed_on_card and float32
+            and not missing):
+        fail("training slice checks")
+    if launches != expected:
+        fail(f"training slice launch counts {launches} != expected {expected}")
+    for name, n in launches.items():
+        report[name]["launches"] = n
+
+
 SOURCES = {
     "flash_attention_fwd": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_fwd.cu",
                             "multimodal_concept_learning_tpu/ops/flash_attention.py:31"),
+    "flash_attention_bwd_dq": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "multimodal_concept_learning_tpu/ops/flash_attention.py:52"),
+    "flash_attention_bwd_dkv": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "multimodal_concept_learning_tpu/ops/flash_attention.py:76"),
     "paged_decode_attention": ("multimodal_concept_learning_tpu_torch/csrc/paged_attention.cu",
                                "multimodal_concept_learning_tpu/ops/paged_attention_kernel.py:43"),
 }
@@ -394,6 +698,15 @@ def main() -> None:
         phase_slice(report, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    serving_k1 = report["flash_attention_fwd"]["launches"]
+    phase_train_parity()
+    root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
+    try:
+        phase_train_slice(report, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
+          f"{report['flash_attention_fwd']['launches']}", flush=True)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}

@@ -12,13 +12,17 @@
   zero RMSNorm weights).
 - ``save_results_dir`` / ``load_state_dict``: the reference layout
   ``models/{training_config.json, best_model.pt, tokenizer/}``.
+- ``host_state_dict`` / ``save_state_dict``: the trainer's checkpoints, a
+  flat dict of float32 CPU tensors; frozen parameters come from a host copy
+  taken before training, so they are bitwise the values of
+  ``initial_model.pt`` even when the card stores them in bf16.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -103,6 +107,33 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k: v.float() for k, v in sd.items()}
 
 
+def host_state_dict(model: nn.Module, frozen: Dict[str, torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict as float32 CPU tensors; with ``frozen``, every
+    parameter that does not require grad is taken from it instead."""
+    params = dict(model.named_parameters())
+    out = {}
+    for name, t in model.state_dict().items():
+        p = params.get(name)
+        if frozen is not None and p is not None and not p.requires_grad:
+            out[name] = frozen[name]
+        else:
+            out[name] = t.detach().float().cpu()
+    return out
+
+
+def changed_frozen(model: nn.Module, reference: Dict[str, torch.Tensor]) -> List[str]:
+    """Names of ``model``'s frozen parameters that are not bitwise
+    ``reference[name]`` (host float32) cast to their storage dtype."""
+    return [name for name, p in model.named_parameters() if not p.requires_grad
+            and not torch.equal(p.detach(), reference[name].to(p.device, p.dtype))]
+
+
+def save_state_dict(state_dict: Dict[str, torch.Tensor], path: str) -> None:
+    """Write a reference-layout ``.pt`` (a flat dict of float32 tensors)."""
+    torch.save({k: v.detach().float().cpu().contiguous() for k, v in state_dict.items()}, path)
+
+
 def save_results_dir(results_dir: str, model: MLLM, tokenizer, training_config: dict,
                      checkpoint: str = "best_model.pt") -> str:
     """Write ``models/{training_config.json, <checkpoint>, tokenizer/}`` with
@@ -119,8 +150,11 @@ def save_results_dir(results_dir: str, model: MLLM, tokenizer, training_config: 
 
 __all__ = [
     "build_mllm",
+    "changed_frozen",
+    "host_state_dict",
     "init_random_weights_",
     "load_state_dict",
     "save_results_dir",
+    "save_state_dict",
     "state_dict_from_jax",
 ]

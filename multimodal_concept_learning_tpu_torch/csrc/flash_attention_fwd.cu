@@ -20,50 +20,34 @@
 // on the CUDA cores (smem-staged tiles, one online-softmax pass over 32-key
 // tiles); moving the two products onto the tensor cores (wgmma/mma.sync in
 // bf16) is the next step for speed.  exp is the accurate expf.
+//
+// With a non-null lse pointer the kernel also writes each row's logsumexp
+// (float32 [B, Hq, Tq]), which the backward kernels recompute the
+// probabilities from (the TPU kernel's l_ref output).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using mcl_flash::kThreads;
+using mcl_flash::load_f;
+using mcl_flash::store_f;
+using mcl_flash::warp_max;
+using mcl_flash::warp_sum;
+
 constexpr int kBK = 32;  // keys per tile == warp width (one lane per key in the softmax)
-
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p);
-template <>
-__device__ __forceinline__ float load_f<float>(const float* p) { return *p; }
-template <>
-__device__ __forceinline__ float load_f<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_f(T* p, float x);
-template <>
-__device__ __forceinline__ void store_f<float>(float* p, float x) { *p = x; }
-template <>
-__device__ __forceinline__ void store_f<__nv_bfloat16>(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 struct FlashParams {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;         // nullable, [B, Hq, Tq]: row logsumexp for the backward
   const float* bias;  // nullable
   long long bias_sb, bias_sh, bias_sq, bias_sk;
   const int* kv_lens;  // nullable, [B]
@@ -215,6 +199,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
       store_f(o + ((size_t)(b * p.Tq + t) * p.Hq + h) * D + od, l > 0.f ? acc[i] / l : 0.f);
     }
   }
+  // lse = m + log(l); a row with no attendable key gets +inf, which the
+  // backward reads as p = exp(s - lse) = 0
+  if (p.lse != nullptr) {
+    for (int r = tid; r < BQ; r += kThreads) {
+      const int t = q0 + r;
+      if (t < p.Tq) {
+        const float l = row_l[r];
+        p.lse[((size_t)b * p.Hq + h) * p.Tq + t] = l > 0.f ? row_m[r] + logf(l) : INFINITY;
+      }
+    }
+  }
 }
 
 template <typename T, int D, int BQ>
@@ -243,12 +238,12 @@ cudaError_t dispatch_d(const FlashParams& p, int d, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int mcl_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       const float* bias, long long bias_sb, long long bias_sh,
+                                       float* lse, const float* bias, long long bias_sb, long long bias_sh,
                                        long long bias_sq, long long bias_sk, const int* kv_lens,
                                        int B, int Tq, int Tk, int Hq, int Hk, int D, int dtype,
                                        float scale, int causal, int window, void* stream) {
-  FlashParams p{q,       k,       v,       o,  bias, bias_sb, bias_sh, bias_sq, bias_sk,
-                kv_lens, B,       Tq,      Tk, Hq,   Hk,      scale,   causal,  window};
+  FlashParams p{q,       k,  v,  o,  lse,   bias,   bias_sb, bias_sh, bias_sq,
+                bias_sk, kv_lens, B, Tq, Tk, Hq, Hk, scale,   causal,  window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_d<float>(p, D, s);
   if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(p, D, s);

@@ -8,11 +8,16 @@ embeddings scaled by sqrt(hidden), and an LM head tied to the embedding.
 Parameter names are HF Gemma-3's (``model.layers.{i}.self_attn.q_proj``
 ...), as ``checkpoint/torch_interop.mllm_params_to_torch`` writes them.
 
-Masks follow the serving contract of the JAX package: prompts are
-RIGHT-padded, so an attention mask is a per-row length (``kv_lens``) and
-attention takes mask descriptors instead of a bias.  Entry points:
-``embed``, ``hidden_states``, ``prefill_paged`` (fills page pools in
-place), ``decode_step_paged`` and ``lm_head``.
+Masks: the caller says whether its mask is RIGHT-padded (the collator's
+layout and the serving contract) by passing the rows' lengths
+(``kv_lens``), decided on the host; attention then takes mask descriptors.
+Any other mask (left padding, holes) becomes the JAX
+``make_attention_bias`` float32 bias, so ``hidden_states`` matches the
+JAX module for every mask and never reads the mask back to the host.
+Every parameter is cast where it is used (``device.linear``), so the model
+trains float32 parameters in the compute dtype.  Entry points: ``embed``,
+``hidden_states``, ``prefill_paged`` (fills page pools in place),
+``decode_step_paged`` and ``lm_head``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_concept_learning_tpu_torch.ops.attention import multi_head_attention
+from multimodal_concept_learning_tpu_torch.device import linear
+from multimodal_concept_learning_tpu_torch.ops.attention import (
+    make_attention_bias,
+    multi_head_attention,
+)
 from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     paged_decode_attention,
     write_prompt_kv,
@@ -136,26 +145,28 @@ class LMAttention(nn.Module):
     def _qkv(self, x: torch.Tensor, rope: Rope):
         cfg = self.cfg
         b, t, _ = x.shape
-        q = self.q_proj(x).view(b, t, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).view(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).view(b, t, cfg.num_kv_heads, cfg.head_dim)
+        q = linear(self.q_proj, x, cfg.dtype).view(b, t, cfg.num_heads, cfg.head_dim)
+        k = linear(self.k_proj, x, cfg.dtype).view(b, t, cfg.num_kv_heads, cfg.head_dim)
+        v = linear(self.v_proj, x, cfg.dtype).view(b, t, cfg.num_kv_heads, cfg.head_dim)
         if cfg.use_qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         return apply_rope(q, rope), apply_rope(k, rope), v
 
     def forward(self, x, rope: Rope, *, kv_lens=None, window: Optional[int] = None,
-                pool=None, page_table=None) -> torch.Tensor:
-        """Causal self-attention over the prompt; with ``pool`` ({"k","v"}
-        page pools) the prompt's K/V are also written into ``page_table``'s
-        pages (positions >= kv_lens go to the null page)."""
+                bias=None, causal: bool = True, pool=None, page_table=None) -> torch.Tensor:
+        """Self-attention over the prompt, masked by the descriptors
+        (``kv_lens``, ``causal``, ``window``) and/or an additive ``bias``;
+        with ``pool`` ({"k","v"} page pools) the prompt's K/V are also
+        written into ``page_table``'s pages (positions >= kv_lens go to the
+        null page)."""
         b, t, _ = x.shape
         q, k, v = self._qkv(x, rope)
         if pool is not None:
             write_prompt_kv(pool["k"], page_table, kv_lens, k)
             write_prompt_kv(pool["v"], page_table, kv_lens, v)
-        attn = multi_head_attention(q, k, v, scale=self.scale, kv_lens=kv_lens,
-                                    causal=True, window=window)
-        return self.o_proj(attn.reshape(b, t, -1))
+        attn = multi_head_attention(q, k, v, bias, scale=self.scale, kv_lens=kv_lens,
+                                    causal=causal, window=window)
+        return linear(self.o_proj, attn.reshape(b, t, -1), self.cfg.dtype)
 
     def decode_paged(self, x, rope: Rope, pool, page_table, seq_lens,
                      window: Optional[int]) -> torch.Tensor:
@@ -167,18 +178,21 @@ class LMAttention(nn.Module):
         write_token_kv(pool["v"], page_table, seq_lens, v[:, 0])
         attn = paged_decode_attention(q, pool["k"], pool["v"], page_table, seq_lens + 1,
                                       scale=self.scale, window=window)
-        return self.o_proj(attn.reshape(b, 1, -1))
+        return linear(self.o_proj, attn.reshape(b, 1, -1), self.cfg.dtype)
 
 
 class LMMLP(nn.Module):
     def __init__(self, cfg: LMConfig):
         super().__init__()
+        self.dtype = cfg.dtype
         self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
         self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.gelu(self.gate_proj(h), approximate="tanh") * self.up_proj(h))
+        dt = self.dtype
+        gate = F.gelu(linear(self.gate_proj, h, dt), approximate="tanh")
+        return linear(self.down_proj, gate * linear(self.up_proj, h, dt), dt)
 
 
 class LMBlock(nn.Module):
@@ -241,29 +255,44 @@ class CausalLM(nn.Module):
             return rope_global, rope_global
         return rope_global, rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
 
-    def _prompt(self, inputs_embeds, attention_mask, pools=None, page_table=None):
+    def _prompt(self, inputs_embeds, attention_mask, kv_lens=None, pools=None, page_table=None):
         cfg = self.cfg
         b, t, _ = inputs_embeds.shape
+        masks = [dict(causal=True, window=cfg.layer_window(i)) for i in range(cfg.num_layers)]
         if attention_mask is not None:
             positions = (attention_mask.long().cumsum(dim=1) - 1).clamp(min=0)
-            kv_lens = attention_mask.sum(dim=1).to(torch.int32)
+            if kv_lens is not None:
+                for m in masks:
+                    m["kv_lens"] = kv_lens
+            else:  # left padding or holes: the JAX bias, built once per window
+                biases = {}
+                for m in masks:
+                    w = m.pop("window")
+                    w = w if w is not None and t > w else None  # below t the window masks nothing
+                    if w not in biases:
+                        biases[w] = make_attention_bias(attention_mask, True, t, t, window=w)
+                    m.update(bias=biases[w], causal=False)
         else:
             positions = torch.arange(t, device=inputs_embeds.device)[None].expand(b, t)
-            kv_lens = None
         rope_global, rope_sliding = self._ropes(positions)
         x = inputs_embeds.to(cfg.dtype)
         for i, layer in enumerate(self.model.layers):
-            sliding = cfg.layer_is_sliding(i)
-            kw = dict(kv_lens=kv_lens, window=cfg.layer_window(i))
+            kw = masks[i]
             if pools is not None:
-                kw.update(pool=pools[i], page_table=page_table)
-            x = layer(x, rope_sliding if sliding else rope_global, **kw)
+                kw = dict(kw, pool=pools[i], page_table=page_table)
+            x = layer(x, rope_sliding if cfg.layer_is_sliding(i) else rope_global, **kw)
         return self.model.norm(x)
 
     def hidden_states(self, inputs_embeds: torch.Tensor,
-                      attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Final-norm hidden states [B, T, H] of a right-padded batch."""
-        return self._prompt(inputs_embeds, attention_mask)
+                      attention_mask: Optional[torch.Tensor] = None,
+                      kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Final-norm hidden states [B, T, H] under any [B, T] 1/0 mask.
+        ``kv_lens`` [B] int32, the mask's row sums, says that the mask is
+        right-padded (attention takes descriptors); without it the mask
+        goes to attention as a bias."""
+        if kv_lens is not None and attention_mask is None:
+            raise ValueError("kv_lens describes an attention mask; pass the mask too")
+        return self._prompt(inputs_embeds, attention_mask, kv_lens)
 
     def prefill_paged(self, inputs_embeds, attention_mask, pools, page_table) -> torch.Tensor:
         """Forward the prompt, writing K/V into the page pools IN PLACE.
@@ -271,7 +300,8 @@ class CausalLM(nn.Module):
         Returns hidden [B, T, H]."""
         if attention_mask is None:
             raise ValueError("prefill_paged needs the prompt's attention mask")
-        return self._prompt(inputs_embeds, attention_mask, pools, page_table)
+        kv_lens = attention_mask.sum(dim=1).to(torch.int32)  # right-padded: the serving contract
+        return self._prompt(inputs_embeds, attention_mask, kv_lens, pools, page_table)
 
     def decode_step_paged(self, inputs_embeds, pools, page_table, seq_lens) -> torch.Tensor:
         """One decode step: inputs_embeds [B, 1, H]; seq_lens [B] int32

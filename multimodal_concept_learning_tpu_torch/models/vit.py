@@ -3,7 +3,8 @@
 Only the encoder the MLLM uses (``ViTEncoder`` -> last_hidden_state
 [B, 1 + N, H]) in the JAX package's default ``bthd`` branch: pre-LN
 blocks, exact-erf GELU, LayerNorm (eps 1e-12) in float32, compute dtype
-from the config.  The patch embedding is a reshape plus one matrix product
+from the config (every weight cast at use, so float32 parameters train
+in the compute dtype, as under ``vision_only``).  The patch embedding is a reshape plus one matrix product
 (no convolution); its weight keeps HF's Conv2d layout [H, C, p, p] so the
 reference checkpoint loads as is.  Parameter names are HF ViTModel's, as
 ``checkpoint/torch_interop.mllm_params_to_torch`` writes them.
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_concept_learning_tpu_torch.device import linear
 from multimodal_concept_learning_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -79,7 +81,7 @@ class _PatchEmbeddings(nn.Module):
         x = images.to(dtype).reshape(b, c, h // p, p, w // p, p)
         x = x.permute(0, 2, 4, 1, 3, 5).reshape(b, (h // p) * (w // p), c * p * p)
         weight = self.projection.weight.reshape(self.projection.out_channels, -1)
-        return F.linear(x, weight, self.projection.bias)
+        return F.linear(x, weight.to(dtype), self.projection.bias.to(dtype))
 
 
 class _Embeddings(nn.Module):
@@ -120,14 +122,15 @@ class ViTLayer(nn.Module):
         b, t, _ = x.shape
         heads = cfg.num_attention_heads
         hd = cfg.hidden_size // heads
-        h = layer_norm_f32(self.layernorm_before, x).to(cfg.dtype)
+        dt = cfg.dtype
+        h = layer_norm_f32(self.layernorm_before, x).to(dt)
         proj = self.attention["attention"]
-        q, k, v = (proj[n](h).view(b, t, heads, hd) for n in ("query", "key", "value"))
+        q, k, v = (linear(proj[n], h, dt).view(b, t, heads, hd) for n in ("query", "key", "value"))
         a = multi_head_attention(q, k, v)
-        x = x + self.attention["output"]["dense"](a.reshape(b, t, cfg.hidden_size))
-        h = layer_norm_f32(self.layernorm_after, x).to(cfg.dtype)
-        h = F.gelu(self.intermediate["dense"](h))  # exact erf GELU, as HF ViT
-        return x + self.output["dense"](h)
+        x = x + linear(self.attention["output"]["dense"], a.reshape(b, t, cfg.hidden_size), dt)
+        h = layer_norm_f32(self.layernorm_after, x).to(dt)
+        h = F.gelu(linear(self.intermediate["dense"], h, dt))  # exact erf GELU, as HF ViT
+        return x + linear(self.output["dense"], h, dt)
 
 
 class _Encoder(nn.Module):

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The kernels under ``csrc/`` have a plain C interface.  ``nvcc`` compiles all
-of them into one shared library for Hopper (``sm_90a``), which is loaded
-with ``ctypes``; no PyTorch header is compiled, so a build takes seconds.
+The kernels under ``csrc/`` have a plain C interface.  ``nvcc`` compiles
+each source in parallel for Hopper (``sm_90a``) and links them into one
+shared library, which is loaded with ``ctypes``; no PyTorch header is
+compiled, so a build takes seconds.
 The library lands in ``multimodal_concept_learning_tpu_torch/_build/``,
 named by a hash of the sources and flags: the first call in a checkout
 builds, later calls (and later processes) reuse the file.
@@ -25,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention_fwd.cu", "paged_attention.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "paged_attention.cu")
+HEADERS = ("flash_attention_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,7 +38,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
     "mcl_flash_attention_fwd": (
-        _P, _P, _P, _P, _P, _L, _L, _L, _L, _P,
+        _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "mcl_flash_attention_bwd_dq": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "mcl_flash_attention_bwd_dkv": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "mcl_paged_decode_attention": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
@@ -57,7 +65,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -66,22 +74,35 @@ def library_path() -> Path:
 
 def build() -> dict:
     """Compile the kernels if this checkout has no library for the current
-    sources.  Returns {"path", "seconds", "log"} (seconds 0.0 when reused;
-    log holds nvcc's ``-Xptxas -v`` register/smem report of a fresh build)."""
+    sources: one ``nvcc -c`` per source, all started together, then one
+    link.  Returns {"path", "seconds", "log"} (seconds 0.0 when reused; log
+    holds nvcc's ``-Xptxas -v`` register/smem report of a fresh build)."""
     lib = library_path()
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "log": ""}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    objs = [BUILD_DIR / f"{Path(s).stem}.{os.getpid()}.o" for s in SOURCES]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    rc = max(p.returncode for p in procs)
+    if rc == 0:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        rc = link.returncode
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed (rc {rc}):\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent builder never loads a partial file
     lib.with_suffix(".log").write_text(log)
     return {"path": str(lib), "seconds": seconds, "log": log}

@@ -7,10 +7,11 @@ additive bias broadcastable to [B, H, Tq, Tk] and an optional scale
 descriptors (``kv_lens``, ``causal``, ``window``), which the models use in
 place of a materialised bias.
 
-Dispatch: a CUDA tensor runs the K1 forward kernel
-(ops/flash_attention.py) at any shape it supports; a CPU tensor runs the
-plain version.  There is no shape or length gate and no dropout (the port
-serves; dropout belongs to the training slice).
+Dispatch: a CUDA tensor runs the K1 kernels (ops/flash_attention.py:
+forward, and the dQ and dK/dV kernels when a gradient flows) at any shape
+they support; a CPU tensor runs the plain versions.  There is no shape or
+length gate and no dropout: the MLLM's towers have none, and dropout
+through a ``torch.Generator`` waits for the vision-classifier trainer.
 """
 
 from __future__ import annotations

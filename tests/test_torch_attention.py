@@ -111,3 +111,103 @@ def test_flash_attention_refuses_other_devices():
     q = torch.zeros((1, 4, 2, 64), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         tflash.flash_attention(q, q, q)
+
+
+# -- K1 backward ------------------------------------------------------------
+# The plain backward (what CPU autograd runs, and what chip_smoke.py holds
+# the CUDA dQ and dK/dV kernels to) against jax.grad.  Tolerance 2e-5 abs
+# on unit-scale inputs and cotangents (float32; sums in different orders).
+GRAD_ATOL = 2e-5
+
+
+def _torch_grads(q, k, v, do, bias=None, **kw):
+    """(dq, dk, dv, dbias) of sum(flash_attention(...) * do) through CPU autograd."""
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    tb = None if bias is None else torch.tensor(bias, requires_grad=True)
+    out = tflash.flash_attention(tq, tk, tv, tb, **kw)
+    (out * torch.from_numpy(do)).sum().backward()
+    return [None if t is None else t.grad.numpy() for t in (tq, tk, tv, tb)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_backward_matches_pallas_interpret(with_bias):
+    """dQ, dK, dV (and dbias from dS) == jax.grad through the Pallas K1
+    kernels (_dq_kernel, _dkv_kernel) in interpret mode: T = 128, hq == hk,
+    a causal + key-padding bias."""
+    b, t, h, d = 2, 128, 2, 64
+    q, k, v, do = (_rand((b, t, h, d), s) for s in (10, 11, 12, 13))
+    bias = None
+    if with_bias:
+        bias = np.asarray(jattn.make_attention_bias(
+            jnp.asarray(_right_padded_mask([128, 111], t)), causal=True, q_len=t, k_len=t))
+
+    def loss(q, k, v, bias):
+        return jnp.sum(jflash.flash_attention(q, k, v, bias) * do)
+
+    argnums = (0, 1, 2, 3) if with_bias else (0, 1, 2)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(loss, argnums=argnums)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              None if bias is None else jnp.asarray(bias))
+    got = _torch_grads(q, k, v, do, bias)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, np.asarray(r), atol=GRAD_ATOL, rtol=0)
+    assert (got[3] is None) == (not with_bias)
+
+
+@pytest.mark.parametrize("t,hq,hk,lens,window,scale", [
+    (37, 4, 1, [37, 30], None, 1 / 16),  # GQA group 4, ragged T, causal + kv_lens
+    (37, 4, 1, [37, 30], 9, 1 / 16),     # sliding window
+    (29, 4, 2, [29, 25], 5, None),        # group 2, default scale
+])
+def test_flash_backward_matches_dense_jax_grad(t, hq, hk, lens, window, scale):
+    """GQA without repeated K/V, windows and ragged T through the mask
+    descriptors == jax.grad of the dense multi_head_attention with the
+    equivalent make_attention_bias bias (every row has a key to attend)."""
+    d = 32
+    q, k, v = _rand((2, t, hq, d), 20), _rand((2, t, hk, d), 21), _rand((2, t, hk, d), 22)
+    do = _rand((2, t, hq, d), 23)
+    bias = jattn.make_attention_bias(jnp.asarray(_right_padded_mask(lens, t)), causal=True,
+                                     q_len=t, k_len=t, window=window)
+
+    def loss(q, k, v):
+        out = jattn.multi_head_attention(q, k, v, bias=bias, use_flash=False, scale=scale)
+        return jnp.sum(out * do)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = _torch_grads(q, k, v, do, scale=scale, kv_lens=torch.tensor(lens, dtype=torch.int32),
+                       causal=True, window=window)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, np.asarray(r), atol=GRAD_ATOL, rtol=0)
+
+
+def test_flash_backward_reference_is_the_autograd_backward():
+    """The plain backward from the saved (o, lse) == autograd through the
+    plain forward itself, including dbias unbroadcast to [B, 1, Tq, Tk] and
+    an empty row (lse = +inf, no gradient)."""
+    b, t, hq, hk, d = 2, 11, 4, 2, 16
+    q, k, v = (torch.tensor(_rand(s, i), requires_grad=True)
+               for i, s in enumerate([(b, t, hq, d), (b, t, hk, d), (b, t, hk, d)]))
+    bias = torch.tensor(_rand((b, 1, t, t), 7), requires_grad=True)
+    do = torch.from_numpy(_rand((b, t, hq, d), 8))
+    kw = dict(scale=0.3, kv_lens=torch.tensor([11, 4], dtype=torch.int32), causal=True,
+              window=3)  # row 1's queries 6.. see no key
+    out = tflash.flash_attention_reference(q, k, v, bias, **kw)
+    (out * do).sum().backward()
+    with torch.no_grad():
+        o, lse = tflash.flash_attention_reference(q, k, v, bias, return_lse=True, **kw)
+        grads = tflash.flash_attention_backward_reference(q, k, v, o, lse, do, bias, **kw)
+    assert torch.isinf(lse[1, :, 6:]).all() and (o[1, 6:] == 0).all()
+    for got, t_ in zip(grads, (q, k, v, bias)):
+        np.testing.assert_allclose(got.numpy(), t_.grad.numpy(), atol=GRAD_ATOL, rtol=0)
+
+
+def test_flash_attention_autograd_only_when_needed():
+    """No gradient wanted: the plain forward alone; a CUDA-less device
+    other than the CPU is refused before any work."""
+    q = torch.from_numpy(_rand((1, 5, 2, 16), 0))
+    out = tflash.flash_attention(q, q, q, causal=True)
+    assert out.grad_fn is None
+    qg = q.clone().requires_grad_()
+    assert tflash.flash_attention(qg, q, q, causal=True).grad_fn is not None
+    with torch.no_grad():
+        assert tflash.flash_attention(qg, q, q, causal=True).grad_fn is None

@@ -26,8 +26,35 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.ops.flash_attention",
     "multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel",
     "multimodal_concept_learning_tpu_torch.ops._build",
+    "multimodal_concept_learning_tpu_torch.ops.losses",
+    "multimodal_concept_learning_tpu_torch.ops.preprocess",
+    "multimodal_concept_learning_tpu_torch.parallel.optimizer",
+    "multimodal_concept_learning_tpu_torch.parallel.train_step",
+    "multimodal_concept_learning_tpu_torch.data.collator",
+    "multimodal_concept_learning_tpu_torch.data.color_generator",
+    "multimodal_concept_learning_tpu_torch.data.datasets",
+    "multimodal_concept_learning_tpu_torch.data.pipeline",
+    "multimodal_concept_learning_tpu_torch.data.png",
+    "multimodal_concept_learning_tpu_torch.data.transforms",
+    "multimodal_concept_learning_tpu_torch.miniyaml",
+    "multimodal_concept_learning_tpu_torch.train.multimodal_training",
     "chip_smoke",
 ]
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
+    """chip_smoke.py's own imports (also those inside its phases) name only
+    the port, torch and the standard library."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    roots = {n.split(".")[0] for n in names}
+    assert "multimodal_concept_learning_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}, roots
 
 
 def _without_cuda_env():
@@ -73,6 +100,17 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "lib").exists()  # nothing is created before nvcc is found
+
+
+def test_trainer_cli_refuses_cuda_without_cuda(tmp_path):
+    """The trainer's --device cuda never falls back to the CPU."""
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("dataset_name: color_multimodal\n")
+    code = ("from multimodal_concept_learning_tpu_torch.train.multimodal_training import main\n"
+            f"main(['--config_path', {str(cfg)!r}, '--device', 'cuda'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_without_cuda_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "is_available" in out.stderr
 
 
 def test_chip_smoke_fails_without_cuda():
