@@ -24,7 +24,23 @@ Phases (each prints its results; any failure exits non-zero):
    on a small generated 12-color dataset; launch counts of the K1 forward,
    dQ and dK/dV kernels per micro-step, finite losses, trained tensors
    moved, frozen tensors bitwise those of ``initial_model.pt``, the full
-   results layout, and micro-steps/s and samples/s.
+   results layout, and micro-steps/s and samples/s;
+8. CLIP training parity: float32 CLIP at full width (ViT-B/32, 512-wide
+   text tower) and 2 + 2 layers, batch 8, on the card (K2 kernels) and on
+   the CPU plain path: the same first gradients, then three train steps
+   with the same losses and parameters;
+9. CLIP slice: the port's contrastive CLI (``contrastive_training.main``)
+   trains the full ``experiments/contrastive/color/12_colors_3k.yaml`` CLIP
+   (batch 256) for one epoch on a generated 12-color dataset (108 images per
+   color); exact K2 launch counts, finite loss, zero-shot accuracy, every
+   tensor moved, steps/s, images/s and peak memory.
+
+Phase 3 also times each kernel's path-shape case in bf16 beside its bound
+(bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever is larger)
+and one PyTorch library call computing the same function (SDPA, or its
+backward; none for K3).  ``python3 chip_smoke.py --profile`` builds the
+kernels and profiles the full CLIP train step instead (``torch.profiler``:
+idle share, aten ops and device time by kernel).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -65,6 +81,23 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a bf16 function that must
+    move ``nbytes`` (each input read once, each output written once) and do
+    ``flops``: the larger of the two times, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def phase_card() -> str:
@@ -139,6 +172,33 @@ def _flash_bwd_cases(torch, gen, dev):
     ]
 
 
+def _k1_pairs(torch, fa, q, k, mask: dict) -> int:
+    """(query, key) pairs K1 computes for these inputs, over all q heads."""
+    b, tq, hq, _ = q.shape
+    ok = fa.key_mask(b, tq, k.shape[1], device=q.device, **mask)
+    if ok is None:
+        return b * hq * tq * k.shape[1]
+    return int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * hq
+
+
+def _sdpa_k1(torch, fa, q, k, v, kw, grad_out=None):
+    """One ``scaled_dot_product_attention`` call (its backward with
+    ``grad_out``) on the same [B, T, H, D] tensors and mask, as a yardstick."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
+    ok = fa.key_mask(q.shape[0], q.shape[1], k.shape[1], device=q.device, **mask)
+    scale = kw.get("scale", q.shape[-1] ** -0.5)
+    if grad_out is None:
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: sdpa(qh, kh, vh, attn_mask=ok, scale=scale, enable_gqa=True)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    with torch.enable_grad():
+        out = sdpa(*(x.transpose(1, 2) for x in leaves), attn_mask=ok, scale=scale,
+                   enable_gqa=True)
+    go = grad_out.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, go, retain_graph=True)
+
+
 def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
     """Each backward kernel against the plain backward on the same saved
     (q, k, v, o, lse, dO): float32 <= 1e-4 abs, bf16 <= 2e-2 of the
@@ -183,6 +243,13 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
             dkv_ms = cuda_time_ms(dkv_call)
             plain_ms = cuda_time_ms(lambda: fa.flash_attention_backward_reference(
                 qd, kd, vd, o, lse, dod, bias, scale=scale, **mask))
+            if name.startswith("lm [") and dtype is torch.bfloat16:
+                pairs = _k1_pairs(torch, fa, qd, kd, mask)
+                d, stats = q.shape[-1], nbytes(lse, delta, kw.get("kv_lens"))
+                kdq.update(bound(nbytes(qd, kd, vd, o, dod, dq) + stats, 6 * d * pairs))
+                kdkv.update(bound(nbytes(qd, kd, vd, dod, dk, dv) + stats, 8 * d * pairs))
+                sdpa_bwd = _sdpa_k1(torch, fa, qd, kd, vd, kw, grad_out=dod)
+                kdq["library_ms"] = kdkv["library_ms"] = cuda_time_ms(sdpa_bwd)
             print(f"[kernels] K1 bwd {name} {tag}: max_abs_err "
                   + " ".join(f"{g} {e:.3e}" for g, e in errs.items())
                   + f"; dq kernel {dq_ms:.4f} ms, dkv kernel {dkv_ms:.4f} ms, "
@@ -194,6 +261,161 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
             if name.startswith("lm [") and dtype is torch.bfloat16:
                 kdq.update(ms=dq_ms, plain_ms=plain_ms)
                 kdkv.update(ms=dkv_ms, plain_ms=plain_ms)
+
+
+CLIP_CONFIG = os.path.join(REPO, "experiments/contrastive/color/12_colors_3k.yaml")
+CLIP_CAPTION = "a circle of color {class_name}"  # the config's caption_template
+CLIP_BATCH = 256
+
+
+def _color_names() -> list:
+    """The 12_colors_3k class names (r{R}g{G}b{B}), in the dataset's order."""
+    from multimodal_concept_learning_tpu_torch import miniyaml
+
+    with open(os.path.join(REPO, "experiments/datasets/color/12_colors_3k.yaml")) as f:
+        colors = miniyaml.safe_load(f)["colors"]
+    return [f"r{r}g{g}b{b}" for r, g, b in colors]
+
+
+def _caption_masks(b: int) -> np.ndarray:
+    """[b, 77] int32 caption masks of the CLIP slice (row i: class i % 12)."""
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+
+    collator = ClipCollator(load_tokenizer("concept-tokenizer"), CLIP_CAPTION, 77)
+    masks = [collator.caption_ids(n)[1] for n in _color_names()]
+    return np.stack([masks[i % len(masks)] for i in range(b)])
+
+
+def _core_cases(torch, gen, dev):
+    """(name, qkv, heads, t_real, causal, kv_mask, on the path): the CLIP
+    path's two K2 shapes, then ViT-B/16, ViT-L/14, a kv_mask with holes, and
+    t_real below T (keys at or past it masked) with and without a mask."""
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    holes = (torch.rand(16, 77, generator=gen, device=dev) < 0.5).to(torch.int32)
+    holes[:, 0] = 1  # every causal row keeps a valid key
+    captions = torch.from_numpy(_caption_masks(CLIP_BATCH)).to(dev)
+    return [
+        ("vision [256,50,12x64]", randn(CLIP_BATCH, 50, 3 * 768), 12, 50, False, None, True),
+        ("text [256,77,8x64] causal + caption mask", randn(CLIP_BATCH, 77, 3 * 512), 8, 77, True,
+         captions, True),
+        ("vit-b/16 [8,197,12x64]", randn(8, 197, 3 * 768), 12, 197, False, None, False),
+        ("vit-l/14 [8,257,16x64]", randn(8, 257, 3 * 1024), 16, 257, False, None, False),
+        ("kv_mask with holes [16,77,8x64] causal", randn(16, 77, 3 * 512), 8, 77, True, holes,
+         False),
+        ("t_real 41 of 64 [16,64,12x64]", randn(16, 64, 3 * 768), 12, 41, False, None, False),
+        ("t_real 60 of 80 [16,80,8x64] causal + holes", randn(16, 80, 3 * 512), 8, 60, True,
+         torch.nn.functional.pad(holes, (0, 3)), False),
+    ]
+
+
+def _k2_bytes(qkv, kvm, t_real: int, *moved) -> int:
+    """Bytes the K2 function must move: the q columns of every row, the k
+    and v columns of each sample's rows up to its last valid key (below
+    ``t_real``, kept by ``kvm``), the mask, and the tensors ``moved`` (dA
+    read, the output or dqkv written), each once."""
+    import torch
+
+    b, t, hd3 = qkv.shape
+    hd, elt = hd3 // 3, qkv.element_size()
+    keys = min(t, t_real)
+    if kvm is None:
+        kv_rows = b * keys
+    else:  # one past each sample's last kept key, 0 for a sample with none
+        pos = torch.arange(1, keys + 1, device=kvm.device)
+        kv_rows = int(((kvm[:, :keys] != 0) * pos).amax(dim=1).sum())
+    return b * t * hd * elt + 2 * kv_rows * hd * elt + nbytes(kvm, *moved)
+
+
+def _sdpa_core(torch, ac, qkv, heads, causal, kvm, grad_out=None):
+    """``scaled_dot_product_attention`` (its backward with ``grad_out``) on
+    the [B, H, T, D] views of the packed qkv, the mask as a boolean
+    ``attn_mask``: a yardstick of one library call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, t, _ = qkv.shape
+    ok = None if not causal and kvm is None else ac.key_ok(b, t, t, causal, kvm, qkv.device)
+
+    def heads_of(x):
+        return [p.transpose(1, 2) for p in x.view(b, t, 3, heads, -1).unbind(2)]
+
+    if grad_out is None:
+        q, k, v = heads_of(qkv)
+        return lambda: sdpa(q, k, v, attn_mask=ok)
+    leaf = qkv.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = sdpa(*heads_of(leaf), attn_mask=ok)
+    go = grad_out.view(b, t, heads, -1).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaf, go, retain_graph=True)
+
+
+def _phase_core(torch, gen, dev, report: dict) -> None:
+    """K2 forward and backward against their plain versions on the same
+    inputs: float32 <= 1e-4 abs (outputs, lse, dqkv), bf16 outputs and
+    dqkv <= 2e-2 of the reference's max |value| (lse <= 1e-4); times at the
+    path's shapes in bf16 beside the bound and SDPA."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+
+    kf = report.setdefault("attention_core_fwd", {"max_abs_err": 0.0})
+    kb = report.setdefault("attention_core_bwd", {"max_abs_err": 0.0})
+    for name, qkv32, heads, t_real, causal, kvm, on_path in _core_cases(torch, gen, dev):
+        b, t, hd3 = qkv32.shape
+        da32 = torch.randn(b, t, hd3 // 3, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, da = qkv32.to(dtype), da32.to(dtype)
+
+            def fwd():
+                return ac.attention_core_fwd(qkv, heads, t_real, causal, kvm, with_lse=True)
+
+            out, lse = fwd()
+
+            def bwd():
+                return ac.attention_core_bwd(qkv, out, da, lse, heads, t_real, causal, kvm)
+
+            dqkv = bwd()
+            ref, ref_lse = ac.attention_core_reference(qkv.float(), heads, t_real, causal, kvm,
+                                                       return_lse=True)
+            ref_d = ac.attention_core_backward_reference(qkv.float(), da.float(), heads, t_real,
+                                                         causal, kvm)
+            torch.cuda.synchronize()
+            tag = str(dtype).replace("torch.", "")
+            err = (out.float() - ref).abs().max().item()
+            err_lse = (lse - ref_lse).abs().max().item()
+            err_d = (dqkv.float() - ref_d).abs().max().item()
+            # bf16: a fraction of the reference's largest value, outputs and gradients alike
+            limit = TOL[tag] * (1.0 if dtype is torch.float32 else ref.abs().max().item())
+            limit_d = TOL[tag] * (1.0 if dtype is torch.float32 else ref_d.abs().max().item())
+            ms, bwd_ms = cuda_time_ms(fwd), cuda_time_ms(bwd)
+            plain_ms = cuda_time_ms(lambda: ac.attention_core_reference(qkv, heads, t_real,
+                                                                        causal, kvm))
+            plain_bwd_ms = cuda_time_ms(lambda: ac.attention_core_backward_reference(
+                qkv, da, heads, t_real, causal, kvm))
+            print(f"[kernels] K2 {name} {tag}: max_abs_err out {err:.3e} lse {err_lse:.3e} "
+                  f"dqkv {err_d:.3e}; fwd kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
+                  f"bwd kernel {bwd_ms:.4f} ms plain {plain_bwd_ms:.4f} ms", flush=True)
+            if not (err <= limit and err_lse <= TOL["float32"] and err_d <= limit_d):
+                fail(f"K2 {name} {tag}: errors out {err}, lse {err_lse}, dqkv {err_d}")
+            kf["max_abs_err"] = max(kf["max_abs_err"], err)
+            kb["max_abs_err"] = max(kb["max_abs_err"], err_d)
+            if not (on_path and dtype is torch.bfloat16):
+                continue
+            ok = ac.key_ok(b, t, t, causal, kvm, qkv.device)
+            pairs = int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * heads
+            d = hd3 // (3 * heads)
+            lib_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
+            lib_bwd_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm, da))
+            # the function's bytes: the port's saved out and lse are left out,
+            # since the TPU backward takes only qkv and dA (and recomputes P)
+            fb = bound(_k2_bytes(qkv, kvm, t, out), 4 * d * pairs)
+            bb = bound(_k2_bytes(qkv, kvm, t, da, dqkv), 10 * d * pairs)
+            print(f"[kernels] K2 {name} bf16: fwd bound {fb['bound_ms']:.5f} ms "
+                  f"({fb['bound_by']}), SDPA {lib_ms:.4f} ms; bwd bound {bb['bound_ms']:.5f} ms "
+                  f"({bb['bound_by']}), SDPA backward {lib_bwd_ms:.4f} ms", flush=True)
+            if name.startswith("vision"):  # the JSON line's numbers: the vision tower's shape
+                kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fb)
+                kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bb)
 
 
 def _paged_case(torch, gen, dev, hq, hk, d, ps, np_, lens):
@@ -246,7 +468,12 @@ def phase_kernels(report: dict) -> None:
                     fail(f"K1 {name} {tag}: max abs err {err} > {TOL[tag]}")
                 k1["max_abs_err"] = max(k1["max_abs_err"], err)
                 if name.startswith("lm [") and dtype is torch.bfloat16:
-                    k1.update(ms=ms, plain_ms=plain_ms)
+                    mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
+                    pairs = _k1_pairs(torch, fa, qd, kd, mask)
+                    k1.update(ms=ms, plain_ms=plain_ms,
+                              library_ms=cuda_time_ms(_sdpa_k1(torch, fa, qd, kd, vd, kw)),
+                              **bound(nbytes(qd, kd, vd, out, kw.get("kv_lens")),
+                                      4 * q.shape[-1] * pairs))
         for name, q, pool_k, pool_v, pt, lens, w in _paged_cases(torch, gen, dev):
             for dtype in (torch.float32, torch.bfloat16):
                 qd, kd, vd = (t.to(dtype) for t in (q, pool_k, pool_v))
@@ -267,8 +494,20 @@ def phase_kernels(report: dict) -> None:
                     fail(f"K3 {name} {tag}: max abs err {err}, len-0 row max {zero_row}")
                 k3["max_abs_err"] = max(k3["max_abs_err"], err)
                 if w == 512 and dtype is torch.bfloat16:
-                    k3.update(ms=ms, plain_ms=plain_ms)
+                    # the tokens each row reads: its length, cut to the window
+                    tokens = int(lens.clamp(max=w).sum()) if w > 0 else int(lens.sum())
+                    hk, d = kd.shape[1], kd.shape[-1]
+                    k3.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              **bound(2 * nbytes(qd) + nbytes(pt, lens)
+                                      + 2 * tokens * hk * d * kd.element_size(),
+                                      4 * d * qd.shape[2] * tokens))
         _phase_flash_bwd(torch, fa, gen, dev, report)
+        _phase_core(torch, gen, dev, report)
+
+
+def _rgb(name: str) -> list:
+    """[r, g, b] of a color class name such as "r255g128b0"."""
+    return [int(x) for x in re.findall(r"\d+", name)]
 
 
 def _circle(rgb, size: int = 224) -> np.ndarray:
@@ -405,7 +644,7 @@ def phase_slice(report: dict, root: str) -> None:
     requests = []
     for i in range(16):
         key, name = mapping[i % len(mapping)]
-        rgb = [int(x) for x in re.findall(r"\d+", key)]
+        rgb = _rgb(key)
         requests.append((_circle(rgb), f"Is the color of the circle {name}?"))
     try:
         flash_attention.launches = 0
@@ -467,7 +706,7 @@ def _train_batch(tokenizer, labels_mapping, seed: int, b: int = 2):
     samples = []
     for i in range(b):
         key = names[(seed * b + i) % len(names)]
-        samples.append((_circle([int(x) for x in re.findall(r"\d+", key)]), key))
+        samples.append((_circle(_rgb(key)), key))
     return collator(samples)
 
 
@@ -552,51 +791,49 @@ def phase_train_parity() -> None:
         fail(f"training parity launches: cuda {claunch}, cpu {plaunch}")
 
 
-def _write_train_config(root: str, data_dir: str) -> str:
-    """experiments/multimodal/color/12_colors_3k.yaml with the paths under
-    ``root``, epochs 1 and 2 loader workers, as a YAML file."""
+def _write_config(src: str, root: str, overrides: dict) -> dict:
+    """The YAML ``src`` with the top-level ``overrides`` written into
+    ``root/<name>``; returns {"path", "parsed"}."""
     from multimodal_concept_learning_tpu_torch import miniyaml
 
-    with open(os.path.join(REPO, "experiments/multimodal/color/12_colors_3k.yaml")) as f:
+    with open(src) as f:
         text = f.read()
-    overrides = {
-        "mapping_path": os.path.join(data_dir, "train_mapping.csv"),
-        "image_root": data_dir,
-        "labels_mapping_path": MAPPING,
-        "results_dir": os.path.join(root, "results"),
-        "epochs": "1",
-        "num_workers": "2",
-    }
     lines = []
     for line in text.splitlines():
         key = line.split(":", 1)[0]
         lines.append(f"{key}: {overrides[key]}" if key in overrides and not line.startswith(" ")
                      else line)
-    path = os.path.join(root, "12_colors_3k.yaml")
+    path = os.path.join(root, os.path.basename(src))
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     with open(path) as f:
-        parsed = miniyaml.safe_load(f)
+        return {"path": path, "parsed": miniyaml.safe_load(f)}
+
+
+def _write_train_config(root: str, data_dir: str) -> str:
+    """experiments/multimodal/color/12_colors_3k.yaml with the paths under
+    ``root``, epochs 1 and 2 loader workers, as a YAML file."""
+    cfg = _write_config(os.path.join(REPO, "experiments/multimodal/color/12_colors_3k.yaml"),
+                        root, {"mapping_path": os.path.join(data_dir, "train_mapping.csv"),
+                               "image_root": data_dir, "labels_mapping_path": MAPPING,
+                               "results_dir": os.path.join(root, "results"), "epochs": "1",
+                               "num_workers": "2"})
+    parsed = cfg["parsed"]
     assert parsed["epochs"] == 1 and parsed["batch_size"] == 2 and parsed["image_root"] == data_dir
-    return path
+    return cfg["path"]
 
 
-def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> None:
-    """The port's trainer CLI on the full 12_colors_3k model, one epoch."""
+def _generate_colors(root: str, images_per_color: int) -> tuple:
+    """The 12_colors_3k dataset at ``images_per_color``, under ``root/data``:
+    (dataset dir, {split: pairs})."""
     import csv
 
-    import torch
-
     from multimodal_concept_learning_tpu_torch import miniyaml
-    from multimodal_concept_learning_tpu_torch.checkpoint import changed_frozen, load_state_dict
     from multimodal_concept_learning_tpu_torch.data.color_generator import (
         ColorDatasetConfig,
         generate_color_dataset,
     )
-    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
-    from multimodal_concept_learning_tpu_torch.train.multimodal_training import main as train_main
 
-    t0 = time.perf_counter()
     with open(os.path.join(REPO, "experiments/datasets/color/12_colors_3k.yaml")) as f:
         ds = dict(miniyaml.safe_load(f), n_images_per_color=images_per_color,
                   data_dir=os.path.join(root, "data"))
@@ -605,19 +842,35 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> Non
     for split in ("train", "val", "test"):
         with open(os.path.join(data_dir, f"{split}_mapping.csv")) as f:
             sizes[split] = sum(1 for _ in csv.DictReader(f))
+    return data_dir, sizes
+
+
+def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> None:
+    """The port's trainer CLI on the full 12_colors_3k model, one epoch."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import changed_frozen, load_state_dict
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.multimodal_training import main as train_main
+
+    t0 = time.perf_counter()
+    data_dir, sizes = _generate_colors(root, images_per_color)
     cfg_path = _write_train_config(root, data_dir)
     print(f"[train] {images_per_color} images per color generated ({sizes}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     torch.cuda.empty_cache()
     counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
-    for fn in counters:
+    for fn in counters + (ac.attention_core_fwd, ac.attention_core_bwd):
         fn.launches = 0
     t0 = time.perf_counter()
     state, test_metrics, logged = train_main(["--config_path", cfg_path, "--device", "cuda"])
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in zip(
         ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"), counters)}
+    if ac.attention_core_fwd.launches or ac.attention_core_bwd.launches:
+        fail("the MLLM's ViT took K2; it runs the bthd layout through K1")
 
     micro = sizes["train"] // 2  # batch 2, drop_last
     evals = -(-sizes["val"] // 2) + -(-sizes["test"] // 2)
@@ -661,6 +914,307 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> Non
         report[name]["launches"] = n
 
 
+def _clip_batches(tokenizer, n: int, b: int) -> list:
+    """``n`` collated CLIP batches of ``b`` 224px circles of the 12 colors
+    with their captions (numpy)."""
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+
+    collator = ClipCollator(tokenizer, CLIP_CAPTION, 77)
+    names = _color_names()
+    picks = [[names[(s * b + i) % len(names)] for i in range(b)] for s in range(n)]
+    return [collator([(_circle(_rgb(c)), c) for c in row]) for row in picks]
+
+
+def _noise_batches(vocab: int, pad_id: int, n: int, b: int, seed: int) -> list:
+    """``n`` CLIP batches of ``b`` uniform-noise 224px images and captions of
+    random token ids, left-aligned masks of 4-19 tokens (numpy)."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(n):
+        mask = (np.arange(77)[None, :] < rng.integers(4, 20, size=(b, 1))).astype(np.int32)
+        ids = np.where(mask == 1, rng.integers(4, vocab, size=(b, 77)), pad_id).astype(np.int32)
+        batches.append({"images": rng.random((b, 3, 224, 224), dtype=np.float32),
+                        "input_ids": ids, "attention_mask": mask})
+    return batches
+
+
+def phase_clip_parity() -> None:
+    """Full widths (ViT-B/32; text 512 wide, 8 heads), 2 vision + 2 text
+    layers, float32, batch 8, the JAX initialisers, on the card (K2 kernels)
+    and on the CPU (plain versions): the first batch's gradient of every
+    tensor within 1e-4 relative in norm; then three train steps with the
+    same losses (1e-4 relative) and parameters (1e-4 relative in norm).
+
+    The parameters are held as one vector, and each tensor's own distance
+    is printed.  AdamW divides each element's update by that element's own
+    gradient size, so an element whose gradient lies near zero takes an
+    update that the float32 rounding of two summation orders changes by a
+    large part of itself.  A tensor that is all update (a bias initialised
+    at zero) thus lands ~sqrt(rounding / gradient scale) ~ 1e-4..1e-3 apart
+    in norm in two float32 runs, whatever computes the gradients; the
+    gradients themselves are linear in the rounding and are held per tensor.
+    Noise images and random captions keep the samples' features apart, so
+    no gradient is a batch sum that nearly cancels."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.models.clip import (
+        CLIPConfig,
+        CLIPModel,
+        contrastive_loss,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops.preprocess import images_from_batch
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_clip_train_step,
+    )
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+
+    tokenizer = load_tokenizer("concept-tokenizer")
+    base = CLIPConfig.create(vocab_size=len(tokenizer), dtype=torch.float32)
+    cfg = dataclasses.replace(base, text_layers=2,
+                              vision=dataclasses.replace(base.vision, num_hidden_layers=2))
+    model0 = init_random_weights_(CLIPModel(cfg), torch.Generator().manual_seed(SEED))
+    sd = {k: v.clone() for k, v in model0.state_dict().items()}
+    batches = _noise_batches(len(tokenizer), tokenizer.pad_token_id, 3, 8, SEED)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            model = CLIPModel(cfg)
+        model.load_state_dict(sd, strict=True)
+        before = (ac.attention_core_fwd.launches, ac.attention_core_bwd.launches)
+        first = to_device(batches[0], dev)
+        contrastive_loss(*model(images_from_batch(first), first["input_ids"],
+                                first["attention_mask"])).backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        opt = build_optimizer(model, 5e-4, weight_decay=0.2, max_grad_norm=1.0)
+        state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
+        losses = []
+        for batch in batches:
+            state, m = step(state, to_device(batch, dev))
+            losses.append(float(m["loss"]))
+        launched = (ac.attention_core_fwd.launches - before[0],
+                    ac.attention_core_bwd.launches - before[1])
+        runs[dev] = (losses, grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     launched)
+    (cl, cg, csd, claunch), (pl, pg, psd, plaunch) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, pl))
+
+    def rel(a, b, names):
+        return sorted((((a[n] - b[n]).norm() / b[n].norm()).item(), n) for n in names)
+
+    # a key bias shifts every score of a row alike, so softmax cancels its
+    # gradient exactly: what either run computes for it is rounding alone
+    held = [n for n in cg if not n.endswith(("key.bias", ".k.bias"))]
+    grad_errs = rel(cg, pg, held)
+    flat = torch.cat([csd[n].flatten() - psd[n].flatten() for n in sd])
+    param_err = (flat.norm() / torch.cat([psd[n].flatten() for n in sd]).norm()).item()
+    tensor_errs = rel(csd, psd, held)
+    moved = all(not torch.equal(csd[n], sd[n]) for n in sd)
+    print(f"[clip-parity] losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; first "
+          f"gradients of {len(held)} tensors: max norm-relative err {grad_errs[-1][0]:.2e} "
+          f"(largest: " + ", ".join(f"{n} {e:.2e}" for e, n in grad_errs[-3:]) + "); "
+          f"parameters after 3 steps: norm-relative err {param_err:.2e}, largest tensor "
+          + ", ".join(f"{n} {e:.2e}" for e, n in tensor_errs[-3:]) + f"; every tensor moved "
+          f"{moved}; K2 launches (fwd, bwd) cuda {claunch} cpu {plaunch}", flush=True)
+    if not (loss_err <= 1e-4 and grad_errs[-1][0] <= 1e-4 and param_err <= 1e-4 and moved):
+        fail("CLIP training parity CUDA vs CPU")
+    if claunch != (16, 16) or plaunch != (0, 0):  # 4 passes x (2 vision + 2 text) layers
+        fail(f"CLIP parity launches: cuda {claunch}, cpu {plaunch}")
+
+
+def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> None:
+    """The port's contrastive CLI (``contrastive_training.main``) on the
+    full CLIP of experiments/contrastive/color/12_colors_3k.yaml (ViT-B/32 +
+    12 x 512 text tower, batch 256), one epoch on a generated 12-color
+    dataset; exact K2 launch counts, finite losses, every tensor moved."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict
+    from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+    from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model, main
+
+    t0 = time.perf_counter()
+    data_dir, sizes = _generate_colors(root, images_per_color)
+    cfg = _write_config(CLIP_CONFIG, root, {
+        "mapping_path": os.path.join(data_dir, "train_mapping.csv"), "image_root": data_dir,
+        "results_dir": os.path.join(root, "results"), "epochs": "1"})
+    config = ContrastiveTrainingConfig.from_params(cfg["parsed"])
+    assert config.epochs == 1 and config.batch_size == CLIP_BATCH and config.text_layers == 12
+    print(f"[clip] {images_per_color} images per color generated ({sizes}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ac.attention_core_fwd.launches = ac.attention_core_bwd.launches = 0
+    t0 = time.perf_counter()
+    out = main(["--config_path", cfg["path"], "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = {"attention_core_fwd": ac.attention_core_fwd.launches,
+                "attention_core_bwd": ac.attention_core_bwd.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    steps = sizes["train"] // CLIP_BATCH  # drop_last
+    test_batches = -(-sizes["test"] // CLIP_BATCH)
+    # 12 vision + 12 text layers a step; the class captions once; 12 vision a test batch
+    expected = {"attention_core_fwd": 24 * steps + 12 + 12 * test_batches,
+                "attention_core_bwd": 24 * steps}
+    epoch, acc, ckpt = out["history"][0], out["zero_shot_acc"], out["checkpoint"]
+    saved = os.path.exists(ckpt)
+    trained = load_state_dict(ckpt) if saved else {}
+    init = init_model(config, len(load_tokenizer("concept-tokenizer")), "cuda")
+    unmoved = [n for n, t in init.state_dict().items()
+               if n not in trained or torch.equal(t.cpu(), trained[n])]
+    del init, out
+    rate = epoch["steps"] / epoch["epoch_time"]
+    print(f"[clip] one epoch: {epoch['steps']} steps of batch {CLIP_BATCH} in "
+          f"{epoch['epoch_time']:.3f} s: {rate:.3f} steps/s, {CLIP_BATCH * rate:.1f} images/s; "
+          f"whole CLI run {wall:.1f} s; peak memory {peak_gib:.2f} GiB", flush=True)
+    print(f"[clip] train loss {epoch['train_loss']}, zero-shot accuracy {acc}%, checkpoint "
+          f"{os.path.basename(ckpt)} saved {saved}; tensors unmoved {unmoved}; K2 launches "
+          f"{launches} (expected {expected})", flush=True)
+    if not (np.isfinite(epoch["train_loss"]) and 0.0 <= acc <= 100.0 and saved and not unmoved):
+        fail("CLIP slice checks")
+    if launches != expected:
+        fail(f"CLIP slice launch counts {launches} != expected {expected}")
+    for name, n in launches.items():
+        report[name]["launches"] = n
+
+
+def profile_clip(steps: int = 6, warmup: int = 4) -> None:
+    """``--profile``: the full CLIP train step (batch 256, bf16 compute, the
+    trainer's optimizer) on a fixed device batch: steady ms per step
+    unprofiled; a ``torch.profiler`` window of ``steps`` steps tracing the
+    card only: device busy time (union of kernel intervals) and the idle
+    share, against the unprofiled step and against the window's own wall
+    time; then a window tracing host and card: aten ops per step, device
+    time by kernel, and how far host tracing stretches the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_clip_train_step,
+    )
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+    from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model
+
+    with open(CLIP_CONFIG) as f:
+        config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
+    tokenizer = load_tokenizer("concept-tokenizer")
+    model = init_model(config, len(tokenizer), "cuda")
+    opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
+                          max_grad_norm=config.max_grad_norm)
+    state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
+    batch = to_device(_clip_batches(tokenizer, 1, CLIP_BATCH)[0], "cuda")
+    for _ in range(warmup):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    print(f"[profile] unprofiled: {step_ms:.2f} ms per step, {1e3 / step_ms:.3f} steps/s, "
+          f"{CLIP_BATCH * 1e3 / step_ms:.1f} images/s (loss {float(m['loss']):.4f})", flush=True)
+
+    def window(activities):
+        nonlocal state
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        events = prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for lo, hi in spans:
+            busy += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        return events, spans, busy, wall_us
+
+    _, _, busy_dev, wall_dev = window([ProfilerActivity.CUDA])
+    busy_ms = busy_dev / 1e3 / steps
+    print(f"[profile] card-only trace of {steps} steps: device busy {busy_ms:.2f} ms a step; "
+          f"idle share {1 - busy_ms / step_ms:.3f} of the unprofiled step, "
+          f"{1 - busy_dev / wall_dev:.3f} of the window ({wall_dev / 1e3 / steps:.2f} ms a "
+          f"step)", flush=True)
+    events, spans, busy, wall_us = window([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    aten = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("aten::"))
+    by_kernel = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = by_kernel.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.end - e.time_range.start
+            k[1] += 1
+    k2 = sum(t for name, (t, _) in by_kernel.items() if "core_fwd" in name or "core_bwd" in name)
+    gemm = sum(t for name, (t, _) in by_kernel.items()
+               if any(tag in name for tag in ("gemm", "nvjet", "cutlass", "xmma")))
+    print(f"[profile] host + card trace of {steps} steps: wall {wall_us / 1e3:.2f} ms "
+          f"({wall_us / 1e3 / steps / step_ms:.2f}x the unprofiled step), device busy "
+          f"{busy / 1e3:.2f} ms; {len(spans)} kernels and {aten} aten ops "
+          f"({aten / steps:.0f} a step); K2 {k2 / 1e3:.2f} ms = {k2 / busy:.3f} and matrix "
+          f"products {gemm / 1e3:.2f} ms = {gemm / busy:.3f} of device time", flush=True)
+    for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"[profile] {t / 1e3 / steps:8.3f} ms/step {t / busy:6.3f} {n // steps:5d}x "
+              f"{name[:110]}", flush=True)
+    _time_loader(config, tokenizer)
+
+
+def _time_loader(config, tokenizer, images_per_color: int = 108) -> None:
+    """The CLI's input path alone: one epoch of the train loader (PNG decode,
+    ToTensor, collation) over the CLIP slice's generated dataset, each batch
+    moved to the card, no model."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+    from multimodal_concept_learning_tpu_torch.data.datasets import (
+        ColorDataset,
+        load_split_datasets,
+    )
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+    from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
+
+    root = tempfile.mkdtemp(prefix="_smoke_loader_", dir=REPO)
+    try:
+        data_dir, _ = _generate_colors(root, images_per_color)
+        train, _, _ = load_split_datasets(ColorDataset, data_dir, data_dir,
+                                          create_transforms(config, True, config.seed),
+                                          create_transforms(config, False, config.seed), True)
+        loader = BatchLoader(train, batch_size=CLIP_BATCH, shuffle=True, drop_last=True,
+                             seed=config.seed, collate_fn=ClipCollator(
+                                 tokenizer, config.caption_template, config.context_length))
+        t0 = time.perf_counter()
+        n = 0
+        for batch in loader:
+            to_device(batch, "cuda")
+            n += 1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[profile] input path alone: {n} batches of {CLIP_BATCH} in {dt:.3f} s = "
+          f"{1e3 * dt / n:.1f} ms a batch, {n * CLIP_BATCH / dt:.1f} images/s", flush=True)
+
+
 SOURCES = {
     "flash_attention_fwd": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_fwd.cu",
                             "multimodal_concept_learning_tpu/ops/flash_attention.py:31"),
@@ -670,15 +1224,25 @@ SOURCES = {
                                 "multimodal_concept_learning_tpu/ops/flash_attention.py:76"),
     "paged_decode_attention": ("multimodal_concept_learning_tpu_torch/csrc/paged_attention.cu",
                                "multimodal_concept_learning_tpu/ops/paged_attention_kernel.py:43"),
+    "attention_core_fwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core.cu",
+                           "multimodal_concept_learning_tpu/ops/attention_core.py:104"),
+    "attention_core_bwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core.cu",
+                           "multimodal_concept_learning_tpu/ops/attention_core.py:123"),
 }
+KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
     import shutil
     import tempfile
 
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="build, then profile the full CLIP train step; no other phase")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA device")
     if not os.path.isdir(os.path.join(REPO, "multimodal_concept_learning_tpu_torch")):
@@ -690,6 +1254,9 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_card()
     phase_build()
+    if args.profile:
+        profile_clip()
+        return
     report: dict = {}
     phase_kernels(report)
     phase_parity()
@@ -707,9 +1274,14 @@ def main() -> None:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
           f"{report['flash_attention_fwd']['launches']}", flush=True)
+    phase_clip_parity()
+    root = tempfile.mkdtemp(prefix="_smoke_clip_", dir=REPO)
+    try:
+        phase_clip_slice(report, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
-                "replaces": SOURCES[name][1], "launches": r["launches"],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+                "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}
                for name, r in report.items()]
     print(f"[timing] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,14 +2,15 @@
 
 - ``state_dict_from_jax``: a JAX ``MLLM`` param tree (nested dicts of
   numpy arrays) -> the port's state dict, with exactly the names and
-  layouts ``checkpoint/torch_interop.mllm_params_to_torch`` writes.  It
-  reuses that module's numpy-only per-leaf converters and never imports
-  jax (``mllm_params_to_torch`` itself fetches leaves through jax).
+  layouts ``checkpoint/torch_interop.mllm_params_to_torch`` writes, from
+  this module's numpy copies of that module's per-leaf converters;
+  ``clip_state_dict_from_jax`` the same for a JAX ``CLIPModel`` tree.
 - ``build_mllm``: an ``MLLM`` on a device from a state dict
   (``load_state_dict(strict=True)``), cast by the device policy.
 - ``init_random_weights_``: seeded random init (the JAX initialisers:
   normal(0.02) kernels and embeddings, zero biases, unit LayerNorm scales,
-  zero RMSNorm weights).
+  zero RMSNorm weights; for CLIP also normal(0.01) text positions and
+  ``logit_scale`` = log(1/0.07)), for the MLLM and ``CLIPModel``.
 - ``save_results_dir`` / ``load_state_dict``: the reference layout
   ``models/{training_config.json, best_model.pt, tokenizer/}``.
 - ``host_state_dict`` / ``save_state_dict``: the trainer's checkpoints, a
@@ -21,6 +22,7 @@
 from __future__ import annotations
 
 import json
+import math
 import os
 from typing import Dict, List
 
@@ -28,13 +30,80 @@ import numpy as np
 import torch
 from torch import nn
 
-from multimodal_concept_learning_tpu.checkpoint.torch_interop import (
-    _lm_entry_to_torch,
-    _vit_export,
-)
 from multimodal_concept_learning_tpu_torch.device import cast_for_compute, resolve_device
 from multimodal_concept_learning_tpu_torch.models.lm import RMSNorm
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
+
+
+def _vit_export(rel: str, arr: np.ndarray, patch_size: int):
+    """One flax ViT param (path relative to the tower) as [(HF ViTModel
+    name, array)] (``checkpoint/torch_interop.py:_vit_export`` of the JAX
+    package, without its fused-qkv case, which no JAX module writes)."""
+    parts = rel.split("/")
+    if rel == "cls_token":
+        return [("embeddings.cls_token", arr)]
+    if rel == "position_embeddings":
+        return [("embeddings.position_embeddings", arr)]
+    if parts[0] == "patch_embed":
+        if parts[1] == "kernel":
+            in_dim, hidden = arr.shape
+            c = in_dim // (patch_size * patch_size)
+            w = arr.reshape(patch_size, patch_size, c, hidden).transpose(3, 2, 0, 1)
+            return [("embeddings.patch_embeddings.projection.weight", w)]
+        return [("embeddings.patch_embeddings.projection.bias", arr)]
+    if parts[0] == "layernorm":
+        return [(f"layernorm.{'weight' if parts[1] == 'scale' else 'bias'}", arr)]
+    if parts[0].startswith("layer_"):
+        base = f"encoder.layer.{parts[0].split('_')[1]}"
+        if parts[1] == "attention":
+            proj = parts[2]
+            if proj in ("query", "key", "value"):
+                if parts[3] == "kernel":  # (H, heads, hd)
+                    return [(f"{base}.attention.attention.{proj}.weight",
+                             arr.reshape(arr.shape[0], -1).T)]
+                return [(f"{base}.attention.attention.{proj}.bias", arr.reshape(-1))]
+            if proj == "output":
+                if parts[3] == "kernel":  # (heads, hd, H)
+                    return [(f"{base}.attention.output.dense.weight",
+                             arr.reshape(-1, arr.shape[-1]).T)]
+                return [(f"{base}.attention.output.dense.bias", arr)]
+        if parts[1] in ("layernorm_before", "layernorm_after"):
+            return [(f"{base}.{parts[1]}.{'weight' if parts[2] == 'scale' else 'bias'}", arr)]
+        if parts[1] in ("intermediate", "output"):
+            if parts[2] == "kernel":
+                return [(f"{base}.{parts[1]}.dense.weight", arr.T)]
+            return [(f"{base}.{parts[1]}.dense.bias", arr)]
+    raise KeyError(f"Unmapped ViT param: {rel}")
+
+
+_LM_NORMS = ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
+             "post_feedforward_layernorm")
+
+
+def _lm_entry_to_torch(rel: str, arr: np.ndarray):
+    """One flax Gemma-style LM param as (HF Gemma name, array)
+    (``checkpoint/torch_interop.py:_lm_entry_to_torch`` of the JAX package,
+    without the MoE and LoRA leaves, which the port does not run)."""
+    parts = rel.split("/")
+    if rel == "embed_tokens/embedding":
+        return "model.embed_tokens.weight", arr
+    if rel == "norm/weight":
+        return "model.norm.weight", arr
+    if parts[0].startswith("layer_"):
+        base = f"model.layers.{parts[0].split('_')[1]}"
+        if parts[1] == "self_attn":
+            sub = parts[2]
+            if sub in ("q_norm", "k_norm"):  # (head_dim,) RMSNorm weights
+                return f"{base}.self_attn.{sub}.weight", arr
+            if sub == "o_proj":  # (heads, hd, H)
+                return f"{base}.self_attn.o_proj.weight", arr.reshape(-1, arr.shape[-1]).T
+            if sub in ("q_proj", "k_proj", "v_proj"):  # (H, heads, hd)
+                return f"{base}.self_attn.{sub}.weight", arr.reshape(arr.shape[0], -1).T
+        if parts[1] in ("gate_proj", "up_proj", "down_proj"):
+            return f"{base}.mlp.{parts[1]}.weight", arr.T
+        if parts[1] in _LM_NORMS:
+            return f"{base}.{parts[1]}.weight", arr
+    raise KeyError(f"Unmapped LM param: {rel}")
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -69,6 +138,55 @@ def state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _text_entry(rel: str, arr: np.ndarray):
+    """One flax CLIP text-tower param as (port name under ``text.``, array)."""
+    parts = rel.split("/")
+    if rel == "token_embedding/embedding":
+        return "token_embedding.weight", arr
+    if rel == "positional_embedding":
+        return "positional_embedding", arr
+    leaf = {"scale": "weight", "bias": "bias", "kernel": "weight"}[parts[-1]]
+    if parts[0] == "ln_final":
+        return f"ln_final.{leaf}", arr
+    if parts[0].startswith("block_"):
+        name = f"blocks.{parts[0].split('_')[1]}.{parts[1]}.{leaf}"
+        if parts[2] == "kernel":
+            if parts[1] in ("q", "k", "v"):  # (W, heads, hd)
+                arr = arr.reshape(arr.shape[0], -1).T
+            elif parts[1] == "out":  # (heads, hd, W)
+                arr = arr.reshape(-1, arr.shape[-1]).T
+            else:  # mlp_fc / mlp_proj (in, out)
+                arr = arr.T
+        elif parts[1] in ("q", "k", "v"):  # bias (heads, hd)
+            arr = arr.reshape(-1)
+        return name, arr
+    raise KeyError(f"Unmapped CLIP text param: {rel}")
+
+
+def clip_state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPModel`` params (numpy leaves, optionally under "params")
+    -> the port's ``CLIPModel`` state dict of float32 tensors (load it with
+    ``strict=True``)."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for key, arr in _flatten(params).items():
+        top, _, rel = key.partition("/")
+        if top == "visual":
+            pairs = [(f"visual.{n}", t) for n, t in _vit_export(rel, arr, patch_size)]
+        elif top in ("visual_projection", "text_projection"):
+            pairs = [(f"{top}.weight", arr.T)]
+        elif top == "logit_scale":
+            pairs = [("logit_scale", arr)]
+        elif top == "text":
+            name, t = _text_entry(rel, arr)
+            pairs = [(f"text.{name}", t)]
+        else:
+            raise KeyError(f"Unknown CLIP param: {key}")
+        for name, t in pairs:
+            sd[name] = torch.from_numpy(np.ascontiguousarray(t, dtype=np.float32))
+    return sd
+
+
 def build_mllm(cfg: MLLMConfig, state_dict: Dict[str, torch.Tensor], device) -> MLLM:
     """An MLLM on ``device`` holding ``state_dict`` (strict), linear weights
     in ``cfg.dtype``.  Built on the meta device first, so no memory is spent
@@ -98,6 +216,10 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator, std: floa
     for name, p in model.named_parameters():
         if name.endswith(("cls_token", "position_embeddings")):
             p.normal_(0.0, std, generator=generator)
+        elif name == "text.positional_embedding":  # CLIP's text positions: normal(0.01)
+            p.normal_(0.0, 0.01, generator=generator)
+        elif name == "logit_scale":  # CLIP's temperature: log(1 / 0.07)
+            p.fill_(math.log(1.0 / 0.07))
     return model
 
 
@@ -151,6 +273,7 @@ def save_results_dir(results_dir: str, model: MLLM, tokenizer, training_config: 
 __all__ = [
     "build_mllm",
     "changed_frozen",
+    "clip_state_dict_from_jax",
     "host_state_dict",
     "init_random_weights_",
     "load_state_dict",

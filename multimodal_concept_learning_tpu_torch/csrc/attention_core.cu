@@ -1,0 +1,437 @@
+// K2: token-major attention core on the packed qkv projection output,
+// forward and backward, hand-written for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels multimodal_concept_learning_tpu/ops/
+// attention_core.py:_fwd_kernel (:104) and _bwd_kernel (:123), called through
+// _core_call (pallas_call at :303) under the custom VJP at :315-342.
+//
+//   qkv [B, T, 3*H*D] (fp32 or bf16, contiguous): column part*H*D + h*D + d
+//   holds part q/k/v of head h.  Forward: out [B, T, H*D] =
+//   softmax(q k^T * scale, masked) v, per (sample, head), token-major; with a
+//   non-null lse pointer also the row logsumexp [B, H, T] fp32.  Backward:
+//   dqkv [B, T, 3*H*D] in the same packed layout from (qkv, out, dA, lse).
+//   Key c is valid for query r iff c < t_real, kv_mask[b, c] != 0 (when a
+//   mask is given) and, under causal, c <= r.  A row with no valid key gets
+//   a zero output, lse = +inf and no gradient (the TPU kernel averages it
+//   uniformly; no row of the CLIP path is such a row).
+//
+// What bounds it: at the CLIP path's shapes (vision [256, 50, 12 x 64],
+// text [256, 77, 8 x 64], bf16) the arithmetic is ~2*2*T*T*D per (sample,
+// head): 0.2-0.5 GFLOP a launch, ~0.5 us at the tensor cores' peak, while the
+// bytes (qkv in, out written; the backward also reads out and dA and writes
+// dqkv) take 23-42 us at 3.35 TB/s, so the bound is memory.  This first
+// version does its arithmetic in fp32 on the CUDA cores, so it is bound by
+// its own arithmetic and shared-memory traffic, not by the bound.
+//
+// Design.  Each CTA reads its head's 64 contiguous columns straight from the
+// packed rows (row stride 3*H*D) with 16-byte loads and writes token-major,
+// so no relayout happens on either side.
+// - Forward: one CTA per (64-query tile, head, sample), two passes over
+//   32-key tiles (any T), scores in fp32 smem: the first takes each row's
+//   max and sum (online), the second the normalised P, rounded to the
+//   compute dtype before P.V as the TPU kernel rounds it.  The scores are
+//   computed twice (1.5x the arithmetic of one online pass) so that P.V
+//   sees the TPU kernel's rounded probabilities.
+// - Backward: one CTA per (head, sample) owns all three gradient slices of
+//   its head, so no atomics and no second pass: it loops over 32-key tiles
+//   (dK, dV in registers) and, inside, over 32-query tiles, recomputing
+//   P = exp(s - lse) once per (query tile, key tile); dQ accumulates in a
+//   [T, 64] fp32 smem tile (T <= 640) written at the end.  delta =
+//   rowsum(dA * out) stands in for rowsum(dP * P) (equal in exact
+//   arithmetic).  dS * scale and P are rounded to the compute dtype before
+//   their products, as the TPU kernel does.
+// - A sample's last valid key (from kv_mask and t_real) bounds the key loop:
+//   the text tower's captions fill ~13 of 77 positions.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_attention_common.cuh"
+
+namespace {
+
+using mcl_flash::kThreads;
+using mcl_flash::load_f;
+using mcl_flash::store_f;
+using mcl_flash::warp_max;
+using mcl_flash::warp_sum;
+
+constexpr int kD = 64;        // head dim
+constexpr int kBK = 32;       // keys per tile == warp width
+constexpr int kBQ = 64;       // forward queries per CTA
+constexpr int kBQB = 32;      // backward queries per tile
+constexpr int kMaxTBwd = 640; // backward dQ tile [T, 64] fp32 in smem
+
+struct CoreParams {
+  const void* qkv;
+  void* out;
+  const void* dout;  // backward only
+  float* lse;        // forward: nullable output; backward: input
+  const int* kv_mask;  // nullable, [B, T]
+  void* dqkv;        // backward only
+  int B, T, H, t_real, causal;
+  float scale;
+};
+
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+};
+
+// value rounded to the storage type T and back (the TPU kernel's astype(cdt))
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// rows [row0, row0 + nrows) of one head's D columns -> dst[r * ld + d] (fp32),
+// 16-byte loads; rows at or past T read as zeros.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* base, long long stride,
+                                          int row0, int nrows, int T_) {
+  constexpr int N = Vec<T>::N;
+  constexpr int C = kD / N;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < nrows * C; i += kThreads) {
+    const int r = i / C, c = (i % C) * N, t = row0 + r;
+    float v[N];
+    if (t < T_) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(base + (size_t)t * stride + c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = load_f(e + j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) dst[r * ld + c + j] = v[j];
+  }
+}
+
+// The number of keys any row of sample b may attend: one past the last key
+// below t_real that the mask keeps.  Every thread of the CTA returns it.
+__device__ __forceinline__ int key_end(const CoreParams& p, int b, int* s_end) {
+  const int hi = min(p.T, p.t_real);
+  if (p.kv_mask == nullptr) return hi;
+  if (threadIdx.x == 0) *s_end = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int c = threadIdx.x; c < hi; c += kThreads)
+    if (p.kv_mask[(size_t)b * p.T + c] != 0) mine = c + 1;
+  if (mine > 0) atomicMax(s_end, mine);
+  __syncthreads();
+  return *s_end;
+}
+
+__device__ __forceinline__ bool key_valid(const CoreParams& p, int b, int r, int c, int k_end) {
+  if (r >= p.T || c >= k_end) return false;
+  if (p.causal && c > r) return false;
+  return p.kv_mask == nullptr || p.kv_mask[(size_t)b * p.T + c] != 0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                          // [kBQ][kD]
+  float* Ks = Qs + kBQ * kD;                 // [kBK][kD + 1]
+  float* Vs = Ks + kBK * (kD + 1);           // [kBK][kD]
+  float* Ss = Vs + kBK * kD;                 // [kBQ][kBK + 1]
+  float* row_m = Ss + kBQ * (kBK + 1);       // [kBQ]
+  float* row_l = row_m + kBQ;                // [kBQ]
+  __shared__ int s_end;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const long long stride = 3LL * p.H * kD;
+  const T* qb = static_cast<const T*>(p.qkv) + (size_t)b * p.T * stride + h * kD;
+  const T* kb = qb + p.H * kD;
+  const T* vb = kb + p.H * kD;
+  T* o = static_cast<T*>(p.out);
+
+  const int k_end = key_end(p, b, &s_end);
+  load_rows<T>(Qs, kD, qb, stride, q0, kBQ, p.T);
+  for (int r = tid; r < kBQ; r += kThreads) {
+    row_m[r] = -INFINITY;
+    row_l[r] = 0.f;
+  }
+  int k_hi = k_end;
+  if (p.causal) k_hi = min(k_hi, min(q0 + kBQ, p.T));
+
+  constexpr int kORS = kThreads / kD;  // output: column od, rows orow0 + i * kORS
+  constexpr int kNO = kBQ / kORS;
+  const int od = tid % kD, orow0 = tid / kD;
+  float acc[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.f;
+  constexpr int kSRS = kThreads / kBK;  // scores: key column sc, rows srow0 + i * kSRS
+  constexpr int kNS = kBQ / kSRS;
+  const int sc = tid % kBK, srow0 = tid / kBK;
+  __syncthreads();
+
+  // pass 0: each row's max and sum over its valid keys (online);
+  // pass 1: P = exp(s - max) / sum rounded to T, then acc += P V
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int kt = 0; kt < k_hi; kt += kBK) {
+      load_rows<T>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
+      if (pass == 1) load_rows<T>(Vs, kD, vb, stride, kt, kBK, p.T);
+      __syncthreads();
+      {
+        float s[kNS];
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) s[i] = 0.f;
+        const float* kr = Ks + sc * (kD + 1);
+        for (int d = 0; d < kD; ++d) {
+          const float kd = kr[d];
+#pragma unroll
+          for (int i = 0; i < kNS; ++i) s[i] = fmaf(Qs[(srow0 + i * kSRS) * kD + d], kd, s[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int r = srow0 + i * kSRS;
+          Ss[r * (kBK + 1) + sc] =
+              key_valid(p, b, q0 + r, kt + sc, k_end) ? s[i] * p.scale : -INFINITY;
+        }
+      }
+      __syncthreads();
+      // one warp per row, one lane per key
+      for (int r = warp; r < kBQ; r += kThreads / 32) {
+        const float x = Ss[r * (kBK + 1) + lane];
+        if (pass == 0) {
+          const float m_old = row_m[r];
+          const float m_new = fmaxf(m_old, warp_max(x));
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;  // all masked so far
+          const float sum = warp_sum(expf(x - m_use));
+          if (lane == 0) {
+            row_l[r] = row_l[r] * expf(m_old - m_use) + sum;
+            row_m[r] = m_new;
+          }
+        } else {
+          const float l = row_l[r];  // 0 on a row with no valid key: P = 0
+          Ss[r * (kBK + 1) + lane] = l > 0.f ? round_to<T>(expf(x - row_m[r]) / l) : 0.f;
+        }
+      }
+      __syncthreads();
+      if (pass == 1) {
+        for (int c = 0; c < kBK; ++c) {
+          const float vx = Vs[c * kD + od];
+#pragma unroll
+          for (int i = 0; i < kNO; ++i)
+            acc[i] = fmaf(Ss[(orow0 + i * kORS) * (kBK + 1) + c], vx, acc[i]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) {
+    const int r = orow0 + i * kORS, t = q0 + r;
+    if (t < p.T) store_f(o + ((size_t)b * p.T + t) * p.H * kD + h * kD + od, acc[i]);
+  }
+  if (p.lse != nullptr) {
+    for (int r = tid; r < kBQ; r += kThreads) {
+      const int t = q0 + r;
+      if (t < p.T) {
+        const float l = row_l[r];
+        p.lse[((size_t)b * p.H + h) * p.T + t] = l > 0.f ? row_m[r] + logf(l) : INFINITY;
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
+  extern __shared__ float smem[];
+  float* dQ = smem;                           // [T][kD] fp32 accumulator
+  float* Qs = dQ + (size_t)p.T * kD;          // [kBQB][kD + 1]
+  float* dAs = Qs + kBQB * (kD + 1);          // [kBQB][kD + 1]
+  float* Ks = dAs + kBQB * (kD + 1);          // [kBK][kD + 1]
+  float* Vs = Ks + kBK * (kD + 1);            // [kBK][kD + 1]
+  float* Ps = Vs + kBK * (kD + 1);            // [kBQB][kBK + 1] P, rounded
+  float* dSs = Ps + kBQB * (kBK + 1);         // [kBQB][kBK + 1] dS * scale, rounded
+  float* lse_s = dSs + kBQB * (kBK + 1);      // [T]
+  float* delta_s = lse_s + p.T;               // [T]
+  __shared__ int s_end;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long stride = 3LL * p.H * kD, ostride = (long long)p.H * kD;
+  const T* qb = static_cast<const T*>(p.qkv) + (size_t)b * p.T * stride + h * kD;
+  const T* kb = qb + p.H * kD;
+  const T* vb = kb + p.H * kD;
+  const T* ob = static_cast<const T*>(p.out) + (size_t)b * p.T * ostride + h * kD;
+  const T* dab = static_cast<const T*>(p.dout) + (size_t)b * p.T * ostride + h * kD;
+  T* dq_out = static_cast<T*>(p.dqkv) + (size_t)b * p.T * stride + h * kD;
+  T* dk_out = dq_out + p.H * kD;
+  T* dv_out = dk_out + p.H * kD;
+
+  const int k_end = key_end(p, b, &s_end);
+  for (int i = tid; i < p.T * kD; i += kThreads) dQ[i] = 0.f;
+  // delta = rowsum(dA * out), lse: one warp per row
+  for (int t = warp; t < p.T; t += kThreads / 32) {
+    float x = 0.f;
+    for (int d = lane; d < kD; d += 32)
+      x += load_f(dab + (size_t)t * ostride + d) * load_f(ob + (size_t)t * ostride + d);
+    x = warp_sum(x);
+    if (lane == 0) {
+      delta_s[t] = x;
+      lse_s[t] = p.lse[((size_t)b * p.H + h) * p.T + t];
+    }
+  }
+
+  constexpr int kRS = kThreads / kD;  // dK/dV/dQ: column cd, rows crow0 + i * kRS
+  constexpr int kNK = kBK / kRS;
+  constexpr int kNQ = kBQB / kRS;
+  const int cd = tid % kD, crow0 = tid / kD;
+  constexpr int kSRS = kThreads / kBK;  // scores: key column sc, rows srow0 + i * kSRS
+  constexpr int kNS = kBQB / kSRS;
+  const int sc = tid % kBK, srow0 = tid / kBK;
+
+  for (int kt = 0; kt < p.T; kt += kBK) {
+    float dk[kNK], dv[kNK];
+#pragma unroll
+    for (int i = 0; i < kNK; ++i) dk[i] = dv[i] = 0.f;
+    if (kt < k_end) {
+      __syncthreads();  // the previous tile's readers are done with Ks/Vs
+      load_rows<T>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
+      load_rows<T>(Vs, kD + 1, vb, stride, kt, kBK, p.T);
+      const int q_lo = p.causal ? (kt / kBQB) * kBQB : 0;
+      for (int qt = q_lo; qt < p.T; qt += kBQB) {
+        load_rows<T>(Qs, kD + 1, qb, stride, qt, kBQB, p.T);
+        load_rows<T>(dAs, kD + 1, dab, ostride, qt, kBQB, p.T);
+        __syncthreads();
+        {
+          float s[kNS], dp[kNS];
+#pragma unroll
+          for (int i = 0; i < kNS; ++i) s[i] = dp[i] = 0.f;
+          const float* kr = Ks + sc * (kD + 1);
+          const float* vr = Vs + sc * (kD + 1);
+          for (int d = 0; d < kD; ++d) {
+            const float kd = kr[d], vd = vr[d];
+#pragma unroll
+            for (int i = 0; i < kNS; ++i) {
+              const int r = srow0 + i * kSRS;
+              s[i] = fmaf(Qs[r * (kD + 1) + d], kd, s[i]);
+              dp[i] = fmaf(dAs[r * (kD + 1) + d], vd, dp[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kNS; ++i) {
+            const int r = srow0 + i * kSRS, t = qt + r;
+            float pr = 0.f, ds = 0.f;
+            if (key_valid(p, b, t, kt + sc, k_end)) {
+              pr = expf(s[i] * p.scale - lse_s[t]);  // lse = +inf -> 0
+              ds = pr * (dp[i] - delta_s[t]);
+            }
+            Ps[r * (kBK + 1) + sc] = round_to<T>(pr);
+            dSs[r * (kBK + 1) + sc] = round_to<T>(ds * p.scale);
+          }
+        }
+        __syncthreads();
+        // dV += P^T dA, dK += dS^T Q for this key tile; dQ += dS K
+#pragma unroll
+        for (int i = 0; i < kNK; ++i) {
+          const int c = crow0 + i * kRS;
+          float av = 0.f, ak = 0.f;
+          for (int r = 0; r < kBQB; ++r) {
+            av = fmaf(Ps[r * (kBK + 1) + c], dAs[r * (kD + 1) + cd], av);
+            ak = fmaf(dSs[r * (kBK + 1) + c], Qs[r * (kD + 1) + cd], ak);
+          }
+          dv[i] += av;
+          dk[i] += ak;
+        }
+#pragma unroll
+        for (int i = 0; i < kNQ; ++i) {
+          const int r = crow0 + i * kRS, t = qt + r;
+          if (t < p.T) {
+            float a = 0.f;
+            for (int c = 0; c < kBK; ++c) a = fmaf(dSs[r * (kBK + 1) + c], Ks[c * (kD + 1) + cd], a);
+            dQ[t * kD + cd] += a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    // keys past the sample's last valid key get zero gradients
+#pragma unroll
+    for (int i = 0; i < kNK; ++i) {
+      const int key = kt + crow0 + i * kRS;
+      if (key < p.T) {
+        store_f(dk_out + (size_t)key * stride + cd, dk[i]);
+        store_f(dv_out + (size_t)key * stride + cd, dv[i]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < p.T * kD; i += kThreads)
+    store_f(dq_out + (size_t)(i / kD) * stride + i % kD, dQ[i]);
+}
+
+size_t fwd_smem() {
+  return sizeof(float) * (kBQ * kD + kBK * (kD + 1) + kBK * kD + kBQ * (kBK + 1) + 2 * kBQ);
+}
+
+size_t bwd_smem(int T) {
+  return sizeof(float) * ((size_t)T * kD + 2 * kBQB * (kD + 1) + 2 * kBK * (kD + 1) +
+                          2 * kBQB * (kBK + 1) + 2 * (size_t)T);
+}
+
+template <typename T>
+cudaError_t launch_fwd(const CoreParams& p, cudaStream_t stream) {
+  const size_t smem = fwd_smem();
+  cudaError_t err = cudaFuncSetAttribute(core_fwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.T + kBQ - 1) / kBQ, p.H, p.B);
+  core_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const CoreParams& p, cudaStream_t stream) {
+  const size_t smem = bwd_smem(p.T);
+  cudaError_t err = cudaFuncSetAttribute(core_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  core_bwd_kernel<T><<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+extern "C" int mcl_attention_core_fwd(const void* qkv, void* out, float* lse, const int* kv_mask,
+                                      int B, int T, int H, int D, int t_real, int causal,
+                                      float scale, int dtype, void* stream) {
+  if (D != kD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  CoreParams p{qkv, out, nullptr, lse, kv_mask, nullptr, B, T, H, t_real, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_fwd<float>(p, s);
+  if (dtype == 1) return (int)launch_fwd<__nv_bfloat16>(p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int mcl_attention_core_bwd(const void* qkv, const void* out, const void* dout,
+                                      const float* lse, const int* kv_mask, void* dqkv, int B,
+                                      int T, int H, int D, int t_real, int causal, float scale,
+                                      int dtype, void* stream) {
+  if (D != kD || B <= 0 || T <= 0 || H <= 0 || T > kMaxTBwd) return (int)cudaErrorInvalidValue;
+  CoreParams p{qkv, const_cast<void*>(out), dout, const_cast<float*>(lse), kv_mask, dqkv, B, T,
+               H, t_real, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_bwd<float>(p, s);
+  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(p, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,156 @@
+"""CLIP-style dual encoder (counterpart of
+multimodal_concept_learning_tpu/models/clip.py).
+
+Image tower: the port's ``ViTEncoder`` in the ``pallas_core`` layout (the
+packed qkv projection into K2, ``ops/attention_core.py``) with tanh GELU,
+and a bias-free projection of the CLS token.  Text tower: pre-LN causal
+transformer (LayerNorm eps 1e-6 in float32, learned positions, tanh GELU),
+every block's attention through K2 with ``causal`` and the caption mask as
+``kv_mask``, pooled at the last valid token after ``ln_final``.  Features
+are L2-normalised in float32; the similarity scale is ``exp(logit_scale)``
+with ``logit_scale`` clipped at log(100).  Both towers compute in the config's
+dtype over float32 parameters, every weight cast at use.
+
+The JAX model takes K2 only on a TPU and its XLA path elsewhere; the port
+takes K2 on every device (the CPU runs K2's plain version).  The all-gather
+of ``contrastive_loss``'s ``axis_name`` (a sharded batch) and the
+partitioned text embedding (``active_vocab_rows``) are not ported yet.
+Parameter names follow the JAX tree (``checkpoint.clip_state_dict_from_jax``
+maps one onto the other).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodal_concept_learning_tpu_torch.device import linear
+from multimodal_concept_learning_tpu_torch.models.vit import ViTConfig, ViTEncoder, layer_norm_f32
+from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    vision: ViTConfig
+    vocab_size: int = 2048
+    text_width: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+    context_length: int = 77
+    embed_dim: int = 512
+    dtype: torch.dtype = torch.bfloat16
+
+    @classmethod
+    def create(cls, vocab_size: int, vision_preset: str = "vit-b-32", image_size: int = 224,
+               text_width: int = 512, text_layers: int = 12, text_heads: int = 8,
+               context_length: int = 77, embed_dim: int = 512,
+               dtype: torch.dtype = torch.bfloat16) -> "CLIPConfig":
+        vision = dataclasses.replace(ViTConfig.preset(vision_preset), image_size=image_size,
+                                     gelu_approximate=True, attention_layout="pallas_core",
+                                     dtype=dtype)
+        return cls(vision=vision, vocab_size=vocab_size, text_width=text_width,
+                   text_layers=text_layers, text_heads=text_heads,
+                   context_length=context_length, embed_dim=embed_dim, dtype=dtype)
+
+
+class TextBlock(nn.Module):
+    """Pre-LN causal block; q/k/v concatenated at use into one packed
+    projection for K2."""
+
+    def __init__(self, width: int, heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.heads, self.dtype = heads, dtype
+        self.ln_1 = nn.LayerNorm(width, eps=1e-6)
+        self.q, self.k, self.v = (nn.Linear(width, width) for _ in range(3))
+        self.out = nn.Linear(width, width)
+        self.ln_2 = nn.LayerNorm(width, eps=1e-6)
+        self.mlp_fc = nn.Linear(width, 4 * width)
+        self.mlp_proj = nn.Linear(4 * width, width)
+
+    def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        dt = self.dtype
+        h = layer_norm_f32(self.ln_1, x).to(dt)
+        w = torch.cat([p.weight.to(dt) for p in (self.q, self.k, self.v)])
+        b = torch.cat([p.bias.to(dt) for p in (self.q, self.k, self.v)])
+        a = attention_core_padded(F.linear(h, w, b), self.heads, causal=True, kv_mask=kv_mask)
+        x = x + linear(self.out, a, dt)
+        h = layer_norm_f32(self.ln_2, x).to(dt)
+        h = F.gelu(linear(self.mlp_fc, h, dt), approximate="tanh")
+        return x + linear(self.mlp_proj, h, dt)
+
+
+class TextEncoder(nn.Module):
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.text_width)
+        self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, cfg.text_width))
+        self.blocks = nn.ModuleList(TextBlock(cfg.text_width, cfg.text_heads, cfg.dtype)
+                                    for _ in range(cfg.text_layers))
+        self.ln_final = nn.LayerNorm(cfg.text_width, eps=1e-6)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, T] ids -> float32 [B, width] at each row's last valid token."""
+        dt = self.cfg.dtype
+        b, t = input_ids.shape
+        x = self.token_embedding(input_ids.long()).to(dt) + self.positional_embedding[:t].to(dt)
+        kv_mask = None if attention_mask is None else attention_mask.to(torch.int32)
+        for block in self.blocks:
+            x = block(x, kv_mask)
+        x = layer_norm_f32(self.ln_final, x)
+        if attention_mask is not None:
+            last = (kv_mask.sum(dim=1) - 1).clamp(min=0)
+        else:
+            last = torch.full((b,), t - 1, device=x.device)
+        return x[torch.arange(b, device=x.device), last.long()]
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    x = x.float()
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=eps)
+
+
+class CLIPModel(nn.Module):
+    """Dual encoder producing L2-normalised image/text features + logit scale."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.visual = ViTEncoder(cfg.vision)
+        self.visual_projection = nn.Linear(cfg.vision.hidden_size, cfg.embed_dim, bias=False)
+        self.text = TextEncoder(cfg)
+        self.text_projection = nn.Linear(cfg.text_width, cfg.embed_dim, bias=False)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
+
+    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        return _l2_normalize(linear(self.visual_projection, self.visual(images)[:, 0],
+                                    self.cfg.dtype))
+
+    def encode_text(self, input_ids: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return _l2_normalize(linear(self.text_projection, self.text(input_ids, attention_mask),
+                                    self.cfg.dtype))
+
+    def forward(self, images, input_ids, attention_mask=None):
+        img = self.encode_image(images)
+        txt = self.encode_text(input_ids, attention_mask)
+        scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
+        return img, txt, scale
+
+
+def contrastive_loss(img: torch.Tensor, txt: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric InfoNCE over the batch (one process: no all-gather)."""
+    labels = torch.arange(img.shape[0], device=img.device)
+    logits_per_image = scale * img @ txt.T
+    logits_per_text = scale * txt @ img.T
+    return 0.5 * (F.cross_entropy(logits_per_image, labels)
+                  + F.cross_entropy(logits_per_text, labels))
+
+
+__all__ = ["CLIPConfig", "CLIPModel", "TextBlock", "TextEncoder", "contrastive_loss"]

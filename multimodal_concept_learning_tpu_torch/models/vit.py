@@ -1,10 +1,13 @@
 """Vision Transformer tower (counterpart of multimodal_concept_learning_tpu/models/vit.py).
 
-Only the encoder the MLLM uses (``ViTEncoder`` -> last_hidden_state
-[B, 1 + N, H]) in the JAX package's default ``bthd`` branch: pre-LN
-blocks, exact-erf GELU, LayerNorm (eps 1e-12) in float32, compute dtype
-from the config (every weight cast at use, so float32 parameters train
-in the compute dtype, as under ``vision_only``).  The patch embedding is a reshape plus one matrix product
+The encoder (``ViTEncoder`` -> last_hidden_state [B, 1 + N, H]) in two of
+the JAX package's attention layouts: ``bthd`` (the default, the MLLM's;
+q, k, v [B, T, H, D] through K1) and ``pallas_core`` (CLIP's; one packed
+[q | k | v] projection through K2, ``ops/attention_core.py``).  Pre-LN
+blocks, exact-erf GELU (tanh with ``gelu_approximate``), LayerNorm (eps
+1e-12) in float32, compute dtype from the config (every weight cast at
+use, so float32 parameters train in the compute dtype, as under
+``vision_only``).  The patch embedding is a reshape plus one matrix product
 (no convolution); its weight keeps HF's Conv2d layout [H, C, p, p] so the
 reference checkpoint loads as is.  Parameter names are HF ViTModel's, as
 ``checkpoint/torch_interop.mllm_params_to_torch`` writes them.
@@ -20,6 +23,9 @@ from torch import nn
 
 from multimodal_concept_learning_tpu_torch.device import linear
 from multimodal_concept_learning_tpu_torch.ops.attention import multi_head_attention
+from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+
+LAYOUTS = ("bthd", "pallas_core")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +39,14 @@ class ViTConfig:
     num_channels: int = 3
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16  # compute dtype; norms and embeddings stay float32
+    gelu_approximate: bool = False  # tanh GELU (the CLIP towers'), else exact erf
+    attention_layout: str = "bthd"  # "bthd": K1 on [B, T, H, D]; "pallas_core": K2 on packed qkv
+
+    def __post_init__(self):
+        if self.attention_layout not in LAYOUTS:
+            raise NotImplementedError(
+                f"attention_layout {self.attention_layout!r} is not ported (the port has "
+                f"{LAYOUTS}; the others are TPU layout variants of the same math)")
 
     @property
     def num_patches(self) -> int:
@@ -125,11 +139,19 @@ class ViTLayer(nn.Module):
         dt = cfg.dtype
         h = layer_norm_f32(self.layernorm_before, x).to(dt)
         proj = self.attention["attention"]
-        q, k, v = (linear(proj[n], h, dt).view(b, t, heads, hd) for n in ("query", "key", "value"))
-        a = multi_head_attention(q, k, v)
-        x = x + linear(self.attention["output"]["dense"], a.reshape(b, t, cfg.hidden_size), dt)
+        names = ("query", "key", "value")
+        if cfg.attention_layout == "pallas_core":
+            # one packed projection, [q | k | v] concatenated at use, into K2
+            w = torch.cat([proj[n].weight.to(dt) for n in names])
+            bias = torch.cat([proj[n].bias.to(dt) for n in names])
+            a = attention_core_padded(F.linear(h, w, bias), heads)
+        else:
+            q, k, v = (linear(proj[n], h, dt).view(b, t, heads, hd) for n in names)
+            a = multi_head_attention(q, k, v).reshape(b, t, cfg.hidden_size)
+        x = x + linear(self.attention["output"]["dense"], a, dt)
         h = layer_norm_f32(self.layernorm_after, x).to(dt)
-        h = F.gelu(linear(self.intermediate["dense"], h, dt))  # exact erf GELU, as HF ViT
+        gelu = "tanh" if cfg.gelu_approximate else "none"  # exact erf: HF ViT
+        h = F.gelu(linear(self.intermediate["dense"], h, dt), approximate=gelu)
         return x + linear(self.output["dense"], h, dt)
 
 

@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "paged_attention.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "paged_attention.cu",
+           "attention_core.cu")
 HEADERS = ("flash_attention_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -48,6 +49,8 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "mcl_paged_decode_attention": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mcl_attention_core_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "mcl_attention_core_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 

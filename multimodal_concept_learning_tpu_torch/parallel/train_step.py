@@ -1,12 +1,14 @@
-"""MLLM train and eval steps (counterpart of
-multimodal_concept_learning_tpu/parallel/train_step.py:128-210).
+"""MLLM and CLIP train and eval steps (counterparts of
+multimodal_concept_learning_tpu/parallel/train_step.py:128-210 and of
+``make_clip_train_step`` / ``make_zero_shot_step`` in
+multimodal_concept_learning_tpu/train/contrastive_training.py:54-79).
 
 Plain functions over a small state: the micro-step counter, the model and
 its optimizer.  A train step is one micro-step: forward with the sparse
 answer loss, backward, and ``Optimizer.step`` (which updates the parameters
 every k-th micro-step).  The eval step returns the JAX step's
 {loss, pred_ids, target_ids, valid} for the host's yes/no accuracy.  Batches
-are dicts of tensors already on the model's device.  The MLLM has no
+are dicts of tensors already on the model's device.  Neither model has
 dropout, so the steps take no random generator.  A batch's ``kv_lens``
 (set by ``data.pipeline.to_device`` for a right-padded mask) goes to the
 model as the mask's descriptor.
@@ -18,7 +20,9 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
+from torch import nn
 
+from multimodal_concept_learning_tpu_torch.models.clip import CLIPModel, contrastive_loss
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM
 from multimodal_concept_learning_tpu_torch.ops.losses import IGNORE_INDEX, shift_labels
 from multimodal_concept_learning_tpu_torch.ops.preprocess import images_from_batch
@@ -27,7 +31,7 @@ from multimodal_concept_learning_tpu_torch.parallel.optimizer import Optimizer
 
 @dataclasses.dataclass
 class TrainState:
-    model: MLLM
+    model: nn.Module
     optimizer: Optimizer
     step: int = 0  # micro-steps taken
 
@@ -67,4 +71,39 @@ def make_mllm_eval_step(model: MLLM) -> Callable:
     return step
 
 
-__all__ = ["TrainState", "make_mllm_eval_step", "make_mllm_train_step"]
+def make_clip_train_step(model: CLIPModel) -> Callable:
+    """(state, batch) -> (state, {"loss"}): the symmetric InfoNCE of one
+    batch of (images, input_ids, attention_mask), backward and
+    ``Optimizer.step``; the loss stays on the device."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model.train()
+        img, txt, scale = model(images_from_batch(batch), batch["input_ids"],
+                                batch["attention_mask"])
+        loss = contrastive_loss(img, txt, scale)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_zero_shot_step(model: CLIPModel) -> Callable:
+    """(model, batch, class_features [C, E]) -> (correct, valid count) as
+    0-d tensors: each valid image takes the class whose caption feature is
+    nearest, under ``torch.no_grad()``."""
+
+    @torch.no_grad()
+    def step(model: CLIPModel, batch: Dict[str, torch.Tensor], class_features: torch.Tensor):
+        model.eval()
+        img = model.encode_image(images_from_batch(batch))
+        preds = torch.argmax(img @ class_features.T, dim=-1)
+        valid = batch["valid"]
+        return ((preds == batch["labels"]) & valid).sum(), valid.sum()
+
+    return step
+
+
+__all__ = ["TrainState", "make_clip_train_step", "make_mllm_eval_step", "make_mllm_train_step",
+           "make_zero_shot_step"]

@@ -51,16 +51,16 @@ class EngineHostAPI:
     ``prompt_t``."""
 
     def preprocess_image(self, pil_image) -> np.ndarray:
-        """PIL image -> [3, H, W] float array via the training's eval
-        transform (built on first use: it needs Pillow, which only the HTTP
-        image path does)."""
+        """PIL image (decoded by the HTTP image path, the only one that
+        needs Pillow) -> [3, H, W] float array via the training's eval
+        transform, on the image's uint8 RGB pixels."""
         transform = getattr(self, "_transform", None)
         if transform is None:
-            from multimodal_concept_learning_tpu.data.transforms import create_transforms
+            from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 
             cfg = self.loaded.config
             transform = self._transform = create_transforms(cfg, is_train=False, seed=cfg.seed)
-        return np.asarray(transform(pil_image.convert("RGB")), dtype=np.float32)
+        return np.asarray(transform(np.asarray(pil_image.convert("RGB"))), dtype=np.float32)
 
     def encode_prompt(self, prompt: str):
         """Tokenize + truncate a prompt (memoized — the paged front sizes

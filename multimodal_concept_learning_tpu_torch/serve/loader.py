@@ -16,11 +16,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from multimodal_concept_learning_tpu.configs import MultimodalTrainingConfig
-from multimodal_concept_learning_tpu.tokenizer import load_tokenizer
 from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm, load_state_dict
+from multimodal_concept_learning_tpu_torch.configs import MultimodalTrainingConfig
 from multimodal_concept_learning_tpu_torch.device import resolve_device
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
+from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
 
 
 class LoadedMLLM(NamedTuple):

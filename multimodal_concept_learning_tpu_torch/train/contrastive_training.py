@@ -1,0 +1,189 @@
+"""CLIP-style contrastive training CLI (counterpart of
+multimodal_concept_learning_tpu/train/contrastive_training.py).
+
+    python -m multimodal_concept_learning_tpu_torch.train.contrastive_training \\
+        --config_path experiments/contrastive/color/12_colors_3k.yaml --device cuda
+
+The same YAML schema (``ContrastiveTrainingConfig``), log lines and
+per-epoch metrics as the JAX trainer: AdamW with clipping and a linear
+warm-up schedule over the symmetric InfoNCE of (image, caption) batches,
+then zero-shot classification of the test split against each class's
+caption, embedded once.  Weights start from a seeded random init (the JAX
+initialisers); compute is bf16 over float32 parameters.  Both towers'
+attention runs through K2 (``ops/attention_core.py``).  The final weights
+are saved as a ``.pt`` state dict of float32 tensors,
+``results_dir/checkpoints/step_{N}.pt`` (the JAX trainer writes an orbax
+``step_{N}`` directory).
+
+Not ported yet (raise ``NotImplementedError``; ROADMAP.md): ``resume`` with
+its preemption guard, ``partition_text_embedding`` and ``bf16_params`` (in
+the JAX model a bf16 ``logit_scale`` also rounds ``exp(logit_scale)`` to
+bf16, which the port would have to reproduce).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import time
+
+import numpy as np
+import torch
+
+from multimodal_concept_learning_tpu_torch import miniyaml
+from multimodal_concept_learning_tpu_torch.checkpoint import (
+    host_state_dict,
+    init_random_weights_,
+    save_state_dict,
+)
+from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
+from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+from multimodal_concept_learning_tpu_torch.data.datasets import ColorDataset, load_split_datasets
+from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
+from multimodal_concept_learning_tpu_torch.device import resolve_device
+from multimodal_concept_learning_tpu_torch.models.clip import CLIPConfig, CLIPModel
+from multimodal_concept_learning_tpu_torch.parallel.optimizer import (
+    build_optimizer,
+    linear_warmup_schedule,
+)
+from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+    TrainState,
+    make_clip_train_step,
+    make_zero_shot_step,
+)
+from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
+
+
+def _refuse_unported(config: ContrastiveTrainingConfig) -> None:
+    for field, what in (("resume", "resume / preemption checkpoints"),
+                        ("partition_text_embedding", "the partitioned text embedding"),
+                        ("bf16_params", "bf16 parameter storage")):
+        if getattr(config, field):
+            raise NotImplementedError(f"{what} ({field}) is not ported yet (ROADMAP.md, queue A)")
+
+
+def init_model(config: ContrastiveTrainingConfig, vocab_size: int, device) -> CLIPModel:
+    """The config's CLIP (bf16 compute) with float32 parameters on
+    ``device``, from the seeded random init (``torch.Generator`` on the
+    device, seed ``config.seed``)."""
+    dev = resolve_device(device)
+    cfg = CLIPConfig.create(vocab_size=vocab_size, vision_preset=config.vision_model_name,
+                            image_size=config.image_size, text_width=config.text_width,
+                            text_layers=config.text_layers, text_heads=config.text_heads,
+                            context_length=config.context_length, embed_dim=config.embed_dim,
+                            dtype=torch.bfloat16)
+    with torch.device(dev):
+        model = CLIPModel(cfg)
+    return init_random_weights_(model, torch.Generator(device=dev).manual_seed(config.seed))
+
+
+def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConfig):
+    """Train ``model`` (on its device) as the JAX ``run_training`` does and
+    save the final weights; returns (final TrainState, per-epoch metrics,
+    checkpoint path)."""
+    _refuse_unported(config)
+    device = next(model.parameters()).device
+    accumulation_steps = max(1, config.effective_batch_size // config.batch_size)
+    total_updates = max(1, (len(train_loader) * config.epochs) // accumulation_steps)
+    schedule = linear_warmup_schedule(config.learning_rate, config.warmup_steps, total_updates)
+    optimizer = build_optimizer(model, schedule, weight_decay=config.weight_decay,
+                                max_grad_norm=config.max_grad_norm,
+                                accumulation_steps=accumulation_steps)
+    state = TrainState(model=model, optimizer=optimizer)
+    train_step = make_clip_train_step(model)
+    logger = MetricsLogger(enabled=True, use_wandb=config.use_wandb,
+                           wandb_project=config.wandb_project,
+                           wandb_run_name=config.wandb_run_name or config.run_name,
+                           wandb_config=vars(config))
+    os.makedirs(config.results_dir, exist_ok=True)
+    history = []
+    for epoch in range(config.epochs):
+        t0 = time.time()
+        train_loader.set_epoch(epoch)
+        losses = []  # 0-d device tensors: one host sync per epoch
+        for batch in train_loader:
+            state, m = train_step(state, to_device(batch, device))
+            losses.append(m["loss"])
+        train_loss = float(torch.stack(losses).mean()) if losses else 0.0
+        epoch_time = time.time() - t0
+        metrics = {"epoch": epoch + 1, "train_loss": train_loss, "epoch_time": epoch_time,
+                   "steps": len(losses)}
+        print(f"Epoch {epoch + 1}/{config.epochs} completed in {epoch_time:.2f}s | "
+              f"Train Loss: {train_loss:.4f}")
+        logger.log(metrics)
+        history.append(metrics)
+    ckpt_dir = os.path.join(config.results_dir, "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{state.step}.pt")
+    save_state_dict(host_state_dict(model), path)
+    logger.finish()
+    return state, history, path
+
+
+def zero_shot_eval(model: CLIPModel, loader, class_names, collator: ClipCollator, device) -> float:
+    """Zero-shot accuracy: nearest caption embedding per class."""
+    ids, masks = zip(*(collator.caption_ids(name) for name in class_names))
+    with torch.no_grad():
+        model.eval()
+        class_features = model.encode_text(torch.from_numpy(np.stack(ids)).to(device),
+                                           torch.from_numpy(np.stack(masks)).to(device))
+    step = make_zero_shot_step(model)
+    correct, total = 0, 0
+    for batch in loader:
+        c, n = step(model, to_device(batch, device), class_features)
+        correct += int(c)
+        total += int(n)
+    acc = 100.0 * correct / max(total, 1)
+    print(f"Zero-shot accuracy: {acc:.2f}% ({correct}/{total})")
+    return acc
+
+
+def main(argv=None):
+    """The CLI; returns {"zero_shot_acc", "history" (per-epoch metrics),
+    "checkpoint" (path), "state" (the final TrainState)}."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config_path", type=str, required=True)
+    parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+
+    with open(args.config_path) as f:
+        config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
+    _refuse_unported(config)
+    random.seed(config.seed)
+    np.random.seed(config.seed)
+    tokenizer = load_tokenizer("concept-tokenizer")
+
+    train_dataset, val_dataset, test_dataset = load_split_datasets(
+        ColorDataset, mapping_dir=os.path.dirname(config.mapping_path),
+        data_dir=config.image_root,
+        train_transform=create_transforms(config, is_train=True, seed=config.seed),
+        val_transform=create_transforms(config, is_train=False, seed=config.seed),
+        return_synset=True)
+    class_names = train_dataset.unique_labels
+    label_to_idx = {n: i for i, n in enumerate(class_names)}
+    print(f"Loaded contrastive dataset with {len(train_dataset)} train / "
+          f"{len(val_dataset)} val / {len(test_dataset)} test pairs, "
+          f"{len(class_names)} concepts")
+
+    collator = ClipCollator(tokenizer, config.caption_template, config.context_length)
+    model = init_model(config, len(tokenizer), device)
+    train_loader = BatchLoader(train_dataset, batch_size=config.batch_size, shuffle=True,
+                               drop_last=True, collate_fn=collator, seed=config.seed)
+    state, history, path = run_training(model, train_loader, config)
+
+    def eval_collate(batch):
+        images = np.stack([b[0] for b in batch]).astype(np.float32)
+        labels = np.asarray([label_to_idx[b[1]] for b in batch], dtype=np.int32)
+        return {"images": images, "labels": labels}
+
+    test_loader = BatchLoader(test_dataset, batch_size=config.batch_size, collate_fn=eval_collate)
+    acc = zero_shot_eval(model, test_loader, class_names, collator, device)
+    return {"zero_shot_acc": acc, "history": history, "checkpoint": path, "state": state}
+
+
+if __name__ == "__main__":
+    main()

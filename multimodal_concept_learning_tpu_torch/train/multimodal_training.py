@@ -29,8 +29,6 @@ import time
 import numpy as np
 import torch
 
-from multimodal_concept_learning_tpu.configs import MultimodalTrainingConfig
-from multimodal_concept_learning_tpu.utils.logging import MetricsLogger
 from multimodal_concept_learning_tpu_torch import miniyaml
 from multimodal_concept_learning_tpu_torch.checkpoint import (
     host_state_dict,
@@ -38,6 +36,7 @@ from multimodal_concept_learning_tpu_torch.checkpoint import (
     load_state_dict,
     save_state_dict,
 )
+from multimodal_concept_learning_tpu_torch.configs import MultimodalTrainingConfig
 from multimodal_concept_learning_tpu_torch.data.collator import MultimodalCollator
 from multimodal_concept_learning_tpu_torch.data.datasets import (
     ColorDataset,
@@ -63,6 +62,7 @@ from multimodal_concept_learning_tpu_torch.parallel.train_step import (
     make_mllm_train_step,
 )
 from multimodal_concept_learning_tpu_torch.serve.loader import build_tokenizer, model_config
+from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
 
 def _refuse_unported(config: MultimodalTrainingConfig) -> None:

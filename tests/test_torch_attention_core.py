@@ -1,0 +1,154 @@
+"""PyTorch port: K2, the token-major attention core (plain versions, CPU).
+
+The port's ``attention_core_padded`` and ``attention_core`` (their plain
+forward and backward, which CPU tensors run) against the JAX functions of
+the same names in interpret mode, on the same numpy inputs in float32: outputs within 1e-5, gradients
+(of a random cotangent) within 1e-4.  The kernels themselves are held to
+these plain versions on the card by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+OUT_TOL = 1e-5
+GRAD_TOL = 1e-4
+
+
+def _inputs(b, t, heads, d, seed, mask_kind):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, t, 3 * heads * d)).astype(np.float32)
+    cot = rng.standard_normal((b, t, heads * d)).astype(np.float32)
+    if mask_kind is None:
+        return qkv, cot, None
+    mask = np.zeros((b, t), np.int32)
+    if mask_kind == "right_padded":
+        for i, n in enumerate(rng.integers(1, t + 1, size=b)):
+            mask[i, :n] = 1
+    else:  # holes anywhere; key 0 kept so every causal row has a valid key
+        mask = (rng.random((b, t)) < 0.6).astype(np.int32)
+        mask[:, 0] = 1
+    return qkv, cot, mask
+
+
+def _jax(qkv, cot, mask, heads, causal):
+    from multimodal_concept_learning_tpu.ops.attention_core import attention_core_padded
+
+    kv = None if mask is None else jnp.asarray(mask)
+
+    def f(x):
+        return attention_core_padded(x, heads, causal=causal, kv_mask=kv, interpret=True,
+                                     block_diag=False)
+
+    out, vjp = jax.vjp(f, jnp.asarray(qkv))
+    return np.asarray(out), np.asarray(vjp(jnp.asarray(cot))[0])
+
+
+def _port(qkv, cot, mask, heads, causal):
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    kv = None if mask is None else torch.from_numpy(mask)
+    out = attention_core_padded(x, heads, causal=causal, kv_mask=kv)
+    out.backward(torch.from_numpy(cot))
+    return out.detach().numpy(), x.grad.numpy()
+
+
+@pytest.mark.parametrize("b,t,heads,d,causal,mask_kind", [
+    (4, 21, 4, 16, True, "right_padded"),
+    (3, 17, 4, 16, False, None),
+    (3, 19, 2, 16, True, "holes"),
+    (2, 23, 4, 16, False, "holes"),
+])
+def test_plain_k2_matches_jax(b, t, heads, d, causal, mask_kind):
+    qkv, cot, mask = _inputs(b, t, heads, d, seed=t, mask_kind=mask_kind)
+    want_out, want_grad = _jax(qkv, cot, mask, heads, causal)
+    got_out, got_grad = _port(qkv, cot, mask, heads, causal)
+    np.testing.assert_allclose(got_out, want_out, atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(got_grad, want_grad, atol=GRAD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("t,t_real,causal,mask_kind", [
+    (32, 21, False, None),
+    (32, 27, True, "holes"),
+    (48, 40, True, "right_padded"),
+])
+def test_plain_k2_t_real_below_t_matches_jax(t, t_real, causal, mask_kind):
+    """``attention_core`` with keys at or past ``t_real`` masked, against the
+    JAX ``attention_core`` (T a multiple of 16, as that wrapper takes it)."""
+    from multimodal_concept_learning_tpu.ops.attention_core import attention_core as jax_core
+
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core
+
+    heads = 2
+    qkv, cot, mask = _inputs(3, t, heads, 16, seed=t_real, mask_kind=mask_kind)
+    kv = None if mask is None else jnp.asarray(mask)
+    want_out, vjp = jax.vjp(lambda x: jax_core(x, heads, t_real, causal=causal, kv_mask=kv,
+                                                interpret=True, block_diag=False),
+                            jnp.asarray(qkv))
+    want_grad = vjp(jnp.asarray(cot))[0]
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = attention_core(x, heads, t_real, causal=causal,
+                         kv_mask=None if mask is None else torch.from_numpy(mask))
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad), atol=GRAD_TOL, rtol=0)
+
+
+def test_short_kv_mask_is_zero_padded():
+    """A kv_mask shorter than T masks the keys past its end, as the JAX
+    wrapper's zero pad does."""
+    qkv, cot, mask = _inputs(2, 18, 2, 16, seed=5, mask_kind="right_padded")
+    short = mask[:, :11]
+    want = _jax(qkv, cot, short, 2, False)
+    got = _port(qkv, cot, short, 2, False)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=GRAD_TOL, rtol=0)
+
+
+def test_rows_without_a_valid_key_differ_from_jax_by_design():
+    """Sample 1 masks every key.  JAX averages V uniformly over all T_pad
+    keys (the -1e30 scores all tie); the port returns zeros and no gradient
+    for those rows.  Rows with a valid key agree."""
+    b, t, heads, d = 2, 13, 2, 16
+    qkv, cot, _ = _inputs(b, t, heads, d, seed=7, mask_kind=None)
+    mask = np.ones((b, t), np.int32)
+    mask[1] = 0
+    want_out, want_grad = _jax(qkv, cot, mask, heads, False)
+    got_out, got_grad = _port(qkv, cot, mask, heads, False)
+    np.testing.assert_allclose(got_out[0], want_out[0], atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(got_grad[0], want_grad[0], atol=GRAD_TOL, rtol=0)
+    assert not got_out[1].any() and not got_grad[1].any()
+    v = qkv[1, :, 2 * heads * d:]  # the JAX row: every key (T padded to 16) weighs 1/16
+    np.testing.assert_allclose(want_out[1], np.broadcast_to(v.sum(0) / 16, (t, heads * d)),
+                               atol=OUT_TOL, rtol=0)
+
+
+def test_lse_of_the_plain_forward():
+    """return_lse gives logsumexp of the valid scaled scores, +inf on a row
+    with no valid key (what the kernels' backward reads as p = 0)."""
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import (
+        attention_core_reference,
+    )
+
+    qkv, _, _ = _inputs(2, 9, 2, 16, seed=3, mask_kind=None)
+    mask = np.ones((2, 9), np.int32)
+    mask[1] = 0
+    _, lse = attention_core_reference(torch.from_numpy(qkv), 2, 9, causal=True,
+                                      kv_mask=torch.from_numpy(mask), return_lse=True)
+    q = qkv[0, :, :16]
+    k = qkv[0, :, 32:48]
+    s = q @ k.T / 4.0
+    s[np.triu_indices(9, 1)] = -np.inf
+    want = np.log(np.exp(s - s.max(1, keepdims=True)).sum(1)) + s.max(1)
+    np.testing.assert_allclose(lse[0, 0].numpy(), want, atol=1e-5, rtol=0)
+    assert torch.isinf(lse[1]).all() and (lse[1] > 0).all()
+
+
+def test_block_diag_raises():
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core
+
+    with pytest.raises(NotImplementedError, match="block-diagonal"):
+        attention_core(torch.zeros(1, 4, 3 * 64), 1, 4, block_diag=True)

@@ -1,9 +1,10 @@
 """PyTorch port: import hygiene and the device policy.
 
 The port's main path must run where only torch, numpy and the CUDA
-toolkit are installed: importing it pulls in no jax, flax, optax, Pillow or
-PyYAML.  A CUDA device that is asked for and absent is an error, never a
-silent CPU run; so is a kernel build without nvcc.
+toolkit are installed: importing it pulls in no jax, flax, optax, Pillow,
+PyYAML or module of the JAX package.  A CUDA device that is asked for and
+absent is an error, never a silent CPU run; so is a kernel build without
+nvcc.
 """
 
 import os
@@ -38,23 +39,46 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.data.transforms",
     "multimodal_concept_learning_tpu_torch.miniyaml",
     "multimodal_concept_learning_tpu_torch.train.multimodal_training",
+    "multimodal_concept_learning_tpu_torch.train.contrastive_training",
+    "multimodal_concept_learning_tpu_torch.models.clip",
+    "multimodal_concept_learning_tpu_torch.ops.attention_core",
+    "multimodal_concept_learning_tpu_torch.data.clip_collator",
+    "multimodal_concept_learning_tpu_torch.configs",
+    "multimodal_concept_learning_tpu_torch.tokenizer",
+    "multimodal_concept_learning_tpu_torch.utils.logging",
     "chip_smoke",
 ]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}
+
+
+def _import_roots(path: Path) -> set:
+    """The top-level names of every import statement in ``path``, those
+    inside functions too."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module and not node.level]
+    return {n.split(".")[0] for n in names}
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
     """chip_smoke.py's own imports (also those inside its phases) name only
     the port, torch and the standard library."""
-    import ast
-
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
-    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
-             for a in node.names]
-    names += [node.module for node in ast.walk(tree)
-              if isinstance(node, ast.ImportFrom) and node.module]
-    roots = {n.split(".")[0] for n in names}
+    roots = _import_roots(REPO / "chip_smoke.py")
     assert "multimodal_concept_learning_tpu_torch" in roots
-    assert not roots & {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}, roots
+    assert not roots & FORBIDDEN, roots
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    """No module of the port names jax, flax, optax or the JAX package in
+    any import, at top level or inside a function."""
+    files = sorted((REPO / "multimodal_concept_learning_tpu_torch").rglob("*.py"))
+    assert len(files) > 30
+    bad = {str(f.relative_to(REPO)): sorted(_import_roots(f) & FORBIDDEN) for f in files}
+    assert not {f: r for f, r in bad.items() if r}
 
 
 def _without_cuda_env():
@@ -67,7 +91,8 @@ def test_main_path_imports_no_jax_pil_or_yaml():
     code = (
         "import importlib, sys\n"
         f"for m in {MAIN_PATH!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'PIL', 'yaml') if m in sys.modules)\n"
+        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'PIL', 'yaml',\n"
+        "                          'multimodal_concept_learning_tpu') if m in sys.modules)\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_without_cuda_env(),
@@ -111,6 +136,18 @@ def test_trainer_cli_refuses_cuda_without_cuda(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_without_cuda_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "is_available" in out.stderr
+
+
+def test_contrastive_cli_refuses_cuda_without_cuda(tmp_path):
+    """The contrastive trainer's default --device cuda never falls back."""
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("dataset_name: color_contrastive\n")
+    for extra in ([], ["--device", "cuda"]):
+        code = ("from multimodal_concept_learning_tpu_torch.train.contrastive_training import main\n"
+                f"main(['--config_path', {str(cfg)!r}] + {extra!r})\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_without_cuda_env(),
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0 and "is_available" in out.stderr, out.stderr
 
 
 def test_chip_smoke_fails_without_cuda():
