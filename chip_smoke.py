@@ -33,12 +33,27 @@ Phases (each prints its results; any failure exits non-zero):
    trains the full ``experiments/contrastive/color/12_colors_3k.yaml`` CLIP
    (batch 256) for one epoch on a generated 12-color dataset (108 images per
    color); exact K2 launch counts, finite loss, zero-shot accuracy, every
-   tensor moved, steps/s, images/s and peak memory.
+   tensor moved, steps/s, images/s and peak memory;
+10. quantized parity (run after phase 4): phase 4's model quantized by the
+    serving loader, greedy tokens on the card == on the CPU, with int4 LM
+    weights under ``MCL_PAGED_KERNEL=2`` (K5 and K4 launched, K3 not) and
+    with int8 LM and vision weights;
+11. quantized slice (run after phase 5, on its results dir): the paged
+    server with ``int4=True`` under ``MCL_PAGED_KERNEL=2`` (K5 launches
+    exactly 7 x 26 per decode step, K4 > 0, K3 0), then with
+    ``int8=True, int8_vision=True``, 16 requests each; requests/s, tokens/s
+    and p50 latency beside phase 5's.
 
-Phase 3 also times each kernel's path-shape case in bf16 beside its bound
-(bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever is larger)
-and one PyTorch library call computing the same function (SDPA, or its
-backward; none for K3).  ``python3 chip_smoke.py --profile`` builds the
+Phase 3 also holds K5 (int4 decode matmul; x in float32 and bf16, limits
+1e-5 and 8e-3 of the reference's max |value|) and K4 (multi-page paged
+decode; pages_per_block 1, 3, 8) to their plain versions, and times each
+kernel's path-shape case in bf16 beside its bound (bytes over 3.35 TB/s or
+operations over 989 TFLOP/s, whichever is larger) and one PyTorch library
+call computing the same function (SDPA, or its backward;
+``torch._weight_int4pack_mm`` for K5; none for K3 and K4).  K5 and K4 are
+timed by CUDA graph replay (device time without the wrapper's host work),
+K5 with its weights cycled past the L2 cache; phase 3 also times K4 beside
+K3 at 4 kv heads, ~1k context, pages of 16 and 64.  ``python3 chip_smoke.py --profile`` builds the
 kernels and profiles the full CLIP train step instead (``torch.profiler``:
 idle share, aten ops and device time by kernel).
 
@@ -78,6 +93,32 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed, so the wrapper's host work is not timed (the
+    event loop of ``cuda_time_ms`` times it where the host is slower)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -440,6 +481,194 @@ def _paged_cases(torch, gen, dev):
             + [("hk 2, group 2, d 128, page 8, window 97", *other, 97)])
 
 
+# gemma3-1b's seven decode projections (in, out) at 8 rows, then rows 1 and
+# 64 of the widest, and a nano shape of tests/test_int4.py
+GEMMA_PROJECTIONS = (("q_proj", 1152, 1024), ("k_proj", 1152, 256), ("v_proj", 1152, 256),
+                     ("o_proj", 1024, 1152), ("gate_proj", 1152, 6912),
+                     ("up_proj", 1152, 6912), ("down_proj", 6912, 1152))
+K5_CASES = ([(f"gemma3 {n} [8,{i}]x[{i},{o}]", 8, i, o) for n, i, o in GEMMA_PROJECTIONS]
+            + [("gemma3 up_proj rows 1", 1, 1152, 6912),
+               ("gemma3 up_proj rows 64", 64, 1152, 6912),
+               ("nano down_proj [16,512]x[512,128]", 16, 512, 128)])
+K5_TOL = {"float32": 1e-5, "bfloat16": 8e-3}  # of the reference's max |value|
+COLD_BYTES = 96e6  # weights cycled per timing: past the 50 MB L2, as a decode step finds them
+
+
+def _int4_sets(torch, gen, dev, d_in: int, d_out: int, n: int) -> list:
+    """``n`` quantized random weights [d_in, d_out] (normal(0.02))."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    return [i4.quantize_weight_int4(0.02 * torch.randn(d_in, d_out, generator=gen, device=dev))
+            for _ in range(n)]
+
+
+def _cycled(fn, sets: list):
+    """A call of ``fn(*sets[i])`` that moves to the next set each time."""
+    state = {"i": 0}
+
+    def call():
+        args = sets[state["i"] % len(sets)]
+        state["i"] += 1
+        return fn(*args)
+    return call
+
+
+def _int4pack(torch, packed, scale, high_first: bool = True):
+    """(packed weight, scales and zeros) of ``torch._weight_int4pack_mm``
+    for the same codes (unsigned code + 8, zero point 0), or None; the
+    nibble order of its uint8 input with ``high_first``."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None
+    u = (i4.unpack_int4(packed).to(torch.int32) + 8).t().contiguous()  # [out, in] in 0..15
+    even, odd = u[:, ::2], u[:, 1::2]
+    pairs = (even << 4) | odd if high_first else (odd << 4) | even
+    w = torch._convert_weight_to_int4pack(pairs.to(torch.uint8), 8)
+    zeros = torch.zeros_like(scale)
+    return w, torch.stack([scale, zeros], dim=-1).contiguous()
+
+
+def _phase_int4(torch, gen, dev, report: dict) -> None:
+    """K5 against its plain version on the same inputs at the decode path's
+    shapes, x in float32 and bf16; every gemma3 shape timed cold (weights
+    cycled past L2) in bf16; the widest beside its bound, the bf16 product
+    of the dequantized weight and ``torch._weight_int4pack_mm``."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    k5 = report.setdefault("int4_matmul", {"max_abs_err": 0.0})
+    layer_ms = 0.0  # the seven projections of one gemma3 layer
+    for name, rows, d_in, d_out in K5_CASES:
+        (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
+        x = torch.randn(rows, d_in, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            out = i4.int4_matmul(xd, packed, scale)
+            ref = i4.int4_matmul_reference(xd.float(), packed, scale)
+            torch.cuda.synchronize()
+            tag = str(dtype).replace("torch.", "")
+            err = (out.float() - ref).abs().max().item()
+            limit = K5_TOL[tag] * ref.abs().max().item()
+            print(f"[kernels] K5 {name} {tag}: max_abs_err {err:.3e} (limit {limit:.3e})",
+                  flush=True)
+            if not err <= limit:
+                fail(f"K5 {name} {tag}: max abs err {err} > {limit}")
+            k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        if not name.startswith("gemma3") or "rows" in name:
+            continue
+        set_bytes = nbytes(packed, scale)
+        sets = _int4_sets(torch, gen, dev, d_in, d_out, max(16, int(COLD_BYTES // set_bytes)))
+        xb = x.to(torch.bfloat16)
+        call = _cycled(lambda p, s: i4.int4_matmul(xb, p, s), sets)
+        ms = graph_time_ms(call, iters=len(sets))
+        eager_ms = cuda_time_ms(call)
+        b = bound(nbytes(packed, scale, xb) + 2 * rows * d_out, 2 * rows * d_in * d_out)
+        layer_ms += ms
+        print(f"[kernels] K5 {name} bf16 cold: kernel {ms:.5f} ms (eager wrapper loop "
+              f"{eager_ms:.4f} ms), bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
+        if name.split()[1] != "up_proj":
+            continue
+        plain_ms = cuda_time_ms(lambda: i4.int4_matmul_reference(xb, packed, scale))
+        dense = [i4.dequantize_int4(p, s).to(torch.bfloat16) for p, s in sets[:8]]
+        dense_ms = graph_time_ms(_cycled(lambda w: xb @ w, [(w,) for w in dense]), iters=8)
+        del dense
+        pack_ms = None
+        if hasattr(torch, "_weight_int4pack_mm"):
+            # the nibble order whose product reproduces the plain version's
+            want = i4.int4_matmul_reference(xb.float(), sets[0][0], sets[0][1])
+            errs = {}
+            for high_first in (True, False):
+                w4, sz = _int4pack(torch, *sets[0], high_first=high_first)
+                lib = torch._weight_int4pack_mm(xb, w4, 64, sz)
+                errs[high_first] = (lib.float() - want).abs().max().item()
+            order = min(errs, key=errs.get)
+            lib_err = errs[order]
+            packs = [_int4pack(torch, p, s, high_first=order) for p, s in sets[:16]]
+            pack_ms = graph_time_ms(_cycled(lambda w, z: torch._weight_int4pack_mm(xb, w, 64, z),
+                                            packs), iters=16)
+            print(f"[kernels] K5 library torch._weight_int4pack_mm: {pack_ms:.5f} ms cold "
+                  f"(max abs diff from the plain version {lib_err:.3e}, nibble order "
+                  f"{'high' if order else 'low'} first)", flush=True)
+        print(f"[kernels] K5 {name} bf16: plain version {plain_ms:.4f} ms; bf16 matmul of "
+              f"the dequantized weight (what bf16 weights pay) {dense_ms:.5f} ms cold", flush=True)
+        k5.update(ms=ms, plain_ms=plain_ms, library_ms=pack_ms, **b)
+    print(f"[kernels] K5 over one decode step of gemma3-1b (7 projections x 26 layers, cold): "
+          f"{26 * layer_ms:.4f} ms", flush=True)
+
+
+K4_PPB = (1, 3, 8)
+
+
+def _phase_paged_mp(torch, gen, dev, report: dict) -> None:
+    """K4 against its plain version (the same blocks) on K3's cases plus
+    64-token pages at 4 kv heads and ~1k context, pages_per_block 1, 3 and
+    8 (clamped on the card), fp32 and bf16; the length-0 row exactly 0.
+    Then K4 beside K3 at 4 kv heads (group 4, d 256), batch 8, ~1k context,
+    pages of 16 and 64, bf16, by CUDA graph."""
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_kernel as pk
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_mp_kernel as mp
+
+    k4 = report.setdefault("paged_decode_attention_mp", {"max_abs_err": 0.0})
+    long_ctx = [0, 1000, 1024, 700, 1, 63, 64, 65]
+    cases = _paged_cases(torch, gen, dev) + [
+        ("hk 4, group 4, d 256, page 64, ~1k context",
+         *_paged_case(torch, gen, dev, 16, 4, 256, 64, 17, long_ctx), -1)]
+    for name, q, pool_k, pool_v, pt, lens, w in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dtype) for t in (q, pool_k, pool_v))
+            args = (qd, kd, vd, pt, lens)
+            tag = str(dtype).replace("torch.", "")
+            for ppb in K4_PPB:
+                out = mp.paged_decode_attention_mp(*args, scale=1 / 16, window=w,
+                                                   pages_per_block=ppb)
+                ref = mp.paged_decode_attention_mp_reference(
+                    qd.float(), kd.float(), vd.float(), pt, lens, scale=1 / 16, window=w,
+                    pages_per_block=ppb)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                zero_row = out[0].abs().max().item()
+                sched = mp.mp_schedule(kd.shape[2], kd.shape[3], dtype,
+                                       qd.shape[2] // kd.shape[1], ppb, pt.shape[1])
+                print(f"[kernels] K4 {name} {tag} pages_per_block {ppb} (card: {sched[1]} "
+                      f"segments of {sched[0]} tokens): max_abs_err {err:.3e} len-0 row "
+                      f"{zero_row:.1e}", flush=True)
+                if not (err <= TOL[tag] and zero_row == 0.0):
+                    fail(f"K4 {name} {tag} ppb {ppb}: max abs err {err}, len-0 row {zero_row}")
+                k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            if w == 512 and dtype is torch.bfloat16:  # the main path's shape, as K3's row
+                ms = graph_time_ms(lambda: mp.paged_decode_attention_mp(*args, scale=1 / 16,
+                                                                        window=w))
+                plain_ms = cuda_time_ms(lambda: mp.paged_decode_attention_mp_reference(
+                    *args, scale=1 / 16, window=w))
+                tokens = int(lens.clamp(max=w).sum())
+                hk, d = kd.shape[1], kd.shape[-1]
+                k4.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          **bound(2 * nbytes(qd) + nbytes(pt, lens)
+                                  + 2 * tokens * hk * d * kd.element_size(),
+                                  4 * d * qd.shape[2] * tokens))
+                k3_ms = graph_time_ms(lambda: pk.paged_decode_attention(*args, scale=1 / 16,
+                                                                       window=w))
+                print(f"[kernels] K4 {name} bf16: kernel {ms:.5f} ms (K3 {k3_ms:.5f} ms), "
+                      f"plain {plain_ms:.4f} ms, bound {k4['bound_ms']:.5f} ms", flush=True)
+    for ps in (16, 64):
+        np_ = -(-1024 // ps)
+        q, pool_k, pool_v, pt, lens = _paged_case(torch, gen, dev, 16, 4, 256, ps, np_,
+                                                  [1024, 1017, 1000, 990, 960, 1024, 1003, 998])
+        args = tuple(t.to(torch.bfloat16) for t in (q, pool_k, pool_v)) + (pt, lens)
+        k3_ms = graph_time_ms(lambda: pk.paged_decode_attention(*args, scale=1 / 16))
+        k4_ms = graph_time_ms(lambda: mp.paged_decode_attention_mp(*args, scale=1 / 16))
+        k3_eager = cuda_time_ms(lambda: pk.paged_decode_attention(*args, scale=1 / 16))
+        k4_eager = cuda_time_ms(lambda: mp.paged_decode_attention_mp(*args, scale=1 / 16))
+        tokens = int(lens.sum())
+        b = bound(2 * nbytes(args[0]) + nbytes(pt, lens) + 2 * tokens * 4 * 256 * 2,
+                  4 * 256 * 16 * tokens)
+        sched = mp.mp_schedule(ps, 256, torch.bfloat16, 4, 8, np_)
+        print(f"[kernels] K3 vs K4, batch 8, hk 4, group 4, d 256, ~1k context, page {ps}, "
+              f"bf16: K3 {k3_ms:.5f} ms, K4 {k4_ms:.5f} ms (pages_per_block 8 -> {sched[1]} "
+              f"of {sched[0]} tokens); eager wrapper loops K3 {k3_eager:.4f} ms, K4 "
+              f"{k4_eager:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
+
+
 def phase_kernels(report: dict) -> None:
     import torch
 
@@ -503,6 +732,8 @@ def phase_kernels(report: dict) -> None:
                                       4 * d * qd.shape[2] * tokens))
         _phase_flash_bwd(torch, fa, gen, dev, report)
         _phase_core(torch, gen, dev, report)
+        _phase_int4(torch, gen, dev, report)
+        _phase_paged_mp(torch, gen, dev, report)
 
 
 def _rgb(name: str) -> list:
@@ -574,6 +805,72 @@ def phase_parity() -> None:
             fail(f"parity at window {window}: cpu {on_cpu.tolist()}, launches {launched}")
 
 
+def phase_quant_parity() -> None:
+    """Phase 10: phase 4's model (full widths, 2 + 2 layers, float32,
+    window 512) quantized by the serving loader's function, on the card and
+    on the CPU from the same quantized weights: greedy ``paged_generate``
+    gives the same tokens with int4 LM weights under MCL_PAGED_KERNEL=2 (K5
+    and K4 launched, K3 not) and with int8 LM + vision weights (K3)."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import (
+        build_mllm,
+        init_random_weights_,
+    )
+    from multimodal_concept_learning_tpu_torch.models.mllm import (
+        MLLM,
+        MLLMConfig,
+        paged_generate,
+    )
+    from multimodal_concept_learning_tpu_torch.serve.loader import _quantize_for_serving
+
+    base = MLLMConfig.create(vocab_size=1148, dtype=torch.float32)
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, num_hidden_layers=2),
+        lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=512,
+                               sliding_window_pattern=2))
+    sd = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED)).state_dict()
+    rng = np.random.default_rng(SEED + 1)
+    lens = [64, 40, 17, 5]
+    t = 197 + max(lens)
+    ids = rng.integers(4, 1148, size=(len(lens), t)).astype(np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(lens):
+        mask[i, : 197 + n] = 1
+    ids[mask == 0] = 0
+    images = np.stack([_circle(c) for c in ([255, 0, 0], [0, 128, 255], [40, 200, 40],
+                                            [250, 250, 0])])
+    inputs = [torch.from_numpy(x) for x in (images, ids, mask)]
+    counters = _kernel_counters()
+    for quant, env in (({"int4": True}, "2"), ({"int8": True, "int8_vision": True}, None)):
+        qsd, qcfg = _quantize_for_serving(sd, cfg, quant.get("int8", False),
+                                          quant.get("int8_vision", False), False,
+                                          int4=quant.get("int4", False))
+        if env:
+            os.environ["MCL_PAGED_KERNEL"] = env
+        try:
+            before = {n: fn.launches for n, fn in counters.items()}
+            on_card = paged_generate(build_mllm(qcfg, qsd, "cuda"), *inputs, max_new_tokens=8,
+                                     page_size=16).cpu().numpy()
+            launched = {n: fn.launches - before[n] for n, fn in counters.items()}
+            on_cpu = paged_generate(build_mllm(qcfg, qsd, "cpu"), *inputs, max_new_tokens=8,
+                                    page_size=16).numpy()
+        finally:
+            os.environ.pop("MCL_PAGED_KERNEL", None)
+        same = bool((on_card == on_cpu).all())
+        print(f"[quant-parity] {quant} (MCL_PAGED_KERNEL={env}): cuda tokens == cpu tokens: "
+              f"{same}; kernel launches {launched}; cuda {on_card.tolist()}", flush=True)
+        if not same:
+            fail(f"quantized parity {quant}: cpu {on_cpu.tolist()}")
+        k3, k4, k5 = (launched[n] for n in ("paged_decode_attention", "paged_decode_attention_mp",
+                                            "int4_matmul"))
+        ok = (k5 > 0 and k4 > 0 and k3 == 0) if env else (k5 == 0 and k3 > 0)
+        if not ok:
+            fail(f"quantized parity {quant}: launches {launched}")
+
+
 TRAINING_CONFIG = {  # experiments/multimodal/color/12_colors_3k.yaml (served fields)
     "prompt_template": "Is the color of the circle {class_name}?",
     "dataset_name": "color_multimodal", "vision_model_name": "vit-b-16",
@@ -618,24 +915,41 @@ def _write_results_dir(root: str) -> None:
     print(f"[slice] random-init results dir: vocab {len(tokenizer)}, {n} parameters", flush=True)
 
 
-def phase_slice(report: dict, root: str) -> None:
+def _kernel_counters() -> dict:
+    """The serving path's kernel wrappers by report name."""
+    from multimodal_concept_learning_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_concept_learning_tpu_torch.ops.int4 import int4_matmul
+    from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
+        paged_decode_attention,
+    )
+    from multimodal_concept_learning_tpu_torch.ops.paged_attention_mp_kernel import (
+        paged_decode_attention_mp,
+    )
+
+    return {"flash_attention_fwd": flash_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "paged_decode_attention_mp": paged_decode_attention_mp,
+            "int4_matmul": int4_matmul}
+
+
+def _serve(root: str, tag: str, **quant) -> dict:
+    """Serve the results dir ``root`` through the port's paged server
+    (``make_server``, batch 8, 8 answer tokens, pages of 16): a warm-up
+    request, then 16 requests from 16 threads; /healthz and /metrics over
+    HTTP.  Returns the run's numbers and the serving path's launch counts
+    (counted from 0 just before the first request)."""
     import http.client
     import threading
 
     import torch
 
-    from multimodal_concept_learning_tpu_torch.ops.flash_attention import flash_attention
-    from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
-        paged_decode_attention,
-    )
     from multimodal_concept_learning_tpu_torch.serve.server import make_server
 
     t0 = time.perf_counter()
-    _write_results_dir(root)
     torch.cuda.empty_cache()
     httpd, batcher = make_server(root, port=0, paged=True, batch_size=8, max_new_tokens=8,
-                                 page_size=16)
-    print(f"[slice] results dir written and served in {time.perf_counter() - t0:.1f} s",
+                                 page_size=16, **quant)
+    print(f"[{tag}] served in {time.perf_counter() - t0:.1f} s ({quant or 'float weights'})",
           flush=True)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
@@ -644,11 +958,12 @@ def phase_slice(report: dict, root: str) -> None:
     requests = []
     for i in range(16):
         key, name = mapping[i % len(mapping)]
-        rgb = _rgb(key)
-        requests.append((_circle(rgb), f"Is the color of the circle {name}?"))
+        requests.append((_circle(_rgb(key)), f"Is the color of the circle {name}?"))
+    counters = _kernel_counters()
     try:
-        flash_attention.launches = 0
-        paged_decode_attention.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
+        batcher.engine.decode_steps = 0
         batcher.submit(*requests[0])  # first request: cuBLAS/allocator warm-up
         results, tokens, latency = [None] * 16, [0] * 16, [0.0] * 16
 
@@ -666,8 +981,8 @@ def phase_slice(report: dict, root: str) -> None:
         for th in threads:
             th.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = {"flash_attention_fwd": flash_attention.launches,
-                    "paged_decode_attention": paged_decode_attention.launches}
+        launches = {name: fn.launches for name, fn in counters.items()}
+        steps = batcher.engine.decode_steps
         conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
         conn.request("GET", "/healthz")
         health = json.loads(conn.getresponse().read())
@@ -680,20 +995,67 @@ def phase_slice(report: dict, root: str) -> None:
         httpd.shutdown()
         batcher.shutdown()
         server.join(timeout=30)
-    print(f"[slice] 16 requests from 16 threads in {wall:.3f} s: {16 / wall:.3f} requests/s, "
-          f"{sum(tokens) / wall:.1f} generated tokens/s ({sum(tokens)} tokens); "
-          f"p50 latency {1e3 * float(np.median(latency)):.1f} ms, "
-          f"max {1e3 * max(latency):.1f} ms", flush=True)
-    print(f"[slice] healthz {health}; metrics {metrics}", flush=True)
-    print(f"[slice] answers {results[:4]} ...; kernel launches {launches}", flush=True)
+        httpd.server_close()
+    run = {"requests_per_s": 16 / wall, "tokens_per_s": sum(tokens) / wall,
+           "p50_ms": 1e3 * float(np.median(latency)), "launches": launches,
+           "decode_steps": steps}
+    print(f"[{tag}] 16 requests from 16 threads in {wall:.3f} s: {run['requests_per_s']:.3f} "
+          f"requests/s, {run['tokens_per_s']:.1f} generated tokens/s ({sum(tokens)} tokens); "
+          f"p50 latency {run['p50_ms']:.1f} ms, max {1e3 * max(latency):.1f} ms", flush=True)
+    print(f"[{tag}] healthz {health}; metrics {metrics}", flush=True)
+    print(f"[{tag}] answers {results[:4]} ...; kernel launches {launches} over {steps} decode "
+          f"steps", flush=True)
     if not all(isinstance(r, str) for r in results):
-        fail("not every request was answered")
+        fail(f"{tag}: not every request was answered")
     if not (health.get("ok") and metrics.get("completed") == 17 and finite):
-        fail(f"server state: healthz {health}, metrics {metrics}, finite pools {finite}")
-    for name, n in launches.items():
-        if n == 0:
+        fail(f"{tag} server state: healthz {health}, metrics {metrics}, finite pools {finite}")
+    return run
+
+
+def phase_slice(report: dict, root: str) -> dict:
+    """Phase 5: the float model served; K1 and K3 launched, K4 and K5 not."""
+    t0 = time.perf_counter()
+    _write_results_dir(root)
+    print(f"[slice] results dir written in {time.perf_counter() - t0:.1f} s", flush=True)
+    run = _serve(root, "slice")
+    launches = run["launches"]
+    for name in ("flash_attention_fwd", "paged_decode_attention"):
+        if launches[name] == 0:
             fail(f"{name} was never launched by the serving path")
-        report[name]["launches"] = n
+        report[name]["launches"] = launches[name]
+    if launches["paged_decode_attention_mp"] or launches["int4_matmul"]:
+        fail(f"the float serving path launched K4 or K5: {launches}")
+    return run
+
+
+LM_PROJECTION_LAUNCHES = 7 * 26  # K5 launches per decode step: 7 projections x 26 layers
+
+
+def phase_quant_slice(report: dict, root: str, float_run: dict) -> None:
+    """Phase 11: the same results dir served with int4 LM weights under
+    MCL_PAGED_KERNEL=2 (K5 in every decode projection, K4 in every decode
+    attention, no K3), then with int8 LM and vision weights (K3 again);
+    requests/s, tokens/s and p50 latency beside the float run's."""
+    os.environ["MCL_PAGED_KERNEL"] = "2"
+    try:
+        int4 = _serve(root, "int4-slice", int4=True)
+    finally:
+        del os.environ["MCL_PAGED_KERNEL"]
+    launches, steps = int4["launches"], int4["decode_steps"]
+    if launches["int4_matmul"] != LM_PROJECTION_LAUNCHES * steps or steps == 0:
+        fail(f"int4 slice: K5 launches {launches['int4_matmul']} != {LM_PROJECTION_LAUNCHES} "
+             f"x {steps} decode steps")
+    if launches["paged_decode_attention_mp"] == 0 or launches["paged_decode_attention"]:
+        fail(f"int4 slice under MCL_PAGED_KERNEL=2: K4 {launches['paged_decode_attention_mp']} "
+             f"(> 0), K3 {launches['paged_decode_attention']} (0)")
+    for name in ("int4_matmul", "paged_decode_attention_mp"):
+        report[name]["launches"] = launches[name]
+    int8 = _serve(root, "int8-slice", int8=True, int8_vision=True)
+    if int8["launches"]["int4_matmul"] or int8["launches"]["paged_decode_attention"] == 0:
+        fail(f"int8 slice launches {int8['launches']}")
+    for tag, run in (("float", float_run), ("int4 + K4", int4), ("int8 + int8 vision", int8)):
+        print(f"[quant-slice] {tag}: {run['requests_per_s']:.3f} requests/s, "
+              f"{run['tokens_per_s']:.1f} tokens/s, p50 {run['p50_ms']:.1f} ms", flush=True)
 
 
 def _train_batch(tokenizer, labels_mapping, seed: int, b: int = 2):
@@ -1228,6 +1590,11 @@ SOURCES = {
                            "multimodal_concept_learning_tpu/ops/attention_core.py:104"),
     "attention_core_bwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core.cu",
                            "multimodal_concept_learning_tpu/ops/attention_core.py:123"),
+    "int4_matmul": ("multimodal_concept_learning_tpu_torch/csrc/int4_matmul.cu",
+                    "multimodal_concept_learning_tpu/ops/int4.py:111"),
+    "paged_decode_attention_mp": (
+        "multimodal_concept_learning_tpu_torch/csrc/paged_attention_mp.cu",
+        "multimodal_concept_learning_tpu/ops/paged_attention_mp_kernel.py:47"),
 }
 KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1252,7 +1619,7 @@ def main(argv=None) -> None:
 
     set_reference_numerics()
     t_start = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     if args.profile:
         profile_clip()
@@ -1260,9 +1627,11 @@ def main(argv=None) -> None:
     report: dict = {}
     phase_kernels(report)
     phase_parity()
+    phase_quant_parity()
     root = tempfile.mkdtemp(prefix="_smoke_results_", dir=REPO)  # listed in .gitignore
     try:
-        phase_slice(report, root)
+        float_run = phase_slice(report, root)
+        phase_quant_slice(report, root, float_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     serving_k1 = report["flash_attention_fwd"]["launches"]
@@ -1284,6 +1653,7 @@ def main(argv=None) -> None:
                 "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}
                for name, r in report.items()]
     print(f"[timing] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card, flush=True)  # again, beside the results: the card's name and power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@
 - ``state_dict_from_jax``: a JAX ``MLLM`` param tree (nested dicts of
   numpy arrays) -> the port's state dict, with exactly the names and
   layouts ``checkpoint/torch_interop.mllm_params_to_torch`` writes, from
-  this module's numpy copies of that module's per-leaf converters;
+  this module's numpy copies of that module's per-leaf converters.  Trees
+  of quantized serving models convert too: int8 ``{"kernel", "scale"}``
+  and int4 ``{"packed", "scale"}`` leaves keep their JAX layout and types
+  under the same names (``ops/quant.py``, ``ops/int4.py``);
   ``clip_state_dict_from_jax`` the same for a JAX ``CLIPModel`` tree.
 - ``build_mllm``: an ``MLLM`` on a device from a state dict
   (``load_state_dict(strict=True)``), cast by the device policy.
@@ -55,6 +58,14 @@ def _vit_export(rel: str, arr: np.ndarray, patch_size: int):
         return [(f"layernorm.{'weight' if parts[1] == 'scale' else 'bias'}", arr)]
     if parts[0].startswith("layer_"):
         base = f"encoder.layer.{parts[0].split('_')[1]}"
+        if parts[1] in ("layernorm_before", "layernorm_after"):
+            return [(f"{base}.{parts[1]}.{'weight' if parts[2] == 'scale' else 'bias'}", arr)]
+        if _quantized_leaf(parts[-1], arr):  # int8 {"kernel", "scale"}: JAX [in, out] layout
+            owner = ".".join(parts[1:-1])
+            owner = {"attention.output": "attention.output.dense",
+                     "intermediate": "intermediate.dense", "output": "output.dense"}.get(
+                         owner, owner.replace("attention.", "attention.attention.", 1))
+            return [(f"{base}.{owner}.{parts[-1]}", arr)]
         if parts[1] == "attention":
             proj = parts[2]
             if proj in ("query", "key", "value"):
@@ -67,13 +78,16 @@ def _vit_export(rel: str, arr: np.ndarray, patch_size: int):
                     return [(f"{base}.attention.output.dense.weight",
                              arr.reshape(-1, arr.shape[-1]).T)]
                 return [(f"{base}.attention.output.dense.bias", arr)]
-        if parts[1] in ("layernorm_before", "layernorm_after"):
-            return [(f"{base}.{parts[1]}.{'weight' if parts[2] == 'scale' else 'bias'}", arr)]
         if parts[1] in ("intermediate", "output"):
             if parts[2] == "kernel":
                 return [(f"{base}.{parts[1]}.dense.weight", arr.T)]
             return [(f"{base}.{parts[1]}.dense.bias", arr)]
     raise KeyError(f"Unmapped ViT param: {rel}")
+
+
+def _quantized_leaf(leaf: str, arr: np.ndarray) -> bool:
+    """A leaf of an int8 or int4 projection, kept in its JAX layout."""
+    return leaf in ("packed", "scale") or (leaf == "kernel" and arr.dtype == np.int8)
 
 
 _LM_NORMS = ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
@@ -91,6 +105,9 @@ def _lm_entry_to_torch(rel: str, arr: np.ndarray):
         return "model.norm.weight", arr
     if parts[0].startswith("layer_"):
         base = f"model.layers.{parts[0].split('_')[1]}"
+        if _quantized_leaf(parts[-1], arr):  # int8 / int4 leaves: JAX layout, same leaf name
+            owner = "self_attn." + parts[2] if parts[1] == "self_attn" else "mlp." + parts[1]
+            return f"{base}.{owner}.{parts[-1]}", arr
         if parts[1] == "self_attn":
             sub = parts[2]
             if sub in ("q_norm", "k_norm"):  # (head_dim,) RMSNorm weights
@@ -113,13 +130,26 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
         if isinstance(node, dict):
             flat.update(_flatten(node, path + "/"))
         else:
-            flat[path] = np.asarray(node, dtype=np.float32)
+            flat[path] = np.asarray(node)
     return flat
+
+
+def _tensor(name: str, arr: np.ndarray) -> torch.Tensor:
+    """A converted leaf as a tensor: int8 stays int8, a quantization
+    ``scale`` keeps its type (bf16 for int4, float32 for int8), every
+    other leaf becomes float32."""
+    if arr.dtype == np.int8:
+        return torch.from_numpy(arr.copy())
+    t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if name.endswith(".scale") and arr.dtype.name == "bfloat16":
+        return t.to(torch.bfloat16)  # exact: the values are bf16
+    return t
 
 
 def state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
     """JAX MLLM params (numpy leaves, optionally under "params") -> the
-    port's state dict of float32 tensors."""
+    port's state dict: float32 tensors, and the quantized leaves in their
+    own types."""
     params = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
     for key, arr in _flatten(params).items():
@@ -134,7 +164,7 @@ def state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"Unknown MLLM tower: {tower}")
         for name, t in pairs:
-            sd[name] = torch.from_numpy(np.ascontiguousarray(t, dtype=np.float32))
+            sd[name] = _tensor(name, t)
     return sd
 
 
@@ -183,7 +213,7 @@ def clip_state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]
         else:
             raise KeyError(f"Unknown CLIP param: {key}")
         for name, t in pairs:
-            sd[name] = torch.from_numpy(np.ascontiguousarray(t, dtype=np.float32))
+            sd[name] = torch.from_numpy(np.array(t, dtype=np.float32))
     return sd
 
 
@@ -195,7 +225,9 @@ def build_mllm(cfg: MLLMConfig, state_dict: Dict[str, torch.Tensor], device) -> 
     with torch.device("meta"):
         model = MLLM(cfg)
     model.load_state_dict(state_dict, strict=True, assign=True)
-    model = model.float().to(dev)
+    for p in model.parameters():  # quantized buffers keep their int8 / bf16 types
+        p.data = p.data.float()
+    model = model.to(dev)
     cast_for_compute(model, cfg.dtype)
     return model.eval()
 

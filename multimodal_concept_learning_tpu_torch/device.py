@@ -56,9 +56,13 @@ def cast_for_compute(module: nn.Module, dtype: torch.dtype,
     return module
 
 
-def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` in the compute dtype: input, weight and bias cast to
-    ``dtype`` at use (a no-op for a weight already stored in it)."""
+    ``dtype`` at use (a no-op for a weight already stored in it).  A
+    quantized projection (``ops/quant.QuantLinear``, ``ops/int4.Int4Linear``)
+    takes the input in ``dtype`` and returns its own result in it."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x.to(dtype))
     bias = layer.bias
     return F.linear(x.to(dtype), layer.weight.to(dtype), None if bias is None else bias.to(dtype))
 

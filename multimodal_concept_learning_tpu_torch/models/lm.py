@@ -15,7 +15,10 @@ Any other mask (left padding, holes) becomes the JAX
 ``make_attention_bias`` float32 bias, so ``hidden_states`` matches the
 JAX module for every mask and never reads the mask back to the host.
 Every parameter is cast where it is used (``device.linear``), so the model
-trains float32 parameters in the compute dtype.  Entry points: ``embed``,
+trains float32 parameters in the compute dtype.  Serving may quantize the
+seven projections of every block: ``int8_weights`` (``ops/quant.py``) or
+``int4_weights`` (``ops/int4.py``; a decode step runs the K5 kernel in each
+of them), never both; embedding, head and norms stay float.  Entry points: ``embed``,
 ``hidden_states``, ``prefill_paged`` (fills page pools in place),
 ``decode_step_paged`` and ``lm_head``.
 """
@@ -34,11 +37,13 @@ from multimodal_concept_learning_tpu_torch.ops.attention import (
     make_attention_bias,
     multi_head_attention,
 )
+from multimodal_concept_learning_tpu_torch.ops.int4 import Int4Linear
 from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     paged_decode_attention,
     write_prompt_kv,
     write_token_kv,
 )
+from multimodal_concept_learning_tpu_torch.ops.quant import QuantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +65,13 @@ class LMConfig:
     sliding_window_pattern: int = 6
     rope_local_theta: float = 10000.0
     query_pre_attn_scalar: Optional[float] = None
+    int8_weights: bool = False  # serving: int8 projections (ops/quant.py)
+    int4_weights: bool = False  # serving: int4 projections through K5 (ops/int4.py)
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.int8_weights and self.int4_weights:
+            raise ValueError("int8_weights and int4_weights are mutually exclusive")
 
     def layer_is_sliding(self, i: int) -> bool:
         """HF Gemma-3 layer_types: every ``pattern``-th layer is global."""
@@ -110,6 +121,15 @@ class RMSNorm(nn.Module):
 Rope = Tuple[torch.Tensor, torch.Tensor]
 
 
+def projection(cfg: LMConfig, in_features: int, out_features: int) -> nn.Module:
+    """A bias-free projection as the config quantizes it."""
+    if cfg.int8_weights:
+        return QuantLinear(in_features, out_features)
+    if cfg.int4_weights:
+        return Int4Linear(in_features, out_features)
+    return nn.Linear(in_features, out_features, bias=False)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> Rope:
     """(sin, cos) tables [B, T, head_dim // 2] for one base frequency."""
     half = head_dim // 2
@@ -132,10 +152,10 @@ class LMAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = nn.Linear(h, cfg.num_heads * d, bias=False)
-        self.k_proj = nn.Linear(h, cfg.num_kv_heads * d, bias=False)
-        self.v_proj = nn.Linear(h, cfg.num_kv_heads * d, bias=False)
-        self.o_proj = nn.Linear(cfg.num_heads * d, h, bias=False)
+        self.q_proj = projection(cfg, h, cfg.num_heads * d)
+        self.k_proj = projection(cfg, h, cfg.num_kv_heads * d)
+        self.v_proj = projection(cfg, h, cfg.num_kv_heads * d)
+        self.o_proj = projection(cfg, cfg.num_heads * d, h)
         if cfg.use_qk_norm:
             self.q_norm = RMSNorm(d, cfg.rms_norm_eps)
             self.k_norm = RMSNorm(d, cfg.rms_norm_eps)
@@ -185,9 +205,9 @@ class LMMLP(nn.Module):
     def __init__(self, cfg: LMConfig):
         super().__init__()
         self.dtype = cfg.dtype
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.gate_proj = projection(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.up_proj = projection(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.down_proj = projection(cfg, cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

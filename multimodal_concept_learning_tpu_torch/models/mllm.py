@@ -54,6 +54,17 @@ class MLLMConfig:
         return cls(vision=vision, lm=lm, num_vision_tokens=num_vision_tokens,
                    max_answer_tokens=max_answer_tokens, dtype=dtype)
 
+    def quantized(self, int8: bool = False, int8_vision: bool = False,
+                  int4: bool = False) -> "MLLMConfig":
+        """This config with the serving flags set on its towers: ``int8`` /
+        ``int4`` the LM's projections (exclusive: LMConfig raises),
+        ``int8_vision`` the ViT's."""
+        lm = dataclasses.replace(self.lm, int8_weights=self.lm.int8_weights or int8,
+                                 int4_weights=self.lm.int4_weights or int4)
+        vision = dataclasses.replace(self.vision,
+                                     int8_weights=self.vision.int8_weights or int8_vision)
+        return dataclasses.replace(self, lm=lm, vision=vision)
+
 
 class MLLM(nn.Module):
     def __init__(self, cfg: MLLMConfig):

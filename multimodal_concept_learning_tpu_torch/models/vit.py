@@ -11,6 +11,9 @@ use, so float32 parameters train in the compute dtype, as under
 (no convolution); its weight keeps HF's Conv2d layout [H, C, p, p] so the
 reference checkpoint loads as is.  Parameter names are HF ViTModel's, as
 ``checkpoint/torch_interop.mllm_params_to_torch`` writes them.
+``int8_weights`` (serving) makes q/k/v, the attention output and the MLP
+int8 projections (``ops/quant.py``) and forces the ``bthd`` branch; the
+patch embedding and the norms stay float.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 from multimodal_concept_learning_tpu_torch.device import linear
 from multimodal_concept_learning_tpu_torch.ops.attention import multi_head_attention
 from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+from multimodal_concept_learning_tpu_torch.ops.quant import QuantLinear
 
 LAYOUTS = ("bthd", "pallas_core")
 
@@ -41,6 +45,7 @@ class ViTConfig:
     dtype: torch.dtype = torch.bfloat16  # compute dtype; norms and embeddings stay float32
     gelu_approximate: bool = False  # tanh GELU (the CLIP towers'), else exact erf
     attention_layout: str = "bthd"  # "bthd": K1 on [B, T, H, D]; "pallas_core": K2 on packed qkv
+    int8_weights: bool = False  # serving: int8 block projections (ops/quant.py)
 
     def __post_init__(self):
         if self.attention_layout not in LAYOUTS:
@@ -111,8 +116,14 @@ class _Embeddings(nn.Module):
         return torch.cat([cls, x], dim=1) + self.position_embeddings.to(dtype)
 
 
-def _dense(in_features: int, out_features: int) -> nn.ModuleDict:
-    return nn.ModuleDict({"dense": nn.Linear(in_features, out_features)})
+def _linear(cfg: ViTConfig, in_features: int, out_features: int) -> nn.Module:
+    if cfg.int8_weights:
+        return QuantLinear(in_features, out_features, bias=True)
+    return nn.Linear(in_features, out_features)
+
+
+def _dense(cfg: ViTConfig, in_features: int, out_features: int) -> nn.ModuleDict:
+    return nn.ModuleDict({"dense": _linear(cfg, in_features, out_features)})
 
 
 class ViTLayer(nn.Module):
@@ -123,11 +134,11 @@ class ViTLayer(nn.Module):
         h = cfg.hidden_size
         self.cfg = cfg
         self.attention = nn.ModuleDict({
-            "attention": nn.ModuleDict({n: nn.Linear(h, h) for n in ("query", "key", "value")}),
-            "output": _dense(h, h),
+            "attention": nn.ModuleDict({n: _linear(cfg, h, h) for n in ("query", "key", "value")}),
+            "output": _dense(cfg, h, h),
         })
-        self.intermediate = _dense(h, cfg.intermediate_size)
-        self.output = _dense(cfg.intermediate_size, h)
+        self.intermediate = _dense(cfg, h, cfg.intermediate_size)
+        self.output = _dense(cfg, cfg.intermediate_size, h)
         self.layernorm_before = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
         self.layernorm_after = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
@@ -140,7 +151,7 @@ class ViTLayer(nn.Module):
         h = layer_norm_f32(self.layernorm_before, x).to(dt)
         proj = self.attention["attention"]
         names = ("query", "key", "value")
-        if cfg.attention_layout == "pallas_core":
+        if cfg.attention_layout == "pallas_core" and not cfg.int8_weights:
             # one packed projection, [q | k | v] concatenated at use, into K2
             w = torch.cat([proj[n].weight.to(dt) for n in names])
             bias = torch.cat([proj[n].bias.to(dt) for n in names])

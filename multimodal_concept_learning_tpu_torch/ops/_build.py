@@ -27,8 +27,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "paged_attention.cu",
-           "attention_core.cu")
+           "attention_core.cu", "paged_attention_mp.cu", "int4_matmul.cu")
 HEADERS = ("flash_attention_common.cuh",)
+SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +52,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "mcl_attention_core_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "mcl_attention_core_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "mcl_paged_decode_attention_mp": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "mcl_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,0 +1,279 @@
+"""Int4 weight-only quantization for the decode path (counterpart of
+multimodal_concept_learning_tpu/ops/int4.py).
+
+- **Storage** (the JAX layout, bit for bit, so quantized trees interchange):
+  ``packed`` int8 [in/2, out], two 4-bit codes per byte, the low nibble
+  holding input row ``i`` and the high nibble row ``i + in/2``; ``scale``
+  bf16 [in/group, out], one scale per ``group`` input rows and output
+  column.  The orientation is JAX's [in, out], the transpose of
+  ``nn.Linear.weight``.
+- **Compute**: ``int4_matmul`` is the wrapper of the CUDA kernel K5
+  ``csrc/int4_matmul.cu``, which replaces the Pallas TPU kernel
+  ``multimodal_concept_learning_tpu/ops/int4.py:_kernel``.  On a CUDA
+  tensor with at most 64 rows (a decode step) it launches K5 or raises;
+  with more rows (prefill) it dequantizes and runs one matrix product, as
+  the JAX package leaves that case to XLA.  CPU tensors run
+  ``int4_matmul_reference``, the JAX fallback's math: x rounded to bf16,
+  the weight dequantized in float32 and rounded to bf16 once, a
+  float32-accumulated product, the result cast to x's dtype.
+- **Modules**: ``Int4Linear`` holds ``packed``/``scale`` (and an optional
+  float ``bias``) as buffers; it is not an ``nn.Linear``, so the device
+  policy's casts leave its integer weights alone.  ``axis``/``features``
+  give the JAX ``Int4DenseGeneral`` form (the o_proj case).  Converters
+  turn a float state dict of the port into the int4 layout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from multimodal_concept_learning_tpu_torch.ops._build import SMEM_PER_BLOCK
+
+GROUP_SIZE = 64
+MAX_KERNEL_ROWS = 64  # decode-shaped calls take K5; more rows take the prefill product
+_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROW_TILE = 8  # rows of x per pass of the kernel (kRowTile)
+_STRIPE = 64  # output columns per CTA (kStripe)
+
+
+def quantize_weight_int4(w: torch.Tensor, group_size: int = GROUP_SIZE
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric group-wise int4 quantization of ``w [in, out]``:
+    (packed int8 [in/2, out], scale bf16 [in/group_size, out]), bitwise the
+    JAX ``quantize_weight_int4``."""
+    d_in, d_out = w.shape
+    if d_in % (2 * group_size):
+        raise ValueError(f"in features {d_in} must be a multiple of 2 * group_size "
+                         f"({2 * group_size})")
+    w32 = w.float().contiguous().reshape(d_in // group_size, group_size, d_out)
+    absmax = w32.abs().amax(dim=1)
+    scale = (absmax.clamp(min=1e-8) / 7.0).to(torch.bfloat16)
+    w_q = torch.clamp(torch.round(w32 / scale.float()[:, None, :]), -7, 7)
+    w_q = w_q.reshape(d_in, d_out).to(torch.int32)
+    half = d_in // 2
+    packed = (w_q[:half] & 0xF) | ((w_q[half:] & 0xF) << 4)
+    return packed.to(torch.int8), scale
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Packed int8 [in/2, out] -> int8 codes [in, out] (low-nibble rows
+    over high-nibble rows)."""
+    p32 = packed.to(torch.int32)
+    lo = ((p32 & 0xF) ^ 8) - 8
+    hi = (((p32 >> 4) & 0xF) ^ 8) - 8
+    return torch.cat([lo, hi], dim=0).to(torch.int8)
+
+
+def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor,
+                    group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """The float32 weight [in, out] of the packed layout."""
+    w_q = unpack_int4(packed).float()
+    d_in, d_out = w_q.shape
+    w_g = w_q.reshape(d_in // group_size, group_size, d_out)
+    return (w_g * scale.float()[:, None, :]).reshape(d_in, d_out)
+
+
+def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                          group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Plain version of K5 (the JAX fallback's math): ``x [..., in] @
+    bf16(dequantize_int4)`` with bf16 operands and float32 accumulation,
+    cast to x's dtype."""
+    w = dequantize_int4(packed, scale, group_size).to(torch.bfloat16)
+    x2d = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+    y = x2d.float() @ w.float()  # bf16 x bf16 products are exact in float32
+    return y.reshape(*x.shape[:-1], w.shape[1]).to(x.dtype)
+
+
+def _prefill_matmul(x2d: torch.Tensor, packed, scale, group_size: int) -> torch.Tensor:
+    """Many rows on the card: dequantize, then one library matrix product
+    (float32 accumulation; bf16 output for bf16 x, as the JAX fallback's
+    float32 result cast to bf16)."""
+    w = dequantize_int4(packed, scale, group_size).to(torch.bfloat16)
+    if x2d.dtype == torch.bfloat16:
+        return x2d @ w
+    return x2d.to(torch.bfloat16).float() @ w.float()
+
+
+def _check_kernel_args(x2d, packed, scale, group_size: int) -> None:
+    rows, d_in = x2d.shape
+    half, d_out = packed.shape
+    if x2d.dtype not in _X_DTYPES:
+        raise TypeError(f"int4 kernel takes float32/bfloat16 activations, got {x2d.dtype}")
+    if packed.dtype != torch.int8 or scale.dtype != torch.bfloat16:
+        raise TypeError(f"packed must be int8 and scale bfloat16, got {packed.dtype}, "
+                        f"{scale.dtype}")
+    if d_out % 16 or d_in % (2 * group_size) or tuple(scale.shape) != (d_in // group_size, d_out):
+        raise ValueError(f"int4 kernel: out {d_out} must be a multiple of 16, in {d_in} of "
+                         f"2 * group_size, scale [{d_in // group_size}, {d_out}]; got "
+                         f"{tuple(scale.shape)}")
+    if smem_bytes(d_in) > SMEM_PER_BLOCK:
+        raise ValueError(f"int4 kernel: in features {d_in} too wide for its shared-memory "
+                         f"x tile ({smem_bytes(d_in)} bytes)")
+    for name, t in (("packed", packed), ("scale", scale)):
+        if t.device != x2d.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned, on x's device")
+
+
+def smem_bytes(d_in: int) -> int:
+    """Shared memory of one K5 CTA: the bf16 x tile [in][8] and the
+    cross-warp partial sums [8 warps][8 rows][64 columns] in float32."""
+    return d_in * _ROW_TILE * 2 + 8 * _ROW_TILE * _STRIPE * 4
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """``x [..., in] @ dequantize_int4(packed, scale)`` -> [..., out] in
+    x's dtype.  CUDA tensors with at most 64 rows run K5 (counted in
+    ``int4_matmul.launches``); CPU tensors the plain version."""
+    d_in = x.shape[-1]
+    half, d_out = packed.shape
+    if d_in != 2 * half:
+        raise ValueError(f"x {tuple(x.shape)} does not match packed {tuple(packed.shape)}")
+    if x.device.type == "cpu":
+        return int4_matmul_reference(x, packed, scale, group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_matmul runs on cpu or cuda tensors, got {x.device}")
+    x2d = x.reshape(-1, d_in)
+    rows = x2d.shape[0]
+    if rows > MAX_KERNEL_ROWS:
+        y = _prefill_matmul(x2d, packed, scale, group_size)
+        return y.reshape(*x.shape[:-1], d_out).to(x.dtype)
+    x2d = x2d.contiguous()
+    _check_kernel_args(x2d, packed, scale, group_size)
+    from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
+
+    out = torch.empty((rows, d_out), dtype=torch.float32, device=x.device)
+    if rows:
+        with torch.cuda.device(x.device):
+            err = kernels().mcl_int4_matmul(
+                x2d.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
+                d_in, d_out, group_size, _X_DTYPES[x2d.dtype],
+                torch.cuda.current_stream(x.device).cuda_stream)
+        check(err, "int4_matmul")
+        int4_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], d_out).to(x.dtype)
+
+
+int4_matmul.launches = 0
+
+
+def _features(features: Union[int, Sequence[int]]) -> Tuple[int, ...]:
+    return (features,) if isinstance(features, int) else tuple(features)
+
+
+def _prod(dims) -> int:
+    n = 1
+    for s in dims:
+        n *= s
+    return n
+
+
+def _contract(x: torch.Tensor, axis: Tuple[int, ...]) -> torch.Tensor:
+    """Move the contraction axes last and flatten them (DenseGeneral)."""
+    if axis == (-1,):
+        return x
+    axes = tuple(a % x.dim() for a in axis)
+    keep = [a for a in range(x.dim()) if a not in axes]
+    xt = x.permute(*keep, *axes)
+    return xt.reshape(*(x.shape[a] for a in keep), -1)
+
+
+class Int4Linear(nn.Module):
+    """Int4 projection: buffers ``packed`` int8 [in/2, F] and ``scale`` bf16
+    [in/g, F] (the JAX ``Int4Dense`` params), optional float ``bias``
+    shaped like the features.  ``features`` as a tuple and ``axis`` give the
+    JAX ``Int4DenseGeneral`` (contract ``axis``, output [..., *features])."""
+
+    def __init__(self, in_features: int, features: Union[int, Sequence[int]],
+                 bias: bool = False, axis: Sequence[int] = (-1,),
+                 group_size: int = GROUP_SIZE):
+        super().__init__()
+        self.features = _features(features)
+        self.axis = tuple(axis)
+        self.group_size = group_size
+        out = _prod(self.features)
+        self.register_buffer("packed", torch.zeros((in_features // 2, out), dtype=torch.int8))
+        self.register_buffer("scale", torch.zeros((in_features // group_size, out),
+                                                  dtype=torch.bfloat16))
+        self.bias = nn.Parameter(torch.zeros(self.features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = int4_matmul(_contract(x, self.axis), self.packed, self.scale, self.group_size)
+        y = y.reshape(*y.shape[:-1], *self.features)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def quantize_linear_int4(weight: torch.Tensor, group_size: int = GROUP_SIZE
+                         ) -> Dict[str, torch.Tensor]:
+    """An ``nn.Linear.weight`` [out, in] as {"packed", "scale"} in the JAX
+    orientation (the quantizer sees its transpose)."""
+    packed, scale = quantize_weight_int4(weight.t(), group_size)
+    return {"packed": packed, "scale": scale}
+
+
+# the LM's projections that int4 serving quantizes (JAX lm.py: attention and MLP)
+LM_PROJECTIONS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                  "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+
+
+def quantize_state_dict(state_dict: Dict[str, torch.Tensor], prefixes: Sequence[str],
+                        convert) -> Dict[str, torch.Tensor]:
+    """``state_dict`` with every ``<prefix>.weight`` (a float [out, in]
+    projection) replaced by ``convert(weight)``'s entries under
+    ``<prefix>.``; biases and every other entry pass through."""
+    out = dict(state_dict)
+    for prefix in prefixes:
+        weight = out.pop(f"{prefix}.weight")
+        for leaf, t in convert(weight).items():
+            out[f"{prefix}.{leaf}"] = t
+    return out
+
+
+def lm_projection_prefixes(state_dict, root: str = "model.") -> list:
+    """Names of the LM's quantizable projections in ``state_dict`` (keys
+    under ``root``, e.g. "language_model.model." inside an MLLM)."""
+    return sorted({k[: -len(".weight")] for k in state_dict
+                   if k.startswith(root + "layers.") and k.endswith(".weight")
+                   and k[: -len(".weight")].endswith(LM_PROJECTIONS)})
+
+
+def quantize_lm_params_int4(state_dict: Dict[str, torch.Tensor], root: str = "model.",
+                            group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
+    """A float ``CausalLM`` state dict -> the ``int4_weights=True`` layout
+    (the JAX ``quantize_lm_params_int4``): every attention and MLP
+    projection quantized; embedding and norms stay float."""
+    return quantize_params_int4(state_dict, lm_projection_prefixes(state_dict, root),
+                                group_size)
+
+
+def quantize_mllm_lm_params_int4(state_dict: Dict[str, torch.Tensor],
+                                 group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
+    """An MLLM state dict with its LM tower quantized to int4 (the vision
+    tower and projector as they are; compose with int8 vision)."""
+    return quantize_lm_params_int4(state_dict, "language_model.model.", group_size)
+
+
+def quantize_params_int4(state_dict: Dict[str, torch.Tensor], prefixes: Sequence[str],
+                         group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
+    """The JAX ``quantize_params_int4`` over a state dict: the named
+    projections quantized, everything else passed through."""
+    return quantize_state_dict(state_dict, prefixes,
+                               lambda w: quantize_linear_int4(w, group_size))
+
+
+__all__ = [
+    "GROUP_SIZE",
+    "Int4Linear",
+    "dequantize_int4",
+    "int4_matmul",
+    "int4_matmul_reference",
+    "quantize_linear_int4",
+    "quantize_lm_params_int4",
+    "quantize_mllm_lm_params_int4",
+    "quantize_params_int4",
+    "quantize_weight_int4",
+    "unpack_int4",
+]

@@ -13,21 +13,31 @@
 Allocation is host-side bookkeeping (``PageAllocator``).  Unlike the JAX
 package, whose arrays are immutable, the write ops here update the pools
 IN PLACE (``index_put_``): a serving step then moves one token of K/V per
-row and layer instead of copying the pool.  The decode read is
-ops/paged_attention_kernel.py (K3 on CUDA, the plain gather path on CPU).
-Int8 pools (the JAX ``quantized=True`` layout) are not ported yet.
+row and layer instead of copying the pool.  The decode read,
+``paged_decode_attention``, dispatches as the JAX function does: K3
+(ops/paged_attention_kernel.py) by default, K4
+(ops/paged_attention_mp_kernel.py) under ``MCL_PAGED_KERNEL=2``; CPU
+tensors take each kernel's plain version.  Int8 pools (the JAX
+``quantized=True`` layout) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List
+import os
+from typing import List, Optional, Union
 
 import torch
 
 from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
     gather_pages,
     paged_attention_mask,
-    paged_decode_attention,
+    paged_decode_attention_reference,
+)
+from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
+    paged_decode_attention as paged_decode_attention_k3,
+)
+from multimodal_concept_learning_tpu_torch.ops.paged_attention_mp_kernel import (
+    paged_decode_attention_mp,
 )
 
 
@@ -89,6 +99,38 @@ class PageAllocator:
             self._free_set.add(p)
 
 
+def paged_decode_attention(q, pool_k, pool_v, page_table, lens, *,
+                           scale: Optional[float] = None, window: Optional[int] = None,
+                           use_kernel: Union[None, bool, str] = None,
+                           pages_per_block: int = 8) -> torch.Tensor:
+    """One-token attention against the paged pools; returns [B, 1, Hq, D].
+
+    ``use_kernel`` (the JAX argument): "2" or "mp" runs K4 with
+    ``pages_per_block``; True or "1" runs K3; False the gather path, which
+    only CPU tensors take (the port runs no gather read on the card).
+    ``None`` reads ``MCL_PAGED_KERNEL`` at each call: "2" is K4, unset or
+    "1" K3 (the port's default), anything else the gather path.  CPU
+    tensors run the chosen kernel's plain version."""
+    if use_kernel is None:
+        env = os.environ.get("MCL_PAGED_KERNEL", "1")
+        use_kernel = env if env in ("1", "2") else False
+    if use_kernel in ("2", "mp"):
+        return paged_decode_attention_mp(q, pool_k, pool_v, page_table, lens, scale=scale,
+                                         window=window, pages_per_block=pages_per_block)
+    if use_kernel is True or use_kernel == "1":
+        return paged_decode_attention_k3(q, pool_k, pool_v, page_table, lens, scale=scale,
+                                         window=window)
+    if use_kernel is not False:
+        raise ValueError(f"use_kernel must be None, True, False, '1', '2' or 'mp', "
+                         f"got {use_kernel!r}")
+    if q.device.type != "cpu":
+        raise ValueError("the gather read runs on CPU tensors only; on the card "
+                         "paged decode runs K3 or K4 (use_kernel '1' or '2')")
+    return paged_decode_attention_reference(
+        q, pool_k, pool_v, page_table, lens, scale=q.shape[-1] ** -0.5 if scale is None
+        else scale, window=-1 if window is None else int(window))
+
+
 def _page_of(page_table: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
              page_size: int) -> torch.Tensor:
     """Page id holding position ``pos`` of row ``rows``; positions past the
@@ -133,6 +175,8 @@ __all__ = [
     "init_paged_kv_cache",
     "paged_attention_mask",
     "paged_decode_attention",
+    "paged_decode_attention_k3",
+    "paged_decode_attention_mp",
     "pages_needed",
     "write_prompt_kv",
     "write_token_kv",

@@ -5,7 +5,9 @@ Reads the reference layout ``results_dir/models/{training_config.json,
 <checkpoint>.pt}``, rebuilds the tokenizer as the trainer does (the
 configured tokenizer plus the ``<ood ...>`` tokens of the labels mapping)
 and loads the weights strictly into the port's ``MLLM`` on ``device``.
-Int8/int4 weights and LoRA banks are not ported yet (ROADMAP.md).
+``int8`` / ``int4`` quantize the LM's projections and ``int8_vision`` the
+ViT's for serving, on the device after the float weights are loaded
+(``_quantize_for_serving``).  LoRA banks are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -88,8 +90,31 @@ def model_config(config: MultimodalTrainingConfig, vocab_size: int,
     )
 
 
-def load_trained_mllm(results_dir: str, checkpoint: str = "best_model.pt", *, device,
+def _quantize_for_serving(state_dict, cfg: MLLMConfig, int8: bool, int8_vision: bool,
+                          verbose: bool, label: str = "", int4: bool = False):
+    """Quantize a float serving state dict (the JAX loader's function of
+    the same name): ``int8`` or ``int4`` the LM's projections (exclusive),
+    ``int8_vision`` the ViT's; projector, embeddings and norms stay float.
+    Runs where the tensors lie.  Returns (state dict, config)."""
+    from multimodal_concept_learning_tpu_torch.ops.int4 import quantize_mllm_lm_params_int4
+    from multimodal_concept_learning_tpu_torch.ops.quant import quantize_mllm_params
+
+    cfg = cfg.quantized(int8=int8, int8_vision=int8_vision, int4=int4)  # int8 + int4 raises
+    state_dict = quantize_mllm_params(state_dict, vision=int8_vision, lm=int8)
+    if int4:
+        state_dict = quantize_mllm_lm_params_int4(state_dict)
+    if verbose:
+        what = " + ".join((["LM-int8"] if int8 else []) + (["LM-int4"] if int4 else [])
+                          + (["vision-tower-int8"] if int8_vision else []))
+        print(f"Quantized {label}{what} weights (serving mode)")
+    return state_dict, cfg
+
+
+def load_trained_mllm(results_dir: str, checkpoint: str = "best_model.pt", int8: bool = False,
+                      int8_vision: bool = False, int4: bool = False, *, device,
                       dtype: torch.dtype = torch.bfloat16, verbose: bool = True) -> LoadedMLLM:
+    if int8 and int4:
+        raise ValueError("--int8 and --int4 are mutually exclusive")
     dev = resolve_device(device)
     models_dir = os.path.join(results_dir, "models")
     with open(os.path.join(models_dir, "training_config.json")) as f:
@@ -103,7 +128,11 @@ def load_trained_mllm(results_dir: str, checkpoint: str = "best_model.pt", *, de
         raise ValueError(f"{ckpt_path} has {rows} embedding rows but the rebuilt tokenizer "
                          f"has {len(tokenizer)} entries (labels mapping "
                          f"{config.labels_mapping_path!r} missing or changed?)")
-    model = build_mllm(model_config(config, len(tokenizer), dtype), sd, dev)
+    cfg = model_config(config, len(tokenizer), dtype)
+    if int8 or int8_vision or int4:
+        sd = {k: v.to(dev) for k, v in sd.items()}
+        sd, cfg = _quantize_for_serving(sd, cfg, int8, int8_vision, verbose, int4=int4)
+    model = build_mllm(cfg, sd, dev)
     if verbose:
         print(f"Loaded checkpoint {ckpt_path} on {dev} ({dtype})")
     return LoadedMLLM(model, tokenizer, config, labels_mapping, dev)

@@ -7,7 +7,8 @@ Slot-level serving over one shared KV page pool (ops/paged_kv.py):
   from its real prompt length) and prefills straight into them; prompt
   attention runs the K1 forward kernel on the card;
 - **step** advances every slot ``steps_per_call`` tokens, each decode
-  attention a K3 kernel launch per layer on the card;
+  attention a K3 kernel launch per layer on the card (K4 under
+  ``MCL_PAGED_KERNEL=2``); ``decode_steps`` counts the decode steps run;
 - **release** returns a finished request's pages and zeroes its page-table
   row, so the slot's inert decode writes land on the null page.
 
@@ -78,6 +79,7 @@ class PagedContinuousEngine(EngineHostAPI):
         self.seq_lens = torch.zeros((num_slots,), **i32)
         self.caps = torch.zeros((num_slots,), **i32)
         self.last_tok = torch.zeros((num_slots,), **i32)
+        self.decode_steps = 0  # decode_step_paged calls (one per layer stack pass)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample_logits(logits, self._generator, temperature=self.temperature,
@@ -180,6 +182,7 @@ class PagedContinuousEngine(EngineHostAPI):
             can_write = active & (self.seq_lens < self.caps)
             hidden = lm.decode_step_paged(lm.embed(self.last_tok[:, None]), self.pools,
                                           self.page_table, self.seq_lens)
+            self.decode_steps += 1
             nxt = self._sample(lm.lm_head(hidden[:, 0]))
             self.seq_lens += can_write.to(torch.int32)
             self.last_tok = torch.where(can_write, nxt, self.last_tok)

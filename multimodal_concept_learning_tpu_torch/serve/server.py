@@ -13,13 +13,17 @@ finish (up to --drain_grace_s), then the accept loop stops.
 
 The port serves the paged continuous front (serve/paged.py): prefill
 attention runs the K1 forward kernel and every decode step the K3 paged
-attention kernel on the card.  The other fronts and options of the JAX
+attention kernel on the card (K4 under ``MCL_PAGED_KERNEL=2``).  ``--int4``
+serves the LM with int4 weights (every decode-step projection runs the K5
+kernel), ``--int8`` with int8 weights, ``--int8_vision`` the ViT with int8
+weights (combines with either).  The other fronts and options of the JAX
 server are not ported yet and raise NotImplementedError.
 
 Usage:
   python -m multimodal_concept_learning_tpu_torch.serve.server \
       --results_dir RESULTS --paged [--device cuda] [--port 8077]
       [--batch_size 8] [--max_new_tokens 8] [--page_size 16]
+      [--int4 | --int8] [--int8_vision]
 """
 
 from __future__ import annotations
@@ -170,14 +174,14 @@ def make_server(results_dir: str, port: int = 8077, host: str = "127.0.0.1",
     """Build (ThreadingHTTPServer, batcher) for the paged front on
     ``device``; the caller runs serve_forever().  Same signature as the JAX
     ``make_server`` plus ``device``/``dtype``; every mode but ``paged=True``
-    raises NotImplementedError.  ``max_wait_ms`` and ``length_penalty``
-    belong to unported fronts and are ignored."""
+    raises NotImplementedError, and ``int8`` with ``int4`` ValueError.
+    ``max_wait_ms`` and ``length_penalty`` belong to unported fronts and are
+    ignored."""
     from multimodal_concept_learning_tpu_torch.serve.continuous import ContinuousBatcher
     from multimodal_concept_learning_tpu_torch.serve.loader import load_trained_mllm
     from multimodal_concept_learning_tpu_torch.serve.paged import PagedContinuousEngine
 
     unported = {
-        "--int8": int8, "--int8_vision": int8_vision, "--int4": int4,
         "--adapters": adapters, "--chunked_prefill": chunked_prefill,
         "--int8_kv": int8_kv, "--num_beams > 1": num_beams > 1,
         "--draft_layers": draft_layers > 0,
@@ -189,7 +193,8 @@ def make_server(results_dir: str, port: int = 8077, host: str = "127.0.0.1",
         front = "the dense continuous front" if continuous else "the whole-batch front"
         raise NotImplementedError(f"{front} {_NOT_PORTED}; serve with paged=True (--paged)")
 
-    loaded = load_trained_mllm(results_dir, checkpoint=checkpoint, device=device, dtype=dtype)
+    loaded = load_trained_mllm(results_dir, checkpoint=checkpoint, int8=int8,
+                               int8_vision=int8_vision, int4=int4, device=device, dtype=dtype)
     engine = PagedContinuousEngine(
         loaded, num_slots=batch_size, max_new_tokens=max_new_tokens,
         max_prompt_len=max_prompt_len, page_size=page_size, num_pages=num_pages,
@@ -269,8 +274,10 @@ def main(argv=None):
         num_beams=args.num_beams, length_penalty=args.length_penalty,
         draft_layers=args.draft_layers, draft_len=args.draft_len,
         device=args.device, dtype=getattr(torch, args.dtype))
+    quant = "".join(f", {f}" for f, on in (("int8", args.int8), ("int4", args.int4),
+                                           ("int8_vision", args.int8_vision)) if on)
     print(f"Serving on http://{args.host}:{args.port} (paged, batch_size={args.batch_size}, "
-          f"device={args.device})")
+          f"device={args.device}{quant})")
 
     import signal
 

@@ -26,6 +26,10 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.checkpoint",
     "multimodal_concept_learning_tpu_torch.ops.flash_attention",
     "multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel",
+    "multimodal_concept_learning_tpu_torch.ops.paged_attention_mp_kernel",
+    "multimodal_concept_learning_tpu_torch.ops.paged_kv",
+    "multimodal_concept_learning_tpu_torch.ops.int4",
+    "multimodal_concept_learning_tpu_torch.ops.quant",
     "multimodal_concept_learning_tpu_torch.ops._build",
     "multimodal_concept_learning_tpu_torch.ops.losses",
     "multimodal_concept_learning_tpu_torch.ops.preprocess",

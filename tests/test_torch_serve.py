@@ -3,8 +3,10 @@
 Both packages load the same 1-epoch-trained tiny results dir (the
 ``trained_results_dir`` fixture, reference layout) at float32; the port's
 paged engine must produce exactly the JAX ``PagedContinuousEngine``'s
-greedy tokens, and the port's HTTP server the JAX front's texts.  Also:
-the unported fronts refuse loudly, sampling filters match JAX.
+greedy tokens, and the port's HTTP server the JAX front's texts; so must
+the quantized models (``int4``; ``int8`` with ``int8_vision``), each side
+quantizing the same float checkpoint.  Also: the unported fronts refuse
+loudly, sampling filters match JAX.
 """
 
 import base64
@@ -44,18 +46,22 @@ IMAGES = [_circle([255, 0, 0]), _circle([0, 255, 0]), _circle([0, 0, 255]),
           _circle([255, 128, 0])]
 
 
-@pytest.fixture(scope="module")
-def jax_loaded(trained_results_dir):
+def _jax_load(results_dir, **quant):
     """The JAX package's loaded model, switched to float32 compute."""
     from multimodal_concept_learning_tpu.models.mllm import MLLM
     from multimodal_concept_learning_tpu.serve import load_trained_mllm
 
-    loaded = load_trained_mllm(trained_results_dir, verbose=False)
+    loaded = load_trained_mllm(results_dir, verbose=False, **quant)
     cfg = loaded.model.config
     f32 = dataclasses.replace(cfg, dtype=jnp.float32,
                               vision=dataclasses.replace(cfg.vision, dtype=jnp.float32),
                               lm=dataclasses.replace(cfg.lm, dtype=jnp.float32))
     return loaded._replace(model=MLLM(f32))
+
+
+@pytest.fixture(scope="module")
+def jax_loaded(trained_results_dir):
+    return _jax_load(trained_results_dir)
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +75,30 @@ def port_loaded(trained_results_dir):
 def test_paged_engine_tokens_match_jax(jax_loaded, port_loaded):
     """admit_many / step / release / re-admit: the same greedy tokens for
     every active slot, and the same page accounting."""
+    _engines_agree(jax_loaded, port_loaded)
+
+
+QUANT_MODES = [{"int4": True}, {"int8": True, "int8_vision": True}]
+
+
+@pytest.mark.parametrize("quant", QUANT_MODES, ids=["int4", "int8+int8_vision"])
+def test_quantized_paged_engine_tokens_match_jax(trained_results_dir, quant):
+    """The same float checkpoint quantized by each package's loader: the
+    weights agree bit for bit and the paged engines' greedy tokens match."""
+    from multimodal_concept_learning_tpu_torch.serve.loader import load_trained_mllm
+
+    port = load_trained_mllm(trained_results_dir, device="cpu", dtype=torch.float32,
+                             verbose=False, **quant)
+    cfg = port.model.cfg
+    assert cfg.lm.int4_weights == quant.get("int4", False)
+    assert cfg.lm.int8_weights == cfg.vision.int8_weights == quant.get("int8", False)
+    sd = port.model.state_dict()
+    leaf = "packed" if quant.get("int4") else "kernel"
+    assert sd[f"language_model.model.layers.0.mlp.up_proj.{leaf}"].dtype == torch.int8
+    _engines_agree(_jax_load(trained_results_dir, **quant), port)
+
+
+def _engines_agree(jax_loaded, port_loaded):
     from multimodal_concept_learning_tpu.serve.paged import PagedContinuousEngine as JEngine
     from multimodal_concept_learning_tpu_torch.serve.paged import (
         PagedContinuousEngine as TEngine,
@@ -88,6 +118,7 @@ def test_paged_engine_tokens_match_jax(jax_loaded, port_loaded):
     assert teng.admit_many(reqs) == jeng.admit_many(reqs)
     active = np.ones(4, bool)
     np.testing.assert_array_equal(teng.step(active), jeng.step(active))
+    assert teng.decode_steps == 3 * ENGINE_KW["steps_per_call"]
 
 
 def test_paged_server_matches_jax_front(jax_loaded, trained_results_dir):
@@ -156,8 +187,8 @@ def test_paged_server_matches_jax_front(jax_loaded, trained_results_dir):
 @pytest.mark.parametrize("kwargs,match", [
     ({}, "whole-batch front"),
     ({"continuous": True}, "dense continuous front"),
-    ({"paged": True, "int8": True}, "--int8"),
-    ({"paged": True, "int4": True}, "--int4"),
+    ({"paged": True, "int4": True, "adapters": ["a"]}, "--adapters"),
+    ({"paged": True, "int8": True, "int8_kv": True}, "--int8_kv"),
     ({"paged": True, "int8_kv": True}, "--int8_kv"),
     ({"paged": True, "adapters": ["a"]}, "--adapters"),
     ({"continuous": True, "chunked_prefill": 8}, "--chunked_prefill"),
@@ -170,6 +201,36 @@ def test_make_server_refuses_unported_modes(tmp_path, kwargs, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         make_server(str(tmp_path), device="cpu", **kwargs)
     assert "ROADMAP.md" in str(err.value)
+
+
+def test_quantized_server_matches_jax_front(trained_results_dir):
+    """make_server(paged, int4, int8_vision) on the CPU answers with the JAX
+    paged front's texts for the same quantized model."""
+    from multimodal_concept_learning_tpu.serve.continuous import ContinuousBatcher as JBatcher
+    from multimodal_concept_learning_tpu.serve.paged import PagedContinuousEngine as JEngine
+    from multimodal_concept_learning_tpu_torch.serve.server import make_server
+
+    quant = {"int4": True, "int8_vision": True}
+    jbatcher = JBatcher(JEngine(_jax_load(trained_results_dir, **quant), **ENGINE_KW))
+    try:
+        expected = [jbatcher.submit(img, p) for img, p in zip(IMAGES[:2], PROMPTS[:2])]
+    finally:
+        jbatcher.shutdown()
+    httpd, batcher = make_server(trained_results_dir, port=0, paged=True, batch_size=4,
+                                 max_new_tokens=4, max_prompt_len=16, page_size=8,
+                                 steps_per_call=2, device="cpu", dtype=torch.float32, **quant)
+    try:
+        assert [batcher.submit(img, p) for img, p in zip(IMAGES[:2], PROMPTS[:2])] == expected
+    finally:
+        httpd.server_close()
+        batcher.shutdown()
+
+
+def test_make_server_refuses_int8_with_int4(tmp_path):
+    from multimodal_concept_learning_tpu_torch.serve.server import make_server
+
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_server(str(tmp_path), paged=True, int8=True, int4=True, device="cpu")
 
 
 def test_loader_refuses_vocab_mismatch(trained_results_dir, tmp_path):
