@@ -42,10 +42,27 @@ Phases (each prints its results; any failure exits non-zero):
     server with ``int4=True`` under ``MCL_PAGED_KERNEL=2`` (K5 launches
     exactly 7 x 26 per decode step, K4 > 0, K3 0), then with
     ``int8=True, int8_vision=True``, 16 requests each; requests/s, tokens/s
-    and p50 latency beside phase 5's.
+    and p50 latency beside phase 5's;
+12. variant parity (run after phase 8): phase 8 under
+    ``MCL_ATTN_CORE_BD=1``, (a) with ``fused_attention=True`` in the vision
+    tower (K6 there, K2-bd in the text tower) and (b) in the default layout
+    (K2-bd in both towers); exact launch counts, K2 never launched;
+13. variant slice (run after phase 9, on its data): the full CLIP with
+    ``vision.fused_attention=True`` under ``MCL_ATTN_CORE_BD=1``, one epoch
+    through ``make_clip_train_step``, then zero-shot; exactly 12 K6
+    forward, 12 K6 backward, 12 K2-bd forward and 12 K2-bd backward
+    launches a step, K2 0; steps/s, images/s, peak memory and a steady step
+    on a fixed device batch beside phase 9's.
 
-Phase 3 also holds K5 (int4 decode matmul; x in float32 and bf16, limits
-1e-5 and 8e-3 of the reference's max |value|) and K4 (multi-page paged
+Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
+shapes, T 37, t_real < T, a sample with no valid key whose rows must be
+exactly 0, 3 tokens a sample; the backward at three merges of samples) and
+K6 (the fused attention sublayer: the vision shape, T 197, 37, t_real < T
+and 320) to their plain versions, times K2-bd beside K2 at both CLIP
+shapes, and K6's forward beside the unfused library composition
+(``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add); then K5
+(int4 decode matmul; x in float32 and bf16, limits 1e-5 and 8e-3 of the
+reference's max |value|) and K4 (multi-page paged
 decode; pages_per_block 1, 3, 8) to their plain versions, and times each
 kernel's path-shape case in bf16 beside its bound (bytes over 3.35 TB/s or
 operations over 989 TFLOP/s, whichever is larger) and one PyTorch library
@@ -53,8 +70,9 @@ call computing the same function (SDPA, or its backward;
 ``torch._weight_int4pack_mm`` for K5; none for K3 and K4).  K5 and K4 are
 timed by CUDA graph replay (device time without the wrapper's host work),
 K5 with its weights cycled past the L2 cache; phase 3 also times K4 beside
-K3 at 4 kv heads, ~1k context, pages of 16 and 64.  ``python3 chip_smoke.py --profile`` builds the
-kernels and profiles the full CLIP train step instead (``torch.profiler``:
+K3 at 4 kv heads, ~1k context, pages of 16 and 64.  ``python3 chip_smoke.py
+--profile`` builds the kernels and profiles the full CLIP train step
+instead, on the default path and on the kernel variants (``torch.profiler``:
 idle share, aten ops and device time by kernel).
 
 The line before the last is the kernels' JSON summary; the last line is
@@ -459,6 +477,219 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
                 kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bb)
 
 
+def _core_bd_cases(torch, gen, dev):
+    """(name, qkv, heads, t_real, causal, kv_mask, on the path): the CLIP
+    path's two shapes (the text tower first: K2-bd's row), then T not a
+    multiple of 16, t_real below T, a mask with holes and a sample with no
+    valid key, and three tokens a sample (many samples a tile)."""
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    holes = (torch.rand(16, 77, generator=gen, device=dev) < 0.5).to(torch.int32)
+    holes[:, 0] = 1
+    empty = holes.clone()
+    empty[5] = 0  # sample 5: no valid key, rows exactly 0
+    captions = torch.from_numpy(_caption_masks(CLIP_BATCH)).to(dev)
+    return [
+        ("text [256,77,8x64] causal + caption mask", randn(CLIP_BATCH, 77, 3 * 512), 8, 77, True,
+         captions, True),
+        ("vision [256,50,12x64]", randn(CLIP_BATCH, 50, 3 * 768), 12, 50, False, None, True),
+        ("T 37 [16,37,8x64] causal + holes", randn(16, 37, 3 * 512), 8, 37, True,
+         holes[:, :37].contiguous(), False),
+        ("t_real 41 of 64 [16,64,12x64]", randn(16, 64, 3 * 768), 12, 41, False, None, False),
+        ("holes + a sample with no valid key [16,77,8x64]", randn(16, 77, 3 * 512), 8, 77, False,
+         empty, False),
+        ("T 3 [70,3,4x64] causal", randn(70, 3, 3 * 256), 4, 3, True, None, False),
+    ]
+
+
+def _held(got, want, dtype, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails past float32 1e-4
+    abs or bf16 2e-2 of the reference's max |value|."""
+    import torch
+
+    tag = str(dtype).replace("torch.", "")
+    err = (got.float() - want.float()).abs().max().item()
+    limit = TOL[tag] * (1.0 if dtype is torch.float32 else want.float().abs().max().item())
+    if not err <= limit:
+        fail(f"{what} {tag}: max abs err {err} > {limit}")
+    return err
+
+
+def _phase_core_bd(torch, gen, dev, report: dict) -> None:
+    """K2-bd forward and backward against their plain versions on the same
+    inputs (float32 reference, as K2): float32 <= 1e-4 abs, bf16 <= 2e-2 of
+    the reference's max |value|, lse <= 1e-4; rows of a sample with no
+    valid key exactly 0; the backward at merges of 1, 2 and the default
+    number of samples a CTA.  At the path's shapes in bf16: K2-bd beside
+    K2, the bound and SDPA (K2-bd's row: the text tower, its main path)."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+
+    kf = report.setdefault("attention_core_bd_fwd", {"max_abs_err": 0.0})
+    kb = report.setdefault("attention_core_bd_bwd", {"max_abs_err": 0.0})
+    for name, qkv32, heads, t_real, causal, kvm, on_path in _core_bd_cases(torch, gen, dev):
+        b, t, hd3 = qkv32.shape
+        da32 = torch.randn(b, t, hd3 // 3, generator=gen, device=dev)
+        merges = sorted({1, 2, ac.bd_block(t)})
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, da = qkv32.to(dtype), da32.to(dtype)
+            args = (heads, t_real, causal, kvm)
+            out, lse = ac.attention_core_bd_fwd(qkv, *args, with_lse=True)
+            grads = {m: ac.attention_core_bd_bwd(qkv, out, da, lse, *args, bblk=m)
+                     for m in merges}
+            ref, ref_lse = ac.attention_core_bd_reference(qkv.float(), *args, return_lse=True)
+            ref_d = ac.attention_core_bd_backward_reference(qkv.float(), da.float(), *args)
+            torch.cuda.synchronize()
+            tag = str(dtype).replace("torch.", "")
+            err = _held(out, ref, dtype, f"K2-bd fwd {name}")
+            # +inf on both sides for a row with no valid key
+            err_lse = (lse - ref_lse).masked_fill(lse == ref_lse, 0.0).abs().max().item()
+            if not err_lse <= TOL["float32"]:
+                fail(f"K2-bd fwd {name} {tag}: lse error {err_lse}")
+            err_d = max(_held(g, ref_d, dtype, f"K2-bd bwd {name} bblk {m}")
+                        for m, g in grads.items())
+            zero = "" if kvm is None or kvm.any(dim=1).all() else (
+                f"; rows of the empty sample: out {out[5].abs().max().item():.1e}, dqkv "
+                f"{max(g[5].abs().max().item() for g in grads.values()):.1e}")
+            if zero and (out[5].any() or any(g[5].any() for g in grads.values())):
+                fail(f"K2-bd {name} {tag}: a row with no valid key is not 0{zero}")
+            print(f"[kernels] K2-bd {name} {tag}: max_abs_err out {err:.3e} lse {err_lse:.3e} "
+                  f"dqkv {err_d:.3e} (backward merges {merges}){zero}", flush=True)
+            kf["max_abs_err"] = max(kf["max_abs_err"], err)
+            kb["max_abs_err"] = max(kb["max_abs_err"], err_d)
+            if not (on_path and dtype is torch.bfloat16):
+                continue
+            times = {}
+            for _ in range(2):  # K2, K2-bd, K2-bd, K2 (order cancels drift)
+                for kind in (("k2", "bd"), ("bd", "k2"))[_]:
+                    fwd = ac.attention_core_bd_fwd if kind == "bd" else ac.attention_core_fwd
+                    bwd = ac.attention_core_bd_bwd if kind == "bd" else ac.attention_core_bwd
+                    o, ls = fwd(qkv, *args, with_lse=True)
+                    f_ms = cuda_time_ms(lambda: fwd(qkv, *args, with_lse=True))
+                    b_ms = cuda_time_ms(lambda: bwd(qkv, o, da, ls, *args))
+                    times.setdefault(kind, []).append((f_ms, b_ms))
+            ms = min(f for f, _ in times["bd"])
+            bwd_ms = min(b for _, b in times["bd"])
+            plain_ms = cuda_time_ms(lambda: ac.attention_core_bd_reference(qkv, *args))
+            plain_bwd_ms = cuda_time_ms(lambda: ac.attention_core_bd_backward_reference(
+                qkv, da, *args))
+            ok = ac.key_ok(b, t, t, causal, kvm, qkv.device)
+            pairs = int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * heads
+            d = hd3 // (3 * heads)
+            lib_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
+            lib_bwd_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm, da))
+            fb = bound(_k2_bytes(qkv, kvm, t, out), 4 * d * pairs)
+            bb = bound(_k2_bytes(qkv, kvm, t, da, grads[merges[-1]]), 10 * d * pairs)
+            print(f"[kernels] K2 vs K2-bd {name} bf16 (ms, fwd / bwd, two rounds each): K2 "
+                  + ", ".join(f"{f:.4f} / {bw:.4f}" for f, bw in times["k2"]) + "; K2-bd "
+                  + ", ".join(f"{f:.4f} / {bw:.4f}" for f, bw in times["bd"])
+                  + f"; plain {plain_ms:.4f} / {plain_bwd_ms:.4f}; SDPA {lib_ms:.4f} / "
+                  f"{lib_bwd_ms:.4f}; bound {fb['bound_ms']:.5f} / {bb['bound_ms']:.5f}",
+                  flush=True)
+            if name.startswith("text"):  # the JSON line's numbers: K2-bd's main path
+                kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fb)
+                kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bb)
+
+
+def _fused_cases(torch, gen, dev):
+    """(name, x, params, heads, t_real, on the path): the vision tower's
+    shape, the MLLM tower's T = 197, T not a multiple of 16, t_real below
+    T, and the kernels' largest T (320).  Weights std 0.05 (qkv) and 0.02
+    (o), so that the attention is far from uniform."""
+
+    def randn(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=gen, device=dev)
+
+    def params(w):
+        return (1 + randn(w, s=0.1), randn(w, s=0.1), randn(w, 3 * w, s=0.05),
+                randn(3 * w, s=0.1), randn(w, w, s=0.02), randn(w, s=0.1))
+
+    p768 = params(768)
+    return [
+        ("vision [256,50,768] 12 heads", randn(CLIP_BATCH, 50, 768), p768, 12, 50, True),
+        ("vit-b/16 T 197 [8,197,768]", randn(8, 197, 768), p768, 12, 197, False),
+        ("T 37 [16,37,768]", randn(16, 37, 768), p768, 12, 37, False),
+        ("t_real 41 of 64 [16,64,768]", randn(16, 64, 768), p768, 12, 41, False),
+        ("T 320 [2,320,512] 8 heads", randn(2, 320, 512), params(512), 8, 320, False),
+    ]
+
+
+def _unfused_sublayer(torch, x, params, heads: int, eps: float = 1e-12):
+    """The library composition of the same sublayer on the same tensors:
+    ``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add."""
+    F = torch.nn.functional
+    lns, lnb, wqkv, bqkv, wo, bo = (a.to(x.dtype) for a in params)
+    w_in, w_out = wqkv.t().contiguous(), wo.t().contiguous()
+    b, t, width = x.shape
+
+    def call():
+        h = F.layer_norm(x, (width,), lns, lnb, eps)
+        q, k, v = (a.transpose(1, 2) for a in
+                   F.linear(h, w_in, bqkv).view(b, t, 3, heads, -1).unbind(2))
+        a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, t, -1)
+        return F.linear(a, w_out, bo) + x
+    return call
+
+
+def _phase_fused(torch, gen, dev, report: dict) -> None:
+    """K6 forward (y and attn) and backward (dqkv) against their plain
+    versions in the same dtype (the plain versions keep the kernels'
+    rounding points): float32 <= 1e-4 abs, bf16 <= 2e-2 of the reference's
+    max |value|; the backward at merges of 1, 2 and the default.  At the
+    vision path's shape in bf16: times beside the bound, the unfused library
+    composition (forward) and SDPA's backward."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import fused_attention_block as fb
+
+    kf = report.setdefault("fused_attention_fwd", {"max_abs_err": 0.0})
+    kb = report.setdefault("fused_bwd_attn", {"max_abs_err": 0.0})
+    for name, x32, params, heads, t_real, on_path in _fused_cases(torch, gen, dev):
+        b, t, width = x32.shape
+        hd = heads * 64
+        da32 = torch.randn(b, t, hd, generator=gen, device=dev)
+        merges = sorted({1, 2, ac.bd_block(t)})
+        for dtype in (torch.float32, torch.bfloat16):
+            x, da = x32.to(dtype), da32.to(dtype)
+            y, attn = fb.fused_attention_fwd(x, *params, heads, t_real)
+            ref_y, ref_attn = fb.fused_attention_reference(x, *params, heads, t_real)
+            qkv = fb.ln_qkv(x, *params[:4], 1e-12)[0]
+            grads = {m: fb.fused_bwd_attn(qkv, da, heads, t_real, bblk=m) for m in merges}
+            ref_d = fb.fused_bwd_attn_reference(qkv, da, heads, t_real)
+            torch.cuda.synchronize()
+            tag = str(dtype).replace("torch.", "")
+            err = max(_held(y, ref_y, dtype, f"K6 fwd y {name}"),
+                      _held(attn, ref_attn, dtype, f"K6 fwd attn {name}"))
+            err_d = max(_held(g, ref_d, dtype, f"K6 bwd {name} bblk {m}")
+                        for m, g in grads.items())
+            print(f"[kernels] K6 {name} {tag}: max_abs_err y/attn {err:.3e} dqkv {err_d:.3e} "
+                  f"(backward merges {merges})", flush=True)
+            kf["max_abs_err"] = max(kf["max_abs_err"], err)
+            kb["max_abs_err"] = max(kb["max_abs_err"], err_d)
+            if not (on_path and dtype is torch.bfloat16):
+                continue
+            ms = cuda_time_ms(lambda: fb.fused_attention_fwd(x, *params, heads, t_real), iters=10)
+            bwd_ms = cuda_time_ms(lambda: fb.fused_bwd_attn(qkv, da, heads, t_real))
+            plain_ms = cuda_time_ms(lambda: fb.fused_attention_reference(x, *params, heads,
+                                                                         t_real), iters=10)
+            plain_bwd_ms = cuda_time_ms(lambda: fb.fused_bwd_attn_reference(qkv, da, heads,
+                                                                            t_real))
+            lib_ms = cuda_time_ms(_unfused_sublayer(torch, x, params, heads))
+            lib_bwd_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, False, None, da))
+            pairs = b * heads * t * t_real
+            cast = [a.to(dtype) for a in params]
+            fwd_b = bound(nbytes(x, *cast, y, attn),
+                          2 * b * t * width * 3 * hd + 2 * b * t * hd * width + 4 * 64 * pairs)
+            bwd_b = bound(nbytes(qkv, da, grads[merges[-1]]), 10 * 64 * pairs)
+            print(f"[kernels] K6 {name} bf16: fwd kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"unfused library {lib_ms:.4f} ms, bound {fwd_b['bound_ms']:.5f} ms "
+                  f"({fwd_b['bound_by']}); bwd kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} "
+                  f"ms, SDPA backward {lib_bwd_ms:.4f} ms, bound {bwd_b['bound_ms']:.5f} ms "
+                  f"({bwd_b['bound_by']})", flush=True)
+            kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fwd_b)
+            kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bwd_b)
+
+
 def _paged_case(torch, gen, dev, hq, hk, d, ps, np_, lens):
     """(q, pool_k, pool_v, page_table, lens): rows own shuffled pages."""
     b = len(lens)
@@ -732,6 +963,8 @@ def phase_kernels(report: dict) -> None:
                                       4 * d * qd.shape[2] * tokens))
         _phase_flash_bwd(torch, fa, gen, dev, report)
         _phase_core(torch, gen, dev, report)
+        _phase_core_bd(torch, gen, dev, report)
+        _phase_fused(torch, gen, dev, report)
         _phase_int4(torch, gen, dev, report)
         _phase_paged_mp(torch, gen, dev, report)
 
@@ -1300,12 +1533,28 @@ def _noise_batches(vocab: int, pad_id: int, n: int, b: int, seed: int) -> list:
     return batches
 
 
-def phase_clip_parity() -> None:
+def _clip_counters() -> dict:
+    """The CLIP paths' kernel wrappers by report name."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import fused_attention_block as fb
+
+    return {"attention_core_fwd": ac.attention_core_fwd,
+            "attention_core_bwd": ac.attention_core_bwd,
+            "attention_core_bd_fwd": ac.attention_core_bd_fwd,
+            "attention_core_bd_bwd": ac.attention_core_bd_bwd,
+            "fused_attention_fwd": fb.fused_attention_fwd,
+            "fused_bwd_attn": fb.fused_bwd_attn}
+
+
+def _clip_parity(tag: str, fused: bool, expected: dict) -> None:
     """Full widths (ViT-B/32; text 512 wide, 8 heads), 2 vision + 2 text
-    layers, float32, batch 8, the JAX initialisers, on the card (K2 kernels)
+    layers, float32, batch 8, the JAX initialisers, on the card (kernels)
     and on the CPU (plain versions): the first batch's gradient of every
     tensor within 1e-4 relative in norm; then three train steps with the
     same losses (1e-4 relative) and parameters (1e-4 relative in norm).
+    ``fused`` puts the vision tower on K6; the card's launch counts over the
+    four passes must equal ``expected`` (every other CLIP kernel 0), the
+    CPU's all 0.
 
     The parameters are held as one vector, and each tensor's own distance
     is printed.  AdamW divides each element's update by that element's own
@@ -1328,7 +1577,6 @@ def phase_clip_parity() -> None:
         CLIPModel,
         contrastive_loss,
     )
-    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
     from multimodal_concept_learning_tpu_torch.ops.preprocess import images_from_batch
     from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
     from multimodal_concept_learning_tpu_torch.parallel.train_step import (
@@ -1339,17 +1587,18 @@ def phase_clip_parity() -> None:
 
     tokenizer = load_tokenizer("concept-tokenizer")
     base = CLIPConfig.create(vocab_size=len(tokenizer), dtype=torch.float32)
-    cfg = dataclasses.replace(base, text_layers=2,
-                              vision=dataclasses.replace(base.vision, num_hidden_layers=2))
+    cfg = dataclasses.replace(base, text_layers=2, vision=dataclasses.replace(
+        base.vision, num_hidden_layers=2, fused_attention=fused))
     model0 = init_random_weights_(CLIPModel(cfg), torch.Generator().manual_seed(SEED))
     sd = {k: v.clone() for k, v in model0.state_dict().items()}
     batches = _noise_batches(len(tokenizer), tokenizer.pad_token_id, 3, 8, SEED)
+    counters = _clip_counters()
     runs = {}
     for dev in ("cuda", "cpu"):
         with torch.device(dev):
             model = CLIPModel(cfg)
         model.load_state_dict(sd, strict=True)
-        before = (ac.attention_core_fwd.launches, ac.attention_core_bwd.launches)
+        before = {n: fn.launches for n, fn in counters.items()}
         first = to_device(batches[0], dev)
         contrastive_loss(*model(images_from_batch(first), first["input_ids"],
                                 first["attention_mask"])).backward()
@@ -1361,8 +1610,7 @@ def phase_clip_parity() -> None:
         for batch in batches:
             state, m = step(state, to_device(batch, dev))
             losses.append(float(m["loss"]))
-        launched = (ac.attention_core_fwd.launches - before[0],
-                    ac.attention_core_bwd.launches - before[1])
+        launched = {n: fn.launches - before[n] for n, fn in counters.items()}
         runs[dev] = (losses, grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
                      launched)
     (cl, cg, csd, claunch), (pl, pg, psd, plaunch) = runs["cuda"], runs["cpu"]
@@ -1379,19 +1627,64 @@ def phase_clip_parity() -> None:
     param_err = (flat.norm() / torch.cat([psd[n].flatten() for n in sd]).norm()).item()
     tensor_errs = rel(csd, psd, held)
     moved = all(not torch.equal(csd[n], sd[n]) for n in sd)
-    print(f"[clip-parity] losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; first "
+    shown = {n: c for n, c in claunch.items() if c or expected.get(n)}
+    print(f"[{tag}] losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; first "
           f"gradients of {len(held)} tensors: max norm-relative err {grad_errs[-1][0]:.2e} "
           f"(largest: " + ", ".join(f"{n} {e:.2e}" for e, n in grad_errs[-3:]) + "); "
           f"parameters after 3 steps: norm-relative err {param_err:.2e}, largest tensor "
           + ", ".join(f"{n} {e:.2e}" for e, n in tensor_errs[-3:]) + f"; every tensor moved "
-          f"{moved}; K2 launches (fwd, bwd) cuda {claunch} cpu {plaunch}", flush=True)
+          f"{moved}; kernel launches cuda {shown} (expected {expected}), cpu "
+          f"{sum(plaunch.values())}", flush=True)
     if not (loss_err <= 1e-4 and grad_errs[-1][0] <= 1e-4 and param_err <= 1e-4 and moved):
-        fail("CLIP training parity CUDA vs CPU")
-    if claunch != (16, 16) or plaunch != (0, 0):  # 4 passes x (2 vision + 2 text) layers
-        fail(f"CLIP parity launches: cuda {claunch}, cpu {plaunch}")
+        fail(f"{tag}: CLIP training parity CUDA vs CPU")
+    if claunch != {n: expected.get(n, 0) for n in counters} or any(plaunch.values()):
+        fail(f"{tag} launches: cuda {claunch} (expected {expected}), cpu {plaunch}")
 
 
-def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> None:
+def phase_clip_parity() -> None:
+    """Phase 8: the default CLIP (K2 in both towers): 4 passes x (2 vision
+    + 2 text) layers of K2 forward and backward."""
+    _clip_parity("clip-parity", False, {"attention_core_fwd": 16, "attention_core_bwd": 16})
+
+
+def phase_variant_parity() -> None:
+    """Phase 12: phase 8 under MCL_ATTN_CORE_BD=1, (a) with the vision tower
+    on K6 (vision K6, text K2-bd) and (b) in the default layout (K2-bd in
+    both towers); K2 never launched."""
+    os.environ["MCL_ATTN_CORE_BD"] = "1"
+    try:
+        _clip_parity("variant-parity (a) fused vision", True, {
+            "fused_attention_fwd": 8, "fused_bwd_attn": 8,
+            "attention_core_bd_fwd": 8, "attention_core_bd_bwd": 8})
+        _clip_parity("variant-parity (b) K2-bd both towers", False, {
+            "attention_core_bd_fwd": 16, "attention_core_bd_bwd": 16})
+    finally:
+        del os.environ["MCL_ATTN_CORE_BD"]
+
+
+def _steady_step_ms(state, steps: int = 3) -> float:
+    """ms per train step of ``state.model`` on one fixed device batch of the
+    slice's circles and captions (no input path), after one warm-up step;
+    the model trains on."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import make_clip_train_step
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+
+    batch = to_device(_clip_batches(load_tokenizer("concept-tokenizer"), 1, CLIP_BATCH)[0],
+                      "cuda")
+    step = make_clip_train_step(state.model)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> dict:
     """The port's contrastive CLI (``contrastive_training.main``) on the
     full CLIP of experiments/contrastive/color/12_colors_3k.yaml (ViT-B/32 +
     12 x 512 text tower, batch 256), one epoch on a generated 12-color
@@ -1423,6 +1716,7 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> No
     launches = {"attention_core_fwd": ac.attention_core_fwd.launches,
                 "attention_core_bwd": ac.attention_core_bwd.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady_ms = _steady_step_ms(out["state"])
 
     steps = sizes["train"] // CLIP_BATCH  # drop_last
     test_batches = -(-sizes["test"] // CLIP_BATCH)
@@ -1439,7 +1733,8 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> No
     rate = epoch["steps"] / epoch["epoch_time"]
     print(f"[clip] one epoch: {epoch['steps']} steps of batch {CLIP_BATCH} in "
           f"{epoch['epoch_time']:.3f} s: {rate:.3f} steps/s, {CLIP_BATCH * rate:.1f} images/s; "
-          f"whole CLI run {wall:.1f} s; peak memory {peak_gib:.2f} GiB", flush=True)
+          f"whole CLI run {wall:.1f} s; peak memory {peak_gib:.2f} GiB; steady step on a "
+          f"fixed device batch {steady_ms:.2f} ms", flush=True)
     print(f"[clip] train loss {epoch['train_loss']}, zero-shot accuracy {acc}%, checkpoint "
           f"{os.path.basename(ckpt)} saved {saved}; tensors unmoved {unmoved}; K2 launches "
           f"{launches} (expected {expected})", flush=True)
@@ -1449,38 +1744,189 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> No
         fail(f"CLIP slice launch counts {launches} != expected {expected}")
     for name, n in launches.items():
         report[name]["launches"] = n
+    return {"config": config, "steps_per_s": rate, "images_per_s": CLIP_BATCH * rate,
+            "peak_gib": peak_gib, "steady_ms": steady_ms}
 
 
-def profile_clip(steps: int = 6, warmup: int = 4) -> None:
-    """``--profile``: the full CLIP train step (batch 256, bf16 compute, the
-    trainer's optimizer) on a fixed device batch: steady ms per step
-    unprofiled; a ``torch.profiler`` window of ``steps`` steps tracing the
-    card only: device busy time (union of kernel intervals) and the idle
-    share, against the unprofiled step and against the window's own wall
-    time; then a window tracing host and card: aten ops per step, device
-    time by kernel, and how far host tracing stretches the step."""
+def _variant_model(config, vocab_size: int):
+    """The config's CLIP as ``contrastive_training.init_model`` builds it
+    (bf16 compute over float32 parameters, the seeded init on the card),
+    with the vision config replaced by ``fused_attention=True``."""
+    import dataclasses
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from multimodal_concept_learning_tpu_torch import miniyaml
-    from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
-    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
-    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.models.clip import CLIPConfig, CLIPModel
+
+    cfg = CLIPConfig.create(vocab_size=vocab_size, vision_preset=config.vision_model_name,
+                            image_size=config.image_size, text_width=config.text_width,
+                            text_layers=config.text_layers, text_heads=config.text_heads,
+                            context_length=config.context_length, embed_dim=config.embed_dim,
+                            dtype=torch.bfloat16)
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, fused_attention=True))
+    with torch.device("cuda"):
+        model = CLIPModel(cfg)
+    return init_random_weights_(model, torch.Generator(device="cuda").manual_seed(config.seed))
+
+
+def phase_variant_slice(report: dict, clip_run: dict) -> None:
+    """Phase 13: the full CLIP of phase 9 (ViT-B/32 + 12 x 512, batch 256,
+    bf16) with ``vision.fused_attention=True`` under MCL_ATTN_CORE_BD=1,
+    built as ``contrastive_training.init_model`` builds it but for the
+    vision config, trained by ``make_clip_train_step`` for one epoch of
+    phase 9's generated data through the CLI's loader, then zero-shot
+    (``make_zero_shot_step``) on the test split.  Per train step exactly 12
+    K6 forward, 12 K6 backward, 12 K2-bd forward and 12 K2-bd backward
+    launches and no K2; the class captions add 12 K2-bd forwards, each test
+    batch 12 K6 forwards.  Finite loss, every tensor moved; steps/s,
+    images/s and peak memory beside phase 9's."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+    from multimodal_concept_learning_tpu_torch.data.datasets import (
+        ColorDataset,
+        load_split_datasets,
+    )
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+    from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import (
+        build_optimizer,
+        linear_warmup_schedule,
+    )
     from multimodal_concept_learning_tpu_torch.parallel.train_step import (
         TrainState,
         make_clip_train_step,
     )
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+    from multimodal_concept_learning_tpu_torch.train.contrastive_training import zero_shot_eval
+
+    config = clip_run["config"]
+    tokenizer = load_tokenizer("concept-tokenizer")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _variant_model(config, len(tokenizer))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    train, _, test = load_split_datasets(
+        ColorDataset, mapping_dir=os.path.dirname(config.mapping_path),
+        data_dir=config.image_root,
+        train_transform=create_transforms(config, is_train=True, seed=config.seed),
+        val_transform=create_transforms(config, is_train=False, seed=config.seed),
+        return_synset=True)
+    collator = ClipCollator(tokenizer, config.caption_template, config.context_length)
+    loader = BatchLoader(train, batch_size=config.batch_size, shuffle=True, drop_last=True,
+                         collate_fn=collator, seed=config.seed)
+    schedule = linear_warmup_schedule(config.learning_rate, config.warmup_steps, len(loader))
+    opt = build_optimizer(model, schedule, weight_decay=config.weight_decay,
+                          max_grad_norm=config.max_grad_norm)
+    state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
+    label_to_idx = {n: i for i, n in enumerate(train.unique_labels)}
+
+    def eval_collate(batch):  # the CLI's
+        return {"images": np.stack([b[0] for b in batch]).astype(np.float32),
+                "labels": np.asarray([label_to_idx[b[1]] for b in batch], dtype=np.int32)}
+
+    counters = _clip_counters()
+    os.environ["MCL_ATTN_CORE_BD"] = "1"
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        loader.set_epoch(0)
+        losses = []
+        for batch in loader:
+            state, m = step(state, to_device(batch, "cuda"))
+            losses.append(m["loss"])
+        loss = float(torch.stack(losses).mean())
+        epoch_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        trained = {n: fn.launches for n, fn in counters.items()}
+        acc = zero_shot_eval(model, BatchLoader(test, batch_size=config.batch_size,
+                                                collate_fn=eval_collate),
+                             train.unique_labels, collator, "cuda")
+        launches = {n: fn.launches for n, fn in counters.items()}
+        unmoved = [n for n, t in model.state_dict().items() if torch.equal(t, init[n])]
+        steady_ms = _steady_step_ms(state)
+    finally:
+        del os.environ["MCL_ATTN_CORE_BD"]
+    steps, test_batches = len(losses), -(-len(test) // config.batch_size)
+    per_step = {"fused_attention_fwd": 12, "fused_bwd_attn": 12, "attention_core_bd_fwd": 12,
+                "attention_core_bd_bwd": 12}
+    expected_train = {n: per_step.get(n, 0) * steps for n in counters}
+    expected = dict(expected_train,
+                    fused_attention_fwd=12 * (steps + test_batches),
+                    attention_core_bd_fwd=12 * (steps + 1))
+    del init, state, model, opt
+    rate = steps / epoch_s
+    print(f"[variant] one epoch: {steps} steps of batch {config.batch_size} in {epoch_s:.3f} s: "
+          f"{rate:.3f} steps/s, {config.batch_size * rate:.1f} images/s, peak memory "
+          f"{peak_gib:.2f} GiB, steady step {steady_ms:.2f} ms; phase 9 (default path): "
+          f"{clip_run['steps_per_s']:.3f} steps/s, {clip_run['images_per_s']:.1f} images/s, "
+          f"{clip_run['peak_gib']:.2f} GiB, steady step {clip_run['steady_ms']:.2f} ms",
+          flush=True)
+    print(f"[variant] train loss {loss}, zero-shot accuracy {acc}%; tensors unmoved {unmoved}; "
+          f"launches after training {trained} (expected {expected_train}), after zero-shot "
+          f"{launches} (expected {expected})", flush=True)
+    if not (np.isfinite(loss) and steps > 0 and 0.0 <= acc <= 100.0 and not unmoved):
+        fail("variant slice checks")
+    if trained != expected_train or launches != expected:
+        fail(f"variant slice launch counts {trained}, {launches}")
+    for name in per_step:
+        report[name]["launches"] = launches[name]
+
+
+PORT_KERNELS = ("core_fwd_kernel", "core_bwd_kernel", "bd_fwd_kernel", "merged_bwd_kernel",
+                "fused_attn_kernel", "out_proj_kernel")  # the CLIP paths' kernels, by name
+
+
+def profile_clip(steps: int = 6, warmup: int = 4) -> None:
+    """``--profile``: the full CLIP train step (batch 256, bf16 compute, the
+    trainer's optimizer) on a fixed device batch, on the default path (K2)
+    and on the kernel variants (fused vision tower under
+    MCL_ATTN_CORE_BD=1: K6 and K2-bd), then the input path alone."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
     from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
     from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model
 
     with open(CLIP_CONFIG) as f:
         config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
     tokenizer = load_tokenizer("concept-tokenizer")
-    model = init_model(config, len(tokenizer), "cuda")
+    batch = to_device(_clip_batches(tokenizer, 1, CLIP_BATCH)[0], "cuda")
+    _profile_step("default", init_model(config, len(tokenizer), "cuda"), config, batch, steps,
+                  warmup)
+    torch.cuda.empty_cache()
+    os.environ["MCL_ATTN_CORE_BD"] = "1"
+    try:
+        _profile_step("variant", _variant_model(config, len(tokenizer)), config, batch, steps,
+                      warmup)
+    finally:
+        del os.environ["MCL_ATTN_CORE_BD"]
+    _time_loader(config, tokenizer)
+
+
+def _profile_step(tag: str, model, config, batch, steps: int, warmup: int) -> None:
+    """Steady ms per step unprofiled; a ``torch.profiler`` window of
+    ``steps`` steps tracing the card only: device busy time (union of kernel
+    intervals) and the idle share, against the unprofiled step and against
+    the window's own wall time; then a window tracing host and card: aten
+    ops per step, device time by kernel (the port's kernels and the matrix
+    products summed), and how far host tracing stretches the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_clip_train_step,
+    )
+
     opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
                           max_grad_norm=config.max_grad_norm)
     state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
-    batch = to_device(_clip_batches(tokenizer, 1, CLIP_BATCH)[0], "cuda")
     for _ in range(warmup):
         state, m = step(state, batch)
     torch.cuda.synchronize()
@@ -1489,7 +1935,7 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
         state, m = step(state, batch)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / steps
-    print(f"[profile] unprofiled: {step_ms:.2f} ms per step, {1e3 / step_ms:.3f} steps/s, "
+    print(f"[profile {tag}] unprofiled: {step_ms:.2f} ms per step, {1e3 / step_ms:.3f} steps/s, "
           f"{CLIP_BATCH * 1e3 / step_ms:.1f} images/s (loss {float(m['loss']):.4f})", flush=True)
 
     def window(activities):
@@ -1511,8 +1957,8 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
 
     _, _, busy_dev, wall_dev = window([ProfilerActivity.CUDA])
     busy_ms = busy_dev / 1e3 / steps
-    print(f"[profile] card-only trace of {steps} steps: device busy {busy_ms:.2f} ms a step; "
-          f"idle share {1 - busy_ms / step_ms:.3f} of the unprofiled step, "
+    print(f"[profile {tag}] card-only trace of {steps} steps: device busy {busy_ms:.2f} ms a "
+          f"step; idle share {1 - busy_ms / step_ms:.3f} of the unprofiled step, "
           f"{1 - busy_dev / wall_dev:.3f} of the window ({wall_dev / 1e3 / steps:.2f} ms a "
           f"step)", flush=True)
     events, spans, busy, wall_us = window([ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1524,18 +1970,19 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
             k = by_kernel.setdefault(e.name, [0.0, 0])
             k[0] += e.time_range.end - e.time_range.start
             k[1] += 1
-    k2 = sum(t for name, (t, _) in by_kernel.items() if "core_fwd" in name or "core_bwd" in name)
+    ours = sum(t for name, (t, _) in by_kernel.items() if any(k in name for k in PORT_KERNELS))
     gemm = sum(t for name, (t, _) in by_kernel.items()
                if any(tag in name for tag in ("gemm", "nvjet", "cutlass", "xmma")))
-    print(f"[profile] host + card trace of {steps} steps: wall {wall_us / 1e3:.2f} ms "
+    print(f"[profile {tag}] host + card trace of {steps} steps: wall {wall_us / 1e3:.2f} ms "
           f"({wall_us / 1e3 / steps / step_ms:.2f}x the unprofiled step), device busy "
           f"{busy / 1e3:.2f} ms; {len(spans)} kernels and {aten} aten ops "
-          f"({aten / steps:.0f} a step); K2 {k2 / 1e3:.2f} ms = {k2 / busy:.3f} and matrix "
-          f"products {gemm / 1e3:.2f} ms = {gemm / busy:.3f} of device time", flush=True)
+          f"({aten / steps:.0f} a step); the port's attention kernels {ours / 1e3:.2f} ms = "
+          f"{ours / busy:.3f} and matrix products {gemm / 1e3:.2f} ms = {gemm / busy:.3f} of "
+          f"device time", flush=True)
     for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"[profile] {t / 1e3 / steps:8.3f} ms/step {t / busy:6.3f} {n // steps:5d}x "
+        print(f"[profile {tag}] {t / 1e3 / steps:8.3f} ms/step {t / busy:6.3f} {n // steps:5d}x "
               f"{name[:110]}", flush=True)
-    _time_loader(config, tokenizer)
+    del state, step, opt, model
 
 
 def _time_loader(config, tokenizer, images_per_color: int = 108) -> None:
@@ -1595,6 +2042,15 @@ SOURCES = {
     "paged_decode_attention_mp": (
         "multimodal_concept_learning_tpu_torch/csrc/paged_attention_mp.cu",
         "multimodal_concept_learning_tpu/ops/paged_attention_mp_kernel.py:47"),
+    "attention_core_bd_fwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core_bd.cu",
+                              "multimodal_concept_learning_tpu/ops/attention_core.py:179"),
+    "attention_core_bd_bwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core_bd.cu",
+                              "multimodal_concept_learning_tpu/ops/attention_core.py:203"),
+    "fused_attention_fwd": (
+        "multimodal_concept_learning_tpu_torch/csrc/fused_attention_block.cu",
+        "multimodal_concept_learning_tpu/ops/fused_attention_block.py:86"),
+    "fused_bwd_attn": ("multimodal_concept_learning_tpu_torch/csrc/fused_attention_block.cu",
+                       "multimodal_concept_learning_tpu/ops/fused_attention_block.py:106"),
 }
 KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1644,14 +2100,18 @@ def main(argv=None) -> None:
     print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
           f"{report['flash_attention_fwd']['launches']}", flush=True)
     phase_clip_parity()
+    phase_variant_parity()
     root = tempfile.mkdtemp(prefix="_smoke_clip_", dir=REPO)
     try:
-        phase_clip_slice(report, root)
+        clip_run = phase_clip_slice(report, root)
+        phase_variant_slice(report, clip_run)  # on phase 9's generated data
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}
                for name, r in report.items()]
+    if sorted(report) != sorted(SOURCES):
+        fail(f"the kernels' line lists {sorted(report)}, not the {len(SOURCES)} port kernels")
     print(f"[timing] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)  # again, beside the results: the card's name and power limit
     print(json.dumps({"kernels": kernels}), flush=True)

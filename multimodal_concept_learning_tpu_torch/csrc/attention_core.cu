@@ -43,26 +43,12 @@
 // - A sample's last valid key (from kv_mask and t_real) bounds the key loop:
 //   the text tower's captions fill ~13 of 77 positions.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "flash_attention_common.cuh"
+#include "merged_attention.cuh"  // kD, kBK, kBQB, round_to, load_rows
 
 namespace {
 
-using mcl_flash::kThreads;
-using mcl_flash::load_f;
-using mcl_flash::store_f;
-using mcl_flash::warp_max;
-using mcl_flash::warp_sum;
-
-constexpr int kD = 64;        // head dim
-constexpr int kBK = 32;       // keys per tile == warp width
-constexpr int kBQ = 64;       // forward queries per CTA
-constexpr int kBQB = 32;      // backward queries per tile
-constexpr int kMaxTBwd = 640; // backward dQ tile [T, 64] fp32 in smem
+constexpr int kBQ = 64;                   // forward queries per CTA
+constexpr int kMaxTBwd = kMaxRows;        // backward dQ tile [T, 64] fp32 in smem
 
 struct CoreParams {
   const void* qkv;
@@ -74,51 +60,6 @@ struct CoreParams {
   int B, T, H, t_real, causal;
   float scale;
 };
-
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-};
-
-// value rounded to the storage type T and back (the TPU kernel's astype(cdt))
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// rows [row0, row0 + nrows) of one head's D columns -> dst[r * ld + d] (fp32),
-// 16-byte loads; rows at or past T read as zeros.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* base, long long stride,
-                                          int row0, int nrows, int T_) {
-  constexpr int N = Vec<T>::N;
-  constexpr int C = kD / N;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < nrows * C; i += kThreads) {
-    const int r = i / C, c = (i % C) * N, t = row0 + r;
-    float v[N];
-    if (t < T_) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(base + (size_t)t * stride + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < N; ++j) v[j] = load_f(e + j);
-    } else {
-#pragma unroll
-      for (int j = 0; j < N; ++j) v[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) dst[r * ld + c + j] = v[j];
-  }
-}
 
 // The number of keys any row of sample b may attend: one past the last key
 // below t_real that the mask keeps.  Every thread of the CTA returns it.

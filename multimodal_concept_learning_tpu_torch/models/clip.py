@@ -12,7 +12,13 @@ with ``logit_scale`` clipped at log(100).  Both towers compute in the config's
 dtype over float32 parameters, every weight cast at use.
 
 The JAX model takes K2 only on a TPU and its XLA path elsewhere; the port
-takes K2 on every device (the CPU runs K2's plain version).  The all-gather
+takes K2 on every device (the CPU runs K2's plain version).  Two variants,
+off by default as in the JAX package: ``MCL_ATTN_CORE_BD=1`` (read at each
+call) puts K2-bd, the sample-merged kernels, in place of K2 in both towers;
+a vision config with ``fused_attention=True`` (a ``dataclasses.replace`` of
+``config.vision``, as ``scripts/bench_fused_attention.py`` builds it) runs
+every image block's attention sublayer through K6
+(``ops/fused_attention_block.py``).  The all-gather
 of ``contrastive_loss``'s ``axis_name`` (a sharded batch) and the
 partitioned text embedding (``active_vocab_rows``) are not ported yet.
 Parameter names follow the JAX tree (``checkpoint.clip_state_dict_from_jax``

@@ -13,7 +13,12 @@ reference checkpoint loads as is.  Parameter names are HF ViTModel's, as
 ``checkpoint/torch_interop.mllm_params_to_torch`` writes them.
 ``int8_weights`` (serving) makes q/k/v, the attention output and the MLP
 int8 projections (``ops/quant.py``) and forces the ``bthd`` branch; the
-patch embedding and the norms stay float.
+patch embedding and the norms stay float.  ``fused_attention`` runs each
+block's attention sublayer (LN, the packed qkv projection, attention, the
+output projection and the residual) through K6
+(``ops/fused_attention_block.py``); it wins over ``attention_layout``, and
+``int8_weights`` wins over it, as the JAX ``_fused_attention_ok`` orders
+them (the port has no dropout).  The parameters stay the same either way.
 """
 
 from __future__ import annotations
@@ -27,6 +32,10 @@ from torch import nn
 from multimodal_concept_learning_tpu_torch.device import linear
 from multimodal_concept_learning_tpu_torch.ops.attention import multi_head_attention
 from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+from multimodal_concept_learning_tpu_torch.ops.fused_attention_block import (
+    attention_sublayer,
+    pack_qkv,
+)
 from multimodal_concept_learning_tpu_torch.ops.quant import QuantLinear
 
 LAYOUTS = ("bthd", "pallas_core")
@@ -46,6 +55,7 @@ class ViTConfig:
     gelu_approximate: bool = False  # tanh GELU (the CLIP towers'), else exact erf
     attention_layout: str = "bthd"  # "bthd": K1 on [B, T, H, D]; "pallas_core": K2 on packed qkv
     int8_weights: bool = False  # serving: int8 block projections (ops/quant.py)
+    fused_attention: bool = False  # K6: the whole attention sublayer in one op
 
     def __post_init__(self):
         if self.attention_layout not in LAYOUTS:
@@ -148,18 +158,26 @@ class ViTLayer(nn.Module):
         heads = cfg.num_attention_heads
         hd = cfg.hidden_size // heads
         dt = cfg.dtype
-        h = layer_norm_f32(self.layernorm_before, x).to(dt)
         proj = self.attention["attention"]
         names = ("query", "key", "value")
-        if cfg.attention_layout == "pallas_core" and not cfg.int8_weights:
-            # one packed projection, [q | k | v] concatenated at use, into K2
-            w = torch.cat([proj[n].weight.to(dt) for n in names])
-            bias = torch.cat([proj[n].bias.to(dt) for n in names])
-            a = attention_core_padded(F.linear(h, w, bias), heads)
+        out = self.attention["output"]["dense"]
+        if cfg.fused_attention and not cfg.int8_weights:
+            # K6: [q | k | v] packed at use in the JAX layout, the sublayer in one op
+            wqkv, bqkv = pack_qkv(*(a for n in names for a in (proj[n].weight, proj[n].bias)))
+            ln = self.layernorm_before
+            x = attention_sublayer(x.to(dt), ln.weight, ln.bias, wqkv, bqkv, out.weight.t(),
+                                   out.bias, heads, cfg.layer_norm_eps)
         else:
-            q, k, v = (linear(proj[n], h, dt).view(b, t, heads, hd) for n in names)
-            a = multi_head_attention(q, k, v).reshape(b, t, cfg.hidden_size)
-        x = x + linear(self.attention["output"]["dense"], a, dt)
+            h = layer_norm_f32(self.layernorm_before, x).to(dt)
+            if cfg.attention_layout == "pallas_core" and not cfg.int8_weights:
+                # one packed projection, [q | k | v] concatenated at use, into K2
+                w = torch.cat([proj[n].weight.to(dt) for n in names])
+                bias = torch.cat([proj[n].bias.to(dt) for n in names])
+                a = attention_core_padded(F.linear(h, w, bias), heads)
+            else:
+                q, k, v = (linear(proj[n], h, dt).view(b, t, heads, hd) for n in names)
+                a = multi_head_attention(q, k, v).reshape(b, t, cfg.hidden_size)
+            x = x + linear(out, a, dt)
         h = layer_norm_f32(self.layernorm_after, x).to(dt)
         gelu = "tanh" if cfg.gelu_approximate else "none"  # exact erf: HF ViT
         h = F.gelu(linear(self.intermediate["dense"], h, dt), approximate=gelu)

@@ -31,12 +31,25 @@ valid key gets a zero output and no gradient here; the JAX kernel gives it
 a uniform average over all keys (such rows never occur on the CLIP path).
 
 The JAX package pads T to a multiple of 16 (a TPU sublane rule); the port
-runs at T.  The sample-merged block-diagonal variants (``block_diag=True``)
-are not ported yet.
+runs at T.
+
+K2-bd, the sample-merged (block-diagonal) variants, compute the same
+function on rows merged across samples: ``attention_core_bd_fwd`` and
+``attention_core_bd_bwd`` (``csrc/attention_core_bd.cu``) replace
+``_fwd_kernel_bd`` and ``_bwd_kernel_bd`` of the JAX module.  Their plain
+versions (``attention_core_bd_reference``,
+``attention_core_bd_backward_reference``) build the JAX ``_flat_mask`` of a
+stated block of ``bblk`` samples; cross-sample keys are masked, so every
+row with a valid key equals K2's, and with the port's zero rows the block
+size changes nothing.  ``block_diag=None`` reads ``MCL_ATTN_CORE_BD`` at
+each call ("1": K2-bd), as the JAX ``_block_diag_default`` does.  The JAX
+block pickers (``_pick_bblk``, ``MCL_ATTN_CORE_BBLK``) size TPU VMEM
+blocks and are not ported: the kernels pick their own merge.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -45,6 +58,7 @@ _NEG = -1e30  # the JAX kernel's finite mask value
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64  # the only head dim the kernels are built for (every ViT/CLIP preset)
 MAX_T_BWD = 640  # the backward keeps a [T, 64] float32 dQ tile in shared memory
+BD_ROWS = 256  # K2-bd backward: whole samples merged into about this many rows a CTA
 
 
 def _split(qkv: torch.Tensor, heads: int):
@@ -102,22 +116,106 @@ def attention_core_reference(qkv, heads: int, t_real: int, causal: bool = False,
     return out, torch.where(torch.isneginf(lse), float("inf"), lse)
 
 
+def backward_from_probs(q, k, v, p, da, scale_after: bool = False) -> torch.Tensor:
+    """dqkv [B, T, 3·H·D] in q's dtype from the float32 probabilities ``p``
+    [B, H, T, T] and dA [B, T, H, D].  K2's rounding: ``dS·D**-0.5`` cast to
+    the compute dtype before ``dQ = dS·K`` and ``dK = dSᵀ·Q``; with
+    ``scale_after`` (K6's): ``dS`` cast unscaled, the scale applied to each
+    float32 product before its cast.  ``P`` is cast before ``dV = Pᵀ·dA``."""
+    cdt = q.dtype
+    scale = q.shape[-1] ** -0.5
+    dp = torch.einsum("bqhd,bkhd->bhqk", da.float(), v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if scale_after:
+        ds16 = ds.to(cdt)
+        dq = (torch.einsum("bhqk,bkhd->bqhd", ds16.float(), k.float()) * scale).to(cdt)
+        dk = (torch.einsum("bhqk,bqhd->bkhd", ds16.float(), q.float()) * scale).to(cdt)
+    else:
+        ds16 = (ds * scale).to(cdt)
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds16, k)
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds16, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(cdt), da)
+    b, t, h, d = q.shape
+    return torch.stack([dq, dk, dv], dim=2).reshape(b, t, 3 * h * d).to(cdt)
+
+
 def attention_core_backward_reference(qkv, d_out, heads: int, t_real: int,
                                       causal: bool = False, kv_mask=None):
     """Plain PyTorch K2 backward: dqkv [B, T, 3·H·D] in qkv's dtype."""
     b, t, _ = qkv.shape
-    cdt = qkv.dtype
     q, k, v = _split(qkv, heads)
     ok = key_ok(b, t, t_real, causal, _padded_mask(kv_mask, b, t, qkv.device), qkv.device)
     _, p = _scores_probs(q, k, ok)
-    da = d_out.to(cdt).reshape(q.shape)
-    dp = torch.einsum("bqhd,bkhd->bhqk", da.float(), v.float())
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds16 = (ds * q.shape[-1] ** -0.5).to(cdt)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, k)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, q)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(cdt), da)
-    return torch.stack([dq, dk, dv], dim=2).reshape(qkv.shape).to(cdt)
+    return backward_from_probs(q, k, v, p, d_out.to(qkv.dtype).reshape(q.shape))
+
+
+def _merged(qkv, kvm, bblk: int):
+    """qkv [B, T, F] and the int32 mask [B, T] (None: all ones) as blocks of
+    ``bblk`` samples merged into rows: [B', bblk·T, F] and [B', bblk·T],
+    B' = ceil(B / bblk); the samples added to fill the last block have no
+    valid key."""
+    b, t, f = qkv.shape
+    nblk = -(-b // bblk)
+    pad = nblk * bblk - b
+    kvm = torch.ones((b, t), dtype=torch.int32, device=qkv.device) if kvm is None else kvm
+    if pad:
+        qkv = torch.nn.functional.pad(qkv, (0, 0, 0, 0, 0, pad))
+        kvm = torch.nn.functional.pad(kvm, (0, 0, 0, pad))
+    return qkv.reshape(nblk, bblk * t, f), kvm.reshape(nblk, bblk * t)
+
+
+def _flat_mask(bblk: int, t: int, t_real: int, causal: bool, kvm_rows, device) -> torch.Tensor:
+    """The JAX ``_flat_mask``: [B', 1, R, R] bool over R = bblk·T merged
+    rows, True where row r may attend key c: the same sample, ``c`` below
+    ``t_real``, not after ``r`` under ``causal``, kept by ``kvm_rows`` [B', R]."""
+    r = torch.arange(bblk * t, device=device)
+    rows, cols = r[:, None], r[None, :]
+    tok_c = cols % t
+    ok = (rows // t == cols // t) & (tok_c < t_real)
+    if causal:
+        ok = ok & (tok_c <= rows % t)
+    return ok[None, None] & (kvm_rows != 0)[:, None, None, :]
+
+
+def _bd_probs(qkv, heads, t_real, causal, kvm, bblk):
+    """(q, k, v [B', R, H, D] merged, float32 scores and probabilities
+    [B', H, R, R], mask)."""
+    b, t, _ = qkv.shape
+    flat, kvm_rows = _merged(qkv, kvm, bblk)
+    q, k, v = _split(flat, heads)
+    ok = _flat_mask(bblk, t, t_real, causal, kvm_rows, qkv.device)
+    s, p = _scores_probs(q, k, ok)
+    return q, k, v, s, p, ok
+
+
+def attention_core_bd_reference(qkv, heads: int, t_real: int, causal: bool = False,
+                                kv_mask=None, bblk: int = 2, return_lse: bool = False):
+    """Plain PyTorch K2-bd forward over blocks of ``bblk`` samples merged
+    into rows (the last block filled with samples that have no valid key):
+    [B, T, H·D] in qkv's dtype, and with ``return_lse`` the row logsumexp
+    [B, H, T] float32 (+inf on rows with no valid key)."""
+    b, t, _ = qkv.shape
+    _, _, v, s, p, ok = _bd_probs(qkv, heads, t_real, causal,
+                                  _padded_mask(kv_mask, b, t, qkv.device), bblk)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(qkv.dtype), v)
+    out = out.reshape(-1, t, out.shape[-2] * out.shape[-1])[:b]
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1)  # [B', H, R]
+    lse = torch.where(torch.isneginf(lse), float("inf"), lse)
+    lse = lse.reshape(lse.shape[0], heads, -1, t).transpose(1, 2).reshape(-1, heads, t)
+    return out, lse[:b]
+
+
+def attention_core_bd_backward_reference(qkv, d_out, heads: int, t_real: int,
+                                         causal: bool = False, kv_mask=None, bblk: int = 2):
+    """Plain PyTorch K2-bd backward: dqkv [B, T, 3·H·D] in qkv's dtype."""
+    b, t, f = qkv.shape
+    q, k, v, _, p, _ = _bd_probs(qkv, heads, t_real, causal,
+                                 _padded_mask(kv_mask, b, t, qkv.device), bblk)
+    da, _ = _merged(d_out.to(qkv.dtype).reshape(b, t, -1), None, bblk)
+    dqkv = backward_from_probs(q, k, v, p, da.reshape(q.shape))
+    return dqkv.reshape(-1, t, f)[:b]
 
 
 def _check(qkv, heads: int) -> None:
@@ -177,54 +275,116 @@ def attention_core_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bo
     return dqkv
 
 
+def bd_block(t: int) -> int:
+    """Samples merged into one K2-bd backward CTA: whole samples filling
+    about ``BD_ROWS`` rows (at least one)."""
+    return max(1, BD_ROWS // t)
+
+
+def attention_core_bd_fwd(qkv, heads: int, t_real: int, causal: bool, kvm, with_lse: bool):
+    """The K2-bd forward kernel on CUDA tensors (``kvm``: int32 [B, T] or
+    None): one CTA per (64 rows merged across samples, head).  Returns (out
+    [B, T, H·D], lse [B, H, T] float32 or None).  Counted in ``.launches``."""
+    from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
+
+    b, t, hd3 = qkv.shape
+    out = torch.empty((b, t, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device) if with_lse else None
+    with torch.cuda.device(qkv.device):
+        err = kernels().mcl_attention_core_bd_fwd(
+            qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if kvm is None else kvm.data_ptr(), b, t, heads, HEAD_DIM, int(t_real),
+            int(causal), HEAD_DIM ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+    check(err, "attention_core_bd_fwd")
+    attention_core_bd_fwd.launches += 1
+    return out, lse
+
+
+def attention_core_bd_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bool, kvm,
+                          bblk: Optional[int] = None):
+    """The K2-bd backward kernel on CUDA tensors: dqkv [B, T, 3·H·D] from the
+    forward's ``out`` and ``lse``; one CTA per (head, ``bblk`` whole samples
+    merged into rows; default ``bd_block(T)``).  Counted in ``.launches``."""
+    from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
+
+    b, t, _ = qkv.shape
+    bblk = bd_block(t) if bblk is None else int(bblk)
+    if not 0 < bblk * t <= MAX_T_BWD:
+        raise ValueError(f"attention_core_bd backward kernel takes bblk·T <= {MAX_T_BWD} "
+                         f"merged rows, got bblk {bblk} x T {t}")
+    d_out = d_out.to(qkv.dtype).contiguous()
+    if d_out.data_ptr() % 16:
+        d_out = d_out.clone()
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        err = kernels().mcl_attention_core_bd_bwd(
+            qkv.data_ptr(), out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(), b, t, heads, HEAD_DIM,
+            int(t_real), int(causal), HEAD_DIM ** -0.5, bblk, _DTYPE_CODES[qkv.dtype],
+            _stream(qkv))
+    check(err, "attention_core_bd_bwd")
+    attention_core_bd_bwd.launches += 1
+    return dqkv
+
+
 class _AttentionCore(torch.autograd.Function):
-    """The kernels for CUDA tensors, the plain versions for CPU tensors;
-    ``kv_mask`` gets no gradient."""
+    """K2 (or K2-bd with ``bd``) for CUDA tensors, the plain versions for
+    CPU tensors; ``kv_mask`` gets no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, kvm, heads, t_real, causal):
+    def forward(ctx, qkv, kvm, heads, t_real, causal, bd):
         if qkv.is_cuda:
-            out, lse = attention_core_fwd(qkv, heads, t_real, causal, kvm, with_lse=True)
+            fwd = attention_core_bd_fwd if bd else attention_core_fwd
+            out, lse = fwd(qkv, heads, t_real, causal, kvm, with_lse=True)
             ctx.save_for_backward(qkv, kvm, out, lse)
         else:
-            out = attention_core_reference(qkv, heads, t_real, causal, kvm)
+            ref = attention_core_bd_reference if bd else attention_core_reference
+            out = ref(qkv, heads, t_real, causal, kvm)
             ctx.save_for_backward(qkv, kvm)
-        ctx.args = (heads, t_real, causal)
+        ctx.args = (heads, t_real, causal, bd)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        heads, t_real, causal = ctx.args
+        heads, t_real, causal, bd = ctx.args
         if d_out.is_cuda:
             qkv, kvm, out, lse = ctx.saved_tensors
-            dqkv = attention_core_bwd(qkv, out, d_out, lse, heads, t_real, causal, kvm)
+            bwd = attention_core_bd_bwd if bd else attention_core_bwd
+            dqkv = bwd(qkv, out, d_out, lse, heads, t_real, causal, kvm)
         else:
             qkv, kvm = ctx.saved_tensors
-            dqkv = attention_core_backward_reference(qkv, d_out, heads, t_real, causal, kvm)
-        return dqkv, None, None, None, None
+            ref = attention_core_bd_backward_reference if bd else attention_core_backward_reference
+            dqkv = ref(qkv, d_out, heads, t_real, causal, kvm)
+        return dqkv, None, None, None, None, None
+
+
+def _block_diag_default() -> bool:
+    """``MCL_ATTN_CORE_BD=1`` selects K2-bd; read at each call."""
+    return os.environ.get("MCL_ATTN_CORE_BD", "0") == "1"
 
 
 def attention_core(qkv, heads: int, t_real: int, causal: bool = False, kv_mask=None,
                    block_diag=None) -> torch.Tensor:
     """Packed token-major attention: qkv [B, T, 3·H·D] -> [B, T, H·D] in
     qkv's dtype, differentiable in qkv.  ``kv_mask`` [B, <=T] (nonzero =
-    valid key) masks per-sample padding.  CUDA tensors run the K2 kernels
-    (counted in ``attention_core_fwd.launches`` and
-    ``attention_core_bwd.launches``); CPU tensors the plain versions."""
-    if block_diag:
-        raise NotImplementedError("the block-diagonal attention core (block_diag=True) is not "
-                                  "ported yet (ROADMAP.md, queue B)")
+    valid key) masks per-sample padding.  ``block_diag`` picks K2-bd (None:
+    ``MCL_ATTN_CORE_BD``, read now).  CUDA tensors run the kernels (counted
+    in ``attention_core_fwd.launches`` / ``attention_core_bwd.launches``, or
+    the ``attention_core_bd_*`` pair); CPU tensors the plain versions."""
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_core runs on cpu or cuda tensors, got {qkv.device}")
+    bd = _block_diag_default() if block_diag is None else bool(block_diag)
     b, t, _ = qkv.shape
     kvm = _padded_mask(kv_mask, b, t, qkv.device)
     if qkv.is_cuda:
         _check(qkv, heads)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _AttentionCore.apply(qkv, kvm, heads, t_real, causal)
+        return _AttentionCore.apply(qkv, kvm, heads, t_real, causal, bd)
     if qkv.is_cuda:
-        return attention_core_fwd(qkv, heads, t_real, causal, kvm, with_lse=False)[0]
-    return attention_core_reference(qkv, heads, t_real, causal, kvm)
+        fwd = attention_core_bd_fwd if bd else attention_core_fwd
+        return fwd(qkv, heads, t_real, causal, kvm, with_lse=False)[0]
+    ref = attention_core_bd_reference if bd else attention_core_reference
+    return ref(qkv, heads, t_real, causal, kvm)
 
 
 def attention_core_padded(qkv, heads: int, causal: bool = False, kv_mask=None,
@@ -237,13 +397,21 @@ def attention_core_padded(qkv, heads: int, causal: bool = False, kv_mask=None,
 
 attention_core_fwd.launches = 0
 attention_core_bwd.launches = 0
+attention_core_bd_fwd.launches = 0
+attention_core_bd_bwd.launches = 0
 
 __all__ = [
     "attention_core",
     "attention_core_backward_reference",
+    "attention_core_bd_backward_reference",
+    "attention_core_bd_bwd",
+    "attention_core_bd_fwd",
+    "attention_core_bd_reference",
     "attention_core_bwd",
     "attention_core_fwd",
     "attention_core_padded",
     "attention_core_reference",
+    "backward_from_probs",
+    "bd_block",
     "key_ok",
 ]

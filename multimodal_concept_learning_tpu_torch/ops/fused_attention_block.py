@@ -1,0 +1,259 @@
+"""K6: the fused pre-LN attention sublayer (counterpart of
+multimodal_concept_learning_tpu/ops/fused_attention_block.py).
+
+    y = x + attn(LN(x)·Wqkv + bqkv)·Wo + bo
+
+with ``attn`` the softmax attention of each sample's own keys below
+``t_real``, per head of 64.  Layouts are the JAX package's: x [B, T, W],
+``wqkv`` [W, 3·H·D] (columns [q | k | v], head-major within each),
+``bqkv`` [3·H·D], ``wo`` [H·D, W], ``bo`` [W].
+
+``fused_attention_fwd`` is the wrapper of the forward kernels of
+``csrc/fused_attention_block.cu`` (the JAX ``_fwd_kernel``): LayerNorm, the
+qkv projection and attention of one (sample, head) in one launch, so LN(x)
+and qkv never reach device memory, then ``attn·Wo + bo + x`` in a second;
+it returns ``y`` and ``attn`` (the backward's residual, as the TPU kernel
+writes it).  ``fused_bwd_attn`` wraps the backward kernel (the JAX
+``_bwd_attn_kernel``): dqkv from the recomputed qkv and dA.  The rest of
+the backward (the recompute of LN and qkv, the dWo / dbo / dA products,
+the qkv-projection and LN backward) is plain tensor code, as the JAX
+package leaves it to XLA.  Beside the kernels are their plain versions
+(``fused_attention_reference``, ``fused_bwd_attn_reference``); CPU tensors
+take them, CUDA tensors the kernels (or the wrapper raises).
+
+Rounding points (the JAX ``_fused_fwd_impl`` and ``_fused_bwd``):
+- forward: ``ln_scale``, ``ln_bias``, ``wqkv``, ``bqkv``, ``wo`` and ``bo``
+  cast to the compute dtype (x's); LN in float32 with the rounded scale and
+  bias; qkv = float32(LN→cdt · Wqkv) + bqkv, cast to cdt; P cast to cdt
+  before P·V; ``attn`` cast to cdt; y = float32(attn·Wo) + bo + x, cast to
+  x's dtype;
+- backward: LN recomputed with the float32 ``ln_scale`` / ``ln_bias`` and
+  qkv with the float32 ``bqkv`` (so a bf16 backward does not see the
+  forward's rounded values); dS cast to cdt unscaled and D**-0.5 applied
+  to each float32 product before its cast.
+
+The JAX wrapper pads T to a multiple of 16 for the TPU; the port runs at T
+(``attention_sublayer``: ``t_real = T``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multimodal_concept_learning_tpu_torch.ops.attention_core import (
+    _DTYPE_CODES,
+    HEAD_DIM,
+    MAX_T_BWD,
+    _scores_probs,
+    _split,
+    _stream,
+    backward_from_probs,
+    bd_block,
+    key_ok,
+)
+
+MAX_T = 320  # the forward keeps one sample's K and V of a head [T, 64] float32 in shared memory
+
+
+def pack_qkv(wq, bq, wk, bk, wv, bv):
+    """Three ``nn.Linear`` weights [H·D, W] and biases [H·D] -> the packed
+    ``wqkv`` [W, 3·H·D] and ``bqkv`` [3·H·D] (the JAX ``pack_qkv`` layout)."""
+    return torch.cat([wq.t(), wk.t(), wv.t()], dim=1), torch.cat([bq, bk, bv])
+
+
+def _ln(x, scale, bias, eps: float):
+    """The JAX ``_ln_forward``: (LN(x) float32, xhat, var) over the last dim."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xhat = (xf - mu) * torch.rsqrt(var + eps)
+    return xhat * scale.float() + bias.float(), xhat, var
+
+
+def ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, eps: float):
+    """(qkv [B, T, 3·H·D], LN(x) in cdt, xhat, var): qkv = float32(LN(x)→cdt
+    · Wqkv→cdt) + float32(bqkv), cast to cdt = x's dtype.  The forward
+    passes parameters already cast to cdt, the backward the float32 ones."""
+    cdt = x.dtype
+    ln, xhat, var = _ln(x, ln_scale, ln_bias, eps)
+    ln16 = ln.to(cdt)
+    qkv = (torch.matmul(ln16.float(), wqkv.to(cdt).float()) + bqkv.float()).to(cdt)
+    return qkv, ln16, xhat, var
+
+
+def _probs(qkv, heads: int, t_real: int):
+    b, t, _ = qkv.shape
+    q, k, v = _split(qkv, heads)
+    _, p = _scores_probs(q, k, key_ok(b, t, t_real, False, None, qkv.device))
+    return q, k, v, p
+
+
+def fused_attention_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
+                              t_real: int, ln_eps: float = 1e-12):
+    """Plain PyTorch K6 forward: (y [B, T, W] in x's dtype, attn [B, T, H·D]
+    in cdt), with the kernel's rounding points."""
+    cdt = x.dtype
+    lns, lnb, wqkv, bqkv, wo, bo = (a.to(cdt) for a in (ln_scale, ln_bias, wqkv, bqkv, wo, bo))
+    qkv, _, _, _ = ln_qkv(x, lns, lnb, wqkv, bqkv, ln_eps)
+    _, _, v, p = _probs(qkv, heads, t_real)
+    b, t, _ = x.shape
+    attn = torch.einsum("bhqk,bkhd->bqhd", p.to(cdt).float(), v.float()).to(cdt).reshape(b, t, -1)
+    y = torch.matmul(attn.float(), wo.float()) + bo.float() + x.float()
+    return y.to(x.dtype), attn
+
+
+def fused_bwd_attn_reference(qkv, da, heads: int, t_real: int):
+    """Plain PyTorch K6 backward kernel: dqkv [B, T, 3·H·D] in qkv's dtype
+    from qkv and dA [B, T, H·D] (keys at or past ``t_real`` masked)."""
+    q, k, v, p = _probs(qkv, heads, t_real)
+    return backward_from_probs(q, k, v, p, da.to(qkv.dtype).reshape(q.shape), scale_after=True)
+
+
+def _check(x, wqkv, wo, heads: int) -> None:
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused attention kernels take float32/bfloat16, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"expected x [B, T, W], got {tuple(x.shape)}")
+    b, t, width = x.shape
+    hd = heads * HEAD_DIM
+    if tuple(wqkv.shape) != (width, 3 * hd) or tuple(wo.shape) != (hd, width):
+        raise ValueError(f"fused attention kernels take head dim {HEAD_DIM}: wqkv [{width}, "
+                         f"{3 * hd}] and wo [{hd}, {width}] for {heads} heads, got "
+                         f"{tuple(wqkv.shape)} and {tuple(wo.shape)}")
+    if width % 32:
+        raise ValueError(f"fused attention kernels take a width that is a multiple of 32, "
+                         f"got {width}")
+    if not 0 < t <= MAX_T:
+        raise ValueError(f"fused attention kernels take 0 < T <= {MAX_T}, got {t}")
+
+
+def _cuda_operand(a, dtype):
+    a = a.to(dtype).contiguous()
+    return a.clone() if a.data_ptr() % 16 else a
+
+
+def fused_attention_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int, t_real: int,
+                        ln_eps: float = 1e-12):
+    """The K6 forward kernels on CUDA tensors (two launches: LN + qkv +
+    attention per (sample, head), then the output projection with bias and
+    residual): (y [B, T, W], attn [B, T, H·D]).  Counted once a call in
+    ``.launches``."""
+    from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
+
+    _check(x, wqkv, wo, heads)
+    cdt = x.dtype
+    x = _cuda_operand(x, cdt)
+    lns, lnb, wqkv, bqkv, wo, bo = (_cuda_operand(a, cdt)
+                                    for a in (ln_scale, ln_bias, wqkv, bqkv, wo, bo))
+    b, t, width = x.shape
+    y = torch.empty_like(x)
+    attn = torch.empty((b, t, heads * HEAD_DIM), dtype=cdt, device=x.device)
+    with torch.cuda.device(x.device):
+        err = kernels().mcl_fused_attention_fwd(
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), attn.data_ptr(), b, t, width, heads,
+            HEAD_DIM, int(t_real), float(ln_eps), HEAD_DIM ** -0.5, _DTYPE_CODES[cdt],
+            _stream(x))
+    check(err, "fused_attention_fwd")
+    fused_attention_fwd.launches += 1
+    return y, attn
+
+
+def fused_bwd_attn(qkv, da, heads: int, t_real: int, bblk=None):
+    """The K6 backward kernel on CUDA tensors: dqkv [B, T, 3·H·D] from qkv
+    and dA, one CTA per (head, ``bblk`` whole samples merged into rows;
+    default ``bd_block(T)``), with lse and rowsum(dP∘P) recomputed inside.
+    Counted in ``.launches``."""
+    from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
+
+    b, t, hd3 = qkv.shape
+    if qkv.dtype not in _DTYPE_CODES or hd3 != 3 * heads * HEAD_DIM:
+        raise ValueError(f"fused attention backward kernel takes float32/bfloat16 qkv [B, T, "
+                         f"3 x {heads} x {HEAD_DIM}], got {qkv.dtype} {tuple(qkv.shape)}")
+    bblk = bd_block(t) if bblk is None else int(bblk)
+    if not 0 < bblk * t <= MAX_T_BWD:
+        raise ValueError(f"fused attention backward kernel takes bblk·T <= {MAX_T_BWD} merged "
+                         f"rows, got bblk {bblk} x T {t}")
+    qkv = _cuda_operand(qkv, qkv.dtype)
+    da = _cuda_operand(da, qkv.dtype)
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        err = kernels().mcl_fused_attention_bwd(
+            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), b, t, heads, HEAD_DIM, int(t_real),
+            HEAD_DIM ** -0.5, bblk, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+    check(err, "fused_bwd_attn")
+    fused_bwd_attn.launches += 1
+    return dqkv
+
+
+class _FusedSublayer(torch.autograd.Function):
+    """The K6 kernels for CUDA tensors, the plain versions for CPU tensors;
+    the backward follows the JAX ``_fused_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads, t_real, ln_eps):
+        fwd = fused_attention_fwd if x.is_cuda else fused_attention_reference
+        y, attn = fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads, t_real, ln_eps)
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, attn)
+        ctx.args = (heads, t_real, ln_eps)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, attn = ctx.saved_tensors
+        heads, t_real, eps = ctx.args
+        b, t, width = x.shape
+        cdt = x.dtype
+        qkv, ln16, xhat, var = ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, eps)
+        dyf = dy.reshape(-1, width).float()
+        dy16 = dy.reshape(-1, width).to(cdt).float()
+        dwo = attn.reshape(-1, attn.shape[-1]).float().t() @ dy16
+        dbo = dyf.sum(dim=0)
+        da = (dy16 @ wo.to(cdt).float().t()).to(cdt).reshape(attn.shape)
+        bwd = fused_bwd_attn if qkv.is_cuda else fused_bwd_attn_reference
+        dqkv = bwd(qkv, da, heads, t_real).reshape(-1, qkv.shape[-1]).float()
+        dwqkv = ln16.reshape(-1, width).float().t() @ dqkv
+        dbqkv = dqkv.sum(dim=0)
+        dln = dqkv @ wqkv.to(cdt).float().t()
+        xhat, var = xhat.reshape(-1, width), var.reshape(-1, 1)
+        dxhat = dln * ln_scale.float()
+        dx_ln = torch.rsqrt(var + eps) * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                                          - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+        dx = (dyf + dx_ln).to(x.dtype).reshape(b, t, width)
+        return (dx, (dln * xhat).sum(dim=0).to(ln_scale.dtype), dln.sum(dim=0).to(ln_bias.dtype),
+                dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(bo.dtype),
+                None, None, None)
+
+
+def fused_attention_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
+                             t_real: int, ln_eps: float = 1e-12) -> torch.Tensor:
+    """x [B, T, W] -> x + attn·Wo + bo (module docstring), differentiable in
+    x and every parameter; keys at or past ``t_real`` are masked.  CUDA
+    tensors run the K6 kernels, CPU tensors the plain versions."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused attention runs on cpu or cuda tensors, got {x.device}")
+    return _FusedSublayer.apply(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads, t_real, ln_eps)
+
+
+def attention_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
+                       ln_eps: float = 1e-12) -> torch.Tensor:
+    """Any-T entry with the JAX signature: ``fused_attention_sublayer`` with
+    ``t_real = T`` (the JAX wrapper pads T to a multiple of 16 for the TPU)."""
+    return fused_attention_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads, x.shape[1],
+                                    ln_eps)
+
+
+fused_attention_fwd.launches = 0
+fused_bwd_attn.launches = 0
+
+__all__ = [
+    "MAX_T",
+    "attention_sublayer",
+    "fused_attention_fwd",
+    "fused_attention_reference",
+    "fused_attention_sublayer",
+    "fused_bwd_attn",
+    "fused_bwd_attn_reference",
+    "ln_qkv",
+    "pack_qkv",
+]

@@ -10,7 +10,9 @@ warm-up schedule over the symmetric InfoNCE of (image, caption) batches,
 then zero-shot classification of the test split against each class's
 caption, embedded once.  Weights start from a seeded random init (the JAX
 initialisers); compute is bf16 over float32 parameters.  Both towers'
-attention runs through K2 (``ops/attention_core.py``).  The final weights
+attention runs through K2 (``ops/attention_core.py``); under
+``MCL_ATTN_CORE_BD=1`` both take K2-bd, the sample-merged kernels, as the
+JAX CLI does on a TPU (no flag: the variable is read at each call).  The final weights
 are saved as a ``.pt`` state dict of float32 tensors,
 ``results_dir/checkpoints/step_{N}.pt`` (the JAX trainer writes an orbax
 ``step_{N}`` directory).

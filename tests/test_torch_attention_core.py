@@ -147,8 +147,134 @@ def test_lse_of_the_plain_forward():
     assert torch.isinf(lse[1]).all() and (lse[1] > 0).all()
 
 
-def test_block_diag_raises():
-    from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core
+BD_CASES = [(8, 50, 12, 16, False, False), (4, 77, 8, 16, True, True),
+            (6, 21, 4, 32, True, True)]  # those of tests/test_fused_attention.py
 
-    with pytest.raises(NotImplementedError, match="block-diagonal"):
-        attention_core(torch.zeros(1, 4, 3 * 64), 1, 4, block_diag=True)
+
+def _bd_mask(rng, b, t):
+    """Right-padded masks of 5..t-1 keys (every causal row keeps key 0)."""
+    m = np.ones((b, t), np.int32)
+    for i in range(b):
+        m[i, rng.integers(5, t):] = 0
+    return m
+
+
+@pytest.mark.parametrize("b,t,heads,d,causal,use_mask", BD_CASES)
+def test_plain_k2bd_matches_jax_block_diag(b, t, heads, d, causal, use_mask):
+    """The port's block-diagonal plain versions (``block_diag=True``)
+    against the JAX ``attention_core_padded(block_diag=True)`` in interpret
+    mode: output 1e-5, gradients 5e-4 abs / 1e-3 rel."""
+    from multimodal_concept_learning_tpu.ops.attention_core import attention_core_padded as jf
+
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+
+    rng = np.random.default_rng(7)
+    qkv = rng.standard_normal((b, t, 3 * heads * d)).astype(np.float32)
+    cot = rng.standard_normal((b, t, heads * d)).astype(np.float32)
+    mask = _bd_mask(rng, b, t) if use_mask else None
+    kv = None if mask is None else jnp.asarray(mask)
+    want, vjp = jax.vjp(lambda x: jf(x, heads, causal, kv, interpret=True, block_diag=True),
+                        jnp.asarray(qkv))
+    want_grad = vjp(jnp.asarray(cot))[0]
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = attention_core_padded(x, heads, causal=causal, block_diag=True,
+                                kv_mask=None if mask is None else torch.from_numpy(mask))
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("env,block_diag,want_bd", [
+    ("1", None, True), ("0", None, False), (None, None, False), ("1", False, False),
+    ("0", True, True),
+])
+def test_block_diag_reads_the_environment_at_each_call(monkeypatch, env, block_diag, want_bd):
+    """``block_diag=None`` takes K2-bd exactly when ``MCL_ATTN_CORE_BD=1``
+    at the time of the call (forward and backward); an explicit value wins."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+
+    taken = []
+    for name in ("attention_core_reference", "attention_core_backward_reference",
+                 "attention_core_bd_reference", "attention_core_bd_backward_reference"):
+        real = getattr(ac, name)
+        monkeypatch.setattr(ac, name, lambda *a, _r=real, _n=name, **k: (taken.append(_n),
+                                                                         _r(*a, **k))[1])
+    if env is None:
+        monkeypatch.delenv("MCL_ATTN_CORE_BD", raising=False)
+    else:
+        monkeypatch.setenv("MCL_ATTN_CORE_BD", env)
+    qkv, cot, _ = _inputs(2, 9, 2, 16, seed=1, mask_kind=None)
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    ac.attention_core(x, 2, 9, causal=True, block_diag=block_diag).backward(
+        torch.from_numpy(cot))
+    with torch.no_grad():
+        ac.attention_core(x, 2, 9, block_diag=block_diag)
+    bd = "attention_core_bd_reference"
+    want = ([bd, "attention_core_bd_backward_reference", bd] if want_bd else
+            ["attention_core_reference", "attention_core_backward_reference",
+             "attention_core_reference"])
+    assert taken == want
+
+
+@pytest.mark.parametrize("causal,mask_kind", [(True, "holes"), (False, "right_padded")])
+def test_k2bd_plain_versions_do_not_depend_on_the_merge(causal, mask_kind):
+    """Merging 1, 2, 3 or 5 samples (5 does not divide B) gives K2's output,
+    lse and gradient: cross-sample keys are masked and a row with no valid
+    key is zero in the port whatever the block (float32, 1e-6)."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+
+    qkv, cot, mask = _inputs(7, 19, 2, 16, seed=4, mask_kind=mask_kind)
+    mask[3] = 0  # a sample with no valid key
+    args = (torch.from_numpy(qkv), 2, 17, causal, torch.from_numpy(mask))
+    want, want_lse = ac.attention_core_reference(*args, return_lse=True)
+    want_d = ac.attention_core_backward_reference(args[0], torch.from_numpy(cot), *args[1:])
+    assert not want[3].any() and torch.isinf(want_lse[3]).all()
+    for bblk in (1, 2, 3, 5):
+        out, lse = ac.attention_core_bd_reference(*args, bblk=bblk, return_lse=True)
+        dqkv = ac.attention_core_bd_backward_reference(args[0], torch.from_numpy(cot), *args[1:],
+                                                       bblk=bblk)
+        torch.testing.assert_close(out, want, atol=1e-6, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-6, rtol=0)
+        torch.testing.assert_close(dqkv, want_d, atol=1e-6, rtol=0)
+
+
+def test_k2bd_rows_without_a_valid_key_differ_from_jax_by_design(monkeypatch):
+    """Sample 1 masks every key.  The JAX block-diagonal kernels (block of 2
+    samples pinned with ``MCL_ATTN_CORE_BBLK=2``) give its rows a uniform
+    average of V over every key of the merged block, the other sample's and
+    the padding's included (R = 2 x 16 keys), and send those rows'
+    cotangent into sample 0's k and v; the port gives zeros and no gradient.
+    Sample 0's output and dq agree (1e-5, 1e-4), and all of its gradient
+    once the empty rows' cotangent is zero."""
+    from multimodal_concept_learning_tpu.ops.attention_core import attention_core_padded as jf
+
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+
+    monkeypatch.setenv("MCL_ATTN_CORE_BBLK", "2")
+    b, t, heads, d = 2, 13, 2, 16
+    qkv, cot, _ = _inputs(b, t, heads, d, seed=9, mask_kind=None)
+    mask = np.ones((b, t), np.int32)
+    mask[1] = 0
+    want, vjp = jax.vjp(lambda x: jf(x, heads, False, jnp.asarray(mask), interpret=True,
+                                      block_diag=True), jnp.asarray(qkv))
+    want = np.asarray(want)
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = attention_core_padded(x, heads, kv_mask=torch.from_numpy(mask), block_diag=True)
+    got = out.detach().numpy()
+    np.testing.assert_allclose(got[0], want[0], atol=OUT_TOL, rtol=0)
+    assert not got[1].any()
+    quiet = cot.copy()
+    quiet[1] = 0
+    for c, cols in ((cot, slice(0, heads * d)), (quiet, slice(None))):
+        want_grad = np.asarray(vjp(jnp.asarray(c))[0])
+        x.grad = None
+        out.backward(torch.from_numpy(c), retain_graph=True)
+        got_grad = x.grad.numpy()
+        np.testing.assert_allclose(got_grad[0, :, cols], want_grad[0, :, cols], atol=GRAD_TOL,
+                                   rtol=0)
+        assert not got_grad[1].any()
+    assert np.abs(want_grad[1]).max() == 0 and np.abs(np.asarray(
+        vjp(jnp.asarray(cot))[0])[0, :, heads * d:] - got_grad[0, :, heads * d:]).max() > 1e-3
+    v = qkv[:, :, 2 * heads * d:]  # both samples' real keys; the 2 x 3 pad rows are zero
+    np.testing.assert_allclose(want[1], np.broadcast_to(v.sum((0, 1)) / 32, (t, heads * d)),
+                               atol=OUT_TOL, rtol=0)

@@ -87,6 +87,53 @@ def test_features_and_loss_match_jax(pair):
     np.testing.assert_allclose(got.item(), float(jloss(jimg, jtxt, jscale)), atol=LOSS_TOL, rtol=0)
 
 
+def test_variant_fused_vision_and_k2bd_match_jax(pair, monkeypatch):
+    """The variant path: the vision tower on K6 (``fused_attention=True``)
+    and both towers' attention cores on K2-bd (``MCL_ATTN_CORE_BD=1``), in
+    the JAX model (its fused branch forced off the TPU, kernels in interpret
+    mode) and the port (plain versions), same weights: features 1e-5, the
+    loss's gradient of every parameter 1e-4 relative in norm (key biases
+    aside: softmax cancels their gradient, so both sides hold rounding)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from multimodal_concept_learning_tpu.models import vit as jvit
+    from multimodal_concept_learning_tpu.models.clip import CLIPModel as JModel
+    from multimodal_concept_learning_tpu.models.clip import contrastive_loss as jloss
+    from multimodal_concept_learning_tpu_torch.checkpoint import clip_state_dict_from_jax
+    from multimodal_concept_learning_tpu_torch.models.clip import CLIPModel, contrastive_loss
+
+    monkeypatch.setenv("MCL_ATTN_CORE_BD", "1")
+    monkeypatch.setattr(jvit, "_fused_attention_ok", lambda cfg, det: cfg.fused_attention and det)
+    model, params, port0, tok = pair
+    jcfg = dataclasses.replace(model.config, vision=dataclasses.replace(model.config.vision,
+                                                                        fused_attention=True))
+    cfg = dataclasses.replace(port0.cfg, vision=dataclasses.replace(port0.cfg.vision,
+                                                                    fused_attention=True))
+    jmodel, port = JModel(jcfg), CLIPModel(cfg)
+    port.load_state_dict(port0.state_dict(), strict=True)
+    batch = _batch(tok, 3)
+    args = [jnp.asarray(batch[k]) for k in ("images", "input_ids", "attention_mask")]
+
+    def loss(p):
+        img, txt, scale = jmodel.apply({"params": p}, *args)
+        return jloss(img, txt, scale), (img, txt)
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, (jimg, jtxt)), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            jax.tree_util.tree_map(jnp.asarray, params))
+    img, txt, scale = port(*(torch.from_numpy(batch[k])
+                             for k in ("images", "input_ids", "attention_mask")))
+    contrastive_loss(img, txt, scale).backward()
+    np.testing.assert_allclose(img.detach().numpy(), np.asarray(jimg), atol=FEAT_TOL, rtol=0)
+    np.testing.assert_allclose(txt.detach().numpy(), np.asarray(jtxt), atol=FEAT_TOL, rtol=0)
+    want = clip_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads), 8)
+    for name, p in port.named_parameters():
+        if name.endswith(("key.bias", ".k.bias")):
+            continue
+        err = ((p.grad - want[name]).norm() / want[name].norm()).item()
+        assert err <= 1e-4, (name, err)
+
+
 def test_logit_scale_is_clipped_at_log_100(pair):
     model, params, port, tok = pair
     batch = {k: torch.from_numpy(v) for k, v in _batch(tok, 1).items()}

@@ -46,6 +46,8 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.train.contrastive_training",
     "multimodal_concept_learning_tpu_torch.models.clip",
     "multimodal_concept_learning_tpu_torch.ops.attention_core",
+    "multimodal_concept_learning_tpu_torch.ops.fused_attention_block",
+    "multimodal_concept_learning_tpu_torch.models.vit",
     "multimodal_concept_learning_tpu_torch.data.clip_collator",
     "multimodal_concept_learning_tpu_torch.configs",
     "multimodal_concept_learning_tpu_torch.tokenizer",
