@@ -52,7 +52,24 @@ Phases (each prints its results; any failure exits non-zero):
     through ``make_clip_train_step``, then zero-shot; exactly 12 K6
     forward, 12 K6 backward, 12 K2-bd forward and 12 K2-bd backward
     launches a step, K2 0; steps/s, images/s, peak memory and a steady step
-    on a fixed device batch beside phase 9's.
+    on a fixed device batch beside phase 9's;
+14. generation parity (run after phase 10): phase 4's model with a window
+    of 64 on its sliding layer, ``greedy_generate`` on dense KV caches on
+    the card == on the CPU plain path == ``paged_generate`` on the card,
+    float and with int4 LM weights; exact launch counts (K1 per prefill
+    and decode step, K5 7 x 2 per int4 decode step); the prefill,
+    decode_step and decode_chunk hidden states CUDA vs CPU (1e-4);
+15. answer slice (run after phase 7, on its results dir and generated
+    data): the port's answer CLI (``generate_answers.main``) on the full
+    ``12_colors_3k`` model, float, ``--int4`` and ``--int8 --int8_vision``,
+    16 samples of 8 tokens at batch 8; the accuracy lines, the JSONL rows,
+    exact launch counts (K1: 38 a prefill and 26 a decode step; K5 7 x 26
+    a decode step under ``--int4``, else 0), samples/s and tokens/s;
+16. A/B (run last): the port's int4 A/B entry point
+    (``scripts/bench_int4_kernel.py``) at the JAX script's shapes (gemma3-1b's
+    7 projections x 26 layers, batch 8): K5, K5v3a, K5v3b and the int8
+    product, 182 launches of each kernel a step, ms a step by CUDA graph
+    replay.
 
 Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
@@ -67,7 +84,11 @@ decode; pages_per_block 1, 3, 8) to their plain versions, and times each
 kernel's path-shape case in bf16 beside its bound (bytes over 3.35 TB/s or
 operations over 989 TFLOP/s, whichever is larger) and one PyTorch library
 call computing the same function (SDPA, or its backward;
-``torch._weight_int4pack_mm`` for K5; none for K3 and K4).  K5 and K4 are
+``torch._weight_int4pack_mm`` for K5 and K5v3a; none for K3, K4 and
+K5v3b).  It also holds K5v3a and K5v3b (x float32 and bf16, rows 1, 8 and
+16, gemma3-1b's seven projections; K5's limits) and times them cold at
+up_proj beside K5, and holds K2, K2-bd and K6 at head dims 16 (vit-t-8
+widths, T 17) and 32 in fp32 and bf16.  K5 and K4 are
 timed by CUDA graph replay (device time without the wrapper's host work),
 K5 with its weights cycled past the L2 cache; phase 3 also times K4 beside
 K3 at 4 kv heads, ~1k context, pages of 16 and 64.  ``python3 chip_smoke.py
@@ -94,6 +115,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max abs error vs the plain version, unit-scale inputs
+D16 = "vit-t-8 head dim 16"  # K2, K2-bd and K6 at the tests' preset: hidden 64, 4 heads, T 17
+D32 = "head dim 32"  # the third built head dim (no preset has it): hidden 128, 4 heads, T 17
 
 
 def fail(msg: str) -> None:
@@ -146,11 +169,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take for a bf16 function that must
-    move ``nbytes`` (each input read once, each output written once) and do
-    ``flops``: the larger of the two times, and which one it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S) -> dict:
+    """The least time the card could take for a function that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``flops`` at ``ops_per_s`` (default: bf16): the larger of the two
+    times, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / ops_per_s
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -368,6 +392,12 @@ def _core_cases(torch, gen, dev):
         ("t_real 41 of 64 [16,64,12x64]", randn(16, 64, 3 * 768), 12, 41, False, None, False),
         ("t_real 60 of 80 [16,80,8x64] causal + holes", randn(16, 80, 3 * 512), 8, 60, True,
          torch.nn.functional.pad(holes, (0, 3)), False),
+        (f"{D16} [16,17,4x16]", randn(16, 17, 3 * 64), 4, 17, False, None, False),
+        (f"{D16} [16,17,4x16] causal + holes", randn(16, 17, 3 * 64), 4, 17, True,
+         holes[:, :17].contiguous(), False),
+        (f"{D32} [16,17,4x32]", randn(16, 17, 3 * 128), 4, 17, False, None, False),
+        (f"{D32} [16,17,4x32] causal + holes", randn(16, 17, 3 * 128), 4, 17, True,
+         holes[:, :17].contiguous(), False),
     ]
 
 
@@ -501,6 +531,12 @@ def _core_bd_cases(torch, gen, dev):
         ("holes + a sample with no valid key [16,77,8x64]", randn(16, 77, 3 * 512), 8, 77, False,
          empty, False),
         ("T 3 [70,3,4x64] causal", randn(70, 3, 3 * 256), 4, 3, True, None, False),
+        (f"{D16} [16,17,4x16]", randn(16, 17, 3 * 64), 4, 17, False, None, False),
+        (f"{D16} [16,17,4x16] causal + holes", randn(16, 17, 3 * 64), 4, 17, True,
+         holes[:, :17].contiguous(), False),
+        (f"{D32} [16,17,4x32]", randn(16, 17, 3 * 128), 4, 17, False, None, False),
+        (f"{D32} [16,17,4x32] causal + holes", randn(16, 17, 3 * 128), 4, 17, True,
+         holes[:, :17].contiguous(), False),
     ]
 
 
@@ -558,6 +594,11 @@ def _phase_core_bd(torch, gen, dev, report: dict) -> None:
                   f"dqkv {err_d:.3e} (backward merges {merges}){zero}", flush=True)
             kf["max_abs_err"] = max(kf["max_abs_err"], err)
             kb["max_abs_err"] = max(kb["max_abs_err"], err_d)
+            if name == f"{D16} [16,17,4x16]" and dtype is torch.bfloat16:
+                f_ms = cuda_time_ms(lambda: ac.attention_core_bd_fwd(qkv, *args, with_lse=True))
+                b_ms = cuda_time_ms(lambda: ac.attention_core_bd_bwd(qkv, out, da, lse, *args))
+                print(f"[kernels] K2-bd {name} bf16: fwd kernel {f_ms:.4f} ms, bwd kernel "
+                      f"{b_ms:.4f} ms", flush=True)
             if not (on_path and dtype is torch.bfloat16):
                 continue
             times = {}
@@ -612,6 +653,8 @@ def _fused_cases(torch, gen, dev):
         ("T 37 [16,37,768]", randn(16, 37, 768), p768, 12, 37, False),
         ("t_real 41 of 64 [16,64,768]", randn(16, 64, 768), p768, 12, 41, False),
         ("T 320 [2,320,512] 8 heads", randn(2, 320, 512), params(512), 8, 320, False),
+        (f"{D16} [16,17,64] 4 heads", randn(16, 17, 64), params(64), 4, 17, False),
+        (f"{D32} [16,17,128] 4 heads", randn(16, 17, 128), params(128), 4, 17, False),
     ]
 
 
@@ -646,7 +689,8 @@ def _phase_fused(torch, gen, dev, report: dict) -> None:
     kb = report.setdefault("fused_bwd_attn", {"max_abs_err": 0.0})
     for name, x32, params, heads, t_real, on_path in _fused_cases(torch, gen, dev):
         b, t, width = x32.shape
-        hd = heads * 64
+        hd = params[4].shape[0]  # wo [H·D, W]
+        d = hd // heads
         da32 = torch.randn(b, t, hd, generator=gen, device=dev)
         merges = sorted({1, 2, ac.bd_block(t)})
         for dtype in (torch.float32, torch.bfloat16):
@@ -666,6 +710,11 @@ def _phase_fused(torch, gen, dev, report: dict) -> None:
                   f"(backward merges {merges})", flush=True)
             kf["max_abs_err"] = max(kf["max_abs_err"], err)
             kb["max_abs_err"] = max(kb["max_abs_err"], err_d)
+            if name.startswith(D16) and dtype is torch.bfloat16:
+                f_ms = cuda_time_ms(lambda: fb.fused_attention_fwd(x, *params, heads, t_real))
+                b_ms = cuda_time_ms(lambda: fb.fused_bwd_attn(qkv, da, heads, t_real))
+                print(f"[kernels] K6 {name} bf16: fwd kernels {f_ms:.4f} ms, bwd kernel "
+                      f"{b_ms:.4f} ms", flush=True)
             if not (on_path and dtype is torch.bfloat16):
                 continue
             ms = cuda_time_ms(lambda: fb.fused_attention_fwd(x, *params, heads, t_real), iters=10)
@@ -679,8 +728,8 @@ def _phase_fused(torch, gen, dev, report: dict) -> None:
             pairs = b * heads * t * t_real
             cast = [a.to(dtype) for a in params]
             fwd_b = bound(nbytes(x, *cast, y, attn),
-                          2 * b * t * width * 3 * hd + 2 * b * t * hd * width + 4 * 64 * pairs)
-            bwd_b = bound(nbytes(qkv, da, grads[merges[-1]]), 10 * 64 * pairs)
+                          2 * b * t * width * 3 * hd + 2 * b * t * hd * width + 4 * d * pairs)
+            bwd_b = bound(nbytes(qkv, da, grads[merges[-1]]), 10 * d * pairs)
             print(f"[kernels] K6 {name} bf16: fwd kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"unfused library {lib_ms:.4f} ms, bound {fwd_b['bound_ms']:.5f} ms "
                   f"({fwd_b['bound_by']}); bwd kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} "
@@ -827,6 +876,78 @@ def _phase_int4(torch, gen, dev, report: dict) -> None:
           f"{26 * layer_ms:.4f} ms", flush=True)
 
 
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
+# every shape the A/B entry point gives the variants (each its own split-K
+# layout: v3_splits), at its batch 8 and at rows 1 and 16
+V3_CASES = [(f"gemma3 {n} rows {r}", r, i, o) for n, i, o in GEMMA_PROJECTIONS
+            for r in (1, 8, 16)]
+
+
+def _phase_int4_v3(torch, gen, dev, report: dict) -> None:
+    """K5v3a and K5v3b against their plain versions on the same inputs
+    (gemma3-1b's seven projections, rows 1, 8 and 16, x in float32 and bf16;
+    K5's limits, 1e-5 and 8e-3 of the reference's max |value|); then each timed
+    cold at up_proj [8,1152]x[1152,6912] (weights cycled past the L2, CUDA
+    graph replay) beside K5's bound, K5 itself, and for v3a
+    ``torch._weight_int4pack_mm``.  v3b has no library call: its int8
+    activations make it another function than every library product."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    variants = {"int4_matmul_v3a": (i4.v3a_matmul, i4.v3a_matmul_reference, "K5v3a"),
+                "int4_matmul_v3b": (i4.v3b_matmul, i4.v3b_matmul_reference, "K5v3b")}
+    for key in variants:
+        report.setdefault(key, {"max_abs_err": 0.0})
+    for name, rows, d_in, d_out in V3_CASES:
+        (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
+        x = torch.randn(rows, d_in, generator=gen, device=dev)
+        for key, (fn, ref_fn, label) in variants.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                out = fn(xd, packed, scale)
+                ref = ref_fn(xd.float(), packed, scale)
+                torch.cuda.synchronize()
+                tag = str(dtype).replace("torch.", "")
+                err = (out.float() - ref).abs().max().item()
+                limit = K5_TOL[tag] * ref.abs().max().item()
+                print(f"[kernels] {label} {name} {tag}: max_abs_err {err:.3e} (limit "
+                      f"{limit:.3e})", flush=True)
+                if not err <= limit:
+                    fail(f"{label} {name} {tag}: max abs err {err} > {limit}")
+                report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+    rows, d_in, d_out = 8, 1152, 6912  # up_proj at batch 8, the A/B script's shape
+    (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
+    sets = _int4_sets(torch, gen, dev, d_in, d_out,
+                      max(16, int(COLD_BYTES // nbytes(packed, scale))))
+    xb = torch.randn(rows, d_in, generator=gen, device=dev).to(torch.bfloat16)
+    moved = nbytes(packed, scale, xb) + 2 * rows * d_out
+    times = {}
+    order = (("int4_matmul", i4.int4_matmul), ("int4_matmul_v3a", i4.v3a_matmul),
+             ("int4_matmul_v3b", i4.v3b_matmul))
+    for rnd in range(2):  # K5, v3a, v3b, then the reverse (order cancels drift)
+        for key, fn in (order if rnd == 0 else order[::-1]):
+            times.setdefault(key, []).append(
+                graph_time_ms(_cycled(lambda p, s, fn=fn: fn(xb, p, s), sets), iters=len(sets)))
+    pack_ms = None
+    if hasattr(torch, "_weight_int4pack_mm"):
+        packs = [_int4pack(torch, p, s) for p, s in sets[:16]]
+        pack_ms = graph_time_ms(_cycled(lambda w, z: torch._weight_int4pack_mm(xb, w, 64, z),
+                                        packs), iters=16)
+    for key, (fn, ref_fn, label) in variants.items():
+        ms = min(times[key])
+        plain_ms = cuda_time_ms(lambda: ref_fn(xb, packed, scale))
+        b = bound(moved, 2 * rows * d_in * d_out,
+                  INT8_OPS_PER_S if key.endswith("v3b") else BF16_FLOPS_PER_S)
+        lib = pack_ms if key.endswith("v3a") else None
+        report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib, **b)
+        print(f"[kernels] {label} up_proj [8,1152]x[1152,6912] bf16 cold: kernel "
+              + " / ".join(f"{t:.5f}" for t in times[key]) + f" ms (K5 "
+              + " / ".join(f"{t:.5f}" for t in times["int4_matmul"]) + f" ms), plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}), library "
+              + (f"torch._weight_int4pack_mm {lib:.5f} ms" if lib is not None else
+                 "none (int8 activations: no library call computes this function)"),
+              flush=True)
+
+
 K4_PPB = (1, 3, 8)
 
 
@@ -966,6 +1087,7 @@ def phase_kernels(report: dict) -> None:
         _phase_core_bd(torch, gen, dev, report)
         _phase_fused(torch, gen, dev, report)
         _phase_int4(torch, gen, dev, report)
+        _phase_int4_v3(torch, gen, dev, report)
         _phase_paged_mp(torch, gen, dev, report)
 
 
@@ -986,43 +1108,15 @@ def _circle(rgb, size: int = 224) -> np.ndarray:
 def phase_parity() -> None:
     """Full widths, 2 ViT + 2 LM layers (one sliding, one global), float32:
     greedy paged_generate on the card == on the CPU plain path."""
-    import dataclasses
-
-    import torch
-
-    from multimodal_concept_learning_tpu_torch.checkpoint import (
-        build_mllm,
-        init_random_weights_,
-    )
-    from multimodal_concept_learning_tpu_torch.models.mllm import (
-        MLLM,
-        MLLMConfig,
-        paged_generate,
-    )
+    from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm
+    from multimodal_concept_learning_tpu_torch.models.mllm import paged_generate
     from multimodal_concept_learning_tpu_torch.ops.flash_attention import flash_attention
     from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
         paged_decode_attention,
     )
 
-    base = MLLMConfig.create(vocab_size=1148, dtype=torch.float32)  # 1142 + 6 OOD tokens
-    rng = np.random.default_rng(SEED)
-    lens = [64, 40, 17, 5]  # text tokens per row; T = 197 + 64 = 261
-    t = 197 + max(lens)
-    ids = rng.integers(4, 1148, size=(len(lens), t)).astype(np.int32)
-    mask = np.zeros_like(ids)
-    for i, n in enumerate(lens):
-        mask[i, : 197 + n] = 1
-    ids[mask == 0] = 0
-    images = np.stack([_circle(c) for c in ([255, 0, 0], [0, 128, 255], [40, 200, 40],
-                                            [250, 250, 0])])
-    inputs = [torch.from_numpy(x) for x in (images, ids, mask)]
     for window in (512, 64):
-        cfg = dataclasses.replace(
-            base, vision=dataclasses.replace(base.vision, num_hidden_layers=2),
-            lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=window,
-                                   sliding_window_pattern=2))
-        gen = torch.Generator().manual_seed(SEED)
-        sd = init_random_weights_(MLLM(cfg), gen).state_dict()
+        cfg, sd, inputs = _parity_model(window, SEED)
         before = (flash_attention.launches, paged_decode_attention.launches)
         on_card = paged_generate(build_mllm(cfg, sd, "cuda"), *inputs, max_new_tokens=8,
                                  page_size=16).cpu().numpy()
@@ -1044,38 +1138,11 @@ def phase_quant_parity() -> None:
     on the CPU from the same quantized weights: greedy ``paged_generate``
     gives the same tokens with int4 LM weights under MCL_PAGED_KERNEL=2 (K5
     and K4 launched, K3 not) and with int8 LM + vision weights (K3)."""
-    import dataclasses
-
-    import torch
-
-    from multimodal_concept_learning_tpu_torch.checkpoint import (
-        build_mllm,
-        init_random_weights_,
-    )
-    from multimodal_concept_learning_tpu_torch.models.mllm import (
-        MLLM,
-        MLLMConfig,
-        paged_generate,
-    )
+    from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm
+    from multimodal_concept_learning_tpu_torch.models.mllm import paged_generate
     from multimodal_concept_learning_tpu_torch.serve.loader import _quantize_for_serving
 
-    base = MLLMConfig.create(vocab_size=1148, dtype=torch.float32)
-    cfg = dataclasses.replace(
-        base, vision=dataclasses.replace(base.vision, num_hidden_layers=2),
-        lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=512,
-                               sliding_window_pattern=2))
-    sd = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED)).state_dict()
-    rng = np.random.default_rng(SEED + 1)
-    lens = [64, 40, 17, 5]
-    t = 197 + max(lens)
-    ids = rng.integers(4, 1148, size=(len(lens), t)).astype(np.int32)
-    mask = np.zeros_like(ids)
-    for i, n in enumerate(lens):
-        mask[i, : 197 + n] = 1
-    ids[mask == 0] = 0
-    images = np.stack([_circle(c) for c in ([255, 0, 0], [0, 128, 255], [40, 200, 40],
-                                            [250, 250, 0])])
-    inputs = [torch.from_numpy(x) for x in (images, ids, mask)]
+    cfg, sd, inputs = _parity_model(512, SEED + 1)
     counters = _kernel_counters()
     for quant, env in (({"int4": True}, "2"), ({"int8": True, "int8_vision": True}, None)):
         qsd, qcfg = _quantize_for_serving(sd, cfg, quant.get("int8", False),
@@ -1102,6 +1169,110 @@ def phase_quant_parity() -> None:
         ok = (k5 > 0 and k4 > 0 and k3 == 0) if env else (k5 == 0 and k3 > 0)
         if not ok:
             fail(f"quantized parity {quant}: launches {launched}")
+
+
+def _parity_model(window: int, data_seed: int):
+    """The parity phases' float32 MLLM (full widths, 2 ViT + 2 LM layers,
+    the LM's first layer sliding, weights from SEED) and a ragged prompt
+    batch drawn from ``data_seed``: (cfg, state dict, [images, ids, mask])."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
+
+    base = MLLMConfig.create(vocab_size=1148, dtype=torch.float32)
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, num_hidden_layers=2),
+        lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=window,
+                               sliding_window_pattern=2))
+    sd = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED)).state_dict()
+    rng = np.random.default_rng(data_seed)
+    lens = [64, 40, 17, 5]
+    t = 197 + max(lens)
+    ids = rng.integers(4, 1148, size=(len(lens), t)).astype(np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(lens):
+        mask[i, : 197 + n] = 1
+    ids[mask == 0] = 0
+    images = np.stack([_circle(c) for c in ([255, 0, 0], [0, 128, 255], [40, 200, 40],
+                                            [250, 250, 0])])
+    return cfg, sd, [torch.from_numpy(x) for x in (images, ids, mask)]
+
+
+def _dense_hidden(model, inputs) -> list:
+    """Hidden states of ``prefill`` (the prompt's valid positions), one
+    ``decode_step`` and one 3-token ``decode_chunk`` over dense caches, for
+    fixed tokens, as float32 CPU tensors."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.models.lm import init_kv_cache
+
+    dev = next(model.parameters()).device
+    images, ids, mask = (x.to(dev) for x in inputs)
+    lm = model.language_model
+    b, t = ids.shape
+    rows = torch.arange(b, device=dev)
+    caches = init_kv_cache(lm.cfg, b, t + 4, dev)
+    seq = mask.sum(dim=1).to(torch.int32)
+    with torch.inference_mode():
+        h0 = model.prefill(images, ids, mask, caches, kv_lens=seq)
+        cache_mask = torch.nn.functional.pad(mask.to(torch.int32), (0, 4))
+        cache_mask[rows, seq.long()] = 1
+        h1 = lm.decode_step(lm.embed(rows[:, None] + 5), caches, seq, cache_mask)
+        chunk = rows[:, None] + torch.arange(3, device=dev)[None] + 7
+        h2 = lm.decode_chunk(lm.embed(chunk), caches, seq + 1, cache_mask)
+    return [h.float().cpu() for h in (h0[mask.bool()], h1, h2)]
+
+
+def phase_generate_parity() -> None:
+    """Phase 14: ``greedy_generate`` over dense KV caches, float32, window
+    64 on the sliding layer (below every row's length but the shortest, so
+    decode attends through the float32 bias of each row's own position):
+    tokens on the card == the CPU plain path's == ``paged_generate``'s on
+    the card, with float and with int4 LM weights.  Launches: K1 2 + 2 a
+    prefill and 2 a decode step; K5 7 x 2 a decode step with int4, else 0;
+    K3 and K4 0."""
+    from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm
+    from multimodal_concept_learning_tpu_torch.models.mllm import greedy_generate, paged_generate
+    from multimodal_concept_learning_tpu_torch.serve.loader import _quantize_for_serving
+
+    cfg, sd, inputs = _parity_model(64, SEED + 2)
+    counters = _kernel_counters()
+    new = 8
+    for int4 in (False, True):
+        qsd, qcfg = (_quantize_for_serving(sd, cfg, False, False, False, int4=True) if int4
+                     else (sd, cfg))
+        model = build_mllm(qcfg, qsd, "cuda")
+        for fn in counters.values():
+            fn.launches = 0
+        dense = greedy_generate(model, *inputs, max_new_tokens=new).cpu().numpy()
+        launched = {n: fn.launches for n, fn in counters.items()}
+        paged = paged_generate(model, *inputs, max_new_tokens=new, page_size=16).cpu().numpy()
+        del model
+        on_cpu = greedy_generate(build_mllm(qcfg, qsd, "cpu"), *inputs,
+                                 max_new_tokens=new).numpy()
+        expected = {"flash_attention_fwd": 4 + 2 * (new - 1), "paged_decode_attention": 0,
+                    "paged_decode_attention_mp": 0,
+                    "int4_matmul": 7 * 2 * (new - 1) if int4 else 0}
+        same_cpu, same_paged = bool((dense == on_cpu).all()), bool((dense == paged).all())
+        print(f"[generate-parity] {'int4' if int4 else 'float'}: dense cuda tokens == cpu "
+              f"{same_cpu}, == paged cuda {same_paged}; launches {launched} (expected "
+              f"{expected}); cuda {dense.tolist()}", flush=True)
+        if not (same_cpu and same_paged):
+            fail(f"generation parity int4={int4}: cpu {on_cpu.tolist()}, paged {paged.tolist()}")
+        if launched != expected:
+            fail(f"generation parity int4={int4}: launches {launched} != {expected}")
+    # the random weights repeat one token a row: hold the hidden states too
+    got = _dense_hidden(build_mllm(cfg, sd, "cuda"), inputs)
+    want = _dense_hidden(build_mllm(cfg, sd, "cpu"), inputs)
+    errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+    print(f"[generate-parity] hidden states cuda vs cpu, max abs error / max |cpu| (prefill, "
+          f"decode_step, decode_chunk of 3): {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e}",
+          flush=True)
+    if not max(errs) <= 1e-4:
+        fail(f"dense-cache hidden states cuda vs cpu: {errs}")
 
 
 TRAINING_CONFIG = {  # experiments/multimodal/color/12_colors_3k.yaml (served fields)
@@ -1289,6 +1460,121 @@ def phase_quant_slice(report: dict, root: str, float_run: dict) -> None:
     for tag, run in (("float", float_run), ("int4 + K4", int4), ("int8 + int8 vision", int8)):
         print(f"[quant-slice] {tag}: {run['requests_per_s']:.3f} requests/s, "
               f"{run['tokens_per_s']:.1f} tokens/s, p50 {run['p50_ms']:.1f} ms", flush=True)
+
+
+ANSWER_ARGS = ["--split", "train", "--batch_size", "8", "--limit", "16", "--max_new_tokens", "8",
+               "--device", "cuda"]
+
+
+def phase_answer_slice(root: str) -> None:
+    """Phase 15: the port's answer CLI on phase 7's results dir and data
+    (the full 12_colors_3k model trained one epoch, bf16 compute): float,
+    ``--int4`` and ``--int8 --int8_vision``; 16 train samples, 8 tokens,
+    batch 8.  Checks the CLI's lines, the 16 JSONL rows and exact launch
+    counts (counted from 0 just before each run): K1 38 a prefill (12 ViT +
+    26 LM layers) and 26 a decode step; K5 7 x 26 a decode step under
+    ``--int4`` (prefill rows take the dequantized product), else 0."""
+    import contextlib
+    import io
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.train.generate_answers import main as answers_main
+
+    results = os.path.join(root, "results")
+    counters = _kernel_counters()
+    new, n = 8, 16
+    runs = {}
+    for tag, extra in (("float", []), ("int4", ["--int4"]), ("int8", ["--int8", "--int8_vision"])):
+        out_path = os.path.join(root, f"generations_{tag}.jsonl")
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = answers_main(["--results_dir", results, "--output", out_path, *ANSWER_ARGS,
+                                *extra])
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"[answers-{tag}] {line}", flush=True)
+        with open(out_path) as f:
+            rows = [json.loads(line) for line in f]
+        keys = {"prompt", "generated", "target", "yes_no_match", "exact_match"}
+        batches = res["batches"]
+        expected = {"flash_attention_fwd": batches * (38 + 26 * (new - 1)),
+                    "paged_decode_attention": 0, "paged_decode_attention_mp": 0,
+                    "int4_matmul": batches * LM_PROJECTION_LAUNCHES * (new - 1)
+                    if tag == "int4" else 0}
+        lines_ok = (f"Generated answers for {n} samples (train split)" in text
+                    and re.search(r"^Yes/No Accuracy: \d+\.\d\d%$", text, re.M)
+                    and re.search(r"^Exact-Match Accuracy: \d+\.\d\d%$", text, re.M)
+                    and f"Wrote {out_path}" in text)
+        rows_ok = (len(rows) == n and all(set(r) == keys and r["target"] for r in rows))
+        samples_s, tokens_s = n / res["seconds"], n * new / res["seconds"]
+        runs[tag] = (samples_s, tokens_s, res)
+        print(f"[answers-{tag}] {n} samples x {new} tokens in {batches} batches: generation "
+              f"{res['seconds']:.3f} s = {samples_s:.3f} samples/s, {tokens_s:.1f} tokens/s; "
+              f"whole CLI {wall:.1f} s; launches {launches} (expected {expected}); rows "
+              f"{rows[:2]} ...", flush=True)
+        if not (lines_ok and rows_ok and res["n"] == n and batches == 2):
+            fail(f"answer slice {tag}: lines {lines_ok}, rows {rows_ok}, n {res['n']}, "
+                 f"batches {batches}")
+        if launches != expected:
+            fail(f"answer slice {tag}: launches {launches} != {expected}")
+    print("[answers] " + "; ".join(
+        f"{tag}: {sps:.3f} samples/s, {tps:.1f} tokens/s, yes/no {res['yes_no_acc']:.2f}%, "
+        f"exact {res['exact_acc']:.2f}%" for tag, (sps, tps, res) in runs.items()), flush=True)
+
+
+def phase_ab(report: dict) -> None:
+    """Phase 16: the int4 A/B entry point at full shapes (gemma3-1b's 7
+    projections x 26 layers, batch 8): every variant runs, 182 launches of
+    each kernel a step (the wrappers count one eager step, two warm-up steps
+    and the captured step: 4 x 182), ms a step by CUDA graph replay.  Then
+    each kernel variant's output at each of the seven projections, on the
+    entry point's own weights, against its plain version (K5's limits)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+    from multimodal_concept_learning_tpu_torch.scripts import bench_int4_kernel as ab
+
+    kernels = {"v2": ("int4_matmul", i4.int4_matmul, i4.int4_matmul_reference),
+               "v3a": ("int4_matmul_v3a", i4.v3a_matmul, i4.v3a_matmul_reference),
+               "v3b": ("int4_matmul_v3b", i4.v3b_matmul, i4.v3b_matmul_reference)}
+    for _, fn, _ in kernels.values():
+        fn.launches = 0
+    results = ab.main(["--variants", ",".join(ab.VARIANTS), "--device", "cuda"])
+    launches = {v: fn.launches for v, (_, fn, _) in kernels.items()}
+    w4, _, x0 = ab.make_weights(torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    errs = {}
+    for (d_in, d_out), (packed, scale) in zip(ab.SHAPES, w4):
+        x = x0 if d_in == x0.shape[1] else torch.randn(
+            ab.B, d_in, generator=gen, device="cuda").to(torch.bfloat16)
+        for v, (_, fn, ref_fn) in kernels.items():
+            ref = ref_fn(x.float(), packed, scale)
+            err = (fn(x, packed, scale).float() - ref).abs().max().item()
+            limit = K5_TOL["bfloat16"] * ref.abs().max().item()
+            if not err <= limit:
+                fail(f"A/B {v} [{ab.B},{d_in}]x[{d_in},{d_out}]: max abs err {err} > {limit}")
+            errs[v] = max(errs.get(v, 0.0), err / limit)
+    print("[ab] each variant's output at the seven projections against its plain version, "
+          "largest error as a share of its limit: "
+          + ", ".join(f"{v} {e:.3f}" for v, e in errs.items()), flush=True)
+    step = LM_PROJECTION_LAUNCHES
+    print("[ab] decode-step matmuls (ms, CUDA graph replay, min / median of 5): " + "; ".join(
+        f"{v} {r['ms']:.4f} / {r['median_ms']:.4f}" for v, r in results.items())
+        + f"; kernel launches counted {launches}", flush=True)
+    if any(r["calls"] != step for r in results.values()):
+        fail(f"A/B: matmuls a step {[r['calls'] for r in results.values()]} != {step}")
+    if any(results[v]["launches"] != step or launches[v] != 4 * step for v in kernels):
+        fail(f"A/B: launches a step {[results[v]['launches'] for v in kernels]}, counted "
+             f"{launches} (expected {step} and {4 * step})")
+    for v in ("v3a", "v3b"):
+        report[kernels[v][0]]["launches"] = launches[v]
 
 
 def _train_batch(tokenizer, labels_mapping, seed: int, b: int = 2):
@@ -2051,6 +2337,10 @@ SOURCES = {
         "multimodal_concept_learning_tpu/ops/fused_attention_block.py:86"),
     "fused_bwd_attn": ("multimodal_concept_learning_tpu_torch/csrc/fused_attention_block.cu",
                        "multimodal_concept_learning_tpu/ops/fused_attention_block.py:106"),
+    "int4_matmul_v3a": ("multimodal_concept_learning_tpu_torch/csrc/int4_matmul_v3.cu",
+                        "scripts/bench_int4_kernel.py:49"),
+    "int4_matmul_v3b": ("multimodal_concept_learning_tpu_torch/csrc/int4_matmul_v3.cu",
+                        "scripts/bench_int4_kernel.py:66"),
 }
 KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2084,6 +2374,7 @@ def main(argv=None) -> None:
     phase_kernels(report)
     phase_parity()
     phase_quant_parity()
+    phase_generate_parity()
     root = tempfile.mkdtemp(prefix="_smoke_results_", dir=REPO)  # listed in .gitignore
     try:
         float_run = phase_slice(report, root)
@@ -2095,6 +2386,7 @@ def main(argv=None) -> None:
     root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
     try:
         phase_train_slice(report, root)
+        phase_answer_slice(root)  # on phase 7's results dir and data
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
@@ -2107,6 +2399,7 @@ def main(argv=None) -> None:
         phase_variant_slice(report, clip_run)  # on phase 9's generated data
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    phase_ab(report)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}
                for name, r in report.items()]

@@ -6,7 +6,8 @@
 // _core_call (pallas_call at :303) under the custom VJP at :315-342.
 //
 //   qkv [B, T, 3*H*D] (fp32 or bf16, contiguous): column part*H*D + h*D + d
-//   holds part q/k/v of head h.  Forward: out [B, T, H*D] =
+//   holds part q/k/v of head h; D is a template parameter, built for 16, 32
+//   and 64 (with_head_dim, merged_attention.cuh).  Forward: out [B, T, H*D] =
 //   softmax(q k^T * scale, masked) v, per (sample, head), token-major; with a
 //   non-null lse pointer also the row logsumexp [B, H, T] fp32.  Backward:
 //   dqkv [B, T, 3*H*D] in the same packed layout from (qkv, out, dA, lse).
@@ -23,7 +24,7 @@
 // version does its arithmetic in fp32 on the CUDA cores, so it is bound by
 // its own arithmetic and shared-memory traffic, not by the bound.
 //
-// Design.  Each CTA reads its head's 64 contiguous columns straight from the
+// Design.  Each CTA reads its head's D contiguous columns straight from the
 // packed rows (row stride 3*H*D) with 16-byte loads and writes token-major,
 // so no relayout happens on either side.
 // - Forward: one CTA per (64-query tile, head, sample), two passes over
@@ -36,19 +37,19 @@
 //   its head, so no atomics and no second pass: it loops over 32-key tiles
 //   (dK, dV in registers) and, inside, over 32-query tiles, recomputing
 //   P = exp(s - lse) once per (query tile, key tile); dQ accumulates in a
-//   [T, 64] fp32 smem tile (T <= 640) written at the end.  delta =
+//   [T, D] fp32 smem tile (T <= 640) written at the end.  delta =
 //   rowsum(dA * out) stands in for rowsum(dP * P) (equal in exact
 //   arithmetic).  dS * scale and P are rounded to the compute dtype before
 //   their products, as the TPU kernel does.
 // - A sample's last valid key (from kv_mask and t_real) bounds the key loop:
 //   the text tower's captions fill ~13 of 77 positions.
 
-#include "merged_attention.cuh"  // kD, kBK, kBQB, round_to, load_rows
+#include "merged_attention.cuh"  // kBK, kBQB, round_to, load_rows, with_head_dim
 
 namespace {
 
 constexpr int kBQ = 64;                   // forward queries per CTA
-constexpr int kMaxTBwd = kMaxRows;        // backward dQ tile [T, 64] fp32 in smem
+constexpr int kMaxTBwd = kMaxRows;        // backward dQ tile [T, D] fp32 in smem
 
 struct CoreParams {
   const void* qkv;
@@ -82,7 +83,7 @@ __device__ __forceinline__ bool key_valid(const CoreParams& p, int b, int r, int
   return p.kv_mask == nullptr || p.kv_mask[(size_t)b * p.T + c] != 0;
 }
 
-template <typename T>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [kBQ][kD]
@@ -102,7 +103,7 @@ __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
   T* o = static_cast<T*>(p.out);
 
   const int k_end = key_end(p, b, &s_end);
-  load_rows<T>(Qs, kD, qb, stride, q0, kBQ, p.T);
+  load_rows<T, kD>(Qs, kD, qb, stride, q0, kBQ, p.T);
   for (int r = tid; r < kBQ; r += kThreads) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.f;
@@ -125,8 +126,8 @@ __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
   // pass 1: P = exp(s - max) / sum rounded to T, then acc += P V
   for (int pass = 0; pass < 2; ++pass) {
     for (int kt = 0; kt < k_hi; kt += kBK) {
-      load_rows<T>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
-      if (pass == 1) load_rows<T>(Vs, kD, vb, stride, kt, kBK, p.T);
+      load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
+      if (pass == 1) load_rows<T, kD>(Vs, kD, vb, stride, kt, kBK, p.T);
       __syncthreads();
       {
         float s[kNS];
@@ -192,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
   }
 }
 
-template <typename T>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
   extern __shared__ float smem[];
   float* dQ = smem;                           // [T][kD] fp32 accumulator
@@ -246,12 +247,12 @@ __global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
     for (int i = 0; i < kNK; ++i) dk[i] = dv[i] = 0.f;
     if (kt < k_end) {
       __syncthreads();  // the previous tile's readers are done with Ks/Vs
-      load_rows<T>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
-      load_rows<T>(Vs, kD + 1, vb, stride, kt, kBK, p.T);
+      load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
+      load_rows<T, kD>(Vs, kD + 1, vb, stride, kt, kBK, p.T);
       const int q_lo = p.causal ? (kt / kBQB) * kBQB : 0;
       for (int qt = q_lo; qt < p.T; qt += kBQB) {
-        load_rows<T>(Qs, kD + 1, qb, stride, qt, kBQB, p.T);
-        load_rows<T>(dAs, kD + 1, dab, ostride, qt, kBQB, p.T);
+        load_rows<T, kD>(Qs, kD + 1, qb, stride, qt, kBQB, p.T);
+        load_rows<T, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, p.T);
         __syncthreads();
         {
           float s[kNS], dp[kNS];
@@ -320,33 +321,35 @@ __global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
     store_f(dq_out + (size_t)(i / kD) * stride + i % kD, dQ[i]);
 }
 
+template <int kD>
 size_t fwd_smem() {
   return sizeof(float) * (kBQ * kD + kBK * (kD + 1) + kBK * kD + kBQ * (kBK + 1) + 2 * kBQ);
 }
 
+template <int kD>
 size_t bwd_smem(int T) {
   return sizeof(float) * ((size_t)T * kD + 2 * kBQB * (kD + 1) + 2 * kBK * (kD + 1) +
                           2 * kBQB * (kBK + 1) + 2 * (size_t)T);
 }
 
-template <typename T>
+template <typename T, int kD>
 cudaError_t launch_fwd(const CoreParams& p, cudaStream_t stream) {
-  const size_t smem = fwd_smem();
-  cudaError_t err = cudaFuncSetAttribute(core_fwd_kernel<T>,
+  const size_t smem = fwd_smem<kD>();
+  cudaError_t err = cudaFuncSetAttribute(core_fwd_kernel<T, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.T + kBQ - 1) / kBQ, p.H, p.B);
-  core_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  core_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kD>
 cudaError_t launch_bwd(const CoreParams& p, cudaStream_t stream) {
-  const size_t smem = bwd_smem(p.T);
-  cudaError_t err = cudaFuncSetAttribute(core_bwd_kernel<T>,
+  const size_t smem = bwd_smem<kD>(p.T);
+  cudaError_t err = cudaFuncSetAttribute(core_bwd_kernel<T, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  core_bwd_kernel<T><<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
+  core_bwd_kernel<T, kD><<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -356,23 +359,26 @@ cudaError_t launch_bwd(const CoreParams& p, cudaStream_t stream) {
 extern "C" int mcl_attention_core_fwd(const void* qkv, void* out, float* lse, const int* kv_mask,
                                       int B, int T, int H, int D, int t_real, int causal,
                                       float scale, int dtype, void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
   CoreParams p{qkv, out, nullptr, lse, kv_mask, nullptr, B, T, H, t_real, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fwd<float>(p, s);
-  if (dtype == 1) return (int)launch_fwd<__nv_bfloat16>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 0 ? launch_fwd<float, kD>(p, s) : launch_fwd<__nv_bfloat16, kD>(p, s);
+  });
 }
 
 extern "C" int mcl_attention_core_bwd(const void* qkv, const void* out, const void* dout,
                                       const float* lse, const int* kv_mask, void* dqkv, int B,
                                       int T, int H, int D, int t_real, int causal, float scale,
                                       int dtype, void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || H <= 0 || T > kMaxTBwd) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || H <= 0 || T > kMaxTBwd || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
   CoreParams p{qkv, const_cast<void*>(out), dout, const_cast<float*>(lse), kv_mask, dqkv, B, T,
                H, t_real, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_bwd<float>(p, s);
-  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 0 ? launch_bwd<float, kD>(p, s) : launch_bwd<__nv_bfloat16, kD>(p, s);
+  });
 }

@@ -36,7 +36,7 @@ namespace {
 
 constexpr int kBQ = 64;  // forward query rows per CTA
 
-template <typename T>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads) bd_fwd_kernel(MergedParams p, void* out_, float* lse) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [kBQ][kD]
@@ -59,7 +59,7 @@ __global__ void __launch_bounds__(kThreads) bd_fwd_kernel(MergedParams p, void* 
   T* o = static_cast<T*>(out_);
 
   sample_key_ends(p, b0, b1 - b0 + 1, s_kend);
-  load_rows<T>(Qs, kD, qb, stride, r0, kBQ, n_rows);
+  load_rows<T, kD>(Qs, kD, qb, stride, r0, kBQ, n_rows);
   for (int r = tid; r < kBQ; r += kThreads) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.f;
@@ -86,8 +86,8 @@ __global__ void __launch_bounds__(kThreads) bd_fwd_kernel(MergedParams p, void* 
       // skip a tile no row may attend; also the barrier after the last tile's readers
       const bool live = tid < kBK && key_live(p, kt + tid, k_hi, 0, s_kend, b0);
       if (!__syncthreads_or(live)) continue;
-      load_rows<T>(Ks, kD + 1, kb, stride, kt, kBK, n_rows);
-      if (pass == 1) load_rows<T>(Vs, kD, vb, stride, kt, kBK, n_rows);
+      load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, n_rows);
+      if (pass == 1) load_rows<T, kD>(Vs, kD, vb, stride, kt, kBK, n_rows);
       __syncthreads();
       {
         float s[kNS];
@@ -154,20 +154,21 @@ __global__ void __launch_bounds__(kThreads) bd_fwd_kernel(MergedParams p, void* 
   }
 }
 
+template <int kD>
 size_t bd_fwd_smem() {
   return sizeof(float) * (kBQ * kD + kBK * (kD + 1) + kBK * kD + kBQ * (kBK + 1) + 2 * kBQ) +
          sizeof(int) * (kBQ + 1);
 }
 
-template <typename T>
+template <typename T, int kD>
 cudaError_t launch_bd_fwd(const MergedParams& p, void* out, float* lse, cudaStream_t stream) {
-  const size_t smem = bd_fwd_smem();
-  cudaError_t err = cudaFuncSetAttribute(bd_fwd_kernel<T>,
+  const size_t smem = bd_fwd_smem<kD>();
+  cudaError_t err = cudaFuncSetAttribute(bd_fwd_kernel<T, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long n_rows = (long long)p.B * p.T;
   const dim3 grid((unsigned)((n_rows + kBQ - 1) / kBQ), p.H);
-  bd_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(p, out, lse);
+  bd_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(p, out, lse);
   return cudaGetLastError();
 }
 
@@ -178,24 +179,29 @@ extern "C" int mcl_attention_core_bd_fwd(const void* qkv, void* out, float* lse,
                                          const int* kv_mask, int B, int T, int H, int D,
                                          int t_real, int causal, float scale, int dtype,
                                          void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
   MergedParams p{qkv, nullptr, nullptr, nullptr, kv_mask, nullptr, B, T, H, t_real, causal,
                  scale, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_bd_fwd<float>(p, out, lse, s);
-  if (dtype == 1) return (int)launch_bd_fwd<__nv_bfloat16>(p, out, lse, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 0 ? launch_bd_fwd<float, kD>(p, out, lse, s)
+                      : launch_bd_fwd<__nv_bfloat16, kD>(p, out, lse, s);
+  });
 }
 
 extern "C" int mcl_attention_core_bd_bwd(const void* qkv, const void* out, const void* dout,
                                          const float* lse, const int* kv_mask, void* dqkv, int B,
                                          int T, int H, int D, int t_real, int causal, float scale,
                                          int bblk, int dtype, void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || H <= 0 || bblk <= 0 || (long long)bblk * T > kMaxRows)
+  if (B <= 0 || T <= 0 || H <= 0 || bblk <= 0 || (long long)bblk * T > kMaxRows || dtype < 0 ||
+      dtype > 1)
     return (int)cudaErrorInvalidValue;
   MergedParams p{qkv, out, dout, lse, kv_mask, dqkv, B, T, H, t_real, causal, scale, bblk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_merged_bwd<float, false>(p, s);
-  if (dtype == 1) return (int)launch_merged_bwd<__nv_bfloat16, false>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 0 ? launch_merged_bwd<float, false, kD>(p, s)
+                      : launch_merged_bwd<__nv_bfloat16, false, kD>(p, s);
+  });
 }

@@ -8,8 +8,10 @@
 //
 //   y = x + attn(LN(x) Wqkv + bqkv) Wo + bo
 //
-// x [B, T, W] in the compute dtype (fp32 or bf16); Wqkv [W, 3*H*64], bqkv,
-// Wo [H*64, W] and bo already cast to it (ops/fused_attention_block.py);
+// x [B, T, W] in the compute dtype (fp32 or bf16); Wqkv [W, 3*H*D], bqkv,
+// Wo [H*D, W] and bo already cast to it (ops/fused_attention_block.py); the
+// head dim D is a template parameter, built for 16, 32 and 64
+// (with_head_dim, merged_attention.cuh);
 // LN in fp32 with the rounded scale and bias and the given eps; qkv =
 // fp32(LN->T . Wqkv) + bqkv rounded to T; softmax over each sample's own
 // keys below t_real with P rounded to T before P.V; attn rounded to T; y =
@@ -19,7 +21,7 @@
 // Forward, two launches:
 // 1. fused_attn_kernel, one CTA per (head, sample): the row statistics of
 //    the sample's x in fp32, then K and V of that head for all T rows and Q
-//    of each 64-row query tile, each a [64, 64 or 128] product streamed over
+//    of each 64-row query tile, each a [64, D or 2D] product streamed over
 //    the W-deep reduction in 32-wide chunks with LN applied on the fly, into
 //    shared memory; then the attention of each query tile over the
 //    sample's keys (two passes over 32-key tiles, as K2), written
@@ -102,14 +104,14 @@ struct FusedParams {
   const void* bo;
   void* y;
   void* attn;
-  int B, T, W, H, t_real;
+  int B, T, W, H, D, t_real;
   float eps, scale;
 };
 
 // bf16: project()'s product on the tensor cores (mma.sync m16n8k16, fp32
 // accumulation); the operands are the same bf16 values.  Warp w computes
 // rows (w % 4) * 16.. and half the columns.
-template <int NG>
+template <int kD, int NG>
 __device__ void project_mma(const FusedParams& p, const bf16* xb, const float* mu,
                             const float* rs, float* As_f, float* Bs_f, int row0,
                             const int (&col)[NG], float* const (&dst)[NG], int dst_rows) {
@@ -163,13 +165,13 @@ __device__ void project_mma(const FusedParams& p, const bf16* xb, const float* m
 }
 
 // fp32: project()'s product in FMA on the CUDA cores; thread (ty, tx) owns
-// rows ty + 8 i and columns tx + 32 j
-template <typename T, int NG>
+// rows ty + 8 i and columns tx + 32 j below NCOL
+template <typename T, int kD, int NG>
 __device__ void project_fma(const FusedParams& p, const T* xb, const float* mu, const float* rs,
                             float* As, float* Bs, int row0, const int (&col)[NG],
                             float* const (&dst)[NG], int dst_rows) {
   constexpr int NCOL = NG * kD;
-  constexpr int NJ = NCOL / 32;
+  constexpr int NJ = (NCOL + 31) / 32;
   const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
   const int hd3 = 3 * p.H * kD;
   const T* w = static_cast<const T*>(p.wqkv);
@@ -201,7 +203,7 @@ __device__ void project_fma(const FusedParams& p, const T* xb, const float* mu, 
 #pragma unroll
       for (int i = 0; i < 8; ++i) a[i] = As[(ty + 8 * i) * (kBD + 1) + dd];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) b[j] = Bs[dd * NCOL + tx + 32 * j];
+      for (int j = 0; j < NJ; ++j) b[j] = tx + 32 * j < NCOL ? Bs[dd * NCOL + tx + 32 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -216,29 +218,30 @@ __device__ void project_fma(const FusedParams& p, const T* xb, const float* mu, 
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 32 * j, g = c / kD, cc = c % kD;
+      if (c >= NCOL) continue;
       dst[g][r * (kD + 1) + cc] =
           row0 + r < p.T ? round_to<T>(acc[i][j] + load_f(bias + col[g] + cc)) : 0.f;
     }
   }
 }
 
-// Columns [col[g], col[g] + 64) of the packed qkv for rows [row0, row0 + 64)
+// Columns [col[g], col[g] + D) of the packed qkv for rows [row0, row0 + 64)
 // of one sample (NG column groups), LN applied to x on the fly:
 // dst[g][(r - row0) * (kD + 1) + c] = round_T(fp32(LN(x)->T . Wqkv) + bqkv)
 // for the first dst_rows local rows (zero past T).  fp32: FMA on the CUDA
 // cores; bf16: project_mma.
-template <typename T, int NG>
+template <typename T, int kD, int NG>
 __device__ void project(const FusedParams& p, const T* xb, const float* mu, const float* rs,
                         float* As, float* Bs, int row0, const int (&col)[NG],
                         float* const (&dst)[NG], int dst_rows) {
   if constexpr (std::is_same<T, bf16>::value) {
-    project_mma<NG>(p, xb, mu, rs, As, Bs, row0, col, dst, dst_rows);
+    project_mma<kD, NG>(p, xb, mu, rs, As, Bs, row0, col, dst, dst_rows);
   } else {
-    project_fma<T, NG>(p, xb, mu, rs, As, Bs, row0, col, dst, dst_rows);
+    project_fma<T, kD, NG>(p, xb, mu, rs, As, Bs, row0, col, dst, dst_rows);
   }
 }
 
-template <typename T>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads) fused_attn_kernel(FusedParams p) {
   extern __shared__ float smem[];
   const int T_ = p.T;
@@ -280,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) fused_attn_kernel(FusedParams p) {
     const int col[2] = {hd + h * kD, 2 * hd + h * kD};
     for (int row0 = 0; row0 < T_; row0 += kBQ) {
       float* const dst[2] = {Ks + row0 * (kD + 1), Vs + row0 * (kD + 1)};
-      project<T, 2>(p, xb, mu, rs, As, Bs, row0, col, dst, min(kBQ, T_ - row0));
+      project<T, kD, 2>(p, xb, mu, rs, As, Bs, row0, col, dst, min(kBQ, T_ - row0));
     }
   }
 
@@ -297,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) fused_attn_kernel(FusedParams p) {
     {
       const int col[1] = {h * kD};
       float* const dst[1] = {Qs};
-      project<T, 1>(p, xb, mu, rs, As, Bs, q0, col, dst, kBQ);
+      project<T, kD, 1>(p, xb, mu, rs, As, Bs, q0, col, dst, kBQ);
     }
     for (int r = tid; r < kBQ; r += kThreads) {
       row_m[r] = -INFINITY;
@@ -369,7 +372,7 @@ __device__ void out_proj_mma(const FusedParams& p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBQ;
   const int wm = (warp % 4) * 16, wn = (warp / 4) * (kBN / 2);
-  const int M = p.B * p.T, K = p.H * kD;
+  const int M = p.B * p.T, K = p.H * p.D;
   const bf16* a = static_cast<const bf16*>(p.attn);
   const bf16* w = static_cast<const bf16*>(p.wo);
   const bf16 zero = __float2bfloat16(0.f);
@@ -382,11 +385,11 @@ __device__ void out_proj_mma(const FusedParams& p) {
     __syncthreads();
     for (int i = tid; i < kBQ * kBD; i += kThreads) {
       const int r = i / kBD, kk = i % kBD, m = m0 + r;
-      As[r * kLdH + kk] = m < M ? a[(size_t)m * K + k0 + kk] : zero;
+      As[r * kLdH + kk] = m < M && k0 + kk < K ? a[(size_t)m * K + k0 + kk] : zero;
     }
     for (int i = tid; i < kBD * kBN; i += kThreads) {
       const int kk = i / kBN, c = i % kBN, n = n0 + c;
-      Bs[c * kLdH + kk] = n < p.W ? w[(size_t)(k0 + kk) * p.W + n] : zero;
+      Bs[c * kLdH + kk] = n < p.W && k0 + kk < K ? w[(size_t)(k0 + kk) * p.W + n] : zero;
     }
     __syncthreads();
     mma_chunk<NJ>(acc, As, Bs, wm, wn);
@@ -416,7 +419,7 @@ __device__ void out_proj_fma(const FusedParams& p) {
   __shared__ float Bs[kBD][kBN];
   const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBQ;
-  const int M = p.B * p.T, K = p.H * kD;
+  const int M = p.B * p.T, K = p.H * p.D;
   const T* a = static_cast<const T*>(p.attn);
   const T* w = static_cast<const T*>(p.wo);
   float acc[8][4];
@@ -428,11 +431,11 @@ __device__ void out_proj_fma(const FusedParams& p) {
     __syncthreads();
     for (int i = tid; i < kBQ * kBD; i += kThreads) {
       const int r = i / kBD, kk = i % kBD, m = m0 + r;
-      As[r][kk] = m < M ? load_f(a + (size_t)m * K + k0 + kk) : 0.f;
+      As[r][kk] = m < M && k0 + kk < K ? load_f(a + (size_t)m * K + k0 + kk) : 0.f;
     }
     for (int i = tid; i < kBD * kBN; i += kThreads) {
       const int kk = i / kBN, c = i % kBN, n = n0 + c;
-      Bs[kk][c] = n < p.W ? load_f(w + (size_t)(k0 + kk) * p.W + n) : 0.f;
+      Bs[kk][c] = n < p.W && k0 + kk < K ? load_f(w + (size_t)(k0 + kk) * p.W + n) : 0.f;
     }
     __syncthreads();
     for (int kk = 0; kk < kBD; ++kk) {
@@ -475,18 +478,19 @@ __global__ void __launch_bounds__(kThreads) out_proj_kernel(FusedParams p) {
   }
 }
 
+template <int kD>
 size_t fused_attn_smem(int T) {
   return sizeof(float) * (2 * (size_t)T + 2 * (size_t)T * (kD + 1) + kBQ * (kD + 1) +
                           kBQ * (kBK + 1) + 2 * kBQ + kBQ * (kBD + 1) + kBD * 2 * kD);
 }
 
-template <typename T>
+template <typename T, int kD>
 cudaError_t launch_fused_fwd(const FusedParams& p, cudaStream_t stream) {
-  const size_t smem = fused_attn_smem(p.T);
-  cudaError_t err = cudaFuncSetAttribute(fused_attn_kernel<T>,
+  const size_t smem = fused_attn_smem<kD>(p.T);
+  cudaError_t err = cudaFuncSetAttribute(fused_attn_kernel<T, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_attn_kernel<T><<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
+  fused_attn_kernel<T, kD><<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long M = (long long)p.B * p.T;
@@ -503,23 +507,28 @@ extern "C" int mcl_fused_attention_fwd(const void* x, const void* lns, const voi
                                        const void* bo, void* y, void* attn, int B, int T, int W,
                                        int H, int D, int t_real, float eps, float scale,
                                        int dtype, void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || T > kMaxT || H <= 0 || W <= 0 || W % kBD)
+  if (B <= 0 || T <= 0 || T > kMaxT || H <= 0 || W <= 0 || W % kBD || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
-  FusedParams p{x, lns, lnb, wqkv, bqkv, wo, bo, y, attn, B, T, W, H, t_real, eps, scale};
+  FusedParams p{x, lns, lnb, wqkv, bqkv, wo, bo, y, attn, B, T, W, H, D, t_real, eps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fused_fwd<float>(p, s);
-  if (dtype == 1) return (int)launch_fused_fwd<__nv_bfloat16>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 0 ? launch_fused_fwd<float, kD>(p, s)
+                      : launch_fused_fwd<__nv_bfloat16, kD>(p, s);
+  });
 }
 
 extern "C" int mcl_fused_attention_bwd(const void* qkv, const void* da, void* dqkv, int B, int T,
                                        int H, int D, int t_real, float scale, int bblk,
                                        int dtype, void* stream) {
-  if (D != kD || B <= 0 || T <= 0 || H <= 0 || bblk <= 0 || (long long)bblk * T > kMaxRows)
+  if (B <= 0 || T <= 0 || H <= 0 || bblk <= 0 || (long long)bblk * T > kMaxRows || dtype < 0 ||
+      dtype > 1)
     return (int)cudaErrorInvalidValue;
   MergedParams p{qkv, nullptr, da, nullptr, nullptr, dqkv, B, T, H, t_real, 0, scale, bblk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_merged_bwd<float, true>(p, s);
-  if (dtype == 1) return (int)launch_merged_bwd<__nv_bfloat16, true>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 0 ? launch_merged_bwd<float, true, kD>(p, s)
+                      : launch_merged_bwd<__nv_bfloat16, true, kD>(p, s);
+  });
 }

@@ -23,8 +23,10 @@
 // One CTA owns a head of `bblk` whole samples merged into R = bblk * T <=
 // 640 rows and writes their dQ, dK and dV (no atomics): it walks 32-key
 // tiles (dK, dV in registers) and, inside, the 32-query tiles that share a
-// sample with the key tile; dQ accumulates in a [R, 64] float32 tile in
-// shared memory.  Merging fills the 32-row tiles across sample boundaries
+// sample with the key tile; dQ accumulates in a [R, D] float32 tile in
+// shared memory.  The head dim D is a template parameter (kHeadDims: 16
+// and 64, the head dims of every ViT and CLIP preset, and 32, which no
+// preset has); with_head_dim maps the runtime value to it.  Merging fills the 32-row tiles across sample boundaries
 // (T = 50: one sample alone leaves 14 of 64 rows idle), at the price of the
 // cross-sample entries of tiles that straddle two samples.  fp32 CUDA-core
 // arithmetic: bound by its own arithmetic and shared-memory traffic, like K2.
@@ -34,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_attention_common.cuh"
 
@@ -45,10 +49,22 @@ using mcl_flash::store_f;
 using mcl_flash::warp_max;
 using mcl_flash::warp_sum;
 
-constexpr int kD = 64;          // head dim
 constexpr int kBK = 32;         // keys per tile == warp width
 constexpr int kBQB = 32;        // backward queries per tile
-constexpr int kMaxRows = 640;   // backward dQ tile [R, 64] fp32 in smem
+constexpr int kMaxRows = 640;   // backward dQ tile [R, D] fp32 in smem (D = 64: 160 KB)
+
+// f(std::integral_constant<int, D>{}) for a head dim the kernels are built
+// for (D divides the 256 threads and is a multiple of 16-byte loads);
+// cudaErrorInvalidValue for any other.
+template <typename F>
+cudaError_t with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 struct MergedParams {
   const void* qkv;      // [B, T, 3 * H * D]
@@ -85,11 +101,11 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 
 // rows [row0, row0 + nrows) of one head's D columns -> dst[r * ld + d] (fp32),
 // 16-byte loads; rows at or past n_rows read as zeros.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const T* base, long long stride,
                                           int row0, int nrows, int n_rows) {
   constexpr int N = Vec<T>::N;
-  constexpr int C = kD / N;  // 16-byte chunks per row
+  constexpr int C = D / N;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < nrows * C; i += kThreads) {
     const int r = i / C, c = (i % C) * N, t = row0 + r;
     float v[N];
@@ -146,7 +162,7 @@ __device__ __forceinline__ bool key_live(const MergedParams& p, int c, int k_hi,
 
 // The 32 x 32 tile's dot products of the thread: rows srow0 + i * 8 of Qs
 // (and dAs) with key column sc of Ks (and Vs); every tile [32][kD + 1].
-template <bool kDp>
+template <int kD, bool kDp>
 __device__ __forceinline__ void tile_dots(const float* Qs, const float* Ks, const float* dAs,
                                           const float* Vs, int srow0, int sc, float (&s)[4],
                                           float (&dp)[4]) {
@@ -169,7 +185,7 @@ __device__ __forceinline__ void tile_dots(const float* Qs, const float* Ks, cons
 
 // K6: lse and delta = rowsum(dP * P) of each of the R rows into lse_s and
 // delta_s (float32), from qkv and dA alone.
-template <typename T>
+template <typename T, int kD>
 __device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T* qb, const T* kb,
                              const T* vb, const T* dab, long long stride, long long ostride,
                              const int* s_kend, float* Qs, float* dAs, float* Ks, float* Vs,
@@ -184,8 +200,8 @@ __device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T*
     int k_hi = sq1 * p.T + s_kend[sq1];
     if (p.causal) k_hi = min(k_hi, q_last + 1);
     __syncthreads();  // the previous tile's readers are done
-    load_rows<T>(Qs, kD + 1, qb, stride, qt, kBQB, R);
-    load_rows<T>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
+    load_rows<T, kD>(Qs, kD + 1, qb, stride, qt, kBQB, R);
+    load_rows<T, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
     for (int r = tid; r < kBQB; r += kThreads) {
       if (qt + r < R) {
         lse_s[qt + r] = -INFINITY;  // running max, then lse
@@ -197,14 +213,14 @@ __device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T*
       for (int kt = k_lo; kt < k_hi; kt += kBK) {
         const bool live = tid < kBK && key_live(p, kt + tid, k_hi, row0, s_kend, 0);
         if (!__syncthreads_or(live)) continue;
-        load_rows<T>(Ks, kD + 1, kb, stride, kt, kBK, R);
-        if (pass == 1) load_rows<T>(Vs, kD + 1, vb, stride, kt, kBK, R);
+        load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, R);
+        if (pass == 1) load_rows<T, kD>(Vs, kD + 1, vb, stride, kt, kBK, R);
         __syncthreads();
         float s[4], dp[4];
         if (pass == 0) {
-          tile_dots<false>(Qs, Ks, dAs, Vs, srow0, sc, s, dp);
+          tile_dots<kD, false>(Qs, Ks, dAs, Vs, srow0, sc, s, dp);
         } else {
-          tile_dots<true>(Qs, Ks, dAs, Vs, srow0, sc, s, dp);
+          tile_dots<kD, true>(Qs, Ks, dAs, Vs, srow0, sc, s, dp);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -253,7 +269,7 @@ __device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T*
   __syncthreads();
 }
 
-template <typename T, bool kFused>
+template <typename T, bool kFused, int kD>
 __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
   extern __shared__ float smem[];
   const int sb = blockIdx.y * p.bblk;  // the CTA's first sample
@@ -285,7 +301,7 @@ __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
   sample_key_ends(p, sb, ns, s_kend);
   for (int i = tid; i < R * kD; i += kThreads) dQ[i] = 0.f;
   if constexpr (kFused) {
-    merged_stats<T>(p, R, row0, qb, kb, vb, dab, stride, ostride, s_kend, Qs, dAs, Ks, Vs, Ps,
+    merged_stats<T, kD>(p, R, row0, qb, kb, vb, dab, stride, ostride, s_kend, Qs, dAs, Ks, Vs, Ps,
                     lse_s, delta_s);
   } else {
     // delta = rowsum(dA * out), lse from the forward: one warp per row
@@ -319,19 +335,19 @@ __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
     // also the barrier after the previous tile's readers of Ks/Vs
     const bool live = tid < kBK && key_live(p, kt + tid, R, row0, s_kend, 0);
     if (__syncthreads_or(live)) {
-      load_rows<T>(Ks, kD + 1, kb, stride, kt, kBK, R);
-      load_rows<T>(Vs, kD + 1, vb, stride, kt, kBK, R);
+      load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, R);
+      load_rows<T, kD>(Vs, kD + 1, vb, stride, kt, kBK, R);
       // the query tiles that share a sample with this key tile
       const int k_last = min(kt + kBK, R) - 1;
       const int q_lo = p.causal ? kt : (kt / p.T) * p.T;
       const int q_hi = min(R, (k_last / p.T + 1) * p.T);
       for (int qt = (q_lo / kBQB) * kBQB; qt < q_hi; qt += kBQB) {
-        load_rows<T>(Qs, kD + 1, qb, stride, qt, kBQB, R);
-        load_rows<T>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
+        load_rows<T, kD>(Qs, kD + 1, qb, stride, qt, kBQB, R);
+        load_rows<T, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
         __syncthreads();
         {
           float s[4], dp[4];
-          tile_dots<true>(Qs, Ks, dAs, Vs, srow0, sc, s, dp);
+          tile_dots<kD, true>(Qs, Ks, dAs, Vs, srow0, sc, s, dp);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int r = srow0 + i * kSRS, t = qt + r;
@@ -385,20 +401,21 @@ __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
     store_f(dq_out + (size_t)(i / kD) * stride + i % kD, dQ[i] * out_scale);
 }
 
-inline size_t merged_bwd_smem(int rows, int bblk) {
+template <int kD>
+size_t merged_bwd_smem(int rows, int bblk) {
   return sizeof(float) * ((size_t)rows * kD + 2 * kBQB * (kD + 1) + 2 * kBK * (kD + 1) +
                           2 * kBQB * (kBK + 1) + 2 * (size_t)rows) +
          sizeof(int) * (size_t)bblk;
 }
 
-template <typename T, bool kFused>
+template <typename T, bool kFused, int kD>
 cudaError_t launch_merged_bwd(const MergedParams& p, cudaStream_t stream) {
-  const size_t smem = merged_bwd_smem(p.bblk * p.T, p.bblk);
-  cudaError_t err = cudaFuncSetAttribute(merged_bwd_kernel<T, kFused>,
+  const size_t smem = merged_bwd_smem<kD>(p.bblk * p.T, p.bblk);
+  cudaError_t err = cudaFuncSetAttribute(merged_bwd_kernel<T, kFused, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, (p.B + p.bblk - 1) / p.bblk);
-  merged_bwd_kernel<T, kFused><<<grid, kThreads, smem, stream>>>(p);
+  merged_bwd_kernel<T, kFused, kD><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -20,7 +20,14 @@ seven projections of every block: ``int8_weights`` (``ops/quant.py``) or
 ``int4_weights`` (``ops/int4.py``; a decode step runs the K5 kernel in each
 of them), never both; embedding, head and norms stay float.  Entry points: ``embed``,
 ``hidden_states``, ``prefill_paged`` (fills page pools in place),
-``decode_step_paged`` and ``lm_head``.
+``decode_step_paged``, ``lm_head``, and the dense-cache surface of the JAX
+module: ``init_kv_cache``, ``prefill``, ``decode_step`` and
+``decode_chunk``.  The port writes the caches in place (JAX returns new
+ones): one [B, S, Hk, D] tensor per layer and part, no copy a step.
+Decode attention takes the JAX float32 bias over the whole cache (the
+cache mask, plus ``position - slot < window`` on sliding layers): a
+decode query sits at its row's own position, not at S - 1 where K1's
+causal and window descriptors would put it.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from multimodal_concept_learning_tpu_torch.ops.attention import (
     make_attention_bias,
     multi_head_attention,
 )
+from multimodal_concept_learning_tpu_torch.ops.flash_attention import _NEG
 from multimodal_concept_learning_tpu_torch.ops.int4 import Int4Linear
 from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     paged_decode_attention,
@@ -130,6 +138,16 @@ def projection(cfg: LMConfig, in_features: int, out_features: int) -> nn.Module:
     return nn.Linear(in_features, out_features, bias=False)
 
 
+def init_kv_cache(cfg: LMConfig, batch_size: int, cache_len: int, device) -> tuple:
+    """Zero per-layer KV caches for ``CausalLM.prefill`` / ``decode_step``:
+    one {"k", "v"} dict per layer, each [B, cache_len, kv_heads, head_dim]
+    in the compute dtype on ``device`` (the JAX ``init_kv_cache``)."""
+    shape = (batch_size, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return tuple({"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                  "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+                 for _ in range(cfg.num_layers))
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> Rope:
     """(sin, cos) tables [B, T, head_dim // 2] for one base frequency."""
     half = head_dim // 2
@@ -173,17 +191,22 @@ class LMAttention(nn.Module):
         return apply_rope(q, rope), apply_rope(k, rope), v
 
     def forward(self, x, rope: Rope, *, kv_lens=None, window: Optional[int] = None,
-                bias=None, causal: bool = True, pool=None, page_table=None) -> torch.Tensor:
+                bias=None, causal: bool = True, pool=None, page_table=None,
+                cache=None) -> torch.Tensor:
         """Self-attention over the prompt, masked by the descriptors
         (``kv_lens``, ``causal``, ``window``) and/or an additive ``bias``;
         with ``pool`` ({"k","v"} page pools) the prompt's K/V are also
         written into ``page_table``'s pages (positions >= kv_lens go to the
-        null page)."""
+        null page); with ``cache`` ({"k","v"} [B, S, Hk, D]) into its slots
+        [0:T], padding included (the decode mask hides those slots)."""
         b, t, _ = x.shape
         q, k, v = self._qkv(x, rope)
         if pool is not None:
             write_prompt_kv(pool["k"], page_table, kv_lens, k)
             write_prompt_kv(pool["v"], page_table, kv_lens, v)
+        if cache is not None:
+            cache["k"][:, :t] = k
+            cache["v"][:, :t] = v
         attn = multi_head_attention(q, k, v, bias, scale=self.scale, kv_lens=kv_lens,
                                     causal=causal, window=window)
         return linear(self.o_proj, attn.reshape(b, t, -1), self.cfg.dtype)
@@ -199,6 +222,19 @@ class LMAttention(nn.Module):
         attn = paged_decode_attention(q, pool["k"], pool["v"], page_table, seq_lens + 1,
                                       scale=self.scale, window=window)
         return linear(self.o_proj, attn.reshape(b, 1, -1), self.cfg.dtype)
+
+    def decode_dense(self, x, rope: Rope, cache, slots, bias) -> torch.Tensor:
+        """G tokens per row (x [B, G, H]): write their K/V into ``cache`` at
+        ``slots`` [B, G] and attend against the whole cache under the float32
+        ``bias`` [B, 1, G, S]."""
+        b, g, _ = x.shape
+        q, k, v = self._qkv(x, rope)
+        rows = torch.arange(b, device=x.device)[:, None]
+        slots = slots.long()
+        cache["k"][rows, slots] = k
+        cache["v"][rows, slots] = v
+        attn = multi_head_attention(q, cache["k"], cache["v"], bias, scale=self.scale)
+        return linear(self.o_proj, attn.reshape(b, g, -1), self.cfg.dtype)
 
 
 class LMMLP(nn.Module):
@@ -244,6 +280,9 @@ class LMBlock(nn.Module):
     def decode_paged(self, x, rope: Rope, *args) -> torch.Tensor:
         return self._residual(x, self.self_attn.decode_paged(self.input_layernorm(x), rope, *args))
 
+    def decode_dense(self, x, rope: Rope, *args) -> torch.Tensor:
+        return self._residual(x, self.self_attn.decode_dense(self.input_layernorm(x), rope, *args))
+
 
 class _DecoderStack(nn.Module):
     def __init__(self, cfg: LMConfig):
@@ -275,7 +314,8 @@ class CausalLM(nn.Module):
             return rope_global, rope_global
         return rope_global, rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
 
-    def _prompt(self, inputs_embeds, attention_mask, kv_lens=None, pools=None, page_table=None):
+    def _prompt(self, inputs_embeds, attention_mask, kv_lens=None, pools=None, page_table=None,
+                caches=None):
         cfg = self.cfg
         b, t, _ = inputs_embeds.shape
         masks = [dict(causal=True, window=cfg.layer_window(i)) for i in range(cfg.num_layers)]
@@ -300,6 +340,8 @@ class CausalLM(nn.Module):
             kw = masks[i]
             if pools is not None:
                 kw = dict(kw, pool=pools[i], page_table=page_table)
+            if caches is not None:
+                kw = dict(kw, cache=caches[i])
             x = layer(x, rope_sliding if cfg.layer_is_sliding(i) else rope_global, **kw)
         return self.model.norm(x)
 
@@ -335,6 +377,62 @@ class CausalLM(nn.Module):
             x = layer.decode_paged(x, rope, pools[i], page_table, seq_lens, cfg.layer_window(i))
         return self.model.norm(x)
 
+    def prefill(self, inputs_embeds, attention_mask, caches, kv_lens=None) -> torch.Tensor:
+        """Forward the prompt, writing its K/V into slots [0:T] of the dense
+        ``caches`` (``init_kv_cache``, S >= T + new tokens) IN PLACE.
+        ``kv_lens`` says the mask is right-padded (attention takes
+        descriptors), as in ``hidden_states``.  Returns hidden [B, T, H]."""
+        if attention_mask is None:
+            raise ValueError("prefill needs the prompt's attention mask")
+        return self._prompt(inputs_embeds, attention_mask, kv_lens, caches=caches)
+
+    def _cache_biases(self, attendable: torch.Tensor, qpos: torch.Tensor):
+        """(global, sliding) float32 biases [B, 1, G, S] from ``attendable``
+        [B, G|1, S] and the query positions ``qpos`` [B, G] (slot index ==
+        position, as right-padded prompts keep it)."""
+        bias_global = torch.where(attendable, 0.0, _NEG)[:, None].float()
+        if self.cfg.sliding_window is None:
+            return bias_global, bias_global
+        slots = torch.arange(attendable.shape[-1], device=qpos.device)
+        in_window = qpos[:, :, None] - slots < self.cfg.sliding_window
+        return bias_global, bias_global + torch.where(in_window, 0.0, _NEG)[:, None].float()
+
+    def _decode_layers(self, inputs_embeds, caches, qpos, biases):
+        cfg = self.cfg
+        rope_global, rope_sliding = self._ropes(qpos)
+        x = inputs_embeds.to(cfg.dtype)
+        for i, layer in enumerate(self.model.layers):
+            sliding = cfg.layer_is_sliding(i)
+            x = layer.decode_dense(x, rope_sliding if sliding else rope_global, caches[i], qpos,
+                                   biases[sliding])
+        return self.model.norm(x)
+
+    def decode_step(self, inputs_embeds, caches, seq_lens, cache_mask) -> torch.Tensor:
+        """One decode step (the JAX ``decode_step``): inputs_embeds [B, 1, H]
+        of the newest token; ``seq_lens`` [B] real tokens so far (the new
+        token's slot and rope position); ``cache_mask`` [B, S] 1 on every
+        valid slot INCLUDING the new token's.  Writes the caches in place;
+        returns hidden [B, 1, H]."""
+        qpos = seq_lens[:, None]
+        biases = self._cache_biases(cache_mask.bool()[:, None, :], qpos)
+        return self._decode_layers(inputs_embeds, caches, qpos, biases)
+
+    def decode_chunk(self, inputs_embeds, caches, start_lens, cache_mask) -> torch.Tensor:
+        """G tokens per row against the cache (the JAX ``decode_chunk``):
+        token i of row b goes to slot and position ``start_lens[b] + i``;
+        ``cache_mask`` [B, S] marks only the committed prefix (slots <
+        start), and token i sees the chunk's slots up to its own.  Writes
+        the caches in place; returns hidden [B, G, H]."""
+        b, g, _ = inputs_embeds.shape
+        dev = inputs_embeds.device
+        slots = torch.arange(cache_mask.shape[1], device=dev)
+        start = start_lens[:, None, None]
+        qpos = start_lens[:, None] + torch.arange(g, device=dev)[None, :]
+        prefix = cache_mask.bool()[:, None, :] & (slots < start)
+        within = (slots <= qpos[:, :, None]) & (slots >= start)
+        return self._decode_layers(inputs_embeds, caches, qpos,
+                                   self._cache_biases(prefix | within, qpos))
+
     def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head: float32 logits of compute-dtype operands (the JAX
         einsum with preferred_element_type=float32)."""
@@ -347,4 +445,4 @@ class CausalLM(nn.Module):
         return logits
 
 
-__all__ = ["CausalLM", "LMConfig", "RMSNorm", "apply_rope", "rope_tables"]
+__all__ = ["CausalLM", "LMConfig", "RMSNorm", "apply_rope", "init_kv_cache", "rope_tables"]

@@ -5,8 +5,9 @@ The vision tower's last hidden state is projected to the LM width and
 spliced in front of the text embeddings by concatenation (the first
 ``num_vision_tokens`` ids are placeholders and are never embedded).
 ``forward`` is the training/eval forward with the sparse answer loss;
-``paged_generate`` is the JAX function's greedy paged decode as a plain
-loop.  ``trainable_mask`` sets ``requires_grad`` by state-dict name (the
+``generate`` / ``greedy_generate`` (dense KV caches) and ``paged_generate``
+are the JAX functions' decodes as plain loops.  Sampling draws from a
+``torch.Generator``: the same filters as JAX, other random streams.  ``trainable_mask`` sets ``requires_grad`` by state-dict name (the
 JAX optax mask); when no vision parameter trains, the tower runs under
 ``torch.no_grad()``, so it costs no backward (XLA drops the frozen tower's
 backward in the JAX trainer).
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from multimodal_concept_learning_tpu_torch.device import linear
-from multimodal_concept_learning_tpu_torch.models.lm import CausalLM, LMConfig
+from multimodal_concept_learning_tpu_torch.models.lm import CausalLM, LMConfig, init_kv_cache
 from multimodal_concept_learning_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from multimodal_concept_learning_tpu_torch.ops.losses import (
     dense_causal_lm_cross_entropy,
@@ -31,6 +32,7 @@ from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     init_paged_kv_cache,
     pages_needed,
 )
+from multimodal_concept_learning_tpu_torch.ops.sampling import sample_logits
 
 TRAINABLE_SETTINGS = ("vision_only", "language_only", "language_embed_only", "language_lora")
 
@@ -111,6 +113,12 @@ class MLLM(nn.Module):
         return {"loss": loss, "logits": logits, "positions": positions, "valid": valid,
                 "hidden_states": hidden}
 
+    def prefill(self, images, input_ids, attention_mask, caches, kv_lens=None):
+        """Vision tower + splice + dense LM prefill (caches written in
+        place; ``kv_lens``: the mask is right-padded).  Returns hidden [B, T, H]."""
+        return self.language_model.prefill(self.prompt_embeds(images, input_ids),
+                                           attention_mask, caches, kv_lens)
+
     def prefill_paged(self, images, input_ids, attention_mask, pools, page_table):
         """Vision tower + splice + paged LM prefill (pools updated in place).
         Returns hidden [B, T, H]."""
@@ -168,6 +176,57 @@ def copy_init_ood_rows(model: MLLM, num_ood: int) -> MLLM:
 
 
 @torch.inference_mode()
+def generate(model: MLLM, images, input_ids, attention_mask, max_new_tokens: int,
+             eos_id: Optional[int] = None, pad_id: int = 0,
+             generator: Optional[torch.Generator] = None, temperature: float = 0.0,
+             top_k: Optional[int] = None, top_p: Optional[float] = None) -> torch.Tensor:
+    """Autoregressive generation over dense per-layer KV caches (the JAX
+    ``generate``).  Prompts must be RIGHT-padded, so a row's first free slot
+    is its next rope position.  The first token comes from the prefill,
+    then ``max_new_tokens - 1`` decode steps; after a row's ``eos_id`` its
+    tokens are ``pad_id``.  ``temperature == 0`` is greedy; above it each
+    token is drawn from ``generator`` after the top-k / top-p filters
+    (``ops/sampling.py``).  Returns int32 [B, max_new_tokens]; inputs go
+    to the model's device."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 requires a torch.Generator")
+    dev = next(model.parameters()).device
+    images, input_ids, attention_mask = (x.to(dev) for x in (images, input_ids, attention_mask))
+    lm = model.language_model
+    b, t = input_ids.shape
+    rows = torch.arange(b, device=dev)
+    caches = init_kv_cache(lm.cfg, b, t + max_new_tokens, dev)
+    seq_lens = attention_mask.sum(dim=1).to(torch.int32)
+
+    def sample(hidden):
+        return sample_logits(lm.lm_head(hidden), generator, temperature, top_k, top_p)
+
+    hidden = model.prefill(images, input_ids, attention_mask, caches, kv_lens=seq_lens)
+    tok = sample(hidden[rows, seq_lens.long() - 1])
+    cache_mask = torch.nn.functional.pad(attention_mask.to(torch.int32), (0, max_new_tokens))
+    done = torch.zeros(b, dtype=torch.bool, device=dev) if eos_id is None else tok == eos_id
+    out = [tok]
+    for _ in range(max_new_tokens - 1):
+        cache_mask[rows, seq_lens.long()] = 1
+        h = lm.decode_step(lm.embed(tok[:, None]), caches, seq_lens, cache_mask)
+        nxt = sample(h[:, 0])
+        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+        if eos_id is not None:
+            done = done | (nxt == eos_id)
+        seq_lens = seq_lens + 1
+        tok = nxt
+        out.append(nxt)
+    return torch.stack(out, dim=1)
+
+
+def greedy_generate(model: MLLM, images, input_ids, attention_mask, max_new_tokens: int,
+                    eos_id: Optional[int] = None, pad_id: int = 0) -> torch.Tensor:
+    """Greedy decoding: ``generate`` at temperature 0 (the JAX entry point)."""
+    return generate(model, images, input_ids, attention_mask, max_new_tokens, eos_id=eos_id,
+                    pad_id=pad_id)
+
+
+@torch.inference_mode()
 def paged_generate(model: MLLM, images, input_ids, attention_mask, max_new_tokens: int,
                    page_size: int, eos_id: Optional[int] = None,
                    pad_id: int = 0) -> torch.Tensor:
@@ -202,4 +261,5 @@ def paged_generate(model: MLLM, images, input_ids, attention_mask, max_new_token
 
 
 __all__ = ["MLLM", "MLLMConfig", "TRAINABLE_SETTINGS", "copy_init_ood_rows", "count_params",
-           "paged_generate", "print_trainable_summary", "trainable_mask"]
+           "generate", "greedy_generate", "paged_generate", "print_trainable_summary",
+           "trainable_mask"]

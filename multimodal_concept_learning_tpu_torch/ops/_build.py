@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "paged_attention.cu",
            "attention_core.cu", "paged_attention_mp.cu", "int4_matmul.cu",
-           "attention_core_bd.cu", "fused_attention_block.cu")
+           "attention_core_bd.cu", "fused_attention_block.cu", "int4_matmul_v3.cu")
 HEADERS = ("flash_attention_common.cuh", "merged_attention.cuh")
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
 NVCC_FLAGS = (
@@ -62,6 +62,8 @@ _SIGNATURES = {
     "mcl_fused_attention_fwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "mcl_fused_attention_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "mcl_int4_matmul_v3a": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mcl_int4_matmul_v3b": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -31,7 +31,10 @@ valid key gets a zero output and no gradient here; the JAX kernel gives it
 a uniform average over all keys (such rows never occur on the CLIP path).
 
 The JAX package pads T to a multiple of 16 (a TPU sublane rule); the port
-runs at T.
+runs at T.  The kernels take head dims 16, 32 and 64 (``HEAD_DIMS``: 16
+and 64 cover every ViT and CLIP preset; no preset has 32) and the
+backward at most 640 rows (T, or bblk·T
+merged); ``check_kernel_shape`` refuses anything else with a ValueError.
 
 K2-bd, the sample-merged (block-diagonal) variants, compute the same
 function on rows merged across samples: ``attention_core_bd_fwd`` and
@@ -56,8 +59,8 @@ import torch
 
 _NEG = -1e30  # the JAX kernel's finite mask value
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64  # the only head dim the kernels are built for (every ViT/CLIP preset)
-MAX_T_BWD = 640  # the backward keeps a [T, 64] float32 dQ tile in shared memory
+HEAD_DIMS = (16, 32, 64)  # built head dims: 16 (vit-t-8) and 64 (every other ViT/CLIP preset)
+MAX_T_BWD = 640  # the backward keeps a [T, D] float32 dQ tile in shared memory
 BD_ROWS = 256  # K2-bd backward: whole samples merged into about this many rows a CTA
 
 
@@ -218,14 +221,27 @@ def attention_core_bd_backward_reference(qkv, d_out, heads: int, t_real: int,
     return dqkv.reshape(-1, t, f)[:b]
 
 
+def check_kernel_shape(what: str, head_dim: int, rows: Optional[int] = None,
+                       max_rows: int = MAX_T_BWD) -> None:
+    """The shapes the K2, K2-bd and K6 kernels are built for: a head dim in
+    ``HEAD_DIMS`` and, where a kernel keeps rows in shared memory, ``0 <
+    rows <= max_rows``.  Raises ValueError naming ``what`` otherwise."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{what} takes head dim in {HEAD_DIMS}, got {head_dim}")
+    if rows is not None and not 0 < rows <= max_rows:
+        raise ValueError(f"{what} takes 0 < rows <= {max_rows}, got {rows}")
+
+
+def _head_dim(qkv, heads: int) -> int:
+    return qkv.shape[-1] // (3 * heads)
+
+
 def _check(qkv, heads: int) -> None:
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"attention_core kernel takes float32/bfloat16, got {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
         raise ValueError(f"expected qkv [B, T, 3·H·D] with H={heads}, got {tuple(qkv.shape)}")
-    d = qkv.shape[-1] // (3 * heads)
-    if d != HEAD_DIM:
-        raise ValueError(f"attention_core kernel takes head dim {HEAD_DIM}, got {d}")
+    check_kernel_shape("attention_core kernel", _head_dim(qkv, heads))
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("attention_core kernel takes a contiguous, 16-byte aligned qkv")
 
@@ -241,13 +257,14 @@ def attention_core_fwd(qkv, heads: int, t_real: int, causal: bool, kvm, with_lse
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, hd3 = qkv.shape
+    d = _head_dim(qkv, heads)
     out = torch.empty((b, t, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device) if with_lse else None
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_attention_core_fwd(
             qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-            None if kvm is None else kvm.data_ptr(), b, t, heads, HEAD_DIM, int(t_real),
-            int(causal), HEAD_DIM ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+            None if kvm is None else kvm.data_ptr(), b, t, heads, d, int(t_real),
+            int(causal), d ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
     check(err, "attention_core_fwd")
     attention_core_fwd.launches += 1
     return out, lse
@@ -259,8 +276,8 @@ def attention_core_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bo
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, _ = qkv.shape
-    if t > MAX_T_BWD:
-        raise ValueError(f"attention_core backward kernel takes T <= {MAX_T_BWD}, got {t}")
+    d = _head_dim(qkv, heads)
+    check_kernel_shape("attention_core backward kernel", d, t)
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.data_ptr() % 16:  # the kernel reads dA with 16-byte loads
         d_out = d_out.clone()
@@ -268,8 +285,8 @@ def attention_core_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bo
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_attention_core_bwd(
             qkv.data_ptr(), out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(), b, t, heads, HEAD_DIM,
-            int(t_real), int(causal), HEAD_DIM ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(), b, t, heads, d,
+            int(t_real), int(causal), d ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
     check(err, "attention_core_bwd")
     attention_core_bwd.launches += 1
     return dqkv
@@ -288,13 +305,14 @@ def attention_core_bd_fwd(qkv, heads: int, t_real: int, causal: bool, kvm, with_
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, hd3 = qkv.shape
+    d = _head_dim(qkv, heads)
     out = torch.empty((b, t, hd3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device) if with_lse else None
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_attention_core_bd_fwd(
             qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-            None if kvm is None else kvm.data_ptr(), b, t, heads, HEAD_DIM, int(t_real),
-            int(causal), HEAD_DIM ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+            None if kvm is None else kvm.data_ptr(), b, t, heads, d, int(t_real),
+            int(causal), d ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
     check(err, "attention_core_bd_fwd")
     attention_core_bd_fwd.launches += 1
     return out, lse
@@ -308,10 +326,10 @@ def attention_core_bd_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal:
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, _ = qkv.shape
+    d = _head_dim(qkv, heads)
     bblk = bd_block(t) if bblk is None else int(bblk)
-    if not 0 < bblk * t <= MAX_T_BWD:
-        raise ValueError(f"attention_core_bd backward kernel takes bblk·T <= {MAX_T_BWD} "
-                         f"merged rows, got bblk {bblk} x T {t}")
+    check_kernel_shape(f"attention_core_bd backward kernel (bblk {bblk} x T {t} merged rows)",
+                       d, bblk * t)
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.data_ptr() % 16:
         d_out = d_out.clone()
@@ -319,8 +337,8 @@ def attention_core_bd_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal:
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_attention_core_bd_bwd(
             qkv.data_ptr(), out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(), b, t, heads, HEAD_DIM,
-            int(t_real), int(causal), HEAD_DIM ** -0.5, bblk, _DTYPE_CODES[qkv.dtype],
+            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(), b, t, heads, d,
+            int(t_real), int(causal), d ** -0.5, bblk, _DTYPE_CODES[qkv.dtype],
             _stream(qkv))
     check(err, "attention_core_bd_bwd")
     attention_core_bd_bwd.launches += 1
@@ -413,5 +431,6 @@ __all__ = [
     "attention_core_reference",
     "backward_from_probs",
     "bd_block",
+    "check_kernel_shape",
     "key_ok",
 ]

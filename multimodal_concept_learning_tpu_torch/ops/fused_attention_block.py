@@ -4,7 +4,8 @@ multimodal_concept_learning_tpu/ops/fused_attention_block.py).
     y = x + attn(LN(x)·Wqkv + bqkv)·Wo + bo
 
 with ``attn`` the softmax attention of each sample's own keys below
-``t_real``, per head of 64.  Layouts are the JAX package's: x [B, T, W],
+``t_real``, per head of D (the kernels take ``attention_core.HEAD_DIMS``,
+16, 32 or 64, and T <= 320; the backward bblk·T <= 640 merged rows).  Layouts are the JAX package's: x [B, T, W],
 ``wqkv`` [W, 3·H·D] (columns [q | k | v], head-major within each),
 ``bqkv`` [3·H·D], ``wo`` [H·D, W], ``bo`` [W].
 
@@ -42,17 +43,16 @@ import torch
 
 from multimodal_concept_learning_tpu_torch.ops.attention_core import (
     _DTYPE_CODES,
-    HEAD_DIM,
-    MAX_T_BWD,
     _scores_probs,
     _split,
     _stream,
     backward_from_probs,
     bd_block,
+    check_kernel_shape,
     key_ok,
 )
 
-MAX_T = 320  # the forward keeps one sample's K and V of a head [T, 64] float32 in shared memory
+MAX_T = 320  # the forward keeps one sample's K and V of a head [T, D] float32 in shared memory
 
 
 def pack_qkv(wq, bq, wk, bk, wv, bv):
@@ -109,22 +109,23 @@ def fused_bwd_attn_reference(qkv, da, heads: int, t_real: int):
     return backward_from_probs(q, k, v, p, da.to(qkv.dtype).reshape(q.shape), scale_after=True)
 
 
-def _check(x, wqkv, wo, heads: int) -> None:
+def _check(x, wqkv, wo, heads: int) -> int:
+    """The forward kernels' shape checks; returns the head dim."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused attention kernels take float32/bfloat16, got {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"expected x [B, T, W], got {tuple(x.shape)}")
     b, t, width = x.shape
-    hd = heads * HEAD_DIM
-    if tuple(wqkv.shape) != (width, 3 * hd) or tuple(wo.shape) != (hd, width):
-        raise ValueError(f"fused attention kernels take head dim {HEAD_DIM}: wqkv [{width}, "
-                         f"{3 * hd}] and wo [{hd}, {width}] for {heads} heads, got "
-                         f"{tuple(wqkv.shape)} and {tuple(wo.shape)}")
+    hd = wo.shape[0]
+    if hd % heads or tuple(wqkv.shape) != (width, 3 * hd) or tuple(wo.shape) != (hd, width):
+        raise ValueError(f"fused attention kernels take wqkv [{width}, 3·H·D] and wo [H·D, "
+                         f"{width}] for {heads} heads, got {tuple(wqkv.shape)} and "
+                         f"{tuple(wo.shape)}")
     if width % 32:
         raise ValueError(f"fused attention kernels take a width that is a multiple of 32, "
                          f"got {width}")
-    if not 0 < t <= MAX_T:
-        raise ValueError(f"fused attention kernels take 0 < T <= {MAX_T}, got {t}")
+    check_kernel_shape("fused attention forward kernels (T rows)", hd // heads, t, MAX_T)
+    return hd // heads
 
 
 def _cuda_operand(a, dtype):
@@ -140,20 +141,19 @@ def fused_attention_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int, t_
     ``.launches``."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
-    _check(x, wqkv, wo, heads)
+    d = _check(x, wqkv, wo, heads)
     cdt = x.dtype
     x = _cuda_operand(x, cdt)
     lns, lnb, wqkv, bqkv, wo, bo = (_cuda_operand(a, cdt)
                                     for a in (ln_scale, ln_bias, wqkv, bqkv, wo, bo))
     b, t, width = x.shape
     y = torch.empty_like(x)
-    attn = torch.empty((b, t, heads * HEAD_DIM), dtype=cdt, device=x.device)
+    attn = torch.empty((b, t, heads * d), dtype=cdt, device=x.device)
     with torch.cuda.device(x.device):
         err = kernels().mcl_fused_attention_fwd(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), attn.data_ptr(), b, t, width, heads,
-            HEAD_DIM, int(t_real), float(ln_eps), HEAD_DIM ** -0.5, _DTYPE_CODES[cdt],
-            _stream(x))
+            d, int(t_real), float(ln_eps), d ** -0.5, _DTYPE_CODES[cdt], _stream(x))
     check(err, "fused_attention_fwd")
     fused_attention_fwd.launches += 1
     return y, attn
@@ -167,20 +167,20 @@ def fused_bwd_attn(qkv, da, heads: int, t_real: int, bblk=None):
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, hd3 = qkv.shape
-    if qkv.dtype not in _DTYPE_CODES or hd3 != 3 * heads * HEAD_DIM:
+    if qkv.dtype not in _DTYPE_CODES or hd3 % (3 * heads):
         raise ValueError(f"fused attention backward kernel takes float32/bfloat16 qkv [B, T, "
-                         f"3 x {heads} x {HEAD_DIM}], got {qkv.dtype} {tuple(qkv.shape)}")
+                         f"3 x {heads} x D], got {qkv.dtype} {tuple(qkv.shape)}")
+    d = hd3 // (3 * heads)
     bblk = bd_block(t) if bblk is None else int(bblk)
-    if not 0 < bblk * t <= MAX_T_BWD:
-        raise ValueError(f"fused attention backward kernel takes bblk·T <= {MAX_T_BWD} merged "
-                         f"rows, got bblk {bblk} x T {t}")
+    check_kernel_shape(f"fused attention backward kernel (bblk {bblk} x T {t} merged rows)",
+                       d, bblk * t)
     qkv = _cuda_operand(qkv, qkv.dtype)
     da = _cuda_operand(da, qkv.dtype)
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_fused_attention_bwd(
-            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), b, t, heads, HEAD_DIM, int(t_real),
-            HEAD_DIM ** -0.5, bblk, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), b, t, heads, d, int(t_real),
+            d ** -0.5, bblk, _DTYPE_CODES[qkv.dtype], _stream(qkv))
     check(err, "fused_bwd_attn")
     fused_bwd_attn.launches += 1
     return dqkv

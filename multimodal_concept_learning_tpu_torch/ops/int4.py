@@ -16,6 +16,11 @@ multimodal_concept_learning_tpu/ops/int4.py).
   ``int4_matmul_reference``, the JAX fallback's math: x rounded to bf16,
   the weight dequantized in float32 and rounded to bf16 once, a
   float32-accumulated product, the result cast to x's dtype.
+- **A/B variants** (off every model path): ``v3a_matmul`` and
+  ``v3b_matmul`` wrap K5v3a and K5v3b (``csrc/int4_matmul_v3.cu``), which
+  replace the JAX script ``scripts/bench_int4_kernel.py:_kernel_v3a`` and
+  ``_kernel_v3b``; beside them their plain versions.  Only the port's A/B
+  entry point (``scripts/bench_int4_kernel.py``) calls them.
 - **Modules**: ``Int4Linear`` holds ``packed``/``scale`` (and an optional
   float ``bias``) as buffers; it is not an ``nn.Linear``, so the device
   policy's casts leave its integer weights alone.  ``axis``/``features``
@@ -97,24 +102,30 @@ def _prefill_matmul(x2d: torch.Tensor, packed, scale, group_size: int) -> torch.
     return x2d.to(torch.bfloat16).float() @ w.float()
 
 
-def _check_kernel_args(x2d, packed, scale, group_size: int) -> None:
+def _check_operands(x2d, packed, scale, group_size: int, what: str) -> None:
+    """The operands every int4 kernel takes (K5 and its variants)."""
     rows, d_in = x2d.shape
     half, d_out = packed.shape
     if x2d.dtype not in _X_DTYPES:
-        raise TypeError(f"int4 kernel takes float32/bfloat16 activations, got {x2d.dtype}")
+        raise TypeError(f"{what} takes float32/bfloat16 activations, got {x2d.dtype}")
     if packed.dtype != torch.int8 or scale.dtype != torch.bfloat16:
         raise TypeError(f"packed must be int8 and scale bfloat16, got {packed.dtype}, "
                         f"{scale.dtype}")
     if d_out % 16 or d_in % (2 * group_size) or tuple(scale.shape) != (d_in // group_size, d_out):
-        raise ValueError(f"int4 kernel: out {d_out} must be a multiple of 16, in {d_in} of "
+        raise ValueError(f"{what}: out {d_out} must be a multiple of 16, in {d_in} of "
                          f"2 * group_size, scale [{d_in // group_size}, {d_out}]; got "
                          f"{tuple(scale.shape)}")
-    if smem_bytes(d_in) > SMEM_PER_BLOCK:
-        raise ValueError(f"int4 kernel: in features {d_in} too wide for its shared-memory "
-                         f"x tile ({smem_bytes(d_in)} bytes)")
     for name, t in (("packed", packed), ("scale", scale)):
         if t.device != x2d.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned, on x's device")
+
+
+def _check_kernel_args(x2d, packed, scale, group_size: int) -> None:
+    _check_operands(x2d, packed, scale, group_size, "int4 kernel")
+    d_in = x2d.shape[1]
+    if smem_bytes(d_in) > SMEM_PER_BLOCK:
+        raise ValueError(f"int4 kernel: in features {d_in} too wide for its shared-memory "
+                         f"x tile ({smem_bytes(d_in)} bytes)")
 
 
 def smem_bytes(d_in: int) -> int:
@@ -158,6 +169,144 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 int4_matmul.launches = 0
+
+
+# K5's two A/B variants (scripts/bench_int4_kernel.py of the JAX package;
+# the port's entry point is scripts/bench_int4_kernel.py of this package).
+# Off every model path: only the A/B script calls them.
+V3_TARGET_CTAS = 264  # ~2 CTAs an SM of an H100: the split-K the variants' launch takes
+
+
+def v3_splits(d_in: int, d_out: int, group_size: int = GROUP_SIZE) -> Tuple[int, int]:
+    """(splits, packed row blocks a split) of the variants' split-K: each
+    CTA owns 64 output columns and a run of the in/(2·group) packed row
+    blocks, with about ``V3_TARGET_CTAS`` CTAs in all and no empty split."""
+    blocks = d_in // (2 * group_size)
+    stripes = -(-d_out // 64)
+    want = max(1, min(blocks, -(-V3_TARGET_CTAS // stripes)))
+    per = -(-blocks // want)
+    return -(-blocks // per), per
+
+
+def _group_view(t: torch.Tensor, group_size: int) -> torch.Tensor:
+    """[rows, in] -> [rows, G, group_size]."""
+    return t.reshape(t.shape[0], t.shape[1] // group_size, group_size)
+
+
+def v3a_matmul_reference(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                         group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Plain version of K5v3a (the JAX ``_kernel_v3a``): x rounded to bf16;
+    per group of ``group_size`` input rows a float32-accumulated product
+    of x's group with the UNSCALED codes ([G, rows, out]); then the sum
+    over G of each group times its scale, in float32, cast to x's dtype."""
+    x2d = x.reshape(-1, x.shape[-1])
+    xg = _group_view(x2d.to(torch.bfloat16).float(), group_size)
+    codes = unpack_int4(packed).float()
+    wg = codes.reshape(xg.shape[1], group_size, codes.shape[1])
+    acc = torch.einsum("rgk,gkn->grn", xg, wg)  # bf16 x code products are exact in float32
+    out = (acc * scale.float()[:, None, :]).sum(dim=0)
+    return out.reshape(*x.shape[:-1], codes.shape[1]).to(x.dtype)
+
+
+def quantize_activations_int8(x2d: torch.Tensor, group_size: int = GROUP_SIZE
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5v3b's activation quantization (the JAX script's XLA code, outside
+    its kernel): per (row, group) ``sx = max(max|x_g|, 1e-8) / 127`` and
+    ``xq = clip(round(x_g / sx), -127, 127)`` (round half to even).
+    Returns (xq int8 [rows, in], sx float32 [rows, G])."""
+    xg = _group_view(x2d.float(), group_size)
+    sx = xg.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xg / sx), -127, 127).to(torch.int8)
+    return xq.reshape(x2d.shape), sx[..., 0]
+
+
+def v3b_matmul_reference(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                         group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """Plain version of K5v3b (the JAX ``_kernel_v3b``): x quantized to
+    int8 per (row, group); per group the integer product of xq with the
+    unscaled codes (exact: in float32 every partial sum is an integer below
+    2**24); then ``sum_G float32(acc) * sx * scale``, cast to x's dtype."""
+    x2d = x.reshape(-1, x.shape[-1])
+    xq, sx = quantize_activations_int8(x2d, group_size)
+    codes = unpack_int4(packed).float()
+    wg = codes.reshape(sx.shape[1], group_size, codes.shape[1])
+    acc = torch.einsum("rgk,gkn->grn", _group_view(xq.float(), group_size), wg)
+    out = (acc * sx.t()[:, :, None] * scale.float()[:, None, :]).sum(dim=0)
+    return out.reshape(*x.shape[:-1], codes.shape[1]).to(x.dtype)
+
+
+def _check_v3_args(x2d, packed, scale, group_size: int, what: str) -> None:
+    _check_operands(x2d, packed, scale, group_size, what)
+    if x2d.shape[0] > MAX_KERNEL_ROWS or group_size != GROUP_SIZE:
+        raise ValueError(f"{what} takes at most {MAX_KERNEL_ROWS} rows and group {GROUP_SIZE}, "
+                         f"got x {tuple(x2d.shape)}, group {group_size}")
+
+
+def _v3_launch(name: str, x2d, packed, scale, group_size: int, lead=(), tail=()) -> torch.Tensor:
+    """Launch ``name`` (``mcl_int4_matmul_v3a`` / ``_v3b``) with the
+    activation arguments ``lead`` before the weights and ``tail`` before the
+    stream: float32 [rows, out]."""
+    from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
+
+    rows, d_in = x2d.shape
+    d_out = packed.shape[1]
+    splits, per = v3_splits(d_in, d_out, group_size)
+    out = torch.empty((rows, d_out), dtype=torch.float32, device=x2d.device)
+    partial = (torch.empty((splits, rows, d_out), dtype=torch.float32, device=x2d.device)
+               if splits > 1 else None)
+    with torch.cuda.device(x2d.device):
+        err = getattr(kernels(), name)(
+            *lead, packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), rows, d_in, d_out, group_size,
+            splits, per, *tail, torch.cuda.current_stream(x2d.device).cuda_stream)
+    check(err, name)
+    return out
+
+
+def v3a_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+               group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """K5v3a: ``x [..., in]`` (at most 64 rows) against int4 weights with
+    the group scales applied after each group's bf16 product -> [..., out]
+    in x's dtype.  CUDA tensors launch ``csrc/int4_matmul_v3.cu`` (counted
+    in ``v3a_matmul.launches``); CPU tensors run ``v3a_matmul_reference``."""
+    if x.device.type == "cpu":
+        return v3a_matmul_reference(x, packed, scale, group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"v3a_matmul runs on cpu or cuda tensors, got {x.device}")
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    _check_v3_args(x2d, packed, scale, group_size, "K5v3a")
+    out = _v3_launch("mcl_int4_matmul_v3a", x2d, packed, scale, group_size,
+                     lead=(x2d.data_ptr(),), tail=(_X_DTYPES[x2d.dtype],))
+    if x2d.shape[0]:
+        v3a_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], packed.shape[1]).to(x.dtype)
+
+
+def v3b_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+               group_size: int = GROUP_SIZE) -> torch.Tensor:
+    """K5v3b: x quantized to int8 per (row, group) by tensor ops
+    (``quantize_activations_int8``), then the int8 x int4 kernel with both
+    scales applied after each group's integer product -> [..., out] in x's
+    dtype.  Lossy in x: a different function from K5, behind the A/B entry
+    point only.  CUDA tensors launch ``csrc/int4_matmul_v3.cu`` (counted in
+    ``v3b_matmul.launches``); CPU tensors run ``v3b_matmul_reference``."""
+    if x.device.type == "cpu":
+        return v3b_matmul_reference(x, packed, scale, group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"v3b_matmul runs on cpu or cuda tensors, got {x.device}")
+    x2d = x.reshape(-1, x.shape[-1])
+    _check_v3_args(x2d, packed, scale, group_size, "K5v3b")
+    xq, sx = quantize_activations_int8(x2d, group_size)
+    xq, sx = xq.contiguous(), sx.contiguous()
+    out = _v3_launch("mcl_int4_matmul_v3b", x2d, packed, scale, group_size,
+                     lead=(xq.data_ptr(), sx.data_ptr()))
+    if x2d.shape[0]:
+        v3b_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], packed.shape[1]).to(x.dtype)
+
+
+v3a_matmul.launches = 0
+v3b_matmul.launches = 0
 
 
 def _features(features: Union[int, Sequence[int]]) -> Tuple[int, ...]:
@@ -274,6 +423,12 @@ __all__ = [
     "quantize_lm_params_int4",
     "quantize_mllm_lm_params_int4",
     "quantize_params_int4",
+    "quantize_activations_int8",
     "quantize_weight_int4",
     "unpack_int4",
+    "v3_splits",
+    "v3a_matmul",
+    "v3a_matmul_reference",
+    "v3b_matmul",
+    "v3b_matmul_reference",
 ]

@@ -49,12 +49,13 @@ def port_config(jcfg):
                       num_vision_tokens=jcfg.num_vision_tokens, dtype=torch.float32)
 
 
-def make_pair(lm_overrides=None, seed: int = 0, vocab: int = 64):
-    """(jax MLLM module, numpy params, port MLLM on the CPU) with equal weights."""
+def make_pair(lm_overrides=None, seed: int = 0, vocab: int = 64, jcfg=None):
+    """(jax MLLM module, numpy params, port MLLM on the CPU) with equal
+    weights; ``jcfg`` (a float32 JAX MLLMConfig) replaces ``jax_config``."""
     from multimodal_concept_learning_tpu.models.mllm import MLLM as JaxMLLM
     from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm, state_dict_from_jax
 
-    jcfg = jax_config(lm_overrides, vocab=vocab)
+    jcfg = jax_config(lm_overrides, vocab=vocab) if jcfg is None else jcfg
     model = JaxMLLM(jcfg)
     nvt = jcfg.num_vision_tokens
     size = jcfg.vision.image_size

@@ -278,3 +278,29 @@ def test_k2bd_rows_without_a_valid_key_differ_from_jax_by_design(monkeypatch):
     v = qkv[:, :, 2 * heads * d:]  # both samples' real keys; the 2 x 3 pad rows are zero
     np.testing.assert_allclose(want[1], np.broadcast_to(v.sum((0, 1)) / 32, (t, heads * d)),
                                atol=OUT_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("head_dim,rows,max_rows,ok", [
+    (16, None, 640, True),    # vit-t-8
+    (64, 640, 640, True),     # every ViT-B/L and CLIP text tower; the backward's row cap
+    (32, 320, 320, True),     # K6's forward at its cap
+    (128, None, 640, False),  # not built: K6 and the backward's dQ tile would not fit
+    (48, 17, 640, False),
+    (16, 641, 640, False),    # one row past the backward's cap
+    (64, 321, 320, False),    # one row past K6's forward cap
+])
+def test_kernel_shape_check(head_dim, rows, max_rows, ok):
+    """The one check of the shapes K2, K2-bd and K6 are built for (the CUDA
+    wrappers call it before every launch): head dims 16, 32 and 64, rows
+    within the caps; anything else a ValueError naming the supported set."""
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import (
+        HEAD_DIMS,
+        check_kernel_shape,
+    )
+
+    assert HEAD_DIMS == (16, 32, 64)
+    if ok:
+        check_kernel_shape("K", head_dim, rows, max_rows)
+        return
+    with pytest.raises(ValueError, match=r"head dim in \(16, 32, 64\)|rows <= "):
+        check_kernel_shape("K", head_dim, rows, max_rows)

@@ -19,7 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 OUT_TOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3
-WIDTH, HEADS = 128, 2  # head dim 64, as the kernels take it
+WIDTH, HEADS = 128, 2  # head dim 64, that of the ViT-B and CLIP towers
 NAMES = ("x", "ln_scale", "ln_bias", "wqkv", "bqkv", "wo", "bo")
 
 
@@ -259,3 +259,29 @@ def test_fused_config_clip_tree_loads_strict(force_fused):
     with torch.no_grad():
         a, b = (m.encode_image(images) for m in models)
     np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", [17, 33])
+def test_plain_k6_at_head_dim_16_matches_jax(t):
+    """vit-t-8's widths (64 wide, 4 heads of 16; T 17 at 32 px): the
+    port's forward and every gradient against the JAX custom VJP."""
+    from multimodal_concept_learning_tpu.ops.fused_attention_block import (
+        attention_sublayer as jf,
+    )
+
+    from multimodal_concept_learning_tpu_torch.ops.fused_attention_block import (
+        attention_sublayer,
+    )
+
+    heads = 4
+    args, cot = _inputs(2, t, seed=200 + t, width=64)
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(lambda *a: jf(*a, heads=heads), *map(jnp.asarray, args))
+        want = vjp(jnp.asarray(cot))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    got = attention_sublayer(*leaves, heads)
+    got.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=OUT_TOL, rtol=0)
+    for name, g, w in zip(NAMES, leaves, want):
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=name)

@@ -52,6 +52,8 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.configs",
     "multimodal_concept_learning_tpu_torch.tokenizer",
     "multimodal_concept_learning_tpu_torch.utils.logging",
+    "multimodal_concept_learning_tpu_torch.train.generate_answers",
+    "multimodal_concept_learning_tpu_torch.scripts.bench_int4_kernel",
     "chip_smoke",
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}
@@ -169,3 +171,15 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("module,args", [
+    ("multimodal_concept_learning_tpu_torch.train.generate_answers", ["--results_dir", "x"]),
+    ("multimodal_concept_learning_tpu_torch.scripts.bench_int4_kernel", ["--variants", "v3a"]),
+])
+def test_answer_cli_and_ab_script_refuse_cuda_without_cuda(module, args):
+    """The answer CLI's and the A/B entry point's default --device cuda
+    never falls back to the CPU."""
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                         env=_without_cuda_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "is_available" in out.stderr, out.stderr
