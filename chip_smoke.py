@@ -8,7 +8,8 @@ Phases (each prints its results; any failure exits non-zero):
 2. build: compile the port's CUDA kernels from ``csrc/`` (timed);
 3. kernels: each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, at the serving and training paths' shapes (max abs
-   error, and kernel vs plain time from CUDA events);
+   error, and kernel vs plain time from CUDA events); the build fails if
+   ptxas reports spill stores in a tensor-core forward (bf16 K1 and K2);
 4. parity: float32 MLLM at full width and reduced depth, ``paged_generate``
    on the card (through both kernels) must give exactly the greedy tokens
    of the same weights on the CPU plain path;
@@ -88,13 +89,20 @@ call computing the same function (SDPA, or its backward;
 K5v3b).  It also holds K5v3a and K5v3b (x float32 and bf16, rows 1, 8 and
 16, gemma3-1b's seven projections; K5's limits) and times them cold at
 up_proj beside K5, and holds K2, K2-bd and K6 at head dims 16 (vit-t-8
-widths, T 17) and 32 in fp32 and bf16.  K5 and K4 are
-timed by CUDA graph replay (device time without the wrapper's host work),
-K5 with its weights cycled past the L2 cache; phase 3 also times K4 beside
-K3 at 4 kv heads, ~1k context, pages of 16 and 64.  ``python3 chip_smoke.py
+widths, T 17) and 32 in fp32 and bf16.  K1's forward is held at the ViT,
+LM prefill, LM training and dense decode shapes (one query against a
+269-slot cache under the float32 cache bias), a window, a bias, Tq < Tk
+and head dim 128; K2's at the CLIP shapes and T 15 and 65 among others.
+K5, K4 and the K1 and K2 forwards (with their SDPA calls) are timed by
+CUDA graph replay (device time without the wrapper's host work), K5 with
+its weights cycled past the L2 cache; phase 3 also times K4 beside K3 at
+4 kv heads, ~1k context, pages of 16 and 64.  ``python3 chip_smoke.py
 --profile`` builds the kernels and profiles the full CLIP train step
 instead, on the default path and on the kernel variants (``torch.profiler``:
-idle share, aten ops and device time by kernel).
+idle share, aten ops and device time by kernel).  ``python3 chip_smoke.py
+--time-forwards ROOT`` builds the kernels of the checkout at ROOT and times
+only the K1 and K2 forwards at their path shapes beside SDPA (an A/B
+between two checkouts runs it on each in turns).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -117,6 +125,9 @@ SEED = 0
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max abs error vs the plain version, unit-scale inputs
 D16 = "vit-t-8 head dim 16"  # K2, K2-bd and K6 at the tests' preset: hidden 64, 4 heads, T 17
 D32 = "head dim 32"  # the third built head dim (no preset has it): hidden 128, 4 heads, T 17
+LM_TRAIN_T = 197 + 24  # vision tokens + the collator's pad_to for 12_colors_3k
+DECODE_CACHE = 269  # the answer CLI's dense cache: prompt (vision tokens + question) + 8 tokens
+NEG = -1e30  # the JAX package's finite mask value, as the cache bias holds it
 
 
 def fail(msg: str) -> None:
@@ -191,42 +202,86 @@ def phase_card() -> str:
     return out
 
 
-def phase_build() -> None:
+TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel")  # the tensor-core forwards
+
+
+def spill_stores(log: str) -> dict:
+    """{mangled kernel name: bytes of spill stores} from ptxas's ``-v``
+    report, for the entry functions (kernels) it compiled."""
+    entries = set(re.findall(r"Compiling entry function '([^']+)'", log))
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name in entries:
+            spills[name] = int(m.group(1))
+        if m:
+            name = None
+    return spills
+
+
+def phase_build(check_spills: bool = True) -> None:
     from multimodal_concept_learning_tpu_torch.ops import _build
 
     info = _build.build()
     _build.kernels()
     print(f"[build] {info['path']} in {info['seconds']:.1f} s", flush=True)
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("registers", "spill", "smem", "properties")):
             print(f"[build] ptxas: {line.strip()}", flush=True)
+    if not (check_spills and info["log"]):  # a reused library has no report
+        return
+    tc = {n: b for n, b in spill_stores(info["log"]).items() if any(k in n for k in TC_KERNELS)}
+    print(f"[build] tensor-core forwards: {len(tc)} instantiations, spill stores "
+          f"{sorted(set(tc.values()))} bytes", flush=True)
+    if len(tc) != 6 or any(tc.values()):  # K2 at D 16/32/64, K1 at D 64/128/256
+        fail(f"tensor-core forwards: expected 6 instantiations without spills, got {tc}")
 
 
 def _flash_cases(torch, gen, dev):
-    """(name, q, k, v, kwargs) at the serving path's K1 shapes."""
+    """(name, q, k, v, kwargs) at the K1 forward's path shapes: the ViT, LM
+    prefill (serving, answering), the LM at the training batch, the answer
+    CLI's dense decode step (one query a row against the whole cache under
+    the float32 cache bias, a few slots masked), then a window, a float32
+    bias, Tq < Tk under causal, and head dim 128."""
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    b = 8
+    b, t = 8, LM_TRAIN_T
     lens = torch.randint(197, 262, (b,), generator=gen, device=dev).to(torch.int32)
     lens[0] = 261
     lm = dict(scale=1 / 16, kv_lens=lens, causal=True)
+    train = dict(scale=1 / 16, kv_lens=torch.tensor([t, t - 9], dtype=torch.int32, device=dev),
+                 causal=True)
+    s = DECODE_CACHE
+    cache_bias = torch.zeros(b, 1, 1, s, device=dev)
+    cache_bias[:, :, :, -5:] = NEG  # slots not yet written
+    cache_bias[1, :, :, 3:40] = NEG  # a row's left padding
     return [
         ("vit [8,197,12,64]", randn(b, 197, 12, 64), randn(b, 197, 12, 64),
          randn(b, 197, 12, 64), {}),
         ("lm [8,261,4/1,256] causal+kv_lens", randn(b, 261, 4, 256), randn(b, 261, 1, 256),
          randn(b, 261, 1, 256), lm),
+        (f"lm train [2,{t},4/1,256] causal+kv_lens", randn(2, t, 4, 256), randn(2, t, 1, 256),
+         randn(2, t, 1, 256), train),
+        (f"decode [8,1,4/1,256] vs cache {s} + bias [8,1,1,{s}]", randn(b, 1, 4, 256),
+         randn(b, s, 1, 256), randn(b, s, 1, 256), dict(scale=1 / 16, bias=cache_bias)),
         ("lm window 64", randn(b, 261, 4, 256), randn(b, 261, 1, 256),
          randn(b, 261, 1, 256), dict(lm, window=64)),
         ("lm + bias [8,1,261,261]", randn(b, 261, 4, 256), randn(b, 261, 1, 256),
          randn(b, 261, 1, 256), dict(lm, bias=randn(b, 1, 261, 261))),
+        ("Tq 37 < Tk 100 causal [2,37,4/1,256]", randn(2, 37, 4, 256), randn(2, 100, 1, 256),
+         randn(2, 100, 1, 256), dict(scale=1 / 16, causal=True)),
         ("d 128 [2,100,8/8,128] causal", randn(2, 100, 8, 128), randn(2, 100, 8, 128),
          randn(2, 100, 8, 128), dict(causal=True)),
     ]
 
 
-LM_TRAIN_T = 197 + 24  # vision tokens + the collator's pad_to for 12_colors_3k
+K1_TIMED = ("vit [", "lm [", "lm train [", "decode [")  # K1 forward cases on a main path
 
 
 def _flash_bwd_cases(torch, gen, dev):
@@ -266,10 +321,14 @@ def _k1_pairs(torch, fa, q, k, mask: dict) -> int:
 
 def _sdpa_k1(torch, fa, q, k, v, kw, grad_out=None):
     """One ``scaled_dot_product_attention`` call (its backward with
-    ``grad_out``) on the same [B, T, H, D] tensors and mask, as a yardstick."""
+    ``grad_out``) on the same [B, T, H, D] tensors, mask and bias, as a
+    yardstick."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
     ok = fa.key_mask(q.shape[0], q.shape[1], k.shape[1], device=q.device, **mask)
+    if kw.get("bias") is not None:  # a float mask: the bias, -inf where the descriptors mask
+        bias = kw["bias"].to(q.dtype)
+        ok = bias if ok is None else bias.masked_fill(~ok, float("-inf"))
     scale = kw.get("scale", q.shape[-1] ** -0.5)
     if grad_out is None:
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
@@ -372,8 +431,10 @@ def _caption_masks(b: int) -> np.ndarray:
 
 def _core_cases(torch, gen, dev):
     """(name, qkv, heads, t_real, causal, kv_mask, on the path): the CLIP
-    path's two K2 shapes, then ViT-B/16, ViT-L/14, a kv_mask with holes, and
-    t_real below T (keys at or past it masked) with and without a mask."""
+    path's two K2 shapes, then ViT-B/16, ViT-L/14, a kv_mask with holes,
+    t_real below T (keys at or past it masked) with and without a mask, T
+    15 and 65 (around the forward's 16-row warp and 64-row tiles) with and
+    without causal + holes, and head dims 16 and 32."""
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -392,6 +453,12 @@ def _core_cases(torch, gen, dev):
         ("t_real 41 of 64 [16,64,12x64]", randn(16, 64, 3 * 768), 12, 41, False, None, False),
         ("t_real 60 of 80 [16,80,8x64] causal + holes", randn(16, 80, 3 * 512), 8, 60, True,
          torch.nn.functional.pad(holes, (0, 3)), False),
+        ("T 15 [16,15,8x64]", randn(16, 15, 3 * 512), 8, 15, False, None, False),
+        ("T 15 [16,15,8x64] causal + holes", randn(16, 15, 3 * 512), 8, 15, True,
+         holes[:, :15].contiguous(), False),
+        ("T 65 [16,65,8x64]", randn(16, 65, 3 * 512), 8, 65, False, None, False),
+        ("T 65 [16,65,8x64] causal + holes", randn(16, 65, 3 * 512), 8, 65, True,
+         holes[:, :65].contiguous(), False),
         (f"{D16} [16,17,4x16]", randn(16, 17, 3 * 64), 4, 17, False, None, False),
         (f"{D16} [16,17,4x16] causal + holes", randn(16, 17, 3 * 64), 4, 17, True,
          holes[:, :17].contiguous(), False),
@@ -444,7 +511,8 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
     """K2 forward and backward against their plain versions on the same
     inputs: float32 <= 1e-4 abs (outputs, lse, dqkv), bf16 outputs and
     dqkv <= 2e-2 of the reference's max |value| (lse <= 1e-4); times at the
-    path's shapes in bf16 beside the bound and SDPA."""
+    path's shapes in bf16 beside the bound and SDPA (the forward and its
+    SDPA call by CUDA graph replay, the backward by the event loop)."""
     from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
 
     kf = report.setdefault("attention_core_fwd", {"max_abs_err": 0.0})
@@ -476,7 +544,7 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
             # bf16: a fraction of the reference's largest value, outputs and gradients alike
             limit = TOL[tag] * (1.0 if dtype is torch.float32 else ref.abs().max().item())
             limit_d = TOL[tag] * (1.0 if dtype is torch.float32 else ref_d.abs().max().item())
-            ms, bwd_ms = cuda_time_ms(fwd), cuda_time_ms(bwd)
+            ms, bwd_ms = graph_time_ms(fwd), cuda_time_ms(bwd)
             plain_ms = cuda_time_ms(lambda: ac.attention_core_reference(qkv, heads, t_real,
                                                                         causal, kvm))
             plain_bwd_ms = cuda_time_ms(lambda: ac.attention_core_backward_reference(
@@ -493,7 +561,7 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
             ok = ac.key_ok(b, t, t, causal, kvm, qkv.device)
             pairs = int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * heads
             d = hd3 // (3 * heads)
-            lib_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
+            lib_ms = graph_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
             lib_bwd_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm, da))
             # the function's bytes: the port's saved out and lse are left out,
             # since the TPU backward takes only qkv and dA (and recomputes P)
@@ -1021,6 +1089,53 @@ def _phase_paged_mp(torch, gen, dev, report: dict) -> None:
               f"{k4_eager:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
 
 
+def time_k1_fwd(torch, fa, name: str, q, k, v, kw) -> dict:
+    """K1 forward at one path shape, bf16: the kernel and one SDPA call on
+    the same inputs by CUDA graph replay, the plain version by the event
+    loop, the bound (this run's attendable pairs).  Prints and returns them."""
+    mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
+    pairs = _k1_pairs(torch, fa, q, k, mask)
+    out = fa.flash_attention(q, k, v, **kw)
+    r = dict(ms=graph_time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+             plain_ms=cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw)),
+             library_ms=graph_time_ms(_sdpa_k1(torch, fa, q, k, v, kw)),
+             **bound(nbytes(q, k, v, out, kw.get("kv_lens"), kw.get("bias")),
+                     4 * q.shape[-1] * pairs))
+    print(f"[kernels] K1 fwd {name} bf16: kernel {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} "
+          f"ms (graph replay), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']})", flush=True)
+    return r
+
+
+def time_forwards(root: str) -> None:
+    """K1 and K2 forwards in bf16 at their main-path shapes, from the port
+    package of the checkout at ``root`` (``sys.path`` puts it first): each
+    kernel and its SDPA call by CUDA graph replay.  Run it once a process on
+    two checkouts in turns (parent, change, change, parent) to compare them
+    on one card."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+
+    print(f"[ab] kernels of {os.path.dirname(os.path.dirname(fa.__file__))}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for name, q, k, v, kw in _flash_cases(torch, gen, dev):
+            if name.startswith(K1_TIMED):
+                time_k1_fwd(torch, fa, name, *(x.to(torch.bfloat16) for x in (q, k, v)), kw)
+        for name, qkv32, heads, t_real, causal, kvm, on_path in _core_cases(torch, gen, dev):
+            if not on_path:
+                continue
+            qkv = qkv32.to(torch.bfloat16)
+            ms = graph_time_ms(lambda: ac.attention_core_fwd(qkv, heads, t_real, causal, kvm,
+                                                             with_lse=True))
+            lib_ms = graph_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
+            print(f"[kernels] K2 fwd {name} bf16: kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+                  "(graph replay)", flush=True)
+
+
 def phase_kernels(report: dict) -> None:
     import torch
 
@@ -1040,21 +1155,16 @@ def phase_kernels(report: dict) -> None:
                 ref = fa.flash_attention_reference(qd.float(), kd.float(), vd.float(), **kw)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                ms = cuda_time_ms(lambda: fa.flash_attention(qd, kd, vd, **kw))
-                plain_ms = cuda_time_ms(lambda: fa.flash_attention_reference(qd, kd, vd, **kw))
                 tag = str(dtype).replace("torch.", "")
-                print(f"[kernels] K1 {name} {tag}: max_abs_err {err:.3e} "
-                      f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
+                print(f"[kernels] K1 {name} {tag}: max_abs_err {err:.3e}", flush=True)
                 if not err <= TOL[tag]:
                     fail(f"K1 {name} {tag}: max abs err {err} > {TOL[tag]}")
                 k1["max_abs_err"] = max(k1["max_abs_err"], err)
-                if name.startswith("lm [") and dtype is torch.bfloat16:
-                    mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
-                    pairs = _k1_pairs(torch, fa, qd, kd, mask)
-                    k1.update(ms=ms, plain_ms=plain_ms,
-                              library_ms=cuda_time_ms(_sdpa_k1(torch, fa, qd, kd, vd, kw)),
-                              **bound(nbytes(qd, kd, vd, out, kw.get("kv_lens")),
-                                      4 * q.shape[-1] * pairs))
+                if not (name.startswith(K1_TIMED) and dtype is torch.bfloat16):
+                    continue
+                timing = time_k1_fwd(torch, fa, name, qd, kd, vd, kw)
+                if name.startswith("lm ["):  # the JSON line's numbers: LM prefill
+                    k1.update(timing)
         for name, q, pool_k, pool_v, pt, lens, w in _paged_cases(torch, gen, dev):
             for dtype in (torch.float32, torch.bfloat16):
                 qd, kd, vd = (t.to(dtype) for t in (q, pool_k, pool_v))
@@ -2161,8 +2271,9 @@ def phase_variant_slice(report: dict, clip_run: dict) -> None:
         report[name]["launches"] = launches[name]
 
 
-PORT_KERNELS = ("core_fwd_kernel", "core_bwd_kernel", "bd_fwd_kernel", "merged_bwd_kernel",
-                "fused_attn_kernel", "out_proj_kernel")  # the CLIP paths' kernels, by name
+PORT_KERNELS = ("core_fwd_kernel", "core_fwd_tc_kernel", "core_bwd_kernel", "bd_fwd_kernel",
+                "merged_bwd_kernel", "fused_attn_kernel",
+                "out_proj_kernel")  # the CLIP paths' kernels, by name
 
 
 def profile_clip(steps: int = 6, warmup: int = 4) -> None:
@@ -2355,7 +2466,12 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="build, then profile the full CLIP train step; no other phase")
+    parser.add_argument("--time-forwards", metavar="ROOT",
+                        help="build the kernels of the checkout at ROOT, then time the K1 and "
+                             "K2 forwards (bf16, graph replay) beside SDPA; no other phase")
     args = parser.parse_args(argv)
+    if args.time_forwards:
+        sys.path.insert(0, os.path.abspath(args.time_forwards))
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA device")
     if not os.path.isdir(os.path.join(REPO, "multimodal_concept_learning_tpu_torch")):
@@ -2366,7 +2482,10 @@ def main(argv=None) -> None:
     set_reference_numerics()
     t_start = time.perf_counter()
     card = phase_card()
-    phase_build()
+    phase_build(check_spills=not args.time_forwards)
+    if args.time_forwards:
+        time_forwards(args.time_forwards)
+        return
     if args.profile:
         profile_clip()
         return

@@ -20,21 +20,35 @@
 // text [256, 77, 8 x 64], bf16) the arithmetic is ~2*2*T*T*D per (sample,
 // head): 0.2-0.5 GFLOP a launch, ~0.5 us at the tensor cores' peak, while the
 // bytes (qkv in, out written; the backward also reads out and dA and writes
-// dqkv) take 23-42 us at 3.35 TB/s, so the bound is memory.  This first
-// version does its arithmetic in fp32 on the CUDA cores, so it is bound by
-// its own arithmetic and shared-memory traffic, not by the bound.
+// dqkv) take 23-42 us at 3.35 TB/s, so the bound is memory.  The bf16
+// forward runs at ~1.7x that bound at the vision shape and ~3.4x at the
+// text shape (H100, PERF.md): what is left is latency, each CTA's chain of
+// mask scan, tile copies, two passes and the store, with 4 CTAs an SM (128
+// registers a thread); the text tower's CTAs move few bytes each.
 //
 // Design.  Each CTA reads its head's D contiguous columns straight from the
 // packed rows (row stride 3*H*D) with 16-byte loads and writes token-major,
 // so no relayout happens on either side.
-// - Forward: one CTA per (64-query tile, head, sample), two passes over
-//   32-key tiles (any T), scores in fp32 smem: the first takes each row's
-//   max and sum (online), the second the normalised P, rounded to the
-//   compute dtype before P.V as the TPU kernel rounds it.  The scores are
-//   computed twice (1.5x the arithmetic of one online pass) so that P.V
-//   sees the TPU kernel's rounded probabilities.
-// - Backward: one CTA per (head, sample) owns all three gradient slices of
-//   its head, so no atomics and no second pass: it loops over 32-key tiles
+// - Forward, bf16 (core_fwd_tc_kernel): the tensor cores.  One CTA of 4
+//   warps per (64-query tile, head, sample), each warp 16 query rows.  Q, K
+//   and V tiles of 64 rows go to bf16 shared memory with 16-byte cp.async
+//   (rows padded to D + 8: ldmatrix is free of bank conflicts); S = Q K^T
+//   and O += P V are mma.sync m16n8k16 with fp32 accumulation (mma_tiles.cuh).
+//   Two passes over 64-key tiles keep the TPU kernel's rounding, which needs
+//   each row's max m and sum l before P is formed: pass 1 takes them online
+//   (reduced over the quad of lanes that holds a row), pass 2 recomputes S
+//   and forms P = bf16(exp(s - m) / l) straight in the A-fragment layout.
+//   Where the keys fit one tile (both CLIP shapes), V's copy overlaps pass 1
+//   and pass 2 reuses the K tile; the output leaves through the warp's Q
+//   rows in shared memory as 16-byte stores.  What is left is bytes: qkv's
+//   q, k and v columns read once, out written once.
+// - Forward, fp32 (core_fwd_kernel): CUDA cores, no TF32 (float32 runs must
+//   match the plain version to 1e-4): one CTA per (64-query tile, head,
+//   sample), two passes over 32-key tiles with scores in fp32 smem.
+// - Backward, both dtypes: fp32 arithmetic on the CUDA cores, bound by its
+//   own arithmetic and shared-memory traffic.  One CTA per (head, sample)
+//   owns all three gradient slices of its head, so no atomics and no
+//   second pass: it loops over 32-key tiles
 //   (dK, dV in registers) and, inside, over 32-query tiles, recomputing
 //   P = exp(s - lse) once per (query tile, key tile); dQ accumulates in a
 //   [T, D] fp32 smem tile (T <= 640) written at the end.  delta =
@@ -45,6 +59,7 @@
 //   the text tower's captions fill ~13 of 77 positions.
 
 #include "merged_attention.cuh"  // kBK, kBQB, round_to, load_rows, with_head_dim
+#include "mma_tiles.cuh"         // mma_bf16, ldmatrix, cp.async, the warp attention tiles
 
 namespace {
 
@@ -70,7 +85,7 @@ __device__ __forceinline__ int key_end(const CoreParams& p, int b, int* s_end) {
   if (threadIdx.x == 0) *s_end = 0;
   __syncthreads();
   int mine = 0;
-  for (int c = threadIdx.x; c < hi; c += kThreads)
+  for (int c = threadIdx.x; c < hi; c += blockDim.x)
     if (p.kv_mask[(size_t)b * p.T + c] != 0) mine = c + 1;
   if (mine > 0) atomicMax(s_end, mine);
   __syncthreads();
@@ -83,7 +98,7 @@ __device__ __forceinline__ bool key_valid(const CoreParams& p, int b, int r, int
   return p.kv_mask == nullptr || p.kv_mask[(size_t)b * p.T + c] != 0;
 }
 
-template <typename T, int kD>
+template <int kD>
 __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
   extern __shared__ float smem[];
   float* Qs = smem;                          // [kBQ][kD]
@@ -97,13 +112,13 @@ __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const long long stride = 3LL * p.H * kD;
-  const T* qb = static_cast<const T*>(p.qkv) + (size_t)b * p.T * stride + h * kD;
-  const T* kb = qb + p.H * kD;
-  const T* vb = kb + p.H * kD;
-  T* o = static_cast<T*>(p.out);
+  const float* qb = static_cast<const float*>(p.qkv) + (size_t)b * p.T * stride + h * kD;
+  const float* kb = qb + p.H * kD;
+  const float* vb = kb + p.H * kD;
+  float* o = static_cast<float*>(p.out);
 
   const int k_end = key_end(p, b, &s_end);
-  load_rows<T, kD>(Qs, kD, qb, stride, q0, kBQ, p.T);
+  load_rows<float, kD>(Qs, kD, qb, stride, q0, kBQ, p.T);
   for (int r = tid; r < kBQ; r += kThreads) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.f;
@@ -123,11 +138,11 @@ __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
   __syncthreads();
 
   // pass 0: each row's max and sum over its valid keys (online);
-  // pass 1: P = exp(s - max) / sum rounded to T, then acc += P V
+  // pass 1: P = exp(s - max) / sum, then acc += P V
   for (int pass = 0; pass < 2; ++pass) {
     for (int kt = 0; kt < k_hi; kt += kBK) {
-      load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
-      if (pass == 1) load_rows<T, kD>(Vs, kD, vb, stride, kt, kBK, p.T);
+      load_rows<float, kD>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
+      if (pass == 1) load_rows<float, kD>(Vs, kD, vb, stride, kt, kBK, p.T);
       __syncthreads();
       {
         float s[kNS];
@@ -161,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
           }
         } else {
           const float l = row_l[r];  // 0 on a row with no valid key: P = 0
-          Ss[r * (kBK + 1) + lane] = l > 0.f ? round_to<T>(expf(x - row_m[r]) / l) : 0.f;
+          Ss[r * (kBK + 1) + lane] = l > 0.f ? expf(x - row_m[r]) / l : 0.f;
         }
       }
       __syncthreads();
@@ -189,6 +204,155 @@ __global__ void __launch_bounds__(kThreads) core_fwd_kernel(CoreParams p) {
         const float l = row_l[r];
         p.lse[((size_t)b * p.H + h) * p.T + t] = l > 0.f ? row_m[r] + logf(l) : INFINITY;
       }
+    }
+  }
+}
+
+constexpr int kTcThreads = 128;  // bf16 forward: 4 warps x 16 query rows
+constexpr int kTcRows = 64;      // query rows per CTA
+constexpr int kTcKeys = 64;      // keys per tile
+
+// S of the warp's 16 rows against key tile kt, scaled, with every key the
+// row may not attend at -inf: row < T is not checked (rows past T are never
+// written); kok[c] says key kt + c is below the key end and kept by the mask.
+__device__ __forceinline__ void core_mask(float (&s)[kTcKeys / 8][4], const CoreParams& p,
+                                          const unsigned char* kok, int kt, int row_a) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kTcKeys / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t4 + (e & 1), row = row_a + (e >> 1) * 8;
+      const bool ok = kok[c] && (!p.causal || kt + c <= row);
+      s[j][e] = ok ? s[j][e] * p.scale : -INFINITY;
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads) core_fwd_tc_kernel(CoreParams p) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);        // [kTcRows][kD + 8]; then the output
+  bf16* Ks = Qs + kTcRows * (kD + 8);                  // [kTcKeys][kD + 8]
+  bf16* Vs = Ks + kTcKeys * (kD + 8);                  // [kTcKeys][kD + 8]
+  unsigned char* kok = reinterpret_cast<unsigned char*>(Vs + kTcKeys * (kD + 8));  // [kTcKeys]
+  __shared__ int s_end;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kTcRows, h = blockIdx.y, b = blockIdx.z;
+  const long long stride = 3LL * p.H * kD;
+  const bf16* qb = static_cast<const bf16*>(p.qkv) + (size_t)b * p.T * stride + h * kD;
+  const bf16* kb = qb + p.H * kD;
+  const bf16* vb = kb + p.H * kD;
+
+  // group 1: Q (issued before the key end is known) and the first K tile;
+  // group 2: the first V tile when the keys fit one tile (it lands while
+  // pass 1 runs), else empty
+  async_rows<kD, kTcThreads>(Qs, qb + (size_t)q0 * stride, stride, kTcRows, p.T - q0);
+  const int k_end = key_end(p, b, &s_end);
+  int k_hi = k_end;
+  if (p.causal) k_hi = min(k_hi, min(q0 + kTcRows, p.T));
+  const int n_kt = (k_hi + kTcKeys - 1) / kTcKeys;
+  auto flags = [&](int kt) {  // kok for key tile kt
+    if (threadIdx.x < kTcKeys) {
+      const int c = kt + threadIdx.x;
+      kok[threadIdx.x] = c < k_hi && (p.kv_mask == nullptr || p.kv_mask[(size_t)b * p.T + c] != 0);
+    }
+  };
+
+  if (n_kt > 0) async_rows<kD, kTcThreads>(Ks, kb, stride, kTcKeys, k_hi);
+  cp_async_commit();
+  if (n_kt == 1) async_rows<kD, kTcThreads>(Vs, vb, stride, kTcKeys, k_hi);
+  cp_async_commit();
+
+  const int r0 = q0 + 16 * warp, row_a = r0 + lane / 4;  // the thread's rows: row_a, row_a + 8
+  const bool active = r0 < p.T;
+  bf16* Qw = Qs + 16 * warp * (kD + 8);  // the warp's Q rows, later its output rows
+  float s[kTcKeys / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+
+  // pass 1: each row's max and sum over its valid keys (online)
+  for (int it = 0; it < n_kt; ++it) {
+    const int kt = it * kTcKeys;
+    if (it > 0) {
+      __syncthreads();  // the previous tile's readers are done
+      async_rows<kD, kTcThreads>(Ks, kb + (size_t)kt * stride, stride, kTcKeys, k_hi - kt);
+      cp_async_commit();
+    }
+    flags(kt);
+    if (it == 0) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (!active) continue;
+    warp_scores<kD, kTcKeys>(s, Qw, Ks);
+    core_mask(s, p, kok, kt, row_a);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kTcKeys / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // all masked so far
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTcKeys / 8; ++j)
+        sum += __expf(s[j][2 * hr] - m_use) + __expf(s[j][2 * hr + 1] - m_use);
+      l[hr] = l[hr] * __expf(m[hr] - m_use) + sum;
+      m[hr] = m_new;
+    }
+  }
+  float m_use[2], inv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] = quad_sum(l[hr]);
+    m_use[hr] = m[hr] == -INFINITY ? 0.f : m[hr];
+    inv[hr] = l[hr] > 0.f ? 1.f / l[hr] : 0.f;  // a row with no valid key: P = 0
+  }
+
+  // pass 2: P = exp(s - m) / l rounded to bf16, then o += P V
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int it = 0; it < n_kt; ++it) {
+    const int kt = it * kTcKeys;
+    if (n_kt > 1) {
+      __syncthreads();
+      async_rows<kD, kTcThreads>(Ks, kb + (size_t)kt * stride, stride, kTcKeys, k_hi - kt);
+      async_rows<kD, kTcThreads>(Vs, vb + (size_t)kt * stride, stride, kTcKeys, k_hi - kt);
+      cp_async_commit();
+      flags(kt);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    warp_scores<kD, kTcKeys>(s, Qw, Ks);
+    core_mask(s, p, kok, kt, row_a);
+#pragma unroll
+    for (int j = 0; j < kTcKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __expf(s[j][e] - m_use[e >> 1]) * inv[e >> 1];
+    uint32_t pa[kTcKeys / 16][4];
+    probs_to_a<kTcKeys>(pa, s);
+    warp_pv<kD, kTcKeys>(o, pa, Vs);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every copy into Qs has landed before it takes the output
+  if (!active) return;
+
+  const float one[2] = {1.f, 1.f};
+  bf16* out = static_cast<bf16*>(p.out) + ((size_t)b * p.T + r0) * p.H * kD + h * kD;
+  warp_store_rows<kD>(o, one, Qw, min(16, p.T - r0),
+                      [&](int r) { return out + (size_t)r * p.H * kD; });
+  if (p.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = row_a + 8 * hr;
+      if (t < p.T)
+        p.lse[((size_t)b * p.H + h) * p.T + t] = l[hr] > 0.f ? m[hr] + logf(l[hr]) : INFINITY;
     }
   }
 }
@@ -332,14 +496,25 @@ size_t bwd_smem(int T) {
                           2 * kBQB * (kBK + 1) + 2 * (size_t)T);
 }
 
-template <typename T, int kD>
+template <int kD>
 cudaError_t launch_fwd(const CoreParams& p, cudaStream_t stream) {
   const size_t smem = fwd_smem<kD>();
-  cudaError_t err = cudaFuncSetAttribute(core_fwd_kernel<T, kD>,
+  cudaError_t err = cudaFuncSetAttribute(core_fwd_kernel<kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.T + kBQ - 1) / kBQ, p.H, p.B);
-  core_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(p);
+  core_fwd_kernel<kD><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int kD>
+cudaError_t launch_fwd_tc(const CoreParams& p, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (kTcRows + 2 * kTcKeys) * (kD + 8) + kTcKeys;
+  cudaError_t err = cudaFuncSetAttribute(core_fwd_tc_kernel<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.T + kTcRows - 1) / kTcRows, p.H, p.B);
+  core_fwd_tc_kernel<kD><<<grid, kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -355,7 +530,8 @@ cudaError_t launch_bwd(const CoreParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel).  Returns the launch's cudaError_t.
 extern "C" int mcl_attention_core_fwd(const void* qkv, void* out, float* lse, const int* kv_mask,
                                       int B, int T, int H, int D, int t_real, int causal,
                                       float scale, int dtype, void* stream) {
@@ -364,7 +540,7 @@ extern "C" int mcl_attention_core_fwd(const void* qkv, void* out, float* lse, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return dtype == 0 ? launch_fwd<float, kD>(p, s) : launch_fwd<__nv_bfloat16, kD>(p, s);
+    return dtype == 0 ? launch_fwd<kD>(p, s) : launch_fwd_tc<kD>(p, s);
   });
 }
 

@@ -49,6 +49,7 @@
 #include <type_traits>
 
 #include "merged_attention.cuh"
+#include "mma_tiles.cuh"  // mma_bf16
 
 namespace {
 
@@ -62,16 +63,6 @@ constexpr int kLdH = kBD + 8;  // bf16 operand rows, padded: conflict-free fragm
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a . b, one m16n8k16 bf16 tensor-core product with fp32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The warp's [16 rows from m0] x [NJ * 8 columns from n0] block of one

@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"  // mma_bf16, pack_bf16 (int4 codes are exact in bf16)
+
 namespace {
 
 constexpr int kThreads = 256;       // 8 warps; warp w owns stripe columns 8w..8w+7
@@ -67,24 +69,9 @@ __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(int lo, int hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn((float)lo, (float)hi);  // codes are exact in bf16
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t pack_s8(int c0, int c1, int c2, int c3) {
   return (uint32_t)(c0 & 0xFF) | ((uint32_t)(c1 & 0xFF) << 8) | ((uint32_t)(c2 & 0xFF) << 16) |
          ((uint32_t)(c3 & 0xFF) << 24);
-}
-
-// c += a . b, m16n8k16, bf16 operands, fp32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // c += a . b, m16n8k32, int8 operands, int32 accumulation

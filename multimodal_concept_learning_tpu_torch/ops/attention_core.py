@@ -11,7 +11,8 @@ relayout, and the backward writes ``dqkv`` in the packed layout.
 ``multimodal_concept_learning_tpu/ops/attention_core.py``:
 
 - ``attention_core_fwd`` (``_fwd_kernel``): the output and, when a gradient
-  is needed, the row logsumexp [B, H, T] in float32;
+  is needed, the row logsumexp [B, H, T] in float32; bfloat16 on the
+  tensor cores, float32 on the CUDA cores;
 - ``attention_core_bwd`` (``_bwd_kernel``): ``dqkv`` from the saved qkv,
   output and logsumexp.
 

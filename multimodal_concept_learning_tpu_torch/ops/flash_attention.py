@@ -24,8 +24,11 @@ was broadcast along.  A query row that no key may attend gets a zero output
 and no gradient (the JAX bias path would average it uniformly; such rows are
 padding whose outputs no real row reads).
 
-What bounds the kernels on the card, and their design: see the source notes
-in ``csrc/``.
+A bfloat16 forward runs on the tensor cores, a float32 forward on the CUDA
+cores (float32 results must match the plain version to 1e-4, which TF32
+would miss); the backward kernels run on the CUDA cores for both.  What
+bounds the kernels on the card, and their design: see the source notes in
+``csrc/``.
 """
 
 from __future__ import annotations
@@ -177,6 +180,8 @@ def _check(q, k, v, bias, kv_lens):
         raise ValueError(f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 flash_attention kernel takes 16-byte aligned q, k, v")
     if bias is not None and (bias.dtype != torch.float32 or bias.device != q.device):
         raise ValueError("bias must be float32 on q's device")
     if kv_lens is not None and (kv_lens.dtype != torch.int32 or kv_lens.device != q.device

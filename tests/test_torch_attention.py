@@ -28,16 +28,34 @@ def _right_padded_mask(lens, t):
     return (np.arange(t)[None, :] < np.asarray(lens)[:, None]).astype(np.int32)
 
 
-@pytest.mark.parametrize("hk", [4, 1])  # GQA groups 1 and 4
-@pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("scale", [None, 0.2])
-def test_multi_head_attention_matches_jax(hk, with_bias, scale):
-    b, t, hq, d = 2, 9, 4, 16
-    q, k, v = _rand((b, t, hq, d), 0), _rand((b, t, hk, d), 1), _rand((b, t, hk, d), 2)
+def _mha_cases():
+    """(hk, bias kind, scale, (b, tq, tk, hq, d)): GQA groups 1 and 4 at
+    T 9, with and without a per-q-head bias, default scale and 0.2 (ids as
+    before: scale-with_bias-hk); then K1's bf16 kernel tiles at head dim
+    64: the dense decode step (Tq 1 against the cache, GQA 4, the [B, 1, 1,
+    Tk] float32 cache bias) and T 50 and 65 (around a 64-row tile)."""
+    cases = [pytest.param(hk, "per_head" if with_bias else None, scale, (2, 9, 9, 4, 16),
+                          id=f"{scale}-{with_bias}-{hk}")
+             for scale in (None, 0.2) for with_bias in (False, True) for hk in (4, 1)]
+    return cases + [
+        pytest.param(1, "cache", 1 / 8, (2, 1, 21, 4, 64), id="decode-tq1-tk21-gqa4-cache_bias"),
+        pytest.param(2, None, None, (2, 50, 50, 2, 64), id="d64-t50"),
+        pytest.param(2, None, None, (2, 65, 65, 2, 64), id="d64-t65"),
+    ]
+
+
+@pytest.mark.parametrize("hk,bias_kind,scale,shape", _mha_cases())
+def test_multi_head_attention_matches_jax(hk, bias_kind, scale, shape):
+    b, tq, tk, hq, d = shape
+    q, k, v = _rand((b, tq, hq, d), 0), _rand((b, tk, hk, d), 1), _rand((b, tk, hk, d), 2)
     bias = None
-    if with_bias:  # per-q-head bias plus a key-padding/causal mask
-        bias = _rand((b, hq, t, t), 3) + np.asarray(jattn.make_attention_bias(
-            jnp.asarray(_right_padded_mask([9, 6], t)), causal=True, q_len=t, k_len=t))
+    if bias_kind == "per_head":  # per-q-head bias plus a key-padding/causal mask
+        bias = _rand((b, hq, tq, tk), 3) + np.asarray(jattn.make_attention_bias(
+            jnp.asarray(_right_padded_mask([tk, tk - 3], tk)), causal=True, q_len=tq, k_len=tk))
+    elif bias_kind == "cache":  # 0 on written slots, the finite -1e30 elsewhere
+        bias = np.zeros((b, 1, 1, tk), np.float32)
+        bias[:, :, :, -4:] = -1e30
+        bias[1, :, :, 2:7] = -1e30
     ref = jattn.multi_head_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                      bias=None if bias is None else jnp.asarray(bias),
                                      use_flash=False, scale=scale)

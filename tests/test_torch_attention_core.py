@@ -27,6 +27,9 @@ def _inputs(b, t, heads, d, seed, mask_kind):
     if mask_kind == "right_padded":
         for i, n in enumerate(rng.integers(1, t + 1, size=b)):
             mask[i, :n] = 1
+    elif mask_kind == "caption":  # right-padded to a caption's ~13 tokens
+        for i, n in enumerate(rng.integers(8, 17, size=b)):
+            mask[i, :n] = 1
     else:  # holes anywhere; key 0 kept so every causal row has a valid key
         mask = (rng.random((b, t)) < 0.6).astype(np.int32)
         mask[:, 0] = 1
@@ -61,6 +64,8 @@ def _port(qkv, cot, mask, heads, causal):
     (3, 17, 4, 16, False, None),
     (3, 19, 2, 16, True, "holes"),
     (2, 23, 4, 16, False, "holes"),
+    (2, 50, 2, 64, False, None),  # the CLIP vision tower's T and head dim
+    (2, 77, 2, 64, True, "caption"),  # the text tower's
 ])
 def test_plain_k2_matches_jax(b, t, heads, d, causal, mask_kind):
     qkv, cot, mask = _inputs(b, t, heads, d, seed=t, mask_kind=mask_kind)
