@@ -9,7 +9,8 @@ Phases (each prints its results; any failure exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, at the serving and training paths' shapes (max abs
    error, and kernel vs plain time from CUDA events); the build fails if
-   ptxas reports spill stores in a tensor-core forward (bf16 K1 and K2);
+   ptxas reports spill stores in a tensor-core attention kernel (the bf16
+   K1, K2 and K2-bd forwards, K6's two bf16 backward kernels);
 4. parity: float32 MLLM at full width and reduced depth, ``paged_generate``
    on the card (through both kernels) must give exactly the greedy tokens
    of the same weights on the CPU plain path;
@@ -76,8 +77,11 @@ Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
 exactly 0, 3 tokens a sample; the backward at three merges of samples) and
 K6 (the fused attention sublayer: the vision shape, T 197, 37, t_real < T
-and 320) to their plain versions, times K2-bd beside K2 at both CLIP
-shapes, and K6's forward beside the unfused library composition
+and 320) to their plain versions, and the bf16 vision sublayer's gradients
+(``fused_attention_sublayer`` on the card against the same autograd run on
+CPU copies), times K2-bd beside K2 at both CLIP shapes and K6's backward
+beside SDPA's (all by CUDA graph replay), and K6's forward beside the
+unfused library composition
 (``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add); then K5
 (int4 decode matmul; x in float32 and bf16, limits 1e-5 and 8e-3 of the
 reference's max |value|) and K4 (multi-page paged
@@ -101,8 +105,10 @@ its weights cycled past the L2 cache; phase 3 also times K4 beside K3 at
 instead, on the default path and on the kernel variants (``torch.profiler``:
 idle share, aten ops and device time by kernel).  ``python3 chip_smoke.py
 --time-forwards ROOT`` builds the kernels of the checkout at ROOT and times
-only the K1 and K2 forwards at their path shapes beside SDPA (an A/B
-between two checkouts runs it on each in turns).
+only the K1 and K2 forwards at their path shapes beside SDPA, and
+``--time-variants ROOT`` K2-bd's forward and backward (beside K2) at both
+CLIP shapes and K6's backward at the vision shape beside SDPA (an A/B
+between two checkouts runs either on each in turns).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -150,20 +156,22 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_time_ms(fn, iters: int = 20) -> float:
+def graph_time_ms(fn, iters: int = 20, stream=None) -> float:
     """Device time of one call of ``fn``: ``iters`` calls captured in one
     CUDA graph and replayed, so the wrapper's host work is not timed (the
-    event loop of ``cuda_time_ms`` times it where the host is slower)."""
+    event loop of ``cuda_time_ms`` times it where the host is slower).
+    ``stream``: the capturing stream (an autograd backward runs its ops on
+    the stream of its forward, so that forward must have run there)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -202,7 +210,8 @@ def phase_card() -> str:
     return out
 
 
-TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel")  # the tensor-core forwards
+TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel", "bd_fwd_tc_kernel",
+              "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel")  # the tensor-core attention kernels
 
 
 def spill_stores(log: str) -> dict:
@@ -235,10 +244,13 @@ def phase_build(check_spills: bool = True) -> None:
     if not (check_spills and info["log"]):  # a reused library has no report
         return
     tc = {n: b for n, b in spill_stores(info["log"]).items() if any(k in n for k in TC_KERNELS)}
-    print(f"[build] tensor-core forwards: {len(tc)} instantiations, spill stores "
+    print(f"[build] tensor-core attention kernels: {len(tc)} instantiations, spill stores "
           f"{sorted(set(tc.values()))} bytes", flush=True)
-    if len(tc) != 6 or any(tc.values()):  # K2 at D 16/32/64, K1 at D 64/128/256
-        fail(f"tensor-core forwards: expected 6 instantiations without spills, got {tc}")
+    # K1 forward at D 64/128/256; K2 forward, K2-bd forward and K6's two
+    # backward kernels at D 16/32/64
+    if len(tc) != 15 or any(tc.values()):
+        fail(f"tensor-core attention kernels: expected 15 instantiations without spills, "
+             f"got {tc}")
 
 
 def _flash_cases(torch, gen, dev):
@@ -486,10 +498,10 @@ def _k2_bytes(qkv, kvm, t_real: int, *moved) -> int:
     return b * t * hd * elt + 2 * kv_rows * hd * elt + nbytes(kvm, *moved)
 
 
-def _sdpa_core(torch, ac, qkv, heads, causal, kvm, grad_out=None):
-    """``scaled_dot_product_attention`` (its backward with ``grad_out``) on
-    the [B, H, T, D] views of the packed qkv, the mask as a boolean
-    ``attn_mask``: a yardstick of one library call."""
+def _sdpa_core(torch, ac, qkv, heads, causal, kvm, grad_out=None, stream=None):
+    """``scaled_dot_product_attention`` (its backward with ``grad_out``, the
+    forward run on ``stream``) on the [B, H, T, D] views of the packed qkv,
+    the mask as a boolean ``attn_mask``: a yardstick of one library call."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, t, _ = qkv.shape
     ok = None if not causal and kvm is None else ac.key_ok(b, t, t, causal, kvm, qkv.device)
@@ -501,18 +513,28 @@ def _sdpa_core(torch, ac, qkv, heads, causal, kvm, grad_out=None):
         q, k, v = heads_of(qkv)
         return lambda: sdpa(q, k, v, attn_mask=ok)
     leaf = qkv.detach().requires_grad_(True)
-    with torch.enable_grad():
+    with torch.enable_grad(), torch.cuda.stream(stream or torch.cuda.current_stream()):
         out = sdpa(*heads_of(leaf), attn_mask=ok)
+    if stream is not None:
+        torch.cuda.current_stream().wait_stream(stream)
     go = grad_out.view(b, t, heads, -1).transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaf, go, retain_graph=True)
+
+
+def sdpa_bwd_ms(torch, ac, qkv, heads, causal, kvm, grad_out) -> float:
+    """SDPA's backward on the packed qkv by CUDA graph replay, its forward
+    run on the capturing stream."""
+    side = torch.cuda.Stream()
+    return graph_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm, grad_out, stream=side),
+                         stream=side)
 
 
 def _phase_core(torch, gen, dev, report: dict) -> None:
     """K2 forward and backward against their plain versions on the same
     inputs: float32 <= 1e-4 abs (outputs, lse, dqkv), bf16 outputs and
     dqkv <= 2e-2 of the reference's max |value| (lse <= 1e-4); times at the
-    path's shapes in bf16 beside the bound and SDPA (the forward and its
-    SDPA call by CUDA graph replay, the backward by the event loop)."""
+    path's shapes in bf16 beside the bound and SDPA (each kernel and SDPA
+    call by CUDA graph replay, the plain versions by the event loop)."""
     from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
 
     kf = report.setdefault("attention_core_fwd", {"max_abs_err": 0.0})
@@ -562,14 +584,16 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
             pairs = int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * heads
             d = hd3 // (3 * heads)
             lib_ms = graph_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
-            lib_bwd_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm, da))
+            lib_bwd_ms = sdpa_bwd_ms(torch, ac, qkv, heads, causal, kvm, da)
+            bwd_ms = graph_time_ms(bwd)
             # the function's bytes: the port's saved out and lse are left out,
             # since the TPU backward takes only qkv and dA (and recomputes P)
             fb = bound(_k2_bytes(qkv, kvm, t, out), 4 * d * pairs)
             bb = bound(_k2_bytes(qkv, kvm, t, da, dqkv), 10 * d * pairs)
             print(f"[kernels] K2 {name} bf16: fwd bound {fb['bound_ms']:.5f} ms "
-                  f"({fb['bound_by']}), SDPA {lib_ms:.4f} ms; bwd bound {bb['bound_ms']:.5f} ms "
-                  f"({bb['bound_by']}), SDPA backward {lib_bwd_ms:.4f} ms", flush=True)
+                  f"({fb['bound_by']}), SDPA {lib_ms:.4f} ms; bwd kernel {bwd_ms:.4f} ms and SDPA "
+                  f"backward {lib_bwd_ms:.4f} ms, bound {bb['bound_ms']:.5f} ms "
+                  f"({bb['bound_by']})", flush=True)
             if name.startswith("vision"):  # the JSON line's numbers: the vision tower's shape
                 kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fb)
                 kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bb)
@@ -669,36 +693,55 @@ def _phase_core_bd(torch, gen, dev, report: dict) -> None:
                       f"{b_ms:.4f} ms", flush=True)
             if not (on_path and dtype is torch.bfloat16):
                 continue
-            times = {}
-            for _ in range(2):  # K2, K2-bd, K2-bd, K2 (order cancels drift)
-                for kind in (("k2", "bd"), ("bd", "k2"))[_]:
-                    fwd = ac.attention_core_bd_fwd if kind == "bd" else ac.attention_core_fwd
-                    bwd = ac.attention_core_bd_bwd if kind == "bd" else ac.attention_core_bwd
-                    o, ls = fwd(qkv, *args, with_lse=True)
-                    f_ms = cuda_time_ms(lambda: fwd(qkv, *args, with_lse=True))
-                    b_ms = cuda_time_ms(lambda: bwd(qkv, o, da, ls, *args))
-                    times.setdefault(kind, []).append((f_ms, b_ms))
-            ms = min(f for f, _ in times["bd"])
-            bwd_ms = min(b for _, b in times["bd"])
-            plain_ms = cuda_time_ms(lambda: ac.attention_core_bd_reference(qkv, *args))
-            plain_bwd_ms = cuda_time_ms(lambda: ac.attention_core_bd_backward_reference(
-                qkv, da, *args))
-            ok = ac.key_ok(b, t, t, causal, kvm, qkv.device)
-            pairs = int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * heads
-            d = hd3 // (3 * heads)
-            lib_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
-            lib_bwd_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm, da))
-            fb = bound(_k2_bytes(qkv, kvm, t, out), 4 * d * pairs)
-            bb = bound(_k2_bytes(qkv, kvm, t, da, grads[merges[-1]]), 10 * d * pairs)
-            print(f"[kernels] K2 vs K2-bd {name} bf16 (ms, fwd / bwd, two rounds each): K2 "
-                  + ", ".join(f"{f:.4f} / {bw:.4f}" for f, bw in times["k2"]) + "; K2-bd "
-                  + ", ".join(f"{f:.4f} / {bw:.4f}" for f, bw in times["bd"])
-                  + f"; plain {plain_ms:.4f} / {plain_bwd_ms:.4f}; SDPA {lib_ms:.4f} / "
-                  f"{lib_bwd_ms:.4f}; bound {fb['bound_ms']:.5f} / {bb['bound_ms']:.5f}",
-                  flush=True)
+            r = time_bd(torch, ac, name, qkv, da, args)
             if name.startswith("text"):  # the JSON line's numbers: K2-bd's main path
-                kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fb)
-                kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bb)
+                kf.update(ms=r["fwd"], plain_ms=r["plain_fwd"], library_ms=r["sdpa_fwd"],
+                          **r["fwd_bound"])
+                kb.update(ms=r["bwd"], plain_ms=r["plain_bwd"], library_ms=r["sdpa_bwd"],
+                          **r["bwd_bound"])
+
+
+def time_bd(torch, ac, name: str, qkv, da, args, plain: bool = True) -> dict:
+    """K2-bd beside K2 at one CLIP shape, bf16, forward and backward, each
+    by CUDA graph replay in two rounds (K2, K2-bd, K2-bd, K2: the order
+    cancels drift; the least of each kept), beside SDPA (graph replay), the
+    plain versions (event loop) and the bounds (this run's attendable pairs
+    and live key rows).  Prints and returns them."""
+    heads, _, causal, kvm = args
+    b, t, hd3 = qkv.shape
+    times = {}
+    for rnd in range(2):
+        for kind in (("k2", "bd"), ("bd", "k2"))[rnd]:
+            fwd = ac.attention_core_bd_fwd if kind == "bd" else ac.attention_core_fwd
+            bwd = ac.attention_core_bd_bwd if kind == "bd" else ac.attention_core_bwd
+            o, ls = fwd(qkv, *args, with_lse=True)
+            f_ms = graph_time_ms(lambda: fwd(qkv, *args, with_lse=True))
+            b_ms = graph_time_ms(lambda: bwd(qkv, o, da, ls, *args))
+            times.setdefault(kind, []).append((f_ms, b_ms))
+    out, lse = ac.attention_core_bd_fwd(qkv, *args, with_lse=True)
+    dqkv = ac.attention_core_bd_bwd(qkv, out, da, lse, *args)
+    ok = ac.key_ok(b, t, t, causal, kvm, qkv.device)
+    pairs = int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * heads
+    d = hd3 // (3 * heads)
+    r = {"fwd": min(f for f, _ in times["bd"]), "bwd": min(bw for _, bw in times["bd"]),
+         "k2_fwd": min(f for f, _ in times["k2"]), "k2_bwd": min(bw for _, bw in times["k2"]),
+         "sdpa_fwd": graph_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm)),
+         "fwd_bound": bound(_k2_bytes(qkv, kvm, t, out), 4 * d * pairs),
+         "bwd_bound": bound(_k2_bytes(qkv, kvm, t, da, dqkv), 10 * d * pairs)}
+    r["sdpa_bwd"] = sdpa_bwd_ms(torch, ac, qkv, heads, causal, kvm, da)
+    r["plain_fwd"] = r["plain_bwd"] = None
+    if plain:
+        r["plain_fwd"] = cuda_time_ms(lambda: ac.attention_core_bd_reference(qkv, *args))
+        r["plain_bwd"] = cuda_time_ms(lambda: ac.attention_core_bd_backward_reference(
+            qkv, da, *args))
+    print(f"[kernels] K2 vs K2-bd {name} bf16 (ms by graph replay, fwd / bwd, two rounds "
+          f"each): K2 " + ", ".join(f"{f:.4f} / {bw:.4f}" for f, bw in times["k2"])
+          + "; K2-bd " + ", ".join(f"{f:.4f} / {bw:.4f}" for f, bw in times["bd"])
+          + f"; SDPA {r['sdpa_fwd']:.4f} / {r['sdpa_bwd']:.4f}"
+          + (f"; plain {r['plain_fwd']:.4f} / {r['plain_bwd']:.4f}" if plain else "")
+          + f"; bound {r['fwd_bound']['bound_ms']:.5f} / {r['bwd_bound']['bound_ms']:.5f}",
+          flush=True)
+    return r
 
 
 def _fused_cases(torch, gen, dev):
@@ -786,25 +829,67 @@ def _phase_fused(torch, gen, dev, report: dict) -> None:
             if not (on_path and dtype is torch.bfloat16):
                 continue
             ms = cuda_time_ms(lambda: fb.fused_attention_fwd(x, *params, heads, t_real), iters=10)
-            bwd_ms = cuda_time_ms(lambda: fb.fused_bwd_attn(qkv, da, heads, t_real))
             plain_ms = cuda_time_ms(lambda: fb.fused_attention_reference(x, *params, heads,
                                                                          t_real), iters=10)
-            plain_bwd_ms = cuda_time_ms(lambda: fb.fused_bwd_attn_reference(qkv, da, heads,
-                                                                            t_real))
             lib_ms = cuda_time_ms(_unfused_sublayer(torch, x, params, heads))
-            lib_bwd_ms = cuda_time_ms(_sdpa_core(torch, ac, qkv, heads, False, None, da))
             pairs = b * heads * t * t_real
             cast = [a.to(dtype) for a in params]
             fwd_b = bound(nbytes(x, *cast, y, attn),
                           2 * b * t * width * 3 * hd + 2 * b * t * hd * width + 4 * d * pairs)
-            bwd_b = bound(nbytes(qkv, da, grads[merges[-1]]), 10 * d * pairs)
             print(f"[kernels] K6 {name} bf16: fwd kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"unfused library {lib_ms:.4f} ms, bound {fwd_b['bound_ms']:.5f} ms "
-                  f"({fwd_b['bound_by']}); bwd kernel {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} "
-                  f"ms, SDPA backward {lib_bwd_ms:.4f} ms, bound {bwd_b['bound_ms']:.5f} ms "
-                  f"({bwd_b['bound_by']})", flush=True)
+                  f"({fwd_b['bound_by']})", flush=True)
+            r = time_k6b(torch, ac, fb, name, qkv, da, heads, t_real)
             kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fwd_b)
-            kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bwd_b)
+            kb.update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["sdpa_ms"], **r["bound"])
+    _phase_fused_grads(torch, gen, dev)
+
+
+def time_k6b(torch, ac, fb, name: str, qkv, da, heads: int, t_real: int,
+             plain: bool = True) -> dict:
+    """K6's backward kernels at one shape, bf16, by CUDA graph replay,
+    beside SDPA's backward (graph replay), the plain version (event loop)
+    and the bound (qkv and dA read, dqkv written; this run's pairs).
+    Prints and returns them."""
+    b, t, hd3 = qkv.shape
+    d = hd3 // (3 * heads)
+    dqkv = fb.fused_bwd_attn(qkv, da, heads, t_real)
+    r = {"ms": graph_time_ms(lambda: fb.fused_bwd_attn(qkv, da, heads, t_real)),
+         "bound": bound(nbytes(qkv, da, dqkv), 10 * d * b * heads * t * min(t, t_real)),
+         "plain_ms": None}
+    r["sdpa_ms"] = sdpa_bwd_ms(torch, ac, qkv, heads, False, None, da)
+    if plain:
+        r["plain_ms"] = cuda_time_ms(lambda: fb.fused_bwd_attn_reference(qkv, da, heads, t_real))
+    print(f"[kernels] K6 {name} bf16: bwd kernel {r['ms']:.4f} ms (graph replay), SDPA backward "
+          f"{r['sdpa_ms']:.4f} ms (graph replay)"
+          + (f", plain {r['plain_ms']:.4f} ms" if plain else "")
+          + f", bound {r['bound']['bound_ms']:.5f} ms ({r['bound']['bound_by']})", flush=True)
+    return r
+
+
+def _phase_fused_grads(torch, gen, dev) -> None:
+    """The bf16 vision sublayer's gradients through ``fused_attention_sublayer``
+    on the card (K6's kernels, the backward products in bf16 with float32
+    output) against the same autograd run on CPU copies (the plain
+    versions, float32 products): dx and every parameter gradient within
+    2e-2 of the reference's max |value|."""
+    from multimodal_concept_learning_tpu_torch.ops import fused_attention_block as fb
+
+    name, x32, params, heads, t_real, _ = _fused_cases(torch, gen, dev)[0]
+    dy = torch.randn(x32.shape, generator=gen, device=dev).to(torch.bfloat16)
+    grads = {}
+    for where in (dev, "cpu"):
+        leaves = [x32.to(where, torch.bfloat16).requires_grad_(True)]
+        leaves += [a.to(where).clone().requires_grad_(True) for a in params]
+        with torch.enable_grad():  # phase 3 runs under no_grad
+            y = fb.fused_attention_sublayer(leaves[0], *leaves[1:], heads, t_real)
+            y.backward(dy.to(where))
+        grads[str(where)] = [a.grad.float().cpu() for a in leaves]
+    names = ("dx", "d ln_scale", "d ln_bias", "d wqkv", "d bqkv", "d wo", "d bo")
+    errs = [_held(g, w, torch.bfloat16, f"K6 sublayer {n} {name}")
+            for n, g, w in zip(names, grads[str(dev)], grads["cpu"])]
+    print(f"[kernels] K6 sublayer gradients {name} bf16, card vs CPU: max abs err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)), flush=True)
 
 
 def _paged_case(torch, gen, dev, hq, hk, d, ps, np_, lens):
@@ -1134,6 +1219,35 @@ def time_forwards(root: str) -> None:
             lib_ms = graph_time_ms(_sdpa_core(torch, ac, qkv, heads, causal, kvm))
             print(f"[kernels] K2 fwd {name} bf16: kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms "
                   "(graph replay)", flush=True)
+
+
+def time_variants(root: str) -> None:
+    """K2-bd's forward and backward at both CLIP shapes (beside K2) and K6's
+    backward at the vision shape, bf16, each by CUDA graph replay beside
+    SDPA, from the port package of the checkout at ``root`` (``sys.path``
+    puts it first).  Run it once a process on two checkouts in turns
+    (parent, change, change, parent) to compare them on one card."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import fused_attention_block as fb
+
+    print(f"[ab] kernels of {os.path.dirname(os.path.dirname(ac.__file__))}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        for name, qkv32, heads, t_real, causal, kvm, on_path in _core_bd_cases(torch, gen, dev):
+            if on_path:
+                b, t, hd3 = qkv32.shape
+                da = torch.randn(b, t, hd3 // 3, generator=gen, device=dev).to(bf16)
+                time_bd(torch, ac, name, qkv32.to(bf16), da, (heads, t_real, causal, kvm),
+                        plain=False)
+        name, x32, params, heads, t_real, _ = _fused_cases(torch, gen, dev)[0]
+        qkv = fb.ln_qkv(x32.to(bf16), *params[:4], 1e-12)[0]
+        da = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=gen,
+                         device=dev).to(bf16)
+        time_k6b(torch, ac, fb, name, qkv, da, heads, t_real, plain=False)
 
 
 def phase_kernels(report: dict) -> None:
@@ -2272,7 +2386,8 @@ def phase_variant_slice(report: dict, clip_run: dict) -> None:
 
 
 PORT_KERNELS = ("core_fwd_kernel", "core_fwd_tc_kernel", "core_bwd_kernel", "bd_fwd_kernel",
-                "merged_bwd_kernel", "fused_attn_kernel",
+                "bd_fwd_tc_kernel", "merged_bwd_kernel", "bwd_dq_tc_kernel",
+                "bwd_dkv_tc_kernel", "fused_attn_kernel",
                 "out_proj_kernel")  # the CLIP paths' kernels, by name
 
 
@@ -2370,15 +2485,23 @@ def _profile_step(tag: str, model, config, batch, steps: int, warmup: int) -> No
     ours = sum(t for name, (t, _) in by_kernel.items() if any(k in name for k in PORT_KERNELS))
     gemm = sum(t for name, (t, _) in by_kernel.items()
                if any(tag in name for tag in ("gemm", "nvjet", "cutlass", "xmma")))
+    sgemm = sum(t for name, (t, _) in by_kernel.items()  # float32 products on the CUDA cores
+                if "sgemm" in name or ("gemm" in name and "ffma" in name))
     print(f"[profile {tag}] host + card trace of {steps} steps: wall {wall_us / 1e3:.2f} ms "
           f"({wall_us / 1e3 / steps / step_ms:.2f}x the unprofiled step), device busy "
           f"{busy / 1e3:.2f} ms; {len(spans)} kernels and {aten} aten ops "
           f"({aten / steps:.0f} a step); the port's attention kernels {ours / 1e3:.2f} ms = "
           f"{ours / busy:.3f} and matrix products {gemm / 1e3:.2f} ms = {gemm / busy:.3f} of "
-          f"device time", flush=True)
-    for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
+          f"device time, of them float32 on the CUDA cores {sgemm / 1e3 / steps:.2f} ms a step = "
+          f"{sgemm / busy:.3f}", flush=True)
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    for name, (t, n) in ranked[:15]:
         print(f"[profile {tag}] {t / 1e3 / steps:8.3f} ms/step {t / busy:6.3f} {n // steps:5d}x "
               f"{name[:110]}", flush=True)
+    for name, (t, n) in ranked:  # every port kernel the step launched, by name
+        if any(k in name for k in PORT_KERNELS):
+            print(f"[profile {tag}] port kernel {t / 1e3 / steps:8.3f} ms/step {n // steps:5d}x "
+                  f"{name[:110]}", flush=True)
     del state, step, opt, model
 
 
@@ -2469,9 +2592,14 @@ def main(argv=None) -> None:
     parser.add_argument("--time-forwards", metavar="ROOT",
                         help="build the kernels of the checkout at ROOT, then time the K1 and "
                              "K2 forwards (bf16, graph replay) beside SDPA; no other phase")
+    parser.add_argument("--time-variants", metavar="ROOT",
+                        help="build the kernels of the checkout at ROOT, then time K2-bd's "
+                             "forward and backward beside K2 and K6's backward (bf16, graph "
+                             "replay) beside SDPA; no other phase")
     args = parser.parse_args(argv)
-    if args.time_forwards:
-        sys.path.insert(0, os.path.abspath(args.time_forwards))
+    ab_root = args.time_forwards or args.time_variants
+    if ab_root:
+        sys.path.insert(0, os.path.abspath(ab_root))
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA device")
     if not os.path.isdir(os.path.join(REPO, "multimodal_concept_learning_tpu_torch")):
@@ -2482,9 +2610,12 @@ def main(argv=None) -> None:
     set_reference_numerics()
     t_start = time.perf_counter()
     card = phase_card()
-    phase_build(check_spills=not args.time_forwards)
+    phase_build(check_spills=not ab_root)
     if args.time_forwards:
         time_forwards(args.time_forwards)
+        return
+    if args.time_variants:
+        time_variants(args.time_variants)
         return
     if args.profile:
         profile_clip()

@@ -14,23 +14,39 @@
 // tiling: the TPU kernels merge a block of samples into one [bblk*T,
 // bblk*T] score tile per head with cross-sample entries masked, so the
 // short sequences fill the matrix unit.  This port carries the idea, not
-// the VMEM block: the forward runs one CTA per (64 rows merged across the
-// whole batch, head), so no query row of a tile is idle (vision T = 50:
-// 2,400 CTAs instead of K2's 3,072 with 22% of their rows idle; text T =
-// 77: 2,464 instead of 4,096), and its keys are the span of the samples its
-// rows touch, cross-sample keys masked; a 32-key tile no row may attend
-// (past each caption's last valid key) is skipped.  The backward is
-// merged_bwd_kernel<T, false> (merged_attention.cuh): a CTA per (head, bblk
-// whole samples merged into <= 640 rows), no atomics.
+// the VMEM block, at each kernel's own grain.
 //
 // What bounds it: the same as K2, memory at the CLIP shapes (0.2-0.5 GFLOP
-// a launch against 23-42 us of bytes at 3.35 TB/s).  This first version
-// computes in fp32 on the CUDA cores and the merged tiles add cross-sample
-// arithmetic (a 64-row tile over ~2.3 samples scores ~150 keys a row where
-// K2 scores 64), so it is bound by its own arithmetic and shared-memory
-// traffic, as K2 is; chip_smoke times the two side by side.
+// a launch against 15-24 us of bytes at 3.35 TB/s).
+// - Forward, bf16 (bd_fwd_tc_kernel): the tensor cores, merged at the
+//   grain of the mma's 16 rows.  A sample's rows form slots of 16 (its
+//   last slot partial) and a CTA of 4 warps takes 4 consecutive slots, so
+//   a CTA spans samples and a warp never does (text T = 77: 5 slots a
+//   sample, 2,560 CTAs, 4% of rows idle, where K2 has 4,096 CTAs, half of
+//   them holding 13 rows; vision T = 50: one sample a CTA, as K2).  The
+//   keys staged are only each touched sample's live segment, compacted
+//   (merged_tiles.cuh: tokens below its key end, cut at the CTA's last row
+//   of it under causal): a text CTA over two 13-token captions stages <= 26
+//   keys where the span of the two samples holds 154.  S = Q K^T and O +=
+//   P V on mma.sync m16n8k16, two passes (the row max and sum online, then
+//   P = bf16(exp(s - m) / l) before P.V, the TPU kernel's rounding), each
+//   warp over the 32-key sub-tiles of its own sample; where the keys fit
+//   one chunk (both CLIP shapes) V's copy overlaps pass 1 and pass 2
+//   rereads shared memory only.  What is left is bytes and latency: q read
+//   once, k and v of the live keys read by each CTA of their sample, out
+//   written once.  (Merging 64 consecutive rows instead, as the fp32 kernel
+//   does, makes the vision tiles straddle 2-3 samples: 1.5x the key bytes
+//   and every straddling warp scoring two samples' keys, 19% slower there.)
+// - Forward, fp32 (bd_fwd_kernel): the CUDA cores (no TF32), one CTA per
+//   (64 rows merged across the whole batch, head), its keys the span of
+//   the samples the rows touch, cross-sample keys masked, a 32-key tile no
+//   row may attend skipped.
+// - Backward, both dtypes: merged_bwd_kernel<T, false>
+//   (merged_attention.cuh): a CTA per (head, bblk whole samples merged into
+//   <= 640 rows), no atomics, fp32 on the CUDA cores.
 
 #include "merged_attention.cuh"
+#include "merged_tiles.cuh"
 
 namespace {
 
@@ -154,6 +170,161 @@ __global__ void __launch_bounds__(kThreads) bd_fwd_kernel(MergedParams p, void* 
   }
 }
 
+// bf16: one CTA per (4 slots of 16 rows, head), 4 warps on the tensor cores
+// (the file's note; merged_tiles.cuh).  A budget of 4 CTAs an SM: without
+// one ptxas spills at D 16.
+template <int kD>
+__global__ void __launch_bounds__(kMtThreads, 4) bd_fwd_tc_kernel(MergedParams p, void* out_,
+                                                               float* lse) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char mt_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(mt_smem);  // [kMtRows][kD + 8]; then the output
+  bf16* Ks = Qs + kMtRows * (kD + 8);           // [kMtChunk][kD + 8]
+  bf16* Vs = Ks + kMtChunk * (kD + 8);          // [kMtChunk][kD + 8]
+  __shared__ MtPlan pl;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, h = blockIdx.y;
+  // slots: a sample's rows in groups of 16 (its last slot partial); warp w
+  // owns slot 4 * blockIdx.x + w, rows [wr0, wr0 + wrows) of sample wb
+  const int spp = (p.T + 15) / 16, n_slots = p.B * spp;
+  const int slot0 = 4 * blockIdx.x, slot_last = min(slot0 + 3, n_slots - 1);
+  const int b0 = slot0 / spp, ns = slot_last / spp - b0 + 1;
+  const int slot = slot0 + warp, wb = slot / spp, wt0 = (slot % spp) * 16;
+  const int wrows = slot < n_slots ? min(16, p.T - wt0) : 0;
+  const int wr0 = wb * p.T + wt0;
+  const long long stride = 3LL * p.H * kD;
+  const bf16* qb = static_cast<const bf16*>(p.qkv) + h * kD;
+  const bf16* kb = qb + p.H * kD;
+  const bf16* vb = kb + p.H * kD;
+
+  bf16* Qw = Qs + 16 * warp * (kD + 8);  // the warp's Q rows, later its output rows
+  for (int i = lane; i < 16 * (kD / 8); i += 32) {
+    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
+    const bool ok = r < wrows;
+    cp_async16_or_zero(Qw + r * (kD + 8) + c, qb + (ok ? (long long)(wr0 + r) * stride + c : 0),
+                       ok);
+  }
+  mt_key_ends(pl, p.kv_mask, p.T, p.t_real, b0, ns);
+  // causal: no key past the CTA's last row of the sample (only the last sample is cut)
+  const int last_tok = min(p.T, (slot_last % spp) * 16 + 16) - 1;
+  mt_offsets(pl, ns, [&](int i, int kend) {
+    return p.causal && i == ns - 1 ? min(kend, last_tok + 1) : kend;
+  });
+  const int n_other = pl.seg[ns];
+  const int n_ch = (n_other + kMtChunk - 1) / kMtChunk;
+
+  // the thread's rows (tokens wt0 + lane / 4 and + 8 of sample wb) and their
+  // compacted key ranges
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int rr = lane / 4 + 8 * hr;
+    lo[hr] = kMtEmpty;
+    hi[hr] = 0;
+    if (rr < wrows) {
+      lo[hr] = pl.seg[wb - b0];
+      hi[hr] = p.causal ? min(pl.seg[wb - b0 + 1], lo[hr] + wt0 + rr + 1) : pl.seg[wb - b0 + 1];
+    }
+  }
+  int wlo, whi;
+  mt_warp_range(lo, hi, wlo, whi);
+
+  // group 1: Q and chunk 0's K; group 2: chunk 0's V when one chunk holds
+  // every key (it lands while pass 1 runs), else empty
+  int n = n_ch > 0 ? mt_chunk_rows(pl, ns, b0, p.T, 0, p.kv_mask) : 0;
+  mt_stage<kD>(Ks, kb, stride, pl, n);
+  cp_async_commit();
+  if (n_ch == 1) mt_stage<kD>(Vs, vb, stride, pl, n);
+  cp_async_commit();
+
+  float s[kMtSub / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+
+  // pass 1: each row's max and sum over its valid keys (online)
+  for (int c = 0; c < n_ch; ++c) {
+    const int cb = c * kMtChunk;
+    if (c > 0) {
+      n = mt_chunk_rows(pl, ns, b0, p.T, cb, p.kv_mask);
+      mt_stage<kD>(Ks, kb, stride, pl, n);
+      cp_async_commit();
+    }
+    if (c == 0) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int jhi = min(whi - cb, n);
+    for (int j0 = max(wlo - cb, 0) / kMtSub * kMtSub; j0 < jhi; j0 += kMtSub) {
+      warp_scores<kD, kMtSub>(s, Qw, Ks + j0 * (kD + 8));
+      mt_mask(s, pl, j0, cb, lo, hi, p.scale);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kMtSub / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+        const float m_new = fmaxf(m[hr], quad_max(mx));
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // all masked so far
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMtSub / 8; ++j)
+          sum += __expf(s[j][2 * hr] - m_use) + __expf(s[j][2 * hr + 1] - m_use);
+        l[hr] = l[hr] * __expf(m[hr] - m_use) + sum;
+        m[hr] = m_new;
+      }
+    }
+  }
+  float m_use[2], inv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] = quad_sum(l[hr]);
+    m_use[hr] = m[hr] == -INFINITY ? 0.f : m[hr];
+    inv[hr] = l[hr] > 0.f ? 1.f / l[hr] : 0.f;  // a row with no valid key: P = 0
+  }
+
+  // pass 2: P = exp(s - m) / l rounded to bf16, then o += P V
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int c = 0; c < n_ch; ++c) {
+    const int cb = c * kMtChunk;
+    if (n_ch > 1) {
+      n = mt_chunk_rows(pl, ns, b0, p.T, cb, p.kv_mask);
+      mt_stage<kD>(Ks, kb, stride, pl, n);
+      mt_stage<kD>(Vs, vb, stride, pl, n);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const int jhi = min(whi - cb, n);
+    for (int j0 = max(wlo - cb, 0) / kMtSub * kMtSub; j0 < jhi; j0 += kMtSub) {
+      warp_scores<kD, kMtSub>(s, Qw, Ks + j0 * (kD + 8));
+      mt_mask(s, pl, j0, cb, lo, hi, p.scale);
+#pragma unroll
+      for (int j = 0; j < kMtSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __expf(s[j][e] - m_use[e >> 1]) * inv[e >> 1];
+      uint32_t pa[kMtSub / 16][4];
+      probs_to_a<kMtSub>(pa, s);
+      warp_pv<kD, kMtSub>(o, pa, Vs + j0 * (kD + 8));
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every copy into Qs has landed before it takes the output
+
+  const float one[2] = {1.f, 1.f};
+  bf16* o_rows = static_cast<bf16*>(out_) + (size_t)wr0 * p.H * kD + h * kD;
+  warp_store_rows<kD>(o, one, Qw, wrows, [&](int r) { return o_rows + (size_t)r * p.H * kD; });
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int rr = lane / 4 + 8 * hr;
+      if (rr < wrows)
+        lse[((size_t)wb * p.H + h) * p.T + wt0 + rr] = l[hr] > 0.f ? m[hr] + logf(l[hr]) : INFINITY;
+    }
+  }
+}
+
 template <int kD>
 size_t bd_fwd_smem() {
   return sizeof(float) * (kBQ * kD + kBK * (kD + 1) + kBK * kD + kBQ * (kBK + 1) + 2 * kBQ) +
@@ -172,9 +343,22 @@ cudaError_t launch_bd_fwd(const MergedParams& p, void* out, float* lse, cudaStre
   return cudaGetLastError();
 }
 
+template <int kD>
+cudaError_t launch_bd_fwd_tc(const MergedParams& p, void* out, float* lse, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (kMtRows + 2 * kMtChunk) * (kD + 8);
+  cudaError_t err = cudaFuncSetAttribute(bd_fwd_tc_kernel<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long n_slots = (long long)p.B * ((p.T + 15) / 16);
+  const dim3 grid((unsigned)((n_slots + 3) / 4), p.H);
+  bd_fwd_tc_kernel<kD><<<grid, kMtThreads, smem, stream>>>(p, out, lse);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel).  Returns the launch's cudaError_t.
 extern "C" int mcl_attention_core_bd_fwd(const void* qkv, void* out, float* lse,
                                          const int* kv_mask, int B, int T, int H, int D,
                                          int t_real, int causal, float scale, int dtype,
@@ -186,7 +370,7 @@ extern "C" int mcl_attention_core_bd_fwd(const void* qkv, void* out, float* lse,
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     return dtype == 0 ? launch_bd_fwd<float, kD>(p, out, lse, s)
-                      : launch_bd_fwd<__nv_bfloat16, kD>(p, out, lse, s);
+                      : launch_bd_fwd_tc<kD>(p, out, lse, s);
   });
 }
 

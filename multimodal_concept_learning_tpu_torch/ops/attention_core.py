@@ -40,7 +40,9 @@ merged); ``check_kernel_shape`` refuses anything else with a ValueError.
 K2-bd, the sample-merged (block-diagonal) variants, compute the same
 function on rows merged across samples: ``attention_core_bd_fwd`` and
 ``attention_core_bd_bwd`` (``csrc/attention_core_bd.cu``) replace
-``_fwd_kernel_bd`` and ``_bwd_kernel_bd`` of the JAX module.  Their plain
+``_fwd_kernel_bd`` and ``_bwd_kernel_bd`` of the JAX module; the forward
+runs bfloat16 on the tensor cores over each tile's compacted live keys
+(``csrc/merged_tiles.cuh``) and float32 on the CUDA cores.  Their plain
 versions (``attention_core_bd_reference``,
 ``attention_core_bd_backward_reference``) build the JAX ``_flat_mask`` of a
 stated block of ``bblk`` samples; cross-sample keys are masked, so every
@@ -301,8 +303,10 @@ def bd_block(t: int) -> int:
 
 def attention_core_bd_fwd(qkv, heads: int, t_real: int, causal: bool, kvm, with_lse: bool):
     """The K2-bd forward kernel on CUDA tensors (``kvm``: int32 [B, T] or
-    None): one CTA per (64 rows merged across samples, head).  Returns (out
-    [B, T, H·D], lse [B, H, T] float32 or None).  Counted in ``.launches``."""
+    None): bfloat16 on the tensor cores, one CTA per (4 slots of 16 rows,
+    each of one sample, head); float32 on the CUDA cores, one CTA per (64
+    rows merged across samples, head).  Returns (out [B, T, H·D], lse
+    [B, H, T] float32 or None).  Counted in ``.launches``."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, hd3 = qkv.shape

@@ -14,13 +14,17 @@ with ``attn`` the softmax attention of each sample's own keys below
 qkv projection and attention of one (sample, head) in one launch, so LN(x)
 and qkv never reach device memory, then ``attn·Wo + bo + x`` in a second;
 it returns ``y`` and ``attn`` (the backward's residual, as the TPU kernel
-writes it).  ``fused_bwd_attn`` wraps the backward kernel (the JAX
-``_bwd_attn_kernel``): dqkv from the recomputed qkv and dA.  The rest of
-the backward (the recompute of LN and qkv, the dWo / dbo / dA products,
-the qkv-projection and LN backward) is plain tensor code, as the JAX
-package leaves it to XLA.  Beside the kernels are their plain versions
-(``fused_attention_reference``, ``fused_bwd_attn_reference``); CPU tensors
-take them, CUDA tensors the kernels (or the wrapper raises).
+writes it).  ``fused_bwd_attn`` wraps the backward kernels (the JAX
+``_bwd_attn_kernel``): dqkv from the recomputed qkv and dA; bfloat16 on the
+tensor cores (two launches, counted once), float32 on the CUDA cores.  The
+rest of the backward (the recompute of LN and qkv, the dWo / dbo / dA
+products, the qkv-projection and LN backward) is plain tensor code, as the
+JAX package leaves it to XLA; its five products go through ``mm_f32``: on
+the card a bf16 product with float32 output (the JAX
+``preferred_element_type=jnp.float32``), elsewhere float32.  Beside the
+kernels are their plain versions (``fused_attention_reference``,
+``fused_bwd_attn_reference``); CPU tensors take them, CUDA tensors the
+kernels (or the wrapper raises).
 
 Rounding points (the JAX ``_fused_fwd_impl`` and ``_fused_bwd``):
 - forward: ``ln_scale``, ``ln_bias``, ``wqkv``, ``bqkv``, ``wo`` and ``bo``
@@ -70,6 +74,19 @@ def _ln(x, scale, bias, eps: float):
     return xhat * scale.float() + bias.float(), xhat, var
 
 
+def mm_f32(a, b):
+    """``a @ b`` (2-D) in float32 from operands in the compute dtype, the JAX
+    ``jnp.dot(..., preferred_element_type=jnp.float32)``.  Two bf16 operands
+    on the card: one bf16 product with float32 output
+    (``torch.mm(..., out_dtype=torch.float32)``, the tensor cores with
+    float32 accumulation).  Otherwise, and always on the CPU, both operands
+    upcast and multiplied in float32.  A product of two bf16 numbers is
+    exact in float32, so the two differ only in the order of the sums."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, eps: float):
     """(qkv [B, T, 3·H·D], LN(x) in cdt, xhat, var): qkv = float32(LN(x)→cdt
     · Wqkv→cdt) + float32(bqkv), cast to cdt = x's dtype.  The forward
@@ -77,7 +94,8 @@ def ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, eps: float):
     cdt = x.dtype
     ln, xhat, var = _ln(x, ln_scale, ln_bias, eps)
     ln16 = ln.to(cdt)
-    qkv = (torch.matmul(ln16.float(), wqkv.to(cdt).float()) + bqkv.float()).to(cdt)
+    qkv = mm_f32(ln16.reshape(-1, ln16.shape[-1]), wqkv.to(cdt))
+    qkv = (qkv.reshape(*ln16.shape[:-1], -1) + bqkv.float()).to(cdt)
     return qkv, ln16, xhat, var
 
 
@@ -160,10 +178,13 @@ def fused_attention_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int, t_
 
 
 def fused_bwd_attn(qkv, da, heads: int, t_real: int, bblk=None):
-    """The K6 backward kernel on CUDA tensors: dqkv [B, T, 3·H·D] from qkv
-    and dA, one CTA per (head, ``bblk`` whole samples merged into rows;
-    default ``bd_block(T)``), with lse and rowsum(dP∘P) recomputed inside.
-    Counted in ``.launches``."""
+    """The K6 backward kernels on CUDA tensors: dqkv [B, T, 3·H·D] from qkv
+    and dA over blocks of ``bblk`` whole samples merged into rows (default
+    ``bd_block(T)``), with lse and rowsum(dP∘P) recomputed inside.  bf16:
+    two launches on the tensor cores (tiles of 64 merged rows within a
+    block; lse and rowsum(dP∘P) pass between them through a float32
+    workspace); float32: one CTA per (head, block).  Counted once a call in
+    ``.launches``."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, hd3 = qkv.shape
@@ -177,10 +198,12 @@ def fused_bwd_attn(qkv, da, heads: int, t_real: int, bblk=None):
     qkv = _cuda_operand(qkv, qkv.dtype)
     da = _cuda_operand(da, qkv.dtype)
     dqkv = torch.empty_like(qkv)
+    ws = (torch.empty((2, heads, b * t), dtype=torch.float32, device=qkv.device)
+          if qkv.dtype == torch.bfloat16 else None)
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_fused_attention_bwd(
-            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), b, t, heads, d, int(t_real),
-            d ** -0.5, bblk, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), None if ws is None else ws.data_ptr(),
+            b, t, heads, d, int(t_real), d ** -0.5, bblk, _DTYPE_CODES[qkv.dtype], _stream(qkv))
     check(err, "fused_bwd_attn")
     fused_bwd_attn.launches += 1
     return dqkv
@@ -206,15 +229,15 @@ class _FusedSublayer(torch.autograd.Function):
         cdt = x.dtype
         qkv, ln16, xhat, var = ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, eps)
         dyf = dy.reshape(-1, width).float()
-        dy16 = dy.reshape(-1, width).to(cdt).float()
-        dwo = attn.reshape(-1, attn.shape[-1]).float().t() @ dy16
+        dy16 = dy.reshape(-1, width).to(cdt)
+        dwo = mm_f32(attn.reshape(-1, attn.shape[-1]).t(), dy16)
         dbo = dyf.sum(dim=0)
-        da = (dy16 @ wo.to(cdt).float().t()).to(cdt).reshape(attn.shape)
+        da = mm_f32(dy16, wo.to(cdt).t()).to(cdt).reshape(attn.shape)
         bwd = fused_bwd_attn if qkv.is_cuda else fused_bwd_attn_reference
-        dqkv = bwd(qkv, da, heads, t_real).reshape(-1, qkv.shape[-1]).float()
-        dwqkv = ln16.reshape(-1, width).float().t() @ dqkv
-        dbqkv = dqkv.sum(dim=0)
-        dln = dqkv @ wqkv.to(cdt).float().t()
+        dqkv = bwd(qkv, da, heads, t_real).reshape(-1, qkv.shape[-1])
+        dwqkv = mm_f32(ln16.reshape(-1, width).t(), dqkv)
+        dbqkv = dqkv.float().sum(dim=0)
+        dln = mm_f32(dqkv, wqkv.to(cdt).t())
         xhat, var = xhat.reshape(-1, width), var.reshape(-1, 1)
         dxhat = dln * ln_scale.float()
         dx_ln = torch.rsqrt(var + eps) * (dxhat - dxhat.mean(dim=-1, keepdim=True)
@@ -255,5 +278,6 @@ __all__ = [
     "fused_bwd_attn",
     "fused_bwd_attn_reference",
     "ln_qkv",
+    "mm_f32",
     "pack_qkv",
 ]

@@ -285,3 +285,25 @@ def test_plain_k6_at_head_dim_16_matches_jax(t):
     for name, g, w in zip(NAMES, leaves, want):
         np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=GRAD_RTOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("m,k,n,transpose_a", [(50, 64, 192, False), (96, 50, 64, True),
+                                               (7, 128, 3, False)])
+def test_backward_products_in_float32(m, k, n, transpose_a):
+    """``mm_f32``, the five products of the K6 backward: on the CPU two bf16
+    operands give exactly ``a.float() @ b.float()`` in float32, and float32
+    operands exactly ``a @ b`` (the card's bf16 product with float32 output
+    differs from these only in the order of its sums)."""
+    from multimodal_concept_learning_tpu_torch.ops.fused_attention_block import mm_f32
+
+    rng = np.random.default_rng(m + k + n)
+    a32 = torch.from_numpy(rng.standard_normal((k, m) if transpose_a else (m, k),
+                                               dtype=np.float32))
+    b32 = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
+    a32 = a32.t() if transpose_a else a32
+    a16, b16 = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+    got = mm_f32(a16, b16)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got, a16.float() @ b16.float())
+    got32 = mm_f32(a32, b32)
+    assert got32.dtype == torch.float32 and torch.equal(got32, a32 @ b32)
