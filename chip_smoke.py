@@ -10,7 +10,7 @@ Phases (each prints its results; any failure exits non-zero):
    float32 and bfloat16, at the serving and training paths' shapes (max abs
    error, and kernel vs plain time from CUDA events); the build fails if
    ptxas reports spill stores in a tensor-core attention kernel (the bf16
-   K1, K2 and K2-bd forwards, K6's two bf16 backward kernels);
+   K1, K2 and K2-bd forwards, the bf16 backward pair of K2, K2-bd and K6);
 4. parity: float32 MLLM at full width and reduced depth, ``paged_generate``
    on the card (through both kernels) must give exactly the greedy tokens
    of the same weights on the CPU plain path;
@@ -79,8 +79,11 @@ exactly 0, 3 tokens a sample; the backward at three merges of samples) and
 K6 (the fused attention sublayer: the vision shape, T 197, 37, t_real < T
 and 320) to their plain versions, and the bf16 vision sublayer's gradients
 (``fused_attention_sublayer`` on the card against the same autograd run on
-CPU copies), times K2-bd beside K2 at both CLIP shapes and K6's backward
-beside SDPA's (all by CUDA graph replay), and K6's forward beside the
+CPU copies), the bf16 backwards of K2, K2-bd and K6 past the float32
+kernels' 640 rows, one CLIP text block's bf16 gradients (causal, caption
+masks; through K2, then K2-bd) against the same autograd run on CPU
+copies, times K2-bd beside K2 at both CLIP shapes, K6's backward and
+K1's backward beside SDPA's (all by CUDA graph replay), and K6's forward beside the
 unfused library composition
 (``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add); then K5
 (int4 decode matmul; x in float32 and bf16, limits 1e-5 and 8e-3 of the
@@ -107,8 +110,9 @@ idle share, aten ops and device time by kernel).  ``python3 chip_smoke.py
 --time-forwards ROOT`` builds the kernels of the checkout at ROOT and times
 only the K1 and K2 forwards at their path shapes beside SDPA, and
 ``--time-variants ROOT`` K2-bd's forward and backward (beside K2) at both
-CLIP shapes and K6's backward at the vision shape beside SDPA (an A/B
-between two checkouts runs either on each in turns).
+CLIP shapes, K6's backward at the vision shape and K1's backward at the
+LM training shape beside SDPA (an A/B between two checkouts runs either
+on each in turns).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -212,6 +216,10 @@ def phase_card() -> str:
 
 TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel", "bd_fwd_tc_kernel",
               "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel")  # the tensor-core attention kernels
+# K1 forward at D 64/128/256; K2 forward and K2-bd forward at D 16/32/64; the
+# shared backward pair (dQ, dK/dV) at D 16/32/64 in five configurations: K6's
+# and K2's four (causal or not x kv_mask or not)
+TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5
 
 
 def spill_stores(log: str) -> dict:
@@ -246,11 +254,9 @@ def phase_build(check_spills: bool = True) -> None:
     tc = {n: b for n, b in spill_stores(info["log"]).items() if any(k in n for k in TC_KERNELS)}
     print(f"[build] tensor-core attention kernels: {len(tc)} instantiations, spill stores "
           f"{sorted(set(tc.values()))} bytes", flush=True)
-    # K1 forward at D 64/128/256; K2 forward, K2-bd forward and K6's two
-    # backward kernels at D 16/32/64
-    if len(tc) != 15 or any(tc.values()):
-        fail(f"tensor-core attention kernels: expected 15 instantiations without spills, "
-             f"got {tc}")
+    if len(tc) != TC_INSTANTIATIONS or any(tc.values()):
+        fail(f"tensor-core attention kernels: expected {TC_INSTANTIATIONS} instantiations "
+             f"without spills, got {tc}")
 
 
 def _flash_cases(torch, gen, dev):
@@ -331,10 +337,10 @@ def _k1_pairs(torch, fa, q, k, mask: dict) -> int:
     return int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * hq
 
 
-def _sdpa_k1(torch, fa, q, k, v, kw, grad_out=None):
+def _sdpa_k1(torch, fa, q, k, v, kw, grad_out=None, stream=None):
     """One ``scaled_dot_product_attention`` call (its backward with
-    ``grad_out``) on the same [B, T, H, D] tensors, mask and bias, as a
-    yardstick."""
+    ``grad_out``, the forward run on ``stream``) on the same [B, T, H, D]
+    tensors, mask and bias, as a yardstick."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
     ok = fa.key_mask(q.shape[0], q.shape[1], k.shape[1], device=q.device, **mask)
@@ -346,17 +352,56 @@ def _sdpa_k1(torch, fa, q, k, v, kw, grad_out=None):
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         return lambda: sdpa(qh, kh, vh, attn_mask=ok, scale=scale, enable_gqa=True)
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    with torch.enable_grad():
+    with torch.enable_grad(), torch.cuda.stream(stream or torch.cuda.current_stream()):
         out = sdpa(*(x.transpose(1, 2) for x in leaves), attn_mask=ok, scale=scale,
                    enable_gqa=True)
+    if stream is not None:
+        torch.cuda.current_stream().wait_stream(stream)
     go = grad_out.transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaves, go, retain_graph=True)
+
+
+def time_k1_bwd(torch, fa, name: str, q, k, v, do, kw, bias_grad: bool = False) -> dict:
+    """K1's backward at one shape, bf16: the dQ and dK/dV kernels and SDPA's
+    backward (its forward run on the capturing stream) by CUDA graph replay,
+    the bounds (this run's attendable pairs; each kernel's own inputs read
+    and outputs written once).  Prints and returns them."""
+    mask = {key: kw[key] for key in ("kv_lens", "causal", "window") if key in kw}
+    scale, bias = kw.get("scale", q.shape[-1] ** -0.5), kw.get("bias")
+    o, lse = fa._launch(q, k, v, bias, scale, mask.get("kv_lens"), mask.get("causal", False),
+                        mask.get("window"), with_lse=True)
+
+    def dq_call():
+        return fa.flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale=scale,
+                                         need_ds=bias_grad, **mask)
+
+    dq, delta, _ = dq_call()
+
+    def dkv_call():
+        return fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, scale=scale, **mask)
+
+    dk, dv = dkv_call()
+    pairs = _k1_pairs(torch, fa, q, k, mask)
+    d, stats = q.shape[-1], nbytes(lse, delta, kw.get("kv_lens"))
+    side = torch.cuda.Stream()
+    r = {"dq_ms": graph_time_ms(dq_call), "dkv_ms": graph_time_ms(dkv_call),
+         "sdpa_ms": graph_time_ms(_sdpa_k1(torch, fa, q, k, v, kw, grad_out=do, stream=side),
+                                  stream=side),
+         "dq_bound": bound(nbytes(q, k, v, o, do, dq) + stats, 6 * d * pairs),
+         "dkv_bound": bound(nbytes(q, k, v, do, dk, dv) + stats, 8 * d * pairs)}
+    print(f"[kernels] K1 bwd {name} bf16 (graph replay): dq kernel {r['dq_ms']:.4f} ms, dkv "
+          f"kernel {r['dkv_ms']:.4f} ms, together {r['dq_ms'] + r['dkv_ms']:.4f} ms; SDPA "
+          f"backward {r['sdpa_ms']:.4f} ms; bound dq {r['dq_bound']['bound_ms']:.5f} ms, dkv "
+          f"{r['dkv_bound']['bound_ms']:.5f} ms ({r['dkv_bound']['bound_by']})", flush=True)
+    return r
 
 
 def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
     """Each backward kernel against the plain backward on the same saved
     (q, k, v, o, lse, dO): float32 <= 1e-4 abs, bf16 <= 2e-2 of the
-    reference's max |value|."""
+    reference's max |value|.  At the LM training shape in bf16 the kernels
+    and SDPA's backward are timed by CUDA graph replay, the plain backward
+    by the event loop."""
     kdq = report.setdefault("flash_attention_bwd_dq", {"max_abs_err": 0.0})
     kdkv = report.setdefault("flash_attention_bwd_dkv", {"max_abs_err": 0.0})
     for name, q, k, v, kw, bias_grad in _flash_bwd_cases(torch, gen, dev):
@@ -397,13 +442,6 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
             dkv_ms = cuda_time_ms(dkv_call)
             plain_ms = cuda_time_ms(lambda: fa.flash_attention_backward_reference(
                 qd, kd, vd, o, lse, dod, bias, scale=scale, **mask))
-            if name.startswith("lm [") and dtype is torch.bfloat16:
-                pairs = _k1_pairs(torch, fa, qd, kd, mask)
-                d, stats = q.shape[-1], nbytes(lse, delta, kw.get("kv_lens"))
-                kdq.update(bound(nbytes(qd, kd, vd, o, dod, dq) + stats, 6 * d * pairs))
-                kdkv.update(bound(nbytes(qd, kd, vd, dod, dk, dv) + stats, 8 * d * pairs))
-                sdpa_bwd = _sdpa_k1(torch, fa, qd, kd, vd, kw, grad_out=dod)
-                kdq["library_ms"] = kdkv["library_ms"] = cuda_time_ms(sdpa_bwd)
             print(f"[kernels] K1 bwd {name} {tag}: max_abs_err "
                   + " ".join(f"{g} {e:.3e}" for g, e in errs.items())
                   + f"; dq kernel {dq_ms:.4f} ms, dkv kernel {dkv_ms:.4f} ms, "
@@ -413,8 +451,11 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
             kdq["max_abs_err"] = max(kdq["max_abs_err"], errs["dq"], errs.get("dbias", 0.0))
             kdkv["max_abs_err"] = max(kdkv["max_abs_err"], errs["dk"], errs["dv"])
             if name.startswith("lm [") and dtype is torch.bfloat16:
-                kdq.update(ms=dq_ms, plain_ms=plain_ms)
-                kdkv.update(ms=dkv_ms, plain_ms=plain_ms)
+                r = time_k1_bwd(torch, fa, name, qd, kd, vd, dod, kw, bias_grad)
+                kdq.update(ms=r["dq_ms"], plain_ms=plain_ms, library_ms=r["sdpa_ms"],
+                           **r["dq_bound"])
+                kdkv.update(ms=r["dkv_ms"], plain_ms=plain_ms, library_ms=r["sdpa_ms"],
+                            **r["dkv_bound"])
 
 
 CLIP_CONFIG = os.path.join(REPO, "experiments/contrastive/color/12_colors_3k.yaml")
@@ -549,9 +590,12 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
                 return ac.attention_core_fwd(qkv, heads, t_real, causal, kvm, with_lse=True)
 
             out, lse = fwd()
+            # the bf16 backward recomputes lse from qkv and dA: it takes neither
+            saved = (out, lse) if dtype is torch.float32 else (None, None)
 
             def bwd():
-                return ac.attention_core_bwd(qkv, out, da, lse, heads, t_real, causal, kvm)
+                return ac.attention_core_bwd(qkv, saved[0], da, saved[1], heads, t_real, causal,
+                                             kvm)
 
             dqkv = bwd()
             ref, ref_lse = ac.attention_core_reference(qkv.float(), heads, t_real, causal, kvm,
@@ -566,7 +610,10 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
             # bf16: a fraction of the reference's largest value, outputs and gradients alike
             limit = TOL[tag] * (1.0 if dtype is torch.float32 else ref.abs().max().item())
             limit_d = TOL[tag] * (1.0 if dtype is torch.float32 else ref_d.abs().max().item())
-            ms, bwd_ms = graph_time_ms(fwd), cuda_time_ms(bwd)
+            # the forward as a training step runs it: lse only where the backward reads it
+            ms = graph_time_ms(lambda: ac.attention_core_fwd(qkv, heads, t_real, causal, kvm,
+                                                             with_lse=dtype is torch.float32))
+            bwd_ms = cuda_time_ms(bwd)
             plain_ms = cuda_time_ms(lambda: ac.attention_core_reference(qkv, heads, t_real,
                                                                         causal, kvm))
             plain_bwd_ms = cuda_time_ms(lambda: ac.attention_core_backward_reference(
@@ -597,6 +644,114 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
             if name.startswith("vision"):  # the JSON line's numbers: the vision tower's shape
                 kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fb)
                 kb.update(ms=bwd_ms, plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **bb)
+
+
+def _phase_past_cap(torch, gen, dev) -> None:
+    """The bf16 backward kernels past 640 rows, where only float32 keeps the
+    cap (its [rows, D] dQ tile): K2 at T 700 (causal, holes, t_real 690),
+    K2-bd at 9 text samples a block (693 merged rows, causal, captions) and
+    K6 at 13 vision samples a block (650 rows), each held to its plain
+    version at 2e-2 of the reference's max |value| (the bf16 pair groups
+    rows in slots of one sample and does not read bblk: the merges show
+    that the wrappers let them through); K2 in float32 at T 700 must raise
+    ValueError."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import fused_attention_block as fb
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    bf16 = torch.bfloat16
+    holes = (torch.rand(2, 700, generator=gen, device=dev) < 0.5).to(torch.int32)
+    holes[:, 0] = 1
+    qkv, da = randn(2, 700, 3 * 128).to(bf16), randn(2, 700, 128).to(bf16)
+    args = (2, 690, True, holes)
+    errs = {"K2 T 700 [2,700,2x64] causal + holes, t_real 690": _held(
+        ac.attention_core_bwd(qkv, None, da, None, *args),
+        ac.attention_core_backward_reference(qkv.float(), da.float(), *args), bf16,
+        "K2 bwd T 700")}
+    out, lse = ac.attention_core_fwd(qkv.float(), *args, with_lse=True)
+    try:
+        ac.attention_core_bwd(qkv.float(), out, da.float(), lse, *args)
+        fail("K2 float32 backward at T 700 was not refused")
+    except ValueError:
+        pass
+    captions = torch.from_numpy(_caption_masks(18)).to(dev)
+    qkv, da = randn(18, 77, 3 * 512).to(bf16), randn(18, 77, 512).to(bf16)
+    args = (8, 77, True, captions)
+    errs["K2-bd text [18,77,8x64] bblk 9 (693 rows)"] = _held(
+        ac.attention_core_bd_bwd(qkv, None, da, None, *args, bblk=9),
+        ac.attention_core_bd_backward_reference(qkv.float(), da.float(), *args), bf16,
+        "K2-bd bwd bblk 9")
+    qkv, da = randn(26, 50, 3 * 768).to(bf16), randn(26, 50, 768).to(bf16)
+    errs["K6 vision [26,50,12x64] bblk 13 (650 rows)"] = _held(
+        fb.fused_bwd_attn(qkv, da, 12, 50, bblk=13),
+        fb.fused_bwd_attn_reference(qkv, da, 12, 50), bf16, "K6 bwd bblk 13")
+    torch.cuda.synchronize()
+    print("[kernels] bf16 backward past 640 rows: max_abs_err "
+          + "; ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + "; K2 float32 at T 700 refused", flush=True)
+
+
+def _phase_text_block_grads(torch, gen, dev) -> None:
+    """One CLIP text block (width 512, 8 heads, bf16 compute: causal, the
+    slice's caption masks at T 77) on the card against the same autograd run
+    on CPU copies (the plain versions), through K2 and then K2-bd
+    (``MCL_ATTN_CORE_BD=1``): dx and every parameter gradient within 2e-2 of
+    its own reference's max |value|, but for the key bias's: that is zero
+    in exact arithmetic (a shift of every key's score by q·b leaves the
+    softmax as it is), so what it holds is rounding noise with no scale of
+    its own, held against the max of the q, k and v biases' gradients (the
+    packed projection's bias, as ``_phase_fused_grads`` holds K6's bqkv)
+    and printed beside the CPU's."""
+    import copy
+
+    from multimodal_concept_learning_tpu_torch.models.clip import TextBlock
+
+    b, t, width = 16, 77, 512
+    block = TextBlock(width, 8, torch.bfloat16)
+    for prm in block.parameters():  # seeded weights: std 0.05 (matrices), 0.1 (vectors)
+        std = 0.05 if prm.dim() == 2 else 0.1
+        prm.data = (std * torch.randn(prm.shape, generator=gen, device=dev)).cpu()
+    for ln in (block.ln_1, block.ln_2):
+        ln.weight.data += 1.0
+    x = torch.randn(b, t, width, generator=gen, device=dev).to(torch.bfloat16).cpu()
+    dy = torch.randn(b, t, width, generator=gen, device=dev).to(torch.bfloat16).cpu()
+    kvm = torch.from_numpy(_caption_masks(b))
+
+    old = os.environ.get("MCL_ATTN_CORE_BD")
+    try:
+        for bd in ("0", "1"):
+            os.environ["MCL_ATTN_CORE_BD"] = bd
+            grads = {}
+            for where in (dev, "cpu"):
+                mod = copy.deepcopy(block).to(where)
+                xl = x.to(where).clone().requires_grad_(True)  # a new leaf each pass
+                with torch.enable_grad():  # phase 3 runs under no_grad
+                    mod(xl, kvm.to(where)).backward(dy.to(where))
+                grads[str(where)] = {"x": xl.grad.float().cpu(),
+                                     **{n: p.grad.float().cpu() for n, p in mod.named_parameters()}}
+            what = "K2-bd" if bd == "1" else "K2"
+            cpu, card = grads["cpu"], grads[str(dev)]
+            errs = {n: _held(g, cpu[n], torch.bfloat16, f"text block ({what}) d {n}")
+                    for n, g in card.items() if n != "k.bias"}
+            bias_max = max(cpu[f"{x}.bias"].abs().max().item() for x in "qkv")
+            err_kb = (card["k.bias"] - cpu["k.bias"]).abs().max().item()
+            if not err_kb <= TOL["bfloat16"] * bias_max:
+                fail(f"text block ({what}) d k.bias: max abs err {err_kb} > "
+                     f"{TOL['bfloat16']} x {bias_max} (the q, k, v biases' max)")
+            print(f"[kernels] CLIP text block gradients [16,77,512] causal + captions bf16 "
+                  f"through {what}, card vs CPU: max abs err "
+                  + ", ".join(f"d {n} {e:.3e}" for n, e in errs.items())
+                  + f", d k.bias {err_kb:.3e} (|d k.bias| max: card "
+                  f"{card['k.bias'].abs().max().item():.3e}, CPU "
+                  f"{cpu['k.bias'].abs().max().item():.3e}; q, k, v biases' max "
+                  f"{bias_max:.3e})", flush=True)
+    finally:
+        if old is None:
+            os.environ.pop("MCL_ATTN_CORE_BD", None)
+        else:
+            os.environ["MCL_ATTN_CORE_BD"] = old
 
 
 def _core_bd_cases(torch, gen, dev):
@@ -664,7 +819,9 @@ def _phase_core_bd(torch, gen, dev, report: dict) -> None:
             qkv, da = qkv32.to(dtype), da32.to(dtype)
             args = (heads, t_real, causal, kvm)
             out, lse = ac.attention_core_bd_fwd(qkv, *args, with_lse=True)
-            grads = {m: ac.attention_core_bd_bwd(qkv, out, da, lse, *args, bblk=m)
+            # the bf16 backward recomputes lse from qkv and dA: it takes neither
+            saved = (out, lse) if dtype is torch.float32 else (None, None)
+            grads = {m: ac.attention_core_bd_bwd(qkv, saved[0], da, saved[1], *args, bblk=m)
                      for m in merges}
             ref, ref_lse = ac.attention_core_bd_reference(qkv.float(), *args, return_lse=True)
             ref_d = ac.attention_core_bd_backward_reference(qkv.float(), da.float(), *args)
@@ -688,7 +845,7 @@ def _phase_core_bd(torch, gen, dev, report: dict) -> None:
             kb["max_abs_err"] = max(kb["max_abs_err"], err_d)
             if name == f"{D16} [16,17,4x16]" and dtype is torch.bfloat16:
                 f_ms = cuda_time_ms(lambda: ac.attention_core_bd_fwd(qkv, *args, with_lse=True))
-                b_ms = cuda_time_ms(lambda: ac.attention_core_bd_bwd(qkv, out, da, lse, *args))
+                b_ms = cuda_time_ms(lambda: ac.attention_core_bd_bwd(qkv, None, da, None, *args))
                 print(f"[kernels] K2-bd {name} bf16: fwd kernel {f_ms:.4f} ms, bwd kernel "
                       f"{b_ms:.4f} ms", flush=True)
             if not (on_path and dtype is torch.bfloat16):
@@ -714,12 +871,12 @@ def time_bd(torch, ac, name: str, qkv, da, args, plain: bool = True) -> dict:
         for kind in (("k2", "bd"), ("bd", "k2"))[rnd]:
             fwd = ac.attention_core_bd_fwd if kind == "bd" else ac.attention_core_fwd
             bwd = ac.attention_core_bd_bwd if kind == "bd" else ac.attention_core_bwd
-            o, ls = fwd(qkv, *args, with_lse=True)
-            f_ms = graph_time_ms(lambda: fwd(qkv, *args, with_lse=True))
-            b_ms = graph_time_ms(lambda: bwd(qkv, o, da, ls, *args))
+            # as a training step runs them: the bf16 backward takes no out or lse
+            f_ms = graph_time_ms(lambda: fwd(qkv, *args, with_lse=False))
+            b_ms = graph_time_ms(lambda: bwd(qkv, None, da, None, *args))
             times.setdefault(kind, []).append((f_ms, b_ms))
-    out, lse = ac.attention_core_bd_fwd(qkv, *args, with_lse=True)
-    dqkv = ac.attention_core_bd_bwd(qkv, out, da, lse, *args)
+    out = ac.attention_core_bd_fwd(qkv, *args, with_lse=False)[0]
+    dqkv = ac.attention_core_bd_bwd(qkv, None, da, None, *args)
     ok = ac.key_ok(b, t, t, causal, kvm, qkv.device)
     pairs = int(ok.sum()) * (b if ok.shape[0] == 1 else 1) * heads
     d = hd3 // (3 * heads)
@@ -1222,14 +1379,19 @@ def time_forwards(root: str) -> None:
 
 
 def time_variants(root: str) -> None:
-    """K2-bd's forward and backward at both CLIP shapes (beside K2) and K6's
-    backward at the vision shape, bf16, each by CUDA graph replay beside
-    SDPA, from the port package of the checkout at ``root`` (``sys.path``
-    puts it first).  Run it once a process on two checkouts in turns
-    (parent, change, change, parent) to compare them on one card."""
+    """K2-bd's forward and backward at both CLIP shapes (beside K2: their
+    bf16 backwards are the same kernel pair, over 16-row slots of one
+    sample), K6's backward at the vision shape and K1's backward at the LM
+    training shape, bf16, each by CUDA graph replay beside SDPA, from the
+    port package of the checkout at ``root`` (``sys.path`` puts it first).
+    Run it once a process on two checkouts in turns (parent, change,
+    change, parent) to compare them on one card; a checkout whose bf16 K2
+    backward still takes the forward's out and lse runs its own script
+    (``cd ROOT && python3 chip_smoke.py --time-variants .``)."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
     from multimodal_concept_learning_tpu_torch.ops import fused_attention_block as fb
 
     print(f"[ab] kernels of {os.path.dirname(os.path.dirname(ac.__file__))}", flush=True)
@@ -1248,6 +1410,10 @@ def time_variants(root: str) -> None:
         da = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=gen,
                          device=dev).to(bf16)
         time_k6b(torch, ac, fb, name, qkv, da, heads, t_real, plain=False)
+        for name, q, k, v, kw, _ in _flash_bwd_cases(torch, gen, dev):
+            if name.startswith("lm ["):
+                do = torch.randn(q.shape, generator=gen, device=dev)
+                time_k1_bwd(torch, fa, name, *(x.to(bf16) for x in (q, k, v, do)), kw)
 
 
 def phase_kernels(report: dict) -> None:
@@ -1310,6 +1476,8 @@ def phase_kernels(report: dict) -> None:
         _phase_core(torch, gen, dev, report)
         _phase_core_bd(torch, gen, dev, report)
         _phase_fused(torch, gen, dev, report)
+        _phase_past_cap(torch, gen, dev)
+        _phase_text_block_grads(torch, gen, dev)
         _phase_int4(torch, gen, dev, report)
         _phase_int4_v3(torch, gen, dev, report)
         _phase_paged_mp(torch, gen, dev, report)
@@ -2555,7 +2723,7 @@ SOURCES = {
                                "multimodal_concept_learning_tpu/ops/paged_attention_kernel.py:43"),
     "attention_core_fwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core.cu",
                            "multimodal_concept_learning_tpu/ops/attention_core.py:104"),
-    "attention_core_bwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core.cu",
+    "attention_core_bwd": ("multimodal_concept_learning_tpu_torch/csrc/merged_bwd_tc.cuh",
                            "multimodal_concept_learning_tpu/ops/attention_core.py:123"),
     "int4_matmul": ("multimodal_concept_learning_tpu_torch/csrc/int4_matmul.cu",
                     "multimodal_concept_learning_tpu/ops/int4.py:111"),
@@ -2564,12 +2732,12 @@ SOURCES = {
         "multimodal_concept_learning_tpu/ops/paged_attention_mp_kernel.py:47"),
     "attention_core_bd_fwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core_bd.cu",
                               "multimodal_concept_learning_tpu/ops/attention_core.py:179"),
-    "attention_core_bd_bwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core_bd.cu",
+    "attention_core_bd_bwd": ("multimodal_concept_learning_tpu_torch/csrc/merged_bwd_tc.cuh",
                               "multimodal_concept_learning_tpu/ops/attention_core.py:203"),
     "fused_attention_fwd": (
         "multimodal_concept_learning_tpu_torch/csrc/fused_attention_block.cu",
         "multimodal_concept_learning_tpu/ops/fused_attention_block.py:86"),
-    "fused_bwd_attn": ("multimodal_concept_learning_tpu_torch/csrc/fused_attention_block.cu",
+    "fused_bwd_attn": ("multimodal_concept_learning_tpu_torch/csrc/merged_bwd_tc.cuh",
                        "multimodal_concept_learning_tpu/ops/fused_attention_block.py:106"),
     "int4_matmul_v3a": ("multimodal_concept_learning_tpu_torch/csrc/int4_matmul_v3.cu",
                         "scripts/bench_int4_kernel.py:49"),

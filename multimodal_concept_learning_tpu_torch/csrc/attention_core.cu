@@ -10,7 +10,8 @@
 //   and 64 (with_head_dim, merged_attention.cuh).  Forward: out [B, T, H*D] =
 //   softmax(q k^T * scale, masked) v, per (sample, head), token-major; with a
 //   non-null lse pointer also the row logsumexp [B, H, T] fp32.  Backward:
-//   dqkv [B, T, 3*H*D] in the same packed layout from (qkv, out, dA, lse).
+//   dqkv [B, T, 3*H*D] in the same packed layout, from (qkv, out, dA, lse)
+//   in fp32 and from (qkv, dA) in bf16.
 //   Key c is valid for query r iff c < t_real, kv_mask[b, c] != 0 (when a
 //   mask is given) and, under causal, c <= r.  A row with no valid key gets
 //   a zero output, lse = +inf and no gradient (the TPU kernel averages it
@@ -19,8 +20,8 @@
 // What bounds it: at the CLIP path's shapes (vision [256, 50, 12 x 64],
 // text [256, 77, 8 x 64], bf16) the arithmetic is ~2*2*T*T*D per (sample,
 // head): 0.2-0.5 GFLOP a launch, ~0.5 us at the tensor cores' peak, while the
-// bytes (qkv in, out written; the backward also reads out and dA and writes
-// dqkv) take 23-42 us at 3.35 TB/s, so the bound is memory.  The bf16
+// bytes (qkv in, out written; the backward reads dA and writes dqkv) take
+// 23-42 us at 3.35 TB/s, so the bound is memory.  The bf16
 // forward runs at ~1.7x that bound at the vision shape and ~3.4x at the
 // text shape (H100, PERF.md): what is left is latency, each CTA's chain of
 // mask scan, tile copies, two passes and the store, with 4 CTAs an SM (128
@@ -45,26 +46,32 @@
 // - Forward, fp32 (core_fwd_kernel): CUDA cores, no TF32 (float32 runs must
 //   match the plain version to 1e-4): one CTA per (64-query tile, head,
 //   sample), two passes over 32-key tiles with scores in fp32 smem.
-// - Backward, both dtypes: fp32 arithmetic on the CUDA cores, bound by its
-//   own arithmetic and shared-memory traffic.  One CTA per (head, sample)
-//   owns all three gradient slices of its head, so no atomics and no
-//   second pass: it loops over 32-key tiles
-//   (dK, dV in registers) and, inside, over 32-query tiles, recomputing
-//   P = exp(s - lse) once per (query tile, key tile); dQ accumulates in a
-//   [T, D] fp32 smem tile (T <= 640) written at the end.  delta =
-//   rowsum(dA * out) stands in for rowsum(dP * P) (equal in exact
-//   arithmetic).  dS * scale and P are rounded to the compute dtype before
-//   their products, as the TPU kernel does.
+// - Backward, bf16: the tensor-core pair shared with K2-bd and K6
+//   (merged_bwd_tc.cuh, K2's choices: causal or not, kv_mask or not, dS *
+//   D^-1/2 rounded to bf16), over 16-row slots of one sample each, 4 a CTA.
+//   bwd_dq_tc_kernel takes lse and delta = rowsum(dP * P) (the TPU kernel's,
+//   float32 P) online and writes them to a float32 workspace [2, H, B*T]
+//   that the wrapper allocates; bwd_dkv_tc_kernel owns key rows.  It takes
+//   neither the forward's out nor its lse (so a bf16 forward for training
+//   writes no lse), and any T.
+// - Backward, fp32 (core_bwd_kernel): the CUDA cores (no TF32), bound
+//   by its own arithmetic and shared-memory traffic.  One CTA per (head,
+//   sample) owns all three gradient slices of its head, so no atomics and
+//   no second pass: it loops over 32-key tiles (dK, dV in registers) and,
+//   inside, over 32-query tiles, recomputing P = exp(s - lse) once per
+//   (query tile, key tile); dQ accumulates in a [T, D] fp32 smem tile (T <=
+//   640) written at the end.  delta = rowsum(dA * out) stands in for
+//   rowsum(dP * P) (equal in exact arithmetic).
 // - A sample's last valid key (from kv_mask and t_real) bounds the key loop:
 //   the text tower's captions fill ~13 of 77 positions.
 
-#include "merged_attention.cuh"  // kBK, kBQB, round_to, load_rows, with_head_dim
-#include "mma_tiles.cuh"         // mma_bf16, ldmatrix, cp.async, the warp attention tiles
+#include "merged_attention.cuh"  // kBK, kBQB, load_rows, with_head_dim
+#include "merged_bwd_tc.cuh"     // the bf16 backward; mma_tiles.cuh: the warp attention tiles
 
 namespace {
 
 constexpr int kBQ = 64;                   // forward queries per CTA
-constexpr int kMaxTBwd = kMaxRows;        // backward dQ tile [T, D] fp32 in smem
+constexpr int kMaxTBwd = kMaxRows;        // fp32 backward: dQ tile [T, D] fp32 in smem
 
 struct CoreParams {
   const void* qkv;
@@ -357,7 +364,7 @@ __global__ void __launch_bounds__(kTcThreads) core_fwd_tc_kernel(CoreParams p) {
   }
 }
 
-template <typename T, int kD>
+template <int kD>
 __global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
   extern __shared__ float smem[];
   float* dQ = smem;                           // [T][kD] fp32 accumulator
@@ -374,14 +381,14 @@ __global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int h = blockIdx.x, b = blockIdx.y;
   const long long stride = 3LL * p.H * kD, ostride = (long long)p.H * kD;
-  const T* qb = static_cast<const T*>(p.qkv) + (size_t)b * p.T * stride + h * kD;
-  const T* kb = qb + p.H * kD;
-  const T* vb = kb + p.H * kD;
-  const T* ob = static_cast<const T*>(p.out) + (size_t)b * p.T * ostride + h * kD;
-  const T* dab = static_cast<const T*>(p.dout) + (size_t)b * p.T * ostride + h * kD;
-  T* dq_out = static_cast<T*>(p.dqkv) + (size_t)b * p.T * stride + h * kD;
-  T* dk_out = dq_out + p.H * kD;
-  T* dv_out = dk_out + p.H * kD;
+  const float* qb = static_cast<const float*>(p.qkv) + (size_t)b * p.T * stride + h * kD;
+  const float* kb = qb + p.H * kD;
+  const float* vb = kb + p.H * kD;
+  const float* ob = static_cast<const float*>(p.out) + (size_t)b * p.T * ostride + h * kD;
+  const float* dab = static_cast<const float*>(p.dout) + (size_t)b * p.T * ostride + h * kD;
+  float* dq_out = static_cast<float*>(p.dqkv) + (size_t)b * p.T * stride + h * kD;
+  float* dk_out = dq_out + p.H * kD;
+  float* dv_out = dk_out + p.H * kD;
 
   const int k_end = key_end(p, b, &s_end);
   for (int i = tid; i < p.T * kD; i += kThreads) dQ[i] = 0.f;
@@ -411,12 +418,12 @@ __global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
     for (int i = 0; i < kNK; ++i) dk[i] = dv[i] = 0.f;
     if (kt < k_end) {
       __syncthreads();  // the previous tile's readers are done with Ks/Vs
-      load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
-      load_rows<T, kD>(Vs, kD + 1, vb, stride, kt, kBK, p.T);
+      load_rows<float, kD>(Ks, kD + 1, kb, stride, kt, kBK, p.T);
+      load_rows<float, kD>(Vs, kD + 1, vb, stride, kt, kBK, p.T);
       const int q_lo = p.causal ? (kt / kBQB) * kBQB : 0;
       for (int qt = q_lo; qt < p.T; qt += kBQB) {
-        load_rows<T, kD>(Qs, kD + 1, qb, stride, qt, kBQB, p.T);
-        load_rows<T, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, p.T);
+        load_rows<float, kD>(Qs, kD + 1, qb, stride, qt, kBQB, p.T);
+        load_rows<float, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, p.T);
         __syncthreads();
         {
           float s[kNS], dp[kNS];
@@ -441,8 +448,8 @@ __global__ void __launch_bounds__(kThreads) core_bwd_kernel(CoreParams p) {
               pr = expf(s[i] * p.scale - lse_s[t]);  // lse = +inf -> 0
               ds = pr * (dp[i] - delta_s[t]);
             }
-            Ps[r * (kBK + 1) + sc] = round_to<T>(pr);
-            dSs[r * (kBK + 1) + sc] = round_to<T>(ds * p.scale);
+            Ps[r * (kBK + 1) + sc] = pr;
+            dSs[r * (kBK + 1) + sc] = ds * p.scale;
           }
         }
         __syncthreads();
@@ -518,13 +525,13 @@ cudaError_t launch_fwd_tc(const CoreParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int kD>
+template <int kD>
 cudaError_t launch_bwd(const CoreParams& p, cudaStream_t stream) {
   const size_t smem = bwd_smem<kD>(p.T);
-  cudaError_t err = cudaFuncSetAttribute(core_bwd_kernel<T, kD>,
+  cudaError_t err = cudaFuncSetAttribute(core_bwd_kernel<kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  core_bwd_kernel<T, kD><<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
+  core_bwd_kernel<kD><<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -544,17 +551,29 @@ extern "C" int mcl_attention_core_fwd(const void* qkv, void* out, float* lse, co
   });
 }
 
+// dtype: 0 = float32 (core_bwd_kernel, from the forward's out and lse; T <=
+// 640; ws null), 1 = bfloat16 (the shared tensor-core pair, from qkv and dA
+// alone: out and lse null; ws: float32 [2, H, B * T] scratch).  Returns the
+// first failing launch's cudaError_t.
 extern "C" int mcl_attention_core_bwd(const void* qkv, const void* out, const void* dout,
-                                      const float* lse, const int* kv_mask, void* dqkv, int B,
-                                      int T, int H, int D, int t_real, int causal, float scale,
-                                      int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || T > kMaxTBwd || dtype < 0 || dtype > 1)
+                                      const float* lse, const int* kv_mask, void* dqkv,
+                                      float* ws, int B, int T, int H, int D, int t_real,
+                                      int causal, float scale, int dtype, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (out != nullptr || lse != nullptr) return (int)cudaErrorInvalidValue;
+    using bf16 = __nv_bfloat16;
+    const mcl_bwd_tc::BwdParams p{static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+                                  static_cast<bf16*>(dqkv), ws, kv_mask, B, T, H, t_real, scale};
+    return (int)mcl_bwd_tc::launch(p, D, causal != 0, kv_mask != nullptr, true, s);
+  }
+  if (T > kMaxTBwd || out == nullptr || lse == nullptr || ws != nullptr)
     return (int)cudaErrorInvalidValue;
   CoreParams p{qkv, const_cast<void*>(out), dout, const_cast<float*>(lse), kv_mask, dqkv, B, T,
                H, t_real, causal, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return dtype == 0 ? launch_bwd<float, kD>(p, s) : launch_bwd<__nv_bfloat16, kD>(p, s);
+    return launch_bwd<kD>(p, s);
   });
 }

@@ -41,12 +41,18 @@
 //   (64 rows merged across the whole batch, head), its keys the span of
 //   the samples the rows touch, cross-sample keys masked, a 32-key tile no
 //   row may attend skipped.
-// - Backward, both dtypes: merged_bwd_kernel<T, false>
-//   (merged_attention.cuh): a CTA per (head, bblk whole samples merged into
-//   <= 640 rows), no atomics, fp32 on the CUDA cores.
+// - Backward, bf16: the tensor-core pair shared with K2 and K6
+//   (merged_bwd_tc.cuh, K2's choices), so the same kernels as K2's: own rows
+//   in 16-row slots of one sample each, 4 a CTA (bblk is not read), any T;
+//   lse and delta = rowsum(dP * P) recomputed from qkv and dA (the
+//   forward's out and lse are not taken) through a float32 workspace [2, H,
+//   B*T] that the wrapper allocates.
+// - Backward, fp32: merged_bwd_kernel<false> (merged_attention.cuh):
+//   a CTA per (head, bblk whole samples merged into <= 640 rows), no
+//   atomics, on the CUDA cores.
 
 #include "merged_attention.cuh"
-#include "merged_tiles.cuh"
+#include "merged_bwd_tc.cuh"  // the bf16 backward; merged_tiles.cuh
 
 namespace {
 
@@ -374,18 +380,31 @@ extern "C" int mcl_attention_core_bd_fwd(const void* qkv, void* out, float* lse,
   });
 }
 
+// dtype: 0 = float32 (merged_bwd_kernel over blocks of bblk samples,
+// bblk * T <= 640, from the forward's out and lse; ws null), 1 = bfloat16
+// (the shared tensor-core pair over 16-row slots, from qkv and dA alone:
+// out and lse null, bblk not read; ws: float32 [2, H, B * T] scratch).
+// Returns the first failing launch's cudaError_t.
 extern "C" int mcl_attention_core_bd_bwd(const void* qkv, const void* out, const void* dout,
-                                         const float* lse, const int* kv_mask, void* dqkv, int B,
-                                         int T, int H, int D, int t_real, int causal, float scale,
-                                         int bblk, int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || bblk <= 0 || (long long)bblk * T > kMaxRows || dtype < 0 ||
-      dtype > 1)
+                                         const float* lse, const int* kv_mask, void* dqkv,
+                                         float* ws, int B, int T, int H, int D, int t_real,
+                                         int causal, float scale, int bblk, int dtype,
+                                         void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (out != nullptr || lse != nullptr) return (int)cudaErrorInvalidValue;
+    using bf16 = __nv_bfloat16;
+    const mcl_bwd_tc::BwdParams p{static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+                                  static_cast<bf16*>(dqkv), ws, kv_mask, B, T, H, t_real, scale};
+    return (int)mcl_bwd_tc::launch(p, D, causal != 0, kv_mask != nullptr, true, s);
+  }
+  if (bblk <= 0 || (long long)bblk * T > kMaxRows || out == nullptr || lse == nullptr ||
+      ws != nullptr)
     return (int)cudaErrorInvalidValue;
   MergedParams p{qkv, out, dout, lse, kv_mask, dqkv, B, T, H, t_real, causal, scale, bblk};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return dtype == 0 ? launch_merged_bwd<float, false, kD>(p, s)
-                      : launch_merged_bwd<__nv_bfloat16, false, kD>(p, s);
+    return launch_merged_bwd<false, kD>(p, s);
   });
 }

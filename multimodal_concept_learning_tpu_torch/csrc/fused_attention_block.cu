@@ -34,19 +34,12 @@
 // unscaled, D^-1/2 applied to dQ and dK in fp32 before their cast, P
 // rounded before dV = P^T dA, no atomics.  The rest of the backward is
 // plain tensor code, as the TPU keeps it in XLA.
-// - bf16: two launches on the tensor cores, tiles of 64 rows merged across
-//   the samples of a block of bblk (merged_tiles.cuh; a tile never crosses a
-//   block).  bwd_dq_tc_kernel: own rows are queries, staged rows each
-//   touched sample's keys below t_real; pass 1 takes the row max m, sum l
-//   and u = sum exp(s - m) dp online (u rescaled as l is), so lse = m +
-//   log l and delta = u / l come from one sweep of S = Q K^T and dP = dA
-//   V^T, written to a float32 workspace [2, H, B*T]; pass 2 recomputes S
-//   and dP and accumulates dQ += dS K.  bwd_dkv_tc_kernel: own rows are
-//   keys, staged rows all T queries of each touched sample with their lse
-//   and delta; S^T = K Q^T and dP^T = V dA^T give P^T and dS^T, then dV +=
-//   P^T dA and dK += dS^T Q.  Every product is mma.sync m16n8k16 with fp32
-//   accumulation; each CTA writes only its own rows' gradient columns.
-// - fp32: merged_bwd_kernel<float, true> (merged_attention.cuh) on the
+// - bf16: the tensor-core pair shared with K2 and K2-bd (merged_bwd_tc.cuh,
+//   K6's choices: no mask, the scale after the products), over 16-row
+//   slots of one sample each, 4 a CTA (bblk is not read):
+//   bwd_dq_tc_kernel takes lse and delta online into a float32 workspace
+//   [2, H, B*T] and accumulates dQ, bwd_dkv_tc_kernel dK and dV; any T.
+// - fp32: merged_bwd_kernel<true> (merged_attention.cuh) on the
 //   CUDA cores: a CTA per (head, bblk samples <= 640 rows), dQ in a [R, D]
 //   fp32 shared-memory tile.
 //
@@ -67,7 +60,7 @@
 #include <type_traits>
 
 #include "merged_attention.cuh"
-#include "merged_tiles.cuh"  // mma_tiles.cuh: mma_bf16 and the warp tiles
+#include "merged_bwd_tc.cuh"  // the bf16 backward; merged_tiles.cuh, mma_tiles.cuh
 
 namespace {
 
@@ -487,287 +480,6 @@ __global__ void __launch_bounds__(kThreads) out_proj_kernel(FusedParams p) {
   }
 }
 
-// ---- bf16 backward on the tensor cores (the file's note)
-
-struct BwdParams {
-  const __nv_bfloat16* qkv;  // [B, T, 3 * H * D]
-  const __nv_bfloat16* da;   // [B, T, H * D]
-  __nv_bfloat16* dqkv;       // [B, T, 3 * H * D]
-  float* ws;                 // [2, H, B * T]: lse, then delta
-  int B, T, H, t_real, blk_rows;
-  float scale;
-};
-
-// Own rows [r0, r1) of the CTA, tile blockIdx.x of 64 rows within blocks of
-// blk_rows merged rows (a tile never crosses a block), and the samples they
-// touch; false for a tile past the last block's rows.
-__device__ __forceinline__ bool bwd_tile(const BwdParams& p, int& r0, int& r1, int& b0, int& ns) {
-  const int tpb = (p.blk_rows + kMtRows - 1) / kMtRows, blk = blockIdx.x / tpb;
-  r0 = blk * p.blk_rows + (blockIdx.x % tpb) * kMtRows;
-  r1 = min(min(r0 + kMtRows, (blk + 1) * p.blk_rows), p.B * p.T);
-  if (r0 >= r1) return false;
-  b0 = r0 / p.T;
-  ns = (r1 - 1) / p.T - b0 + 1;
-  return true;
-}
-
-// dQ, lse and delta of 64 query rows (own: Q, dA; staged: K, V).  Below
-// D 64 a budget of 4 CTAs an SM: without one ptxas spills at D 16.
-template <int kD>
-__global__ void __launch_bounds__(kMtThreads, kD < 64 ? 4 : 1) bwd_dq_tc_kernel(BwdParams p) {
-  extern __shared__ __align__(16) unsigned char mt_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(mt_smem);  // [kMtRows][kD + 8]; then dQ
-  bf16* dAs = Qs + kMtRows * (kD + 8);          // [kMtRows][kD + 8]
-  bf16* Ks = dAs + kMtRows * (kD + 8);          // [kMtChunk][kD + 8]
-  bf16* Vs = Ks + kMtChunk * (kD + 8);          // [kMtChunk][kD + 8]
-  __shared__ MtPlan pl;
-
-  int r0, r1, b0, ns;
-  if (!bwd_tile(p, r0, r1, b0, ns)) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, h = blockIdx.y;
-  const int n_rows = p.B * p.T;
-  const long long stride = 3LL * p.H * kD, ostride = (long long)p.H * kD;
-  const bf16* qb = p.qkv + h * kD;
-  const bf16* kb = qb + p.H * kD;
-  const bf16* vb = kb + p.H * kD;
-
-  async_rows<kD, kMtThreads>(Qs, qb + (size_t)r0 * stride, stride, kMtRows, r1 - r0);
-  async_rows<kD, kMtThreads>(dAs, p.da + (size_t)r0 * ostride + h * kD, ostride, kMtRows, r1 - r0);
-  const int kend = max(0, min(p.T, p.t_real));
-  mt_offsets(pl, ns, [&](int, int) { return kend; });
-  const int n_ch = (pl.seg[ns] + kMtChunk - 1) / kMtChunk;
-
-  const int ra = r0 + 16 * warp + lane / 4;
-  int lo[2], hi[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = ra + 8 * hr, i = r / p.T - b0;
-    lo[hr] = r < r1 ? pl.seg[i] : kMtEmpty;
-    hi[hr] = r < r1 ? pl.seg[i + 1] : 0;
-  }
-  int wlo, whi;
-  mt_warp_range(lo, hi, wlo, whi);
-
-  int n = n_ch > 0 ? mt_chunk_rows(pl, ns, b0, p.T, 0, nullptr) : 0;
-  mt_stage<kD>(Ks, kb, stride, pl, n);
-  mt_stage<kD>(Vs, vb, stride, pl, n);
-  cp_async_commit();
-
-  const bf16* Qw = Qs + 16 * warp * (kD + 8);
-  const bf16* dAw = dAs + 16 * warp * (kD + 8);
-  float s[kMtSub / 8][4], dp[kMtSub / 8][4];
-  // pass 1: per row m, l = sum exp(s - m) and u = sum exp(s - m) dp, online
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
-  for (int c = 0; c < n_ch; ++c) {
-    const int cb = c * kMtChunk;
-    if (c > 0) {
-      n = mt_chunk_rows(pl, ns, b0, p.T, cb, nullptr);
-      mt_stage<kD>(Ks, kb, stride, pl, n);
-      mt_stage<kD>(Vs, vb, stride, pl, n);
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    const int jhi = min(whi - cb, n);
-    for (int j0 = max(wlo - cb, 0) / kMtSub * kMtSub; j0 < jhi; j0 += kMtSub) {
-      warp_scores<kD, kMtSub>(s, Qw, Ks + j0 * (kD + 8));
-      warp_scores<kD, kMtSub>(dp, dAw, Vs + j0 * (kD + 8));
-      mt_mask(s, pl, j0, cb, lo, hi, p.scale);
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kMtSub / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
-        const float m_new = fmaxf(m[hr], quad_max(mx));
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // all masked so far
-        float sl = 0.f, su = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMtSub / 8; ++j) {
-          const float w0 = __expf(s[j][2 * hr] - m_use), w1 = __expf(s[j][2 * hr + 1] - m_use);
-          sl += w0 + w1;
-          su += w0 * dp[j][2 * hr] + w1 * dp[j][2 * hr + 1];
-        }
-        const float f = __expf(m[hr] - m_use);
-        l[hr] = l[hr] * f + sl;
-        u[hr] = u[hr] * f + su;
-        m[hr] = m_new;
-      }
-    }
-  }
-  float m_use[2], inv[2], delta[2];
-  float* ws_lse = p.ws + (size_t)h * n_rows;
-  float* ws_delta = p.ws + ((size_t)p.H + h) * n_rows;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    l[hr] = quad_sum(l[hr]);
-    u[hr] = quad_sum(u[hr]);
-    m_use[hr] = m[hr] == -INFINITY ? 0.f : m[hr];
-    inv[hr] = l[hr] > 0.f ? 1.f / l[hr] : 0.f;  // a row with no valid key: P = 0
-    delta[hr] = u[hr] * inv[hr];
-    const int r = ra + 8 * hr;
-    if (lane % 4 == 0 && r < r1) {
-      ws_lse[r] = l[hr] > 0.f ? m[hr] + logf(l[hr]) : INFINITY;
-      ws_delta[r] = delta[hr];
-    }
-  }
-
-  // pass 2: P = exp(s - m) / l, dS = P (dP - delta) rounded to bf16, dQ += dS K
-  float dq[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-  for (int c = 0; c < n_ch; ++c) {
-    const int cb = c * kMtChunk;
-    if (n_ch > 1) {
-      n = mt_chunk_rows(pl, ns, b0, p.T, cb, nullptr);
-      mt_stage<kD>(Ks, kb, stride, pl, n);
-      mt_stage<kD>(Vs, vb, stride, pl, n);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-    const int jhi = min(whi - cb, n);
-    for (int j0 = max(wlo - cb, 0) / kMtSub * kMtSub; j0 < jhi; j0 += kMtSub) {
-      warp_scores<kD, kMtSub>(s, Qw, Ks + j0 * (kD + 8));
-      warp_scores<kD, kMtSub>(dp, dAw, Vs + j0 * (kD + 8));
-      mt_mask(s, pl, j0, cb, lo, hi, p.scale);
-#pragma unroll
-      for (int j = 0; j < kMtSub / 8; ++j) {  // rows ra (e 0, 1) and ra + 8 (e 2, 3)
-        s[j][0] = __expf(s[j][0] - m_use[0]) * inv[0] * (dp[j][0] - delta[0]);
-        s[j][1] = __expf(s[j][1] - m_use[0]) * inv[0] * (dp[j][1] - delta[0]);
-        s[j][2] = __expf(s[j][2] - m_use[1]) * inv[1] * (dp[j][2] - delta[1]);
-        s[j][3] = __expf(s[j][3] - m_use[1]) * inv[1] * (dp[j][3] - delta[1]);
-      }
-      uint32_t dsa[kMtSub / 16][4];
-      probs_to_a<kMtSub>(dsa, s);
-      warp_pv<kD, kMtSub>(dq, dsa, Ks + j0 * (kD + 8));
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every copy into Qs has landed before it takes dQ
-  const float sc[2] = {p.scale, p.scale};
-  const int w0 = r0 + 16 * warp;
-  bf16* dq_rows = p.dqkv + (size_t)w0 * stride + h * kD;
-  warp_store_rows<kD>(dq, sc, Qs + 16 * warp * (kD + 8), min(16, r1 - w0),
-                      [&](int r) { return dq_rows + (size_t)r * stride; });
-}
-
-// dK and dV of 64 key rows (own: K, V; staged: Q, dA, lse, delta)
-template <int kD>
-__global__ void __launch_bounds__(kMtThreads) bwd_dkv_tc_kernel(BwdParams p) {
-  extern __shared__ __align__(16) unsigned char mt_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(mt_smem);  // [kMtRows][kD + 8]; then dK
-  bf16* Vs = Ks + kMtRows * (kD + 8);           // [kMtRows][kD + 8]; then dV
-  bf16* Qs = Vs + kMtRows * (kD + 8);           // [kMtChunk][kD + 8]
-  bf16* dAs = Qs + kMtChunk * (kD + 8);         // [kMtChunk][kD + 8]
-  float* lse_s = reinterpret_cast<float*>(dAs + kMtChunk * (kD + 8));  // [kMtChunk]
-  float* delta_s = lse_s + kMtChunk;                                    // [kMtChunk]
-  __shared__ MtPlan pl;
-
-  int r0, r1, b0, ns;
-  if (!bwd_tile(p, r0, r1, b0, ns)) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, h = blockIdx.y;
-  const int n_rows = p.B * p.T;
-  const long long stride = 3LL * p.H * kD, ostride = (long long)p.H * kD;
-  const bf16* qb = p.qkv + h * kD;
-  const bf16* kb = qb + p.H * kD;
-  const bf16* vb = kb + p.H * kD;
-  const bf16* dab = p.da + h * kD;
-  const float* ws_lse = p.ws + (size_t)h * n_rows;
-  const float* ws_delta = p.ws + ((size_t)p.H + h) * n_rows;
-
-  async_rows<kD, kMtThreads>(Ks, kb + (size_t)r0 * stride, stride, kMtRows, r1 - r0);
-  async_rows<kD, kMtThreads>(Vs, vb + (size_t)r0 * stride, stride, kMtRows, r1 - r0);
-  mt_offsets(pl, ns, [&](int, int) { return p.T; });  // every query row of each sample
-  const int n_ch = (pl.seg[ns] + kMtChunk - 1) / kMtChunk;
-
-  // a key at or past t_real has no query: an empty range, zero gradients
-  const int kend = min(p.T, p.t_real);
-  const int ra = r0 + 16 * warp + lane / 4;
-  int lo[2], hi[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = ra + 8 * hr, i = r / p.T - b0;
-    const bool live = r < r1 && r - (r / p.T) * p.T < kend;
-    lo[hr] = live ? pl.seg[i] : kMtEmpty;
-    hi[hr] = live ? pl.seg[i + 1] : 0;
-  }
-  int wlo, whi;
-  mt_warp_range(lo, hi, wlo, whi);
-
-  const bf16* Kw = Ks + 16 * warp * (kD + 8);
-  const bf16* Vw = Vs + 16 * warp * (kD + 8);
-  float dk[kD / 8][4], dv[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  float s[kMtSub / 8][4], dp[kMtSub / 8][4];
-  for (int c = 0; c < n_ch; ++c) {
-    const int cb = c * kMtChunk;
-    const int n = mt_chunk_rows(pl, ns, b0, p.T, cb, nullptr);
-    mt_stage<kD>(Qs, qb, stride, pl, n);
-    mt_stage<kD>(dAs, dab, ostride, pl, n);
-    cp_async_commit();
-    for (int j = threadIdx.x; j < n; j += kMtThreads) {
-      lse_s[j] = ws_lse[pl.orow[j]];
-      delta_s[j] = ws_delta[pl.orow[j]];
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    const int jhi = min(whi - cb, n);
-    const int t4 = lane % 4;
-    for (int j0 = max(wlo - cb, 0) / kMtSub * kMtSub; j0 < jhi; j0 += kMtSub) {
-      warp_scores<kD, kMtSub>(s, Kw, Qs + j0 * (kD + 8));    // S^T
-      warp_scores<kD, kMtSub>(dp, Vw, dAs + j0 * (kD + 8));  // dP^T
-      mt_mask(s, pl, j0, cb, lo, hi, p.scale);
-#pragma unroll
-      for (int j = 0; j < kMtSub / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = min(j0 + 8 * j + 2 * t4 + (e & 1), n - 1);  // masked past n
-          s[j][e] = __expf(s[j][e] - lse_s[q]);                    // lse = +inf: 0
-          dp[j][e] = s[j][e] * (dp[j][e] - delta_s[q]);
-        }
-      }
-      uint32_t pa[kMtSub / 16][4], dsa[kMtSub / 16][4];
-      probs_to_a<kMtSub>(pa, s);
-      probs_to_a<kMtSub>(dsa, dp);
-      warp_pv<kD, kMtSub>(dv, pa, dAs + j0 * (kD + 8));
-      warp_pv<kD, kMtSub>(dk, dsa, Qs + j0 * (kD + 8));
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every copy into Ks and Vs has landed before they take dK, dV
-  const float sc[2] = {p.scale, p.scale}, one[2] = {1.f, 1.f};
-  const int w0 = r0 + 16 * warp, nr = min(16, r1 - w0);
-  bf16* dk_rows = p.dqkv + (size_t)w0 * stride + p.H * kD + h * kD;
-  warp_store_rows<kD>(dk, sc, Ks + 16 * warp * (kD + 8), nr,
-                      [&](int r) { return dk_rows + (size_t)r * stride; });
-  warp_store_rows<kD>(dv, one, Vs + 16 * warp * (kD + 8), nr,
-                      [&](int r) { return dk_rows + (size_t)r * stride + p.H * kD; });
-}
-
-template <int kD>
-cudaError_t launch_bwd_tc(const BwdParams& p, cudaStream_t stream) {
-  const size_t el = sizeof(bf16) * (kD + 8);
-  const size_t smem_dq = el * (2 * kMtRows + 2 * kMtChunk);
-  const size_t smem_dkv = smem_dq + 2 * sizeof(float) * kMtChunk;
-  cudaError_t err = cudaFuncSetAttribute(bwd_dq_tc_kernel<kD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_dq);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_dkv);
-  if (err != cudaSuccess) return err;
-  const int nblk = (p.B * p.T + p.blk_rows - 1) / p.blk_rows;
-  const dim3 grid((unsigned)(nblk * ((p.blk_rows + kMtRows - 1) / kMtRows)), p.H);
-  bwd_dq_tc_kernel<kD><<<grid, kMtThreads, smem_dq, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dkv_tc_kernel<kD><<<grid, kMtThreads, smem_dkv, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int kD>
 size_t fused_attn_smem(int T) {
   return sizeof(float) * (2 * (size_t)T + 2 * (size_t)T * (kD + 1) + kBQ * (kD + 1) +
@@ -808,21 +520,25 @@ extern "C" int mcl_fused_attention_fwd(const void* x, const void* lns, const voi
   });
 }
 
-// dtype: 0 = float32 (merged_bwd_kernel on the CUDA cores), 1 = bfloat16
-// (the two tensor-core kernels; ws: float32 [2, H, B * T] scratch, unused
-// for float32).  Returns the first failing launch's cudaError_t.
+// dtype: 0 = float32 (merged_bwd_kernel on the CUDA cores over blocks of
+// bblk samples, bblk * T <= 640; ws null), 1 = bfloat16 (the shared
+// tensor-core pair over 16-row slots; bblk not read; ws: float32 [2, H,
+// B * T] scratch).  Returns the first failing launch's cudaError_t.
 extern "C" int mcl_fused_attention_bwd(const void* qkv, const void* da, void* dqkv, float* ws,
                                        int B, int T, int H, int D, int t_real, float scale,
                                        int bblk, int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || bblk <= 0 || (long long)bblk * T > kMaxRows || dtype < 0 ||
-      dtype > 1 || (dtype == 1 && ws == nullptr))
+  if (B <= 0 || T <= 0 || H <= 0 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const mcl_bwd_tc::BwdParams p{static_cast<const bf16*>(qkv), static_cast<const bf16*>(da),
+                                  static_cast<bf16*>(dqkv), ws, nullptr, B, T, H, t_real, scale};
+    return (int)mcl_bwd_tc::launch(p, D, false, false, false, s);
+  }
+  if (bblk <= 0 || (long long)bblk * T > kMaxRows || ws != nullptr)
     return (int)cudaErrorInvalidValue;
   MergedParams p{qkv, nullptr, da, nullptr, nullptr, dqkv, B, T, H, t_real, 0, scale, bblk};
-  BwdParams pt{static_cast<const bf16*>(qkv), static_cast<const bf16*>(da),
-               static_cast<bf16*>(dqkv), ws, B, T, H, t_real, bblk * T, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return dtype == 0 ? launch_merged_bwd<float, true, kD>(p, s) : launch_bwd_tc<kD>(pt, s);
+    return launch_merged_bwd<true, kD>(p, s);
   });
 }

@@ -1,6 +1,6 @@
 // Attention over rows merged across samples, shared by K2-bd
 // (attention_core_bd.cu) and K6 (fused_attention_block.cu); K2
-// (attention_core.cu) takes its tile helpers (round_to, load_rows).
+// (attention_core.cu) takes its tile helpers (load_rows, with_head_dim).
 //
 // Rows of consecutive samples of T tokens are merged: merged row r of a
 // range that starts at a sample boundary is token r % T of sample r / T.
@@ -11,8 +11,9 @@
 // under causal, and the mask keeps c.  A row with no valid key gets a zero
 // output, lse = +inf and no gradient.
 //
-// The backward kernel (merged_bwd_kernel) is the one gradient routine of
-// both pairs, a template over kFused:
+// The float32 backward kernel (merged_bwd_kernel) is the one float32
+// gradient routine of both pairs (bf16 takes the tensor-core pair of
+// merged_bwd_tc.cuh), a template over kFused:
 // - K2-bd (kFused = false): lse from the forward, delta = rowsum(dA * out)
 //   as K2 has it, dS * D^-1/2 rounded to the compute dtype before dQ and dK;
 // - K6 (kFused = true, the TPU _bwd_attn_kernel): only qkv and dA come in,
@@ -51,7 +52,7 @@ using mcl_flash::warp_sum;
 
 constexpr int kBK = 32;         // keys per tile == warp width
 constexpr int kBQB = 32;        // backward queries per tile
-constexpr int kMaxRows = 640;   // backward dQ tile [R, D] fp32 in smem (D = 64: 160 KB)
+constexpr int kMaxRows = 640;   // fp32 backward: dQ tile [R, D] fp32 in smem (D = 64: 160 KB)
 
 // f(std::integral_constant<int, D>{}) for a head dim the kernels are built
 // for (D divides the 256 threads and is a multiple of 16-byte loads);
@@ -185,9 +186,10 @@ __device__ __forceinline__ void tile_dots(const float* Qs, const float* Ks, cons
 
 // K6: lse and delta = rowsum(dP * P) of each of the R rows into lse_s and
 // delta_s (float32), from qkv and dA alone.
-template <typename T, int kD>
-__device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T* qb, const T* kb,
-                             const T* vb, const T* dab, long long stride, long long ostride,
+template <int kD>
+__device__ void merged_stats(const MergedParams& p, int R, size_t row0, const float* qb,
+                             const float* kb, const float* vb, const float* dab, long long stride,
+                             long long ostride,
                              const int* s_kend, float* Qs, float* dAs, float* Ks, float* Vs,
                              float* Ws, float* lse_s, float* delta_s) {
   constexpr int kSRS = kThreads / kBK;
@@ -200,8 +202,8 @@ __device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T*
     int k_hi = sq1 * p.T + s_kend[sq1];
     if (p.causal) k_hi = min(k_hi, q_last + 1);
     __syncthreads();  // the previous tile's readers are done
-    load_rows<T, kD>(Qs, kD + 1, qb, stride, qt, kBQB, R);
-    load_rows<T, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
+    load_rows<float, kD>(Qs, kD + 1, qb, stride, qt, kBQB, R);
+    load_rows<float, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
     for (int r = tid; r < kBQB; r += kThreads) {
       if (qt + r < R) {
         lse_s[qt + r] = -INFINITY;  // running max, then lse
@@ -213,8 +215,8 @@ __device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T*
       for (int kt = k_lo; kt < k_hi; kt += kBK) {
         const bool live = tid < kBK && key_live(p, kt + tid, k_hi, row0, s_kend, 0);
         if (!__syncthreads_or(live)) continue;
-        load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, R);
-        if (pass == 1) load_rows<T, kD>(Vs, kD + 1, vb, stride, kt, kBK, R);
+        load_rows<float, kD>(Ks, kD + 1, kb, stride, kt, kBK, R);
+        if (pass == 1) load_rows<float, kD>(Vs, kD + 1, vb, stride, kt, kBK, R);
         __syncthreads();
         float s[4], dp[4];
         if (pass == 0) {
@@ -269,7 +271,7 @@ __device__ void merged_stats(const MergedParams& p, int R, size_t row0, const T*
   __syncthreads();
 }
 
-template <typename T, bool kFused, int kD>
+template <bool kFused, int kD>
 __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
   extern __shared__ float smem[];
   const int sb = blockIdx.y * p.bblk;  // the CTA's first sample
@@ -290,22 +292,22 @@ __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
   const int h = blockIdx.x;
   const long long stride = 3LL * p.H * kD, ostride = (long long)p.H * kD;
   const size_t row0 = (size_t)sb * p.T;
-  const T* qb = static_cast<const T*>(p.qkv) + row0 * stride + h * kD;
-  const T* kb = qb + p.H * kD;
-  const T* vb = kb + p.H * kD;
-  const T* dab = static_cast<const T*>(p.dout) + row0 * ostride + h * kD;
-  T* dq_out = static_cast<T*>(p.dqkv) + row0 * stride + h * kD;
-  T* dk_out = dq_out + p.H * kD;
-  T* dv_out = dk_out + p.H * kD;
+  const float* qb = static_cast<const float*>(p.qkv) + row0 * stride + h * kD;
+  const float* kb = qb + p.H * kD;
+  const float* vb = kb + p.H * kD;
+  const float* dab = static_cast<const float*>(p.dout) + row0 * ostride + h * kD;
+  float* dq_out = static_cast<float*>(p.dqkv) + row0 * stride + h * kD;
+  float* dk_out = dq_out + p.H * kD;
+  float* dv_out = dk_out + p.H * kD;
 
   sample_key_ends(p, sb, ns, s_kend);
   for (int i = tid; i < R * kD; i += kThreads) dQ[i] = 0.f;
   if constexpr (kFused) {
-    merged_stats<T, kD>(p, R, row0, qb, kb, vb, dab, stride, ostride, s_kend, Qs, dAs, Ks, Vs, Ps,
+    merged_stats<kD>(p, R, row0, qb, kb, vb, dab, stride, ostride, s_kend, Qs, dAs, Ks, Vs, Ps,
                     lse_s, delta_s);
   } else {
     // delta = rowsum(dA * out), lse from the forward: one warp per row
-    const T* ob = static_cast<const T*>(p.out) + row0 * ostride + h * kD;
+    const float* ob = static_cast<const float*>(p.out) + row0 * ostride + h * kD;
     for (int t = warp; t < R; t += kThreads / 32) {
       float x = 0.f;
       for (int d = lane; d < kD; d += 32)
@@ -335,15 +337,15 @@ __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
     // also the barrier after the previous tile's readers of Ks/Vs
     const bool live = tid < kBK && key_live(p, kt + tid, R, row0, s_kend, 0);
     if (__syncthreads_or(live)) {
-      load_rows<T, kD>(Ks, kD + 1, kb, stride, kt, kBK, R);
-      load_rows<T, kD>(Vs, kD + 1, vb, stride, kt, kBK, R);
+      load_rows<float, kD>(Ks, kD + 1, kb, stride, kt, kBK, R);
+      load_rows<float, kD>(Vs, kD + 1, vb, stride, kt, kBK, R);
       // the query tiles that share a sample with this key tile
       const int k_last = min(kt + kBK, R) - 1;
       const int q_lo = p.causal ? kt : (kt / p.T) * p.T;
       const int q_hi = min(R, (k_last / p.T + 1) * p.T);
       for (int qt = (q_lo / kBQB) * kBQB; qt < q_hi; qt += kBQB) {
-        load_rows<T, kD>(Qs, kD + 1, qb, stride, qt, kBQB, R);
-        load_rows<T, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
+        load_rows<float, kD>(Qs, kD + 1, qb, stride, qt, kBQB, R);
+        load_rows<float, kD>(dAs, kD + 1, dab, ostride, qt, kBQB, R);
         __syncthreads();
         {
           float s[4], dp[4];
@@ -356,8 +358,8 @@ __global__ void __launch_bounds__(kThreads) merged_bwd_kernel(MergedParams p) {
               pr = expf(s[i] * p.scale - lse_s[t]);  // lse = +inf -> 0
               ds = pr * (dp[i] - delta_s[t]);
             }
-            Ps[r * (kBK + 1) + sc] = round_to<T>(pr);
-            dSs[r * (kBK + 1) + sc] = round_to<T>(ds * ds_scale);
+            Ps[r * (kBK + 1) + sc] = pr;
+            dSs[r * (kBK + 1) + sc] = ds * ds_scale;
           }
         }
         __syncthreads();
@@ -408,14 +410,14 @@ size_t merged_bwd_smem(int rows, int bblk) {
          sizeof(int) * (size_t)bblk;
 }
 
-template <typename T, bool kFused, int kD>
+template <bool kFused, int kD>
 cudaError_t launch_merged_bwd(const MergedParams& p, cudaStream_t stream) {
   const size_t smem = merged_bwd_smem<kD>(p.bblk * p.T, p.bblk);
-  cudaError_t err = cudaFuncSetAttribute(merged_bwd_kernel<T, kFused, kD>,
+  cudaError_t err = cudaFuncSetAttribute(merged_bwd_kernel<kFused, kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, (p.B + p.bblk - 1) / p.bblk);
-  merged_bwd_kernel<T, kFused, kD><<<grid, kThreads, smem, stream>>>(p);
+  merged_bwd_kernel<kFused, kD><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,10 @@
 // Tensor-core attention tiles over rows merged across samples (bf16,
-// sm_90a), shared by K2-bd's forward (attention_core_bd.cu) and K6's
-// backward (fused_attention_block.cu).
+// sm_90a), shared by K2-bd's forward (attention_core_bd.cu) and the
+// backward pair of K2, K2-bd and K6 (merged_bwd_tc.cuh).
 //
 // A CTA of 4 warps owns up to 64 "own" rows of one or more samples, 16 a
-// warp (K2-bd's forward: 16-row slots of one sample each; K6's backward: 64
-// consecutive merged rows), and attends the "other" rows of the
+// warp in 16-row slots of one sample each (K2-bd's forward, the backward
+// pair; a sample's last slot partial), and attends the "other" rows of the
 // samples its own rows touch: keys for a forward or a dQ pass, queries for
 // a dK/dV pass.  Only a segment of each touched sample's other rows is
 // staged, compacted: sample b0 + i gives its rows [(b0 + i) T, (b0 + i) T +
@@ -14,10 +14,11 @@
 // rows kv_mask drops; every other entry is masked to -inf per element of
 // the C fragment.  So a CTA of text rows over two 13-token captions stages
 // one 32-row sub-tile of keys, where the span of the two samples holds
-// 154, and a tile of 64 vision rows over three samples of 50 stages their
-// 150 rows.  Other rows are staged kMtChunk at a time (bf16 rows of stride
-// D + 8, by cp.async, zero-filled up to a whole sub-tile), and each warp
-// walks only the 32-row sub-tiles that its own rows' ranges reach.
+// 154, and a CTA of vision rows (T 50: its 4 slots are one sample) stages
+// that sample's 50.  Other rows are staged kMtChunk at a time (bf16 rows
+// of stride D + 8, by cp.async, zero-filled up to a whole sub-tile), and
+// each warp walks only the 32-row sub-tiles that its own rows' ranges
+// reach.
 //
 // Products: mma.sync m16n8k16 with fp32 accumulation through the warp
 // tiles of mma_tiles.cuh (warp_scores for S-shaped products, warp_pv for
@@ -35,7 +36,7 @@ namespace {
 constexpr int kMtThreads = 128;  // 4 warps x 16 own rows
 constexpr int kMtRows = 64;      // own rows a CTA
 constexpr int kMtSub = 32;       // other rows a sub-tile: the n of S, the k of P.V
-constexpr int kMtChunk = 160;    // other rows staged at a time (vision: <= 3 x 50)
+constexpr int kMtChunk = 160;    // other rows staged at a time (text: <= 2 x 77)
 constexpr int kMtSamples = kMtRows;  // samples 64 rows can touch (T = 1)
 constexpr int kMtEmpty = 1 << 30;    // lo of an empty range
 

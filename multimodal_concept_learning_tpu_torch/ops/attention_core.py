@@ -13,8 +13,11 @@ relayout, and the backward writes ``dqkv`` in the packed layout.
 - ``attention_core_fwd`` (``_fwd_kernel``): the output and, when a gradient
   is needed, the row logsumexp [B, H, T] in float32; bfloat16 on the
   tensor cores, float32 on the CUDA cores;
-- ``attention_core_bwd`` (``_bwd_kernel``): ``dqkv`` from the saved qkv,
-  output and logsumexp.
+- ``attention_core_bwd`` (``_bwd_kernel``): ``dqkv``; bfloat16 on the
+  tensor cores from qkv and dA alone (``csrc/merged_bwd_tc.cuh``, the pair
+  K2-bd and K6 share, which recomputes the logsumexp, so a bfloat16
+  forward for training keeps neither its output nor a logsumexp), float32
+  on the CUDA cores from the saved qkv, output and logsumexp.
 
 Beside them are the plain PyTorch versions (``attention_core_reference``,
 ``attention_core_backward_reference``): the wrapper runs them for CPU
@@ -33,16 +36,18 @@ a uniform average over all keys (such rows never occur on the CLIP path).
 
 The JAX package pads T to a multiple of 16 (a TPU sublane rule); the port
 runs at T.  The kernels take head dims 16, 32 and 64 (``HEAD_DIMS``: 16
-and 64 cover every ViT and CLIP preset; no preset has 32) and the
-backward at most 640 rows (T, or bblk·T
-merged); ``check_kernel_shape`` refuses anything else with a ValueError.
+and 64 cover every ViT and CLIP preset; no preset has 32); the float32
+backward at most 640 rows (T, or bblk·T merged), the bfloat16 backward any
+number (``backward_max_rows``); ``check_kernel_shape`` refuses anything
+else with a ValueError.
 
 K2-bd, the sample-merged (block-diagonal) variants, compute the same
 function on rows merged across samples: ``attention_core_bd_fwd`` and
 ``attention_core_bd_bwd`` (``csrc/attention_core_bd.cu``) replace
-``_fwd_kernel_bd`` and ``_bwd_kernel_bd`` of the JAX module; the forward
-runs bfloat16 on the tensor cores over each tile's compacted live keys
-(``csrc/merged_tiles.cuh``) and float32 on the CUDA cores.  Their plain
+``_fwd_kernel_bd`` and ``_bwd_kernel_bd`` of the JAX module; both run
+bfloat16 on the tensor cores over each tile's compacted live keys
+(``csrc/merged_tiles.cuh``; the backward through the pair K2 and K6 share)
+and float32 on the CUDA cores.  Their plain
 versions (``attention_core_bd_reference``,
 ``attention_core_bd_backward_reference``) build the JAX ``_flat_mask`` of a
 stated block of ``bblk`` samples; cross-sample keys are masked, so every
@@ -63,7 +68,7 @@ import torch
 _NEG = -1e30  # the JAX kernel's finite mask value
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)  # built head dims: 16 (vit-t-8) and 64 (every other ViT/CLIP preset)
-MAX_T_BWD = 640  # the backward keeps a [T, D] float32 dQ tile in shared memory
+MAX_T_BWD = 640  # the float32 backward keeps a [T, D] float32 dQ tile in shared memory
 BD_ROWS = 256  # K2-bd backward: whole samples merged into about this many rows a CTA
 
 
@@ -224,14 +229,23 @@ def attention_core_bd_backward_reference(qkv, d_out, heads: int, t_real: int,
     return dqkv.reshape(-1, t, f)[:b]
 
 
+def backward_max_rows(dtype) -> Optional[int]:
+    """The most rows (T, or bblk·T merged) the K2, K2-bd and K6 backward
+    kernels take in ``dtype``: ``MAX_T_BWD`` for float32, whose CUDA-core
+    kernels keep a [rows, D] dQ tile in shared memory; None (no cap) for
+    bfloat16, whose tensor-core pair stages its rows in chunks."""
+    return None if dtype == torch.bfloat16 else MAX_T_BWD
+
+
 def check_kernel_shape(what: str, head_dim: int, rows: Optional[int] = None,
-                       max_rows: int = MAX_T_BWD) -> None:
+                       max_rows: Optional[int] = MAX_T_BWD) -> None:
     """The shapes the K2, K2-bd and K6 kernels are built for: a head dim in
     ``HEAD_DIMS`` and, where a kernel keeps rows in shared memory, ``0 <
-    rows <= max_rows``.  Raises ValueError naming ``what`` otherwise."""
+    rows <= max_rows`` (``max_rows`` None: ``0 < rows``).  Raises ValueError
+    naming ``what`` otherwise."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{what} takes head dim in {HEAD_DIMS}, got {head_dim}")
-    if rows is not None and not 0 < rows <= max_rows:
+    if rows is not None and not (0 < rows and (max_rows is None or rows <= max_rows)):
         raise ValueError(f"{what} takes 0 < rows <= {max_rows}, got {rows}")
 
 
@@ -273,22 +287,52 @@ def attention_core_fwd(qkv, heads: int, t_real: int, causal: bool, kvm, with_lse
     return out, lse
 
 
+def _bwd_workspace(qkv, heads: int):
+    """The bfloat16 backward's float32 lse and rowsum(dP∘P) [2, H, B·T];
+    None for float32."""
+    if qkv.dtype != torch.bfloat16:
+        return None
+    return torch.empty((2, heads, qkv.shape[0] * qkv.shape[1]), dtype=torch.float32,
+                       device=qkv.device)
+
+
+def _forward_residuals(what: str, qkv, out, lse):
+    """The pointers of the forward's ``out`` and ``lse`` that a backward
+    kernel reads: both for float32; neither for bfloat16, whose tensor-core
+    pair recomputes lse from qkv and dA (so both must be None)."""
+    if qkv.dtype == torch.bfloat16:
+        if out is not None or lse is not None:
+            raise ValueError(f"{what}: the bfloat16 kernels recompute lse from qkv and dA; "
+                             "pass out=None and lse=None")
+        return None, None
+    if out is None or lse is None:
+        raise ValueError(f"{what}: the float32 kernel reads the forward's out and lse")
+    return out.data_ptr(), lse.data_ptr()
+
+
 def attention_core_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bool, kvm):
     """The backward kernel on CUDA tensors: dqkv [B, T, 3·H·D] in qkv's
-    dtype, from the forward's ``out`` and ``lse``.  Counted in ``.launches``."""
+    dtype.  bfloat16: two launches on the tensor cores over 16-row slots of
+    one sample each, from qkv and dA alone (``out`` and ``lse`` None: lse
+    and rowsum(dP∘P) are recomputed, through a workspace allocated here);
+    float32: one CTA per (head, sample) on the CUDA cores from the
+    forward's ``out`` and ``lse``.  Counted once a call in ``.launches``."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, _ = qkv.shape
     d = _head_dim(qkv, heads)
-    check_kernel_shape("attention_core backward kernel", d, t)
+    check_kernel_shape("attention_core backward kernel", d, t, backward_max_rows(qkv.dtype))
+    out_p, lse_p = _forward_residuals("attention_core backward kernel", qkv, out, lse)
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.data_ptr() % 16:  # the kernel reads dA with 16-byte loads
         d_out = d_out.clone()
     dqkv = torch.empty_like(qkv)
+    ws = _bwd_workspace(qkv, heads)
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_attention_core_bwd(
-            qkv.data_ptr(), out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(), b, t, heads, d,
+            qkv.data_ptr(), out_p, d_out.data_ptr(), lse_p,
+            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, t, heads, d,
             int(t_real), int(causal), d ** -0.5, _DTYPE_CODES[qkv.dtype], _stream(qkv))
     check(err, "attention_core_bwd")
     attention_core_bwd.launches += 1
@@ -296,8 +340,9 @@ def attention_core_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bo
 
 
 def bd_block(t: int) -> int:
-    """Samples merged into one K2-bd backward CTA: whole samples filling
-    about ``BD_ROWS`` rows (at least one)."""
+    """Samples merged into one CTA of the K2-bd and K6 float32 backward
+    (the bfloat16 pair groups rows in slots of one sample and does not read
+    it): whole samples filling about ``BD_ROWS`` rows (at least one)."""
     return max(1, BD_ROWS // t)
 
 
@@ -325,24 +370,31 @@ def attention_core_bd_fwd(qkv, heads: int, t_real: int, causal: bool, kvm, with_
 
 def attention_core_bd_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bool, kvm,
                           bblk: Optional[int] = None):
-    """The K2-bd backward kernel on CUDA tensors: dqkv [B, T, 3·H·D] from the
-    forward's ``out`` and ``lse``; one CTA per (head, ``bblk`` whole samples
-    merged into rows; default ``bd_block(T)``).  Counted in ``.launches``."""
+    """The K2-bd backward kernel on CUDA tensors: dqkv [B, T, 3·H·D].
+    bfloat16: K2's kernels (the two compute one function): two launches on
+    the tensor cores over 16-row slots of one sample each, from qkv and dA
+    alone (``out`` and ``lse`` None; ``bblk`` is checked but not read);
+    float32: one CTA per (head, block of ``bblk`` whole samples merged into
+    rows, default ``bd_block(T)``) on the CUDA cores, from the forward's
+    ``out`` and ``lse``.  Counted once a call in ``.launches``."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, _ = qkv.shape
     d = _head_dim(qkv, heads)
     bblk = bd_block(t) if bblk is None else int(bblk)
     check_kernel_shape(f"attention_core_bd backward kernel (bblk {bblk} x T {t} merged rows)",
-                       d, bblk * t)
+                       d, bblk * t, backward_max_rows(qkv.dtype))
+    out_p, lse_p = _forward_residuals("attention_core_bd backward kernel", qkv, out, lse)
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.data_ptr() % 16:
         d_out = d_out.clone()
     dqkv = torch.empty_like(qkv)
+    ws = _bwd_workspace(qkv, heads)
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_attention_core_bd_bwd(
-            qkv.data_ptr(), out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(), b, t, heads, d,
+            qkv.data_ptr(), out_p, d_out.data_ptr(), lse_p,
+            None if kvm is None else kvm.data_ptr(), dqkv.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, t, heads, d,
             int(t_real), int(causal), d ** -0.5, bblk, _DTYPE_CODES[qkv.dtype],
             _stream(qkv))
     check(err, "attention_core_bd_bwd")
@@ -358,8 +410,10 @@ class _AttentionCore(torch.autograd.Function):
     def forward(ctx, qkv, kvm, heads, t_real, causal, bd):
         if qkv.is_cuda:
             fwd = attention_core_bd_fwd if bd else attention_core_fwd
-            out, lse = fwd(qkv, heads, t_real, causal, kvm, with_lse=True)
-            ctx.save_for_backward(qkv, kvm, out, lse)
+            # the bfloat16 backward recomputes lse from qkv and dA: no out or lse kept
+            keep = qkv.dtype != torch.bfloat16
+            out, lse = fwd(qkv, heads, t_real, causal, kvm, with_lse=keep)
+            ctx.save_for_backward(qkv, kvm, out if keep else None, lse)
         else:
             ref = attention_core_bd_reference if bd else attention_core_reference
             out = ref(qkv, heads, t_real, causal, kvm)
@@ -435,6 +489,7 @@ __all__ = [
     "attention_core_padded",
     "attention_core_reference",
     "backward_from_probs",
+    "backward_max_rows",
     "bd_block",
     "check_kernel_shape",
     "key_ok",

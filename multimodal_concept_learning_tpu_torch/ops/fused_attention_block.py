@@ -5,7 +5,8 @@ multimodal_concept_learning_tpu/ops/fused_attention_block.py).
 
 with ``attn`` the softmax attention of each sample's own keys below
 ``t_real``, per head of D (the kernels take ``attention_core.HEAD_DIMS``,
-16, 32 or 64, and T <= 320; the backward bblk·T <= 640 merged rows).  Layouts are the JAX package's: x [B, T, W],
+16, 32 or 64, and T <= 320; the float32 backward bblk·T <= 640 merged
+rows, the bfloat16 backward any).  Layouts are the JAX package's: x [B, T, W],
 ``wqkv`` [W, 3·H·D] (columns [q | k | v], head-major within each),
 ``bqkv`` [3·H·D], ``wo`` [H·D, W], ``bo`` [W].
 
@@ -16,7 +17,8 @@ and qkv never reach device memory, then ``attn·Wo + bo + x`` in a second;
 it returns ``y`` and ``attn`` (the backward's residual, as the TPU kernel
 writes it).  ``fused_bwd_attn`` wraps the backward kernels (the JAX
 ``_bwd_attn_kernel``): dqkv from the recomputed qkv and dA; bfloat16 on the
-tensor cores (two launches, counted once), float32 on the CUDA cores.  The
+tensor cores (two launches, counted once: the pair K2 and K2-bd share,
+``csrc/merged_bwd_tc.cuh``), float32 on the CUDA cores.  The
 rest of the backward (the recompute of LN and qkv, the dWo / dbo / dA
 products, the qkv-projection and LN backward) is plain tensor code, as the
 JAX package leaves it to XLA; its five products go through ``mm_f32``: on
@@ -47,10 +49,12 @@ import torch
 
 from multimodal_concept_learning_tpu_torch.ops.attention_core import (
     _DTYPE_CODES,
+    _bwd_workspace,
     _scores_probs,
     _split,
     _stream,
     backward_from_probs,
+    backward_max_rows,
     bd_block,
     check_kernel_shape,
     key_ok,
@@ -179,12 +183,12 @@ def fused_attention_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int, t_
 
 def fused_bwd_attn(qkv, da, heads: int, t_real: int, bblk=None):
     """The K6 backward kernels on CUDA tensors: dqkv [B, T, 3·H·D] from qkv
-    and dA over blocks of ``bblk`` whole samples merged into rows (default
-    ``bd_block(T)``), with lse and rowsum(dP∘P) recomputed inside.  bf16:
-    two launches on the tensor cores (tiles of 64 merged rows within a
-    block; lse and rowsum(dP∘P) pass between them through a float32
-    workspace); float32: one CTA per (head, block).  Counted once a call in
-    ``.launches``."""
+    and dA, with lse and rowsum(dP∘P) recomputed inside.  bf16: two
+    launches on the tensor cores over 16-row slots of one sample each (lse
+    and rowsum(dP∘P) pass between them through a float32 workspace;
+    ``bblk`` is checked but not read); float32: one CTA per (head, block of
+    ``bblk`` whole samples merged into rows, default ``bd_block(T)``).
+    Counted once a call in ``.launches``."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, t, hd3 = qkv.shape
@@ -194,12 +198,11 @@ def fused_bwd_attn(qkv, da, heads: int, t_real: int, bblk=None):
     d = hd3 // (3 * heads)
     bblk = bd_block(t) if bblk is None else int(bblk)
     check_kernel_shape(f"fused attention backward kernel (bblk {bblk} x T {t} merged rows)",
-                       d, bblk * t)
+                       d, bblk * t, backward_max_rows(qkv.dtype))
     qkv = _cuda_operand(qkv, qkv.dtype)
     da = _cuda_operand(da, qkv.dtype)
     dqkv = torch.empty_like(qkv)
-    ws = (torch.empty((2, heads, b * t), dtype=torch.float32, device=qkv.device)
-          if qkv.dtype == torch.bfloat16 else None)
+    ws = _bwd_workspace(qkv, heads)
     with torch.cuda.device(qkv.device):
         err = kernels().mcl_fused_attention_bwd(
             qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), None if ws is None else ws.data_ptr(),

@@ -4,7 +4,9 @@ The port's ``attention_core_padded`` and ``attention_core`` (their plain
 forward and backward, which CPU tensors run) against the JAX functions of
 the same names in interpret mode, on the same numpy inputs in float32: outputs within 1e-5, gradients
 (of a random cotangent) within 1e-4.  The kernels themselves are held to
-these plain versions on the card by ``chip_smoke.py``.
+these plain versions on the card by ``chip_smoke.py``.  Also in bf16 at
+the text tower's shape (4e-3 of the JAX value's max), and past the float32
+kernels' 640 rows, where only the bf16 backward runs on the card.
 """
 
 import jax
@@ -287,25 +289,126 @@ def test_k2bd_rows_without_a_valid_key_differ_from_jax_by_design(monkeypatch):
 
 @pytest.mark.parametrize("head_dim,rows,max_rows,ok", [
     (16, None, 640, True),    # vit-t-8
-    (64, 640, 640, True),     # every ViT-B/L and CLIP text tower; the backward's row cap
+    (64, 640, 640, True),     # every ViT-B/L and CLIP text tower; the float32 backward's cap
     (32, 320, 320, True),     # K6's forward at its cap
-    (128, None, 640, False),  # not built: K6 and the backward's dQ tile would not fit
+    (128, None, 640, False),  # not built: K6 and the float32 backward's dQ tile would not fit
     (48, 17, 640, False),
-    (16, 641, 640, False),    # one row past the backward's cap
+    (16, 641, 640, False),    # one row past the float32 backward's cap
     (64, 321, 320, False),    # one row past K6's forward cap
+    (64, 641, "bfloat16", True),      # the bf16 backward keeps no [rows, D] tile: no cap
+    (16, 100_000, "bfloat16", True),
+    (64, 0, "bfloat16", False),       # but at least one row
+    (64, 641, "float32", False),      # the float32 backward keeps its 640
+    (64, 640, "float32", True),
 ])
 def test_kernel_shape_check(head_dim, rows, max_rows, ok):
     """The one check of the shapes K2, K2-bd and K6 are built for (the CUDA
     wrappers call it before every launch): head dims 16, 32 and 64, rows
-    within the caps; anything else a ValueError naming the supported set."""
+    within the caps (a dtype name: the backward's cap in that dtype,
+    ``backward_max_rows``); anything else a ValueError naming the supported
+    set."""
     from multimodal_concept_learning_tpu_torch.ops.attention_core import (
         HEAD_DIMS,
+        backward_max_rows,
         check_kernel_shape,
     )
 
     assert HEAD_DIMS == (16, 32, 64)
+    if isinstance(max_rows, str):
+        max_rows = backward_max_rows(getattr(torch, max_rows))
     if ok:
         check_kernel_shape("K", head_dim, rows, max_rows)
         return
     with pytest.raises(ValueError, match=r"head dim in \(16, 32, 64\)|rows <= "):
         check_kernel_shape("K", head_dim, rows, max_rows)
+
+
+@pytest.mark.parametrize("dtype,given,ok", [
+    ("bfloat16", False, True),   # the tensor-core pair recomputes lse from qkv and dA
+    ("bfloat16", True, False),   # so it refuses the forward's out and lse
+    ("float32", True, True),     # the CUDA-core kernel reads both
+    ("float32", False, False),
+])
+def test_backward_forward_residuals(dtype, given, ok):
+    """What the K2 and K2-bd backward wrappers pass on of the forward's
+    outputs: out and lse in float32, neither in bfloat16; anything else a
+    ValueError before a launch."""
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import _forward_residuals
+
+    qkv = torch.zeros(2, 5, 3 * 16, dtype=getattr(torch, dtype))
+    out = torch.zeros(2, 5, 16, dtype=qkv.dtype) if given else None
+    lse = torch.zeros(2, 1, 5) if given else None
+    if not ok:
+        with pytest.raises(ValueError, match="out"):
+            _forward_residuals("K", qkv, out, lse)
+        return
+    want = (out.data_ptr(), lse.data_ptr()) if given else (None, None)
+    assert _forward_residuals("K", qkv, out, lse) == want
+
+
+BF16_TOL = 4e-3  # bf16: one bf16 ulp (2**-8) of the JAX value's max |value|
+
+
+@pytest.mark.parametrize("block_diag", [False, True])
+def test_plain_backward_bf16_matches_jax_captions(block_diag):
+    """bf16 (the CLIP path's compute dtype): the port's plain K2 and K2-bd
+    backward (``attention_core_backward_reference``,
+    ``attention_core_bd_backward_reference``, which the card's tensor-core
+    backward is held to) against the JAX ``_bwd_kernel`` / ``_bwd_kernel_bd``
+    in interpret mode, on the text tower's shape: T 77, causal, captions of
+    8-16 tokens, head dim 64.  Outputs and gradients within 4e-3 of the JAX
+    value's max |value| (one bf16 ulp there): the two frameworks round
+    dS·D**-0.5 and P to bf16 at the same points (on this CPU they agree
+    exactly), from float32 sums that may be taken in different orders."""
+    from multimodal_concept_learning_tpu.ops.attention_core import attention_core_padded as jf
+
+    from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+
+    heads = 2
+    qkv, cot, mask = _inputs(3, 77, heads, 64, seed=77, mask_kind="caption")
+    want, vjp = jax.vjp(lambda x: jf(x, heads, True, jnp.asarray(mask), interpret=True,
+                                      block_diag=block_diag),
+                        jnp.asarray(qkv).astype(jnp.bfloat16))
+    want_grad = np.asarray(vjp(jnp.asarray(cot).astype(jnp.bfloat16))[0].astype(jnp.float32))
+    want = np.asarray(want.astype(jnp.float32))
+    x = torch.from_numpy(qkv).to(torch.bfloat16).requires_grad_(True)
+    out = attention_core_padded(x, heads, causal=True, kv_mask=torch.from_numpy(mask),
+                                block_diag=block_diag)
+    out.backward(torch.from_numpy(cot).to(torch.bfloat16))
+    assert out.dtype == x.grad.dtype == torch.bfloat16
+    got, got_grad = out.detach().float().numpy(), x.grad.float().numpy()
+    np.testing.assert_allclose(got, want, atol=BF16_TOL * np.abs(want).max(), rtol=0)
+    np.testing.assert_allclose(got_grad, want_grad, atol=BF16_TOL * np.abs(want_grad).max(),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("block_diag", [False, True])
+def test_plain_backward_past_640_rows_matches_jax(monkeypatch, block_diag):
+    """Past the float32 kernels' 640 rows, where the bf16 backward now runs:
+    K2 at T 650 (one sample's rows) and K2-bd at 9 samples of T 80 merged
+    into 720 rows (``MCL_ATTN_CORE_BBLK=9`` on the JAX side, ``bblk=9`` on
+    the port's), causal with holes, against the JAX kernels in interpret
+    mode in float32: outputs 1e-5, gradients 1e-4."""
+    from multimodal_concept_learning_tpu.ops.attention_core import attention_core_padded as jf
+
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+
+    heads, d = 2, 16
+    b, t = (1, 650) if block_diag is False else (9, 80)
+    qkv, cot, mask = _inputs(b, t, heads, d, seed=t, mask_kind="holes")
+    if block_diag:
+        monkeypatch.setenv("MCL_ATTN_CORE_BBLK", "9")
+    want, vjp = jax.vjp(lambda x: jf(x, heads, True, jnp.asarray(mask), interpret=True,
+                                      block_diag=block_diag), jnp.asarray(qkv))
+    want_grad = np.asarray(vjp(jnp.asarray(cot))[0])
+    x, kv, dout = torch.from_numpy(qkv), torch.from_numpy(mask), torch.from_numpy(cot)
+    if block_diag:
+        got = ac.attention_core_bd_reference(x, heads, t, True, kv, bblk=9)
+        got_grad = ac.attention_core_bd_backward_reference(x, dout, heads, t, True, kv, bblk=9)
+    else:
+        got = ac.attention_core_reference(x, heads, t, True, kv)
+        got_grad = ac.attention_core_backward_reference(x, dout, heads, t, True, kv)
+    rows = 9 * t if block_diag else t
+    assert rows > ac.MAX_T_BWD and ac.backward_max_rows(torch.bfloat16) is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(got_grad.numpy(), want_grad, atol=GRAD_TOL, rtol=0)
