@@ -10,7 +10,8 @@ Phases (each prints its results; any failure exits non-zero):
    float32 and bfloat16, at the serving and training paths' shapes (max abs
    error, and kernel vs plain time from CUDA events); the build fails if
    ptxas reports spill stores in a tensor-core attention kernel (the bf16
-   K1, K2 and K2-bd forwards, the bf16 backward pair of K2, K2-bd and K6);
+   K1, K2 and K2-bd forwards, the bf16 backward pair of K2, K2-bd and K6,
+   K1's bf16 backward pair);
 4. parity: float32 MLLM at full width and reduced depth, ``paged_generate``
    on the card (through both kernels) must give exactly the greedy tokens
    of the same weights on the CPU plain path;
@@ -82,7 +83,10 @@ and 320) to their plain versions, and the bf16 vision sublayer's gradients
 CPU copies), the bf16 backwards of K2, K2-bd and K6 past the float32
 kernels' 640 rows, one CLIP text block's bf16 gradients (causal, caption
 masks; through K2, then K2-bd) against the same autograd run on CPU
-copies, times K2-bd beside K2 at both CLIP shapes, K6's backward and
+copies, K1's backward in every case in float32 (the CUDA-core kernels)
+and bf16 (the tensor-core pair; two calls bitwise equal), one gemma3-1b
+decoder layer's bf16 gradients at the training batch against CPU
+autograd, times K2-bd beside K2 at both CLIP shapes, K6's backward and
 K1's backward beside SDPA's (all by CUDA graph replay), and K6's forward beside the
 unfused library composition
 (``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add); then K5
@@ -112,7 +116,10 @@ only the K1 and K2 forwards at their path shapes beside SDPA, and
 ``--time-variants ROOT`` K2-bd's forward and backward (beside K2) at both
 CLIP shapes, K6's backward at the vision shape and K1's backward at the
 LM training shape beside SDPA (an A/B between two checkouts runs either
-on each in turns).
+on each in turns).  ``python3 chip_smoke.py --profile-mllm [ROOT]``
+profiles the full MLLM micro-step with the port package of ROOT (default
+this checkout): device busy, idle share, aten ops and K1's forward, dQ and
+dK/dV in ms a micro-step.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -218,8 +225,9 @@ TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel", "bd_fwd_tc_kernel",
               "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel")  # the tensor-core attention kernels
 # K1 forward at D 64/128/256; K2 forward and K2-bd forward at D 16/32/64; the
 # shared backward pair (dQ, dK/dV) at D 16/32/64 in five configurations: K6's
-# and K2's four (causal or not x kv_mask or not)
-TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5
+# and K2's four (causal or not x kv_mask or not); K1's backward pair
+# (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel) at D 64/128/256
+TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5 + 2 * 3
 
 
 def spill_stores(log: str) -> dict:
@@ -306,7 +314,9 @@ def _flash_bwd_cases(torch, gen, dev):
     """(name, q, k, v, kwargs, bias needs grad) at the training path's K1
     shapes: the LM at batch 2 (4q/1kv heads of 256, causal + kv_lens, scale
     1/16), with a window, with a float32 bias that needs a gradient, and
-    the ViT (12 heads of 64, no mask); then one case at head dim 128."""
+    the ViT (12 heads of 64, no mask); then one case at head dim 128 and a
+    ragged one at 256 (T 300: a partial last tile of keys and of rows, a
+    row of padding past one tile)."""
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -325,6 +335,10 @@ def _flash_bwd_cases(torch, gen, dev):
         ("d 128 [2,100,8/2,128] causal + window 37 + bias [2,8,100,100]",
          randn(2, 100, 8, 128), randn(2, 100, 2, 128), randn(2, 100, 2, 128),
          dict(causal=True, window=37, bias=randn(2, 8, 100, 100)), True),
+        ("ragged [2,300,4/1,256] causal + kv_lens [300, 251]", randn(2, 300, 4, 256),
+         randn(2, 300, 1, 256), randn(2, 300, 1, 256),
+         dict(scale=1 / 16, causal=True,
+              kv_lens=torch.tensor([300, 251], dtype=torch.int32, device=dev)), False),
     ]
 
 
@@ -398,10 +412,11 @@ def time_k1_bwd(torch, fa, name: str, q, k, v, do, kw, bias_grad: bool = False) 
 
 def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
     """Each backward kernel against the plain backward on the same saved
-    (q, k, v, o, lse, dO): float32 <= 1e-4 abs, bf16 <= 2e-2 of the
-    reference's max |value|.  At the LM training shape in bf16 the kernels
-    and SDPA's backward are timed by CUDA graph replay, the plain backward
-    by the event loop."""
+    (q, k, v, o, lse, dO): float32 (the CUDA-core kernels) <= 1e-4 abs,
+    bf16 (the tensor-core pair) <= 2e-2 of the reference's max |value|, and
+    two bf16 calls bitwise equal.  At the LM training shape in bf16 the
+    kernels and SDPA's backward are timed by CUDA graph replay, the plain
+    backward by the event loop."""
     kdq = report.setdefault("flash_attention_bwd_dq", {"max_abs_err": 0.0})
     kdkv = report.setdefault("flash_attention_bwd_dkv", {"max_abs_err": 0.0})
     for name, q, k, v, kw, bias_grad in _flash_bwd_cases(torch, gen, dev):
@@ -438,6 +453,12 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
                 errs[g] = (got.float() - want.float()).abs().max().item()
                 limit = TOL[tag] if dtype is torch.float32 else TOL[tag] * want.abs().max().item()
                 ok = ok and errs[g] <= limit
+            same = True
+            if dtype is torch.bfloat16:  # deterministic: no atomics, fixed order of sums
+                again = dq_call()
+                same = all(torch.equal(x, y) for x, y in
+                           zip((dq, delta, ds, *dkv_call()),
+                               (again[0], again[1], again[2], dk, dv)) if x is not None)
             dq_ms = cuda_time_ms(dq_call)
             dkv_ms = cuda_time_ms(dkv_call)
             plain_ms = cuda_time_ms(lambda: fa.flash_attention_backward_reference(
@@ -445,9 +466,13 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
             print(f"[kernels] K1 bwd {name} {tag}: max_abs_err "
                   + " ".join(f"{g} {e:.3e}" for g, e in errs.items())
                   + f"; dq kernel {dq_ms:.4f} ms, dkv kernel {dkv_ms:.4f} ms, "
-                  f"plain backward {plain_ms:.4f} ms", flush=True)
+                  f"plain backward {plain_ms:.4f} ms"
+                  + ("; two calls bitwise equal" if dtype is torch.bfloat16 and same else ""),
+                  flush=True)
             if not ok:
                 fail(f"K1 bwd {name} {tag}: errors {errs}")
+            if not same:
+                fail(f"K1 bwd {name} {tag}: two calls gave different gradients")
             kdq["max_abs_err"] = max(kdq["max_abs_err"], errs["dq"], errs.get("dbias", 0.0))
             kdkv["max_abs_err"] = max(kdkv["max_abs_err"], errs["dk"], errs["dv"])
             if name.startswith("lm [") and dtype is torch.bfloat16:
@@ -752,6 +777,56 @@ def _phase_text_block_grads(torch, gen, dev) -> None:
             os.environ.pop("MCL_ATTN_CORE_BD", None)
         else:
             os.environ["MCL_ATTN_CORE_BD"] = old
+
+
+def _phase_lm_layer_grads(torch, gen, dev) -> None:
+    """One full-width gemma3-1b decoder layer (hidden 1152, 4q/1kv heads of
+    256, q/k norms, sandwich norms, bf16 compute) at the training batch:
+    batch 2, T 221, causal + kv_lens [221, 212], on the card (K1's forward
+    and its bf16 dQ and dK/dV kernels) against the same autograd run on CPU
+    copies (the plain versions): dx and the q, k, v and o projections'
+    weight gradients each within 2e-2 of its own reference's max |value|;
+    the layer's other gradients are printed beside them."""
+    import copy
+
+    from multimodal_concept_learning_tpu_torch.models.lm import LMBlock, LMConfig, rope_tables
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+
+    b, t = 2, LM_TRAIN_T
+    cfg = LMConfig.preset("gemma3-1b", vocab_size=1148)
+    block = LMBlock(cfg)
+    for prm in block.parameters():  # seeded weights: std 0.03 (matrices), 0.1 (norms)
+        std = 0.03 if prm.dim() == 2 else 0.1
+        prm.data = (std * torch.randn(prm.shape, generator=gen, device=dev)).cpu()
+    x = torch.randn(b, t, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16).cpu()
+    dy = torch.randn(b, t, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16).cpu()
+    kv_lens = torch.tensor([t, t - 9], dtype=torch.int32)
+    positions = torch.arange(t)[None].expand(b, t)
+    grads, launched = {}, {}
+    for where in (dev, "cpu"):
+        mod = copy.deepcopy(block).to(where)
+        xl = x.to(where).clone().requires_grad_(True)
+        rope = tuple(r.to(where) for r in rope_tables(positions, cfg.head_dim, cfg.rope_theta))
+        before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+        with torch.enable_grad():  # phase 3 runs under no_grad
+            mod(xl, rope, kv_lens=kv_lens.to(where)).backward(dy.to(where))
+        launched[str(where)] = (fa.flash_attention_bwd_dq.launches - before[0],
+                                fa.flash_attention_bwd_dkv.launches - before[1])
+        grads[str(where)] = {"x": xl.grad.float().cpu(),
+                             **{n: p.grad.float().cpu() for n, p in mod.named_parameters()}}
+    cpu, card = grads["cpu"], grads[str(dev)]
+    held = ("x",) + tuple(f"self_attn.{w}_proj.weight" for w in "qkvo")
+    errs = {n: _held(card[n], cpu[n], torch.bfloat16, f"LM layer d {n}") for n in held}
+    other = {n: (card[n] - cpu[n]).abs().max().item() / max(cpu[n].abs().max().item(), 1e-30)
+             for n in card if n not in held}
+    print(f"[kernels] gemma3-1b decoder layer gradients [2,{t},1152] causal + kv_lens bf16, "
+          f"card vs CPU: max abs err " + ", ".join(f"d {n} {e:.3e}" for n, e in errs.items())
+          + "; the other gradients' err / max: "
+          + ", ".join(f"d {n} {e:.2e}" for n, e in other.items())
+          + f"; backward launches (dQ, dK/dV) card {launched[str(dev)]}, CPU {launched['cpu']}",
+          flush=True)
+    if launched[str(dev)] != (1, 1) or launched["cpu"] != (0, 0):
+        fail(f"LM layer gradients: backward launches {launched}")
 
 
 def _core_bd_cases(torch, gen, dev):
@@ -1478,6 +1553,7 @@ def phase_kernels(report: dict) -> None:
         _phase_fused(torch, gen, dev, report)
         _phase_past_cap(torch, gen, dev)
         _phase_text_block_grads(torch, gen, dev)
+        _phase_lm_layer_grads(torch, gen, dev)
         _phase_int4(torch, gen, dev, report)
         _phase_int4_v3(torch, gen, dev, report)
         _phase_paged_mp(torch, gen, dev, report)
@@ -2555,8 +2631,10 @@ def phase_variant_slice(report: dict, clip_run: dict) -> None:
 
 PORT_KERNELS = ("core_fwd_kernel", "core_fwd_tc_kernel", "core_bwd_kernel", "bd_fwd_kernel",
                 "bd_fwd_tc_kernel", "merged_bwd_kernel", "bwd_dq_tc_kernel",
-                "bwd_dkv_tc_kernel", "fused_attn_kernel",
-                "out_proj_kernel")  # the CLIP paths' kernels, by name
+                "bwd_dkv_tc_kernel", "fused_attn_kernel", "out_proj_kernel",
+                "flash_fwd", "flash_bwd")  # the port's attention kernels, by name
+K1_GROUPS = {"K1 forward": "flash_fwd", "K1 dQ": "flash_bwd_dq",
+             "K1 dK/dV": "flash_bwd_dkv"}  # K1's kernels by name, both dtypes
 
 
 def profile_clip(steps: int = 6, warmup: int = 4) -> None:
@@ -2569,6 +2647,11 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
     from multimodal_concept_learning_tpu_torch import miniyaml
     from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
     from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_clip_train_step,
+    )
     from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
     from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model
 
@@ -2576,37 +2659,75 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
         config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
     tokenizer = load_tokenizer("concept-tokenizer")
     batch = to_device(_clip_batches(tokenizer, 1, CLIP_BATCH)[0], "cuda")
-    _profile_step("default", init_model(config, len(tokenizer), "cuda"), config, batch, steps,
-                  warmup)
+
+    def run(tag, model):
+        opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
+                              max_grad_norm=config.max_grad_norm)
+        _profile_step(tag, TrainState(model=model, optimizer=opt), make_clip_train_step(model),
+                      batch, steps, warmup, CLIP_BATCH, "images")
+
+    run("default", init_model(config, len(tokenizer), "cuda"))
     torch.cuda.empty_cache()
     os.environ["MCL_ATTN_CORE_BD"] = "1"
     try:
-        _profile_step("variant", _variant_model(config, len(tokenizer)), config, batch, steps,
-                      warmup)
+        run("variant", _variant_model(config, len(tokenizer)))
     finally:
         del os.environ["MCL_ATTN_CORE_BD"]
     _time_loader(config, tokenizer)
 
 
-def _profile_step(tag: str, model, config, batch, steps: int, warmup: int) -> None:
+def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
+    """``--profile-mllm [ROOT]``: the full 12_colors_3k MLLM micro-step
+    (batch 2, bf16 compute, the trainer's optimizer with 4 micro-steps an
+    update, the vision tower and the LM's non-embedding weights frozen) on a
+    fixed device batch, from the port package of the checkout at ``root``
+    (``sys.path`` puts it first; a parent checkout, which has no such flag,
+    is profiled this way), with K1's forward, dQ and dK/dV in ms a
+    micro-step."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import MultimodalTrainingConfig
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.device import cast_for_compute
+    from multimodal_concept_learning_tpu_torch.models.mllm import trainable_mask
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_mllm_train_step,
+    )
+    from multimodal_concept_learning_tpu_torch.train.multimodal_training import (
+        init_model_and_tokenizer,
+    )
+
+    print(f"[ab] kernels of {os.path.abspath(root)}", flush=True)
+    with open(os.path.join(REPO, "experiments/multimodal/color/12_colors_3k.yaml")) as f:
+        params = miniyaml.safe_load(f)
+    config = MultimodalTrainingConfig.from_params(dict(params, labels_mapping_path=MAPPING))
+    model, tokenizer, labels_mapping, _ = init_model_and_tokenizer(
+        config, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    trainable_mask(model, config.trainable_params_setting)
+    opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
+                          max_grad_norm=config.max_grad_norm,
+                          accumulation_steps=config.effective_batch_size // config.batch_size)
+    cast_for_compute(model, model.cfg.dtype, only_frozen=True)
+    batch = to_device(_train_batch(tokenizer, labels_mapping, seed=0), "cuda")
+    _profile_step("mllm", TrainState(model=model, optimizer=opt), make_mllm_train_step(model),
+                  batch, steps, warmup, config.batch_size, "samples", groups=K1_GROUPS)
+
+
+def _profile_step(tag: str, state, step, batch, steps: int, warmup: int, batch_size: int,
+                  unit: str, groups: dict = None) -> None:
     """Steady ms per step unprofiled; a ``torch.profiler`` window of
     ``steps`` steps tracing the card only: device busy time (union of kernel
     intervals) and the idle share, against the unprofiled step and against
     the window's own wall time; then a window tracing host and card: aten
     ops per step, device time by kernel (the port's kernels and the matrix
-    products summed), and how far host tracing stretches the step."""
+    products summed, and each of ``groups``: {label: name fragment}), and
+    how far host tracing stretches the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
-    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
-        TrainState,
-        make_clip_train_step,
-    )
-
-    opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
-                          max_grad_norm=config.max_grad_norm)
-    state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
     for _ in range(warmup):
         state, m = step(state, batch)
     torch.cuda.synchronize()
@@ -2616,7 +2737,7 @@ def _profile_step(tag: str, model, config, batch, steps: int, warmup: int) -> No
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / steps
     print(f"[profile {tag}] unprofiled: {step_ms:.2f} ms per step, {1e3 / step_ms:.3f} steps/s, "
-          f"{CLIP_BATCH * 1e3 / step_ms:.1f} images/s (loss {float(m['loss']):.4f})", flush=True)
+          f"{batch_size * 1e3 / step_ms:.1f} {unit}/s (loss {float(m['loss']):.4f})", flush=True)
 
     def window(activities):
         nonlocal state
@@ -2662,6 +2783,11 @@ def _profile_step(tag: str, model, config, batch, steps: int, warmup: int) -> No
           f"{ours / busy:.3f} and matrix products {gemm / 1e3:.2f} ms = {gemm / busy:.3f} of "
           f"device time, of them float32 on the CUDA cores {sgemm / 1e3 / steps:.2f} ms a step = "
           f"{sgemm / busy:.3f}", flush=True)
+    for label, frag in (groups or {}).items():
+        t = sum(t for name, (t, _) in by_kernel.items() if frag in name)
+        n = sum(n for name, (_, n) in by_kernel.items() if frag in name)
+        print(f"[profile {tag}] {label}: {t / 1e3 / steps:.4f} ms a step in {n // steps} "
+              f"launches ({t / busy:.3f} of device time)", flush=True)
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
     for name, (t, n) in ranked[:15]:
         print(f"[profile {tag}] {t / 1e3 / steps:8.3f} ms/step {t / busy:6.3f} {n // steps:5d}x "
@@ -2670,7 +2796,6 @@ def _profile_step(tag: str, model, config, batch, steps: int, warmup: int) -> No
         if any(k in name for k in PORT_KERNELS):
             print(f"[profile {tag}] port kernel {t / 1e3 / steps:8.3f} ms/step {n // steps:5d}x "
                   f"{name[:110]}", flush=True)
-    del state, step, opt, model
 
 
 def _time_loader(config, tokenizer, images_per_color: int = 108) -> None:
@@ -2715,10 +2840,12 @@ def _time_loader(config, tokenizer, images_per_color: int = 108) -> None:
 SOURCES = {
     "flash_attention_fwd": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_fwd.cu",
                             "multimodal_concept_learning_tpu/ops/flash_attention.py:31"),
-    "flash_attention_bwd_dq": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_bwd.cu",
-                               "multimodal_concept_learning_tpu/ops/flash_attention.py:52"),
-    "flash_attention_bwd_dkv": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_bwd.cu",
-                                "multimodal_concept_learning_tpu/ops/flash_attention.py:76"),
+    "flash_attention_bwd_dq": (
+        "multimodal_concept_learning_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+        "multimodal_concept_learning_tpu/ops/flash_attention.py:52"),
+    "flash_attention_bwd_dkv": (
+        "multimodal_concept_learning_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+        "multimodal_concept_learning_tpu/ops/flash_attention.py:76"),
     "paged_decode_attention": ("multimodal_concept_learning_tpu_torch/csrc/paged_attention.cu",
                                "multimodal_concept_learning_tpu/ops/paged_attention_kernel.py:43"),
     "attention_core_fwd": ("multimodal_concept_learning_tpu_torch/csrc/attention_core.cu",
@@ -2762,10 +2889,13 @@ def main(argv=None) -> None:
                              "K2 forwards (bf16, graph replay) beside SDPA; no other phase")
     parser.add_argument("--time-variants", metavar="ROOT",
                         help="build the kernels of the checkout at ROOT, then time K2-bd's "
-                             "forward and backward beside K2 and K6's backward (bf16, graph "
-                             "replay) beside SDPA; no other phase")
+                             "forward and backward beside K2, K6's backward and K1's "
+                             "backward (bf16, graph replay) beside SDPA; no other phase")
+    parser.add_argument("--profile-mllm", metavar="ROOT", nargs="?", const=".",
+                        help="build the kernels of the checkout at ROOT (default: this one), "
+                             "then profile the full MLLM micro-step; no other phase")
     args = parser.parse_args(argv)
-    ab_root = args.time_forwards or args.time_variants
+    ab_root = args.time_forwards or args.time_variants or args.profile_mllm
     if ab_root:
         sys.path.insert(0, os.path.abspath(ab_root))
     if not torch.cuda.is_available():
@@ -2787,6 +2917,9 @@ def main(argv=None) -> None:
         return
     if args.profile:
         profile_clip()
+        return
+    if args.profile_mllm:
+        profile_mllm(args.profile_mllm)
         return
     report: dict = {}
     phase_kernels(report)

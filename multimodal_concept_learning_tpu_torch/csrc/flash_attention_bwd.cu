@@ -1,7 +1,10 @@
-// K1 backward: the gradient of fused attention, hand-written for Hopper (sm_90a).
+// K1 backward in float32: the gradient of fused attention on the CUDA cores
+// (sm_90a).  bf16 inputs take the tensor-core pair of
+// flash_attention_bwd_tc.cu instead; the entry points below dispatch by
+// dtype and serve both.
 //
-// Replaces the two Pallas TPU kernels of the custom VJP in
-// multimodal_concept_learning_tpu/ops/flash_attention.py (_flash_bwd):
+// Replaces, for float32 inputs, the two Pallas TPU kernels of the custom VJP
+// in multimodal_concept_learning_tpu/ops/flash_attention.py (_flash_bwd):
 //   _dq_kernel  (:52, pallas_call at :206 / :221) -> flash_bwd_dq_kernel
 //   _dkv_kernel (:76, pallas_call at :256)        -> flash_bwd_dkv_kernel
 // Both recompute the probabilities from the forward's saved row logsumexp:
@@ -11,29 +14,29 @@
 //   dS    = p * (dp - delta)
 //   dQ    = dS k * scale,   dK = dS^T q * scale,   dV = p^T dO
 // with the forward's contract (flash_attention_fwd.cu): q [B, Tq, Hq, D],
-// k/v [B, Tk, Hk, D], fp32 or bf16, any T (ragged tiles masked), any scale,
-// GQA read in place, masks from the kv_lens / causal / window descriptors
-// plus an optional fp32 bias read through four element strides.  A row
-// with no attendable key has lse = +inf and contributes nothing.
+// k/v [B, Tk, Hk, D], any T (ragged tiles masked), any scale, GQA read in
+// place, masks from the kv_lens / causal / window descriptors plus an
+// optional fp32 bias read through four element strides.  A row with no
+// attendable key has lse = +inf and contributes nothing.
 //
-// Differences from the TPU kernels, and why:
+// Differences from the TPU kernels, and why (both dtypes):
 // - delta is computed once per query row, by the dQ kernel, and written to
 //   a float32 [B, Hq, Tq] buffer that the dK/dV kernel (launched after it on
 //   the same stream) reads; both TPU kernels recompute it.
 // - GQA: dK/dV of kv head j sum over its Hq/Hk query heads inside one CTA
-//   (a loop), never through a repeated K/V or atomics, so the gradients are
-//   deterministic run to run.
+//   (a loop here, the warps' partial sums added in a fixed order in the
+//   bf16 pair), never through a repeated K/V or atomics, so the gradients
+//   are deterministic run to run.
 // - dS (the bias cotangent, float32 [B, Hq, Tq, Tk]) is written only when
 //   the caller passes a buffer for it; tiles the mask skips are never
 //   written, so the caller zero-fills it.
 //
-// What bounds it: at the training shapes (LM [2, ~213, 4q/1kv, 256], ViT
-// [2, 197, 12, 64]) each CTA recomputes a [tile x tile] score block from
-// smem-staged fp32 tiles and does three tile products per step on the CUDA
-// cores; it is bound by that fp32 arithmetic and, at batch 2, by having few
-// CTAs in flight (the dK/dV grid is ceil(Tk / BK) x Hk x B).  Moving the
-// products onto the tensor cores (mma/wgmma in bf16) and splitting the
-// dK/dV query loop across CTAs are the next steps for speed.
+// What bounds it: float32 products on the CUDA cores (no TF32: float32 runs
+// must match the plain version to 1e-4).  Each CTA recomputes a [tile x
+// tile] score block from smem-staged fp32 tiles and does three tile
+// products per step; at batch 2 the grids are small (the dK/dV grid is
+// ceil(Tk / BK) x Hk x B).  The float32 path runs in the parity checks, not
+// on a bf16 training step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,36 +48,12 @@
 namespace {
 
 using mcl_flash::attendable;
+using mcl_flash::bias_at;
+using mcl_flash::BwdParams;
 using mcl_flash::kThreads;
 using mcl_flash::load_f;
 using mcl_flash::store_f;
 using mcl_flash::warp_sum;
-
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;      // dQ kernel only (delta)
-  const void* dout;
-  const float* lse;   // [B, Hq, Tq]
-  float* delta;       // [B, Hq, Tq]: written by the dQ kernel, read by the dK/dV kernel
-  void* dq;
-  void* dk;
-  void* dv;
-  float* ds;          // nullable, [B, Hq, Tq, Tk]
-  const float* bias;  // nullable
-  long long bias_sb, bias_sh, bias_sq, bias_sk;
-  const int* kv_lens;  // nullable, [B]
-  int B, Tq, Tk, Hq, Hk;
-  float scale;
-  int causal;
-  int window;  // < 0: no sliding window
-};
-
-__device__ __forceinline__ float bias_at(const BwdParams& p, int b, int h, int t, int key) {
-  return p.bias[b * p.bias_sb + h * p.bias_sh + (long long)t * p.bias_sq +
-                (long long)key * p.bias_sk];
-}
 
 // ---------------------------------------------------------------------------
 // dQ (+ delta, + dS): one CTA per (query tile of BQ rows, q head, batch row),
@@ -83,7 +62,7 @@ __device__ __forceinline__ float bias_at(const BwdParams& p, int b, int h, int t
 
 constexpr int kBK = 32;  // keys per tile in the dQ kernel == warp width
 
-template <typename T, int D, int BQ>
+template <int D, int BQ>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [BQ][D]
@@ -94,12 +73,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
   float* lse_s = Ss + BQ * (kBK + 1);      // [BQ]
   float* delta_s = lse_s + BQ;             // [BQ]
 
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* o = static_cast<const T*>(p.o);
-  const T* dout = static_cast<const T*>(p.dout);
-  T* dq = static_cast<T*>(p.dq);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* o = static_cast<const float*>(p.o);
+  const float* dout = static_cast<const float*>(p.dout);
+  float* dq = static_cast<float*>(p.dq);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -128,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
     const int t = q0 + r;
     float sum = 0.f;
     if (t < p.Tq) {
-      const T* orow = o + ((size_t)(b * p.Tq + t) * p.Hq + h) * D;
+      const float* orow = o + ((size_t)(b * p.Tq + t) * p.Hq + h) * D;
       for (int d = lane; d < D; d += 32) sum = fmaf(dOs[r * D + d], load_f(orow + d), sum);
     }
     sum = warp_sum(sum);
@@ -234,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
 
 constexpr int kBQ = 32;  // query rows per tile in the dK/dV kernel == warp width
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
   extern __shared__ float smem[];
   float* Ks = smem;                        // [BK][D + 1]
@@ -246,12 +225,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
   float* lse_s = Ds + kBQ * (BK + 1);      // [kBQ]
   float* delta_s = lse_s + kBQ;            // [kBQ]
 
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* dout = static_cast<const T*>(p.dout);
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
+  float* dk = static_cast<float*>(p.dk);
+  float* dv = static_cast<float*>(p.dv);
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BK;
@@ -387,39 +366,37 @@ cudaError_t launch_with_smem(Kernel kernel, dim3 grid, size_t smem, const BwdPar
   return cudaGetLastError();
 }
 
-template <typename T, int D, int BQ>
+template <int D, int BQ>
 cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * BQ * D + 2 * kBK * (D + 1) + BQ * (kBK + 1) + 2 * BQ);
   const dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
-  return launch_with_smem(flash_bwd_dq_kernel<T, D, BQ>, grid, smem, p, stream);
+  return launch_with_smem(flash_bwd_dq_kernel<D, BQ>, grid, smem, p, stream);
 }
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 cudaError_t launch_dkv(const BwdParams& p, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * BK * (D + 1) + 2 * kBQ * (D + 1) + 2 * kBQ * (BK + 1) + 2 * kBQ);
   const dim3 grid((p.Tk + BK - 1) / BK, p.Hk, p.B);
-  return launch_with_smem(flash_bwd_dkv_kernel<T, D, BK>, grid, smem, p, stream);
+  return launch_with_smem(flash_bwd_dkv_kernel<D, BK>, grid, smem, p, stream);
 }
 
-template <typename T>
 cudaError_t dispatch_dq(const BwdParams& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_dq<T, 64, 64>(p, stream);
-    case 128: return launch_dq<T, 128, 64>(p, stream);
-    case 256: return launch_dq<T, 256, 32>(p, stream);
+    case 64: return launch_dq<64, 64>(p, stream);
+    case 128: return launch_dq<128, 64>(p, stream);
+    case 256: return launch_dq<256, 32>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // 16-key tiles at d = 256 keep the dK and dV accumulators at 32 registers a
 // thread and double the CTAs of the small training grids.
-template <typename T>
 cudaError_t dispatch_dkv(const BwdParams& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_dkv<T, 64, 32>(p, stream);
-    case 128: return launch_dkv<T, 128, 32>(p, stream);
-    case 256: return launch_dkv<T, 256, 16>(p, stream);
+    case 64: return launch_dkv<64, 32>(p, stream);
+    case 128: return launch_dkv<128, 32>(p, stream);
+    case 256: return launch_dkv<256, 16>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -444,7 +421,9 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* o
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns its launch's cudaError_t.
+// dtype: 0 = float32 (the CUDA-core kernels here), 1 = bfloat16 (the
+// tensor-core pair, flash_attention_bwd_tc.cu).  Each returns its launch's
+// cudaError_t.
 // Writes dq [B,Tq,Hq,D], delta [B,Hq,Tq] (fp32) and, when ds is non-null,
 // dS [B,Hq,Tq,Tk] (fp32; entries of skipped tiles are left as they were).
 extern "C" int mcl_flash_attention_bwd_dq(
@@ -457,8 +436,8 @@ extern "C" int mcl_flash_attention_bwd_dq(
                                   bias_sb, bias_sh, bias_sq, bias_sk, kv_lens, B, Tq, Tk, Hq,
                                   Hk, scale, causal, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_dq<float>(p, D, s);
-  if (dtype == 1) return (int)dispatch_dq<__nv_bfloat16>(p, D, s);
+  if (dtype == 0) return (int)dispatch_dq(p, D, s);
+  if (dtype == 1) return (int)mcl_flash::launch_bwd_dq_tc(p, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -473,7 +452,7 @@ extern "C" int mcl_flash_attention_bwd_dkv(
                                   nullptr, dk, dv, nullptr, bias, bias_sb, bias_sh, bias_sq,
                                   bias_sk, kv_lens, B, Tq, Tk, Hq, Hk, scale, causal, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_dkv<float>(p, D, s);
-  if (dtype == 1) return (int)dispatch_dkv<__nv_bfloat16>(p, D, s);
+  if (dtype == 0) return (int)dispatch_dkv(p, D, s);
+  if (dtype == 1) return (int)mcl_flash::launch_bwd_dkv_tc(p, D, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,9 @@
 //
 // Primitives: the m16n8k16 bf16 product with fp32 accumulation (mma_bf16),
 // ldmatrix (x4, x4.trans), bf16 pair packing, and 16-byte cp.async with its
-// commit/wait helpers.  Users: K1 and K2 forward (flash_attention_fwd.cu,
-// attention_core.cu), K6 (fused_attention_block.cu), K5v3a
+// commit/wait helpers.  Users: K1 forward and bf16 backward
+// (flash_attention_fwd.cu, flash_attention_bwd_tc.cu), K2 forward
+// (attention_core.cu), K6 (fused_attention_block.cu), K5v3a
 // (int4_matmul_v3.cu), K4 (paged_attention_mp.cu).
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t):
@@ -121,16 +122,18 @@ __device__ __forceinline__ void warp_scores(float (&s)[kBK / 8][4], const __nv_b
 }
 
 // o[j] += P[16 rows, kBK keys] . V[kBK keys, 8 columns from 8j]; p holds the
-// probabilities as A fragments (one per 16 keys), Vs the tile's first key.
-template <int kD, int kBK>
-__device__ __forceinline__ void warp_pv(float (&o)[kD / 8][4], const uint32_t (&p)[kBK / 16][4],
+// probabilities as A fragments (one per 16 keys), Vs the tile's first key
+// (rows of stride kD + 8).  kW < kD: the kW columns from Vs only (Vs then
+// points at the slice's first column).
+template <int kD, int kBK, int kW = kD>
+__device__ __forceinline__ void warp_pv(float (&o)[kW / 8][4], const uint32_t (&p)[kBK / 16][4],
                                         const __nv_bfloat16* Vs) {
   const int lane = threadIdx.x % 32;
   const __nv_bfloat16* vb = Vs + (lane % 8 + 8 * ((lane / 8) % 2)) * (kD + 8) + 8 * (lane / 16);
 #pragma unroll
   for (int c = 0; c < kBK / 16; ++c) {
 #pragma unroll
-    for (int n0 = 0; n0 < kD; n0 += 16) {
+    for (int n0 = 0; n0 < kW; n0 += 16) {
       uint32_t b[4];  // b0, b1 of columns n0..n0+7, then of columns n0+8..n0+15
       ldmatrix_x4_trans(b, vb + 16 * c * (kD + 8) + n0);
       const uint32_t b_lo[2] = {b[0], b[1]}, b_hi[2] = {b[2], b[3]};
@@ -164,22 +167,23 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The warp's [16, kD] fp32 accumulator (C layout, rows scaled by inv[0] for
+// The warp's [16, kW] fp32 accumulator (C layout, rows scaled by inv[0] for
 // row g and inv[1] for row g + 8) as bf16 rows into its own smem slab
-// [16][kD + 8], then each row r < nrows to dst_row(r) with 16-byte stores.
-template <int kD, typename RowPtr>
-__device__ __forceinline__ void warp_store_rows(const float (&o)[kD / 8][4], const float (&inv)[2],
+// [16][kD + 8], then each row r < nrows to dst_row(r) with 16-byte stores
+// (kW < kD: a slice of kW columns, dst_row(r) its first).
+template <int kD, int kW = kD, typename RowPtr>
+__device__ __forceinline__ void warp_store_rows(const float (&o)[kW / 8][4], const float (&inv)[2],
                                                 __nv_bfloat16* slab, int nrows, RowPtr dst_row) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
+  for (int j = 0; j < kW / 8; ++j) {
     *reinterpret_cast<uint32_t*>(slab + g * (kD + 8) + 8 * j + 2 * t) =
         pack_bf16(o[j][0] * inv[0], o[j][1] * inv[0]);
     *reinterpret_cast<uint32_t*>(slab + (g + 8) * (kD + 8) + 8 * j + 2 * t) =
         pack_bf16(o[j][2] * inv[1], o[j][3] * inv[1]);
   }
   __syncwarp();
-  constexpr int kChunks = kD / 8;
+  constexpr int kChunks = kW / 8;
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     if (r < nrows)

@@ -26,8 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "paged_attention.cu",
-           "attention_core.cu", "paged_attention_mp.cu", "int4_matmul.cu",
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
+           "paged_attention.cu", "attention_core.cu", "paged_attention_mp.cu", "int4_matmul.cu",
            "attention_core_bd.cu", "fused_attention_block.cu", "int4_matmul_v3.cu",
            "merged_bwd_tc.cu")
 HEADERS = ("flash_attention_common.cuh", "merged_attention.cuh", "mma_tiles.cuh",

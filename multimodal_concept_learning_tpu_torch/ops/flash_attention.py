@@ -5,9 +5,13 @@ Pallas TPU kernels of ``multimodal_concept_learning_tpu/ops/flash_attention.py``
 
 - ``csrc/flash_attention_fwd.cu`` (``_fwd_kernel``): the output and, when a
   gradient is needed, the row logsumexp ``lse`` [B, Hq, Tq] in float32;
-- ``csrc/flash_attention_bwd.cu``, dQ kernel (``_dq_kernel``): dQ, the row
-  ``delta = rowsum(dO * O)`` and, when the bias needs a gradient, dS;
-- ``csrc/flash_attention_bwd.cu``, dK/dV kernel (``_dkv_kernel``): dK, dV.
+- the dQ kernel (``_dq_kernel``): dQ, the row ``delta = rowsum(dO * O)``
+  and, when the bias needs a gradient, dS;
+- the dK/dV kernel (``_dkv_kernel``): dK, dV, launched after the dQ kernel,
+  whose delta it reads.
+
+Each backward kernel is ``csrc/flash_attention_bwd_tc.cu`` for bfloat16 and
+``csrc/flash_attention_bwd.cu`` for float32.
 
 Beside them are the plain PyTorch versions of the same functions
 (``flash_attention_reference`` and ``flash_attention_backward_reference``):
@@ -24,11 +28,12 @@ was broadcast along.  A query row that no key may attend gets a zero output
 and no gradient (the JAX bias path would average it uniformly; such rows are
 padding whose outputs no real row reads).
 
-A bfloat16 forward runs on the tensor cores, a float32 forward on the CUDA
-cores (float32 results must match the plain version to 1e-4, which TF32
-would miss); the backward kernels run on the CUDA cores for both.  What
-bounds the kernels on the card, and their design: see the source notes in
-``csrc/``.
+bfloat16 runs on the tensor cores, forward and backward; float32 on the
+CUDA cores (float32 results must match the plain version to 1e-4, which
+TF32 would miss).  The bfloat16 backward rounds p and dS to bfloat16 before
+its second products, where the plain version (and the TPU kernels) keep
+them in float32.  What bounds the kernels on the card, and their design:
+see the source notes in ``csrc/``.
 """
 
 from __future__ import annotations
@@ -239,6 +244,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, bias=None, *, scale: float, kv_l
 
     b, tq, hq, d = q.shape
     tk, hk = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (o, do)):
+        raise ValueError("the bf16 backward kernels take 16-byte aligned o and dO")
     dq = torch.empty_like(q)
     delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     ds = torch.zeros((b, hq, tq, tk), dtype=torch.float32, device=q.device) if need_ds else None
@@ -262,6 +269,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias=None, *, scale: float,
 
     b, tq, hq, d = q.shape
     tk, hk = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16 and do.data_ptr() % 16:
+        raise ValueError("the bf16 backward kernels take a 16-byte aligned dO")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bias, strides = _bias_args(bias, b, hq, tq, tk)
     with torch.cuda.device(q.device):
@@ -300,6 +309,8 @@ class _FlashAttention(torch.autograd.Function):
                 q, k, v, out, lse, grad_out, bias, **kw)
             return dq, dk, dv, db if need_db else None, None, None, None, None
         do = grad_out.contiguous()
+        if do.data_ptr() % 16:  # a view at an odd offset: the bf16 kernels read 16 bytes at a time
+            do = do.clone()
         dq, delta, ds = flash_attention_bwd_dq(q, k, v, out, lse, do, bias, need_ds=need_db,
                                                **kw)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, **kw)

@@ -147,28 +147,65 @@ def _torch_grads(q, k, v, do, bias=None, **kw):
     return [None if t is None else t.grad.numpy() for t in (tq, tk, tv, tb)]
 
 
-@pytest.mark.parametrize("with_bias", [False, True])
-def test_flash_backward_matches_pallas_interpret(with_bias):
+def _pallas_backward_cases():
+    """(with_bias, head dim, dtype): the original float32 cases at head dim
+    64 (ids as before: the bias flag), then gemma3's head dim 256 and
+    bfloat16 inputs, with and without the bias."""
+    cases = [pytest.param(wb, 64, "float32", id=str(wb)) for wb in (False, True)]
+    return cases + [pytest.param(wb, d, dt, id=f"{wb}-d{d}-{dt}")
+                    for d, dt in ((64, "bfloat16"), (256, "float32"), (256, "bfloat16"))
+                    for wb in (False, True)]
+
+
+# bf16: the two sides round the same bf16 inputs at different places (bf16
+# probabilities before P.V in the forward of the port's plain version, the
+# TPU kernels' float32 throughout), so their gradients agree to about one
+# bf16 ulp of the largest value
+BF16_GRAD_RTOL = 8e-3
+
+
+@pytest.mark.parametrize("with_bias,d,dtype", _pallas_backward_cases())
+def test_flash_backward_matches_pallas_interpret(with_bias, d, dtype):
     """dQ, dK, dV (and dbias from dS) == jax.grad through the Pallas K1
     kernels (_dq_kernel, _dkv_kernel) in interpret mode: T = 128, hq == hk,
-    a causal + key-padding bias."""
-    b, t, h, d = 2, 128, 2, 64
+    a causal + key-padding bias; head dims 64 and 256 (gemma3's), float32
+    (2e-5 abs) and bfloat16 inputs (8e-3 of each reference's max |value|).
+    The port's plain backward is what chip_smoke.py holds the CUDA kernels
+    to."""
+    b, h = (2, 2) if d == 64 else (1, 2)
+    t = 128
     q, k, v, do = (_rand((b, t, h, d), s) for s in (10, 11, 12, 13))
+    if dtype == "bfloat16":  # the same bf16 values on both sides
+        q, k, v, do = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+                       for x in (q, k, v, do))
     bias = None
     if with_bias:
         bias = np.asarray(jattn.make_attention_bias(
-            jnp.asarray(_right_padded_mask([128, 111], t)), causal=True, q_len=t, k_len=t))
+            jnp.asarray(_right_padded_mask([128, 111][:b], t)), causal=True, q_len=t,
+            k_len=t))
 
     def loss(q, k, v, bias):
-        return jnp.sum(jflash.flash_attention(q, k, v, bias) * do)
+        return jnp.sum(jflash.flash_attention(q, k, v, bias).astype(jnp.float32) * do)
 
     argnums = (0, 1, 2, 3) if with_bias else (0, 1, 2)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     with pltpu.force_tpu_interpret_mode():
-        ref = jax.grad(loss, argnums=argnums)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        ref = jax.grad(loss, argnums=argnums)(*(jnp.asarray(x, jdt) for x in (q, k, v)),
                                               None if bias is None else jnp.asarray(bias))
-    got = _torch_grads(q, k, v, do, bias)
+    if dtype == "float32":
+        got = _torch_grads(q, k, v, do, bias)
+    else:
+        tq, tk, tv = (torch.tensor(x).to(torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+        tb = None if bias is None else torch.tensor(bias, requires_grad=True)
+        out = tflash.flash_attention(tq, tk, tv, tb)
+        (out.float() * torch.from_numpy(do)).sum().backward()
+        got = [None if x is None else x.grad.float().numpy() for x in (tq, tk, tv, tb)]
     for g, r in zip(got, ref):
-        np.testing.assert_allclose(g, np.asarray(r), atol=GRAD_ATOL, rtol=0)
+        r = np.asarray(r, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(g, r, atol=GRAD_ATOL, rtol=0)
+        else:
+            assert g.dtype == np.float32 and np.abs(g - r).max() <= BF16_GRAD_RTOL * np.abs(r).max()
     assert (got[3] is None) == (not with_bias)
 
 
