@@ -9,9 +9,9 @@ Phases (each prints its results; any failure exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, at the serving and training paths' shapes (max abs
    error, and kernel vs plain time from CUDA events); the build fails if
-   ptxas reports spill stores in a tensor-core attention kernel (the bf16
-   K1, K2 and K2-bd forwards, the bf16 backward pair of K2, K2-bd and K6,
-   K1's bf16 backward pair);
+   ptxas reports spill stores in a tensor-core kernel (the bf16 K1, K2 and
+   K2-bd forwards, the bf16 backward pair of K2, K2-bd and K6, K1's bf16
+   backward pair, K5, K6's bf16 forward);
 4. parity: float32 MLLM at full width and reduced depth, ``paged_generate``
    on the card (through both kernels) must give exactly the greedy tokens
    of the same weights on the CPU plain path;
@@ -91,7 +91,7 @@ K1's backward beside SDPA's (all by CUDA graph replay), and K6's forward beside 
 unfused library composition
 (``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add); then K5
 (int4 decode matmul; x in float32 and bf16, limits 1e-5 and 8e-3 of the
-reference's max |value|) and K4 (multi-page paged
+reference's max |value|; two calls bitwise equal) and K4 (multi-page paged
 decode; pages_per_block 1, 3, 8) to their plain versions, and times each
 kernel's path-shape case in bf16 beside its bound (bytes over 3.35 TB/s or
 operations over 989 TFLOP/s, whichever is larger) and one PyTorch library
@@ -104,19 +104,25 @@ widths, T 17) and 32 in fp32 and bf16.  K1's forward is held at the ViT,
 LM prefill, LM training and dense decode shapes (one query against a
 269-slot cache under the float32 cache bias), a window, a bias, Tq < Tk
 and head dim 128; K2's at the CLIP shapes and T 15 and 65 among others.
-K5, K4 and the K1 and K2 forwards (with their SDPA calls) are timed by
-CUDA graph replay (device time without the wrapper's host work), K5 with
-its weights cycled past the L2 cache; phase 3 also times K4 beside K3 at
-4 kv heads, ~1k context, pages of 16 and 64.  ``python3 chip_smoke.py
+K5, K4, K6's forward (beside the unfused composition) and the K1 and K2
+forwards (with their SDPA calls) are timed by CUDA graph replay (device
+time without the wrapper's host work), K5 at each of gemma3-1b's seven
+decode projections with its weights cycled past the L2 cache, beside
+``torch._weight_int4pack_mm`` on the same cycled weights; phase 3 also
+holds K1's forward, K2 and K5 on strided and offset views of their
+operands (the wrappers copy them) and times K4 beside K3 at 4 kv heads,
+~1k context, pages of 16 and 64.  ``python3 chip_smoke.py
 --profile`` builds the kernels and profiles the full CLIP train step
 instead, on the default path and on the kernel variants (``torch.profiler``:
 idle share, aten ops and device time by kernel).  ``python3 chip_smoke.py
 --time-forwards ROOT`` builds the kernels of the checkout at ROOT and times
 only the K1 and K2 forwards at their path shapes beside SDPA, and
 ``--time-variants ROOT`` K2-bd's forward and backward (beside K2) at both
-CLIP shapes, K6's backward at the vision shape and K1's backward at the
-LM training shape beside SDPA (an A/B between two checkouts runs either
-on each in turns).  ``python3 chip_smoke.py --profile-mllm [ROOT]``
+CLIP shapes, K6's forward (beside the unfused composition) and backward at
+the vision shape, K1's backward at the LM training shape beside SDPA, and
+K5 at the seven gemma3-1b projections, cold, beside
+``torch._weight_int4pack_mm`` (an A/B between two checkouts runs either on
+each in turns).  ``python3 chip_smoke.py --profile-mllm [ROOT]``
 profiles the full MLLM micro-step with the port package of ROOT (default
 this checkout): device busy, idle share, aten ops and K1's forward, dQ and
 dK/dV in ms a micro-step.
@@ -222,12 +228,16 @@ def phase_card() -> str:
 
 
 TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel", "bd_fwd_tc_kernel",
-              "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel")  # the tensor-core attention kernels
+              "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel", "int4_tc_kernel",
+              "k6_qkv_attn_tc_kernel", "k6_out_proj_tc_kernel")  # the tensor-core kernels
 # K1 forward at D 64/128/256; K2 forward and K2-bd forward at D 16/32/64; the
 # shared backward pair (dQ, dK/dV) at D 16/32/64 in five configurations: K6's
 # and K2's four (causal or not x kv_mask or not); K1's backward pair
-# (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel) at D 64/128/256
-TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5 + 2 * 3
+# (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel) at D 64/128/256; K5 at
+# its 9 (row tiles, stripe width) pairs (1 x 8/16/32/64, 2 x 8/16/32, 4 x
+# 8/16); K6's bf16 forward: the qkv-attention kernel at D 16/32/64 x chunk
+# depth 32/64, and the output projection
+TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5 + 2 * 3 + 9 + 6 + 1
 
 
 def spill_stores(log: str) -> dict:
@@ -260,10 +270,10 @@ def phase_build(check_spills: bool = True) -> None:
     if not (check_spills and info["log"]):  # a reused library has no report
         return
     tc = {n: b for n, b in spill_stores(info["log"]).items() if any(k in n for k in TC_KERNELS)}
-    print(f"[build] tensor-core attention kernels: {len(tc)} instantiations, spill stores "
+    print(f"[build] tensor-core kernels: {len(tc)} instantiations, spill stores "
           f"{sorted(set(tc.values()))} bytes", flush=True)
     if len(tc) != TC_INSTANTIATIONS or any(tc.values()):
-        fail(f"tensor-core attention kernels: expected {TC_INSTANTIATIONS} instantiations "
+        fail(f"tensor-core kernels: expected {TC_INSTANTIATIONS} instantiations "
              f"without spills, got {tc}")
 
 
@@ -1060,21 +1070,39 @@ def _phase_fused(torch, gen, dev, report: dict) -> None:
                       f"{b_ms:.4f} ms", flush=True)
             if not (on_path and dtype is torch.bfloat16):
                 continue
-            ms = cuda_time_ms(lambda: fb.fused_attention_fwd(x, *params, heads, t_real), iters=10)
-            plain_ms = cuda_time_ms(lambda: fb.fused_attention_reference(x, *params, heads,
-                                                                         t_real), iters=10)
-            lib_ms = cuda_time_ms(_unfused_sublayer(torch, x, params, heads))
-            pairs = b * heads * t * t_real
-            cast = [a.to(dtype) for a in params]
-            fwd_b = bound(nbytes(x, *cast, y, attn),
-                          2 * b * t * width * 3 * hd + 2 * b * t * hd * width + 4 * d * pairs)
-            print(f"[kernels] K6 {name} bf16: fwd kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"unfused library {lib_ms:.4f} ms, bound {fwd_b['bound_ms']:.5f} ms "
-                  f"({fwd_b['bound_by']})", flush=True)
+            f = time_k6f(torch, fb, name, x, params, heads, t_real)
             r = time_k6b(torch, ac, fb, name, qkv, da, heads, t_real)
-            kf.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fwd_b)
+            kf.update(ms=f["ms"], plain_ms=f["plain_ms"], library_ms=f["library_ms"],
+                      **f["bound"])
             kb.update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["sdpa_ms"], **r["bound"])
     _phase_fused_grads(torch, gen, dev)
+
+
+def time_k6f(torch, fb, name: str, x, params, heads: int, t_real: int,
+             plain: bool = True) -> dict:
+    """K6's forward kernels at one shape, bf16 (the parameters cast first,
+    as the unfused composition has them), and the unfused library
+    composition, each by CUDA graph replay, beside the plain version (event
+    loop) and the bound (x, the weights, y and attn moved; the projections'
+    and this run's query-key pairs' operations).  Prints and returns them."""
+    b, t, width = x.shape
+    cast = [a.to(x.dtype) for a in params]
+    hd = cast[4].shape[0]
+    y, attn = fb.fused_attention_fwd(x, *cast, heads, t_real)
+    pairs = b * heads * t * min(t, t_real)
+    r = {"ms": graph_time_ms(lambda: fb.fused_attention_fwd(x, *cast, heads, t_real)),
+         "library_ms": graph_time_ms(_unfused_sublayer(torch, x, params, heads)),
+         "bound": bound(nbytes(x, *cast, y, attn), 2 * b * t * width * 3 * hd
+                        + 2 * b * t * hd * width + 4 * (hd // heads) * pairs),
+         "plain_ms": None}
+    if plain:
+        r["plain_ms"] = cuda_time_ms(lambda: fb.fused_attention_reference(x, *cast, heads,
+                                                                          t_real), iters=10)
+    print(f"[kernels] K6 {name} bf16: fwd kernels {r['ms']:.4f} ms, unfused library "
+          f"{r['library_ms']:.4f} ms (graph replay)"
+          + (f", plain {r['plain_ms']:.4f} ms" if plain else "")
+          + f", bound {r['bound']['bound_ms']:.5f} ms ({r['bound']['bound_by']})", flush=True)
+    return r
 
 
 def time_k6b(torch, ac, fb, name: str, qkv, da, heads: int, t_real: int,
@@ -1194,71 +1222,111 @@ def _int4pack(torch, packed, scale, high_first: bool = True):
     return w, torch.stack([scale, zeros], dim=-1).contiguous()
 
 
+def _int4pack_order(torch, xb, packed, scale):
+    """The nibble order (high first or not) of ``_int4pack`` whose
+    ``torch._weight_int4pack_mm`` reproduces the plain version, and its max
+    abs difference from it; None without the library call."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None
+    want = i4.int4_matmul_reference(xb.float(), packed, scale)
+    errs = {}
+    for high_first in (True, False):
+        w4, sz = _int4pack(torch, packed, scale, high_first=high_first)
+        errs[high_first] = (torch._weight_int4pack_mm(xb, w4, 64, sz).float()
+                            - want).abs().max().item()
+    order = min(errs, key=errs.get)
+    return order, errs[order]
+
+
+def time_k5(torch, gen, dev, plain: bool = False) -> dict:
+    """K5 at each of gemma3-1b's seven decode projections at batch 8, bf16,
+    weights cold (cycled past the L2, as a decode step finds them), by CUDA
+    graph replay, beside ``torch._weight_int4pack_mm`` on the same cycled
+    weights, the bound (bytes) and with ``plain`` the plain version (event
+    loop).  Prints each and the decode step's sums (x 26 layers); returns
+    {projection: {"ms", "library_ms", "plain_ms", "bound"}}."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    rows, times, order = 8, {}, None
+    for proj, d_in, d_out in GEMMA_PROJECTIONS:
+        (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
+        xb = torch.randn(rows, d_in, generator=gen, device=dev).to(torch.bfloat16)
+        sets = _int4_sets(torch, gen, dev, d_in, d_out,
+                          max(16, int(COLD_BYTES // nbytes(packed, scale))))
+        ms = graph_time_ms(_cycled(lambda p, s: i4.int4_matmul(xb, p, s), sets), iters=len(sets))
+        lib_ms = None
+        if order is None:
+            order = _int4pack_order(torch, xb, *sets[0])
+            if order is not None:
+                print(f"[kernels] K5 library torch._weight_int4pack_mm: max abs diff from the "
+                      f"plain version {order[1]:.3e} (nibble order "
+                      f"{'high' if order[0] else 'low'} first)", flush=True)
+        if order is not None:
+            try:
+                packs = [_int4pack(torch, p, s, high_first=order[0]) for p, s in sets]
+                lib_ms = graph_time_ms(
+                    _cycled(lambda w, z: torch._weight_int4pack_mm(xb, w, 64, z), packs),
+                    iters=len(packs))
+            except RuntimeError as e:  # a shape the library call does not take
+                print(f"[kernels] K5 library at {proj}: {str(e).splitlines()[0]}", flush=True)
+        b = bound(nbytes(packed, scale, xb) + 2 * rows * d_out, 2 * rows * d_in * d_out)
+        plain_ms = (cuda_time_ms(lambda: i4.int4_matmul_reference(xb, packed, scale))
+                    if plain else None)
+        times[proj] = {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms, "bound": b}
+        print(f"[kernels] K5 {proj} [8,{d_in}]x[{d_in},{d_out}] bf16 cold: kernel {ms:.5f} ms, "
+              f"torch._weight_int4pack_mm "
+              + (f"{lib_ms:.5f} ms" if lib_ms is not None else "n/a")
+              + f" (graph replay)" + (f", plain {plain_ms:.4f} ms" if plain else "")
+              + f", bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
+    step = 26 * sum(r["ms"] for r in times.values())
+    lib = [r["library_ms"] for r in times.values()]
+    print(f"[kernels] K5 over one decode step of gemma3-1b (7 projections x 26 layers, cold): "
+          f"{step:.4f} ms; torch._weight_int4pack_mm "
+          + (f"{26 * sum(lib):.4f} ms" if None not in lib else "n/a") + "; bound "
+          f"{26 * sum(r['bound']['bound_ms'] for r in times.values()):.4f} ms", flush=True)
+    return times
+
+
 def _phase_int4(torch, gen, dev, report: dict) -> None:
     """K5 against its plain version on the same inputs at the decode path's
-    shapes, x in float32 and bf16; every gemma3 shape timed cold (weights
-    cycled past L2) in bf16; the widest beside its bound, the bf16 product
-    of the dequantized weight and ``torch._weight_int4pack_mm``."""
+    shapes, x in float32 and bf16, two calls bitwise equal; then every
+    gemma3 shape timed cold beside its plain version (``time_k5``), up_proj
+    also beside the bf16 product of the dequantized weight."""
     from multimodal_concept_learning_tpu_torch.ops import int4 as i4
 
     k5 = report.setdefault("int4_matmul", {"max_abs_err": 0.0})
-    layer_ms = 0.0  # the seven projections of one gemma3 layer
     for name, rows, d_in, d_out in K5_CASES:
         (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
         x = torch.randn(rows, d_in, generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             out = i4.int4_matmul(xd, packed, scale)
+            again = i4.int4_matmul(xd, packed, scale)
             ref = i4.int4_matmul_reference(xd.float(), packed, scale)
             torch.cuda.synchronize()
             tag = str(dtype).replace("torch.", "")
             err = (out.float() - ref).abs().max().item()
             limit = K5_TOL[tag] * ref.abs().max().item()
-            print(f"[kernels] K5 {name} {tag}: max_abs_err {err:.3e} (limit {limit:.3e})",
+            same = torch.equal(out, again)
+            print(f"[kernels] K5 {name} {tag}: max_abs_err {err:.3e} (limit {limit:.3e}), "
+                  f"plan {i4.k5_plan(rows, d_in, d_out)}, two calls bitwise equal {same}",
                   flush=True)
-            if not err <= limit:
-                fail(f"K5 {name} {tag}: max abs err {err} > {limit}")
+            if not (err <= limit and same):
+                fail(f"K5 {name} {tag}: max abs err {err} > {limit} or two calls differ")
             k5["max_abs_err"] = max(k5["max_abs_err"], err)
-        if not name.startswith("gemma3") or "rows" in name:
-            continue
-        set_bytes = nbytes(packed, scale)
-        sets = _int4_sets(torch, gen, dev, d_in, d_out, max(16, int(COLD_BYTES // set_bytes)))
-        xb = x.to(torch.bfloat16)
-        call = _cycled(lambda p, s: i4.int4_matmul(xb, p, s), sets)
-        ms = graph_time_ms(call, iters=len(sets))
-        eager_ms = cuda_time_ms(call)
-        b = bound(nbytes(packed, scale, xb) + 2 * rows * d_out, 2 * rows * d_in * d_out)
-        layer_ms += ms
-        print(f"[kernels] K5 {name} bf16 cold: kernel {ms:.5f} ms (eager wrapper loop "
-              f"{eager_ms:.4f} ms), bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
-        if name.split()[1] != "up_proj":
-            continue
-        plain_ms = cuda_time_ms(lambda: i4.int4_matmul_reference(xb, packed, scale))
-        dense = [i4.dequantize_int4(p, s).to(torch.bfloat16) for p, s in sets[:8]]
-        dense_ms = graph_time_ms(_cycled(lambda w: xb @ w, [(w,) for w in dense]), iters=8)
-        del dense
-        pack_ms = None
-        if hasattr(torch, "_weight_int4pack_mm"):
-            # the nibble order whose product reproduces the plain version's
-            want = i4.int4_matmul_reference(xb.float(), sets[0][0], sets[0][1])
-            errs = {}
-            for high_first in (True, False):
-                w4, sz = _int4pack(torch, *sets[0], high_first=high_first)
-                lib = torch._weight_int4pack_mm(xb, w4, 64, sz)
-                errs[high_first] = (lib.float() - want).abs().max().item()
-            order = min(errs, key=errs.get)
-            lib_err = errs[order]
-            packs = [_int4pack(torch, p, s, high_first=order) for p, s in sets[:16]]
-            pack_ms = graph_time_ms(_cycled(lambda w, z: torch._weight_int4pack_mm(xb, w, 64, z),
-                                            packs), iters=16)
-            print(f"[kernels] K5 library torch._weight_int4pack_mm: {pack_ms:.5f} ms cold "
-                  f"(max abs diff from the plain version {lib_err:.3e}, nibble order "
-                  f"{'high' if order else 'low'} first)", flush=True)
-        print(f"[kernels] K5 {name} bf16: plain version {plain_ms:.4f} ms; bf16 matmul of "
-              f"the dequantized weight (what bf16 weights pay) {dense_ms:.5f} ms cold", flush=True)
-        k5.update(ms=ms, plain_ms=plain_ms, library_ms=pack_ms, **b)
-    print(f"[kernels] K5 over one decode step of gemma3-1b (7 projections x 26 layers, cold): "
-          f"{26 * layer_ms:.4f} ms", flush=True)
+    times = time_k5(torch, gen, dev, plain=True)
+    rows, d_in, d_out = 8, 1152, 6912  # up_proj: the kernels line's shape
+    xb = torch.randn(rows, d_in, generator=gen, device=dev).to(torch.bfloat16)
+    dense = [i4.dequantize_int4(p, s).to(torch.bfloat16)
+             for p, s in _int4_sets(torch, gen, dev, d_in, d_out, 8)]
+    dense_ms = graph_time_ms(_cycled(lambda w: xb @ w, [(w,) for w in dense]), iters=8)
+    del dense
+    print(f"[kernels] K5 up_proj bf16: the bf16 matmul of the dequantized weight (what bf16 "
+          f"weights pay) {dense_ms:.5f} ms cold", flush=True)
+    up = times["up_proj"]
+    k5.update(ms=up["ms"], plain_ms=up["plain_ms"], library_ms=up["library_ms"], **up["bound"])
 
 
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
@@ -1456,8 +1524,11 @@ def time_forwards(root: str) -> None:
 def time_variants(root: str) -> None:
     """K2-bd's forward and backward at both CLIP shapes (beside K2: their
     bf16 backwards are the same kernel pair, over 16-row slots of one
-    sample), K6's backward at the vision shape and K1's backward at the LM
-    training shape, bf16, each by CUDA graph replay beside SDPA, from the
+    sample), K6's forward (beside the unfused library composition) and
+    backward at the vision shape, K1's backward at the LM training shape,
+    and K5 at gemma3-1b's seven decode projections, cold (beside
+    ``torch._weight_int4pack_mm``), bf16, each by CUDA graph replay beside
+    its library call (SDPA for the attention kernels), from the
     port package of the checkout at ``root`` (``sys.path`` puts it first).
     Run it once a process on two checkouts in turns (parent, change,
     change, parent) to compare them on one card; a checkout whose bf16 K2
@@ -1481,6 +1552,7 @@ def time_variants(root: str) -> None:
                 time_bd(torch, ac, name, qkv32.to(bf16), da, (heads, t_real, causal, kvm),
                         plain=False)
         name, x32, params, heads, t_real, _ = _fused_cases(torch, gen, dev)[0]
+        time_k6f(torch, fb, name, x32.to(bf16), params, heads, t_real, plain=False)
         qkv = fb.ln_qkv(x32.to(bf16), *params[:4], 1e-12)[0]
         da = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=gen,
                          device=dev).to(bf16)
@@ -1489,6 +1561,64 @@ def time_variants(root: str) -> None:
             if name.startswith("lm ["):
                 do = torch.randn(q.shape, generator=gen, device=dev)
                 time_k1_bwd(torch, fa, name, *(x.to(bf16) for x in (q, k, v, do)), kw)
+        time_k5(torch, gen, dev)
+
+
+def _layout_views(torch, t) -> dict:
+    """The values of ``t`` as a strided view (the last dim padded by 8 and
+    sliced: not contiguous) and as an offset view (one element into a flat
+    buffer: not 16-byte aligned), the layouts the JAX functions take."""
+    pad = torch.zeros(*t.shape[:-1], t.shape[-1] + 8, dtype=t.dtype, device=t.device)
+    pad[..., :t.shape[-1]] = t
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    views = {"strided": pad[..., :t.shape[-1]], "offset": flat[1:].view(t.shape)}
+    assert not views["strided"].is_contiguous() and views["offset"].data_ptr() % 16
+    return views
+
+
+def _phase_layouts(torch, gen, dev) -> None:
+    """K1's forward, K2 and K5 on a strided and an offset view of their
+    operands (copied by the wrappers, not refused) against their plain
+    versions on the same values: K1 within TOL abs, K2 within TOL (bf16: of
+    the reference's max), K5 within K5_TOL;
+    each wrapper must have launched its kernel."""
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    q, k, v = (torch.randn(2, 37, 4, 64, generator=gen, device=dev) for _ in range(3))
+    qkv = torch.randn(4, 50, 3 * 4 * 64, generator=gen, device=dev)
+    x = torch.randn(8, 1152, generator=gen, device=dev)
+    (packed, scale), = _int4_sets(torch, gen, dev, 1152, 1024, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        qd, kd, vd, qkvd, xd = (a.to(dtype) for a in (q, k, v, qkv, x))
+        ref1 = fa.flash_attention_reference(qd.float(), kd.float(), vd.float(), causal=True)
+        ref2 = ac.attention_core_reference(qkvd.float(), 4, 41)
+        ref5 = i4.int4_matmul_reference(xd.float(), packed, scale)
+        lim5 = K5_TOL[tag] * ref5.abs().max().item()
+        lim2 = TOL[tag] * (1.0 if dtype is torch.float32 else ref2.abs().max().item())
+        for kind in ("strided", "offset"):
+            n = (fa.flash_attention.launches, ac.attention_core_fwd.launches,
+                 i4.int4_matmul.launches)
+            views = [_layout_views(torch, a)[kind] for a in (qd, kd, vd)]
+            out1 = fa.flash_attention(*views, causal=True)
+            out2 = ac.attention_core(_layout_views(torch, qkvd)[kind], 4, 41, block_diag=False)
+            out5 = i4.int4_matmul(_layout_views(torch, xd)[kind],
+                                  _layout_views(torch, packed)[kind],
+                                  _layout_views(torch, scale)[kind])
+            torch.cuda.synchronize()
+            errs = [(o.float() - r).abs().max().item()
+                    for o, r in ((out1, ref1), (out2, ref2), (out5, ref5))]
+            launched = (fa.flash_attention.launches - n[0], ac.attention_core_fwd.launches - n[1],
+                        i4.int4_matmul.launches - n[2])
+            print(f"[kernels] {kind} views {tag}: K1 fwd {errs[0]:.3e}, K2 {errs[1]:.3e} "
+                  f"(limit {lim2:.3e}), K5 {errs[2]:.3e} (limit {lim5:.3e}); launches "
+                  f"{launched}", flush=True)
+            if not (errs[0] <= TOL[tag] and errs[1] <= lim2 and errs[2] <= lim5
+                    and launched == (1, 1, 1)):
+                fail(f"{kind} views {tag}: errors {errs}, launches {launched}")
 
 
 def phase_kernels(report: dict) -> None:
@@ -1555,6 +1685,7 @@ def phase_kernels(report: dict) -> None:
         _phase_text_block_grads(torch, gen, dev)
         _phase_lm_layer_grads(torch, gen, dev)
         _phase_int4(torch, gen, dev, report)
+        _phase_layouts(torch, gen, dev)
         _phase_int4_v3(torch, gen, dev, report)
         _phase_paged_mp(torch, gen, dev, report)
 
@@ -2889,8 +3020,9 @@ def main(argv=None) -> None:
                              "K2 forwards (bf16, graph replay) beside SDPA; no other phase")
     parser.add_argument("--time-variants", metavar="ROOT",
                         help="build the kernels of the checkout at ROOT, then time K2-bd's "
-                             "forward and backward beside K2, K6's backward and K1's "
-                             "backward (bf16, graph replay) beside SDPA; no other phase")
+                             "forward and backward beside K2, K6's forward and backward, K1's "
+                             "backward and K5 (bf16, graph replay) beside their library "
+                             "calls; no other phase")
     parser.add_argument("--profile-mllm", metavar="ROOT", nargs="?", const=".",
                         help="build the kernels of the checkout at ROOT (default: this one), "
                              "then profile the full MLLM micro-step; no other phase")

@@ -7,184 +7,413 @@
 // path) and the packed layout of ops/int4.py: packed int8 [in/2, out], the
 // low nibble of packed[i, n] holding code[i, n] and the high nibble
 // code[i + in/2, n] (sign-extended 4-bit codes); scale bf16 [in/group, out].
-// The dequantized weight is the 4-bit code times the bf16 scale, exact in
-// float32 and rounded to bf16 once: the same bf16 weight as both JAX paths.
+// The dequantized weight is the 4-bit code times the bf16 scale, exact
+// before its one rounding to bf16: the same bf16 weight as both JAX paths.
+// The float32 sums are written as float32, or rounded once to bf16 (the
+// wrapper's cast of the result to x's dtype, done in the epilogue).
 //
-// What bounds it: bytes.  At 8 rows each packed byte feeds 16 multiply-adds,
-// far below the card's ~295 flops/byte balance, so the kernel streams the
-// packed weight from device memory exactly once per 8 rows and keeps
-// everything else on the SM: one CTA owns a stripe of 64 output columns;
-// its 256 threads are 4 lanes across the stripe (16 columns each, one
-// 16-byte load = 16 columns x two nibble rows i and i + in/2) by 64 slices
-// of the packed rows, so a warp's loads cover 8 rows x 64 contiguous bytes
-// and the 64 slices of one iteration share one scale row (a broadcast).  x
-// sits in shared memory as bf16, transposed [in][8], so one 16-byte read
-// gives a k's 8 rows.  Each thread accumulates 8 rows x 16 columns in float32
-// registers; lanes of a column group are summed with warp shuffles, warps
-// through 16 KB of shared memory.  Rows are taken 8 at a time; 64 rows read
-// the stripe 8 times (the later passes hit L2).  At out = 256 (k/v
-// projections) only 4 CTAs run: split-K across CTAs, or mma.sync / wgmma
-// with x padded to 16 rows, are the next steps for speed.
+// What bounds it: bytes.  At 8 rows each packed byte feeds 32 flops, far
+// below the card's ~295 flops/byte balance, so the packed weight has to
+// stream from device memory once at the full rate (4.2 MB: 1.3 us for
+// gate/up_proj) and everything else stays on the SM.  The first version
+// walked all in/2 packed rows in one CTA per 64-column stripe (4 to 108
+// CTAs on gemma3-1b's shapes, one an SM) with few loads in flight, so its
+// time followed that walk, not the bytes.  This design:
+//
+// - Split-K in thread block clusters, so every shape fills the card.  A
+//   CTA owns kNC output columns (64, 32, 16 or 8) and a run of 16-row units
+//   of the packed rows (each unit feeds one 16-deep mma step from its low
+//   nibbles and one from its high nibbles); the CTAs of one stripe form a
+//   cluster of 1-16 that splits the units evenly.  The wrapper's plan
+//   (ops/int4.py:k5_plan) picks the widest stripe and smallest cluster
+//   giving >= 264 CTAs (2 an SM) with <= 16 units (256 packed rows) a CTA:
+//   gemma3-1b's q/k/v/o/gate/up/down at 8 rows launch 512/512/512/288/
+//   432/432/288 CTAs.
+// - Every load of a CTA's slice in flight at once: its packed rows, the
+//   scale rows they need and the x columns go to shared memory by 16-byte
+//   cp.async (8-byte for 8-column stripes), all issued before the first
+//   wait; x in float32 is rounded to bf16 on the way (plain loads).
+// - The product on the tensor cores: mma.sync m16n8k16 bf16 with fp32
+//   accumulation, x padded to 16-row tiles.  A warp takes (unit, nibble
+//   half) items; ldmatrix.trans reads 2 x 2 packed bytes a lane (rows 2t,
+//   2t + 1 of two neighbouring columns), and the B fragments are made in
+//   registers: (nibble ^ 8) | 0x4300 is the bf16 128 + code + 8, minus 136
+//   (exact) is the code, times the scale pair (fma.rn.bf16x2, one
+//   rounding) is the weight.  Each ldmatrix's even and odd columns make two
+//   n-tiles, so a lane's C fragments hold 4 neighbouring columns.
+// - A deterministic reduction, no atomics, one cluster barrier: the 4
+//   warps' partial sums are added in warp order in shared memory, then each
+//   CTA stores its sums into the receive buffer of the rank that owns them
+//   (distributed shared memory, 16-byte stores, a slot per rank); after the
+//   barrier each rank adds its elements' slots in rank order.  Two calls
+//   give the same bits.
+// Chunks of more than 16 units (in > 512 with one CTA a stripe; not a
+// gemma3 shape) are staged one after another without overlap.
+//
+// What holds it back (patched copies of this source timed on an H100, bf16,
+// weights cold): a fixed ~5 us a launch at the small shapes (an empty
+// launch of the same grid 1.5 us, the loads' round trip 1.4 us, the
+// reduction and its cluster barrier the rest), and at gate/up/down a load
+// phase near 1.3 TB/s with 64-byte pieces of each packed row.  Fewer,
+// wider CTAs measured faster (gate/up 9.1 us as 216 CTAs of 128 columns
+// against 9.8 as 432 of 64; q_proj 5.25 us as 128 CTAs against 5.5 as 512)
+// but break the 2-CTAs-an-SM rule the plan keeps.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"  // mma_bf16, ldmatrix_x4(_trans), cp_async16(_or_zero), commit/wait
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 8;                       // rows of x per pass
-constexpr int kCols = 16;                         // output columns per thread (16 packed bytes)
-constexpr int kColThreads = 4;                    // lanes across the stripe
-constexpr int kStripe = kCols * kColThreads;      // 64 output columns per CTA
-constexpr int kSlices = kThreads / kColThreads;   // packed rows in flight per CTA
+constexpr int kUnit = 16;        // packed rows a unit (one mma k-step a nibble half)
+constexpr int kChunkUnits = 16;  // units staged at once
+constexpr int kMaxCluster = 16;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// packed tile row stride, bytes: ldmatrix rows 16 bytes apart modulo 128
+__host__ __device__ constexpr int packed_stride(int nc) { return nc <= 16 ? nc : nc + 16; }
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
-                       const __nv_bfloat16* __restrict__ scale, float* __restrict__ out, int rows,
-                       int d_in, int d_out, int group) {
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Two weights as a bf16 pair: the nibbles at bits sh..sh+3 and 16+sh.. of
+// xr (packed bytes with every nibble's top bit flipped: code + 8) times the
+// scale pair s2.  0x4300 | u is the bf16 128 + u; minus 136 (x 1.0 + -136,
+// exact) is the code; times s2 (+ -0.0) rounds once, as JAX's code * scale.
+__device__ __forceinline__ uint32_t dequant2(uint32_t xr, int sh, uint32_t s2) {
+  const uint32_t u = ((xr >> sh) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t code = fma_bf16x2(u, 0x3F803F80u, 0xC308C308u);
+  return fma_bf16x2(code, s2, 0x80008000u);
+}
+
+__device__ __forceinline__ uint32_t lo_pair(uint32_t s) { return (s & 0xFFFFu) * 0x10001u; }
+__device__ __forceinline__ uint32_t hi_pair(uint32_t s) { return (s >> 16) * 0x10001u; }
+
+struct K5Params {
+  const void* x;
+  const int8_t* packed;
+  const __nv_bfloat16* scale;
+  void* out;
+  int rows, d_in, d_out, group, x_bf16, out_bf16;
+};
+
+// Shared memory of one CTA: the staging of a chunk of `units` units (or the
+// warps' sums over it, whichever is larger), then the receive buffer of the
+// reduction (the host mirror is ops/int4.py:k5_smem_bytes).
+__host__ __device__ constexpr int stage_bytes(int mt, int nc, int units) {
+  return units * kUnit * packed_stride(nc)                 // packed rows
+         + 2 * (units + 1) * nc * 2                        // scale rows of both halves
+         + 2 * 16 * mt * (units * kUnit + 8) * 2;          // x columns of both halves, bf16
+}
+// the 4 warps' float32 sums [4][16 mt][nc] (over the staging), then the
+// receive buffer: cs ranks x (16 mt nc / cs) floats
+__host__ __device__ constexpr int red_bytes(int mt, int nc) { return kWarps * 16 * mt * nc * 4; }
+__host__ __device__ constexpr int recv_bytes(int mt, int nc) { return 16 * mt * nc * 4; }
+
+// One CTA: columns [n0, n0 + kNC) over units [ub, ue) of the packed rows,
+// its cluster's sum written by rank slices.  kMT: 16-row tiles of x.
+template <int kMT, int kNC>
+__global__ void __launch_bounds__(kThreads) int4_tc_kernel(K5Params p, int cs, int stage_cap) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [d_in][kRowTile]
-  float* red = reinterpret_cast<float*>(smem + (size_t)d_in * kRowTile * sizeof(__nv_bfloat16));
+  constexpr int kNT = kNC / 8;  // n-tiles
+  constexpr int kLdP = packed_stride(kNC);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rank = cs > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int stripe = blockIdx.x / cs;
+  const int n0 = stripe * kNC;
+  const int half = p.d_in / 2;
+  const int units = half / kUnit;
+  const int ub = (int)((long long)rank * units / cs), ue = (int)((long long)(rank + 1) * units / cs);
+  const int xrows = 16 * kMT;
+  // the cluster's CTAs must all run before one writes another's shared
+  // memory: arrive now, wait just before the first remote store
+  if (cs > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int cg = lane % kColThreads;
-  const int slice = warp * (32 / kColThreads) + lane / kColThreads;
-  const int col0 = blockIdx.x * kStripe + cg * kCols;
-  const bool has_cols = col0 < d_out;  // d_out % 16 == 0: a column group is all in or all out
-  const int half = d_in / 2;
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
 
-  for (int r0 = 0; r0 < rows; r0 += kRowTile) {
-    const int nr = min(kRowTile, rows - r0);
-    // x tile, transposed and rounded to bf16; rows past nr are zero
-    for (int e = tid; e < d_in * kRowTile; e += kThreads) {
-      const int r = e / d_in;
-      const int k = e - r * d_in;
-      const float v = r < nr ? to_f(x[(size_t)(r0 + r) * d_in + k]) : 0.f;
-      xs[k * kRowTile + r] = __float2bfloat16_rn(v);
+  for (int c0 = ub; c0 < ue; c0 += kChunkUnits) {
+    const int nu = min(kChunkUnits, ue - c0);
+    const int ldx = nu * kUnit + 8;  // x tile row stride, elements
+    uint8_t* Ps = smem;
+    __nv_bfloat16* Ss = reinterpret_cast<__nv_bfloat16*>(Ps + nu * kUnit * kLdP);
+    __nv_bfloat16* Xs = Ss + 2 * (nu + 1) * kNC;  // [2][xrows][ldx]
+    // scale rows: the low half's k-steps use groups g_lo .. (n_lo rows), the
+    // high half's g_hi .. (n_hi rows), one row each
+    const int g_lo = c0 * kUnit / p.group, g_hi = (half + c0 * kUnit) / p.group;
+    const int n_lo = ((c0 + nu) * kUnit - 1) / p.group - g_lo + 1;
+    const int n_hi = (half + (c0 + nu) * kUnit - 1) / p.group - g_hi + 1;
+    __syncthreads();  // the previous chunk's readers are done
+    // packed rows
+    if constexpr (kNC == 8) {
+      for (int i = tid; i < nu * kUnit; i += kThreads)
+        cp_async8(Ps + i * kLdP, p.packed + (size_t)(c0 * kUnit + i) * p.d_out + n0);
+    } else {
+      constexpr int kC = kNC / 16;
+      for (int i = tid; i < nu * kUnit * kC; i += kThreads) {
+        const int r = i / kC, c = (i % kC) * 16;
+        const bool ok = n0 + c < p.d_out;  // d_out % 16 == 0: a chunk is all in or all out
+        cp_async16_or_zero(Ps + r * kLdP + c,
+                           p.packed + (ok ? (size_t)(c0 * kUnit + r) * p.d_out + n0 + c : 0), ok);
+      }
     }
+    // scale rows, both halves
+    {
+      constexpr int kC = kNC / 8;  // 16-byte chunks a row
+      for (int i = tid; i < (n_lo + n_hi) * kC; i += kThreads) {
+        const int r = i / kC, c = (i % kC) * 8;
+        const bool hi = r >= n_lo;
+        const int rr = hi ? r - n_lo : r, grp = (hi ? g_hi : g_lo) + rr;
+        const bool ok = n0 + c < p.d_out;
+        cp_async16_or_zero(Ss + ((hi ? nu + 1 : 0) + rr) * kNC + c,
+                           p.scale + (ok ? (size_t)grp * p.d_out + n0 + c : 0), ok);
+      }
+    }
+    // x columns of both halves, rows past p.rows zero
+    {
+      const int kc = nu * kUnit / 8;  // 8-element chunks a row and half
+      for (int i = tid; i < 2 * xrows * kc; i += kThreads) {
+        const int h = i / (xrows * kc), rem = i % (xrows * kc), r = rem / kc, c = (rem % kc) * 8;
+        __nv_bfloat16* dst = Xs + (h * xrows + r) * ldx + c;
+        const size_t at = (size_t)r * p.d_in + h * half + c0 * kUnit + c;
+        if (p.x_bf16) {
+          cp_async16_or_zero(dst, static_cast<const __nv_bfloat16*>(p.x) + (r < p.rows ? at : 0),
+                             r < p.rows);
+        } else {
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+          if (r < p.rows) {
+            const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(p.x) + at);
+            a = src[0];
+            b = src[1];
+          }
+          uint4 v;
+          v.x = pack_bf16(a.x, a.y);
+          v.y = pack_bf16(a.z, a.w);
+          v.z = pack_bf16(b.x, b.y);
+          v.w = pack_bf16(b.z, b.w);
+          *reinterpret_cast<uint4*>(dst) = v;
+        }
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
 
-    float acc[kRowTile][kCols];
+    // items (unit, nibble half), warp-strided
+    for (int it = warp; it < 2 * nu; it += kWarps) {
+      const int u = it / 2, h = it % 2;
+      const int srow = (c0 + u) * kUnit + h * half;  // the item's first k
+      const __nv_bfloat16* sc = Ss + (h * (nu + 1) + srow / p.group - (h ? g_hi : g_lo)) * kNC;
+      uint32_t a[kMT][4];
 #pragma unroll
-    for (int r = 0; r < kRowTile; ++r)
+      for (int m = 0; m < kMT; ++m)
+        ldmatrix_x4(a[m], Xs + (h * xrows + 16 * m + lane % 16) * ldx + u * kUnit + 8 * (lane / 16));
+      const uint8_t* pt = Ps + u * kUnit * kLdP;
+      if constexpr (kNC == 8) {
+        // lane (g, t): column g, rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1)
+        const uint8_t* pc = pt + g;
+        const uint32_t r0 = (uint32_t)pc[(2 * t) * kLdP] | ((uint32_t)pc[(2 * t + 1) * kLdP] << 16);
+        const uint32_t r1 =
+            (uint32_t)pc[(2 * t + 8) * kLdP] | ((uint32_t)pc[(2 * t + 9) * kLdP] << 16);
+        const uint32_t s2 = (uint32_t)reinterpret_cast<const uint16_t*>(sc)[g] * 0x10001u;
+        const int sh = 4 * h;
+        const uint32_t b[2] = {dequant2(r0 ^ 0x88888888u, sh, s2), dequant2(r1 ^ 0x88888888u, sh, s2)};
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-
-    if (has_cols) {
-#pragma unroll 2
-      for (int i = slice; i < half; i += kSlices) {
-        const uint4 p4 = *reinterpret_cast<const uint4*>(packed + (size_t)i * d_out + col0);
-        const int8_t* pb = reinterpret_cast<const int8_t*>(&p4);
+        for (int m = 0; m < kMT; ++m) mma_bf16(acc[m][0], a[m], b);
+      } else {
+        // 16 columns a block: ldmatrix.trans gives lane (g, t) the bytes of
+        // rows 2t, 2t + 1 (+ 8) at columns 2g, 2g + 1; even columns make
+        // n-tile 2 blk, odd ones 2 blk + 1
+        constexpr int kBlocks = kNC / 16;
+        uint32_t r[kBlocks][2];
+        if constexpr (kNC == 16) {
+          ldmatrix_x2_trans(r[0], pt + (lane % 16) * kLdP);
+        } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {  // low nibbles: row i; high nibbles: row i + half
-          const int k = i + h * half;
-          const uint4* sp =
-              reinterpret_cast<const uint4*>(scale + (size_t)(k / group) * d_out + col0);
-          const uint4 s4[2] = {sp[0], sp[1]};
-          const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(s4);
-          const uint4 x4 = *reinterpret_cast<const uint4*>(xs + (size_t)k * kRowTile);
-          const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x4);
-          float xv[kRowTile];
-#pragma unroll
-          for (int j = 0; j < kRowTile / 2; ++j) {
-            const float2 f = __bfloat1622float2(xh[j]);
-            xv[2 * j] = f.x;
-            xv[2 * j + 1] = f.y;
+          for (int j = 0; j < kNC / 32; ++j) {
+            uint32_t q[4];
+            ldmatrix_x4_trans(q, pt + (lane % 8 + 8 * ((lane / 8) % 2)) * kLdP + 32 * j +
+                                     16 * (lane / 16));
+            r[2 * j][0] = q[0];
+            r[2 * j][1] = q[1];
+            r[2 * j + 1][0] = q[2];
+            r[2 * j + 1][1] = q[3];
           }
+        }
+        const int sh = 4 * h;
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const int byte = pb[c];  // sign-extended, as the JAX unpack reads it
-            const int code = h == 0 ? ((byte & 0xF) ^ 8) - 8 : (((byte >> 4) & 0xF) ^ 8) - 8;
-            const float w = bf16_round((float)code * __bfloat162float(sb[c]));
+        for (int blk = 0; blk < kBlocks; ++blk) {
+          const uint32_t s = *reinterpret_cast<const uint32_t*>(sc + 16 * blk + 2 * g);
+          const uint32_t x0 = r[blk][0] ^ 0x88888888u, x1 = r[blk][1] ^ 0x88888888u;
+          const uint32_t be[2] = {dequant2(x0, sh, lo_pair(s)), dequant2(x1, sh, lo_pair(s))};
+          const uint32_t bo[2] = {dequant2(x0, sh + 8, hi_pair(s)),
+                                  dequant2(x1, sh + 8, hi_pair(s))};
 #pragma unroll
-            for (int r = 0; r < kRowTile; ++r) acc[r][c] = fmaf(xv[r], w, acc[r][c]);
+          for (int m = 0; m < kMT; ++m) {
+            mma_bf16(acc[m][2 * blk], a[m], be);
+            mma_bf16(acc[m][2 * blk + 1], a[m], bo);
           }
         }
       }
     }
+  }
 
-    // sum the 8 slices of a warp that share a column group (lanes cg, cg+4, ...)
+  // The 4 warps' partial sums are added in warp order in shared memory (the
+  // staging is dead), then each CTA pushes its sums of the valid rows to the
+  // rank that owns them (rank q: elements [q S, (q + 1) S) of the row-major
+  // [16 kMT][kNC] tile, S = 16 kMT kNC / cs) into slot `rank` of that rank's
+  // receive buffer [cs][S], 4 elements a store; after one cluster barrier
+  // each rank adds its elements' cs slots in rank order.
+  constexpr int kE = 16 * kMT * kNC;
+  const int S = kE / cs;
+  __syncthreads();  // the last chunk's readers are done: red overlays the staging
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][kE]
 #pragma unroll
-    for (int r = 0; r < kRowTile; ++r)
+  for (int m = 0; m < kMT; ++m) {
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        float v = acc[r][c];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        acc[r][c] = v;
-      }
-    if (lane < kColThreads) {
+    for (int hh = 0; hh < 2; ++hh) {
+      float* row = red + warp * kE + (16 * m + g + 8 * hh) * kNC;
+      if constexpr (kNC == 8) {
+        *reinterpret_cast<float2*>(row + 2 * t) = make_float2(acc[m][0][2 * hh], acc[m][0][2 * hh + 1]);
+      } else {
 #pragma unroll
-      for (int r = 0; r < kRowTile; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          red[(warp * kRowTile + r) * kStripe + cg * kCols + c] = acc[r][c];
-    }
-    __syncthreads();
-    for (int e = tid; e < kRowTile * kStripe; e += kThreads) {
-      const int r = e / kStripe;
-      const int c = e - r * kStripe;
-      const int col = blockIdx.x * kStripe + c;
-      if (r < nr && col < d_out) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += red[(w * kRowTile + r) * kStripe + c];
-        out[(size_t)(r0 + r) * d_out + col] = s;
+        for (int blk = 0; blk < kNC / 16; ++blk)
+          *reinterpret_cast<float4*>(row + 16 * blk + 4 * t) =
+              make_float4(acc[m][2 * blk][2 * hh], acc[m][2 * blk + 1][2 * hh],
+                          acc[m][2 * blk][2 * hh + 1], acc[m][2 * blk + 1][2 * hh + 1]);
       }
     }
-    __syncthreads();  // xs and red are rewritten by the next row tile
+  }
+  __syncthreads();
+  float* recv = reinterpret_cast<float*>(smem + stage_cap);  // [cs][S]
+  cg::cluster_group cluster = cg::this_cluster();
+  if (cs > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  for (int e = 4 * tid; e < p.rows * kNC; e += 4 * kThreads) {
+    float4 v = *reinterpret_cast<const float4*>(red + e);
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 u = *reinterpret_cast<const float4*>(red + w * kE + e);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    float* dst = cs > 1 ? cluster.map_shared_rank(recv, e / S) : recv;
+    *reinterpret_cast<float4*>(dst + (size_t)rank * S + e % S) = v;
+  }
+  if (cs > 1) cluster.sync();  // release the pushes, acquire the others'
+  else __syncthreads();
+  for (int l = 4 * tid; l < S; l += 4 * kThreads) {
+    const int e = rank * S + l, row = e / kNC, col = e % kNC;
+    if (row >= p.rows || n0 + col >= p.d_out) continue;
+    float4 v = *reinterpret_cast<const float4*>(recv + l);
+    for (int q = 1; q < cs; ++q) {
+      const float4 u = *reinterpret_cast<const float4*>(recv + (size_t)q * S + l);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    const size_t at = (size_t)row * p.d_out + n0 + col;
+    if (p.out_bf16) {
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + at);
+      o[0] = __floats2bfloat162_rn(v.x, v.y);
+      o[1] = __floats2bfloat162_rn(v.z, v.w);
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + at) = v;
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* packed, const void* scale, void* out, int rows,
-                   int d_in, int d_out, int group, cudaStream_t stream) {
-  const size_t smem = (size_t)d_in * kRowTile * sizeof(__nv_bfloat16) +
-                      sizeof(float) * kWarps * kRowTile * kStripe;
-  cudaError_t err = cudaFuncSetAttribute(int4_matmul_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int kMT, int kNC>
+cudaError_t launch(const K5Params& p, int cs, cudaStream_t stream) {
+  const int units = p.d_in / 2 / kUnit;
+  const int per = (units + cs - 1) / cs;
+  const int chunk = per < kChunkUnits ? per : kChunkUnits;
+  const int st = (max(stage_bytes(kMT, kNC, chunk), red_bytes(kMT, kNC)) + 15) / 16 * 16;
+  const size_t smem = st + recv_bytes(kMT, kNC);
+  auto kernel = int4_tc_kernel<kMT, kNC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cs > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  const int stripes = (d_out + kStripe - 1) / kStripe;
-  int4_matmul_kernel<T><<<stripes, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(packed),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<float*>(out), rows, d_in, d_out,
-      group);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((p.d_out + kNC - 1) / kNC * cs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p, cs, st);
+}
+
+template <int kMT>
+cudaError_t launch_width(const K5Params& p, int nc, int cs, cudaStream_t s) {
+  switch (nc) {
+    case 8: return launch<kMT, 8>(p, cs, s);
+    case 16: return launch<kMT, 16>(p, cs, s);
+    case 32:
+      if constexpr (kMT <= 2) return launch<kMT, 32>(p, cs, s);
+      break;
+    case 64:
+      if constexpr (kMT == 1) return launch<kMT, 64>(p, cs, s);
+      break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16; out is float32 [rows, d_out].  Needs
-// d_in % (2 * group) == 0, d_out % 16 == 0, 16-byte aligned packed and scale.
-// Returns the launch's cudaError_t.
+// x_dtype: 0 = float32, 1 = bfloat16; out_dtype: 0 = float32, 1 = bfloat16
+// [rows, d_out].  nc (8, 16, 32, 64; nc * tiles of 16 rows <= 64) and cs
+// (1, 2, 4, 8, 16 <= in/32) are the plan of ops/int4.py:k5_plan.  Needs
+// rows <= 64, group % 16 == 0, d_in % (2 * group) == 0, d_out % 16 == 0,
+// 16-byte aligned x, packed and scale.  Returns the launch's cudaError_t.
 extern "C" int mcl_int4_matmul(const void* x, const void* packed, const void* scale, void* out,
                                int rows, int d_in, int d_out, int group, int x_dtype,
-                               void* stream) {
-  if (rows < 0 || group <= 0 || d_in % (2 * group) != 0 || d_out % kCols != 0)
+                               int out_dtype, int nc, int cs, void* stream) {
+  if (rows < 0 || rows > 64 || group <= 0 || group % kUnit != 0 || d_in % (2 * group) != 0 ||
+      d_out <= 0 || d_out % 16 != 0 || x_dtype < 0 || x_dtype > 1 || out_dtype < 0 ||
+      out_dtype > 1 || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) != 0 || cs > d_in / 32)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
+  const K5Params p{x,     static_cast<const int8_t*>(packed),
+                   static_cast<const __nv_bfloat16*>(scale),
+                   out,   rows, d_in, d_out, group, x_dtype, out_dtype};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) return (int)launch<float>(x, packed, scale, out, rows, d_in, d_out, group, s);
-  if (x_dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, packed, scale, out, rows, d_in, d_out, group, s);
-  return (int)cudaErrorInvalidValue;
+  if (rows <= 16) return (int)launch_width<1>(p, nc, cs, s);
+  if (rows <= 32) return (int)launch_width<2>(p, nc, cs, s);
+  return (int)launch_width<4>(p, nc, cs, s);
 }

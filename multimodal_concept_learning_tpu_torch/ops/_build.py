@@ -58,12 +58,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "mcl_paged_decode_attention_mp": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
-    "mcl_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mcl_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "mcl_attention_core_bd_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "mcl_attention_core_bd_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "mcl_fused_attention_fwd": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "mcl_fused_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "mcl_int4_matmul_v3a": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mcl_int4_matmul_v3b": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -138,6 +138,15 @@ def kernels() -> ctypes.CDLL:
     lib.mcl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mcl_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def cuda_operand(t):
+    """Tensor ``t`` contiguous and 16-byte aligned, copied only if it is
+    not: the kernels read their operands 16 bytes at a time, and a strided
+    view or one at an odd offset (which the JAX functions take) is copied,
+    not refused."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def check(err: int, what: str) -> None:

@@ -65,6 +65,8 @@ from typing import Optional
 
 import torch
 
+from multimodal_concept_learning_tpu_torch.ops._build import cuda_operand
+
 _NEG = -1e30  # the JAX kernel's finite mask value
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)  # built head dims: 16 (vit-t-8) and 64 (every other ViT/CLIP preset)
@@ -259,8 +261,6 @@ def _check(qkv, heads: int) -> None:
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
         raise ValueError(f"expected qkv [B, T, 3·H·D] with H={heads}, got {tuple(qkv.shape)}")
     check_kernel_shape("attention_core kernel", _head_dim(qkv, heads))
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("attention_core kernel takes a contiguous, 16-byte aligned qkv")
 
 
 def _stream(t) -> int:
@@ -323,9 +323,7 @@ def attention_core_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal: bo
     d = _head_dim(qkv, heads)
     check_kernel_shape("attention_core backward kernel", d, t, backward_max_rows(qkv.dtype))
     out_p, lse_p = _forward_residuals("attention_core backward kernel", qkv, out, lse)
-    d_out = d_out.to(qkv.dtype).contiguous()
-    if d_out.data_ptr() % 16:  # the kernel reads dA with 16-byte loads
-        d_out = d_out.clone()
+    d_out = cuda_operand(d_out.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
     ws = _bwd_workspace(qkv, heads)
     with torch.cuda.device(qkv.device):
@@ -385,9 +383,7 @@ def attention_core_bd_bwd(qkv, out, d_out, lse, heads: int, t_real: int, causal:
     check_kernel_shape(f"attention_core_bd backward kernel (bblk {bblk} x T {t} merged rows)",
                        d, bblk * t, backward_max_rows(qkv.dtype))
     out_p, lse_p = _forward_residuals("attention_core_bd backward kernel", qkv, out, lse)
-    d_out = d_out.to(qkv.dtype).contiguous()
-    if d_out.data_ptr() % 16:
-        d_out = d_out.clone()
+    d_out = cuda_operand(d_out.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
     ws = _bwd_workspace(qkv, heads)
     with torch.cuda.device(qkv.device):
@@ -455,6 +451,7 @@ def attention_core(qkv, heads: int, t_real: int, causal: bool = False, kv_mask=N
     kvm = _padded_mask(kv_mask, b, t, qkv.device)
     if qkv.is_cuda:
         _check(qkv, heads)
+        qkv = cuda_operand(qkv)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _AttentionCore.apply(qkv, kvm, heads, t_real, causal, bd)
     if qkv.is_cuda:

@@ -42,6 +42,8 @@ from typing import Optional
 
 import torch
 
+from multimodal_concept_learning_tpu_torch.ops._build import cuda_operand
+
 _NEG = -1e30  # the JAX package's finite mask value (ops/attention.py)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
@@ -183,10 +185,6 @@ def _check(q, k, v, bias, kv_lens):
         raise ValueError(f"incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel takes contiguous q, k, v")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the bf16 flash_attention kernel takes 16-byte aligned q, k, v")
     if bias is not None and (bias.dtype != torch.float32 or bias.device != q.device):
         raise ValueError("bias must be float32 on q's device")
     if kv_lens is not None and (kv_lens.dtype != torch.int32 or kv_lens.device != q.device
@@ -308,9 +306,7 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv, db = flash_attention_backward_reference(
                 q, k, v, out, lse, grad_out, bias, **kw)
             return dq, dk, dv, db if need_db else None, None, None, None, None
-        do = grad_out.contiguous()
-        if do.data_ptr() % 16:  # a view at an odd offset: the bf16 kernels read 16 bytes at a time
-            do = do.clone()
+        do = cuda_operand(grad_out)
         dq, delta, ds = flash_attention_bwd_dq(q, k, v, out, lse, do, bias, need_ds=need_db,
                                                **kw)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, **kw)
@@ -335,6 +331,7 @@ def flash_attention(q, k, v, bias=None, *, scale: Optional[float] = None,
         t is not None and t.requires_grad for t in (q, k, v, bias))
     if q.device.type == "cuda":
         _check(q, k, v, bias, kv_lens)
+        q, k, v = (cuda_operand(t) for t in (q, k, v))
     if grad:
         return _FlashAttention.apply(q, k, v, bias, scale, kv_lens, causal, window)
     if q.device.type == "cpu":

@@ -12,8 +12,9 @@ rows, the bfloat16 backward any).  Layouts are the JAX package's: x [B, T, W],
 
 ``fused_attention_fwd`` is the wrapper of the forward kernels of
 ``csrc/fused_attention_block.cu`` (the JAX ``_fwd_kernel``): LayerNorm, the
-qkv projection and attention of one (sample, head) in one launch, so LN(x)
-and qkv never reach device memory, then ``attn·Wo + bo + x`` in a second;
+qkv projection and attention of one head over a block of whole samples in
+one launch (bf16: after one that writes each row's LN statistics), so LN(x)
+and qkv never reach device memory, then ``attn·Wo + bo + x`` in another;
 it returns ``y`` and ``attn`` (the backward's residual, as the TPU kernel
 writes it).  ``fused_bwd_attn`` wraps the backward kernels (the JAX
 ``_bwd_attn_kernel``): dqkv from the recomputed qkv and dA; bfloat16 on the
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from multimodal_concept_learning_tpu_torch.ops._build import SMEM_PER_BLOCK, cuda_operand
 from multimodal_concept_learning_tpu_torch.ops.attention_core import (
     _DTYPE_CODES,
     _bwd_workspace,
@@ -60,7 +62,10 @@ from multimodal_concept_learning_tpu_torch.ops.attention_core import (
     key_ok,
 )
 
-MAX_T = 320  # the forward keeps one sample's K and V of a head [T, D] float32 in shared memory
+MAX_T = 320  # the forward keeps one sample's Q, K and V of a head in shared memory
+# the bf16 forward's qkv-attention kernel (csrc/fused_attention_block.cu)
+K6_PASS_ROWS = 128  # projection rows a pass: whole samples a CTA up to this many rows
+K6_STAGES = 3  # its cp.async ring of operand chunks
 
 
 def pack_qkv(wq, bq, wk, bk, wv, bv):
@@ -150,17 +155,39 @@ def _check(x, wqkv, wo, heads: int) -> int:
     return hd // heads
 
 
+def k6_fwd_plan(b: int, t: int, d: int, width: int):
+    """(samples a CTA, CTAs a head, chunk depth, shared-memory bytes) of
+    the bf16 forward's qkv-attention kernel: whole samples up to
+    ``K6_PASS_ROWS`` rows a CTA (one sample past that), the reduction in
+    64-deep chunks where the width and the shared memory allow, else 32.
+    Its shared memory holds the bf16 LN scale and bias [width], the float32
+    LN statistics, bf16 Q, K and V rows (stride D + 8) and a ring of
+    ``K6_STAGES`` operand chunks (qkv_attn_smem of
+    csrc/fused_attention_block.cu)."""
+    bblk = max(1, min(b, K6_PASS_ROWS // t))
+    rows = bblk * t
+
+    def smem(bk):
+        return (4 * width + 8 * (-(-rows // 4) * 4) + 3 * rows * (d + 8) * 2
+                + K6_STAGES * (K6_PASS_ROWS * (bk + 8) + bk * (3 * d + 8)) * 2)
+
+    bk = 64 if width % 64 == 0 and smem(64) <= SMEM_PER_BLOCK else 32
+    return bblk, -(-b // bblk), bk, smem(bk)
+
+
 def _cuda_operand(a, dtype):
-    a = a.to(dtype).contiguous()
-    return a.clone() if a.data_ptr() % 16 else a
+    return cuda_operand(a.to(dtype))
 
 
 def fused_attention_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int, t_real: int,
                         ln_eps: float = 1e-12):
-    """The K6 forward kernels on CUDA tensors (two launches: LN + qkv +
-    attention per (sample, head), then the output projection with bias and
-    residual): (y [B, T, W], attn [B, T, H·D]).  Counted once a call in
-    ``.launches``."""
+    """The K6 forward kernels on CUDA tensors: (y [B, T, W], attn [B, T,
+    H·D]).  bf16: three launches on the tensor cores (each row's LN
+    statistics into a float32 workspace; LN + qkv + attention per (head,
+    block of whole samples, ``k6_fwd_plan``); the output projection with
+    bias and residual); float32: two on the CUDA cores (LN + qkv +
+    attention per (head, sample); the output projection).  Counted once a
+    call in ``.launches``."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     d = _check(x, wqkv, wo, heads)
@@ -171,11 +198,19 @@ def fused_attention_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int, t_
     b, t, width = x.shape
     y = torch.empty_like(x)
     attn = torch.empty((b, t, heads * d), dtype=cdt, device=x.device)
+    bblk, ws = 1, None
+    if cdt == torch.bfloat16:
+        bblk, _, _, smem = k6_fwd_plan(b, t, d, width)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"fused attention forward kernel: T {t} at head dim {d} needs "
+                             f"{smem} bytes of shared memory")
+        ws = torch.empty(2 * b * t, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = kernels().mcl_fused_attention_fwd(
             x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), attn.data_ptr(), b, t, width, heads,
-            d, int(t_real), float(ln_eps), d ** -0.5, _DTYPE_CODES[cdt], _stream(x))
+            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), attn.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, t, width, heads, d, int(t_real),
+            float(ln_eps), d ** -0.5, bblk, _DTYPE_CODES[cdt], _stream(x))
     check(err, "fused_attention_fwd")
     fused_attention_fwd.launches += 1
     return y, attn
@@ -280,6 +315,7 @@ __all__ = [
     "fused_attention_sublayer",
     "fused_bwd_attn",
     "fused_bwd_attn_reference",
+    "k6_fwd_plan",
     "ln_qkv",
     "mm_f32",
     "pack_qkv",

@@ -10,7 +10,9 @@ multimodal_concept_learning_tpu/ops/int4.py).
 - **Compute**: ``int4_matmul`` is the wrapper of the CUDA kernel K5
   ``csrc/int4_matmul.cu``, which replaces the Pallas TPU kernel
   ``multimodal_concept_learning_tpu/ops/int4.py:_kernel``.  On a CUDA
-  tensor with at most 64 rows (a decode step) it launches K5 or raises;
+  tensor with at most 64 rows (a decode step) it launches K5 or raises
+  (split-K over thread block clusters on the tensor cores; ``k5_plan``
+  picks the stripes and clusters);
   with more rows (prefill) it dequantizes and runs one matrix product, as
   the JAX package leaves that case to XLA.  CPU tensors run
   ``int4_matmul_reference``, the JAX fallback's math: x rounded to bf16,
@@ -30,18 +32,25 @@ multimodal_concept_learning_tpu/ops/int4.py).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
-from multimodal_concept_learning_tpu_torch.ops._build import SMEM_PER_BLOCK
+from multimodal_concept_learning_tpu_torch.ops._build import cuda_operand
 
 GROUP_SIZE = 64
 MAX_KERNEL_ROWS = 64  # decode-shaped calls take K5; more rows take the prefill product
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROW_TILE = 8  # rows of x per pass of the kernel (kRowTile)
-_STRIPE = 64  # output columns per CTA (kStripe)
+# K5's split plan (csrc/int4_matmul.cu): output stripes of K5_WIDTHS columns,
+# the 16-row units of the packed rows split over a thread block cluster of
+# K5_CLUSTERS CTAs a stripe
+K5_TARGET_CTAS = 264  # 2 CTAs an SM of an H100
+K5_WIDTHS = (64, 32, 16, 8)
+K5_CLUSTERS = (1, 2, 4, 8, 16)
+K5_UNIT = 16  # packed rows a unit
+K5_CHUNK_UNITS = 16  # units a CTA stages at once (kChunkUnits)
 
 
 def quantize_weight_int4(w: torch.Tensor, group_size: int = GROUP_SIZE
@@ -116,29 +125,67 @@ def _check_operands(x2d, packed, scale, group_size: int, what: str) -> None:
                          f"2 * group_size, scale [{d_in // group_size}, {d_out}]; got "
                          f"{tuple(scale.shape)}")
     for name, t in (("packed", packed), ("scale", scale)):
-        if t.device != x2d.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous, 16-byte aligned, on x's device")
+        if t.device != x2d.device:
+            raise ValueError(f"{name} must be on x's device, got {t.device}")
 
 
 def _check_kernel_args(x2d, packed, scale, group_size: int) -> None:
     _check_operands(x2d, packed, scale, group_size, "int4 kernel")
-    d_in = x2d.shape[1]
-    if smem_bytes(d_in) > SMEM_PER_BLOCK:
-        raise ValueError(f"int4 kernel: in features {d_in} too wide for its shared-memory "
-                         f"x tile ({smem_bytes(d_in)} bytes)")
+    if group_size % K5_UNIT or x2d.shape[0] > MAX_KERNEL_ROWS:
+        raise ValueError(f"int4 kernel takes a group size that is a multiple of {K5_UNIT} and "
+                         f"at most {MAX_KERNEL_ROWS} rows, got group {group_size}, "
+                         f"{x2d.shape[0]} rows")
 
 
-def smem_bytes(d_in: int) -> int:
-    """Shared memory of one K5 CTA: the bf16 x tile [in][8] and the
-    cross-warp partial sums [8 warps][8 rows][64 columns] in float32."""
-    return d_in * _ROW_TILE * 2 + 8 * _ROW_TILE * _STRIPE * 4
+def _row_tiles(rows: int) -> int:
+    """16-row tiles of x K5 is built for (1, 2 or 4)."""
+    return 1 if rows <= 16 else 2 if rows <= 32 else 4
+
+
+@functools.lru_cache(maxsize=None)
+def k5_plan(rows: int, d_in: int, d_out: int) -> Tuple[int, int]:
+    """(stripe width, cluster size) of K5's launch: ``d_out / width`` stripes
+    of output columns, each a cluster whose CTAs split the in/32 units of 16
+    packed rows evenly (none empty).  The widest stripe, then the smallest
+    cluster, that gives at least ``K5_TARGET_CTAS`` CTAs with at most
+    ``K5_CHUNK_UNITS`` units a CTA; failing that, the most CTAs.  The width
+    times the row tiles stays <= 64 (the accumulators a thread holds)."""
+    units = d_in // (2 * K5_UNIT)
+    tiles = _row_tiles(rows)
+    plans = [(nc, cs) for nc in K5_WIDTHS if nc * tiles <= 64
+             for cs in K5_CLUSTERS if cs <= units]
+
+    def ctas(plan):
+        return -(-d_out // plan[0]) * plan[1]
+
+    good = [pl for pl in plans
+            if ctas(pl) >= K5_TARGET_CTAS and -(-units // pl[1]) <= K5_CHUNK_UNITS]
+    if good:
+        return max(good, key=lambda pl: (pl[0], -pl[1]))
+    return max(plans, key=lambda pl: (ctas(pl), pl[0], -pl[1]))
+
+
+def k5_smem_bytes(rows: int, d_in: int, d_out: int) -> int:
+    """Shared memory of one K5 CTA under ``k5_plan`` (stage_bytes, red_bytes
+    and recv_bytes of csrc/int4_matmul.cu): the packed rows, scale rows and
+    bf16 x columns of one chunk, or the 4 warps' float32 sums over them,
+    whichever is larger; then the receive buffer of the cluster's sums."""
+    nc, cs = k5_plan(rows, d_in, d_out)
+    tiles = _row_tiles(rows)
+    units = d_in // (2 * K5_UNIT)
+    chunk = min(-(-units // cs), K5_CHUNK_UNITS)
+    stride = nc if nc <= 16 else nc + 16
+    stage = (chunk * K5_UNIT * stride + 2 * (chunk + 1) * nc * 2
+             + 2 * 16 * tiles * (chunk * K5_UNIT + 8) * 2)
+    return -(-max(stage, 4 * 16 * tiles * nc * 4) // 16) * 16 + 16 * tiles * nc * 4
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 group_size: int = GROUP_SIZE) -> torch.Tensor:
     """``x [..., in] @ dequantize_int4(packed, scale)`` -> [..., out] in
     x's dtype.  CUDA tensors with at most 64 rows run K5 (counted in
-    ``int4_matmul.launches``); CPU tensors the plain version."""
+    ``int4_matmul.launches``), which rounds its float32 sums to x's dtype
+    in its epilogue; CPU tensors the plain version."""
     d_in = x.shape[-1]
     half, d_out = packed.shape
     if d_in != 2 * half:
@@ -152,20 +199,21 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if rows > MAX_KERNEL_ROWS:
         y = _prefill_matmul(x2d, packed, scale, group_size)
         return y.reshape(*x.shape[:-1], d_out).to(x.dtype)
-    x2d = x2d.contiguous()
     _check_kernel_args(x2d, packed, scale, group_size)
+    x2d, packed, scale = cuda_operand(x2d), cuda_operand(packed), cuda_operand(scale)
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
-    out = torch.empty((rows, d_out), dtype=torch.float32, device=x.device)
+    out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
     if rows:
+        nc, cs = k5_plan(rows, d_in, d_out)
         with torch.cuda.device(x.device):
             err = kernels().mcl_int4_matmul(
                 x2d.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
-                d_in, d_out, group_size, _X_DTYPES[x2d.dtype],
+                d_in, d_out, group_size, _X_DTYPES[x2d.dtype], _X_DTYPES[out.dtype], nc, cs,
                 torch.cuda.current_stream(x.device).cuda_stream)
         check(err, "int4_matmul")
         int4_matmul.launches += 1
-    return out.reshape(*x.shape[:-1], d_out).to(x.dtype)
+    return out.reshape(*x.shape[:-1], d_out)
 
 
 int4_matmul.launches = 0
@@ -250,6 +298,7 @@ def _v3_launch(name: str, x2d, packed, scale, group_size: int, lead=(), tail=())
 
     rows, d_in = x2d.shape
     d_out = packed.shape[1]
+    packed, scale = cuda_operand(packed), cuda_operand(scale)
     splits, per = v3_splits(d_in, d_out, group_size)
     out = torch.empty((rows, d_out), dtype=torch.float32, device=x2d.device)
     partial = (torch.empty((splits, rows, d_out), dtype=torch.float32, device=x2d.device)
@@ -419,6 +468,8 @@ __all__ = [
     "dequantize_int4",
     "int4_matmul",
     "int4_matmul_reference",
+    "k5_plan",
+    "k5_smem_bytes",
     "quantize_linear_int4",
     "quantize_lm_params_int4",
     "quantize_mllm_lm_params_int4",

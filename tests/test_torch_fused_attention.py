@@ -307,3 +307,36 @@ def test_backward_products_in_float32(m, k, n, transpose_a):
     assert torch.equal(got, a16.float() @ b16.float())
     got32 = mm_f32(a32, b32)
     assert got32.dtype == torch.float32 and torch.equal(got32, a32 @ b32)
+
+
+@pytest.mark.parametrize("width", [512, 768])
+@pytest.mark.parametrize("head_dim", [16, 32, 64])
+def test_k6_forward_plan_fits_shared_memory_at_max_t(head_dim, width):
+    """The bf16 forward's qkv-attention kernel at the largest T it takes
+    (320): its shared memory stays within the 227 KB a block may use."""
+    from multimodal_concept_learning_tpu_torch.ops._build import SMEM_PER_BLOCK
+    from multimodal_concept_learning_tpu_torch.ops.fused_attention_block import (
+        MAX_T,
+        k6_fwd_plan,
+    )
+
+    bblk, blocks, bk, smem = k6_fwd_plan(256, MAX_T, head_dim, width)
+    assert bblk == 1 and blocks == 256 and bk in (32, 64)
+    assert smem <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("b,t", [(7, 50), (256, 50), (5, 37), (3, 17), (2, 197), (1, 64)])
+def test_k6_forward_plan_covers_every_sample_once(b, t):
+    """Blocks of whole samples, at most 128 rows a block (one sample past
+    that), cover samples 0..B-1 exactly once when B is not a multiple of the
+    block."""
+    from multimodal_concept_learning_tpu_torch.ops.fused_attention_block import (
+        K6_PASS_ROWS,
+        k6_fwd_plan,
+    )
+
+    bblk, blocks, _, _ = k6_fwd_plan(b, t, 64, 768)
+    assert bblk == 1 or bblk * t <= K6_PASS_ROWS
+    covered = [s for i in range(blocks) for s in range(i * bblk, min(b, (i + 1) * bblk))]
+    assert covered == list(range(b))
+    assert blocks == -(-b // bblk) and (blocks - 1) * bblk < b  # no empty block

@@ -203,3 +203,50 @@ def test_cuda_tensor_that_k5_cannot_take_raises():
     scale = torch.zeros((4, 40), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         tint4._check_kernel_args(x, packed, scale, 64)
+
+
+# gemma3-1b's seven decode projections (in, out), as the serving path runs them
+GEMMA_PROJECTIONS = {"q_proj": (1152, 1024), "k_proj": (1152, 256), "v_proj": (1152, 256),
+                     "o_proj": (1024, 1152), "gate_proj": (1152, 6912),
+                     "up_proj": (1152, 6912), "down_proj": (6912, 1152)}
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("proj", sorted(GEMMA_PROJECTIONS))
+def test_k5_plan_fills_the_card_with_no_empty_split(proj, rows):
+    """K5's split plan at every gemma3-1b projection: at least 264 CTAs (2
+    an SM of an H100), a cluster size the kernel takes, every CTA of a
+    stripe's cluster a non-empty run of at most 16 units of 16 packed rows,
+    the runs covering the packed rows once, and shared memory within 227 KB."""
+    from multimodal_concept_learning_tpu_torch.ops._build import SMEM_PER_BLOCK
+
+    d_in, d_out = GEMMA_PROJECTIONS[proj]
+    nc, cs = tint4.k5_plan(rows, d_in, d_out)
+    assert nc in tint4.K5_WIDTHS and cs in tint4.K5_CLUSTERS
+    assert -(-d_out // nc) * cs >= tint4.K5_TARGET_CTAS
+    units = d_in // (2 * tint4.K5_UNIT)
+    runs = [(q * units // cs, (q + 1) * units // cs) for q in range(cs)]  # the kernel's split
+    assert all(0 < hi - lo <= tint4.K5_CHUNK_UNITS for lo, hi in runs)
+    assert [lo for lo, _ in runs[1:]] == [hi for _, hi in runs[:-1]] and runs[-1][1] == units
+    assert tint4.k5_smem_bytes(rows, d_in, d_out) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("kind", ["strided", "offset"])
+def test_kernel_operands_are_copied_not_refused(kind):
+    """A strided view or one at an odd offset (which the JAX function takes)
+    becomes a contiguous, 16-byte aligned copy of the same values: what the
+    CUDA wrappers of K1, K2 and K5 hand their kernels."""
+    from multimodal_concept_learning_tpu_torch.ops._build import cuda_operand
+
+    packed, _ = tint4.quantize_weight_int4(torch.from_numpy(_w((256, 48))))
+    if kind == "strided":
+        view = torch.zeros((128, 64), dtype=torch.int8)[:, :48]
+    else:
+        view = torch.zeros(128 * 48 + 1, dtype=torch.int8)[1:].view(128, 48)
+    view.copy_(packed)
+    assert not view.is_contiguous() or view.data_ptr() % 16
+    got = cuda_operand(view)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert torch.equal(got, packed)
+    aligned = cuda_operand(packed)
+    assert aligned.data_ptr() == cuda_operand(aligned).data_ptr()  # no copy when it is fine
