@@ -11,7 +11,7 @@ Phases (each prints its results; any failure exits non-zero):
    error, and kernel vs plain time from CUDA events); the build fails if
    ptxas reports spill stores in a tensor-core kernel (the bf16 K1, K2 and
    K2-bd forwards, the bf16 backward pair of K2, K2-bd and K6, K1's bf16
-   backward pair, K5, K6's bf16 forward);
+   backward pair, K5, K6's bf16 forward) or in K3 or K4;
 4. parity: float32 MLLM at full width and reduced depth, ``paged_generate``
    on the card (through both kernels) must give exactly the greedy tokens
    of the same weights on the CPU plain path;
@@ -91,8 +91,10 @@ K1's backward beside SDPA's (all by CUDA graph replay), and K6's forward beside 
 unfused library composition
 (``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add); then K5
 (int4 decode matmul; x in float32 and bf16, limits 1e-5 and 8e-3 of the
-reference's max |value|; two calls bitwise equal) and K4 (multi-page paged
-decode; pages_per_block 1, 3, 8) to their plain versions, and times each
+reference's max |value|; two calls bitwise equal) and K3 and K4 (paged
+decode, each row split over a cluster of CTAs; K4 at pages_per_block 1, 3,
+8; two calls bitwise equal, rows of length 0 exactly 0) to their plain
+versions, and times each
 kernel's path-shape case in bf16 beside its bound (bytes over 3.35 TB/s or
 operations over 989 TFLOP/s, whichever is larger) and one PyTorch library
 call computing the same function (SDPA, or its backward;
@@ -104,14 +106,17 @@ widths, T 17) and 32 in fp32 and bf16.  K1's forward is held at the ViT,
 LM prefill, LM training and dense decode shapes (one query against a
 269-slot cache under the float32 cache bias), a window, a bias, Tq < Tk
 and head dim 128; K2's at the CLIP shapes and T 15 and 65 among others.
-K5, K4, K6's forward (beside the unfused composition) and the K1 and K2
+K5, K3, K4, K6's forward (beside the unfused composition) and the K1 and K2
 forwards (with their SDPA calls) are timed by CUDA graph replay (device
 time without the wrapper's host work), K5 at each of gemma3-1b's seven
 decode projections with its weights cycled past the L2 cache, beside
 ``torch._weight_int4pack_mm`` on the same cycled weights; phase 3 also
-holds K1's forward, K2 and K5 on strided and offset views of their
-operands (the wrappers copy them) and times K4 beside K3 at 4 kv heads,
-~1k context, pages of 16 and 64.  ``python3 chip_smoke.py
+holds K1's forward, K2, K5, K3 and K4 on strided and offset views of their
+operands (the wrappers copy them; K3 and K4 their q, page table and lens)
+and times K3 and K4 side by side, warm and cold (pools cycled past the L2),
+at the gemma3 window-512 row, the serving shape (8 rows of 262-269 tokens,
+windows 512 and global) and 4 kv heads at ~1k context, pages of 16 and 64,
+printing each call's split S (its cluster size).  ``python3 chip_smoke.py
 --profile`` builds the kernels and profiles the full CLIP train step
 instead, on the default path and on the kernel variants (``torch.profiler``:
 idle share, aten ops and device time by kernel).  ``python3 chip_smoke.py
@@ -121,11 +126,14 @@ only the K1 and K2 forwards at their path shapes beside SDPA, and
 CLIP shapes, K6's forward (beside the unfused composition) and backward at
 the vision shape, K1's backward at the LM training shape beside SDPA, and
 K5 at the seven gemma3-1b projections, cold, beside
-``torch._weight_int4pack_mm`` (an A/B between two checkouts runs either on
-each in turns).  ``python3 chip_smoke.py --profile-mllm [ROOT]``
-profiles the full MLLM micro-step with the port package of ROOT (default
-this checkout): device busy, idle share, aten ops and K1's forward, dQ and
-dK/dV in ms a micro-step.
+``torch._weight_int4pack_mm``, and K3 and K4 at phase 3's timed shapes (an
+A/B between two checkouts runs either on each in turns).  ``python3
+chip_smoke.py --profile-mllm [ROOT]`` profiles the full MLLM micro-step
+with the port package of ROOT (default this checkout): device busy, idle
+share, aten ops and K1's forward, dQ and dK/dV in ms a micro-step;
+``--profile-decode [ROOT]`` the full MLLM's paged decode step at batch 8
+(prompts of 262-269 tokens, a fixed batch): device busy, idle share and
+K3's ms a step (K4's under ``MCL_PAGED_KERNEL=2``).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -238,6 +246,10 @@ TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel", "bd_fwd_tc_kernel",
 # 8/16); K6's bf16 forward: the qkv-attention kernel at D 16/32/64 x chunk
 # depth 32/64, and the output projection
 TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5 + 2 * 3 + 9 + 6 + 1
+# K3 and K4 (CUDA-core kernels, split over clusters): float32 and bf16 at D
+# 64/128/256, each for groups of up to 4 and up to 8 q heads
+PAGED_KERNELS = ("paged_decode_kernel", "paged_mp_kernel")
+PAGED_INSTANTIATIONS = 2 * 2 * 3 * 2
 
 
 def spill_stores(log: str) -> dict:
@@ -269,12 +281,14 @@ def phase_build(check_spills: bool = True) -> None:
             print(f"[build] ptxas: {line.strip()}", flush=True)
     if not (check_spills and info["log"]):  # a reused library has no report
         return
-    tc = {n: b for n, b in spill_stores(info["log"]).items() if any(k in n for k in TC_KERNELS)}
-    print(f"[build] tensor-core kernels: {len(tc)} instantiations, spill stores "
-          f"{sorted(set(tc.values()))} bytes", flush=True)
-    if len(tc) != TC_INSTANTIATIONS or any(tc.values()):
-        fail(f"tensor-core kernels: expected {TC_INSTANTIATIONS} instantiations "
-             f"without spills, got {tc}")
+    spills = spill_stores(info["log"])
+    for what, names, count in (("tensor-core kernels", TC_KERNELS, TC_INSTANTIATIONS),
+                               ("paged decode kernels", PAGED_KERNELS, PAGED_INSTANTIATIONS)):
+        found = {n: b for n, b in spills.items() if any(k in n for k in names)}
+        print(f"[build] {what}: {len(found)} instantiations, spill stores "
+              f"{sorted(set(found.values()))} bytes", flush=True)
+        if len(found) != count or any(found.values()):
+            fail(f"{what}: expected {count} instantiations without spills, got {found}")
 
 
 def _flash_cases(torch, gen, dev):
@@ -1164,14 +1178,104 @@ def _paged_case(torch, gen, dev, hq, hk, d, ps, np_, lens):
     return q, pk, pv, pt, torch.tensor(lens, dtype=torch.int32, device=dev)
 
 
+def _len0_max(out, lens) -> float:
+    """Max |value| of the output rows of length 0 (0.0 where there are none)."""
+    rows = out[lens.long() == 0]
+    return rows.abs().max().item() if rows.numel() else 0.0
+
+
+def _paged_shape(args) -> tuple:
+    """(batch, kv heads, page size, table columns) of paged decode operands."""
+    q, pool_k, _, pt, _ = args
+    return q.shape[0], pool_k.shape[1], pool_k.shape[2], pt.shape[1]
+
+
 def _paged_cases(torch, gen, dev):
     """(name, q, pool_k, pool_v, page_table, lens, window): gemma3-1b shapes
     (hk 1, group 4, d 256, page 16), 8 ragged rows incl. one of length 0,
-    then one case at the kernel's other head dim, group and page size."""
-    gemma = _paged_case(torch, gen, dev, 4, 1, 256, 16, 40, [0, 1, 15, 16, 17, 261, 530, 640])
+    then one case at the kernel's other head dim, group and page size, the
+    serving path's decode (8 rows of 262-269 tokens in 17 pages of 16) and
+    4 kv heads at ~1k context in pages of 64."""
+    gemma = _paged_case(torch, gen, dev, 4, 1, 256, 16, 40, GEMMA_LENS)
     other = _paged_case(torch, gen, dev, 4, 2, 128, 8, 40, [0, 7, 33, 300])
+    serving = _paged_case(torch, gen, dev, 4, 1, 256, 16, 17, SERVING_LENS)
+    long_ctx = _paged_case(torch, gen, dev, 16, 4, 256, 64, 17, [0, 1000, 1024, 700, 1, 63, 64, 65])
     return ([(f"gemma3 decode window {w}", *gemma, w) for w in (-1, 512, 20)]
-            + [("hk 2, group 2, d 128, page 8, window 97", *other, 97)])
+            + [("hk 2, group 2, d 128, page 8, window 97", *other, 97),
+               ("serving decode window 512", *serving, 512),
+               ("hk 4, group 4, d 256, page 64, ~1k context", *long_ctx, -1)])
+
+
+GEMMA_LENS = [0, 1, 15, 16, 17, 261, 530, 640]  # ragged, a row of length 0
+SERVING_LENS = [262, 263, 264, 265, 266, 267, 268, 269]  # prompts of 197 vision + 65-72 tokens
+LONG_LENS = [1024, 1017, 1000, 990, 960, 1024, 1003, 998]
+
+
+def _paged_timed_cases(torch, gen, dev):
+    """(name, (q, pool_k, pool_v, page_table, lens), window) of the timed
+    paged decode shapes: gemma3-1b (hk 1, group 4, d 256) at phase 3's
+    ragged rows, window 512; the serving path's decode (8 rows of 262-269
+    tokens in 17 pages of 16, the engine's table), window 512 and global;
+    the ~1k-context case (hk 4, group 4, d 256), pages of 16 and 64."""
+    gemma = _paged_case(torch, gen, dev, 4, 1, 256, 16, 40, GEMMA_LENS)
+    serving = _paged_case(torch, gen, dev, 4, 1, 256, 16, 17, SERVING_LENS)
+    cases = [("gemma3 decode window 512", gemma, 512), ("serving window 512", serving, 512),
+             ("serving global", serving, -1)]
+    for ps in (16, 64):
+        cases.append((f"hk 4 ~1k context page {ps}",
+                      _paged_case(torch, gen, dev, 16, 4, 256, ps, -(-1024 // ps), LONG_LENS), -1))
+    return cases
+
+
+def _attended_tokens(lens, window: int, limit: int) -> int:
+    """Tokens the rows attend: [max(0, len - window), min(len, limit))."""
+    end = lens.long().clamp(max=limit)
+    start = (lens.long() - window).clamp(min=0) if window >= 0 else 0 * end
+    return int((end - start).clamp(min=0).sum())
+
+
+def time_paged(torch, gen, dev, plain: bool = False) -> dict:
+    """K3 and K4 in bf16 at each of ``_paged_timed_cases``, by CUDA graph
+    replay, warm (one set of pools) and cold (sets cycled past the 50 MB L2,
+    as a decode step of 26 layers finds them), beside the bound (bytes) and,
+    with ``plain``, the plain versions (event loop, warm).  Prints each with
+    the split S (the cluster size; "n/a" for a checkout without the split);
+    returns {kernel: {case: {"ms", "warm_ms", "plain_ms", "bound", "splits"}}}."""
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_kernel as pk
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_mp_kernel as mp
+
+    kernels = {"K3": (pk.paged_decode_attention, pk.paged_decode_attention_reference),
+               "K4": (mp.paged_decode_attention_mp, mp.paged_decode_attention_mp_reference)}
+    split_for = getattr(pk, "split_for", None)
+    times = {k: {} for k in kernels}
+    for name, (q, pool_k, pool_v, pt, lens), w in _paged_timed_cases(torch, gen, dev):
+        b, _, hq, d = q.shape
+        _, hk, ps, _ = pool_k.shape
+        np_ = pt.shape[1]
+        first = tuple(t.to(torch.bfloat16) for t in (q, pool_k, pool_v))
+        sets = [first] + [tuple(torch.randn(t.shape, generator=gen, device=dev).to(torch.bfloat16)
+                                for t in (q, pool_k, pool_v))
+                          for _ in range(max(3, int(COLD_BYTES // nbytes(*first))))]
+        tokens = _attended_tokens(lens, w, np_ * ps)
+        bd = bound(2 * nbytes(first[0]) + nbytes(pt, lens) + 2 * tokens * hk * d * 2,
+                   4 * d * hq * tokens)
+        splits = split_for(b, hk, ps, np_, w) if split_for else None
+        for kname, (fn, ref) in kernels.items():
+            def call(qq, kk, vv, fn=fn):
+                return fn(qq, kk, vv, pt, lens, scale=1 / 16, window=w)
+            warm = graph_time_ms(lambda: call(*first))
+            cold = graph_time_ms(_cycled(call, sets), iters=len(sets))
+            plain_ms = (cuda_time_ms(lambda: ref(*first, pt, lens, scale=1 / 16, window=w))
+                        if plain else None)
+            times[kname][name] = {"ms": cold, "warm_ms": warm, "plain_ms": plain_ms,
+                                  "bound": bd, "splits": splits}
+            print(f"[kernels] {kname} {name} [{b},1,{hq},{d}] vs pools [P,{hk},{ps},{d}] bf16, "
+                  f"{tokens} tokens, S {splits if splits else 'n/a'} (clusters of "
+                  f"{splits if splits else 'n/a'} CTAs, grid {splits or 1}x{b}x{hk}): cold "
+                  f"{cold:.5f} ms, warm {warm:.5f} ms (graph replay, {len(sets)} pool sets)"
+                  + (f", plain {plain_ms:.4f} ms" if plain else "")
+                  + f", bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})", flush=True)
+    return times
 
 
 # gemma3-1b's seven decode projections (in, out) at 8 rows, then rows 1 and
@@ -1405,20 +1509,16 @@ K4_PPB = (1, 3, 8)
 
 
 def _phase_paged_mp(torch, gen, dev, report: dict) -> None:
-    """K4 against its plain version (the same blocks) on K3's cases plus
-    64-token pages at 4 kv heads and ~1k context, pages_per_block 1, 3 and
-    8 (clamped on the card), fp32 and bf16; the length-0 row exactly 0.
-    Then K4 beside K3 at 4 kv heads (group 4, d 256), batch 8, ~1k context,
-    pages of 16 and 64, bf16, by CUDA graph."""
+    """K4 against its plain version (the same blocks) on K3's cases,
+    pages_per_block 1, 3 and 8 (clamped on the card), fp32 and bf16; the
+    length-0 row exactly 0, two calls bitwise equal.  Then K3 and K4 timed
+    side by side (``time_paged``): the JSON line takes the gemma3 window-512
+    case, cold."""
     from multimodal_concept_learning_tpu_torch.ops import paged_attention_kernel as pk
     from multimodal_concept_learning_tpu_torch.ops import paged_attention_mp_kernel as mp
 
     k4 = report.setdefault("paged_decode_attention_mp", {"max_abs_err": 0.0})
-    long_ctx = [0, 1000, 1024, 700, 1, 63, 64, 65]
-    cases = _paged_cases(torch, gen, dev) + [
-        ("hk 4, group 4, d 256, page 64, ~1k context",
-         *_paged_case(torch, gen, dev, 16, 4, 256, 64, 17, long_ctx), -1)]
-    for name, q, pool_k, pool_v, pt, lens, w in cases:
+    for name, q, pool_k, pool_v, pt, lens, w in _paged_cases(torch, gen, dev):
         for dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd = (t.to(dtype) for t in (q, pool_k, pool_v))
             args = (qd, kd, vd, pt, lens)
@@ -1426,52 +1526,32 @@ def _phase_paged_mp(torch, gen, dev, report: dict) -> None:
             for ppb in K4_PPB:
                 out = mp.paged_decode_attention_mp(*args, scale=1 / 16, window=w,
                                                    pages_per_block=ppb)
+                again = mp.paged_decode_attention_mp(*args, scale=1 / 16, window=w,
+                                                     pages_per_block=ppb)
                 ref = mp.paged_decode_attention_mp_reference(
                     qd.float(), kd.float(), vd.float(), pt, lens, scale=1 / 16, window=w,
                     pages_per_block=ppb)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                zero_row = out[0].abs().max().item()
+                zero_row = _len0_max(out, lens)
+                same = torch.equal(out, again)
                 sched = mp.mp_schedule(kd.shape[2], kd.shape[3], dtype,
                                        qd.shape[2] // kd.shape[1], ppb, pt.shape[1])
                 print(f"[kernels] K4 {name} {tag} pages_per_block {ppb} (card: {sched[1]} "
-                      f"segments of {sched[0]} tokens): max_abs_err {err:.3e} len-0 row "
-                      f"{zero_row:.1e}", flush=True)
-                if not (err <= TOL[tag] and zero_row == 0.0):
-                    fail(f"K4 {name} {tag} ppb {ppb}: max abs err {err}, len-0 row {zero_row}")
+                      f"segments of {sched[0]} tokens, S {pk.split_for(*_paged_shape(args), w)}): "
+                      f"max_abs_err {err:.3e} len-0 row {zero_row:.1e}, two calls bitwise equal "
+                      f"{same}", flush=True)
+                if not (err <= TOL[tag] and zero_row == 0.0 and same):
+                    fail(f"K4 {name} {tag} ppb {ppb}: max abs err {err}, len-0 row {zero_row}, "
+                         f"bitwise equal {same}")
                 k4["max_abs_err"] = max(k4["max_abs_err"], err)
-            if w == 512 and dtype is torch.bfloat16:  # the main path's shape, as K3's row
-                ms = graph_time_ms(lambda: mp.paged_decode_attention_mp(*args, scale=1 / 16,
-                                                                        window=w))
-                plain_ms = cuda_time_ms(lambda: mp.paged_decode_attention_mp_reference(
-                    *args, scale=1 / 16, window=w))
-                tokens = int(lens.clamp(max=w).sum())
-                hk, d = kd.shape[1], kd.shape[-1]
-                k4.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          **bound(2 * nbytes(qd) + nbytes(pt, lens)
-                                  + 2 * tokens * hk * d * kd.element_size(),
-                                  4 * d * qd.shape[2] * tokens))
-                k3_ms = graph_time_ms(lambda: pk.paged_decode_attention(*args, scale=1 / 16,
-                                                                       window=w))
-                print(f"[kernels] K4 {name} bf16: kernel {ms:.5f} ms (K3 {k3_ms:.5f} ms), "
-                      f"plain {plain_ms:.4f} ms, bound {k4['bound_ms']:.5f} ms", flush=True)
-    for ps in (16, 64):
-        np_ = -(-1024 // ps)
-        q, pool_k, pool_v, pt, lens = _paged_case(torch, gen, dev, 16, 4, 256, ps, np_,
-                                                  [1024, 1017, 1000, 990, 960, 1024, 1003, 998])
-        args = tuple(t.to(torch.bfloat16) for t in (q, pool_k, pool_v)) + (pt, lens)
-        k3_ms = graph_time_ms(lambda: pk.paged_decode_attention(*args, scale=1 / 16))
-        k4_ms = graph_time_ms(lambda: mp.paged_decode_attention_mp(*args, scale=1 / 16))
-        k3_eager = cuda_time_ms(lambda: pk.paged_decode_attention(*args, scale=1 / 16))
-        k4_eager = cuda_time_ms(lambda: mp.paged_decode_attention_mp(*args, scale=1 / 16))
-        tokens = int(lens.sum())
-        b = bound(2 * nbytes(args[0]) + nbytes(pt, lens) + 2 * tokens * 4 * 256 * 2,
-                  4 * 256 * 16 * tokens)
-        sched = mp.mp_schedule(ps, 256, torch.bfloat16, 4, 8, np_)
-        print(f"[kernels] K3 vs K4, batch 8, hk 4, group 4, d 256, ~1k context, page {ps}, "
-              f"bf16: K3 {k3_ms:.5f} ms, K4 {k4_ms:.5f} ms (pages_per_block 8 -> {sched[1]} "
-              f"of {sched[0]} tokens); eager wrapper loops K3 {k3_eager:.4f} ms, K4 "
-              f"{k4_eager:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
+    times = time_paged(torch, gen, dev, plain=True)
+    for kname, key in (("K3", "paged_decode_attention"), ("K4", "paged_decode_attention_mp")):
+        r = times[kname]["gemma3 decode window 512"]  # the JSON line's numbers
+        report[key].update(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=None, **r["bound"])
+    for name in times["K3"]:
+        print(f"[kernels] K3 vs K4 {name}, cold: K3 {times['K3'][name]['ms']:.5f} ms, K4 "
+              f"{times['K4'][name]['ms']:.5f} ms (pages_per_block 8)", flush=True)
 
 
 def time_k1_fwd(torch, fa, name: str, q, k, v, kw) -> dict:
@@ -1526,8 +1606,10 @@ def time_variants(root: str) -> None:
     bf16 backwards are the same kernel pair, over 16-row slots of one
     sample), K6's forward (beside the unfused library composition) and
     backward at the vision shape, K1's backward at the LM training shape,
-    and K5 at gemma3-1b's seven decode projections, cold (beside
-    ``torch._weight_int4pack_mm``), bf16, each by CUDA graph replay beside
+    K5 at gemma3-1b's seven decode projections, cold (beside
+    ``torch._weight_int4pack_mm``), and K3 and K4 at the gemma3 window-512,
+    serving and ~1k-context shapes, warm and cold (``time_paged``), bf16,
+    each by CUDA graph replay beside
     its library call (SDPA for the attention kernels), from the
     port package of the checkout at ``root`` (``sys.path`` puts it first).
     Run it once a process on two checkouts in turns (parent, change,
@@ -1562,17 +1644,19 @@ def time_variants(root: str) -> None:
                 do = torch.randn(q.shape, generator=gen, device=dev)
                 time_k1_bwd(torch, fa, name, *(x.to(bf16) for x in (q, k, v, do)), kw)
         time_k5(torch, gen, dev)
+        time_paged(torch, gen, dev)
 
 
 def _layout_views(torch, t) -> dict:
-    """The values of ``t`` as a strided view (the last dim padded by 8 and
-    sliced: not contiguous) and as an offset view (one element into a flat
-    buffer: not 16-byte aligned), the layouts the JAX functions take."""
-    pad = torch.zeros(*t.shape[:-1], t.shape[-1] + 8, dtype=t.dtype, device=t.device)
-    pad[..., :t.shape[-1]] = t
+    """The values of ``t`` as a strided view (every other element of a last
+    dim twice as long: not contiguous) and as an offset view (one element
+    into a flat buffer: not 16-byte aligned), the layouts the JAX functions
+    take."""
+    wide = torch.zeros(*t.shape[:-1], 2 * t.shape[-1], dtype=t.dtype, device=t.device)
+    wide[..., ::2] = t
     flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
     flat[1:] = t.reshape(-1)
-    views = {"strided": pad[..., :t.shape[-1]], "offset": flat[1:].view(t.shape)}
+    views = {"strided": wide[..., ::2], "offset": flat[1:].view(t.shape)}
     assert not views["strided"].is_contiguous() and views["offset"].data_ptr() % 16
     return views
 
@@ -1581,11 +1665,14 @@ def _phase_layouts(torch, gen, dev) -> None:
     """K1's forward, K2 and K5 on a strided and an offset view of their
     operands (copied by the wrappers, not refused) against their plain
     versions on the same values: K1 within TOL abs, K2 within TOL (bf16: of
-    the reference's max), K5 within K5_TOL;
-    each wrapper must have launched its kernel."""
+    the reference's max), K5 within K5_TOL; then K3 and K4 on a strided and
+    an offset q, page table and lens (the pools stay as the cache holds
+    them), within TOL abs; each wrapper must have launched its kernel."""
     from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
     from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_kernel as pk
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_mp_kernel as mp
 
     q, k, v = (torch.randn(2, 37, 4, 64, generator=gen, device=dev) for _ in range(3))
     qkv = torch.randn(4, 50, 3 * 4 * 64, generator=gen, device=dev)
@@ -1619,18 +1706,64 @@ def _phase_layouts(torch, gen, dev) -> None:
             if not (errs[0] <= TOL[tag] and errs[1] <= lim2 and errs[2] <= lim5
                     and launched == (1, 1, 1)):
                 fail(f"{kind} views {tag}: errors {errs}, launches {launched}")
+    name, q, pool_k, pool_v, pt, lens, w = _paged_cases(torch, gen, dev)[1]  # window 512
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        qd, kd, vd = (a.to(dtype) for a in (q, pool_k, pool_v))
+        ref = pk.paged_decode_attention_reference(qd.float(), kd.float(), vd.float(), pt, lens,
+                                                  scale=1 / 16, window=w)
+        for kind in ("strided", "offset"):
+            n = (pk.paged_decode_attention.launches, mp.paged_decode_attention_mp.launches)
+            views = [_layout_views(torch, a)[kind] for a in (qd, pt, lens)]
+            outs = [fn(views[0], kd, vd, views[1], views[2], scale=1 / 16, window=w)
+                    for fn in (pk.paged_decode_attention, mp.paged_decode_attention_mp)]
+            torch.cuda.synchronize()
+            errs = [(o.float() - ref).abs().max().item() for o in outs]
+            launched = (pk.paged_decode_attention.launches - n[0],
+                        mp.paged_decode_attention_mp.launches - n[1])
+            print(f"[kernels] {kind} q, page table and lens {tag} ({name}): K3 {errs[0]:.3e}, "
+                  f"K4 {errs[1]:.3e} (limit {TOL[tag]:.0e}); launches {launched}", flush=True)
+            if not (max(errs) <= TOL[tag] and launched == (1, 1)):
+                fail(f"{kind} paged operands {tag}: errors {errs}, launches {launched}")
+
+
+def _phase_paged(torch, gen, dev, report: dict) -> None:
+    """K3 against its plain version on every ``_paged_cases`` case, fp32
+    and bf16: within TOL abs, the length-0 row exactly 0, two calls bitwise
+    equal (the merge runs in a fixed rank order)."""
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_kernel as pk
+
+    k3 = report.setdefault("paged_decode_attention", {"max_abs_err": 0.0})
+    for name, q, pool_k, pool_v, pt, lens, w in _paged_cases(torch, gen, dev):
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dtype) for t in (q, pool_k, pool_v))
+            args = (qd, kd, vd, pt, lens)
+            out = pk.paged_decode_attention(*args, scale=1 / 16, window=w)
+            again = pk.paged_decode_attention(*args, scale=1 / 16, window=w)
+            ref = pk.paged_decode_attention_reference(
+                qd.float(), kd.float(), vd.float(), pt, lens, scale=1 / 16, window=w)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            zero_row = _len0_max(out, lens)
+            same = torch.equal(out, again)
+            tag = str(dtype).replace("torch.", "")
+            print(f"[kernels] K3 {name} {tag} (S {pk.split_for(*_paged_shape(args), w)}): "
+                  f"max_abs_err {err:.3e} len-0 row {zero_row:.1e}, two calls bitwise "
+                  f"equal {same}", flush=True)
+            if not (err <= TOL[tag] and zero_row == 0.0 and same):
+                fail(f"K3 {name} {tag}: max abs err {err}, len-0 row max {zero_row}, "
+                     f"bitwise equal {same}")
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
 
 
 def phase_kernels(report: dict) -> None:
     import torch
 
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
-    from multimodal_concept_learning_tpu_torch.ops import paged_attention_kernel as pk
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1 = report.setdefault("flash_attention_fwd", {"max_abs_err": 0.0})
-    k3 = report.setdefault("paged_decode_attention", {"max_abs_err": 0.0})
     with torch.no_grad():
         for name, q, k, v, kw in _flash_cases(torch, gen, dev):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1650,33 +1783,7 @@ def phase_kernels(report: dict) -> None:
                 timing = time_k1_fwd(torch, fa, name, qd, kd, vd, kw)
                 if name.startswith("lm ["):  # the JSON line's numbers: LM prefill
                     k1.update(timing)
-        for name, q, pool_k, pool_v, pt, lens, w in _paged_cases(torch, gen, dev):
-            for dtype in (torch.float32, torch.bfloat16):
-                qd, kd, vd = (t.to(dtype) for t in (q, pool_k, pool_v))
-                args = (qd, kd, vd, pt, lens)
-                out = pk.paged_decode_attention(*args, scale=1 / 16, window=w)
-                ref = pk.paged_decode_attention_reference(
-                    qd.float(), kd.float(), vd.float(), pt, lens, scale=1 / 16, window=w)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                zero_row = out[0].abs().max().item()
-                ms = cuda_time_ms(lambda: pk.paged_decode_attention(*args, scale=1 / 16, window=w))
-                plain_ms = cuda_time_ms(
-                    lambda: pk.paged_decode_attention_reference(*args, scale=1 / 16, window=w))
-                tag = str(dtype).replace("torch.", "")
-                print(f"[kernels] K3 {name} {tag}: max_abs_err {err:.3e} len-0 row "
-                      f"{zero_row:.1e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
-                if not (err <= TOL[tag] and zero_row == 0.0):
-                    fail(f"K3 {name} {tag}: max abs err {err}, len-0 row max {zero_row}")
-                k3["max_abs_err"] = max(k3["max_abs_err"], err)
-                if w == 512 and dtype is torch.bfloat16:
-                    # the tokens each row reads: its length, cut to the window
-                    tokens = int(lens.clamp(max=w).sum()) if w > 0 else int(lens.sum())
-                    hk, d = kd.shape[1], kd.shape[-1]
-                    k3.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                              **bound(2 * nbytes(qd) + nbytes(pt, lens)
-                                      + 2 * tokens * hk * d * kd.element_size(),
-                                      4 * d * qd.shape[2] * tokens))
+        _phase_paged(torch, gen, dev, report)
         _phase_flash_bwd(torch, fa, gen, dev, report)
         _phase_core(torch, gen, dev, report)
         _phase_core_bd(torch, gen, dev, report)
@@ -2763,7 +2870,7 @@ def phase_variant_slice(report: dict, clip_run: dict) -> None:
 PORT_KERNELS = ("core_fwd_kernel", "core_fwd_tc_kernel", "core_bwd_kernel", "bd_fwd_kernel",
                 "bd_fwd_tc_kernel", "merged_bwd_kernel", "bwd_dq_tc_kernel",
                 "bwd_dkv_tc_kernel", "fused_attn_kernel", "out_proj_kernel",
-                "flash_fwd", "flash_bwd")  # the port's attention kernels, by name
+                "flash_fwd", "flash_bwd", "paged_")  # the port's attention kernels, by name
 K1_GROUPS = {"K1 forward": "flash_fwd", "K1 dQ": "flash_bwd_dq",
              "K1 dK/dV": "flash_bwd_dkv"}  # K1's kernels by name, both dtypes
 
@@ -2847,15 +2954,81 @@ def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
                   batch, steps, warmup, config.batch_size, "samples", groups=K1_GROUPS)
 
 
+def profile_decode(root: str, steps: int = 6, warmup: int = 4) -> None:
+    """``--profile-decode [ROOT]``: the paged decode step of the full-width
+    gemma3-1b MLLM (seeded random weights, bf16) at batch 8 on a fixed
+    batch: prompts of 197 vision + 65-72 text tokens (262-269, the serving
+    shape) prefilled into pages of 16, then decode steps that each attend
+    the same positions (lengths held, one token written at each row's next
+    slot), each step's next token by argmax; from the port package of the
+    checkout at ``root`` (``sys.path`` puts it first; a parent checkout is
+    profiled this way).  K3 unless ``MCL_PAGED_KERNEL=2`` (K4); prints the
+    unprofiled ms a step, device busy, idle share and the paged kernel's ms
+    a step."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.device import cast_for_compute
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
+    from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
+        init_paged_kv_cache,
+        pages_needed,
+    )
+
+    kernel = "K4" if os.environ.get("MCL_PAGED_KERNEL") == "2" else "K3"
+    print(f"[ab] kernels of {os.path.abspath(root)}; paged decode through {kernel}", flush=True)
+    cfg = MLLMConfig.create(vocab_size=1148)
+    with torch.device("cuda"):
+        model = MLLM(cfg)
+    init_random_weights_(model, torch.Generator(device="cuda").manual_seed(SEED))
+    cast_for_compute(model, cfg.dtype)
+    model.eval()
+    rng = np.random.default_rng(SEED)
+    b, text = 8, [65 + i for i in range(8)]
+    t = cfg.num_vision_tokens + max(text)
+    ids = rng.integers(4, cfg.lm.vocab_size, size=(b, t - cfg.num_vision_tokens))
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(text):
+        mask[i, :n] = 1
+    ids[mask == 0] = 0
+    mask = np.concatenate([np.ones((b, cfg.num_vision_tokens), mask.dtype), mask], axis=1)
+    ids = np.concatenate([np.zeros((b, cfg.num_vision_tokens), ids.dtype), ids], axis=1)
+    images = np.stack([_circle([255 - 30 * i, 30 * i, 128]) for i in range(b)])
+    images, ids, mask = (torch.from_numpy(x).to("cuda") for x in (images, ids, mask))
+    ids, mask = ids.to(torch.int32), mask.to(torch.int32)
+    lm = model.language_model
+    np_max = pages_needed(t + 9, 16)
+    pools = init_paged_kv_cache(lm.cfg, 1 + b * np_max, 16, device="cuda")
+    pt = torch.arange(1, 1 + b * np_max, dtype=torch.int32, device="cuda").reshape(b, np_max)
+    rows = torch.arange(b, device="cuda")
+    with torch.inference_mode():
+        hidden = model.prefill_paged(images, ids, mask, pools, pt)
+        seq = mask.sum(dim=1).to(torch.int32)
+        tok = torch.argmax(lm.lm_head(hidden[rows, seq.long() - 1]), dim=-1).to(torch.int32)
+    print(f"[profile decode] rows of {seq.tolist()} tokens, {np_max} pages of 16 a row, "
+          f"{lm.cfg.num_layers} layers", flush=True)
+
+    def step(tok, _batch):
+        with torch.inference_mode():
+            h = lm.decode_step_paged(lm.embed(tok[:, None]), pools, pt, seq)
+            nxt = torch.argmax(lm.lm_head(h[:, 0]), dim=-1).to(torch.int32)
+        return nxt, {"token": nxt[0]}
+
+    frag = "paged_mp_kernel" if kernel == "K4" else "paged_decode_kernel"
+    _profile_step("decode", tok, step, None, steps, warmup, b, "tokens",
+                  groups={kernel: frag}, note="token")
+
+
 def _profile_step(tag: str, state, step, batch, steps: int, warmup: int, batch_size: int,
-                  unit: str, groups: dict = None) -> None:
+                  unit: str, groups: dict = None, note: str = "loss") -> None:
     """Steady ms per step unprofiled; a ``torch.profiler`` window of
     ``steps`` steps tracing the card only: device busy time (union of kernel
     intervals) and the idle share, against the unprofiled step and against
     the window's own wall time; then a window tracing host and card: aten
     ops per step, device time by kernel (the port's kernels and the matrix
     products summed, and each of ``groups``: {label: name fragment}), and
-    how far host tracing stretches the step."""
+    how far host tracing stretches the step.  ``note``: the key of the
+    step's metrics printed beside the unprofiled step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2868,7 +3041,7 @@ def _profile_step(tag: str, state, step, batch, steps: int, warmup: int, batch_s
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / steps
     print(f"[profile {tag}] unprofiled: {step_ms:.2f} ms per step, {1e3 / step_ms:.3f} steps/s, "
-          f"{batch_size * 1e3 / step_ms:.1f} {unit}/s (loss {float(m['loss']):.4f})", flush=True)
+          f"{batch_size * 1e3 / step_ms:.1f} {unit}/s ({note} {float(m[note]):.4f})", flush=True)
 
     def window(activities):
         nonlocal state
@@ -3026,8 +3199,13 @@ def main(argv=None) -> None:
     parser.add_argument("--profile-mllm", metavar="ROOT", nargs="?", const=".",
                         help="build the kernels of the checkout at ROOT (default: this one), "
                              "then profile the full MLLM micro-step; no other phase")
+    parser.add_argument("--profile-decode", metavar="ROOT", nargs="?", const=".",
+                        help="build the kernels of the checkout at ROOT (default: this one), "
+                             "then profile the full MLLM's paged decode step at batch 8 "
+                             "(K3; MCL_PAGED_KERNEL=2: K4); no other phase")
     args = parser.parse_args(argv)
-    ab_root = args.time_forwards or args.time_variants or args.profile_mllm
+    ab_root = (args.time_forwards or args.time_variants or args.profile_mllm
+               or args.profile_decode)
     if ab_root:
         sys.path.insert(0, os.path.abspath(ab_root))
     if not torch.cuda.is_available():
@@ -3052,6 +3230,9 @@ def main(argv=None) -> None:
         return
     if args.profile_mllm:
         profile_mllm(args.profile_mllm)
+        return
+    if args.profile_decode:
+        profile_decode(args.profile_decode)
         return
     report: dict = {}
     phase_kernels(report)

@@ -5,77 +5,47 @@
 // Replaces the Pallas TPU kernel multimodal_concept_learning_tpu/ops/
 // paged_attention_mp_kernel.py:_mp_kernel (with _chunk_copies, pallas_call
 // at :233).  Same function as K3 (csrc/paged_attention.cu): for batch row b
-// and kv head h the CTA computes the whole GQA group of G = Hq / Hk heads,
+// and kv head h the whole GQA group of G = Hq / Hk heads,
 //     o[b, hG+g] = softmax_i(q[b, hG+g] . K[i] * scale) V[i]
 // over the row's tokens i < lens[b] (and (lens[b] - 1) - i < window when
 // window >= 0), read through page_table[b, i / ps] from head-major pools
 // [P, Hk, ps, D].  A row with lens[b] == 0 outputs zeros.
 //
-// The row is walked in blocks of `spb` segments of `seg` tokens; a segment
-// is a contiguous run inside one page of one head (seg == ps: whole pages,
-// spb = pages per block).  The wrapper picks them from the requested
-// pages_per_block and the shared memory: two stages of K and V take
-// 4 * spb * seg * D * sizeof(T) bytes, so bf16 pages of 16 tokens at D 256
-// fit 6 pages a block beside the scores, fp32 only 3; where one page does
-// not fit twice (fp32, 64-token pages, D 256) a page is copied in row ranges
+// Rows are copied in segments of `seg` tokens, a contiguous run inside one
+// page of one head (seg == ps: whole pages), `spb` segments a block.  The
+// wrapper picks them from the requested pages_per_block and the shared
+// memory: two stages of K and V take 4 * spb * seg * D * sizeof(T) bytes,
+// so bf16 pages of 16 tokens at D 256 fit 6 pages a block beside the
+// cluster merge's receive buffer, fp32 only 3; where one page does not fit
+// twice (fp32, 64-token pages, D 256) a page is copied in row ranges
 // (seg < ps, spb = 1).  Results differ between schedules only by float32
 // summation order.
 //
 // What bounds it: bytes, as K3 (2 * len * Hk * D elements of K/V per row and
-// layer, 4 flops each).  The TPU kernel's reason to exist was the per-step
-// cost of its sequential grid; here the point is to overlap: block c + 1's
-// segments go to shared memory with 16-byte cp.async (one commit group per
-// block, the counterpart of the TPU's per-block DMA semaphore) while block c
-// computes scores, a float32 online softmax across blocks and the [G, D]
-// float32 accumulator.  Masked tokens get probability exactly 0, and
-// segments outside the attended range [start, len) are neither copied nor
-// read.  At batch 8 and one kv head only 8 CTAs run, as in K3: splitting a
-// row's blocks over CTAs (flash-decoding) is the next step for speed.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// layer, 4 flops each), and at decode sizes the latency of a row's chain of
+// dependent steps.  As K3, each (row, kv head) is split over a thread block
+// cluster of S CTAs (csrc/paged_split.cuh; S from the shapes alone); here a
+// CTA's run is a whole number of segments at multiples of seg.  Inside its
+// run a CTA keeps what sets K4 apart: block c + 1's segments go to shared
+// memory with 16-byte cp.async (one commit group per block, the counterpart
+// of the TPU's per-block DMA semaphore) while block c computes.  A block is
+// computed as K3 computes its tokens, by lane groups that each keep a
+// float32 online softmax in registers, reading their rows from the stage;
+// masked tokens get probability exactly 0, and segments outside the
+// attended range are neither copied nor read.  The groups, then the S CTAs,
+// are merged in fixed orders (K3's code).
 
 #include "mma_tiles.cuh"  // cp_async16, cp_async_commit, cp_async_wait
+#include "paged_split.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;  // <= kWarps: one warp per query head in the softmax
+using namespace mcl_paged;
+
 constexpr int kSmemLimit = 232448;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 struct MpParams {
-  const void* q;          // [B, Hq, D] (the [B, 1, Hq, D] query)
+  const void* q;          // [B, Hq, D] (the [B, 1, Hq, D] query), 16-byte aligned
   const void* k_pool;     // [P, Hk, ps, D], 16-byte aligned
   const void* v_pool;     // [P, Hk, ps, D], 16-byte aligned
   void* o;                // [B, Hq, D]
@@ -86,52 +56,58 @@ struct MpParams {
   float scale;
   int seg;  // tokens per copied segment; divides ps
   int spb;  // segments per block
+  int S;    // CTAs a (row, kv head): the cluster size, gridDim.x
 };
 
-size_t smem_bytes(int G, int D, int blk, size_t elem) {
-  return 4 * (size_t)blk * D * elem + sizeof(float) * ((size_t)G * D + (size_t)G * blk + 3 * G);
+// Shared memory: two stages of K and V for `blk` tokens, overlaid after the
+// last block by the CTA merge, then the cluster merge's receive buffer (the
+// host mirror is ops/paged_attention_mp_kernel.py:_smem, at S 16)
+template <typename T, int D>
+__host__ __device__ size_t smem_bytes(int G, int blk, int S) {
+  const size_t stages = 4 * (size_t)blk * D * sizeof(T);
+  const size_t merge = sizeof(float) * merge_floats<T, D>(G);
+  return (stages > merge ? stages : merge) + sizeof(float) * recv_floats(G, D, S);
 }
 
-// One CTA per (batch row, kv head).
-template <typename T, int D>
+// One cluster per (batch row, kv head); rank blockIdx.x of it takes one run.
+// kG >= G bounds the heads a lane holds.
+template <typename T, int D, int kG>
 __global__ void __launch_bounds__(kThreads) paged_mp_kernel(MpParams p) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
-  static_assert(D % kVec == 0 && D <= kThreads, "head_dim");
+  using Tile = RowTile<T, D>;
+  using State = GroupState<T, D, kG>;
+  constexpr int kVec = Tile::kVec;  // elements per 16-byte copy
+  constexpr int kU = State::kU;
+  constexpr int kP = Tile::kP;
+  constexpr int kNG = Tile::kNG;
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = p.Hq / p.Hk;
   const int blk = p.seg * p.spb;
   const size_t stage_elems = 2 * (size_t)blk * D;  // K then V of one block
   T* stages = reinterpret_cast<T*>(smem);
-  float* qs = reinterpret_cast<float*>(smem + 2 * stage_elems * sizeof(T));  // [G][D]
-  float* ss = qs + G * D;            // [G][blk] scores, then probabilities
-  float* alpha_s = ss + G * blk;     // [G]
-  float* m_s = alpha_s + G;          // [G] running max
-  float* l_s = m_s + G;              // [G] running denominator
+  const size_t front = smem_bytes<T, D>(G, blk, 1);  // stages or the merge, whichever is larger
+  float* recv = reinterpret_cast<float*>(smem + front);
+  if (p.S > 1) cluster_arrive_relaxed();  // matched by the wait before the first push
 
-  const T* q = static_cast<const T*>(p.q);
   const T* kp = static_cast<const T*>(p.k_pool);
   const T* vp = static_cast<const T*>(p.v_pool);
-  T* o = static_cast<T*>(p.o);
-
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
+  const int rank = blockIdx.x;  // == the cluster rank: clusters span gridDim.x
+  const int b = blockIdx.y;
+  const int h = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int len = p.lens[b];
-  const int end = min(len, p.NP * p.ps);  // the page table's columns bound the row
-  const int start = p.window >= 0 ? max(0, len - p.window) : 0;
+  const int gi = warp * Tile::kGroups + lane / Tile::kL;  // this lane's group
+  const int sub = lane % Tile::kL;                        // its lane in the group
   const size_t q_base = ((size_t)b * p.Hq + (size_t)h * G) * D;  // G consecutive heads
+  int start, end, lo, hi;
+  attended(p.lens[b], p.window, p.NP * p.ps, start, end);
+  run_aligned(start, end, p.seg, p.S, rank, lo, hi);  // this CTA's tokens
 
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = to_f(q[q_base + i]);
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-  float acc[kMaxGroup];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
+  // blocks of spb segments from the run's first segment: block c covers
+  // tokens [t_blk + c * blk, t_blk + (c + 1) * blk)
+  const int t_blk = lo / p.seg * p.seg;
+  const int nblk = lo < hi ? (hi - t_blk + blk - 1) / blk : 0;
 
   // copy block c's attended segments into stage `stage` (one commit group)
   auto issue = [&](int c, int stage) {
@@ -141,8 +117,8 @@ __global__ void __launch_bounds__(kThreads) paged_mp_kernel(MpParams p) {
     for (int idx = tid; idx < p.spb * vec_per_seg; idx += kThreads) {
       const int j = idx / vec_per_seg;
       const int e = idx - j * vec_per_seg;
-      const int t0 = (c * p.spb + j) * p.seg;  // the segment's first token
-      if (t0 >= end || t0 + p.seg <= start) continue;
+      const int t0 = t_blk + c * blk + j * p.seg;  // the segment's first token
+      if (t0 >= hi || t0 + p.seg <= lo) continue;
       const long long page = p.page_table[(size_t)b * p.NP + t0 / p.ps];
       const long long off = ((page * p.Hk + h) * p.ps + t0 % p.ps) * D + (long long)e * kVec;
       const size_t dst = (size_t)j * p.seg * D + (size_t)e * kVec;
@@ -152,12 +128,12 @@ __global__ void __launch_bounds__(kThreads) paged_mp_kernel(MpParams p) {
     cp_async_commit();
   };
 
-  const int c0 = start / blk;
-  const int c1 = start < end ? (end + blk - 1) / blk : c0;  // blocks [c0, c1)
-  if (c0 < c1) issue(c0, 0);
-  for (int c = c0; c < c1; ++c) {
-    const int stage = (c - c0) & 1;
-    if (c + 1 < c1)
+  if (nblk > 0) issue(0, 0);
+  State st;
+  st.init(static_cast<const T*>(p.q) + q_base, G, sub, p.scale);
+  for (int c = 0; c < nblk; ++c) {
+    const int stage = c & 1;
+    if (c + 1 < nblk)
       issue(c + 1, stage ^ 1);
     else
       cp_async_commit();  // an empty group, so that wait_group 1 always means block c
@@ -165,104 +141,55 @@ __global__ void __launch_bounds__(kThreads) paged_mp_kernel(MpParams p) {
     __syncthreads();
     const T* ks = stages + stage * stage_elems;
     const T* vs = ks + (size_t)blk * D;
-    const int lo = max(start, c * blk) - c * blk;  // attended tokens of the block: [lo, hi)
-    const int hi = min(end, (c + 1) * blk) - c * blk;
+    const int base = t_blk + c * blk;
+    const int b_lo = max(lo, base) - base;  // attended tokens of the block: [b_lo, b_hi)
+    const int b_hi = min(hi, base + blk) - base;
 
-    // scores: each warp takes tokens t = warp, warp + kWarps, ...; lanes across d
-    for (int t = warp; t < blk; t += kWarps) {
-      const bool ok = t >= lo && t < hi;
-      float s[kMaxGroup];
+    // group gi takes tokens b_lo + gi + kNG * j of the block; a warp's first group leads
+    const int lead = b_lo + warp * Tile::kGroups;
+    for (int t0 = 0; lead + t0 < b_hi; t0 += kNG * kU) {
+      uint4 kr[kU][kP], vr[kU][kP];
+      bool ok[kU];
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) s[g] = 0.f;
-      if (ok) {
+      for (int u = 0; u < kU; ++u) {
+        const int t = b_lo + gi + t0 + u * kNG;
+        ok[u] = t < b_hi;
+        const size_t at = (size_t)(ok[u] ? t : b_lo) * D + sub * Tile::kE;
 #pragma unroll
-        for (int d = lane; d < D; d += 32) {
-          const float kx = to_f(ks[(size_t)t * D + d]);
-#pragma unroll
-          for (int g = 0; g < kMaxGroup; ++g)
-            if (g < G) s[g] = fmaf(qs[g * D + d], kx, s[g]);
+        for (int c2 = 0; c2 < kP; ++c2) {
+          kr[u][c2] = *reinterpret_cast<const uint4*>(ks + at + c2 * kVec);
+          vr[u][c2] = *reinterpret_cast<const uint4*>(vs + at + c2 * kVec);
         }
       }
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < G) {
-          const float x = warp_sum(s[g]);
-          if (lane == 0) ss[g * blk + t] = ok ? x * p.scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online softmax across blocks: one warp per query head
-    if (warp < G) {
-      const int g = warp;
-      float mx = -INFINITY;
-      for (int t = lane; t < blk; t += 32) mx = fmaxf(mx, ss[g * blk + t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-      for (int t = lane; t < blk; t += 32) {
-        const float e = (t >= lo && t < hi) ? expf(ss[g * blk + t] - m_use) : 0.f;
-        ss[g * blk + t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_use);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // P V over the attended tokens: thread tid owns column d = tid for all G heads
-    if (tid < D) {
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < G) acc[g] *= alpha_s[g];
-      for (int t = lo; t < hi; ++t) {
-        const float vx = to_f(vs[(size_t)t * D + tid]);
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g)
-          if (g < G) acc[g] = fmaf(ss[g * blk + t], vx, acc[g]);
-      }
+      st.update(kr, vr, ok, G);
     }
     __syncthreads();  // the stage is refilled two blocks on
   }
   cp_async_wait<0>();
+  __syncthreads();  // no copy or reader left in the stages: the merge overlays them
+  finish<T, D, kG>(st, gi, sub, reinterpret_cast<float*>(smem), recv, G, p.S,
+                   static_cast<T*>(p.o) + q_base);
+}
 
-  if (tid < D) {
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      if (g < G) {
-        const float l = l_s[g];
-        o[q_base + (size_t)g * D + tid] = from_f<T>(l > 0.f ? acc[g] / l : 0.f);
-      }
-    }
-  }
+template <typename T, int D, int kG>
+cudaError_t launch(const MpParams& p, cudaStream_t stream) {
+  const int G = p.Hq / p.Hk;
+  const size_t smem = smem_bytes<T, D>(G, p.seg * p.spb, p.S);
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  return launch_split(paged_mp_kernel<T, D, kG>, p, p.S, p.B, p.Hk, smem, stream);
 }
 
 template <typename T, int D>
-cudaError_t launch(const MpParams& p, cudaStream_t stream) {
-  const int G = p.Hq / p.Hk;
-  const size_t smem = smem_bytes(G, D, p.seg * p.spb, sizeof(T));
-  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(paged_mp_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  paged_mp_kernel<T, D><<<dim3(p.B, p.Hk), kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t dispatch_g(const MpParams& p, cudaStream_t stream) {
+  return p.Hq / p.Hk <= 4 ? launch<T, D, 4>(p, stream) : launch<T, D, 8>(p, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(const MpParams& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
+    case 64: return dispatch_g<T, 64>(p, stream);
+    case 128: return dispatch_g<T, 128>(p, stream);
+    case 256: return dispatch_g<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -270,16 +197,18 @@ cudaError_t dispatch_d(const MpParams& p, int d, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  seg divides ps; seg < ps only with
-// spb == 1.  Returns the launch's cudaError_t.
+// spb == 1; splits: CTAs a (row, kv head), 1-16.  Returns the launch's
+// cudaError_t.
 extern "C" int mcl_paged_decode_attention_mp(const void* q, const void* k_pool,
                                              const void* v_pool, void* o, const int* page_table,
                                              const int* lens, int B, int Hq, int Hk, int ps,
                                              int NP, int D, int dtype, int window, float scale,
-                                             int seg, int spb, void* stream) {
+                                             int seg, int spb, int splits, void* stream) {
   if (Hk <= 0 || Hq % Hk != 0 || Hq / Hk > kMaxGroup) return (int)cudaErrorInvalidValue;
   if (seg <= 0 || spb <= 0 || ps % seg != 0 || (seg < ps && spb != 1))
     return (int)cudaErrorInvalidValue;
-  MpParams p{q, k_pool, v_pool, o, page_table, lens, B, Hq, Hk, ps, NP, window, scale, seg, spb};
+  MpParams p{q,  k_pool, v_pool, o,     page_table, lens, B,   Hq,
+             Hk, ps,     NP,     window, scale,     seg,  spb, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_d<float>(p, D, s);
   if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(p, D, s);

@@ -31,7 +31,7 @@ SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_
            "attention_core_bd.cu", "fused_attention_block.cu", "int4_matmul_v3.cu",
            "merged_bwd_tc.cu")
 HEADERS = ("flash_attention_common.cuh", "merged_attention.cuh", "mma_tiles.cuh",
-           "merged_tiles.cuh", "merged_bwd_tc.cuh")
+           "merged_tiles.cuh", "merged_bwd_tc.cuh", "paged_split.cuh")
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -52,12 +52,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "mcl_paged_decode_attention": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "mcl_attention_core_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "mcl_attention_core_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "mcl_paged_decode_attention_mp": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "mcl_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "mcl_attention_core_bd_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "mcl_attention_core_bd_bwd": (

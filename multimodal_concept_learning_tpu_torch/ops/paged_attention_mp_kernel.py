@@ -17,7 +17,11 @@ CPU tensors only; a CUDA tensor goes to the kernel or the wrapper raises.
 On the card ``pages_per_block`` (default 8, as JAX) is clamped to what two
 stages of K and V fit in shared memory; where one page does not fit twice,
 a page is staged in row ranges.  ``mp_schedule`` reports the effective
-schedule.  Results depend on it only through float32 summation order.
+schedule.  Each (row, kv head) is split over a cluster of K3's
+``paged_split_plan`` CTAs, each taking whole segments of the row
+(``paged_split_runs(..., aligned=True)``); their float32 partials merge in
+rank order.  Results depend on the schedule and the split only
+through float32 summation order.
 """
 
 from __future__ import annotations
@@ -29,16 +33,23 @@ import torch
 from multimodal_concept_learning_tpu_torch.ops._build import SMEM_PER_BLOCK
 from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
     _DTYPE_CODES,
-    _check,
+    MAX_SPLIT,
+    kernel_operands,
+    split_for,
 )
 
 _NEG = -1e30  # the TPU kernel's finite mask value
 
 
 def _smem(g: int, d: int, blk: int, elem: int) -> int:
-    """Shared memory of one K4 CTA: two stages of K and V for ``blk``
-    tokens, q [g, d] and scores [g, blk] in float32, 3 * g statistics."""
-    return 4 * blk * d * elem + 4 * (g * d + g * blk + 3 * g)
+    """Shared memory of one K4 CTA (``csrc/paged_attention_mp.cu``,
+    ``smem_bytes``): two stages of K and V for ``blk`` tokens, or the merge
+    of its lane groups' float32 states if larger, then the cluster merge's
+    receive buffer at the largest split."""
+    groups = 8 * 32 // min(32, d * elem // 16)  # lane groups of one token row each
+    merge = 4 * (-(-(groups * g * (d + 2) + 2 * g) // 4) * 4)
+    slice_ = -(-(-(-g * d // MAX_SPLIT)) // 4) * 4
+    return max(4 * blk * d * elem, merge) + 4 * (MAX_SPLIT * slice_ + 2 * MAX_SPLIT * g)
 
 
 def mp_schedule(page_size: int, head_dim: int, dtype: torch.dtype, group: int,
@@ -116,7 +127,7 @@ def paged_decode_attention_mp(q, pool_k, pool_v, page_table, lens, *,
         raise ValueError(f"paged_decode_attention_mp runs on cpu or cuda tensors, got {q.device}")
     if pages_per_block < 1:
         raise ValueError(f"pages_per_block must be >= 1, got {pages_per_block}")
-    _check(q, pool_k, pool_v, page_table, lens)
+    q, page_table, lens = kernel_operands(q, pool_k, pool_v, page_table, lens)
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     b, _, hq, d = q.shape
@@ -131,7 +142,7 @@ def paged_decode_attention_mp(q, pool_k, pool_v, page_table, lens, *,
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
             page_table.data_ptr(), lens.data_ptr(), b, hq, hk, ps, np_, d,
             _DTYPE_CODES[q.dtype], window, float(scale), seg, spb,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            split_for(b, hk, ps, np_, window), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "paged_decode_attention_mp")
     paged_decode_attention_mp.launches += 1
     return out

@@ -250,3 +250,41 @@ def test_kernel_operands_are_copied_not_refused(kind):
     assert torch.equal(got, packed)
     aligned = cuda_operand(packed)
     assert aligned.data_ptr() == cuda_operand(aligned).data_ptr()  # no copy when it is fine
+
+
+def _layout_view(t, kind):
+    """The values of ``t`` as a strided view (every other element of a last
+    dim twice as long) or at an offset of one element into a flat buffer."""
+    if kind == "strided":
+        view = torch.zeros((*t.shape[:-1], 2 * t.shape[-1]), dtype=t.dtype)[..., ::2]
+    else:
+        view = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    view.copy_(t)
+    assert not view.is_contiguous() or view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("operand", ["q", "page_table", "lens", "pool_k"])
+@pytest.mark.parametrize("kind", ["strided", "offset"])
+def test_paged_operands_are_copied_not_refused(kind, operand):
+    """K3's and K4's wrappers (``kernel_operands``) hand their kernels a
+    contiguous, 16-byte aligned copy of a strided or offset q, page table or
+    lens, as the K1, K2 and K5 wrappers do; a pool in such a layout raises
+    (a copy would copy the whole cache in every layer)."""
+    from multimodal_concept_learning_tpu_torch.ops import paged_attention_kernel as pk
+
+    gen = torch.Generator().manual_seed(0)
+    args = {"q": torch.randn(3, 1, 8, 64, generator=gen),
+            "pool_k": torch.randn(7, 2, 4, 64, generator=gen),
+            "pool_v": torch.randn(7, 2, 4, 64, generator=gen),
+            "page_table": torch.tensor([[1, 2], [3, 4], [5, 6]], dtype=torch.int32),
+            "lens": torch.tensor([0, 5, 8], dtype=torch.int32)}
+    want = args[operand]
+    args[operand] = _layout_view(want, kind)
+    if operand == "pool_k":
+        with pytest.raises(ValueError, match="pool_k must"):
+            pk.kernel_operands(**args)
+        return
+    got = dict(zip(("q", "page_table", "lens"), pk.kernel_operands(**args)))[operand]
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert torch.equal(got, want)
