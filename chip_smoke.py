@@ -99,20 +99,22 @@ kernel's path-shape case in bf16 beside its bound (bytes over 3.35 TB/s or
 operations over 989 TFLOP/s, whichever is larger) and one PyTorch library
 call computing the same function (SDPA, or its backward;
 ``torch._weight_int4pack_mm`` for K5 and K5v3a; none for K3, K4 and
-K5v3b).  It also holds K5v3a and K5v3b (x float32 and bf16, rows 1, 8 and
-16, gemma3-1b's seven projections; K5's limits) and times them cold at
-up_proj beside K5, and holds K2, K2-bd and K6 at head dims 16 (vit-t-8
+K5v3b).  It also holds K5v3a and K5v3b (x float32 and bf16, rows 1, 8,
+16, 17 and 64, gemma3-1b's seven projections; K5's limits against their
+plain versions on CPU copies; two calls bitwise equal; one device kernel a
+call, counted by ``torch.profiler``) and times them cold at the seven
+projections beside K5, and holds K2, K2-bd and K6 at head dims 16 (vit-t-8
 widths, T 17) and 32 in fp32 and bf16.  K1's forward is held at the ViT,
 LM prefill, LM training and dense decode shapes (one query against a
 269-slot cache under the float32 cache bias), a window, a bias, Tq < Tk
 and head dim 128; K2's at the CLIP shapes and T 15 and 65 among others.
 K5, K3, K4, K6's forward (beside the unfused composition) and the K1 and K2
 forwards (with their SDPA calls) are timed by CUDA graph replay (device
-time without the wrapper's host work), K5 at each of gemma3-1b's seven
-decode projections with its weights cycled past the L2 cache, beside
-``torch._weight_int4pack_mm`` on the same cycled weights; phase 3 also
-holds K1's forward, K2, K5, K3 and K4 on strided and offset views of their
-operands (the wrappers copy them; K3 and K4 their q, page table and lens)
+time without the wrapper's host work), K5, K5v3a and K5v3b at each of
+gemma3-1b's seven decode projections with their weights cycled past the L2
+cache, beside ``torch._weight_int4pack_mm`` on the same cycled weights;
+phase 3 also holds K1's forward, K2, K5, K5v3a, K5v3b, K3 and K4 on
+strided and offset views of their operands (the wrappers copy them; K3 and K4 their q, page table and lens)
 and times K3 and K4 side by side, warm and cold (pools cycled past the L2),
 at the gemma3 window-512 row, the serving shape (8 rows of 262-269 tokens,
 windows 512 and global) and 4 kv heads at ~1k context, pages of 16 and 64,
@@ -125,9 +127,10 @@ only the K1 and K2 forwards at their path shapes beside SDPA, and
 ``--time-variants ROOT`` K2-bd's forward and backward (beside K2) at both
 CLIP shapes, K6's forward (beside the unfused composition) and backward at
 the vision shape, K1's backward at the LM training shape beside SDPA, and
-K5 at the seven gemma3-1b projections, cold, beside
-``torch._weight_int4pack_mm``, and K3 and K4 at phase 3's timed shapes (an
-A/B between two checkouts runs either on each in turns).  ``python3
+K5, K5v3a and K5v3b at the seven gemma3-1b projections, cold, beside
+``torch._weight_int4pack_mm`` (with a digest of K5's outputs on phase 3's
+cases), and K3 and K4 at phase 3's timed shapes (an A/B between two
+checkouts runs either on each in turns).  ``python3
 chip_smoke.py --profile-mllm [ROOT]`` profiles the full MLLM micro-step
 with the port package of ROOT (default this checkout): device busy, idle
 share, aten ops and K1's forward, dQ and dK/dV in ms a micro-step;
@@ -211,6 +214,7 @@ def graph_time_ms(fn, iters: int = 20, stream=None) -> float:
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 
 
 def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOPS_PER_S) -> dict:
@@ -237,15 +241,16 @@ def phase_card() -> str:
 
 TC_KERNELS = ("core_fwd_tc_kernel", "flash_fwd_tc_kernel", "bd_fwd_tc_kernel",
               "bwd_dq_tc_kernel", "bwd_dkv_tc_kernel", "int4_tc_kernel",
-              "k6_qkv_attn_tc_kernel", "k6_out_proj_tc_kernel")  # the tensor-core kernels
+              "k6_qkv_attn_tc_kernel", "k6_out_proj_tc_kernel", "v3a_tc_kernel",
+              "v3b_tc_kernel")  # the tensor-core kernels
 # K1 forward at D 64/128/256; K2 forward and K2-bd forward at D 16/32/64; the
 # shared backward pair (dQ, dK/dV) at D 16/32/64 in five configurations: K6's
 # and K2's four (causal or not x kv_mask or not); K1's backward pair
 # (flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel) at D 64/128/256; K5 at
 # its 9 (row tiles, stripe width) pairs (1 x 8/16/32/64, 2 x 8/16/32, 4 x
 # 8/16); K6's bf16 forward: the qkv-attention kernel at D 16/32/64 x chunk
-# depth 32/64, and the output projection
-TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5 + 2 * 3 + 9 + 6 + 1
+# depth 32/64, and the output projection; K5v3a and K5v3b at K5's 9 pairs each
+TC_INSTANTIATIONS = 3 + 3 + 3 + 2 * 3 * 5 + 2 * 3 + 9 + 6 + 1 + 2 * 9
 # K3 and K4 (CUDA-core kernels, split over clusters): float32 and bf16 at D
 # 64/128/256, each for groups of up to 4 and up to 8 q heads
 PAGED_KERNELS = ("paged_decode_kernel", "paged_mp_kernel")
@@ -1344,22 +1349,37 @@ def _int4pack_order(torch, xb, packed, scale):
     return order, errs[order]
 
 
-def time_k5(torch, gen, dev, plain: bool = False) -> dict:
-    """K5 at each of gemma3-1b's seven decode projections at batch 8, bf16,
-    weights cold (cycled past the L2, as a decode step finds them), by CUDA
-    graph replay, beside ``torch._weight_int4pack_mm`` on the same cycled
-    weights, the bound (bytes) and with ``plain`` the plain version (event
-    loop).  Prints each and the decode step's sums (x 26 layers); returns
-    {projection: {"ms", "library_ms", "plain_ms", "bound"}}."""
+# the int4 decode products timed side by side: label -> (wrapper, plain version, report key)
+INT4_KERNELS = ("K5", "K5v3a", "K5v3b")
+
+
+def _int4_fns(i4) -> dict:
+    return {"K5": (i4.int4_matmul, i4.int4_matmul_reference, "int4_matmul"),
+            "K5v3a": (i4.v3a_matmul, i4.v3a_matmul_reference, "int4_matmul_v3a"),
+            "K5v3b": (i4.v3b_matmul, i4.v3b_matmul_reference, "int4_matmul_v3b")}
+
+
+def time_int4(torch, gen, dev, plain: bool = False) -> dict:
+    """K5, K5v3a and K5v3b at each of gemma3-1b's seven decode projections
+    at batch 8, bf16, weights cold (cycled past the L2, as a decode step
+    finds them), by CUDA graph replay, in turns on the same cycled weights,
+    beside ``torch._weight_int4pack_mm`` (the library call of K5 and K5v3a;
+    K5v3b's int8 activations make it another function than every library
+    product), each kernel's bound (bytes; operations at the int8 rate for
+    K5v3b) and with ``plain`` its plain version (event loop).  Prints each
+    and the decode step's sums (x 26 layers); returns {label: {projection:
+    {"ms", "library_ms", "plain_ms", "bound"}}}."""
     from multimodal_concept_learning_tpu_torch.ops import int4 as i4
 
-    rows, times, order = 8, {}, None
+    fns = _int4_fns(i4)
+    rows, times, order = 8, {k: {} for k in INT4_KERNELS}, None
     for proj, d_in, d_out in GEMMA_PROJECTIONS:
         (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
         xb = torch.randn(rows, d_in, generator=gen, device=dev).to(torch.bfloat16)
         sets = _int4_sets(torch, gen, dev, d_in, d_out,
                           max(16, int(COLD_BYTES // nbytes(packed, scale))))
-        ms = graph_time_ms(_cycled(lambda p, s: i4.int4_matmul(xb, p, s), sets), iters=len(sets))
+        ms = {k: graph_time_ms(_cycled(lambda p, s, fn=fns[k][0]: fn(xb, p, s), sets),
+                               iters=len(sets)) for k in INT4_KERNELS}
         lib_ms = None
         if order is None:
             order = _int4pack_order(torch, xb, *sets[0])
@@ -1374,30 +1394,35 @@ def time_k5(torch, gen, dev, plain: bool = False) -> dict:
                     _cycled(lambda w, z: torch._weight_int4pack_mm(xb, w, 64, z), packs),
                     iters=len(packs))
             except RuntimeError as e:  # a shape the library call does not take
-                print(f"[kernels] K5 library at {proj}: {str(e).splitlines()[0]}", flush=True)
-        b = bound(nbytes(packed, scale, xb) + 2 * rows * d_out, 2 * rows * d_in * d_out)
-        plain_ms = (cuda_time_ms(lambda: i4.int4_matmul_reference(xb, packed, scale))
-                    if plain else None)
-        times[proj] = {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms, "bound": b}
-        print(f"[kernels] K5 {proj} [8,{d_in}]x[{d_in},{d_out}] bf16 cold: kernel {ms:.5f} ms, "
-              f"torch._weight_int4pack_mm "
-              + (f"{lib_ms:.5f} ms" if lib_ms is not None else "n/a")
-              + f" (graph replay)" + (f", plain {plain_ms:.4f} ms" if plain else "")
-              + f", bound {b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
-    step = 26 * sum(r["ms"] for r in times.values())
-    lib = [r["library_ms"] for r in times.values()]
-    print(f"[kernels] K5 over one decode step of gemma3-1b (7 projections x 26 layers, cold): "
-          f"{step:.4f} ms; torch._weight_int4pack_mm "
+                print(f"[kernels] int4 library at {proj}: {str(e).splitlines()[0]}", flush=True)
+        moved, flops = nbytes(packed, scale, xb) + 2 * rows * d_out, 2 * rows * d_in * d_out
+        for k in INT4_KERNELS:
+            b = bound(moved, flops, INT8_OPS_PER_S if k == "K5v3b" else BF16_FLOPS_PER_S)
+            ref = fns[k][1]
+            plain_ms = cuda_time_ms(lambda: ref(xb, packed, scale)) if plain else None
+            times[k][proj] = {"ms": ms[k], "library_ms": None if k == "K5v3b" else lib_ms,
+                              "plain_ms": plain_ms, "bound": b}
+        print(f"[kernels] int4 {proj} [8,{d_in}]x[{d_in},{d_out}] bf16 cold (graph replay): "
+              + ", ".join(f"{k} {ms[k]:.5f} ms" for k in INT4_KERNELS)
+              + ", torch._weight_int4pack_mm " + (f"{lib_ms:.5f} ms" if lib_ms is not None
+                                                  else "n/a")
+              + (", plain " + " / ".join(f"{times[k][proj]['plain_ms']:.4f}"
+                                         for k in INT4_KERNELS) + " ms" if plain else "")
+              + f"; bound {times['K5'][proj]['bound']['bound_ms']:.5f} ms (bytes)", flush=True)
+    lib = [r["library_ms"] for r in times["K5"].values()]
+    print("[kernels] int4 over one decode step of gemma3-1b (7 projections x 26 layers, cold): "
+          + ", ".join(f"{k} {26 * sum(r['ms'] for r in times[k].values()):.4f} ms"
+                      for k in INT4_KERNELS)
+          + "; torch._weight_int4pack_mm "
           + (f"{26 * sum(lib):.4f} ms" if None not in lib else "n/a") + "; bound "
-          f"{26 * sum(r['bound']['bound_ms'] for r in times.values()):.4f} ms", flush=True)
+          f"{26 * sum(r['bound']['bound_ms'] for r in times['K5'].values()):.4f} ms", flush=True)
     return times
 
 
 def _phase_int4(torch, gen, dev, report: dict) -> None:
     """K5 against its plain version on the same inputs at the decode path's
-    shapes, x in float32 and bf16, two calls bitwise equal; then every
-    gemma3 shape timed cold beside its plain version (``time_k5``), up_proj
-    also beside the bf16 product of the dequantized weight."""
+    shapes, x in float32 and bf16, two calls bitwise equal; then up_proj
+    timed beside the bf16 product of the dequantized weight."""
     from multimodal_concept_learning_tpu_torch.ops import int4 as i4
 
     k5 = report.setdefault("int4_matmul", {"max_abs_err": 0.0})
@@ -1420,7 +1445,6 @@ def _phase_int4(torch, gen, dev, report: dict) -> None:
             if not (err <= limit and same):
                 fail(f"K5 {name} {tag}: max abs err {err} > {limit} or two calls differ")
             k5["max_abs_err"] = max(k5["max_abs_err"], err)
-    times = time_k5(torch, gen, dev, plain=True)
     rows, d_in, d_out = 8, 1152, 6912  # up_proj: the kernels line's shape
     xb = torch.randn(rows, d_in, generator=gen, device=dev).to(torch.bfloat16)
     dense = [i4.dequantize_int4(p, s).to(torch.bfloat16)
@@ -1429,80 +1453,106 @@ def _phase_int4(torch, gen, dev, report: dict) -> None:
     del dense
     print(f"[kernels] K5 up_proj bf16: the bf16 matmul of the dequantized weight (what bf16 "
           f"weights pay) {dense_ms:.5f} ms cold", flush=True)
-    up = times["up_proj"]
-    k5.update(ms=up["ms"], plain_ms=up["plain_ms"], library_ms=up["library_ms"], **up["bound"])
 
 
-INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
-# every shape the A/B entry point gives the variants (each its own split-K
-# layout: v3_splits), at its batch 8 and at rows 1 and 16
+def k5_digests(torch) -> str:
+    """sha256 over K5's outputs on phase 3's cases (x float32 and bf16, from
+    a fixed seed): equal digests from two checkouts on one card mean K5
+    computes the same bits in both."""
+    import hashlib
+
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h = hashlib.sha256()
+    for _, rows, d_in, d_out in K5_CASES:
+        (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
+        x = torch.randn(rows, d_in, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            h.update(i4.int4_matmul(x.to(dtype), packed, scale).float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# every shape the A/B entry point gives the variants, at its batch 8, at
+# rows 1, 16 and 64 (each row tile count the kernels are built for) and at
+# 17 (a second, ragged tile)
 V3_CASES = [(f"gemma3 {n} rows {r}", r, i, o) for n, i, o in GEMMA_PROJECTIONS
-            for r in (1, 8, 16)]
+            for r in (1, 8, 16, 17, 64)]
+
+
+def _int4_reference(torch, ref_fn, x, packed, scale):
+    """An int4 kernel's plain version on CPU copies, moved to x's device: K5v3b's
+    quantization divides by 127 there (a division by a constant on the card
+    multiplies by its reciprocal, which moves some scales by one ulp and
+    then some xq by one), as the kernel does."""
+    return ref_fn(x.float().cpu(), packed.cpu(), scale.cpu()).to(x.device)
+
+
+def _device_kernels(torch, fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (``torch.profiler``
+    tracing the card only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _phase_int4_v3(torch, gen, dev, report: dict) -> None:
     """K5v3a and K5v3b against their plain versions on the same inputs
-    (gemma3-1b's seven projections, rows 1, 8 and 16, x in float32 and bf16;
-    K5's limits, 1e-5 and 8e-3 of the reference's max |value|); then each timed
-    cold at up_proj [8,1152]x[1152,6912] (weights cycled past the L2, CUDA
-    graph replay) beside K5's bound, K5 itself, and for v3a
-    ``torch._weight_int4pack_mm``.  v3b has no library call: its int8
-    activations make it another function than every library product."""
+    (gemma3-1b's seven projections, rows 1, 8, 16, 17 and 64, x in float32
+    and bf16; K5's limits, 1e-5 and 8e-3 of the reference's max |value|),
+    two calls bitwise equal, each call's plan printed; one call of each,
+    traced, must run exactly one device kernel."""
     from multimodal_concept_learning_tpu_torch.ops import int4 as i4
 
-    variants = {"int4_matmul_v3a": (i4.v3a_matmul, i4.v3a_matmul_reference, "K5v3a"),
-                "int4_matmul_v3b": (i4.v3b_matmul, i4.v3b_matmul_reference, "K5v3b")}
-    for key in variants:
-        report.setdefault(key, {"max_abs_err": 0.0})
+    fns = _int4_fns(i4)
+    for label in ("K5v3a", "K5v3b"):
+        report.setdefault(fns[label][2], {"max_abs_err": 0.0})
     for name, rows, d_in, d_out in V3_CASES:
         (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
         x = torch.randn(rows, d_in, generator=gen, device=dev)
-        for key, (fn, ref_fn, label) in variants.items():
+        for label in ("K5v3a", "K5v3b"):
+            fn, ref_fn, key = fns[label]
             for dtype in (torch.float32, torch.bfloat16):
                 xd = x.to(dtype)
                 out = fn(xd, packed, scale)
-                ref = ref_fn(xd.float(), packed, scale)
+                again = fn(xd, packed, scale)
+                ref = _int4_reference(torch, ref_fn, xd, packed, scale)
                 torch.cuda.synchronize()
                 tag = str(dtype).replace("torch.", "")
-                err = (out.float() - ref).abs().max().item()
-                limit = K5_TOL[tag] * ref.abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                limit = K5_TOL[tag] * ref.float().abs().max().item()
+                same = torch.equal(out, again) and out.dtype == dtype
                 print(f"[kernels] {label} {name} {tag}: max_abs_err {err:.3e} (limit "
-                      f"{limit:.3e})", flush=True)
-                if not err <= limit:
-                    fail(f"{label} {name} {tag}: max abs err {err} > {limit}")
+                      f"{limit:.3e}), plan {i4.v3_plan(rows, d_in, d_out)}, two calls bitwise "
+                      f"equal {same}", flush=True)
+                if not (err <= limit and same):
+                    fail(f"{label} {name} {tag}: max abs err {err} > {limit}, or two calls "
+                         f"differ or are not {dtype}")
                 report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
-    rows, d_in, d_out = 8, 1152, 6912  # up_proj at batch 8, the A/B script's shape
-    (packed, scale), = _int4_sets(torch, gen, dev, d_in, d_out, 1)
-    sets = _int4_sets(torch, gen, dev, d_in, d_out,
-                      max(16, int(COLD_BYTES // nbytes(packed, scale))))
-    xb = torch.randn(rows, d_in, generator=gen, device=dev).to(torch.bfloat16)
-    moved = nbytes(packed, scale, xb) + 2 * rows * d_out
-    times = {}
-    order = (("int4_matmul", i4.int4_matmul), ("int4_matmul_v3a", i4.v3a_matmul),
-             ("int4_matmul_v3b", i4.v3b_matmul))
-    for rnd in range(2):  # K5, v3a, v3b, then the reverse (order cancels drift)
-        for key, fn in (order if rnd == 0 else order[::-1]):
-            times.setdefault(key, []).append(
-                graph_time_ms(_cycled(lambda p, s, fn=fn: fn(xb, p, s), sets), iters=len(sets)))
-    pack_ms = None
-    if hasattr(torch, "_weight_int4pack_mm"):
-        packs = [_int4pack(torch, p, s) for p, s in sets[:16]]
-        pack_ms = graph_time_ms(_cycled(lambda w, z: torch._weight_int4pack_mm(xb, w, 64, z),
-                                        packs), iters=16)
-    for key, (fn, ref_fn, label) in variants.items():
-        ms = min(times[key])
-        plain_ms = cuda_time_ms(lambda: ref_fn(xb, packed, scale))
-        b = bound(moved, 2 * rows * d_in * d_out,
-                  INT8_OPS_PER_S if key.endswith("v3b") else BF16_FLOPS_PER_S)
-        lib = pack_ms if key.endswith("v3a") else None
-        report[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib, **b)
-        print(f"[kernels] {label} up_proj [8,1152]x[1152,6912] bf16 cold: kernel "
-              + " / ".join(f"{t:.5f}" for t in times[key]) + f" ms (K5 "
-              + " / ".join(f"{t:.5f}" for t in times["int4_matmul"]) + f" ms), plain "
-              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}), library "
-              + (f"torch._weight_int4pack_mm {lib:.5f} ms" if lib is not None else
-                 "none (int8 activations: no library call computes this function)"),
-              flush=True)
+    (packed, scale), = _int4_sets(torch, gen, dev, 1152, 6912, 1)
+    xb = torch.randn(8, 1152, generator=gen, device=dev).to(torch.bfloat16)
+    for label in ("K5v3a", "K5v3b"):
+        names = _device_kernels(torch, lambda fn=fns[label][0]: fn(xb, packed, scale))
+        print(f"[kernels] {label} up_proj bf16: device kernels of one call {names}", flush=True)
+        if len(names) != 1:
+            fail(f"{label}: one call ran {len(names)} device kernels, not 1: {names}")
+
+
+def _phase_int4_times(torch, gen, dev, report: dict) -> None:
+    """K5, K5v3a and K5v3b timed cold at the seven projections side by side
+    (``time_int4``); the kernels line takes up_proj."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    times = time_int4(torch, gen, dev, plain=True)
+    for label, (_, _, key) in _int4_fns(i4).items():
+        up = times[label]["up_proj"]
+        report[key].update(ms=up["ms"], plain_ms=up["plain_ms"], library_ms=up["library_ms"],
+                           **up["bound"])
 
 
 K4_PPB = (1, 3, 8)
@@ -1606,8 +1656,10 @@ def time_variants(root: str) -> None:
     bf16 backwards are the same kernel pair, over 16-row slots of one
     sample), K6's forward (beside the unfused library composition) and
     backward at the vision shape, K1's backward at the LM training shape,
-    K5 at gemma3-1b's seven decode projections, cold (beside
-    ``torch._weight_int4pack_mm``), and K3 and K4 at the gemma3 window-512,
+    K5, K5v3a and K5v3b at gemma3-1b's seven decode projections, cold (beside
+    ``torch._weight_int4pack_mm``; then a digest of K5's outputs on phase
+    3's cases, equal between two checkouts whose K5 gives the same bits),
+    and K3 and K4 at the gemma3 window-512,
     serving and ~1k-context shapes, warm and cold (``time_paged``), bf16,
     each by CUDA graph replay beside
     its library call (SDPA for the attention kernels), from the
@@ -1643,7 +1695,8 @@ def time_variants(root: str) -> None:
             if name.startswith("lm ["):
                 do = torch.randn(q.shape, generator=gen, device=dev)
                 time_k1_bwd(torch, fa, name, *(x.to(bf16) for x in (q, k, v, do)), kw)
-        time_k5(torch, gen, dev)
+        time_int4(torch, gen, dev)
+        print(f"[ab] K5 digest over phase 3's cases: {k5_digests(torch)}", flush=True)
         time_paged(torch, gen, dev)
 
 
@@ -1662,12 +1715,13 @@ def _layout_views(torch, t) -> dict:
 
 
 def _phase_layouts(torch, gen, dev) -> None:
-    """K1's forward, K2 and K5 on a strided and an offset view of their
-    operands (copied by the wrappers, not refused) against their plain
-    versions on the same values: K1 within TOL abs, K2 within TOL (bf16: of
-    the reference's max), K5 within K5_TOL; then K3 and K4 on a strided and
-    an offset q, page table and lens (the pools stay as the cache holds
-    them), within TOL abs; each wrapper must have launched its kernel."""
+    """K1's forward, K2, K5, K5v3a and K5v3b on a strided and an offset view
+    of their operands (copied by the wrappers, not refused) against their
+    plain versions on the same values: K1 within TOL abs, K2 within TOL
+    (bf16: of the reference's max), the int4 kernels within K5_TOL; then K3
+    and K4 on a strided and an offset q, page table and lens (the pools stay
+    as the cache holds them), within TOL abs; each wrapper must have
+    launched its kernel."""
     from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
     from multimodal_concept_learning_tpu_torch.ops import int4 as i4
@@ -1678,33 +1732,37 @@ def _phase_layouts(torch, gen, dev) -> None:
     qkv = torch.randn(4, 50, 3 * 4 * 64, generator=gen, device=dev)
     x = torch.randn(8, 1152, generator=gen, device=dev)
     (packed, scale), = _int4_sets(torch, gen, dev, 1152, 1024, 1)
+    int4_fns = _int4_fns(i4)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         qd, kd, vd, qkvd, xd = (a.to(dtype) for a in (q, k, v, qkv, x))
         ref1 = fa.flash_attention_reference(qd.float(), kd.float(), vd.float(), causal=True)
         ref2 = ac.attention_core_reference(qkvd.float(), 4, 41)
-        ref5 = i4.int4_matmul_reference(xd.float(), packed, scale)
-        lim5 = K5_TOL[tag] * ref5.abs().max().item()
+        refs4 = [_int4_reference(torch, int4_fns[label][1], xd, packed, scale).float()
+                 for label in INT4_KERNELS]
+        lims4 = [K5_TOL[tag] * r.abs().max().item() for r in refs4]
         lim2 = TOL[tag] * (1.0 if dtype is torch.float32 else ref2.abs().max().item())
         for kind in ("strided", "offset"):
-            n = (fa.flash_attention.launches, ac.attention_core_fwd.launches,
-                 i4.int4_matmul.launches)
+            wrappers = [fa.flash_attention, ac.attention_core_fwd,
+                        *(int4_fns[label][0] for label in INT4_KERNELS)]
+            n = [w.launches for w in wrappers]
             views = [_layout_views(torch, a)[kind] for a in (qd, kd, vd)]
             out1 = fa.flash_attention(*views, causal=True)
             out2 = ac.attention_core(_layout_views(torch, qkvd)[kind], 4, 41, block_diag=False)
-            out5 = i4.int4_matmul(_layout_views(torch, xd)[kind],
-                                  _layout_views(torch, packed)[kind],
-                                  _layout_views(torch, scale)[kind])
+            int4_views = [_layout_views(torch, a)[kind] for a in (xd, packed, scale)]
+            outs4 = [int4_fns[label][0](*int4_views) for label in INT4_KERNELS]
             torch.cuda.synchronize()
             errs = [(o.float() - r).abs().max().item()
-                    for o, r in ((out1, ref1), (out2, ref2), (out5, ref5))]
-            launched = (fa.flash_attention.launches - n[0], ac.attention_core_fwd.launches - n[1],
-                        i4.int4_matmul.launches - n[2])
+                    for o, r in zip((out1, out2, *outs4), (ref1, ref2, *refs4))]
+            launched = tuple(w.launches - c for w, c in zip(wrappers, n))
             print(f"[kernels] {kind} views {tag}: K1 fwd {errs[0]:.3e}, K2 {errs[1]:.3e} "
-                  f"(limit {lim2:.3e}), K5 {errs[2]:.3e} (limit {lim5:.3e}); launches "
-                  f"{launched}", flush=True)
-            if not (errs[0] <= TOL[tag] and errs[1] <= lim2 and errs[2] <= lim5
-                    and launched == (1, 1, 1)):
+                  f"(limit {lim2:.3e}), "
+                  + ", ".join(f"{label} {e:.3e} (limit {lim:.3e})"
+                              for label, e, lim in zip(INT4_KERNELS, errs[2:], lims4))
+                  + f"; launches {launched}", flush=True)
+            if not (errs[0] <= TOL[tag] and errs[1] <= lim2
+                    and all(e <= lim for e, lim in zip(errs[2:], lims4))
+                    and launched == (1,) * len(wrappers)):
                 fail(f"{kind} views {tag}: errors {errs}, launches {launched}")
     name, q, pool_k, pool_v, pt, lens, w = _paged_cases(torch, gen, dev)[1]  # window 512
     for dtype in (torch.float32, torch.bfloat16):
@@ -1794,6 +1852,7 @@ def phase_kernels(report: dict) -> None:
         _phase_int4(torch, gen, dev, report)
         _phase_layouts(torch, gen, dev)
         _phase_int4_v3(torch, gen, dev, report)
+        _phase_int4_times(torch, gen, dev, report)
         _phase_paged_mp(torch, gen, dev, report)
 
 
@@ -3194,8 +3253,8 @@ def main(argv=None) -> None:
     parser.add_argument("--time-variants", metavar="ROOT",
                         help="build the kernels of the checkout at ROOT, then time K2-bd's "
                              "forward and backward beside K2, K6's forward and backward, K1's "
-                             "backward and K5 (bf16, graph replay) beside their library "
-                             "calls; no other phase")
+                             "backward, K5, K5v3a and K5v3b, K3 and K4 (bf16, graph replay) "
+                             "beside their library calls; no other phase")
     parser.add_argument("--profile-mllm", metavar="ROOT", nargs="?", const=".",
                         help="build the kernels of the checkout at ROOT (default: this one), "
                              "then profile the full MLLM micro-step; no other phase")

@@ -48,7 +48,9 @@
 //   barrier each rank adds its elements' slots in rank order.  Two calls
 //   give the same bits.
 // Chunks of more than 16 units (in > 512 with one CTA a stripe; not a
-// gemma3 shape) are staged one after another without overlap.
+// gemma3 shape) are staged one after another without overlap.  The
+// staging, the reduction and the launch are int4_split.cuh's, which the
+// variants K5v3a and K5v3b (int4_matmul_v3.cu) share.
 //
 // What holds it back (patched copies of this source timed on an H100, bf16,
 // weights cold): a fixed ~5 us a launch at the small shapes (an empty
@@ -59,82 +61,27 @@
 // against 9.8 as 432 of 64; q_proj 5.25 us as 128 CTAs against 5.5 as 512)
 // but break the 2-CTAs-an-SM rule the plan keeps.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_tiles.cuh"  // mma_bf16, ldmatrix_x4(_trans), cp_async16(_or_zero), commit/wait
-
-namespace cg = cooperative_groups;
+#include "int4_split.cuh"  // staging, cluster reduction, launch; mma_tiles.cuh's primitives
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnit = 16;        // packed rows a unit (one mma k-step a nibble half)
-constexpr int kChunkUnits = 16;  // units staged at once
-constexpr int kMaxCluster = 16;
-
-// packed tile row stride, bytes: ldmatrix rows 16 bytes apart modulo 128
-__host__ __device__ constexpr int packed_stride(int nc) { return nc <= 16 ? nc : nc + 16; }
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
-// Two weights as a bf16 pair: the nibbles at bits sh..sh+3 and 16+sh.. of
-// xr (packed bytes with every nibble's top bit flipped: code + 8) times the
-// scale pair s2.  0x4300 | u is the bf16 128 + u; minus 136 (x 1.0 + -136,
-// exact) is the code; times s2 (+ -0.0) rounds once, as JAX's code * scale.
+// Two weights as a bf16 pair: the codes of code2 (int4_split.cuh) times the
+// scale pair s2 (+ -0.0), rounded once, as JAX's code * scale.
 __device__ __forceinline__ uint32_t dequant2(uint32_t xr, int sh, uint32_t s2) {
-  const uint32_t u = ((xr >> sh) & 0x000F000Fu) | 0x43004300u;
-  const uint32_t code = fma_bf16x2(u, 0x3F803F80u, 0xC308C308u);
-  return fma_bf16x2(code, s2, 0x80008000u);
+  return fma_bf16x2(code2(xr, sh), s2, 0x80008000u);
 }
 
 __device__ __forceinline__ uint32_t lo_pair(uint32_t s) { return (s & 0xFFFFu) * 0x10001u; }
 __device__ __forceinline__ uint32_t hi_pair(uint32_t s) { return (s >> 16) * 0x10001u; }
 
-struct K5Params {
-  const void* x;
-  const int8_t* packed;
-  const __nv_bfloat16* scale;
-  void* out;
-  int rows, d_in, d_out, group, x_bf16, out_bf16;
-};
-
-// Shared memory of one CTA: the staging of a chunk of `units` units (or the
-// warps' sums over it, whichever is larger), then the receive buffer of the
-// reduction (the host mirror is ops/int4.py:k5_smem_bytes).
-__host__ __device__ constexpr int stage_bytes(int mt, int nc, int units) {
-  return units * kUnit * packed_stride(nc)                 // packed rows
-         + 2 * (units + 1) * nc * 2                        // scale rows of both halves
-         + 2 * 16 * mt * (units * kUnit + 8) * 2;          // x columns of both halves, bf16
-}
-// the 4 warps' float32 sums [4][16 mt][nc] (over the staging), then the
-// receive buffer: cs ranks x (16 mt nc / cs) floats
-__host__ __device__ constexpr int red_bytes(int mt, int nc) { return kWarps * 16 * mt * nc * 4; }
-__host__ __device__ constexpr int recv_bytes(int mt, int nc) { return 16 * mt * nc * 4; }
-
 // One CTA: columns [n0, n0 + kNC) over units [ub, ue) of the packed rows,
 // its cluster's sum written by rank slices.  kMT: 16-row tiles of x.
 template <int kMT, int kNC>
-__global__ void __launch_bounds__(kThreads) int4_tc_kernel(K5Params p, int cs, int stage_cap) {
+__global__ void __launch_bounds__(kThreads) int4_tc_kernel(Int4Params p, int cs, int stage_cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kNT = kNC / 8;  // n-tiles
   constexpr int kLdP = packed_stride(kNC);
@@ -161,66 +108,11 @@ __global__ void __launch_bounds__(kThreads) int4_tc_kernel(K5Params p, int cs, i
   for (int c0 = ub; c0 < ue; c0 += kChunkUnits) {
     const int nu = min(kChunkUnits, ue - c0);
     const int ldx = nu * kUnit + 8;  // x tile row stride, elements
-    uint8_t* Ps = smem;
-    __nv_bfloat16* Ss = reinterpret_cast<__nv_bfloat16*>(Ps + nu * kUnit * kLdP);
-    __nv_bfloat16* Xs = Ss + 2 * (nu + 1) * kNC;  // [2][xrows][ldx]
-    // scale rows: the low half's k-steps use groups g_lo .. (n_lo rows), the
-    // high half's g_hi .. (n_hi rows), one row each
-    const int g_lo = c0 * kUnit / p.group, g_hi = (half + c0 * kUnit) / p.group;
-    const int n_lo = ((c0 + nu) * kUnit - 1) / p.group - g_lo + 1;
-    const int n_hi = (half + (c0 + nu) * kUnit - 1) / p.group - g_hi + 1;
+    const Chunk ch = chunk_layout<kNC>(smem, p, c0, nu);
+    __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(ch.rest);  // [2][xrows][ldx]
     __syncthreads();  // the previous chunk's readers are done
-    // packed rows
-    if constexpr (kNC == 8) {
-      for (int i = tid; i < nu * kUnit; i += kThreads)
-        cp_async8(Ps + i * kLdP, p.packed + (size_t)(c0 * kUnit + i) * p.d_out + n0);
-    } else {
-      constexpr int kC = kNC / 16;
-      for (int i = tid; i < nu * kUnit * kC; i += kThreads) {
-        const int r = i / kC, c = (i % kC) * 16;
-        const bool ok = n0 + c < p.d_out;  // d_out % 16 == 0: a chunk is all in or all out
-        cp_async16_or_zero(Ps + r * kLdP + c,
-                           p.packed + (ok ? (size_t)(c0 * kUnit + r) * p.d_out + n0 + c : 0), ok);
-      }
-    }
-    // scale rows, both halves
-    {
-      constexpr int kC = kNC / 8;  // 16-byte chunks a row
-      for (int i = tid; i < (n_lo + n_hi) * kC; i += kThreads) {
-        const int r = i / kC, c = (i % kC) * 8;
-        const bool hi = r >= n_lo;
-        const int rr = hi ? r - n_lo : r, grp = (hi ? g_hi : g_lo) + rr;
-        const bool ok = n0 + c < p.d_out;
-        cp_async16_or_zero(Ss + ((hi ? nu + 1 : 0) + rr) * kNC + c,
-                           p.scale + (ok ? (size_t)grp * p.d_out + n0 + c : 0), ok);
-      }
-    }
-    // x columns of both halves, rows past p.rows zero
-    {
-      const int kc = nu * kUnit / 8;  // 8-element chunks a row and half
-      for (int i = tid; i < 2 * xrows * kc; i += kThreads) {
-        const int h = i / (xrows * kc), rem = i % (xrows * kc), r = rem / kc, c = (rem % kc) * 8;
-        __nv_bfloat16* dst = Xs + (h * xrows + r) * ldx + c;
-        const size_t at = (size_t)r * p.d_in + h * half + c0 * kUnit + c;
-        if (p.x_bf16) {
-          cp_async16_or_zero(dst, static_cast<const __nv_bfloat16*>(p.x) + (r < p.rows ? at : 0),
-                             r < p.rows);
-        } else {
-          float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-          if (r < p.rows) {
-            const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(p.x) + at);
-            a = src[0];
-            b = src[1];
-          }
-          uint4 v;
-          v.x = pack_bf16(a.x, a.y);
-          v.y = pack_bf16(a.z, a.w);
-          v.z = pack_bf16(b.x, b.y);
-          v.w = pack_bf16(b.z, b.w);
-          *reinterpret_cast<uint4*>(dst) = v;
-        }
-      }
-    }
+    stage_packed_scale<kNC>(ch, p, n0, c0, nu);
+    stage_x_bf16<kMT>(Xs, p, c0, nu);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -229,12 +121,12 @@ __global__ void __launch_bounds__(kThreads) int4_tc_kernel(K5Params p, int cs, i
     for (int it = warp; it < 2 * nu; it += kWarps) {
       const int u = it / 2, h = it % 2;
       const int srow = (c0 + u) * kUnit + h * half;  // the item's first k
-      const __nv_bfloat16* sc = Ss + (h * (nu + 1) + srow / p.group - (h ? g_hi : g_lo)) * kNC;
+      const __nv_bfloat16* sc = scale_row<kNC>(ch, p, nu, h, srow);
       uint32_t a[kMT][4];
 #pragma unroll
       for (int m = 0; m < kMT; ++m)
         ldmatrix_x4(a[m], Xs + (h * xrows + 16 * m + lane % 16) * ldx + u * kUnit + 8 * (lane / 16));
-      const uint8_t* pt = Ps + u * kUnit * kLdP;
+      const uint8_t* pt = ch.Ps + u * kUnit * kLdP;
       if constexpr (kNC == 8) {
         // lane (g, t): column g, rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1)
         const uint8_t* pc = pt + g;
@@ -283,116 +175,19 @@ __global__ void __launch_bounds__(kThreads) int4_tc_kernel(K5Params p, int cs, i
       }
     }
   }
-
-  // The 4 warps' partial sums are added in warp order in shared memory (the
-  // staging is dead), then each CTA pushes its sums of the valid rows to the
-  // rank that owns them (rank q: elements [q S, (q + 1) S) of the row-major
-  // [16 kMT][kNC] tile, S = 16 kMT kNC / cs) into slot `rank` of that rank's
-  // receive buffer [cs][S], 4 elements a store; after one cluster barrier
-  // each rank adds its elements' cs slots in rank order.
-  constexpr int kE = 16 * kMT * kNC;
-  const int S = kE / cs;
-  __syncthreads();  // the last chunk's readers are done: red overlays the staging
-  float* red = reinterpret_cast<float*>(smem);  // [kWarps][kE]
-#pragma unroll
-  for (int m = 0; m < kMT; ++m) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float* row = red + warp * kE + (16 * m + g + 8 * hh) * kNC;
-      if constexpr (kNC == 8) {
-        *reinterpret_cast<float2*>(row + 2 * t) = make_float2(acc[m][0][2 * hh], acc[m][0][2 * hh + 1]);
-      } else {
-#pragma unroll
-        for (int blk = 0; blk < kNC / 16; ++blk)
-          *reinterpret_cast<float4*>(row + 16 * blk + 4 * t) =
-              make_float4(acc[m][2 * blk][2 * hh], acc[m][2 * blk + 1][2 * hh],
-                          acc[m][2 * blk][2 * hh + 1], acc[m][2 * blk + 1][2 * hh + 1]);
-      }
-    }
-  }
-  __syncthreads();
-  float* recv = reinterpret_cast<float*>(smem + stage_cap);  // [cs][S]
-  cg::cluster_group cluster = cg::this_cluster();
-  if (cs > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  for (int e = 4 * tid; e < p.rows * kNC; e += 4 * kThreads) {
-    float4 v = *reinterpret_cast<const float4*>(red + e);
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      const float4 u = *reinterpret_cast<const float4*>(red + w * kE + e);
-      v.x += u.x;
-      v.y += u.y;
-      v.z += u.z;
-      v.w += u.w;
-    }
-    float* dst = cs > 1 ? cluster.map_shared_rank(recv, e / S) : recv;
-    *reinterpret_cast<float4*>(dst + (size_t)rank * S + e % S) = v;
-  }
-  if (cs > 1) cluster.sync();  // release the pushes, acquire the others'
-  else __syncthreads();
-  for (int l = 4 * tid; l < S; l += 4 * kThreads) {
-    const int e = rank * S + l, row = e / kNC, col = e % kNC;
-    if (row >= p.rows || n0 + col >= p.d_out) continue;
-    float4 v = *reinterpret_cast<const float4*>(recv + l);
-    for (int q = 1; q < cs; ++q) {
-      const float4 u = *reinterpret_cast<const float4*>(recv + (size_t)q * S + l);
-      v.x += u.x;
-      v.y += u.y;
-      v.z += u.z;
-      v.w += u.w;
-    }
-    const size_t at = (size_t)row * p.d_out + n0 + col;
-    if (p.out_bf16) {
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + at);
-      o[0] = __floats2bfloat162_rn(v.x, v.y);
-      o[1] = __floats2bfloat162_rn(v.z, v.w);
-    } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + at) = v;
-    }
-  }
+  cluster_reduce_store<kMT, kNC>(acc, smem, stage_cap, rank, cs, p, n0);
 }
 
 template <int kMT, int kNC>
-cudaError_t launch(const K5Params& p, int cs, cudaStream_t stream) {
-  const int units = p.d_in / 2 / kUnit;
-  const int per = (units + cs - 1) / cs;
-  const int chunk = per < kChunkUnits ? per : kChunkUnits;
-  const int st = (max(stage_bytes(kMT, kNC, chunk), red_bytes(kMT, kNC)) + 15) / 16 * 16;
-  const size_t smem = st + recv_bytes(kMT, kNC);
-  auto kernel = int4_tc_kernel<kMT, kNC>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && cs > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((p.d_out + kNC - 1) / kNC * cs));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, p, cs, st);
-}
-
-template <int kMT>
-cudaError_t launch_width(const K5Params& p, int nc, int cs, cudaStream_t s) {
-  switch (nc) {
-    case 8: return launch<kMT, 8>(p, cs, s);
-    case 16: return launch<kMT, 16>(p, cs, s);
-    case 32:
-      if constexpr (kMT <= 2) return launch<kMT, 32>(p, cs, s);
-      break;
-    case 64:
-      if constexpr (kMT == 1) return launch<kMT, 64>(p, cs, s);
-      break;
+struct Launch {
+  static cudaError_t run(const Int4Params& p, int cs, cudaStream_t stream) {
+    const int units = p.d_in / 2 / kUnit;
+    const int per = (units + cs - 1) / cs;
+    const int chunk = per < kChunkUnits ? per : kChunkUnits;
+    const int st = (max(stage_bytes(kMT, kNC, chunk), red_bytes(kMT, kNC)) + 15) / 16 * 16;
+    return launch_clustered<kMT, kNC>(int4_tc_kernel<kMT, kNC>, p, cs, st, stream);
   }
-  return cudaErrorInvalidValue;
-}
+};
 
 }  // namespace
 
@@ -409,11 +204,8 @@ extern "C" int mcl_int4_matmul(const void* x, const void* packed, const void* sc
       out_dtype > 1 || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) != 0 || cs > d_in / 32)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
-  const K5Params p{x,     static_cast<const int8_t*>(packed),
-                   static_cast<const __nv_bfloat16*>(scale),
-                   out,   rows, d_in, d_out, group, x_dtype, out_dtype};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 16) return (int)launch_width<1>(p, nc, cs, s);
-  if (rows <= 32) return (int)launch_width<2>(p, nc, cs, s);
-  return (int)launch_width<4>(p, nc, cs, s);
+  const Int4Params p{x,     static_cast<const int8_t*>(packed),
+                     static_cast<const __nv_bfloat16*>(scale),
+                     out,   rows, d_in, d_out, group, x_dtype, out_dtype};
+  return (int)dispatch_shape<Launch>(p, nc, cs, static_cast<cudaStream_t>(stream));
 }

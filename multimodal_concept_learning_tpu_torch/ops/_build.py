@@ -31,7 +31,7 @@ SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_
            "attention_core_bd.cu", "fused_attention_block.cu", "int4_matmul_v3.cu",
            "merged_bwd_tc.cu")
 HEADERS = ("flash_attention_common.cuh", "merged_attention.cuh", "mma_tiles.cuh",
-           "merged_tiles.cuh", "merged_bwd_tc.cuh", "paged_split.cuh")
+           "merged_tiles.cuh", "merged_bwd_tc.cuh", "paged_split.cuh", "int4_split.cuh")
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -65,8 +65,8 @@ _SIGNATURES = {
     "mcl_fused_attention_fwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "mcl_fused_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
-    "mcl_int4_matmul_v3a": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "mcl_int4_matmul_v3b": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mcl_int4_matmul_v3a": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mcl_int4_matmul_v3b": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -21,7 +21,9 @@ multimodal_concept_learning_tpu/ops/int4.py).
 - **A/B variants** (off every model path): ``v3a_matmul`` and
   ``v3b_matmul`` wrap K5v3a and K5v3b (``csrc/int4_matmul_v3.cu``), which
   replace the JAX script ``scripts/bench_int4_kernel.py:_kernel_v3a`` and
-  ``_kernel_v3b``; beside them their plain versions.  Only the port's A/B
+  ``_kernel_v3b``; beside them their plain versions.  They share K5's
+  split-K frame (``csrc/int4_split.cuh``) with whole groups a CTA
+  (``v3_plan``); v3b quantizes x inside its kernel.  Only the port's A/B
   entry point (``scripts/bench_int4_kernel.py``) calls them.
 - **Modules**: ``Int4Linear`` holds ``packed``/``scale`` (and an optional
   float ``bias``) as buffers; it is not an ``nn.Linear``, so the device
@@ -117,6 +119,9 @@ def _check_operands(x2d, packed, scale, group_size: int, what: str) -> None:
     half, d_out = packed.shape
     if x2d.dtype not in _X_DTYPES:
         raise TypeError(f"{what} takes float32/bfloat16 activations, got {x2d.dtype}")
+    if d_in != 2 * half:
+        raise ValueError(f"{what}: x {tuple(x2d.shape)} does not match packed "
+                         f"{tuple(packed.shape)}")
     if packed.dtype != torch.int8 or scale.dtype != torch.bfloat16:
         raise TypeError(f"packed must be int8 and scale bfloat16, got {packed.dtype}, "
                         f"{scale.dtype}")
@@ -137,32 +142,54 @@ def _check_kernel_args(x2d, packed, scale, group_size: int) -> None:
                          f"{x2d.shape[0]} rows")
 
 
+def kernel_operands(x2d, packed, scale, group_size: int, kernel: str = "K5"):
+    """Check what the int4 kernel ``kernel`` (K5, K5v3a or K5v3b) takes and
+    return (x2d, packed, scale) as it reads them: contiguous and 16-byte
+    aligned, copied only if they are not (a strided or offset view, which
+    the JAX functions take)."""
+    if kernel == "K5":
+        _check_kernel_args(x2d, packed, scale, group_size)
+    else:
+        _check_operands(x2d, packed, scale, group_size, kernel)
+        if x2d.shape[0] > MAX_KERNEL_ROWS or group_size != GROUP_SIZE:
+            raise ValueError(f"{kernel} takes at most {MAX_KERNEL_ROWS} rows and group "
+                             f"{GROUP_SIZE}, got x {tuple(x2d.shape)}, group {group_size}")
+    return cuda_operand(x2d), cuda_operand(packed), cuda_operand(scale)
+
+
 def _row_tiles(rows: int) -> int:
     """16-row tiles of x K5 is built for (1, 2 or 4)."""
     return 1 if rows <= 16 else 2 if rows <= 32 else 4
 
 
-@functools.lru_cache(maxsize=None)
-def k5_plan(rows: int, d_in: int, d_out: int) -> Tuple[int, int]:
-    """(stripe width, cluster size) of K5's launch: ``d_out / width`` stripes
-    of output columns, each a cluster whose CTAs split the in/32 units of 16
-    packed rows evenly (none empty).  The widest stripe, then the smallest
-    cluster, that gives at least ``K5_TARGET_CTAS`` CTAs with at most
-    ``K5_CHUNK_UNITS`` units a CTA; failing that, the most CTAs.  The width
-    times the row tiles stays <= 64 (the accumulators a thread holds)."""
-    units = d_in // (2 * K5_UNIT)
+def _split_plan(rows: int, d_out: int, pieces: int, chunk: int) -> Tuple[int, int]:
+    """(stripe width, cluster size) of a split-K launch of the int4 kernels
+    (``csrc/int4_split.cuh``): ``d_out / width`` stripes of output columns,
+    each a cluster whose CTAs split ``pieces`` runs of packed rows evenly
+    (none empty).  The widest stripe, then the smallest cluster, that gives
+    at least ``K5_TARGET_CTAS`` CTAs with at most ``chunk`` pieces a CTA;
+    failing that, the most CTAs.  The width times the row tiles stays <= 64
+    (the accumulators a thread holds)."""
     tiles = _row_tiles(rows)
     plans = [(nc, cs) for nc in K5_WIDTHS if nc * tiles <= 64
-             for cs in K5_CLUSTERS if cs <= units]
+             for cs in K5_CLUSTERS if cs <= pieces]
 
     def ctas(plan):
         return -(-d_out // plan[0]) * plan[1]
 
     good = [pl for pl in plans
-            if ctas(pl) >= K5_TARGET_CTAS and -(-units // pl[1]) <= K5_CHUNK_UNITS]
+            if ctas(pl) >= K5_TARGET_CTAS and -(-pieces // pl[1]) <= chunk]
     if good:
         return max(good, key=lambda pl: (pl[0], -pl[1]))
     return max(plans, key=lambda pl: (ctas(pl), pl[0], -pl[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def k5_plan(rows: int, d_in: int, d_out: int) -> Tuple[int, int]:
+    """(stripe width, cluster size) of K5's launch: the CTAs of a stripe
+    split the in/32 units of 16 packed rows, at most ``K5_CHUNK_UNITS`` a
+    CTA (``_split_plan``)."""
+    return _split_plan(rows, d_out, d_in // (2 * K5_UNIT), K5_CHUNK_UNITS)
 
 
 def k5_smem_bytes(rows: int, d_in: int, d_out: int) -> int:
@@ -199,8 +226,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if rows > MAX_KERNEL_ROWS:
         y = _prefill_matmul(x2d, packed, scale, group_size)
         return y.reshape(*x.shape[:-1], d_out).to(x.dtype)
-    _check_kernel_args(x2d, packed, scale, group_size)
-    x2d, packed, scale = cuda_operand(x2d), cuda_operand(packed), cuda_operand(scale)
+    x2d, packed, scale = kernel_operands(x2d, packed, scale, group_size)
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
     out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
@@ -221,19 +247,48 @@ int4_matmul.launches = 0
 
 # K5's two A/B variants (scripts/bench_int4_kernel.py of the JAX package;
 # the port's entry point is scripts/bench_int4_kernel.py of this package).
-# Off every model path: only the A/B script calls them.
-V3_TARGET_CTAS = 264  # ~2 CTAs an SM of an H100: the split-K the variants' launch takes
+# Off every model path: only the A/B script calls them.  Their split-K takes
+# whole groups: runs of 64-row blocks of the packed rows (group b in the low
+# nibbles, b + in/128 in the high ones), at most V3_CHUNK_BLOCKS a CTA.
+V3_BLOCK = GROUP_SIZE  # packed rows a block: one group of each nibble half
+V3_CHUNK_BLOCKS = K5_CHUNK_UNITS * K5_UNIT // V3_BLOCK  # blocks a CTA stages at once
 
 
-def v3_splits(d_in: int, d_out: int, group_size: int = GROUP_SIZE) -> Tuple[int, int]:
-    """(splits, packed row blocks a split) of the variants' split-K: each
-    CTA owns 64 output columns and a run of the in/(2·group) packed row
-    blocks, with about ``V3_TARGET_CTAS`` CTAs in all and no empty split."""
-    blocks = d_in // (2 * group_size)
-    stripes = -(-d_out // 64)
-    want = max(1, min(blocks, -(-V3_TARGET_CTAS // stripes)))
-    per = -(-blocks // want)
-    return -(-blocks // per), per
+@functools.lru_cache(maxsize=None)
+def v3_plan(rows: int, d_in: int, d_out: int) -> Tuple[int, int]:
+    """(stripe width, cluster size) of K5v3a's and K5v3b's launch: the CTAs
+    of a stripe split the in/128 blocks, whole groups each
+    (``_split_plan``)."""
+    return _split_plan(rows, d_out, d_in // (2 * V3_BLOCK), V3_CHUNK_BLOCKS)
+
+
+def v3_smem_bytes(rows: int, d_in: int, d_out: int, variant: str) -> int:
+    """Shared memory of one K5v3a (``variant`` "v3a") or K5v3b ("v3b") CTA
+    under ``v3_plan`` (csrc/int4_matmul_v3.cu: ``stage_bytes`` /
+    ``v3b_stage_bytes``, ``red_bytes``, ``recv_bytes``): the packed rows and
+    scale rows of one chunk, then v3a's bf16 x columns, or v3b's raw x
+    columns (float32-sized), xq and sx; or the 4 warps' float32 sums over
+    them, whichever is larger; then the receive buffer of the cluster's sums."""
+    nc, cs = v3_plan(rows, d_in, d_out)
+    tiles = _row_tiles(rows)
+    blocks = d_in // (2 * V3_BLOCK)
+    units = min(-(-blocks // cs), V3_CHUNK_BLOCKS) * (V3_BLOCK // K5_UNIT)
+    stride = nc if nc <= 16 else nc + 16
+    k, xrows = units * K5_UNIT, 16 * tiles
+    stage = units * K5_UNIT * stride + 2 * (units + 1) * nc * 2
+    if variant == "v3a":
+        stage += 2 * xrows * (k + 8) * 2
+    else:
+        stage += 2 * xrows * k * 4 + 2 * xrows * (k + 16) + 2 * (k // V3_BLOCK) * xrows * 4
+    return -(-max(stage, 4 * xrows * nc * 4) // 16) * 16 + xrows * nc * 4
+
+
+def s8_slot(p: int) -> int:
+    """K5v3b's k-order (``s8_slot`` of csrc/int4_matmul_v3.cu): the slot of
+    packed row ``p`` (0..31 of a 32-deep k-step) in the staged x tile, so
+    that slot 4t + i of each 16-deep half holds row 2t + (i & 1) + 8 (i >> 1),
+    the rows a byte permute of ldmatrix.trans gives lane t."""
+    return (p & 16) + 4 * ((p & 7) >> 1) + (p & 1) + 2 * ((p >> 3) & 1)
 
 
 def _group_view(t: torch.Tensor, group_size: int) -> torch.Tensor:
@@ -283,33 +338,26 @@ def v3b_matmul_reference(x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
     return out.reshape(*x.shape[:-1], codes.shape[1]).to(x.dtype)
 
 
-def _check_v3_args(x2d, packed, scale, group_size: int, what: str) -> None:
-    _check_operands(x2d, packed, scale, group_size, what)
-    if x2d.shape[0] > MAX_KERNEL_ROWS or group_size != GROUP_SIZE:
-        raise ValueError(f"{what} takes at most {MAX_KERNEL_ROWS} rows and group {GROUP_SIZE}, "
-                         f"got x {tuple(x2d.shape)}, group {group_size}")
-
-
-def _v3_launch(name: str, x2d, packed, scale, group_size: int, lead=(), tail=()) -> torch.Tensor:
-    """Launch ``name`` (``mcl_int4_matmul_v3a`` / ``_v3b``) with the
-    activation arguments ``lead`` before the weights and ``tail`` before the
-    stream: float32 [rows, out]."""
+def _v3_matmul(name: str, x: torch.Tensor, packed, scale, group_size: int):
+    """Launch ``mcl_int4_matmul_<name>`` (v3a / v3b) on CUDA tensors: one
+    clustered launch under ``v3_plan``; (the result in x's dtype, whether
+    it launched)."""
     from multimodal_concept_learning_tpu_torch.ops._build import check, kernels
 
+    x2d, packed, scale = kernel_operands(x.reshape(-1, x.shape[-1]), packed, scale, group_size,
+                                         f"K5{name}")
     rows, d_in = x2d.shape
     d_out = packed.shape[1]
-    packed, scale = cuda_operand(packed), cuda_operand(scale)
-    splits, per = v3_splits(d_in, d_out, group_size)
-    out = torch.empty((rows, d_out), dtype=torch.float32, device=x2d.device)
-    partial = (torch.empty((splits, rows, d_out), dtype=torch.float32, device=x2d.device)
-               if splits > 1 else None)
-    with torch.cuda.device(x2d.device):
-        err = getattr(kernels(), name)(
-            *lead, packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), rows, d_in, d_out, group_size,
-            splits, per, *tail, torch.cuda.current_stream(x2d.device).cuda_stream)
-    check(err, name)
-    return out
+    out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
+    if rows:
+        nc, cs = v3_plan(rows, d_in, d_out)
+        with torch.cuda.device(x.device):
+            err = getattr(kernels(), f"mcl_int4_matmul_{name}")(
+                x2d.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d_in,
+                d_out, group_size, _X_DTYPES[x2d.dtype], nc, cs,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        check(err, f"K5{name}")
+    return out.reshape(*x.shape[:-1], d_out), rows > 0
 
 
 def v3a_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -322,36 +370,27 @@ def v3a_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         return v3a_matmul_reference(x, packed, scale, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"v3a_matmul runs on cpu or cuda tensors, got {x.device}")
-    x2d = x.reshape(-1, x.shape[-1]).contiguous()
-    _check_v3_args(x2d, packed, scale, group_size, "K5v3a")
-    out = _v3_launch("mcl_int4_matmul_v3a", x2d, packed, scale, group_size,
-                     lead=(x2d.data_ptr(),), tail=(_X_DTYPES[x2d.dtype],))
-    if x2d.shape[0]:
-        v3a_matmul.launches += 1
-    return out.reshape(*x.shape[:-1], packed.shape[1]).to(x.dtype)
+    out, launched = _v3_matmul("v3a", x, packed, scale, group_size)
+    v3a_matmul.launches += launched
+    return out
 
 
 def v3b_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                group_size: int = GROUP_SIZE) -> torch.Tensor:
-    """K5v3b: x quantized to int8 per (row, group) by tensor ops
-    (``quantize_activations_int8``), then the int8 x int4 kernel with both
-    scales applied after each group's integer product -> [..., out] in x's
-    dtype.  Lossy in x: a different function from K5, behind the A/B entry
-    point only.  CUDA tensors launch ``csrc/int4_matmul_v3.cu`` (counted in
-    ``v3b_matmul.launches``); CPU tensors run ``v3b_matmul_reference``."""
+    """K5v3b: x quantized to int8 per (row, group) inside the kernel (as
+    ``quantize_activations_int8``, bitwise), then the int8 x int4 product
+    with both scales applied after each group's integer product -> [...,
+    out] in x's dtype.  Lossy in x: a different function from K5, behind
+    the A/B entry point only.  CUDA tensors launch
+    ``csrc/int4_matmul_v3.cu`` (counted in ``v3b_matmul.launches``); CPU
+    tensors run ``v3b_matmul_reference``."""
     if x.device.type == "cpu":
         return v3b_matmul_reference(x, packed, scale, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"v3b_matmul runs on cpu or cuda tensors, got {x.device}")
-    x2d = x.reshape(-1, x.shape[-1])
-    _check_v3_args(x2d, packed, scale, group_size, "K5v3b")
-    xq, sx = quantize_activations_int8(x2d, group_size)
-    xq, sx = xq.contiguous(), sx.contiguous()
-    out = _v3_launch("mcl_int4_matmul_v3b", x2d, packed, scale, group_size,
-                     lead=(xq.data_ptr(), sx.data_ptr()))
-    if x2d.shape[0]:
-        v3b_matmul.launches += 1
-    return out.reshape(*x.shape[:-1], packed.shape[1]).to(x.dtype)
+    out, launched = _v3_matmul("v3b", x, packed, scale, group_size)
+    v3b_matmul.launches += launched
+    return out
 
 
 v3a_matmul.launches = 0
@@ -470,14 +509,17 @@ __all__ = [
     "int4_matmul_reference",
     "k5_plan",
     "k5_smem_bytes",
+    "s8_slot",
     "quantize_linear_int4",
     "quantize_lm_params_int4",
     "quantize_mllm_lm_params_int4",
     "quantize_params_int4",
     "quantize_activations_int8",
     "quantize_weight_int4",
+    "kernel_operands",
     "unpack_int4",
-    "v3_splits",
+    "v3_plan",
+    "v3_smem_bytes",
     "v3a_matmul",
     "v3a_matmul_reference",
     "v3b_matmul",

@@ -14,7 +14,7 @@ chained as the JAX script chains them (each projection's input carries a
   v3a    K5v3a (``ops/int4.v3a_matmul``): unscaled codes, a bf16
          tensor-core product a group, the group scale applied after it
   v3b    K5v3b (``ops/int4.v3b_matmul``): x quantized to int8 per (row,
-         group) outside the kernel, an int8 tensor-core product a group,
+         group) inside the kernel, an int8 tensor-core product a group,
          both scales after it (lossy in x: a different function)
   int8   the port's ``ops/quant.int8_matmul`` on int8 weights (cuBLAS
          ``torch._int_mm``) as the floor

@@ -231,25 +231,24 @@ def test_k5_plan_fills_the_card_with_no_empty_split(proj, rows):
     assert tint4.k5_smem_bytes(rows, d_in, d_out) <= SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("kind", ["strided", "offset"])
-def test_kernel_operands_are_copied_not_refused(kind):
+@pytest.mark.parametrize("kind,kernel", [
+    pytest.param(kind, kernel, id=kind if kernel == "K5" else f"{kind}-{kernel}")
+    for kernel in ("K5", "K5v3a", "K5v3b") for kind in ("strided", "offset")])
+def test_kernel_operands_are_copied_not_refused(kind, kernel):
     """A strided view or one at an odd offset (which the JAX function takes)
     becomes a contiguous, 16-byte aligned copy of the same values: what the
-    CUDA wrappers of K1, K2 and K5 hand their kernels."""
-    from multimodal_concept_learning_tpu_torch.ops._build import cuda_operand
-
-    packed, _ = tint4.quantize_weight_int4(torch.from_numpy(_w((256, 48))))
-    if kind == "strided":
-        view = torch.zeros((128, 64), dtype=torch.int8)[:, :48]
-    else:
-        view = torch.zeros(128 * 48 + 1, dtype=torch.int8)[1:].view(128, 48)
-    view.copy_(packed)
-    assert not view.is_contiguous() or view.data_ptr() % 16
-    got = cuda_operand(view)
-    assert got.is_contiguous() and got.data_ptr() % 16 == 0
-    assert torch.equal(got, packed)
-    aligned = cuda_operand(packed)
-    assert aligned.data_ptr() == cuda_operand(aligned).data_ptr()  # no copy when it is fine
+    CUDA wrappers of K5, K5v3a and K5v3b (``kernel_operands``), as those of
+    K1 and K2, hand their kernels; an operand that is fine is not copied."""
+    rng = np.random.default_rng(3)
+    packed, scale = tint4.quantize_weight_int4(torch.from_numpy(_w((256, 48))))
+    x = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32))
+    views = [_layout_view(t, kind) for t in (x, packed, scale)]
+    got = tint4.kernel_operands(*views, 64, kernel)
+    for g, want in zip(got, (x, packed, scale)):
+        assert g.is_contiguous() and g.data_ptr() % 16 == 0
+        assert torch.equal(g, want)
+    aligned = tint4.kernel_operands(*got, 64, kernel)
+    assert all(a.data_ptr() == g.data_ptr() for a, g in zip(aligned, got))  # no copy then
 
 
 def _layout_view(t, kind):

@@ -174,18 +174,149 @@ def test_v3a_rounds_otherwise_than_k5():
     assert v3a_matmul(xt.to(torch.bfloat16), packed, scale).dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("d_in,d_out", [(1152, 1024), (1152, 256), (1024, 1152),
-                                        (1152, 6912), (6912, 1152), (512, 128)])
-def test_split_k_covers_every_block_once(d_in, d_out):
-    """The variants' split-K: every packed row block in exactly one split,
-    no split empty (the kernel's launch check)."""
-    from multimodal_concept_learning_tpu_torch.ops.int4 import v3_splits
+# gemma3-1b's seven decode projections (in, out), then a nano shape
+GEMMA_PROJECTIONS = {"q_proj": (1152, 1024), "k_proj": (1152, 256), "v_proj": (1152, 256),
+                     "o_proj": (1024, 1152), "gate_proj": (1152, 6912),
+                     "up_proj": (1152, 6912), "down_proj": (6912, 1152)}
+PLAN_CASES = ([(r, *GEMMA_PROJECTIONS[p]) for p in sorted(GEMMA_PROJECTIONS)
+               for r in (1, 8, 16, 64)] + [(8, 512, 128)])
 
-    blocks = d_in // 128
-    splits, per = v3_splits(d_in, d_out)
-    covered = [b for s in range(splits) for b in range(s * per, min(blocks, (s + 1) * per))]
-    assert covered == list(range(blocks))
-    assert (splits - 1) * per < blocks
+
+@pytest.mark.parametrize("rows,d_in,d_out", PLAN_CASES)
+def test_v3_plan_fills_the_card_with_whole_groups(rows, d_in, d_out):
+    """The variants' split plan: at least 264 CTAs (2 an SM of an H100), or
+    the most the shapes allow; a cluster the kernel takes; every (group,
+    nibble half) item in exactly one rank, none empty; and a CTA's shared
+    memory (``v3_smem_bytes``, both variants) within 227 KB."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+    from multimodal_concept_learning_tpu_torch.ops._build import SMEM_PER_BLOCK
+
+    nc, cs = i4.v3_plan(rows, d_in, d_out)
+    tiles = 1 if rows <= 16 else 2 if rows <= 32 else 4
+    assert nc in i4.K5_WIDTHS and nc * tiles <= 64 and cs in i4.K5_CLUSTERS and cs <= 16
+    groups = d_in // 128  # groups a nibble half = 64-row blocks of the packed rows
+    most = max(-(-d_out // w) * c for w in i4.K5_WIDTHS if w * tiles <= 64
+               for c in i4.K5_CLUSTERS if c <= groups)
+    assert -(-d_out // nc) * cs >= min(i4.K5_TARGET_CTAS, most)
+    runs = [range(q * groups // cs, (q + 1) * groups // cs) for q in range(cs)]  # the kernel's
+    assert all(len(run) > 0 for run in runs)
+    items = sorted((b + h * groups) for run in runs for b in run for h in (0, 1))
+    assert items == list(range(2 * groups))  # every group of both halves once
+    for variant in ("v3a", "v3b"):
+        assert i4.v3_smem_bytes(rows, d_in, d_out, variant) <= SMEM_PER_BLOCK
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4i) & 7 of
+    the 8 bytes of (x, y)."""
+    data = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(data[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _codes4(v, h):
+    """The kernel's codes4: int8 codes of the low (h 0) or high nibbles of
+    the 4 bytes of v, by byte-wise SIMD (__vsub4 wraps each byte)."""
+    w = ((v >> (4 * h)) & 0x0F0F0F0F) ^ 0x08080808
+    return [(((w >> (8 * i)) & 0xFF) - 8) for i in range(4)]
+
+
+@pytest.mark.parametrize("h", [0, 1])
+@pytest.mark.parametrize("path", ["ldmatrix", "bytes"])
+def test_v3b_k_order_gives_the_integer_sums(path, h):
+    """One m16n8k32 step of K5v3b as the kernel assembles it: the x tile
+    staged in ``s8_slot`` order, each lane's A registers read from it, its
+    B registers from the packed bytes (``ldmatrix.x4.trans`` plus byte
+    permutes for a 16-column block, or the bytes one by one for an 8-column
+    stripe) and decoded 4 bytes at a time; the fragments put back where
+    the PTX layouts say, their product must be the plain version's integer
+    sums of xq with the codes, exactly."""
+    from multimodal_concept_learning_tpu_torch.ops import int4 as i4
+
+    rng = np.random.default_rng(11 + h)
+    xq = rng.integers(-127, 128, size=(16, 32))
+    packed = rng.integers(-128, 128, size=(32, 16)).astype(np.int8)  # rows of one k-step
+    codes = i4.unpack_int4(torch.from_numpy(packed)).numpy().astype(np.int64)[32 * h:32 * h + 32]
+    want = xq @ codes  # [16 rows, 16 columns]
+    staged = np.zeros_like(xq)
+    for p in range(32):
+        staged[:, i4.s8_slot(p)] = xq[:, p]
+    u8 = packed.view(np.uint8).astype(np.int64)
+    a_mat = np.zeros((16, 32), np.int64)
+    got = np.zeros((16, 16), np.int64)
+    tiles = {"even": np.zeros((32, 8), np.int64), "odd": np.zeros((32, 8), np.int64)}
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for reg, (row, k0) in enumerate(((g, 0), (g + 8, 0), (g, 16), (g + 8, 16))):
+            a_mat[row, k0 + 4 * t:k0 + 4 * t + 4] = staged[row, k0 + 4 * t:k0 + 4 * t + 4]
+        if path == "ldmatrix":
+            # matrix j: b16 column g (bytes 2g, 2g + 1) of rows 8j + 2t, 8j + 2t + 1
+            q = [sum(int(u8[8 * j + 2 * t + (i // 2), 2 * g + i % 2]) << (8 * i)
+                     for i in range(4)) for j in range(4)]
+            regs = {"even": (_byte_perm(q[0], q[1], 0x6420), _byte_perm(q[2], q[3], 0x6420)),
+                    "odd": (_byte_perm(q[0], q[1], 0x7531), _byte_perm(q[2], q[3], 0x7531))}
+        else:  # an 8-column stripe: column g, rows 2t, 2t + 1, 2t + 8, 2t + 9 (+ 16)
+            regs = {"even": tuple(sum(int(u8[16 * s + 2 * t + r, g]) << (8 * i)
+                                      for i, r in enumerate((0, 1, 8, 9))) for s in (0, 1))}
+        for tile, (b0, b1) in regs.items():
+            tiles[tile][4 * t:4 * t + 4, g] = _codes4(b0, h)
+            tiles[tile][16 + 4 * t:16 + 4 * t + 4, g] = _codes4(b1, h)
+    if path == "ldmatrix":
+        got[:, 0::2] = a_mat @ tiles["even"]  # n-tile 2 blk: columns 2g
+        got[:, 1::2] = a_mat @ tiles["odd"]
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_array_equal(a_mat @ tiles["even"], want[:, :8])
+
+
+def test_v3b_quantization_divides():
+    """K5v3b's quantization in the kernel's float32 arithmetic (numpy
+    float32: IEEE division, round half to even) is bitwise the plain
+    version's; a multiply by the reciprocal 1/127 (what a division by a
+    constant often becomes) gives other scales on the same inputs."""
+    from multimodal_concept_learning_tpu_torch.ops.int4 import quantize_activations_int8
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8, 1152)).astype(np.float32)
+    xq, sx = quantize_activations_int8(torch.from_numpy(x))
+    m = np.maximum(np.abs(x.reshape(8, 18, 64)).max(-1), np.float32(1e-8))
+    want_sx = m / np.float32(127)
+    want_q = np.clip(np.rint(x.reshape(8, 18, 64) / want_sx[..., None]), -127, 127)
+    np.testing.assert_array_equal(sx.numpy(), want_sx)
+    np.testing.assert_array_equal(xq.numpy(), want_q.reshape(8, 1152).astype(np.int8))
+    assert (m * (np.float32(1) / np.float32(127)) != want_sx).any()
+
+
+def test_v3b_division_is_ieee():
+    """K5v3b's division (``divisor`` and ``div_rn`` of
+    csrc/int4_matmul_v3.cu) in numpy: a reciprocal within 2 ulp of float32
+    (as ``__fdividef`` gives it) refined by two Newton steps in float64, the
+    quotient by it with one residual correction, rounded to float32, is
+    bitwise the IEEE float32 quotient, on random pairs and on quotients next
+    to the half-integers where round-half-to-even decides xq; and so is the
+    group scale m / 127 by the float64 1/127."""
+    rng = np.random.default_rng(7)
+    n = 400_000
+    b = (np.abs(rng.standard_normal(n)) * 10.0 ** rng.uniform(-9, 3, n) / 127).astype(np.float32)
+    b = np.maximum(b, np.float32(1e-8) / np.float32(127))
+    a = (rng.uniform(-127, 127, n) * b).astype(np.float32)
+    half = (rng.integers(-127, 127, n) + 0.5).astype(np.float32)
+    near = (half.astype(np.float64) * b).astype(np.float32)  # a / b within an ulp of k + 0.5
+    for num in (a, near, np.nextafter(near, np.float32(np.inf)),
+                np.nextafter(near, np.float32(-np.inf))):
+        r0 = np.float32(1) / b
+        r0 = np.where(rng.random(n) < 0.5, np.nextafter(np.nextafter(r0, np.float32(0)),
+                                                        np.float32(0)),
+                      np.nextafter(np.nextafter(r0, np.float32(np.inf)), np.float32(np.inf)))
+        bd, ad, r = b.astype(np.float64), num.astype(np.float64), r0.astype(np.float64)
+        r = r + r * (1.0 - bd * r)
+        r = r + r * (1.0 - bd * r)
+        q = ad * r
+        q = q + (ad - bd * q) * r
+        np.testing.assert_array_equal(q.astype(np.float32), num / b)
+    m = np.maximum(np.abs(a), np.float32(1e-8))  # the group scale: m / 127 by 1/127 in float64
+    q = m.astype(np.float64) * (1.0 / 127.0)
+    q = q + (m.astype(np.float64) - 127.0 * q) * (1.0 / 127.0)
+    np.testing.assert_array_equal(q.astype(np.float32), m / np.float32(127))
 
 
 def test_ab_entry_point_on_cpu(capsys):
