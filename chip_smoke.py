@@ -22,12 +22,15 @@ Phases (each prints its results; any failure exits non-zero):
 6. training parity: float32 MLLM at full width and reduced depth, three
    micro-steps with accumulation 2 on the card and on the CPU plain path:
    the same losses and trained tensors, frozen tensors bitwise unchanged;
-7. training slice: the port's trainer CLI (``multimodal_training.main``)
-   trains the full ``12_colors_3k`` model (seeded random init) for one epoch
-   on a small generated 12-color dataset; launch counts of the K1 forward,
-   dQ and dK/dV kernels per micro-step, finite losses, trained tensors
-   moved, frozen tensors bitwise those of ``initial_model.pt``, the full
-   results layout, and micro-steps/s and samples/s;
+7. training slice (run after phase 18): the port's trainer CLI
+   (``multimodal_training.main``) trains the full ``12_colors_3k`` model
+   (seeded random init, the vision tower warm-started through
+   ``vision_path`` from phase 18's ``best_model.pt``, which
+   ``initial_model.pt`` must hold bitwise) for one epoch on a small
+   generated 12-color dataset; launch counts of the K1 forward, dQ and
+   dK/dV kernels per micro-step, finite losses, trained tensors moved,
+   frozen tensors bitwise those of ``initial_model.pt``, the full results
+   layout, and micro-steps/s and samples/s;
 8. CLIP training parity: float32 CLIP at full width (ViT-B/32, 512-wide
    text tower) and 2 + 2 layers, batch 8, on the card (K2 kernels) and on
    the CPU plain path: the same first gradients, then three train steps
@@ -72,7 +75,27 @@ Phases (each prints its results; any failure exits non-zero):
     (``scripts/bench_int4_kernel.py``) at the JAX script's shapes (gemma3-1b's
     7 projections x 26 layers, batch 8): K5, K5v3a, K5v3b and the int8
     product, 182 launches of each kernel a step, ms a step by CUDA graph
-    replay.
+    replay;
+17. vision parity (run after phase 6): the full-width vit-b-16 classifier
+    at 2 layers, float32, batch 8: three micro-steps with accumulation 2 on
+    the card and on the CPU give the same losses and parameters (1e-4;
+    each tensor but the key biases), with exactly 2 K1 forward, 2 dQ and 2 dK/dV launches a micro-step; at
+    dropout 0.1 a training micro-step launches no K1 kernel, a CUDA
+    generator's masks repeat bitwise under one seed and keep 0.9 of the
+    values (within 4 sigma);
+18. vision slice (run before phase 7): the port's vision trainer CLI
+    (``vision_training.main``) on
+    ``experiments/vision/color/12_colors_3k.yaml`` as it stands (vit-b-16,
+    bf16, dropout 0.1, batch 64) for one epoch on a generated 12-color
+    dataset of 64 images a color (the dataset's 80/10/10 split: 612
+    training images, 9 micro-steps, 2 updates; 2 validation and 2 test
+    batches); the reference-format lines, both checkpoints loading strict
+    into the port's classifier, finite losses, K1 forward exactly 12 a
+    validation or test batch and none in training; images/s,
+    micro-steps/s, the epoch's wall time and peak memory;
+19. analysis (run after phase 15, on phase 7's results dir): the port's
+    token-embedding analysis CLI prints a finite Pearson r (and, without
+    matplotlib, that the figures were skipped).
 
 Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
@@ -87,8 +110,9 @@ copies, K1's backward in every case in float32 (the CUDA-core kernels)
 and bf16 (the tensor-core pair; two calls bitwise equal), one gemma3-1b
 decoder layer's bf16 gradients at the training batch against CPU
 autograd, times K2-bd beside K2 at both CLIP shapes, K6's backward and
-K1's backward beside SDPA's (all by CUDA graph replay), and K6's forward beside the
-unfused library composition
+K1's backward beside SDPA's (all by CUDA graph replay; K1's forward and
+backward also at the vision trainer's [64,197,12,64]), and K6's forward
+beside the unfused library composition
 (``F.layer_norm`` + ``F.linear`` + SDPA + ``F.linear`` + add); then K5
 (int4 decode matmul; x in float32 and bf16, limits 1e-5 and 8e-3 of the
 reference's max |value|; two calls bitwise equal) and K3 and K4 (paged
@@ -134,7 +158,9 @@ checkouts runs either on each in turns).  ``python3
 chip_smoke.py --profile-mllm [ROOT]`` profiles the full MLLM micro-step
 with the port package of ROOT (default this checkout): device busy, idle
 share, aten ops and K1's forward, dQ and dK/dV in ms a micro-step;
-``--profile-decode [ROOT]`` the full MLLM's paged decode step at batch 8
+``--profile-vision`` one vision-trainer micro-step at its slice's shape
+(batch 64, dropout 0.1) the same way; ``--profile-decode [ROOT]`` the full
+MLLM's paged decode step at batch 8
 (prompts of 262-269 tokens, a fixed batch): device busy, idle share and
 K3's ms a step (K4's under ``MCL_PAGED_KERNEL=2``).
 
@@ -297,8 +323,9 @@ def phase_build(check_spills: bool = True) -> None:
 
 
 def _flash_cases(torch, gen, dev):
-    """(name, q, k, v, kwargs) at the K1 forward's path shapes: the ViT, LM
-    prefill (serving, answering), the LM at the training batch, the answer
+    """(name, q, k, v, kwargs) at the K1 forward's path shapes: the ViT, the
+    vision classifier's batch of 64, LM prefill (serving, answering), the LM
+    at the training batch, the answer
     CLI's dense decode step (one query a row against the whole cache under
     the float32 cache bias, a few slots masked), then a window, a float32
     bias, Tq < Tk under causal, and head dim 128."""
@@ -319,6 +346,7 @@ def _flash_cases(torch, gen, dev):
     return [
         ("vit [8,197,12,64]", randn(b, 197, 12, 64), randn(b, 197, 12, 64),
          randn(b, 197, 12, 64), {}),
+        (VIT_CLS, randn(64, 197, 12, 64), randn(64, 197, 12, 64), randn(64, 197, 12, 64), {}),
         ("lm [8,261,4/1,256] causal+kv_lens", randn(b, 261, 4, 256), randn(b, 261, 1, 256),
          randn(b, 261, 1, 256), lm),
         (f"lm train [2,{t},4/1,256] causal+kv_lens", randn(2, t, 4, 256), randn(2, t, 1, 256),
@@ -337,13 +365,15 @@ def _flash_cases(torch, gen, dev):
 
 
 K1_TIMED = ("vit [", "lm [", "lm train [", "decode [")  # K1 forward cases on a main path
+VIT_CLS = "vit [64,197,12,64] classifier"  # the vision trainer's batch (K1 forward and backward)
 
 
 def _flash_bwd_cases(torch, gen, dev):
     """(name, q, k, v, kwargs, bias needs grad) at the training path's K1
     shapes: the LM at batch 2 (4q/1kv heads of 256, causal + kv_lens, scale
     1/16), with a window, with a float32 bias that needs a gradient, and
-    the ViT (12 heads of 64, no mask); then one case at head dim 128 and a
+    the ViT (12 heads of 64, no mask) at batch 2 and at the vision
+    trainer's batch of 64; then one case at head dim 128 and a
     ragged one at 256 (T 300: a partial last tile of keys and of rows, a
     row of padding past one tile)."""
 
@@ -360,6 +390,8 @@ def _flash_bwd_cases(torch, gen, dev):
         (f"lm + bias [2,1,{t},{t}] (dbias)", *lm_qkv(), dict(lm, bias=randn(2, 1, t, t)), True),
         ("vit [2,197,12,64]", randn(2, 197, 12, 64), randn(2, 197, 12, 64),
          randn(2, 197, 12, 64), {}, False),
+        (VIT_CLS, randn(64, 197, 12, 64), randn(64, 197, 12, 64), randn(64, 197, 12, 64), {},
+         False),
         # the kernels' third head dim, group 4 over 2 kv heads, a per-head bias
         ("d 128 [2,100,8/2,128] causal + window 37 + bias [2,8,100,100]",
          randn(2, 100, 8, 128), randn(2, 100, 2, 128), randn(2, 100, 2, 128),
@@ -443,9 +475,10 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
     """Each backward kernel against the plain backward on the same saved
     (q, k, v, o, lse, dO): float32 (the CUDA-core kernels) <= 1e-4 abs,
     bf16 (the tensor-core pair) <= 2e-2 of the reference's max |value|, and
-    two bf16 calls bitwise equal.  At the LM training shape in bf16 the
-    kernels and SDPA's backward are timed by CUDA graph replay, the plain
-    backward by the event loop."""
+    two bf16 calls bitwise equal.  At the LM training shape and the vision
+    trainer's in bf16 the kernels and SDPA's backward are timed by CUDA
+    graph replay, the plain backward by the event loop (the JSON line keeps
+    the LM's)."""
     kdq = report.setdefault("flash_attention_bwd_dq", {"max_abs_err": 0.0})
     kdkv = report.setdefault("flash_attention_bwd_dkv", {"max_abs_err": 0.0})
     for name, q, k, v, kw, bias_grad in _flash_bwd_cases(torch, gen, dev):
@@ -504,6 +537,8 @@ def _phase_flash_bwd(torch, fa, gen, dev, report: dict) -> None:
                 fail(f"K1 bwd {name} {tag}: two calls gave different gradients")
             kdq["max_abs_err"] = max(kdq["max_abs_err"], errs["dq"], errs.get("dbias", 0.0))
             kdkv["max_abs_err"] = max(kdkv["max_abs_err"], errs["dk"], errs["dv"])
+            if name == VIT_CLS and dtype is torch.bfloat16:
+                time_k1_bwd(torch, fa, name, qd, kd, vd, dod, kw, bias_grad)
             if name.startswith("lm [") and dtype is torch.bfloat16:
                 r = time_k1_bwd(torch, fa, name, qd, kd, vd, dod, kw, bias_grad)
                 kdq.update(ms=r["dq_ms"], plain_ms=plain_ms, library_ms=r["sdpa_ms"],
@@ -2456,16 +2491,17 @@ def _write_config(src: str, root: str, overrides: dict) -> dict:
         return {"path": path, "parsed": miniyaml.safe_load(f)}
 
 
-def _write_train_config(root: str, data_dir: str) -> str:
+def _write_train_config(root: str, data_dir: str, vision_path: str = None) -> str:
     """experiments/multimodal/color/12_colors_3k.yaml with the paths under
-    ``root``, epochs 1 and 2 loader workers, as a YAML file."""
+    ``root``, epochs 1, 2 loader workers and ``vision_path``, as a YAML file."""
     cfg = _write_config(os.path.join(REPO, "experiments/multimodal/color/12_colors_3k.yaml"),
                         root, {"mapping_path": os.path.join(data_dir, "train_mapping.csv"),
                                "image_root": data_dir, "labels_mapping_path": MAPPING,
                                "results_dir": os.path.join(root, "results"), "epochs": "1",
-                               "num_workers": "2"})
+                               "num_workers": "2", "vision_path": vision_path or "null"})
     parsed = cfg["parsed"]
     assert parsed["epochs"] == 1 and parsed["batch_size"] == 2 and parsed["image_root"] == data_dir
+    assert parsed["vision_path"] == vision_path
     return cfg["path"]
 
 
@@ -2491,8 +2527,11 @@ def _generate_colors(root: str, images_per_color: int) -> tuple:
     return data_dir, sizes
 
 
-def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> None:
-    """The port's trainer CLI on the full 12_colors_3k model, one epoch."""
+def phase_train_slice(report: dict, root: str, images_per_color: int = 8,
+                      vision_path: str = None) -> None:
+    """The port's trainer CLI on the full 12_colors_3k model, one epoch; its
+    vision tower warm-started from ``vision_path`` (phase 18's
+    ``best_model.pt``), which ``initial_model.pt`` must hold bitwise."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.checkpoint import changed_frozen, load_state_dict
@@ -2502,7 +2541,7 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> Non
 
     t0 = time.perf_counter()
     data_dir, sizes = _generate_colors(root, images_per_color)
-    cfg_path = _write_train_config(root, data_dir)
+    cfg_path = _write_train_config(root, data_dir, vision_path)
     print(f"[train] {images_per_color} images per color generated ({sizes}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2537,6 +2576,15 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> Non
     # the card's own frozen parameters, after the epoch, against initial_model.pt
     # cast to their storage dtype: nothing on the card wrote to them
     changed_on_card = changed_frozen(state.model, init_sd)
+    warm = True
+    if vision_path:  # the tower of initial_model.pt is the vision trainer's, bitwise
+        vision_sd = load_state_dict(vision_path)
+        tower = [n for n in init_sd if n.startswith("vision_model.")]
+        warm = bool(tower) and all(torch.equal(init_sd[n], vision_sd["vit." + n[13:]])
+                                   for n in tower)
+        print(f"[train] warm start from {vision_path}: {len(tower)} tower tensors of "
+              f"initial_model.pt bitwise the vision trainer's {warm}", flush=True)
+        del vision_sd
     del init_sd, best_sd, state
     finite = all(np.isfinite(epoch.get(k, float("nan"))) for k in ("train_loss", "val_loss"))
     finite = finite and np.isfinite(test_metrics["test_loss"])
@@ -2552,12 +2600,266 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8) -> Non
           f"frozen on the card changed {changed_on_card}, float32 leaves {float32}, "
           f"missing files {missing}", flush=True)
     if not (finite and moved and frozen_same and not changed_on_card and float32
-            and not missing):
+            and not missing and warm):
         fail("training slice checks")
     if launches != expected:
         fail(f"training slice launch counts {launches} != expected {expected}")
     for name, n in launches.items():
         report[name]["launches"] = n
+
+
+VISION_CONFIG = os.path.join(REPO, "experiments/vision/color/12_colors_3k.yaml")
+
+
+def _vision_batches(n: int, b: int, labels: int, seed: int) -> list:
+    """``n`` numpy classifier batches of ``b`` 224px noise images (float32
+    NCHW; noise keeps the samples' features apart, as in phase 8) with
+    random labels."""
+    rng = np.random.default_rng(seed)
+    return [{"images": rng.standard_normal((b, 3, 224, 224)).astype(np.float32),
+             "labels": rng.integers(0, labels, b).astype(np.int32),
+             "valid": np.ones(b, bool)} for _ in range(n)]
+
+
+def _k1_counts(fa) -> tuple:
+    return (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches)
+
+
+def phase_vision_parity() -> None:
+    """Phase 17: the full-width vit-b-16 classifier (12 labels) at 2 layers,
+    float32, batch 8.  Dropout 0, on the card (K1 forward, dQ and dK/dV:
+    exactly 2 of each a micro-step) and on the CPU (plain versions): the
+    first batch's gradient of every tensor within 1e-4 relative in norm
+    (but the key biases, whose gradient is rounding alone: phase 8), then
+    three micro-steps with accumulation 2 with the same losses (1e-4
+    relative) and parameters (each tensor within 1e-4 relative in norm, but
+    the key biases: AdamW turns their rounding-alone gradients into full
+    steps of either sign).  Dropout 0.1 (the configs'): a training micro-step launches
+    no K1 kernel; a CUDA generator's masks are bitwise equal on a rerun with
+    its seed, another seed's are not; the keep rate lies within 4 sigma of
+    0.9."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.models.vit import (
+        ViTConfig,
+        ViTForImageClassification,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.ops.attention import dropout
+    from multimodal_concept_learning_tpu_torch.ops.losses import cross_entropy_loss
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_classifier_train_step,
+    )
+
+    cfg = dataclasses.replace(ViTConfig.preset("vit-b-16", num_labels=12), num_hidden_layers=2,
+                              dtype=torch.float32)
+    model0 = init_random_weights_(ViTForImageClassification(cfg),
+                                  torch.Generator().manual_seed(SEED))
+    sd = {k: v.clone() for k, v in model0.state_dict().items()}
+    batches = _vision_batches(3, 8, 12, SEED)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            model = ViTForImageClassification(cfg)
+        model.load_state_dict(sd, strict=True)
+        first = to_device(batches[0], dev)
+        cross_entropy_loss(model(first["images"]), first["labels"]).backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        opt = build_optimizer(model, 1e-4, weight_decay=0.1, max_grad_norm=1.0,
+                              accumulation_steps=2)
+        state = TrainState(model=model, optimizer=opt)
+        step = make_classifier_train_step(model, torch.Generator(device=dev).manual_seed(SEED))
+        before, losses = _k1_counts(fa), []
+        for batch in batches:
+            state, m = step(state, to_device(batch, dev))
+            losses.append(float(m["loss"]))
+        launched = tuple(n - b for n, b in zip(_k1_counts(fa), before))
+        runs[dev] = (losses, grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     launched)
+    (cl, cg, csd, claunch), (pl, pg, psd, plaunch) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, pl))
+    held = [n for n in cg if not n.endswith("key.bias")]
+    grad_errs = sorted((((cg[n] - pg[n]).norm() / pg[n].norm()).item(), n) for n in held)
+    flat = torch.cat([csd[n].flatten() - psd[n].flatten() for n in sd])
+    param_err = (flat.norm() / torch.cat([psd[n].flatten() for n in sd]).norm()).item()
+    tensor_errs = sorted((((csd[n] - psd[n]).norm() / psd[n].norm()).item(), n) for n in held)
+    moved = sum(not torch.equal(csd[n], sd[n]) for n in csd)
+    expected = (2 * 3, 2 * 3, 2 * 3)  # 2 layers, 3 micro-steps
+    print(f"[vision-parity] dropout 0: losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; "
+          f"first gradients of {len(held)} tensors: max norm-relative err "
+          f"{grad_errs[-1][0]:.2e} (largest: "
+          + ", ".join(f"{n} {e:.2e}" for e, n in grad_errs[-3:]) + "); parameters after 3 "
+          f"micro-steps: all {len(sd)} as one vector norm-relative err {param_err:.2e}; of "
+          f"the {len(held)} held, max {tensor_errs[-1][0]:.2e} (largest: "
+          + ", ".join(f"{n} {e:.2e}" for e, n in tensor_errs[-3:])
+          + f"); {moved}/{len(csd)} tensors moved; K1 launches (fwd, dq, dkv) cuda {claunch} "
+          f"(expected {expected}) cpu {plaunch}", flush=True)
+    if not (loss_err <= 1e-4 and grad_errs[-1][0] <= 1e-4 and tensor_errs[-1][0] <= 1e-4
+            and moved == len(csd)):
+        fail("vision training parity CUDA vs CPU")
+    if claunch != expected or max(plaunch) != 0:
+        fail(f"vision parity launches: cuda {claunch} != {expected}, cpu {plaunch}")
+
+    drop_cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.1,
+                                   attention_probs_dropout_prob=0.1, dtype=torch.bfloat16)
+    with torch.device("cuda"):
+        model = ViTForImageClassification(drop_cfg)
+    model.load_state_dict(sd, strict=True)
+    state = TrainState(model=model, optimizer=build_optimizer(model, 1e-4, weight_decay=0.1,
+                                                              max_grad_norm=1.0))
+    step = make_classifier_train_step(model, torch.Generator(device="cuda").manual_seed(SEED))
+    before = _k1_counts(fa)
+    for batch in batches[:2]:
+        state, m = step(state, to_device(batch, "cuda"))
+    drop_launched = tuple(n - b for n, b in zip(_k1_counts(fa), before))
+    x = torch.ones(4_000_000, device="cuda")
+    masks = [dropout(x, 0.1, torch.Generator(device="cuda").manual_seed(seed), False) != 0
+             for seed in (7, 7, 8)]
+    keep = masks[0].float().mean().item()
+    sigma = (0.1 * 0.9 / x.numel()) ** 0.5
+    same, other = torch.equal(masks[0], masks[1]), torch.equal(masks[0], masks[2])
+    print(f"[vision-parity] dropout 0.1, bf16: K1 launches in 2 training micro-steps "
+          f"{drop_launched}, loss {float(m['loss']):.4f}; CUDA generator masks: same seed "
+          f"bitwise equal {same}, another seed equal {other}; keep rate {keep:.6f} "
+          f"(0.9 +- 4 sigma = {4 * sigma:.6f})", flush=True)
+    if drop_launched != (0, 0, 0) or not np.isfinite(float(m["loss"])):
+        fail(f"vision parity with dropout: K1 launches {drop_launched}")
+    if not (same and not other and abs(keep - 0.9) <= 4 * sigma):
+        fail("vision parity: dropout masks")
+
+
+def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> str:
+    """Phase 18: the port's vision trainer CLI (``vision_training.main``) on
+    experiments/vision/color/12_colors_3k.yaml as it stands (vit-b-16 at
+    224, bf16, dropout 0.1, batch 64, 4 micro-steps an update), one epoch on
+    a generated 12-color dataset of ``images_per_color`` images a color.
+    Checks the reference-format lines, both checkpoints loading strict into
+    the port's classifier, finite losses and exact K1 launches: 12 a
+    validation or test batch, none in a training micro-step (dropout takes
+    the dense branch).  Returns the path of its ``best_model.pt``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict
+    from multimodal_concept_learning_tpu_torch.configs import VisionTrainingConfig
+    from multimodal_concept_learning_tpu_torch.models.vit import (
+        ViTConfig,
+        ViTForImageClassification,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.vision_training import main as vision_main
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    data_dir, sizes = _generate_colors(root, images_per_color)
+    results = os.path.join(root, "results")
+    cfg = _write_config(VISION_CONFIG, root, {"data_dir": data_dir, "mapping_path": data_dir,
+                                              "results_dir": results, "epochs": "1"})
+    parsed = VisionTrainingConfig.from_params(cfg["parsed"])
+    print(f"[vision] {images_per_color} images per color generated ({sizes}) in "
+          f"{time.perf_counter() - t0:.1f} s; config {parsed.hidden_size} wide, "
+          f"{parsed.num_hidden_layers} layers, batch {parsed.batch_size}, effective "
+          f"{parsed.effective_batch_size}, dropout {parsed.hidden_dropout_prob} / "
+          f"{parsed.attention_dropout_prob}, {parsed.num_workers} loader workers", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                ac.attention_core_fwd, ac.attention_core_bwd)
+    for fn in counters:
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = vision_main(["--config_path", cfg["path"], "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = tuple(fn.launches for fn in counters)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"[vision-cli] {line}", flush=True)
+
+    b = parsed.batch_size
+    micro = sizes["train"] // b  # drop_last
+    evals = -(-sizes["val"] // b) + -(-sizes["test"] // b)
+    expected = (parsed.num_hidden_layers * evals, 0, 0, 0, 0)
+    epoch = out["history"][0]
+    lines_ok = all(re.search(p, text, re.M) for p in (
+        r"^Epoch 1/1 completed in \d+\.\d\ds$",
+        r"^Train Loss: \d+\.\d{4}, Train Acc: \d+\.\d\d%$",
+        r"^Val Loss: \d+\.\d{4}, Val Acc: \d+\.\d\d%$", r"^Learning Rate: \d\.\d{6}$",
+        r"^Best val loss: \d+\.\d{4}$", r"^Test Results:$", r"^Test Loss: \d+\.\d{4}$",
+        r"^Test Accuracy: \d+\.\d\d%$"))
+    models = os.path.join(results, "models")
+    vcfg = ViTConfig.from_training_config(parsed)  # num_labels 12, the dataset's classes
+    loaded = []
+    for name in ("best_model.pt", "final_model.pt"):
+        with torch.device("meta"):
+            clf = ViTForImageClassification(vcfg)
+        sd = load_state_dict(os.path.join(models, name))
+        clf.load_state_dict(sd, strict=True, assign=True)
+        loaded.append(all(t.dtype == torch.float32 and torch.isfinite(t).all() for t in sd.values()))
+    finite = all(np.isfinite(epoch[k]) for k in ("train_loss", "val_loss")) and np.isfinite(
+        out["test_loss"])
+    steps_s = epoch["micro_steps"] / epoch["train_time"]
+    print(f"[vision] one epoch: {epoch['micro_steps']} micro-steps (batch {b}, "
+          f"{parsed.effective_batch_size // b} per update) in {epoch['train_time']:.3f} s: "
+          f"{steps_s:.3f} micro-steps/s, {b * steps_s:.1f} images/s; epoch wall time (train + "
+          f"val) {epoch['epoch_time']:.3f} s; whole CLI run {wall:.1f} s; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"[vision] train loss {epoch['train_loss']:.4f}, val loss {epoch['val_loss']:.4f}, "
+          f"test {out['test_loss']:.4f} / {out['test_acc']:.2f}%; launches (K1 fwd, dq, dkv, "
+          f"K2 fwd, bwd) {launches} (expected {expected}: one a layer of a val or test "
+          f"batch, 0 a training micro-step); lines {bool(lines_ok)}; checkpoints load strict {loaded}",
+          flush=True)
+    if not (lines_ok and all(loaded) and finite and epoch["micro_steps"] == micro):
+        fail("vision slice checks")
+    if launches != expected:
+        fail(f"vision slice launches {launches} != {expected}")
+    return os.path.join(models, "best_model.pt")
+
+
+def phase_analysis(root: str) -> None:
+    """Phase 19 (after phase 15, on phase 7's results dir): the port's
+    token-embedding analysis CLI prints the RGB-vs-embedding Pearson r,
+    finite; without matplotlib it prints that the figures were skipped."""
+    import contextlib
+    import io
+
+    from multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis import (
+        FIGURES_SKIPPED,
+        pyplot,
+    )
+    from multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis import (
+        main as analysis_main,
+    )
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        r = analysis_main(["--results_dir", os.path.join(root, "results"),
+                           "--output_dir", os.path.join(root, "analysis")])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"[analysis] {line}", flush=True)
+    skipped = FIGURES_SKIPPED in text
+    print(f"[analysis] Pearson r {r:.6f} in {wall:.1f} s; matplotlib installed "
+          f"{pyplot() is not None}, figures skipped line {skipped}", flush=True)
+    if not (np.isfinite(r) and "Pearson correlation coefficient:" in text):
+        fail("analysis: no finite Pearson r")
+    if skipped != (pyplot() is None):
+        fail("analysis: the figures-skipped line does not match matplotlib's presence")
 
 
 def _clip_batches(tokenizer, n: int, b: int) -> list:
@@ -2949,6 +3251,8 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
         TrainState,
         make_clip_train_step,
     )
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader
     from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
     from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model
 
@@ -2970,7 +3274,12 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
         run("variant", _variant_model(config, len(tokenizer)))
     finally:
         del os.environ["MCL_ATTN_CORE_BD"]
-    _time_loader(config, tokenizer)
+    def clip_loader(train):
+        return BatchLoader(train, batch_size=CLIP_BATCH, shuffle=True, drop_last=True,
+                           seed=config.seed, collate_fn=ClipCollator(
+                               tokenizer, config.caption_template, config.context_length))
+
+    _time_loader(config, clip_loader, 108, True)
 
 
 def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
@@ -3011,6 +3320,47 @@ def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
     batch = to_device(_train_batch(tokenizer, labels_mapping, seed=0), "cuda")
     _profile_step("mllm", TrainState(model=model, optimizer=opt), make_mllm_train_step(model),
                   batch, steps, warmup, config.batch_size, "samples", groups=K1_GROUPS)
+
+
+def profile_vision(steps: int = 6, warmup: int = 4) -> None:
+    """``--profile-vision``: one micro-step of the vision trainer at its
+    slice's shape (experiments/vision/color/12_colors_3k.yaml: vit-b-16 at
+    224, bf16, dropout 0.1, batch 64, 4 micro-steps an update) on a fixed
+    device batch, with the CLI's model, optimizer and step; then the CLI's
+    input path alone."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import VisionTrainingConfig
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_classifier_train_step,
+    )
+    from multimodal_concept_learning_tpu_torch.train.vision_training import init_model
+
+    with open(VISION_CONFIG) as f:
+        config = VisionTrainingConfig.from_params(miniyaml.safe_load(f))
+    model = init_model(config, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
+                          max_grad_norm=1.0,
+                          accumulation_steps=config.effective_batch_size // config.batch_size)
+    step = make_classifier_train_step(model, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = to_device(_vision_batches(1, config.batch_size, config.num_labels, SEED)[0], "cuda")
+    print(f"[profile vision] vit-b-16 classifier, batch {config.batch_size}, dropout "
+          f"{config.hidden_dropout_prob} / {config.attention_dropout_prob}, bf16 compute",
+          flush=True)
+    _profile_step("vision", TrainState(model=model, optimizer=opt), step, batch, steps, warmup,
+                  config.batch_size, "images", groups=K1_GROUPS)
+
+    def vision_loader(train):  # the CLI's train loader
+        return BatchLoader(train, batch_size=config.batch_size, shuffle=True, drop_last=True,
+                           seed=config.seed, num_workers=config.num_workers,
+                           prefetch_batches=config.prefetch_factor,
+                           uint8_images=config.device_normalize)
+
+    _time_loader(config, vision_loader, 128, False)
 
 
 def profile_decode(root: str, steps: int = 6, warmup: int = 4) -> None:
@@ -3161,21 +3511,24 @@ def _profile_step(tag: str, state, step, batch, steps: int, warmup: int, batch_s
                   f"{name[:110]}", flush=True)
 
 
-def _time_loader(config, tokenizer, images_per_color: int = 108) -> None:
-    """The CLI's input path alone: one epoch of the train loader (PNG decode,
-    ToTensor, collation) over the CLIP slice's generated dataset, each batch
-    moved to the card, no model."""
+def _time_loader(config, make_loader, images_per_color: int, return_synset: bool) -> None:
+    """A CLI's input path alone: one epoch of the train loader that
+    ``make_loader(train_dataset)`` builds (PNG decode, the config's
+    transforms, collation) over a generated 12-color dataset of
+    ``images_per_color`` images a color (``return_synset``: the color names
+    as labels, as CLIP's captions need), each batch moved to the card, no
+    model.  The steady rate leaves out the first batch, which waits for the
+    workers to fill."""
     import shutil
     import tempfile
 
     import torch
 
-    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
     from multimodal_concept_learning_tpu_torch.data.datasets import (
         ColorDataset,
         load_split_datasets,
     )
-    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
     from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 
     root = tempfile.mkdtemp(prefix="_smoke_loader_", dir=REPO)
@@ -3183,21 +3536,22 @@ def _time_loader(config, tokenizer, images_per_color: int = 108) -> None:
         data_dir, _ = _generate_colors(root, images_per_color)
         train, _, _ = load_split_datasets(ColorDataset, data_dir, data_dir,
                                           create_transforms(config, True, config.seed),
-                                          create_transforms(config, False, config.seed), True)
-        loader = BatchLoader(train, batch_size=CLIP_BATCH, shuffle=True, drop_last=True,
-                             seed=config.seed, collate_fn=ClipCollator(
-                                 tokenizer, config.caption_template, config.context_length))
-        t0 = time.perf_counter()
-        n = 0
+                                          create_transforms(config, False, config.seed),
+                                          return_synset)
+        loader = make_loader(train)
+        stamps = [time.perf_counter()]
         for batch in loader:
             to_device(batch, "cuda")
-            n += 1
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"[profile] input path alone: {n} batches of {CLIP_BATCH} in {dt:.3f} s = "
-          f"{1e3 * dt / n:.1f} ms a batch, {n * CLIP_BATCH / dt:.1f} images/s", flush=True)
+    n, b, dt = len(stamps) - 1, loader.batch_size, stamps[-1] - stamps[0]
+    steady = (f", the other {n - 1} {(n - 1) * b / (stamps[-1] - stamps[1]):.1f} images/s"
+              if n > 1 else "")
+    print(f"[profile] input path alone: {n} batches of {b} ({loader.num_workers} workers) in "
+          f"{dt:.3f} s = {1e3 * dt / n:.1f} ms a batch, {n * b / dt:.1f} images/s; first batch "
+          f"{1e3 * (stamps[1] - stamps[0]):.1f} ms{steady}", flush=True)
 
 
 SOURCES = {
@@ -3258,6 +3612,9 @@ def main(argv=None) -> None:
     parser.add_argument("--profile-mllm", metavar="ROOT", nargs="?", const=".",
                         help="build the kernels of the checkout at ROOT (default: this one), "
                              "then profile the full MLLM micro-step; no other phase")
+    parser.add_argument("--profile-vision", action="store_true",
+                        help="build, then profile one vision-trainer micro-step at its "
+                             "slice's shape; no other phase")
     parser.add_argument("--profile-decode", metavar="ROOT", nargs="?", const=".",
                         help="build the kernels of the checkout at ROOT (default: this one), "
                              "then profile the full MLLM's paged decode step at batch 8 "
@@ -3290,6 +3647,9 @@ def main(argv=None) -> None:
     if args.profile_mllm:
         profile_mllm(args.profile_mllm)
         return
+    if args.profile_vision:
+        profile_vision()
+        return
     if args.profile_decode:
         profile_decode(args.profile_decode)
         return
@@ -3306,10 +3666,13 @@ def main(argv=None) -> None:
         shutil.rmtree(root, ignore_errors=True)
     serving_k1 = report["flash_attention_fwd"]["launches"]
     phase_train_parity()
+    phase_vision_parity()
     root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
     try:
-        phase_train_slice(report, root)
+        vision_best = phase_vision_slice(report, os.path.join(root, "vision"))
+        phase_train_slice(report, root, vision_path=vision_best)
         phase_answer_slice(root)  # on phase 7's results dir and data
+        phase_analysis(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "

@@ -7,7 +7,10 @@
   of quantized serving models convert too: int8 ``{"kernel", "scale"}``
   and int4 ``{"packed", "scale"}`` leaves keep their JAX layout and types
   under the same names (``ops/quant.py``, ``ops/int4.py``);
-  ``clip_state_dict_from_jax`` the same for a JAX ``CLIPModel`` tree.
+  ``clip_state_dict_from_jax`` the same for a JAX ``CLIPModel`` tree, and
+  ``vit_classifier_state_dict_from_jax`` for a JAX
+  ``ViTForImageClassification`` tree (the names
+  ``vit_classifier_params_to_torch`` writes: ``vit.*``, ``classifier.*``).
 - ``build_mllm``: an ``MLLM`` on a device from a state dict
   (``load_state_dict(strict=True)``), cast by the device policy.
 - ``init_random_weights_``: seeded random init (the JAX initialisers:
@@ -217,6 +220,25 @@ def clip_state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]
     return sd
 
 
+def vit_classifier_state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
+    """JAX ``ViTForImageClassification`` params (numpy leaves, optionally
+    under "params") -> the port's classifier state dict of float32 tensors
+    (load it with ``strict=True``)."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for key, arr in _flatten(params).items():
+        head, rel = key.split("/", 1)
+        if head == "vit":
+            pairs = [(f"vit.{n}", t) for n, t in _vit_export(rel, arr, patch_size)]
+        elif head == "classifier":
+            pairs = [("classifier.weight", arr.T) if rel == "kernel" else ("classifier.bias", arr)]
+        else:
+            raise KeyError(f"Unknown classifier component: {head}")
+        for name, t in pairs:
+            sd[name] = torch.from_numpy(np.array(t, dtype=np.float32))
+    return sd
+
+
 def build_mllm(cfg: MLLMConfig, state_dict: Dict[str, torch.Tensor], device) -> MLLM:
     """An MLLM on ``device`` holding ``state_dict`` (strict), linear weights
     in ``cfg.dtype``.  Built on the meta device first, so no memory is spent
@@ -312,4 +334,5 @@ __all__ = [
     "save_results_dir",
     "save_state_dict",
     "state_dict_from_jax",
+    "vit_classifier_state_dict_from_jax",
 ]

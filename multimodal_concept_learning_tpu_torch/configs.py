@@ -1,6 +1,6 @@
 """Training configs of the port (copies of
 multimodal_concept_learning_tpu/configs/{base,multimodal_training_config,
-contrastive_training_config}.py, plain Python).
+contrastive_training_config,vision_training_config}.py, plain Python).
 
 ``YamlConfig.from_params`` builds a dataclass from a parsed YAML mapping:
 unknown keys are ignored, ``int``/``float``/``bool`` fields are cast, and a
@@ -204,4 +204,62 @@ class ContrastiveTrainingConfig(YamlConfig):
     resume: bool = False
 
 
-__all__ = ["ContrastiveTrainingConfig", "MultimodalTrainingConfig", "YamlConfig"]
+@dataclass
+class VisionTrainingConfig(YamlConfig):
+    """Configuration for the vision training experiment.  As in the JAX
+    package, ``attention_dropout_prob`` reaches the attention probabilities
+    (the reference's HF config silently ignored it)."""
+
+    # Model architecture parameters
+    model_name: str = "vit"
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_labels: int = 100
+    patch_size: int = 16
+    hidden_dropout_prob: float = 0.1
+    attention_dropout_prob: float = 0.1
+    num_attention_heads: int = 8
+
+    # Dataset parameters
+    data_dir: str = "/tmp/data"
+    dataset_name: str = "color"
+    mapping_path: Optional[str] = None
+
+    # Training parameters
+    epochs: int = 300
+    learning_rate: float = 1e-4
+    batch_size: int = 128
+    effective_batch_size: int = 4096
+    weight_decay: float = 0.1
+    image_size: int = 224
+    label_smoothing: float = 0.0
+    num_workers: int = 8
+    prefetch_factor: int = 2
+    train_transforms: List[Union[str, Dict]] = field(
+        default_factory=lambda: [
+            "RandomResizedCrop", "RandomHorizontalFlip", "ToTensor", "Normalize",
+        ]
+    )
+    val_transforms: List[Union[str, Dict]] = field(
+        default_factory=lambda: ["Resize", "ToTensor", "Normalize"]
+    )
+    transform_params: Dict[str, Dict] = field(default_factory=dict)
+
+    # Additional parameters
+    seed: int = 42
+    device: str = "tpu"
+    results_dir: str = "/tmp/results"
+    disable_tqdm: bool = True
+    disable_wandb: bool = False
+    wandb_project: Optional[str] = None
+    wandb_run_name: Optional[str] = None
+
+    # Extensions of the JAX package (defaults off)
+    resume: bool = False
+    device_normalize: bool = False
+    bf16_params: bool = False  # bf16 parameter storage, float32 masters in AdamW
+
+
+__all__ = ["ContrastiveTrainingConfig", "MultimodalTrainingConfig", "VisionTrainingConfig",
+           "YamlConfig"]

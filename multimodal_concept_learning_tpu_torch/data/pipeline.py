@@ -1,9 +1,10 @@
 """Host input pipeline (counterpart of multimodal_concept_learning_tpu/data/pipeline.py).
 
-``BatchLoader`` yields the JAX loader's batches: the same per-epoch shuffle
-(``PCG64([seed, epoch])``), fixed batch size, ``drop_last`` for training,
-and for evaluation a final partial batch padded by wrapping and flagged by
-``valid``.  Samples are decoded by a thread pool and collated on a
+``BatchLoader`` yields the JAX loader's batches (by default
+``default_classification_collate``'s {images | images_u8, labels}): the
+same per-epoch shuffle (``PCG64([seed, epoch])``), fixed batch size,
+``drop_last`` for training, and for evaluation a final partial batch padded
+by wrapping and flagged by ``valid``.  Samples are decoded by a thread pool and collated on a
 background thread ``prefetch_batches`` ahead.  With ``uint8_images`` and a
 ToTensor[+Normalize] transform, images stay uint8 [H, W, 3] and the batch
 carries ``norm_mean`` / ``norm_std`` for the device to normalise
@@ -22,17 +23,25 @@ import numpy as np
 import torch
 
 
+def default_classification_collate(batch) -> Dict[str, np.ndarray]:
+    """(image, label index) pairs -> {"images" float32 NCHW | "images_u8"
+    uint8 NHWC (the device-normalize pipeline), "labels" int32}."""
+    labels = np.asarray([b[1] for b in batch], dtype=np.int32)
+    first = batch[0][0]
+    if isinstance(first, np.ndarray) and first.dtype == np.uint8:
+        return {"images_u8": np.stack([b[0] for b in batch]), "labels": labels}
+    return {"images": np.stack([b[0] for b in batch]).astype(np.float32), "labels": labels}
+
+
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  collate_fn: Optional[Callable] = None, drop_last: bool = False,
                  num_workers: int = 4, seed: int = 0, prefetch_batches: int = 2,
                  uint8_images: bool = False):
-        if collate_fn is None:
-            raise ValueError("BatchLoader needs a collate_fn (the multimodal collator)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.collate_fn = collate_fn
+        self.collate_fn = collate_fn or default_classification_collate
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.seed = seed
@@ -140,4 +149,4 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
-__all__ = ["BatchLoader", "right_padded_lengths", "to_device"]
+__all__ = ["BatchLoader", "default_classification_collate", "right_padded_lengths", "to_device"]

@@ -1,24 +1,38 @@
-"""Vision Transformer tower (counterpart of multimodal_concept_learning_tpu/models/vit.py).
+"""Vision Transformer (counterpart of multimodal_concept_learning_tpu/models/vit.py).
 
-The encoder (``ViTEncoder`` -> last_hidden_state [B, 1 + N, H]) in two of
-the JAX package's attention layouts: ``bthd`` (the default, the MLLM's;
-q, k, v [B, T, H, D] through K1) and ``pallas_core`` (CLIP's; one packed
-[q | k | v] projection through K2, ``ops/attention_core.py``).  Pre-LN
-blocks, exact-erf GELU (tanh with ``gelu_approximate``), LayerNorm (eps
-1e-12) in float32, compute dtype from the config (every weight cast at
-use, so float32 parameters train in the compute dtype, as under
-``vision_only``).  The patch embedding is a reshape plus one matrix product
-(no convolution); its weight keeps HF's Conv2d layout [H, C, p, p] so the
-reference checkpoint loads as is.  Parameter names are HF ViTModel's, as
-``checkpoint/torch_interop.mllm_params_to_torch`` writes them.
-``int8_weights`` (serving) makes q/k/v, the attention output and the MLP
-int8 projections (``ops/quant.py``) and forces the ``bthd`` branch; the
-patch embedding and the norms stay float.  ``fused_attention`` runs each
-block's attention sublayer (LN, the packed qkv projection, attention, the
-output projection and the residual) through K6
-(``ops/fused_attention_block.py``); it wins over ``attention_layout``, and
-``int8_weights`` wins over it, as the JAX ``_fused_attention_ok`` orders
-them (the port has no dropout).  The parameters stay the same either way.
+The encoder (``ViTEncoder`` -> last_hidden_state [B, 1 + N, H]) and the
+classifier (``ViTForImageClassification``: the encoder under ``vit`` and a
+float32 linear head on the CLS row of the float32 final LayerNorm).  The
+JAX package's attention layouts: ``bthd`` (the default, the MLLM's and the
+classifier's; q, k, v [B, T, H, D] through K1), ``pallas_core`` (CLIP's;
+one packed [q | k | v] projection through K2, ``ops/attention_core.py``),
+and ``bhtd`` and ``qkv_fused``, the JAX package's XLA layouts of the same
+math over the same parameters, which run the ``bthd`` branch here (a layout
+has no cost model in eager PyTorch).  Pre-LN blocks, exact-erf GELU
+(tanh with ``gelu_approximate``), LayerNorm (eps 1e-12) in float32,
+compute dtype from the config (every weight cast at use, so float32
+parameters train in the compute dtype, as under ``vision_only``).  The
+patch embedding is a reshape plus one matrix product (no convolution); its
+weight keeps HF's Conv2d layout [H, C, p, p] so the reference checkpoint
+loads as is.  Parameter names are HF's (``ViTModel``; the classifier's
+``vit.*`` and ``classifier.*``), as ``checkpoint/torch_interop.py`` writes
+them.
+
+Dropout sits where the JAX package has it: after the position embeddings,
+on the attention probabilities (``ops/attention.multi_head_attention``'s
+dense branch), after the attention output and after the MLP, each drawn
+from the ``generator`` a training forward passes with
+``deterministic=False``.  The branch order is JAX's, without its TPU
+platform test: ``int8_weights`` (serving: int8 q/k/v, attention output and
+MLP, ``ops/quant.py``; the patch embedding and norms stay float) takes the
+``bthd`` branch; then ``fused_attention`` runs each block's attention
+sublayer (LN, packed qkv projection, attention, output projection,
+residual) through K6 (``ops/fused_attention_block.py``) when the call is
+deterministic and the config has no dropout; then ``pallas_core`` when the
+config has no dropout; else ``bthd``.
+The parameters stay the same in every branch.  A deterministic call draws
+nothing, so every forward of the MLLM and of CLIP is what it was before
+dropout was ported.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_concept_learning_tpu_torch.device import linear
-from multimodal_concept_learning_tpu_torch.ops.attention import multi_head_attention
+from multimodal_concept_learning_tpu_torch.ops.attention import dropout, multi_head_attention
 from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
 from multimodal_concept_learning_tpu_torch.ops.fused_attention_block import (
     attention_sublayer,
@@ -38,7 +52,7 @@ from multimodal_concept_learning_tpu_torch.ops.fused_attention_block import (
 )
 from multimodal_concept_learning_tpu_torch.ops.quant import QuantLinear
 
-LAYOUTS = ("bthd", "pallas_core")
+LAYOUTS = ("bthd", "pallas_core", "bhtd", "qkv_fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,18 +64,24 @@ class ViTConfig:
     patch_size: int = 16
     image_size: int = 224
     num_channels: int = 3
+    hidden_dropout_prob: float = 0.0
+    attention_probs_dropout_prob: float = 0.0
+    num_labels: int = 100  # the classifier's classes
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16  # compute dtype; norms and embeddings stay float32
     gelu_approximate: bool = False  # tanh GELU (the CLIP towers'), else exact erf
-    attention_layout: str = "bthd"  # "bthd": K1 on [B, T, H, D]; "pallas_core": K2 on packed qkv
+    # "bthd" (and "bhtd", "qkv_fused"): K1 on [B, T, H, D]; "pallas_core": K2 on packed qkv
+    attention_layout: str = "bthd"
     int8_weights: bool = False  # serving: int8 block projections (ops/quant.py)
     fused_attention: bool = False  # K6: the whole attention sublayer in one op
 
     def __post_init__(self):
         if self.attention_layout not in LAYOUTS:
-            raise NotImplementedError(
-                f"attention_layout {self.attention_layout!r} is not ported (the port has "
-                f"{LAYOUTS}; the others are TPU layout variants of the same math)")
+            raise ValueError(f"attention_layout {self.attention_layout!r} is not one of {LAYOUTS}")
+
+    @property
+    def has_dropout(self) -> bool:
+        return self.hidden_dropout_prob > 0 or self.attention_probs_dropout_prob > 0
 
     @property
     def num_patches(self) -> int:
@@ -72,7 +92,18 @@ class ViTConfig:
         return self.num_patches + 1  # + CLS
 
     @classmethod
-    def preset(cls, name: str) -> "ViTConfig":
+    def from_training_config(cls, config, image_size: int = None) -> "ViTConfig":
+        """From a ``VisionTrainingConfig`` (the JAX ``ViTConfig.from_training_config``)."""
+        return cls(hidden_size=config.hidden_size, intermediate_size=config.intermediate_size,
+                   num_hidden_layers=config.num_hidden_layers,
+                   num_attention_heads=config.num_attention_heads,
+                   patch_size=config.patch_size, image_size=image_size or config.image_size,
+                   hidden_dropout_prob=config.hidden_dropout_prob,
+                   attention_probs_dropout_prob=config.attention_dropout_prob,
+                   num_labels=config.num_labels)
+
+    @classmethod
+    def preset(cls, name: str, num_labels: int = 0) -> "ViTConfig":
         presets = {
             "vit-t-8": dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                             num_attention_heads=4, patch_size=8),
@@ -87,7 +118,7 @@ class ViTConfig:
         }
         if name not in presets:
             raise ValueError(f"Unknown ViT preset: {name}")
-        return cls(**presets[name])
+        return cls(num_labels=num_labels, **presets[name])
 
 
 def layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +183,8 @@ class ViTLayer(nn.Module):
         self.layernorm_before = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
         self.layernorm_after = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator = None) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = x.shape
         heads = cfg.num_attention_heads
@@ -161,7 +193,10 @@ class ViTLayer(nn.Module):
         proj = self.attention["attention"]
         names = ("query", "key", "value")
         out = self.attention["output"]["dense"]
-        if cfg.fused_attention and not cfg.int8_weights:
+        # JAX takes the K6, packed and layout branches only without int8 weights or dropout
+        variants = not cfg.has_dropout and not cfg.int8_weights
+        drop = dict(generator=generator, deterministic=deterministic)
+        if cfg.fused_attention and variants and deterministic:
             # K6: [q | k | v] packed at use in the JAX layout, the sublayer in one op
             wqkv, bqkv = pack_qkv(*(a for n in names for a in (proj[n].weight, proj[n].bias)))
             ln = self.layernorm_before
@@ -169,19 +204,20 @@ class ViTLayer(nn.Module):
                                    out.bias, heads, cfg.layer_norm_eps)
         else:
             h = layer_norm_f32(self.layernorm_before, x).to(dt)
-            if cfg.attention_layout == "pallas_core" and not cfg.int8_weights:
+            if variants and cfg.attention_layout == "pallas_core":
                 # one packed projection, [q | k | v] concatenated at use, into K2
                 w = torch.cat([proj[n].weight.to(dt) for n in names])
                 bias = torch.cat([proj[n].bias.to(dt) for n in names])
                 a = attention_core_padded(F.linear(h, w, bias), heads)
             else:
                 q, k, v = (linear(proj[n], h, dt).view(b, t, heads, hd) for n in names)
-                a = multi_head_attention(q, k, v).reshape(b, t, cfg.hidden_size)
-            x = x + linear(out, a, dt)
+                a = multi_head_attention(q, k, v, dropout_rate=cfg.attention_probs_dropout_prob,
+                                         **drop).reshape(b, t, cfg.hidden_size)
+            x = x + dropout(linear(out, a, dt), cfg.hidden_dropout_prob, **drop)
         h = layer_norm_f32(self.layernorm_after, x).to(dt)
         gelu = "tanh" if cfg.gelu_approximate else "none"  # exact erf: HF ViT
         h = F.gelu(linear(self.intermediate["dense"], h, dt), approximate=gelu)
-        return x + linear(self.output["dense"], h, dt)
+        return x + dropout(linear(self.output["dense"], h, dt), cfg.hidden_dropout_prob, **drop)
 
 
 class _Encoder(nn.Module):
@@ -201,11 +237,33 @@ class ViTEncoder(nn.Module):
         self.encoder = _Encoder(cfg)
         self.layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.embeddings(images, self.cfg.dtype)
+    def forward(self, images: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator = None) -> torch.Tensor:
+        cfg = self.cfg
+        x = dropout(self.embeddings(images, cfg.dtype), cfg.hidden_dropout_prob, generator,
+                    deterministic)
         for layer in self.encoder.layer:
-            x = layer(x)
+            x = layer(x, deterministic, generator)
         return layer_norm_f32(self.layernorm, x)
 
 
-__all__ = ["ViTConfig", "ViTEncoder", "ViTLayer"]
+class ViTForImageClassification(nn.Module):
+    """The encoder plus a float32 linear classifier on the CLS row (HF head
+    semantics; the JAX ``ViTForImageClassification``).  A training forward
+    passes ``deterministic=False`` and the dropout ``generator``."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vit = ViTEncoder(cfg)
+        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+
+    def forward(self, images: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator = None) -> torch.Tensor:
+        """[B, C, H, W] -> float32 logits [B, num_labels]."""
+        hidden = self.vit(images, deterministic, generator)
+        return F.linear(hidden[:, 0], self.classifier.weight.float(),
+                        self.classifier.bias.float())
+
+
+__all__ = ["ViTConfig", "ViTEncoder", "ViTForImageClassification", "ViTLayer"]

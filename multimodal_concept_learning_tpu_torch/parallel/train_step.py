@@ -1,30 +1,39 @@
-"""MLLM and CLIP train and eval steps (counterparts of
-multimodal_concept_learning_tpu/parallel/train_step.py:128-210 and of
+"""Vision classifier, MLLM and CLIP train and eval steps (counterparts of
+multimodal_concept_learning_tpu/parallel/train_step.py:63-210 and of
 ``make_clip_train_step`` / ``make_zero_shot_step`` in
 multimodal_concept_learning_tpu/train/contrastive_training.py:54-79).
 
 Plain functions over a small state: the micro-step counter, the model and
-its optimizer.  A train step is one micro-step: forward with the sparse
-answer loss, backward, and ``Optimizer.step`` (which updates the parameters
-every k-th micro-step).  The eval step returns the JAX step's
-{loss, pred_ids, target_ids, valid} for the host's yes/no accuracy.  Batches
-are dicts of tensors already on the model's device.  Neither model has
-dropout, so the steps take no random generator.  A batch's ``kv_lens``
-(set by ``data.pipeline.to_device`` for a right-padded mask) goes to the
-model as the mask's descriptor.
+its optimizer.  A train step is one micro-step: forward with the loss,
+backward, and ``Optimizer.step`` (which updates the parameters every k-th
+micro-step).  The classifier's train step is its one forward with dropout:
+it draws the masks from the ``torch.Generator`` it was made with (the JAX
+step folds the step count into a key; the streams differ, the
+distributions do not).  The MLLM and CLIP have no dropout, so their steps
+take no generator.  The MLLM eval step returns the JAX step's
+{loss, pred_ids, target_ids, valid} for the host's yes/no accuracy.
+Batches are dicts of tensors already on the model's device.  Metrics stay
+on the device (0-d tensors) until the caller syncs once an epoch.  A
+batch's ``kv_lens`` (set by ``data.pipeline.to_device`` for a right-padded
+mask) goes to the model as the mask's descriptor.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from multimodal_concept_learning_tpu_torch.models.clip import CLIPModel, contrastive_loss
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM
-from multimodal_concept_learning_tpu_torch.ops.losses import IGNORE_INDEX, shift_labels
+from multimodal_concept_learning_tpu_torch.models.vit import ViTForImageClassification
+from multimodal_concept_learning_tpu_torch.ops.losses import (
+    IGNORE_INDEX,
+    cross_entropy_loss,
+    shift_labels,
+)
 from multimodal_concept_learning_tpu_torch.ops.preprocess import images_from_batch
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import Optimizer
 
@@ -34,6 +43,46 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     step: int = 0  # micro-steps taken
+
+
+def make_classifier_train_step(model: ViTForImageClassification,
+                               generator: Optional[torch.Generator] = None,
+                               label_smoothing: float = 0.0) -> Callable:
+    """(state, batch) -> (state, {"loss", "correct", "count"}): the
+    classifier's forward with dropout from ``generator``, the label-smoothed
+    cross entropy, backward and ``Optimizer.step``.  ``count`` is the batch
+    size (a training batch has no padding)."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model.train()
+        labels = batch["labels"]
+        logits = model(images_from_batch(batch), deterministic=False, generator=generator)
+        loss = cross_entropy_loss(logits, labels, label_smoothing)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        correct = (torch.argmax(logits.detach(), dim=-1) == labels).sum()
+        return state, {"loss": loss.detach(), "correct": correct, "count": labels.shape[0]}
+
+    return step
+
+
+def make_classifier_eval_step(model: ViTForImageClassification,
+                              label_smoothing: float = 0.0) -> Callable:
+    """(model, batch) -> {"loss", "correct", "count"} over the batch's
+    ``valid`` rows (a padded final batch counts its real samples only),
+    deterministic, under ``torch.no_grad()``."""
+
+    @torch.no_grad()
+    def step(model: ViTForImageClassification, batch: Dict[str, torch.Tensor]):
+        model.eval()
+        labels, valid = batch["labels"], batch["valid"]
+        logits = model(images_from_batch(batch))
+        loss = cross_entropy_loss(logits, labels, label_smoothing, valid=valid)
+        correct = ((torch.argmax(logits, dim=-1) == labels) & valid).sum()
+        return {"loss": loss, "correct": correct, "count": valid.sum()}
+
+    return step
 
 
 def make_mllm_train_step(model: MLLM) -> Callable:
@@ -105,5 +154,6 @@ def make_zero_shot_step(model: CLIPModel) -> Callable:
     return step
 
 
-__all__ = ["TrainState", "make_clip_train_step", "make_mllm_eval_step", "make_mllm_train_step",
+__all__ = ["TrainState", "make_classifier_eval_step", "make_classifier_train_step",
+           "make_clip_train_step", "make_mllm_eval_step", "make_mllm_train_step",
            "make_zero_shot_step"]

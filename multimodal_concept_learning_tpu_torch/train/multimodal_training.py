@@ -9,12 +9,14 @@ The same YAML schema, log lines and results layout as the JAX trainer:
 epoch_{e}_model.pt}`` with float32 leaves, the shifted yes/no test accuracy,
 the tokenizer extended with the ``<ood N>`` tokens whose embedding rows are
 copied from rows 0..k-1.  Weights start from a seeded random init (the
-JAX initialisers; no pretrained download).  Compute is bf16 over float32
-trained parameters; frozen linear weights are stored in bf16 once.
+JAX initialisers; no pretrained download); ``vision_path`` warm-starts the
+vision tower from a ``.pt`` of either package's vision trainer (or of an
+MLLM), every tower tensor looked up as the JAX trainer does.  Compute is
+bf16 over float32 trained parameters; frozen linear weights are stored in
+bf16 once.
 
 Not ported yet (raise ``NotImplementedError``; ROADMAP.md): ``resume`` with
-its preemption guard, the ``vision_path`` warm start, MoE and LoRA, and
-ImageNet (JPEG) data.
+its preemption guard, MoE and LoRA, and ImageNet (JPEG) data.
 """
 
 from __future__ import annotations
@@ -67,18 +69,38 @@ from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
 def _refuse_unported(config: MultimodalTrainingConfig) -> None:
     for field, what in (("resume", "resume / preemption checkpoints"),
-                        ("vision_path", "the vision_path warm start"),
                         ("lm_moe_experts", "MoE"), ("lm_lora_rank", "LoRA")):
         if getattr(config, field, None):
             raise NotImplementedError(f"{what} ({field}) is not ported yet (ROADMAP.md, queue A)")
+
+
+def load_vision_tower_(model: MLLM, path: str) -> None:
+    """Warm-start ``model.vision_model`` from the ``.pt`` at ``path``: each
+    tower tensor is looked up under ``vit.``, ``module.vit.`` (a
+    DDP-wrapped save), ``vision_model.``, then bare, as the JAX trainer
+    does; every one must be found (KeyError naming the missing ones)."""
+    sd = load_state_dict(path)
+    found, missing = {}, []
+    for name in model.vision_model.state_dict():
+        key = next((c for c in (f"vit.{name}", f"module.vit.{name}", f"vision_model.{name}", name)
+                    if c in sd), None)
+        if key is None:
+            missing.append(name)
+        else:
+            found[name] = sd[key]
+    if missing:
+        raise KeyError(f"vision_path {path} lacks {len(missing)} vision tower tensors: "
+                       f"{missing}")
+    model.vision_model.load_state_dict(found, strict=True)
+    print(f"Loaded vision tower weights from {path}")
 
 
 def init_model_and_tokenizer(config: MultimodalTrainingConfig, generator: torch.Generator,
                              device, dtype: torch.dtype = torch.bfloat16):
     """(model, tokenizer, labels_mapping, number of OOD tokens): the
     tokenizer plus the mapping's ``<ood ...>`` tokens, the MLLM with float32
-    parameters on ``device`` from a seeded random init, and the OOD rows
-    copied from rows 0..k-1."""
+    parameters on ``device`` from a seeded random init, the OOD rows copied
+    from rows 0..k-1, and the vision tower from ``vision_path`` when set."""
     _refuse_unported(config)
     dev = resolve_device(device)
     tokenizer, labels_mapping = build_tokenizer(config)
@@ -87,6 +109,8 @@ def init_model_and_tokenizer(config: MultimodalTrainingConfig, generator: torch.
         model = MLLM(model_config(config, len(tokenizer), dtype))
     init_random_weights_(model, generator)
     copy_init_ood_rows(model, num_ood)
+    if config.vision_path:
+        load_vision_tower_(model, config.vision_path)
     return model, tokenizer, labels_mapping, num_ood
 
 

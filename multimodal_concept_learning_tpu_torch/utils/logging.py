@@ -1,10 +1,9 @@
 """Metric logging in the reference's stdout format (a copy of
 multimodal_concept_learning_tpu/utils/logging.py).
 
-Prints the MLLM trainer's per-epoch metric block (the vision trainer's
-block comes with that trainer's port) and mirrors them to wandb when it is
-installed and asked for; without wandb the flags are accepted and the
-metrics are only printed.
+Prints the vision and MLLM trainers' per-epoch metric blocks and mirrors
+them to wandb when it is installed and asked for; without wandb the flags
+are accepted and the metrics are only printed.
 """
 
 from __future__ import annotations
@@ -32,6 +31,15 @@ class MetricsLogger:
     def log(self, metrics: dict):
         if self.use_wandb:
             _wandb.log(metrics)
+
+    def print_vision_epoch(self, metrics: dict, total_epochs: int):
+        if not self.enabled:
+            return
+        print(f"Epoch {metrics['epoch']}/{total_epochs} completed in {metrics['epoch_time']:.2f}s")
+        print(f"Train Loss: {metrics['train_loss']:.4f}, Train Acc: {metrics['train_acc']:.2f}%")
+        print(f"Val Loss: {metrics['val_loss']:.4f}, Val Acc: {metrics['val_acc']:.2f}%")
+        print(f"Learning Rate: {metrics['learning_rate']:.6f}")
+        print("-" * 50)
 
     def print_multimodal_epoch(self, metrics: dict, total_epochs: int):
         if not self.enabled:

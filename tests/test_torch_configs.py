@@ -2,7 +2,7 @@
 
 - Every training and dataset YAML under ``experiments/`` gives equal fields
   in both packages' configs (the JAX side read with PyYAML, the port's with
-  ``miniyaml``).  The vision-trainer YAMLs have no port config yet.
+  ``miniyaml``), the vision trainer's YAMLs included.
 - The two ConceptTokenizers have the same vocabulary and give the same ids
   on every caption and prompt template the repo's YAMLs use, over every
   class name of the color datasets and labels mappings (plus the base
@@ -20,7 +20,8 @@ import yaml
 
 REPO = Path(__file__).resolve().parents[1]
 EXPERIMENTS = REPO / "experiments"
-CONFIGS = {"multimodal": "MultimodalTrainingConfig", "contrastive": "ContrastiveTrainingConfig"}
+CONFIGS = {"multimodal": "MultimodalTrainingConfig", "contrastive": "ContrastiveTrainingConfig",
+           "vision": "VisionTrainingConfig"}
 
 
 def _yamls(kind):
@@ -39,7 +40,7 @@ def _jax_yaml(path):
         return yaml.safe_load(f)
 
 
-@pytest.mark.parametrize("path", _yamls("multimodal") + _yamls("contrastive"))
+@pytest.mark.parametrize("path", _yamls("multimodal") + _yamls("contrastive") + _yamls("vision"))
 def test_training_yaml_parses_to_equal_configs(path):
     import multimodal_concept_learning_tpu.configs as jconfigs
     import multimodal_concept_learning_tpu_torch.configs as pconfigs

@@ -2,7 +2,7 @@
 
 The port's main path must run where only torch, numpy and the CUDA
 toolkit are installed: importing it pulls in no jax, flax, optax, Pillow,
-PyYAML or module of the JAX package.  A CUDA device that is asked for and
+PyYAML, scikit-learn, matplotlib or module of the JAX package.  A CUDA device that is asked for and
 absent is an error, never a silent CPU run; so is a kernel build without
 nvcc.
 """
@@ -54,6 +54,11 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.utils.logging",
     "multimodal_concept_learning_tpu_torch.train.generate_answers",
     "multimodal_concept_learning_tpu_torch.scripts.bench_int4_kernel",
+    "multimodal_concept_learning_tpu_torch.train.vision_training",
+    "multimodal_concept_learning_tpu_torch.analysis.projection",
+    "multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis",
+    "multimodal_concept_learning_tpu_torch.analysis.multi_token_embedding",
+    "multimodal_concept_learning_tpu_torch.scripts.science_table",
     "chip_smoke",
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}
@@ -99,8 +104,9 @@ def test_main_path_imports_no_jax_pil_or_yaml():
     code = (
         "import importlib, sys\n"
         f"for m in {MAIN_PATH!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'PIL', 'yaml',\n"
-        "                          'multimodal_concept_learning_tpu') if m in sys.modules)\n"
+        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'PIL', 'yaml', 'sklearn',\n"
+        "                          'matplotlib', 'multimodal_concept_learning_tpu')\n"
+        "             if m in sys.modules)\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_without_cuda_env(),
@@ -176,10 +182,11 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 @pytest.mark.parametrize("module,args", [
     ("multimodal_concept_learning_tpu_torch.train.generate_answers", ["--results_dir", "x"]),
     ("multimodal_concept_learning_tpu_torch.scripts.bench_int4_kernel", ["--variants", "v3a"]),
+    ("multimodal_concept_learning_tpu_torch.train.vision_training", ["--config_path", "x"]),
 ])
 def test_answer_cli_and_ab_script_refuse_cuda_without_cuda(module, args):
-    """The answer CLI's and the A/B entry point's default --device cuda
-    never falls back to the CPU."""
+    """The answer CLI's, the A/B entry point's and the vision trainer's
+    default --device cuda never falls back to the CPU."""
     out = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
                          env=_without_cuda_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "is_available" in out.stderr, out.stderr
