@@ -67,10 +67,14 @@ Phases (each prints its results; any failure exits non-zero):
     decode_step and decode_chunk hidden states CUDA vs CPU (1e-4);
 15. answer slice (run after phase 7, on its results dir and generated
     data): the port's answer CLI (``generate_answers.main``) on the full
-    ``12_colors_3k`` model, float, ``--int4`` and ``--int8 --int8_vision``,
-    16 samples of 8 tokens at batch 8; the accuracy lines, the JSONL rows,
-    exact launch counts (K1: 38 a prefill and 26 a decode step; K5 7 x 26
-    a decode step under ``--int4``, else 0), samples/s and tokens/s;
+    ``12_colors_3k`` model, float, ``--int4``, ``--int8 --int8_vision``,
+    ``--num_beams 4`` and ``--draft_layers 13 --draft_len 4``, 16 samples
+    of 8 tokens at batch 8; the accuracy lines, the JSONL rows, launch
+    counts (K1: 38 a prefill and 26 a decode step, at 32 rows under beam
+    search; speculative: 13 a draft proposal and 26 a verify, within the
+    range its acceptance allows; K5 7 x 26 a decode step under ``--int4``,
+    else 0), samples/s and tokens/s, and how many speculative rows equal
+    the float greedy rows;
 16. A/B (run last): the port's int4 A/B entry point
     (``scripts/bench_int4_kernel.py``) at the JAX script's shapes (gemma3-1b's
     7 projections x 26 layers, batch 8): K5, K5v3a, K5v3b and the int8
@@ -95,7 +99,25 @@ Phases (each prints its results; any failure exits non-zero):
     micro-steps/s, the epoch's wall time and peak memory;
 19. analysis (run after phase 15, on phase 7's results dir): the port's
     token-embedding analysis CLI prints a finite Pearson r (and, without
-    matplotlib, that the figures were skipped).
+    matplotlib, that the figures were skipped);
+20. serving-fronts parity (run after phase 14, on phase 4's model: full
+    widths, 2 + 2 layers, float32): the whole-batch engine, the dense
+    continuous engine at steps_per_call 1 and 4, the chunked engine at
+    chunk 16, beam search of width 4 (scores within 1e-4) and
+    self-speculative decoding (draft_layers 1, draft_len 4) give the same
+    greedy tokens on the card as on the CPU; speculative tokens and beam
+    width 1 equal greedy's; exact K1 launch counts, K3, K4 and K5 never;
+    the int8-pool paged engine's codes within 1 of the CPU's, its decode
+    logits within 0.05 of dense (JAX's bound), its decode attention K1
+    only (no K3 or K4);
+21. serving-fronts slice (run after phase 11, on phase 5's results dir, the
+    full model in bf16): ``make_server`` with no front flag (the
+    whole-batch front), ``continuous=True``, ``continuous=True,
+    chunked_prefill=64`` and ``paged=True, int8_kv=True``, 16 requests from
+    16 threads each: /healthz and /metrics, requests/s, tokens/s, p50
+    latency, the longest gap between a request's streamed tokens, launch
+    counts (K1 exactly 38 + 26 x 7 a whole batch; K3, K4, K5 never) beside
+    phase 5's, and how many answers equal phase 5's (a count, not a gate).
 
 Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
@@ -130,8 +152,10 @@ call, counted by ``torch.profiler``) and times them cold at the seven
 projections beside K5, and holds K2, K2-bd and K6 at head dims 16 (vit-t-8
 widths, T 17) and 32 in fp32 and bf16.  K1's forward is held at the ViT,
 LM prefill, LM training and dense decode shapes (one query against a
-269-slot cache under the float32 cache bias), a window, a bias, Tq < Tk
-and head dim 128; K2's at the CLIP shapes and T 15 and 65 among others.
+269-slot cache under the float32 cache bias), the chunked front's chunk
+(64 queries of one row against its 273-slot cache under the chunk's bias)
+and the beam decode step (32 rows), a window, a bias, Tq < Tk and head
+dim 128; K2's at the CLIP shapes and T 15 and 65 among others.
 K5, K3, K4, K6's forward (beside the unfused composition) and the K1 and K2
 forwards (with their SDPA calls) are timed by CUDA graph replay (device
 time without the wrapper's host work), K5, K5v3a and K5v3b at each of
@@ -162,7 +186,8 @@ share, aten ops and K1's forward, dQ and dK/dV in ms a micro-step;
 (batch 64, dropout 0.1) the same way; ``--profile-decode [ROOT]`` the full
 MLLM's paged decode step at batch 8
 (prompts of 262-269 tokens, a fixed batch): device busy, idle share and
-K3's ms a step (K4's under ``MCL_PAGED_KERNEL=2``).
+K3's ms a step (K4's under ``MCL_PAGED_KERNEL=2``; with ``--int8-kv``
+over int8 pools, K1's after the gather and dequantize).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -187,6 +212,7 @@ D16 = "vit-t-8 head dim 16"  # K2, K2-bd and K6 at the tests' preset: hidden 64,
 D32 = "head dim 32"  # the third built head dim (no preset has it): hidden 128, 4 heads, T 17
 LM_TRAIN_T = 197 + 24  # vision tokens + the collator's pad_to for 12_colors_3k
 DECODE_CACHE = 269  # the answer CLI's dense cache: prompt (vision tokens + question) + 8 tokens
+CHUNK_CACHE = 197 + 64 + 8 + 4  # a chunked front slot's cache: prompt_t + 8 tokens + a step
 NEG = -1e30  # the JAX package's finite mask value, as the cache bias holds it
 
 
@@ -327,7 +353,8 @@ def _flash_cases(torch, gen, dev):
     vision classifier's batch of 64, LM prefill (serving, answering), the LM
     at the training batch, the answer
     CLI's dense decode step (one query a row against the whole cache under
-    the float32 cache bias, a few slots masked), then a window, a float32
+    the float32 cache bias, a few slots masked), the chunked front's chunk,
+    the beam decode step (batch 8 x 4 beams), then a window, a float32
     bias, Tq < Tk under causal, and head dim 128."""
 
     def randn(*shape):
@@ -343,6 +370,14 @@ def _flash_cases(torch, gen, dev):
     cache_bias = torch.zeros(b, 1, 1, s, device=dev)
     cache_bias[:, :, :, -5:] = NEG  # slots not yet written
     cache_bias[1, :, :, 3:40] = NEG  # a row's left padding
+    # the chunked front's third 64-token chunk against its slot's cache:
+    # the committed prefix [0, 128), the chunk causally, nothing past it
+    slots = torch.arange(CHUNK_CACHE, device=dev)
+    qpos = 128 + torch.arange(64, device=dev)[:, None]
+    chunk_bias = torch.where((slots < 128) | ((slots >= 128) & (slots <= qpos)), 0.0, NEG)
+    chunk_bias = chunk_bias[None, None]
+    beam_bias = torch.zeros(4 * b, 1, 1, s, device=dev)
+    beam_bias[:, :, :, 262:] = NEG  # beams of prompts of 262 tokens, one token decoded
     return [
         ("vit [8,197,12,64]", randn(b, 197, 12, 64), randn(b, 197, 12, 64),
          randn(b, 197, 12, 64), {}),
@@ -353,6 +388,12 @@ def _flash_cases(torch, gen, dev):
          randn(2, t, 1, 256), train),
         (f"decode [8,1,4/1,256] vs cache {s} + bias [8,1,1,{s}]", randn(b, 1, 4, 256),
          randn(b, s, 1, 256), randn(b, s, 1, 256), dict(scale=1 / 16, bias=cache_bias)),
+        (f"chunk [1,64,4/1,256] vs cache {CHUNK_CACHE} + bias [1,1,64,{CHUNK_CACHE}]",
+         randn(1, 64, 4, 256), randn(1, CHUNK_CACHE, 1, 256), randn(1, CHUNK_CACHE, 1, 256),
+         dict(scale=1 / 16, bias=chunk_bias)),
+        (f"beam decode [32,1,4/1,256] vs cache {s} + bias [32,1,1,{s}]",
+         randn(4 * b, 1, 4, 256), randn(4 * b, s, 1, 256), randn(4 * b, s, 1, 256),
+         dict(scale=1 / 16, bias=beam_bias)),
         ("lm window 64", randn(b, 261, 4, 256), randn(b, 261, 1, 256),
          randn(b, 261, 1, 256), dict(lm, window=64)),
         ("lm + bias [8,1,261,261]", randn(b, 261, 4, 256), randn(b, 261, 1, 256),
@@ -364,7 +405,8 @@ def _flash_cases(torch, gen, dev):
     ]
 
 
-K1_TIMED = ("vit [", "lm [", "lm train [", "decode [")  # K1 forward cases on a main path
+K1_TIMED = ("vit [", "lm [", "lm train [", "decode [", "chunk [",
+            "beam decode [")  # K1 forward cases on a main path
 VIT_CLS = "vit [64,197,12,64] classifier"  # the vision trainer's batch (K1 forward and backward)
 
 
@@ -2075,6 +2117,228 @@ def phase_generate_parity() -> None:
         fail(f"dense-cache hidden states cuda vs cpu: {errs}")
 
 
+def _fronts_loaded(cfg, sd, device):
+    """Phase 4's model as a serving engine's loaded model: the weights on
+    ``device``, the 12_colors_3k tokenizer (vocabulary 1148) and config."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm
+    from multimodal_concept_learning_tpu_torch.serve.loader import (
+        LoadedMLLM,
+        build_tokenizer,
+        training_config,
+    )
+
+    config = training_config(dict(TRAINING_CONFIG, labels_mapping_path=MAPPING,
+                                  results_dir=REPO))
+    tokenizer, mapping = build_tokenizer(config)
+    if len(tokenizer) != cfg.lm.vocab_size:
+        fail(f"fronts parity: tokenizer of {len(tokenizer)} entries, model of "
+             f"{cfg.lm.vocab_size} rows")
+    return LoadedMLLM(build_mllm(cfg, sd, device), tokenizer, config, mapping,
+                      torch.device(device))
+
+
+def _slot_tokens(engine, reqs, steps: int) -> dict:
+    """Admit ``reqs`` (slot, image, prompt), complete chunked admissions,
+    then ``steps`` engine steps: {slot: [first token, step tokens ...]}."""
+    import numpy as np
+
+    firsts = engine.admit_many(reqs)
+    out = {slot: [f] for (slot, *_), f in zip(reqs, firsts)}
+    while any(toks[0] is None for toks in out.values()):
+        for slot, first in engine.advance_prefill():
+            out[slot][0] = first
+    for slot, toks in _slot_tokens_steps(engine, list(out), steps).items():
+        out[slot] += toks
+    return out
+
+
+def _int8_drift(model, inputs, steps: int = 4) -> float:
+    """Largest relative distance of the LM's decode logits over an int8 page
+    pool from the same decode over dense float caches (fixed tokens):
+    max |int8 - dense| / max |dense| over ``steps`` steps."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.models.lm import init_kv_cache
+    from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
+        init_paged_kv_cache,
+        pages_needed,
+    )
+
+    dev = next(model.parameters()).device
+    images, ids, mask = (x.to(dev) for x in inputs)
+    lm = model.language_model
+    b, t = ids.shape
+    rows = torch.arange(b, device=dev)
+    np_max = pages_needed(t + steps, 16)
+    caches = init_kv_cache(lm.cfg, b, t + steps, dev)
+    pools = init_paged_kv_cache(lm.cfg, 1 + b * np_max, 16, dev, quantized=True)
+    pt = torch.arange(1, 1 + b * np_max, dtype=torch.int32, device=dev).reshape(b, np_max)
+    seq = mask.sum(dim=1).to(torch.int32)
+    worst = 0.0
+    with torch.inference_mode():
+        emb = model.prompt_embeds(images, ids)
+        lm.prefill(emb, mask, caches, kv_lens=seq)
+        lm.prefill_paged(emb, mask, pools, pt)
+        cache_mask = torch.nn.functional.pad(mask.to(torch.int32), (0, steps))
+        for step in range(steps):
+            tok = lm.embed(rows[:, None] * 7 + 5 + step)
+            cache_mask[rows, seq.long()] = 1
+            dense = lm.lm_head(lm.decode_step(tok, caches, seq, cache_mask))
+            int8 = lm.lm_head(lm.decode_step_paged(tok, pools, pt, seq))
+            worst = max(worst, ((int8 - dense).abs().max() / dense.abs().max()).item())
+            seq = seq + 1
+    return worst
+
+
+def phase_fronts_parity() -> None:
+    """Phase 20: phase 4's model (full widths, 2 + 2 layers, float32,
+    window 512) behind the serving fronts, on the card and on the CPU: the
+    whole-batch engine, the dense continuous engine at steps_per_call 1 and
+    4, the chunked engine at chunk 16, beam search of width 4 (scores within
+    1e-4) and speculative decoding (draft_layers 1, draft_len 4) give the
+    CPU's greedy tokens; speculative tokens and beam width 1 equal greedy's.
+    The int8-pool paged engine's codes after admission differ from the CPU's
+    by at most 1 and its decode logits stay within 0.05 of dense (JAX's
+    bound).  K1 launches exactly: V + L a prefill (V ViT, L LM layers), L a
+    decode step, a chunk or a verify, the draft's layers a proposal; K3, K4
+    and K5 never."""
+    import math
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.models.beam import beam_generate
+    from multimodal_concept_learning_tpu_torch.models.mllm import greedy_generate
+    from multimodal_concept_learning_tpu_torch.models.speculative import speculative_generate
+    from multimodal_concept_learning_tpu_torch.serve.chunked import ChunkedContinuousEngine
+    from multimodal_concept_learning_tpu_torch.serve.continuous import ContinuousEngine
+    from multimodal_concept_learning_tpu_torch.serve.engine import ServingEngine
+    from multimodal_concept_learning_tpu_torch.serve.paged import PagedContinuousEngine
+
+    cfg, sd, inputs = _parity_model(512, SEED + 3)
+    v_layers, l_layers, new = cfg.vision.num_hidden_layers, cfg.lm.num_layers, 8
+    with open(MAPPING) as f:
+        mapping = list(json.load(f).items())
+    reqs = [(slot, _circle(_rgb(key)), f"Is the color of the circle {name}?")
+            for slot, (key, name) in zip((2, 0, 3, 1), mapping[1:5])]
+    slot_kw = dict(num_slots=4, max_new_tokens=new, max_prompt_len=16)
+    counters = _kernel_counters()
+    loaded = {dev: _fronts_loaded(cfg, sd, dev) for dev in ("cuda", "cpu")}
+    plens = [197 + len(loaded["cpu"].tokenizer.encode(p)[:16]) for _, _, p in reqs]
+    prompt_k1 = v_layers + l_layers
+
+    def spec(ld):
+        return speculative_generate(ld.model, *inputs, new, draft_layers=1, draft_len=4,
+                                    return_stats=True)
+
+    runs = {  # tag: (run on a loaded model, K1 launches expected of the card's result)
+        "whole-batch": (lambda ld: ServingEngine(ld, batch_size=4, max_new_tokens=new,
+                                                 max_prompt_len=16).generate_tokens(
+            [r[1] for r in reqs], [r[2] for r in reqs]),
+            lambda out: prompt_k1 + (new - 1) * l_layers),
+        "greedy": (lambda ld: greedy_generate(ld.model, *inputs, new),
+                   lambda out: prompt_k1 + (new - 1) * l_layers),
+        "beam-4": (lambda ld: beam_generate(ld.model, *inputs, new, 4, return_scores=True),
+                   lambda out: prompt_k1 + (new - 1) * l_layers),
+        "beam-1": (lambda ld: beam_generate(ld.model, *inputs, new, 1),
+                   lambda out: prompt_k1 + (new - 1) * l_layers),
+        "speculative-1-4": (spec, lambda out: prompt_k1 + out[1]["iterations"]
+                            * (1 * 3 + l_layers)),
+    }
+    for spc in (1, 4):
+        steps = math.ceil((new - 1) / spc)
+        runs[f"continuous-{spc}"] = (
+            lambda ld, spc=spc, steps=steps: _slot_tokens(
+                ContinuousEngine(ld, steps_per_call=spc, **slot_kw), reqs, steps),
+            lambda out, spc=spc, steps=steps: prompt_k1 + steps * spc * l_layers)
+    runs["chunked-16"] = (
+        lambda ld: _slot_tokens(ChunkedContinuousEngine(ld, chunk_size=16, steps_per_call=4,
+                                                        **slot_kw), reqs, 2),
+        lambda out: v_layers + sum(math.ceil(n / 16) for n in plens) * l_layers
+        + 2 * 4 * l_layers)
+    results = {}
+    for tag, (fn, expected_k1) in runs.items():
+        for f in counters.values():
+            f.launches = 0
+        on_card = fn(loaded["cuda"])
+        launched = {n: f.launches for n, f in counters.items()}
+        on_cpu = fn(loaded["cpu"])
+        results[tag] = on_card
+        card_toks, cpu_toks = (_as_tokens(x) for x in (on_card, on_cpu))
+        want = {"flash_attention_fwd": expected_k1(on_card), "paged_decode_attention": 0,
+                "paged_decode_attention_mp": 0, "int4_matmul": 0}
+        same = card_toks == cpu_toks
+        print(f"[fronts-parity] {tag}: cuda tokens == cpu tokens {same}; launches {launched} "
+              f"(expected {want}); cuda {card_toks}", flush=True)
+        if not same:
+            fail(f"fronts parity {tag}: cpu {cpu_toks}")
+        if launched != want:
+            fail(f"fronts parity {tag}: launches {launched} != {want}")
+        if tag == "beam-4":
+            err = (on_card[1].cpu() - on_cpu[1]).abs().max().item()
+            print(f"[fronts-parity] beam-4 scores cuda vs cpu: max abs error {err:.2e}",
+                  flush=True)
+            if not err <= 1e-4:
+                fail(f"fronts parity: beam scores differ by {err}")
+        if tag == "speculative-1-4":
+            print(f"[fronts-parity] speculative stats {on_card[1]}", flush=True)
+    greedy = _as_tokens(results["greedy"])
+    for tag in ("speculative-1-4", "beam-1"):
+        if _as_tokens(results[tag]) != greedy:
+            fail(f"fronts parity: {tag} tokens {_as_tokens(results[tag])} != greedy {greedy}")
+    chunked_same = results["chunked-16"] == results["continuous-4"]
+    print(f"[fronts-parity] speculative == greedy, beam-1 == greedy: True; chunked-16 == "
+          f"one-shot admission on the card: {chunked_same} (not a gate)", flush=True)
+
+    # int8 pools: codes after admission, then the steps' launches
+    pools, launched = {}, {}
+    for dev in ("cuda", "cpu"):
+        engine = PagedContinuousEngine(loaded[dev], page_size=16, steps_per_call=4,
+                                       quant_kv=True, **slot_kw)
+        engine.admit_many(reqs)
+        pools[dev] = [layer["k"].cpu().numpy().astype(int) for layer in engine.pools]
+        if dev == "cuda":
+            for f in counters.values():
+                f.launches = 0
+            toks = _slot_tokens_steps(engine, [r[0] for r in reqs], 2)
+            launched = {n: f.launches for n, f in counters.items()}
+    code_diff = max(abs(a[1:] - b[1:]).max() for a, b in zip(pools["cuda"], pools["cpu"]))
+    drift = _int8_drift(loaded["cuda"].model, inputs)
+    want = {"flash_attention_fwd": 2 * 4 * l_layers, "paged_decode_attention": 0,
+            "paged_decode_attention_mp": 0, "int4_matmul": 0}
+    print(f"[fronts-parity] int8-pool paged engine: codes cuda vs cpu differ by at most "
+          f"{code_diff}; decode logits vs dense: max relative distance {drift:.4f} (JAX's "
+          f"bound 0.05); step launches {launched} (expected {want}); cuda tokens {toks}",
+          flush=True)
+    if not (code_diff <= 1 and 0.0 < drift < 0.05 and launched == want):
+        fail(f"fronts parity int8 pools: codes {code_diff}, drift {drift}, launches {launched}")
+
+
+def _slot_tokens_steps(engine, slots, steps: int) -> dict:
+    """``steps`` engine steps over ``slots`` (already admitted): {slot: tokens}."""
+    import numpy as np
+
+    active = np.zeros(engine.num_slots, bool)
+    active[slots] = True
+    out = {slot: [] for slot in slots}
+    for _ in range(steps):
+        toks = engine.step(active)
+        for slot in slots:
+            out[slot] += [int(t) for t in toks[slot]]
+    return out
+
+
+def _as_tokens(result):
+    """A front's result as plain lists: a tokens tensor or array (first of
+    a (tokens, extra) pair), or a {slot: tokens} dict."""
+    if isinstance(result, dict):
+        return {k: list(v) for k, v in sorted(result.items())}
+    if isinstance(result, tuple):
+        result = result[0]
+    return np.asarray(result.cpu() if hasattr(result, "cpu") else result).tolist()
+
+
 TRAINING_CONFIG = {  # experiments/multimodal/color/12_colors_3k.yaml (served fields)
     "prompt_template": "Is the color of the circle {class_name}?",
     "dataset_name": "color_multimodal", "vision_model_name": "vit-b-16",
@@ -2136,12 +2400,15 @@ def _kernel_counters() -> dict:
             "int4_matmul": int4_matmul}
 
 
-def _serve(root: str, tag: str, **quant) -> dict:
-    """Serve the results dir ``root`` through the port's paged server
-    (``make_server``, batch 8, 8 answer tokens, pages of 16): a warm-up
-    request, then 16 requests from 16 threads; /healthz and /metrics over
-    HTTP.  Returns the run's numbers and the serving path's launch counts
-    (counted from 0 just before the first request)."""
+def _serve(root: str, tag: str, front=None, **quant) -> dict:
+    """Serve the results dir ``root`` through the port's server
+    (``make_server``, batch 8, 8 answer tokens; ``front`` its front flags,
+    default the paged front with pages of 16): a warm-up request, then 16
+    requests from 16 threads; /healthz and /metrics over HTTP.  Returns the
+    run's numbers, its answers and the serving path's launch counts
+    (counted from 0 just before the first request).  Tokens are counted as
+    they stream; the whole-batch front streams none and decodes each row's
+    whole budget, 8 tokens a request."""
     import http.client
     import threading
 
@@ -2149,12 +2416,13 @@ def _serve(root: str, tag: str, **quant) -> dict:
 
     from multimodal_concept_learning_tpu_torch.serve.server import make_server
 
+    front = {"paged": True} if front is None else front
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    httpd, batcher = make_server(root, port=0, paged=True, batch_size=8, max_new_tokens=8,
-                                 page_size=16, **quant)
-    print(f"[{tag}] served in {time.perf_counter() - t0:.1f} s ({quant or 'float weights'})",
-          flush=True)
+    httpd, batcher = make_server(root, port=0, batch_size=8, max_new_tokens=8, page_size=16,
+                                 **front, **quant)
+    print(f"[{tag}] served in {time.perf_counter() - t0:.1f} s ({front or 'whole-batch'}, "
+          f"{quant or 'float weights'})", flush=True)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     with open(MAPPING) as f:
@@ -2164,18 +2432,21 @@ def _serve(root: str, tag: str, **quant) -> dict:
         key, name = mapping[i % len(mapping)]
         requests.append((_circle(_rgb(key)), f"Is the color of the circle {name}?"))
     counters = _kernel_counters()
+    engine = batcher.engine
+    streams = hasattr(engine, "step")  # the slot-level fronts stream their tokens
     try:
         for fn in counters.values():
             fn.launches = 0
-        batcher.engine.decode_steps = 0
+        if hasattr(engine, "decode_steps"):
+            engine.decode_steps = 0
         batcher.submit(*requests[0])  # first request: cuBLAS/allocator warm-up
-        results, tokens, latency = [None] * 16, [0] * 16, [0.0] * 16
+        results, stamps, latency = [None] * 16, [[] for _ in range(16)], [0.0] * 16
 
         def run(i):
-            def count(_tok, i=i):
-                tokens[i] += 1
             t = time.perf_counter()
-            results[i] = batcher.submit(*requests[i], on_token=count)
+            results[i] = batcher.submit(*requests[i],
+                                        on_token=lambda _tok, i=i: stamps[i].append(
+                                            time.perf_counter()))
             latency[i] = time.perf_counter() - t
 
         threads = [threading.Thread(target=run, args=(i,)) for i in range(16)]
@@ -2186,33 +2457,37 @@ def _serve(root: str, tag: str, **quant) -> dict:
             th.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
-        steps = batcher.engine.decode_steps
+        steps = getattr(engine, "decode_steps", None)
         conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
         conn.request("GET", "/healthz")
         health = json.loads(conn.getresponse().read())
         conn.request("GET", "/metrics")
         metrics = json.loads(conn.getresponse().read())
         conn.close()
-        finite = all(bool(torch.isfinite(p[kv]).all())
-                     for p in batcher.engine.pools for kv in ("k", "v"))
+        state = getattr(engine, "pools", None) or getattr(engine, "caches", None) or ()
+        finite = all(bool(torch.isfinite(t).all()) for layer in state for t in layer.values())
     finally:
         httpd.shutdown()
         batcher.shutdown()
         server.join(timeout=30)
         httpd.server_close()
-    run = {"requests_per_s": 16 / wall, "tokens_per_s": sum(tokens) / wall,
+    tokens = sum(len(s) for s in stamps) if streams else 16 * 8
+    gaps = [b - a for s in stamps for a, b in zip(s, s[1:])]
+    run = {"requests_per_s": 16 / wall, "tokens_per_s": tokens / wall,
            "p50_ms": 1e3 * float(np.median(latency)), "launches": launches,
-           "decode_steps": steps}
+           "decode_steps": steps, "answers": results, "batches": batcher.stats.get("batches"),
+           "max_gap_ms": 1e3 * max(gaps) if gaps else None}
+    gap = f"; longest gap between a request's tokens {run['max_gap_ms']:.1f} ms" if gaps else ""
     print(f"[{tag}] 16 requests from 16 threads in {wall:.3f} s: {run['requests_per_s']:.3f} "
-          f"requests/s, {run['tokens_per_s']:.1f} generated tokens/s ({sum(tokens)} tokens); "
-          f"p50 latency {run['p50_ms']:.1f} ms, max {1e3 * max(latency):.1f} ms", flush=True)
+          f"requests/s, {run['tokens_per_s']:.1f} generated tokens/s ({tokens} tokens); "
+          f"p50 latency {run['p50_ms']:.1f} ms, max {1e3 * max(latency):.1f} ms{gap}", flush=True)
     print(f"[{tag}] healthz {health}; metrics {metrics}", flush=True)
     print(f"[{tag}] answers {results[:4]} ...; kernel launches {launches} over {steps} decode "
           f"steps", flush=True)
     if not all(isinstance(r, str) for r in results):
         fail(f"{tag}: not every request was answered")
     if not (health.get("ok") and metrics.get("completed") == 17 and finite):
-        fail(f"{tag} server state: healthz {health}, metrics {metrics}, finite pools {finite}")
+        fail(f"{tag} server state: healthz {health}, metrics {metrics}, finite state {finite}")
     return run
 
 
@@ -2262,18 +2537,85 @@ def phase_quant_slice(report: dict, root: str, float_run: dict) -> None:
               f"{run['tokens_per_s']:.1f} tokens/s, p50 {run['p50_ms']:.1f} ms", flush=True)
 
 
+FRONTS = (("whole-batch", {}), ("continuous", {"continuous": True}),
+          ("chunked-64", {"continuous": True, "chunked_prefill": 64}),
+          ("paged-int8-kv", {"paged": True, "int8_kv": True}))
+VIT_LAYERS, LM_LAYERS = 12, 26  # the full 12_colors_3k model's ViT and LM depths
+PROMPT_K1 = VIT_LAYERS + LM_LAYERS  # K1 launches of one prefill: ViT and LM layers
+
+
+def phase_fronts_slice(root: str, float_run: dict) -> None:
+    """Phase 21: phase 5's results dir (the full 12_colors_3k model, bf16)
+    served through the other fronts: the whole-batch front (no flag), the
+    dense continuous front, chunked prefill of 64 and the paged front with
+    int8 pools, 16 requests each as phase 5.  K3, K4 and K5 never launch;
+    the whole-batch front launches K1 exactly 38 + 26 x 7 a batch, the
+    slot-level fronts at least 38 and 26 a decode step.  Requests/s, tokens/s, p50
+    latency and the longest gap between a request's tokens beside phase
+    5's, and how many answers equal phase 5's (bf16: a count, not a gate)."""
+    runs = {"paged (phase 5)": float_run}
+    for tag, front in FRONTS:
+        run = runs[tag] = _serve(root, f"fronts-{tag}", front=front)
+        launches, steps = run["launches"], run["decode_steps"]
+        others = {n: launches[n] for n in ("paged_decode_attention", "paged_decode_attention_mp",
+                                          "int4_matmul")}
+        if any(others.values()):
+            fail(f"fronts slice {tag}: launched {others} (expected none)")
+        k1 = launches["flash_attention_fwd"]
+        if tag == "whole-batch":
+            want = run["batches"] * (PROMPT_K1 + LM_LAYERS * 7)
+            ok = k1 == want
+        else:
+            want = f">= {PROMPT_K1} + {LM_LAYERS} x {steps} decode steps"
+            ok = steps > 0 and k1 >= PROMPT_K1 + LM_LAYERS * steps
+        print(f"[fronts-{tag}] K1 launches {k1} (expected {want}); answers equal to phase 5's: "
+              f"{sum(a == b for a, b in zip(run['answers'], float_run['answers']))} of 16",
+              flush=True)
+        if not ok:
+            fail(f"fronts slice {tag}: K1 launches {k1}, expected {want}")
+    for tag, run in runs.items():
+        gap = run["max_gap_ms"]
+        print(f"[fronts-slice] {tag}: {run['requests_per_s']:.3f} requests/s, "
+              f"{run['tokens_per_s']:.1f} tokens/s, p50 {run['p50_ms']:.1f} ms, longest gap "
+              f"between a request's tokens {'n/a' if gap is None else f'{gap:.1f} ms'}",
+              flush=True)
+
+
 ANSWER_ARGS = ["--split", "train", "--batch_size", "8", "--limit", "16", "--max_new_tokens", "8",
                "--device", "cuda"]
+
+
+DRAFT_LAYERS = 13  # phase 15's self-speculative draft: half the LM
+ANSWER_RUNS = (("float", []), ("int4", ["--int4"]), ("int8", ["--int8", "--int8_vision"]),
+               ("beam4", ["--num_beams", "4"]),
+               ("spec13", ["--draft_layers", str(DRAFT_LAYERS), "--draft_len", "4"]))
+
+
+def _answer_k1(tag: str, batches: int, new: int):
+    """K1 launches the answer CLI's run ``tag`` makes: (low, high), equal
+    but for speculative decoding, whose verify calls (13 x 3 draft + 26 each)
+    depend on how many proposals are accepted: from ceil((new - 1) / 4) to
+    new - 1 a batch."""
+    if tag != "spec13":
+        n = batches * (PROMPT_K1 + LM_LAYERS * (new - 1))
+        return n, n
+    per_iter = DRAFT_LAYERS * 3 + LM_LAYERS
+    return (batches * (PROMPT_K1 + per_iter * -(-(new - 1) // 4)),
+            batches * (PROMPT_K1 + per_iter * (new - 1)))
 
 
 def phase_answer_slice(root: str) -> None:
     """Phase 15: the port's answer CLI on phase 7's results dir and data
     (the full 12_colors_3k model trained one epoch, bf16 compute): float,
-    ``--int4`` and ``--int8 --int8_vision``; 16 train samples, 8 tokens,
-    batch 8.  Checks the CLI's lines, the 16 JSONL rows and exact launch
-    counts (counted from 0 just before each run): K1 38 a prefill (12 ViT +
-    26 LM layers) and 26 a decode step; K5 7 x 26 a decode step under
-    ``--int4`` (prefill rows take the dequantized product), else 0."""
+    ``--int4``, ``--int8 --int8_vision``, beam search of width 4 and
+    self-speculative decoding (13 draft layers, draft_len 4); 16 train
+    samples, 8 tokens, batch 8.  Checks the CLI's lines, the 16 JSONL rows
+    and the launch counts (counted from 0 just before each run): K1 38 a
+    prefill (12 ViT + 26 LM layers) and 26 a decode step (at 32 rows under
+    beam search; speculative: 13 a draft proposal, 26 a verify, in the range
+    of ``_answer_k1``); K5 7 x 26 a decode step under ``--int4``, else 0.
+    Prints how many speculative rows equal the float greedy rows (bf16: the
+    chunked verify may round differently; a count, not a gate)."""
     import contextlib
     import io
 
@@ -2284,8 +2626,8 @@ def phase_answer_slice(root: str) -> None:
     results = os.path.join(root, "results")
     counters = _kernel_counters()
     new, n = 8, 16
-    runs = {}
-    for tag, extra in (("float", []), ("int4", ["--int4"]), ("int8", ["--int8", "--int8_vision"])):
+    runs, rows_of = {}, {}
+    for tag, extra in ANSWER_RUNS:
         out_path = os.path.join(root, f"generations_{tag}.jsonl")
         torch.cuda.empty_cache()
         for fn in counters.values():
@@ -2301,10 +2643,11 @@ def phase_answer_slice(root: str) -> None:
         for line in text.splitlines():
             print(f"[answers-{tag}] {line}", flush=True)
         with open(out_path) as f:
-            rows = [json.loads(line) for line in f]
+            rows = rows_of[tag] = [json.loads(line) for line in f]
         keys = {"prompt", "generated", "target", "yes_no_match", "exact_match"}
         batches = res["batches"]
-        expected = {"flash_attention_fwd": batches * (38 + 26 * (new - 1)),
+        k1_low, k1_high = _answer_k1(tag, batches, new)
+        expected = {"flash_attention_fwd": k1_low if k1_low == k1_high else (k1_low, k1_high),
                     "paged_decode_attention": 0, "paged_decode_attention_mp": 0,
                     "int4_matmul": batches * LM_PROJECTION_LAUNCHES * (new - 1)
                     if tag == "int4" else 0}
@@ -2322,8 +2665,15 @@ def phase_answer_slice(root: str) -> None:
         if not (lines_ok and rows_ok and res["n"] == n and batches == 2):
             fail(f"answer slice {tag}: lines {lines_ok}, rows {rows_ok}, n {res['n']}, "
                  f"batches {batches}")
-        if launches != expected:
-            fail(f"answer slice {tag}: launches {launches} != {expected}")
+        k1 = launches.pop("flash_attention_fwd")
+        expected.pop("flash_attention_fwd")
+        if not (k1_low <= k1 <= k1_high and launches == expected):
+            fail(f"answer slice {tag}: launches K1 {k1} (expected {k1_low}..{k1_high}), "
+                 f"{launches} != {expected}")
+    same = sum(a["generated"] == b["generated"]
+               for a, b in zip(rows_of["spec13"], rows_of["float"]))
+    print(f"[answers] speculative rows equal to the float greedy rows: {same} of {n}",
+          flush=True)
     print("[answers] " + "; ".join(
         f"{tag}: {sps:.3f} samples/s, {tps:.1f} tokens/s, yes/no {res['yes_no_acc']:.2f}%, "
         f"exact {res['exact_acc']:.2f}%" for tag, (sps, tps, res) in runs.items()), flush=True)
@@ -3363,7 +3713,7 @@ def profile_vision(steps: int = 6, warmup: int = 4) -> None:
     _time_loader(config, vision_loader, 128, False)
 
 
-def profile_decode(root: str, steps: int = 6, warmup: int = 4) -> None:
+def profile_decode(root: str, steps: int = 6, warmup: int = 4, int8_kv: bool = False) -> None:
     """``--profile-decode [ROOT]``: the paged decode step of the full-width
     gemma3-1b MLLM (seeded random weights, bf16) at batch 8 on a fixed
     batch: prompts of 197 vision + 65-72 text tokens (262-269, the serving
@@ -3371,9 +3721,10 @@ def profile_decode(root: str, steps: int = 6, warmup: int = 4) -> None:
     the same positions (lengths held, one token written at each row's next
     slot), each step's next token by argmax; from the port package of the
     checkout at ``root`` (``sys.path`` puts it first; a parent checkout is
-    profiled this way).  K3 unless ``MCL_PAGED_KERNEL=2`` (K4); prints the
-    unprofiled ms a step, device busy, idle share and the paged kernel's ms
-    a step."""
+    profiled this way).  K3 unless ``MCL_PAGED_KERNEL=2`` (K4); with
+    ``int8_kv`` the pools are int8, read by a gather, a dequantize and K1.
+    Prints the unprofiled ms a step, device busy, idle share and the
+    attention kernel's ms a step."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
@@ -3385,7 +3736,10 @@ def profile_decode(root: str, steps: int = 6, warmup: int = 4) -> None:
     )
 
     kernel = "K4" if os.environ.get("MCL_PAGED_KERNEL") == "2" else "K3"
-    print(f"[ab] kernels of {os.path.abspath(root)}; paged decode through {kernel}", flush=True)
+    if int8_kv:
+        kernel = "K1"
+    print(f"[ab] kernels of {os.path.abspath(root)}; paged decode through {kernel}"
+          f"{' over int8 pools' if int8_kv else ''}", flush=True)
     cfg = MLLMConfig.create(vocab_size=1148)
     with torch.device("cuda"):
         model = MLLM(cfg)
@@ -3407,7 +3761,7 @@ def profile_decode(root: str, steps: int = 6, warmup: int = 4) -> None:
     ids, mask = ids.to(torch.int32), mask.to(torch.int32)
     lm = model.language_model
     np_max = pages_needed(t + 9, 16)
-    pools = init_paged_kv_cache(lm.cfg, 1 + b * np_max, 16, device="cuda")
+    pools = init_paged_kv_cache(lm.cfg, 1 + b * np_max, 16, device="cuda", quantized=int8_kv)
     pt = torch.arange(1, 1 + b * np_max, dtype=torch.int32, device="cuda").reshape(b, np_max)
     rows = torch.arange(b, device="cuda")
     with torch.inference_mode():
@@ -3423,7 +3777,7 @@ def profile_decode(root: str, steps: int = 6, warmup: int = 4) -> None:
             nxt = torch.argmax(lm.lm_head(h[:, 0]), dim=-1).to(torch.int32)
         return nxt, {"token": nxt[0]}
 
-    frag = "paged_mp_kernel" if kernel == "K4" else "paged_decode_kernel"
+    frag = {"K4": "paged_mp_kernel", "K3": "paged_decode_kernel", "K1": "flash_fwd"}[kernel]
     _profile_step("decode", tok, step, None, steps, warmup, b, "tokens",
                   groups={kernel: frag}, note="token")
 
@@ -3619,6 +3973,8 @@ def main(argv=None) -> None:
                         help="build the kernels of the checkout at ROOT (default: this one), "
                              "then profile the full MLLM's paged decode step at batch 8 "
                              "(K3; MCL_PAGED_KERNEL=2: K4); no other phase")
+    parser.add_argument("--int8-kv", action="store_true",
+                        help="with --profile-decode: int8 page pools (gather, dequantize, K1)")
     args = parser.parse_args(argv)
     ab_root = (args.time_forwards or args.time_variants or args.profile_mllm
                or args.profile_decode)
@@ -3651,17 +4007,19 @@ def main(argv=None) -> None:
         profile_vision()
         return
     if args.profile_decode:
-        profile_decode(args.profile_decode)
+        profile_decode(args.profile_decode, int8_kv=args.int8_kv)
         return
     report: dict = {}
     phase_kernels(report)
     phase_parity()
     phase_quant_parity()
     phase_generate_parity()
+    phase_fronts_parity()
     root = tempfile.mkdtemp(prefix="_smoke_results_", dir=REPO)  # listed in .gitignore
     try:
         float_run = phase_slice(report, root)
         phase_quant_slice(report, root, float_run)
+        phase_fronts_slice(root, float_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     serving_k1 = report["flash_attention_fwd"]["launches"]

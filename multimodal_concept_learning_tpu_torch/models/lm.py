@@ -27,7 +27,9 @@ ones): one [B, S, Hk, D] tensor per layer and part, no copy a step.
 Decode attention takes the JAX float32 bias over the whole cache (the
 cache mask, plus ``position - slot < window`` on sliding layers): a
 decode query sits at its row's own position, not at S - 1 where K1's
-causal and window descriptors would put it.
+causal and window descriptors would put it.  Page pools may be int8
+(``init_paged_kv_cache(..., quantized=True)``): prompt and token writes
+quantize, and the decode reads dequantize after a gather (K1 on the card).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from multimodal_concept_learning_tpu_torch.ops.flash_attention import _NEG
 from multimodal_concept_learning_tpu_torch.ops.int4 import Int4Linear
 from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     paged_decode_attention,
+    quantize_kv,
     write_prompt_kv,
     write_token_kv,
 )
@@ -165,6 +168,19 @@ def apply_rope(x: torch.Tensor, rope: Rope) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _write_pool(write, pool, page_table, positions, k, v) -> None:
+    """``write`` (``write_prompt_kv`` or ``write_token_kv``) K and V into
+    the layer's pool; an int8 pool gets codes and scale planes."""
+    if "k_scale" not in pool:
+        write(pool["k"], page_table, positions, k)
+        write(pool["v"], page_table, positions, v)
+        return
+    for part, kv in (("k", k), ("v", v)):
+        codes, scale = quantize_kv(kv)
+        write(pool[f"{part}_scale"], page_table, positions, scale)
+        write(pool[part], page_table, positions, codes)
+
+
 class LMAttention(nn.Module):
     def __init__(self, cfg: LMConfig):
         super().__init__()
@@ -197,13 +213,13 @@ class LMAttention(nn.Module):
         (``kv_lens``, ``causal``, ``window``) and/or an additive ``bias``;
         with ``pool`` ({"k","v"} page pools) the prompt's K/V are also
         written into ``page_table``'s pages (positions >= kv_lens go to the
-        null page); with ``cache`` ({"k","v"} [B, S, Hk, D]) into its slots
-        [0:T], padding included (the decode mask hides those slots)."""
+        null page; an int8 pool takes codes and scales); with ``cache``
+        ({"k","v"} [B, S, Hk, D]) into its slots [0:T], padding included
+        (the decode mask hides those slots)."""
         b, t, _ = x.shape
         q, k, v = self._qkv(x, rope)
         if pool is not None:
-            write_prompt_kv(pool["k"], page_table, kv_lens, k)
-            write_prompt_kv(pool["v"], page_table, kv_lens, v)
+            _write_pool(write_prompt_kv, pool, page_table, kv_lens, k, v)
         if cache is not None:
             cache["k"][:, :t] = k
             cache["v"][:, :t] = v
@@ -214,13 +230,15 @@ class LMAttention(nn.Module):
     def decode_paged(self, x, rope: Rope, pool, page_table, seq_lens,
                      window: Optional[int]) -> torch.Tensor:
         """One token per row: write its K/V at position ``seq_lens`` and
-        attend against the pool (positions < seq_lens + 1)."""
+        attend against the pool (positions < seq_lens + 1); an int8 pool
+        takes the dequantizing gather read."""
         b = x.shape[0]
         q, k, v = self._qkv(x, rope)
-        write_token_kv(pool["k"], page_table, seq_lens, k[:, 0])
-        write_token_kv(pool["v"], page_table, seq_lens, v[:, 0])
+        _write_pool(write_token_kv, pool, page_table, seq_lens, k[:, 0], v[:, 0])
         attn = paged_decode_attention(q, pool["k"], pool["v"], page_table, seq_lens + 1,
-                                      scale=self.scale, window=window)
+                                      scale=self.scale, window=window,
+                                      pool_k_scale=pool.get("k_scale"),
+                                      pool_v_scale=pool.get("v_scale"))
         return linear(self.o_proj, attn.reshape(b, 1, -1), self.cfg.dtype)
 
     def decode_dense(self, x, rope: Rope, cache, slots, bias) -> torch.Tensor:
@@ -397,11 +415,11 @@ class CausalLM(nn.Module):
         in_window = qpos[:, :, None] - slots < self.cfg.sliding_window
         return bias_global, bias_global + torch.where(in_window, 0.0, _NEG)[:, None].float()
 
-    def _decode_layers(self, inputs_embeds, caches, qpos, biases):
+    def _decode_layers(self, inputs_embeds, caches, qpos, biases, num_layers=None):
         cfg = self.cfg
         rope_global, rope_sliding = self._ropes(qpos)
         x = inputs_embeds.to(cfg.dtype)
-        for i, layer in enumerate(self.model.layers):
+        for i, layer in enumerate(self.model.layers[:num_layers]):
             sliding = cfg.layer_is_sliding(i)
             x = layer.decode_dense(x, rope_sliding if sliding else rope_global, caches[i], qpos,
                                    biases[sliding])
@@ -417,12 +435,15 @@ class CausalLM(nn.Module):
         biases = self._cache_biases(cache_mask.bool()[:, None, :], qpos)
         return self._decode_layers(inputs_embeds, caches, qpos, biases)
 
-    def decode_chunk(self, inputs_embeds, caches, start_lens, cache_mask) -> torch.Tensor:
+    def decode_chunk(self, inputs_embeds, caches, start_lens, cache_mask,
+                     num_layers: Optional[int] = None) -> torch.Tensor:
         """G tokens per row against the cache (the JAX ``decode_chunk``):
         token i of row b goes to slot and position ``start_lens[b] + i``;
         ``cache_mask`` [B, S] marks only the committed prefix (slots <
-        start), and token i sees the chunk's slots up to its own.  Writes
-        the caches in place; returns hidden [B, G, H]."""
+        start), and token i sees the chunk's slots up to its own.
+        ``num_layers`` runs only the first N blocks (the early-exit draft;
+        ``final_norm`` is shared).  Writes the caches of the blocks that ran
+        in place; returns hidden [B, G, H]."""
         b, g, _ = inputs_embeds.shape
         dev = inputs_embeds.device
         slots = torch.arange(cache_mask.shape[1], device=dev)
@@ -431,7 +452,7 @@ class CausalLM(nn.Module):
         prefix = cache_mask.bool()[:, None, :] & (slots < start)
         within = (slots <= qpos[:, :, None]) & (slots >= start)
         return self._decode_layers(inputs_embeds, caches, qpos,
-                                   self._cache_biases(prefix | within, qpos))
+                                   self._cache_biases(prefix | within, qpos), num_layers)
 
     def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head: float32 logits of compute-dtype operands (the JAX

@@ -6,7 +6,8 @@ spliced in front of the text embeddings by concatenation (the first
 ``num_vision_tokens`` ids are placeholders and are never embedded).
 ``forward`` is the training/eval forward with the sparse answer loss;
 ``generate`` / ``greedy_generate`` (dense KV caches) and ``paged_generate``
-are the JAX functions' decodes as plain loops.  Sampling draws from a
+are the JAX functions' decodes as plain loops (beam search and
+self-speculative decoding: ``models/beam.py``, ``models/speculative.py``).  Sampling draws from a
 ``torch.Generator``: the same filters as JAX, other random streams.  ``trainable_mask`` sets ``requires_grad`` by state-dict name (the
 JAX optax mask); when no vision parameter trains, the tower runs under
 ``torch.no_grad()``, so it costs no backward (XLA drops the frozen tower's

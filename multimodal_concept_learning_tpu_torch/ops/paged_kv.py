@@ -17,8 +17,16 @@ row and layer instead of copying the pool.  The decode read,
 ``paged_decode_attention``, dispatches as the JAX function does: K3
 (ops/paged_attention_kernel.py) by default, K4
 (ops/paged_attention_mp_kernel.py) under ``MCL_PAGED_KERNEL=2``; CPU
-tensors take each kernel's plain version.  Int8 pools (the JAX
-``quantized=True`` layout) are not ported yet.
+tensors take each kernel's plain version.
+
+Int8 pools (``init_paged_kv_cache(..., quantized=True)``, the JAX layout)
+hold int8 K/V codes with per-(token, head) float32 scale planes: writes
+quantize (``quantize_kv``), and the decode read gathers the pages,
+dequantizes them (``gather_pages_dequant``) and attends through
+``multi_head_attention`` under the mask's bias, as the JAX gather branch
+does.  On the card that is K1's forward; the gather and the dequantize
+stay PyTorch ops, as JAX keeps them in XLA, and K3/K4 (float pages only,
+like the Pallas kernels) never read an int8 pool.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from typing import List, Optional, Union
 
 import torch
 
+from multimodal_concept_learning_tpu_torch.ops.attention import multi_head_attention
+from multimodal_concept_learning_tpu_torch.ops.flash_attention import _NEG
 from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
     gather_pages,
     paged_attention_mask,
@@ -42,18 +52,49 @@ from multimodal_concept_learning_tpu_torch.ops.paged_attention_mp_kernel import 
 
 
 def init_paged_kv_cache(cfg, num_pages: int, page_size: int, device,
-                        dtype=None):
+                        dtype=None, quantized: bool = False):
     """Zero per-layer page pools: a tuple of ``{"k", "v"}`` dicts, each
     [num_pages, kv_heads, page_size, head_dim] in ``dtype`` (default: the
     LM's compute dtype).  Page 0 is the null page — size the pool with one
-    page more than you plan to allocate."""
+    page more than you plan to allocate.  ``quantized=True``: int8 ``k``/
+    ``v`` plus float32 ``k_scale``/``v_scale`` [num_pages, kv_heads,
+    page_size], all zero, so unwritten pages dequantize to exact zeros."""
     shape = (num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+    if quantized:
+        return tuple(
+            {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+             "v": torch.zeros(shape, dtype=torch.int8, device=device),
+             "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+             "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+            for _ in range(cfg.num_layers)
+        )
     dtype = cfg.dtype if dtype is None else dtype
     return tuple(
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}
         for _ in range(cfg.num_layers)
     )
+
+
+def quantize_kv(kv: torch.Tensor):
+    """Symmetric int8 over the trailing (head_dim) axis: (codes [..., d]
+    int8, scale [...] float32) with ``codes * scale ~= kv``; the scale's
+    floor keeps all-zero rows exactly zero.  ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    kv = kv.float()
+    scale = kv.abs().amax(dim=-1).clamp(min=1e-30) / 127.0
+    return torch.round(kv / scale[..., None]).to(torch.int8), scale
+
+
+def gather_pages_dequant(pool: torch.Tensor, scale: torch.Tensor, page_table: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """``gather_pages`` of an int8 pool [P, hk, ps, d] and its scale plane
+    [P, hk, ps], dequantized to ``dtype``: [B, NP * ps, hk, d]."""
+    b, np_ = page_table.shape
+    _, hk, ps = scale.shape
+    q = gather_pages(pool, page_table)
+    s = scale[page_table.long()].permute(0, 1, 3, 2).reshape(b, np_ * ps, hk)
+    return (q.float() * s[..., None]).to(dtype)
 
 
 def pages_needed(num_tokens: int, page_size: int) -> int:
@@ -102,8 +143,13 @@ class PageAllocator:
 def paged_decode_attention(q, pool_k, pool_v, page_table, lens, *,
                            scale: Optional[float] = None, window: Optional[int] = None,
                            use_kernel: Union[None, bool, str] = None,
-                           pages_per_block: int = 8) -> torch.Tensor:
+                           pages_per_block: int = 8, pool_k_scale=None,
+                           pool_v_scale=None) -> torch.Tensor:
     """One-token attention against the paged pools; returns [B, 1, Hq, D].
+
+    ``pool_k_scale`` / ``pool_v_scale`` ([P, hk, ps] float32) mark int8
+    pools: they always take the dequantizing gather read (K1 on the card),
+    and an explicit kernel request raises, as in JAX.
 
     ``use_kernel`` (the JAX argument): "2" or "mp" runs K4 with
     ``pages_per_block``; True or "1" runs K3; False the gather path, which
@@ -111,6 +157,15 @@ def paged_decode_attention(q, pool_k, pool_v, page_table, lens, *,
     ``None`` reads ``MCL_PAGED_KERNEL`` at each call: "2" is K4, unset or
     "1" K3 (the port's default), anything else the gather path.  CPU
     tensors run the chosen kernel's plain version."""
+    if pool_k_scale is not None:
+        if use_kernel:
+            raise ValueError("the paged kernels read float pages only; int8 pools take "
+                             "the gather read")
+        k = gather_pages_dequant(pool_k, pool_k_scale, page_table, q.dtype)
+        v = gather_pages_dequant(pool_v, pool_v_scale, page_table, q.dtype)
+        mask = paged_attention_mask(lens, k.shape[1], -1 if window is None else int(window))
+        bias = torch.where(mask, 0.0, _NEG)[:, None, None, :]
+        return multi_head_attention(q, k, v, bias, scale=scale)
     if use_kernel is None:
         env = os.environ.get("MCL_PAGED_KERNEL", "1")
         use_kernel = env if env in ("1", "2") else False
@@ -172,12 +227,14 @@ __all__ = [
     "PageAllocator",
     "PagePoolExhausted",
     "gather_pages",
+    "gather_pages_dequant",
     "init_paged_kv_cache",
     "paged_attention_mask",
     "paged_decode_attention",
     "paged_decode_attention_k3",
     "paged_decode_attention_mp",
     "pages_needed",
+    "quantize_kv",
     "write_prompt_kv",
     "write_token_kv",
 ]

@@ -1,13 +1,29 @@
-"""Continuous-batching request front (counterpart of
-multimodal_concept_learning_tpu/serve/continuous.py:``ContinuousBatcher``).
+"""Slot-level continuous batching (counterpart of
+multimodal_concept_learning_tpu/serve/continuous.py).
 
-Host code: requests admit into free slots as they arrive (one batched
-prefill per group), one engine ``step`` advances every in-flight request,
-and each request retires on EOS, its token budget or a stop string.  With
-the paged engine, admission takes only the FIFO prefix whose KV pages fit
-(``admissible_prefix``) and finished requests release their pages.  The
-dense and chunked-prefill engines are not ported yet (ROADMAP.md), so the
-chunked-admission hooks of the JAX front are absent.
+``ContinuousEngine`` keeps ONE persistent decode state of ``num_slots``
+rows on the loaded model's device: per-layer dense KV caches
+(``models/lm.init_kv_cache``, ``cache_len = prompt_t + max_new_tokens +
+steps_per_call`` slots a row), ``seq_lens``, ``cache_mask`` and
+``last_tok``, updated in place.
+
+- **admission** (``admit_many``) prefills the admitted requests in one
+  batched call at the power-of-two width of ``_staging_arrays`` (K1 in the
+  ViT's and the LM's layers on the card) and copies their cache rows into
+  the free slots;
+- **step** (``step(active)``) advances every active row ``steps_per_call``
+  tokens through ``CausalLM.decode_step`` under its ``cache_mask`` (K1 in
+  every layer); inactive rows stay inert, and no row's mask reaches past
+  ``cache_len - 1`` (the ``can_write`` guard: the last slot is the
+  sacrificial write target of parked and finished rows);
+- **completion** frees a slot at once for the next queued request.
+
+``ContinuousBatcher`` is the request front over any slot-level engine:
+this one, the chunked-prefill engine (serve/chunked.py: admission returns
+``None`` first tokens, ``advance_prefill`` completes them, prefilling
+slots sit out the step) and the paged engine (serve/paged.py: page
+backpressure through ``admissible_prefix``, ``release`` frees pages).
+Requests retire on EOS, their token budget or a stop string.
 """
 
 from __future__ import annotations
@@ -18,12 +34,113 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from multimodal_concept_learning_tpu_torch.models.lm import init_kv_cache
+from multimodal_concept_learning_tpu_torch.ops.sampling import sample_logits
 from multimodal_concept_learning_tpu_torch.serve.engine import (
+    EngineHostAPI,
     LatencyTracker,
     _Pending,
     truncate_at_stops,
 )
+
+
+class ContinuousEngine(EngineHostAPI):
+    """Persistent-state decode engine over a loaded MLLM (serve/loader.py)."""
+
+    def __init__(self, loaded, num_slots: int = 8, max_new_tokens: int = 8,
+                 max_prompt_len: int = 64, temperature: float = 0.0,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None, seed: int = 0,
+                 steps_per_call: int = 1, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("serving across a device mesh is not ported to the "
+                                      "PyTorch package yet (ROADMAP.md, A11)")
+        self.loaded = loaded
+        self.num_slots = num_slots
+        self.max_new_tokens = max_new_tokens
+        self.max_prompt_len = max_prompt_len
+        tok = loaded.tokenizer
+        self.eos_id = getattr(tok, "eos_token_id", None)
+        self.pad_id = getattr(tok, "pad_token_id", 0) or 0
+        self.nvt = loaded.config.num_vision_tokens
+        self.prompt_t = self.nvt + max_prompt_len
+        # rows may overshoot EOS inside a call; the cache is padded so the
+        # overshoot never overflows it
+        self.steps_per_call = steps_per_call
+        self.cache_len = self.prompt_t + max_new_tokens + steps_per_call
+        self._sampler = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+        dev = self.device = loaded.device
+        self._generator = torch.Generator(device=dev).manual_seed(seed)
+        self.caches = init_kv_cache(loaded.model.cfg.lm, num_slots, self.cache_len, dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.seq_lens = torch.zeros((num_slots,), **i32)
+        self.cache_mask = torch.zeros((num_slots, self.cache_len), **i32)
+        self.last_tok = torch.zeros((num_slots,), **i32)
+        self.decode_steps = 0  # decode_step calls (one per pass of the layer stack)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        return sample_logits(logits, self._generator, **self._sampler)
+
+    def _check_requests(self, requests) -> list:
+        if not 0 < len(requests) <= self.num_slots:
+            raise ValueError(f"admit 1..{self.num_slots} requests, got {len(requests)}")
+        requests = [r if len(r) == 4 else (*r, 0) for r in requests]
+        if any(a for *_, a in requests):  # multi-LoRA banks: ROADMAP.md, A8
+            raise ValueError("engine has no adapter bank (load_adapter_bank)")
+        return requests
+
+    def admit_many(self, requests) -> List[int]:
+        """Install up to ``num_slots`` requests with one batched prefill.
+        requests: (slot, image, prompt[, adapter]) with distinct free slots
+        (adapter 0: no banks).  Returns each request's first token."""
+        requests = self._check_requests(requests)
+        _, img, ids, mask, _ = self._staging_arrays(requests)
+        return self._admit([slot for slot, *_ in requests], img, ids, mask)
+
+    @torch.inference_mode()
+    def _admit(self, slots, img, ids, mask) -> List[int]:
+        dev, model = self.device, self.loaded.model
+        img, ids, mask = (torch.from_numpy(x).to(dev) for x in (img, ids, mask))
+        a, t = ids.shape
+        small = init_kv_cache(model.cfg.lm, a, t, dev)
+        plens = mask.sum(dim=1).to(torch.int32)
+        hidden = model.prefill(img, ids, mask, small, kv_lens=plens)
+        last = hidden[torch.arange(a, device=dev), (plens.long() - 1).clamp(min=0)]
+        firsts = self._sample(model.language_model.lm_head(last))
+        n = len(slots)
+        sl = torch.tensor(slots, dtype=torch.long, device=dev)
+        for big, sm in zip(self.caches, small):
+            for part in ("k", "v"):
+                big[part][sl, :t] = sm[part][:n]
+        row_masks = torch.zeros((n, self.cache_len), dtype=torch.int32, device=dev)
+        row_masks[:, :t] = mask[:n]
+        self.cache_mask[sl] = row_masks
+        self.seq_lens[sl] = plens[:n]
+        self.last_tok[sl] = firsts[:n]
+        return [int(x) for x in firsts[:n].cpu()]
+
+    @torch.inference_mode()
+    def step(self, active: np.ndarray) -> np.ndarray:
+        """One decode call for all slots; returns [num_slots, steps_per_call]
+        new tokens (tokens past a row's EOS are overshoot: callers cut)."""
+        lm = self.loaded.model.language_model
+        active = torch.as_tensor(np.asarray(active, bool)).to(self.device)
+        rows = torch.arange(self.num_slots, device=self.device)
+        toks = []
+        for _ in range(self.steps_per_call):
+            can_write = active & (self.seq_lens < self.cache_len - 1)
+            pos = self.seq_lens.long()
+            self.cache_mask[rows, pos] = torch.maximum(self.cache_mask[rows, pos],
+                                                       can_write.to(torch.int32))
+            hidden = lm.decode_step(lm.embed(self.last_tok[:, None]), self.caches,
+                                    self.seq_lens, self.cache_mask)
+            self.decode_steps += 1
+            nxt = self._sample(lm.lm_head(hidden[:, 0]))
+            self.seq_lens += can_write.to(torch.int32)
+            self.last_tok = torch.where(can_write, nxt, self.last_tok)
+            toks.append(nxt)
+        return torch.stack(toks, dim=1).cpu().numpy()
 
 
 class _Slot:
@@ -64,9 +181,13 @@ class ContinuousBatcher:
         return p.result
 
     def metrics(self) -> dict:
-        return {**self.stats, "queued": self._q.qsize(),
-                "in_flight": sum(s is not None for s in self._slots),
-                **self.latency.summary()}
+        out = {**self.stats, "queued": self._q.qsize(),
+               "in_flight": sum(s is not None for s in self._slots),
+               **self.latency.summary()}
+        prefilling = getattr(self.engine, "prefilling_slots", None)
+        if prefilling is not None:
+            out["prefilling"] = len(prefilling)
+        return out
 
     def shutdown(self):
         self._stop = True
@@ -88,7 +209,23 @@ class ContinuousBatcher:
         slot.pending.event.set()
         self._slots[i] = None
         self.stats["requests"] += 1
-        self.engine.release(i)
+        self._release(i)
+
+    def _release(self, i: int):
+        """Hand a retired slot back to an engine with reclaimable resources
+        (the paged engine frees the slot's pages)."""
+        rel = getattr(self.engine, "release", None)
+        if rel is not None:
+            rel(i)
+
+    def _install_first(self, slot_i: int, first: int):
+        """Record a request's first token (at admission, or when a chunked
+        admission completes) and retire it if it is already done."""
+        s = self._slots[slot_i]
+        s.tokens.append(first)
+        self._emit(s, first)
+        if self._done(s, first):
+            self._finish(slot_i)
 
     def _done(self, s, last_tok: int) -> bool:
         """EOS, the engine/request token budget, or a stop string in the
@@ -115,7 +252,7 @@ class ContinuousBatcher:
                 s.pending.event.set()
                 self._slots[i] = None
                 try:
-                    self.engine.release(i)
+                    self._release(i)
                 except Exception:  # noqa: BLE001 — engine is already dead
                     pass
         self._stop = True
@@ -148,8 +285,9 @@ class ContinuousBatcher:
                     except queue.Empty:
                         nxt = None
             # page backpressure: admit only the FIFO prefix whose pages fit
-            if incoming:
-                k = eng.admissible_prefix([r.prompt for r in incoming])
+            cap_fn = getattr(eng, "admissible_prefix", None)
+            if incoming and cap_fn is not None:
+                k = cap_fn([r.prompt for r in incoming])
                 if k < len(incoming):
                     held[:0] = incoming[k:]
                     incoming = incoming[:k]
@@ -165,16 +303,26 @@ class ContinuousBatcher:
                         r.event.set()
                     incoming, firsts = [], []
                 for (slot_i, *_), r, first in zip(batch, incoming, firsts):
-                    s = _Slot(r)
-                    self._slots[slot_i] = s
+                    self._slots[slot_i] = _Slot(r)
                     self.stats["admissions"] += 1
-                    s.tokens.append(first)
-                    self._emit(s, first)
-                    if self._done(s, first):
-                        self._finish(slot_i)
+                    if first is not None:  # None: a chunked admission still prefilling
+                        self._install_first(slot_i, first)
             if self._stop:
                 break
-            active = np.asarray([s is not None for s in self._slots], bool)
+            # chunked prefill: one admission chunk per loop, between decode
+            # steps, so in-flight requests stall at most one chunk
+            advance = getattr(eng, "advance_prefill", None)
+            if advance is not None:
+                try:
+                    completions = advance()
+                except Exception as e:  # noqa: BLE001 — same contract as step
+                    self._fail_all(e)
+                    break
+                for slot_i, first in completions:
+                    self._install_first(slot_i, first)
+            prefilling = getattr(eng, "prefilling_slots", frozenset())
+            active = np.asarray([s is not None and i not in prefilling
+                                 for i, s in enumerate(self._slots)], bool)
             if not active.any():
                 continue
             try:
@@ -184,7 +332,7 @@ class ContinuousBatcher:
                 break
             self.stats["steps"] += 1
             for i, s in enumerate(self._slots):
-                if s is None:
+                if s is None or i in prefilling:  # a prefilling slot's row is not live yet
                     continue
                 for t in toks[i]:
                     s.tokens.append(int(t))
@@ -194,4 +342,4 @@ class ContinuousBatcher:
                         break
 
 
-__all__ = ["ContinuousBatcher"]
+__all__ = ["ContinuousBatcher", "ContinuousEngine"]

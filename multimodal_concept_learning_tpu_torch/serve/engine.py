@@ -1,18 +1,33 @@
-"""Host-side request plumbing shared by the serving engines (counterpart of
-multimodal_concept_learning_tpu/serve/engine.py: ``LatencyTracker``,
+"""Whole-batch serving engine and dynamic micro-batching (counterpart of
+multimodal_concept_learning_tpu/serve/engine.py), plus the host-side
+request plumbing every serving engine shares (``LatencyTracker``,
 ``EngineHostAPI``, ``_Pending``, ``truncate_at_stops``).
 
-The whole-batch ``ServingEngine``/``Batcher`` front is not ported yet
-(ROADMAP.md); the port serves through the paged continuous front.
+``ServingEngine`` keeps the JAX engine's fixed shape: every batch is
+padded to ``batch_size`` rows and every prompt to ``max_prompt_len`` text
+tokens (right-padded, the vision placeholders always attended), then one
+generate call runs the whole batch on the loaded model's device: greedy or
+sampled decoding over dense KV caches (``models/mllm.generate``; K1 in
+every prefill and decode attention on the card, K5 in every decode
+projection under ``--int4``), beam search (``models/beam.py``) or
+self-speculative decoding (``models/speculative.py``).  Token budgets,
+EOS and stop strings are cut on the host.
+
+``Batcher`` is the JAX dynamic-batching loop: the worker takes the first
+queued request, waits up to ``max_wait_ms`` for more (up to
+``batch_size``), runs the engine once and hands each row its text.
 """
 
 from __future__ import annotations
 
 import collections
+import queue
 import threading
-from typing import List
+import time
+from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 class LatencyTracker:
@@ -46,9 +61,9 @@ class LatencyTracker:
 
 
 class EngineHostAPI:
-    """Host-side plumbing of the slot-level engines.  Expects ``self.loaded``,
-    ``eos_id``, ``pad_id``, ``max_prompt_len``, ``num_slots``, ``nvt`` and
-    ``prompt_t``."""
+    """Host-side plumbing of the serving engines.  Expects ``self.loaded``,
+    ``eos_id``, ``pad_id`` and ``max_prompt_len``; ``_staging_arrays`` (the
+    slot-level engines') also ``num_slots``, ``nvt`` and ``prompt_t``."""
 
     def preprocess_image(self, pil_image) -> np.ndarray:
         """PIL image (decoded by the HTTP image path, the only one that
@@ -135,4 +150,188 @@ def truncate_at_stops(text: str, stop) -> str:
     return text[:cut].strip()
 
 
-__all__ = ["EngineHostAPI", "LatencyTracker", "truncate_at_stops"]
+class ServingEngine(EngineHostAPI):
+    """Batched text generation over a loaded MLLM (serve/loader.py), one
+    generate call a batch on the model's device."""
+
+    def __init__(self, loaded, batch_size: int = 8, max_new_tokens: int = 8,
+                 max_prompt_len: int = 64, temperature: float = 0.0,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None, seed: int = 0,
+                 num_beams: int = 1, length_penalty: float = 0.0, draft_layers: int = 0,
+                 draft_len: int = 4):
+        from multimodal_concept_learning_tpu_torch.models.beam import beam_generate
+        from multimodal_concept_learning_tpu_torch.models.mllm import generate
+        from multimodal_concept_learning_tpu_torch.models.speculative import (
+            speculative_generate,
+        )
+
+        self.loaded = loaded
+        self.batch_size = batch_size
+        self.max_new_tokens = max_new_tokens
+        self.max_prompt_len = max_prompt_len
+        tok = loaded.tokenizer
+        self.eos_id = getattr(tok, "eos_token_id", None)
+        self.pad_id = getattr(tok, "pad_token_id", 0) or 0
+        self.device = loaded.device
+        self._generator = torch.Generator(device=loaded.device).manual_seed(seed)
+        self._lock = threading.Lock()
+        self.num_beams = num_beams
+        self.draft_layers = draft_layers
+        model = loaded.model
+        common = dict(eos_id=self.eos_id, pad_id=self.pad_id)
+        if draft_layers > 0:
+            # greedy-only (the verify compares argmaxes), whole-model weights
+            if num_beams > 1:
+                raise ValueError("draft_layers excludes num_beams > 1 (the "
+                                 "speculative verify is greedy argmax; beam "
+                                 "search scores full candidate sets)")
+            if temperature > 0.0 or top_k is not None or top_p is not None:
+                raise ValueError("draft_layers implies greedy decoding — it "
+                                 "excludes temperature/top_k/top_p sampling")
+            n_layers = model.cfg.lm.num_layers
+            if not 1 <= draft_layers <= n_layers:
+                raise ValueError(f"draft_layers must be in [1, {n_layers}] "
+                                 f"(the LM's layer count), got {draft_layers}")
+            if draft_len < 2:
+                raise ValueError(f"draft_len must be >= 2 (g-1 proposals per "
+                                 f"verify dispatch), got {draft_len}")
+            self._gen_fn = lambda img, ids, mask: speculative_generate(
+                model, img, ids, mask, max_new_tokens, draft_layers=draft_layers,
+                draft_len=draft_len, **common)
+        elif num_beams > 1:
+            # deterministic width-K search on B*K rows
+            if temperature > 0.0 or top_k is not None or top_p is not None:
+                raise ValueError("num_beams > 1 is deterministic — it "
+                                 "excludes temperature/top_k/top_p sampling")
+            self._gen_fn = lambda img, ids, mask: beam_generate(
+                model, img, ids, mask, max_new_tokens, num_beams,
+                length_penalty=length_penalty, **common)
+        else:
+            self._gen_fn = lambda img, ids, mask: generate(
+                model, img, ids, mask, max_new_tokens, generator=self._generator,
+                temperature=temperature, top_k=top_k, top_p=top_p, **common)
+
+    def _encode_prompts(self, prompts: Sequence[str]):
+        nvt = self.loaded.config.num_vision_tokens
+        t = nvt + self.max_prompt_len
+        ids = np.full((self.batch_size, t), self.pad_id, np.int32)
+        mask = np.zeros((self.batch_size, t), np.int32)
+        mask[:, :nvt] = 1  # vision placeholder tokens always attended
+        for i, p in enumerate(prompts):
+            enc = self.encode_prompt(p)
+            ids[i, nvt:nvt + len(enc)] = enc
+            mask[i, :nvt + len(enc)] = 1
+        return ids, mask
+
+    def generate_tokens(self, images: Sequence[np.ndarray],
+                        prompts: Sequence[str]) -> np.ndarray:
+        """The raw tokens [n, max_new_tokens] of one padded batch (``pad_id``
+        after a row's EOS); ``len(prompts) <= batch_size``.  Thread-safe."""
+        n = len(prompts)
+        if not (n == len(images) and 0 < n <= self.batch_size):
+            raise ValueError(f"generate takes 1..{self.batch_size} (image, prompt) pairs, "
+                             f"got {len(images)} images and {n} prompts")
+        size = self.loaded.config.image_size
+        img = np.zeros((self.batch_size, 3, size, size), np.float32)
+        for i, a in enumerate(images):
+            img[i] = a
+        ids, mask = self._encode_prompts(prompts)
+        with self._lock:
+            out = self._gen_fn(*(torch.from_numpy(x).to(self.device) for x in (img, ids, mask)))
+            return out[:n].cpu().numpy()
+
+    def generate(self, images: Sequence[np.ndarray], prompts: Sequence[str],
+                 adapters: Optional[Sequence[int]] = None,
+                 max_tokens: Optional[Sequence[Optional[int]]] = None,
+                 stop: Optional[Sequence] = None) -> List[str]:
+        """One answer per (image, prompt).  ``images``: preprocessed [3, H, W]
+        arrays; ``max_tokens``: per-request budgets (the batch still decodes
+        the engine's whole budget; the cut is on the host); ``stop``:
+        per-request stop-string lists.  Adapters other than 0 raise (no
+        bank: multi-LoRA banks are ROADMAP.md, A8).  Thread-safe."""
+        if adapters is not None and any(adapters):
+            raise ValueError("engine has no adapter bank (load_adapter_bank)")
+        texts = []
+        for i, row in enumerate(self.generate_tokens(images, prompts)):
+            if max_tokens is not None and max_tokens[i] is not None:
+                row = row[: max(int(max_tokens[i]), 1)]
+            text = self.decode_text(row)
+            if stop is not None:
+                text = truncate_at_stops(text, stop[i])
+            texts.append(text)
+        return texts
+
+
+class Batcher:
+    """Dynamic micro-batching front of a ServingEngine."""
+
+    def __init__(self, engine: ServingEngine, max_wait_ms: float = 20.0):
+        self.engine = engine
+        self.max_wait_s = max_wait_ms / 1000.0
+        self._q: "queue.Queue[_Pending]" = queue.Queue()
+        self.stats = {"requests": 0, "batches": 0}
+        self.latency = LatencyTracker()
+        self._stop = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def submit(self, image: np.ndarray, prompt: str, timeout: float = 300.0,
+               on_token=None, adapter: int = 0, max_tokens=None, stop=None) -> str:
+        """Blocking: enqueue and wait for the generated text.  ``on_token``
+        is accepted as the continuous front takes it but never fires
+        mid-generation (the batch decodes in one engine call)."""
+        p = _Pending(image, prompt, on_token, adapter, max_tokens, stop)
+        t0 = time.monotonic()
+        self._q.put(p)
+        if not p.event.wait(timeout):
+            raise TimeoutError("generation timed out")
+        if p.error is not None:
+            raise p.error
+        self.latency.record(time.monotonic() - t0)
+        return p.result
+
+    def metrics(self) -> dict:
+        return {**self.stats, "queued": self._q.qsize(), **self.latency.summary()}
+
+    def shutdown(self):
+        self._stop = True
+        self._q.put(None)  # wake the worker
+        self._thread.join(timeout=10)
+
+    def _worker(self):
+        while not self._stop:
+            first = self._q.get()
+            if first is None:
+                continue
+            batch = [first]
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < self.engine.batch_size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    break
+                batch.append(nxt)
+            try:
+                texts = self.engine.generate(
+                    [p.image for p in batch], [p.prompt for p in batch],
+                    adapters=[p.adapter for p in batch],
+                    max_tokens=[p.max_tokens for p in batch],
+                    stop=[p.stop for p in batch])
+                for p, t in zip(batch, texts):
+                    p.result = t
+            except Exception as e:  # noqa: BLE001 — surface to every waiter
+                for p in batch:
+                    p.error = e
+            self.stats["requests"] += len(batch)
+            self.stats["batches"] += 1
+            for p in batch:
+                p.event.set()
+
+
+__all__ = ["Batcher", "EngineHostAPI", "LatencyTracker", "ServingEngine",
+           "truncate_at_stops"]

@@ -8,7 +8,11 @@ Slot-level serving over one shared KV page pool (ops/paged_kv.py):
   attention runs the K1 forward kernel on the card;
 - **step** advances every slot ``steps_per_call`` tokens, each decode
   attention a K3 kernel launch per layer on the card (K4 under
-  ``MCL_PAGED_KERNEL=2``); ``decode_steps`` counts the decode steps run;
+  ``MCL_PAGED_KERNEL=2``); ``decode_steps`` counts the decode steps run.
+  ``quant_kv=True`` (HTTP ``--int8_kv``) stores the pool as int8 with
+  per-(token, head) scales: writes quantize, and each decode attention
+  gathers and dequantizes the pages and runs K1 (never K3 or K4), as the
+  JAX engine reads int8 pools through its gather branch;
 - **release** returns a finished request's pages and zeroes its page-table
   row, so the slot's inert decode writes land on the null page.
 
@@ -17,8 +21,7 @@ tokens) lives on the loaded model's device and is updated in place; the
 JAX engine's jitted scan is a Python loop here with the same
 ``can_write``/cap semantics.  Whole-lifetime reservation keeps the decode
 free of mid-flight allocation: the free list is the single backpressure
-point (``admissible_prefix``).  Float pools only (int8 pools are not
-ported yet).  API-compatible with ``ContinuousBatcher``.
+point (``admissible_prefix``).  API-compatible with ``ContinuousBatcher``.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ class PagedContinuousEngine(EngineHostAPI):
                  max_prompt_len: int = 64, page_size: int = 16,
                  num_pages: Optional[int] = None, temperature: float = 0.0,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
-                 seed: int = 0, steps_per_call: int = 1):
+                 seed: int = 0, steps_per_call: int = 1, quant_kv: bool = False):
         self.loaded = loaded
         self.num_slots = num_slots
         self.max_new_tokens = max_new_tokens
@@ -73,7 +76,9 @@ class PagedContinuousEngine(EngineHostAPI):
         dev = self.device = loaded.device
         self._generator = torch.Generator(device=dev).manual_seed(seed)
         lm_cfg = loaded.model.cfg.lm
-        self.pools = init_paged_kv_cache(lm_cfg, num_pages, page_size, device=dev)
+        self.quant_kv = quant_kv
+        self.pools = init_paged_kv_cache(lm_cfg, num_pages, page_size, device=dev,
+                                         quantized=quant_kv)
         i32 = dict(dtype=torch.int32, device=dev)
         self.page_table = torch.zeros((num_slots, self.max_pages_per_seq), **i32)
         self.seq_lens = torch.zeros((num_slots,), **i32)
@@ -197,6 +202,11 @@ class PagedContinuousEngine(EngineHostAPI):
         self._slot_pages[slot] = []
         self.allocator.free(pages)
         self.page_table[slot] = 0
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the KV pools (every layer, k and v, and the scale
+        planes of an int8 pool)."""
+        return sum(t.numel() * t.element_size() for p in self.pools for t in p.values())
 
 
 __all__ = ["PagedContinuousEngine", "PagePoolExhausted"]

@@ -11,19 +11,36 @@ GET  /metrics    -> stats + queue depth + sliding-window latency percentiles
 SIGTERM drains gracefully: new /generate requests get 503, in-flight ones
 finish (up to --drain_grace_s), then the accept loop stops.
 
-The port serves the paged continuous front (serve/paged.py): prefill
-attention runs the K1 forward kernel and every decode step the K3 paged
-attention kernel on the card (K4 under ``MCL_PAGED_KERNEL=2``).  ``--int4``
-serves the LM with int4 weights (every decode-step projection runs the K5
-kernel), ``--int8`` with int8 weights, ``--int8_vision`` the ViT with int8
-weights (combines with either).  The other fronts and options of the JAX
-server are not ported yet and raise NotImplementedError.
+Fronts, chosen as the JAX server chooses them:
+
+- no flag: the whole-batch front (serve/engine.py ``ServingEngine`` +
+  ``Batcher``): requests coalesce for up to ``--max_wait_ms`` into one
+  fixed-shape batch, generated over dense KV caches; ``--num_beams K``
+  runs beam search and ``--draft_layers N`` self-speculative decoding
+  there (and only there);
+- ``--continuous``: the dense continuous front (serve/continuous.py):
+  requests admit into slots and retire one by one, each engine step
+  advances every live slot ``--steps_per_call`` tokens;
+  ``--chunked_prefill N`` admits prompts in N-token chunks between steps
+  (serve/chunked.py);
+- ``--paged``: the paged continuous front (serve/paged.py), K3 in every
+  decode attention (K4 under ``MCL_PAGED_KERNEL=2``); ``--int8_kv`` stores
+  its pool as int8, read through a gather, a dequantize and K1.
+
+Prefill attention runs K1 on the card everywhere, and so does every decode
+attention over dense caches.  ``--int4`` serves the LM with int4 weights
+(every decode-step projection runs K5), ``--int8`` with int8 weights,
+``--int8_vision`` the ViT with int8 weights (combines with either).
+Multi-LoRA banks (``--adapters``) are not ported yet and raise
+NotImplementedError (ROADMAP.md, A8).
 
 Usage:
   python -m multimodal_concept_learning_tpu_torch.serve.server \
-      --results_dir RESULTS --paged [--device cuda] [--port 8077]
-      [--batch_size 8] [--max_new_tokens 8] [--page_size 16]
-      [--int4 | --int8] [--int8_vision]
+      --results_dir RESULTS [--device cuda] [--port 8077] [--batch_size 8]
+      [--max_new_tokens 8] [--int4 | --int8] [--int8_vision]
+      [--num_beams K [--length_penalty A] | --draft_layers N [--draft_len G]]
+      [--continuous [--steps_per_call 4] [--chunked_prefill N]]
+      [--paged [--page_size 16] [--int8_kv]]
 """
 
 from __future__ import annotations
@@ -38,7 +55,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
-_NOT_PORTED = "is not ported to the PyTorch package yet (ROADMAP.md, queue A)"
+_NOT_PORTED = "are not ported to the PyTorch package yet (ROADMAP.md, A8)"
 
 
 def build_app(batcher, drain_state=None):
@@ -103,7 +120,7 @@ def build_app(batcher, drain_state=None):
                     raise KeyError("image_b64 or image_path required")
                 image = batcher.engine.preprocess_image(img)
                 if int(req.get("adapter", 0)):
-                    raise ValueError("adapter banks " + _NOT_PORTED)
+                    raise ValueError("multi-LoRA adapter banks " + _NOT_PORTED)
                 max_tokens = req.get("max_tokens")
                 if max_tokens is not None and int(max_tokens) < 1:
                     raise ValueError("max_tokens must be >= 1")
@@ -171,36 +188,75 @@ def make_server(results_dir: str, port: int = 8077, host: str = "127.0.0.1",
                 int8_kv: bool = False, num_beams: int = 1,
                 length_penalty: float = 0.0, draft_layers: int = 0,
                 draft_len: int = 4, device="cuda", dtype: torch.dtype = torch.bfloat16):
-    """Build (ThreadingHTTPServer, batcher) for the paged front on
-    ``device``; the caller runs serve_forever().  Same signature as the JAX
-    ``make_server`` plus ``device``/``dtype``; every mode but ``paged=True``
-    raises NotImplementedError, and ``int8`` with ``int4`` ValueError.
-    ``max_wait_ms`` and ``length_penalty`` belong to unported fronts and are
-    ignored."""
-    from multimodal_concept_learning_tpu_torch.serve.continuous import ContinuousBatcher
+    """Build (ThreadingHTTPServer, batcher) on ``device``; the caller runs
+    serve_forever().  The JAX ``make_server``'s signature, front selection
+    and ValueErrors, plus ``device``/``dtype``.  ``adapters`` raises
+    NotImplementedError after JAX's own checks."""
     from multimodal_concept_learning_tpu_torch.serve.loader import load_trained_mllm
-    from multimodal_concept_learning_tpu_torch.serve.paged import PagedContinuousEngine
 
-    unported = {
-        "--adapters": adapters, "--chunked_prefill": chunked_prefill,
-        "--int8_kv": int8_kv, "--num_beams > 1": num_beams > 1,
-        "--draft_layers": draft_layers > 0,
-    }
-    for flag, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{flag} {_NOT_PORTED}")
-    if not paged:
-        front = "the dense continuous front" if continuous else "the whole-batch front"
-        raise NotImplementedError(f"{front} {_NOT_PORTED}; serve with paged=True (--paged)")
-
+    if chunked_prefill and (paged or not continuous):
+        raise ValueError("--chunked_prefill requires --continuous (and "
+                         "excludes --paged: the paged front keeps one-shot "
+                         "admission bounded by pool backpressure)")
+    if int8_kv and not paged:
+        raise ValueError("--int8_kv requires --paged (the dense fronts "
+                         "keep full-precision caches)")
+    if num_beams > 1 and (continuous or paged):
+        raise ValueError("--num_beams > 1 runs on the whole-batch front only "
+                         "(beam reorders B*K cache rows each step, which the "
+                         "slot-level engines' in-place row ownership excludes)")
+    if draft_layers > 0 and (continuous or paged):
+        raise ValueError("--draft_layers runs on the whole-batch front only "
+                         "(the draft/verify chunk cadence assumes the whole "
+                         "batch advances together; slot-level engines admit "
+                         "and retire rows mid-chunk)")
+    if adapters:
+        if paged:
+            raise ValueError("multi-LoRA banks exclude --paged "
+                             "(serve a merged checkpoint there instead)")
+        if int4:
+            raise ValueError("multi-LoRA banks support --int8, not --int4 "
+                             "(the vmapped bank transform quantizes the "
+                             "shared base via ops/quant only)")
+        raise NotImplementedError(f"multi-LoRA adapter banks (--adapters) {_NOT_PORTED}")
     loaded = load_trained_mllm(results_dir, checkpoint=checkpoint, int8=int8,
                                int8_vision=int8_vision, int4=int4, device=device, dtype=dtype)
-    engine = PagedContinuousEngine(
-        loaded, num_slots=batch_size, max_new_tokens=max_new_tokens,
-        max_prompt_len=max_prompt_len, page_size=page_size, num_pages=num_pages,
-        temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
-        steps_per_call=steps_per_call)
-    batcher = ContinuousBatcher(engine)
+    sampler = dict(temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+    if paged:
+        from multimodal_concept_learning_tpu_torch.serve.continuous import ContinuousBatcher
+        from multimodal_concept_learning_tpu_torch.serve.paged import PagedContinuousEngine
+
+        engine = PagedContinuousEngine(
+            loaded, num_slots=batch_size, max_new_tokens=max_new_tokens,
+            max_prompt_len=max_prompt_len, page_size=page_size, num_pages=num_pages,
+            steps_per_call=steps_per_call, quant_kv=int8_kv, **sampler)
+        batcher = ContinuousBatcher(engine)
+    elif continuous:
+        from multimodal_concept_learning_tpu_torch.serve.continuous import (
+            ContinuousBatcher,
+            ContinuousEngine,
+        )
+
+        kw = dict(num_slots=batch_size, max_new_tokens=max_new_tokens,
+                  max_prompt_len=max_prompt_len, steps_per_call=steps_per_call, **sampler)
+        if chunked_prefill:
+            from multimodal_concept_learning_tpu_torch.serve.chunked import (
+                ChunkedContinuousEngine,
+            )
+
+            engine = ChunkedContinuousEngine(loaded, chunk_size=chunked_prefill, **kw)
+        else:
+            engine = ContinuousEngine(loaded, **kw)
+        batcher = ContinuousBatcher(engine)
+    else:
+        from multimodal_concept_learning_tpu_torch.serve.engine import Batcher, ServingEngine
+
+        engine = ServingEngine(
+            loaded, batch_size=batch_size, max_new_tokens=max_new_tokens,
+            max_prompt_len=max_prompt_len, num_beams=num_beams,
+            length_penalty=length_penalty, draft_layers=draft_layers, draft_len=draft_len,
+            **sampler)
+        batcher = Batcher(engine, max_wait_ms=max_wait_ms)
     drain_state = {"draining": False, "inflight": 0, "lock": threading.Lock()}
     httpd = ThreadingHTTPServer((host, port), build_app(batcher, drain_state))
     httpd.drain_state = drain_state
@@ -223,6 +279,19 @@ def drain(httpd, grace_s: float = 30.0, poll_s: float = 0.05):
         time.sleep(poll_s)
 
 
+def front_name(args) -> str:
+    """The front ``make_server`` builds for these arguments."""
+    if args.paged:
+        return "paged"
+    if args.continuous:
+        return f"chunked prefill {args.chunked_prefill}" if args.chunked_prefill else "continuous"
+    if args.num_beams > 1:
+        return f"whole-batch, beam search of width {args.num_beams}"
+    if args.draft_layers > 0:
+        return f"whole-batch, self-speculative with {args.draft_layers} draft layers"
+    return "whole-batch"
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--results_dir", type=str, required=True)
@@ -238,21 +307,30 @@ def main(argv=None):
     parser.add_argument("--int8", action="store_true")
     parser.add_argument("--int8_vision", action="store_true")
     parser.add_argument("--int4", action="store_true")
-    parser.add_argument("--continuous", action="store_true")
+    parser.add_argument("--continuous", action="store_true",
+                        help="slot-level continuous batching over dense caches instead of "
+                             "whole-batch coalescing")
     parser.add_argument("--steps_per_call", type=int, default=4,
-                        help="tokens decoded per engine step")
+                        help="continuous and paged fronts: tokens decoded per engine step")
     parser.add_argument("--paged", action="store_true",
-                        help="continuous batching over a shared KV page pool "
-                             "(the only front the port serves)")
+                        help="continuous batching over a shared KV page pool")
     parser.add_argument("--page_size", type=int, default=16)
     parser.add_argument("--num_pages", type=int, default=None)
-    parser.add_argument("--chunked_prefill", type=int, default=0)
-    parser.add_argument("--adapters", type=str, default=None)
-    parser.add_argument("--int8_kv", action="store_true")
-    parser.add_argument("--num_beams", type=int, default=1)
+    parser.add_argument("--chunked_prefill", type=int, default=0,
+                        help="continuous front: admit prompts in N-token chunks between "
+                             "decode steps (0 = one-shot admission)")
+    parser.add_argument("--adapters", type=str, default=None,
+                        help="multi-LoRA banks (not ported yet)")
+    parser.add_argument("--int8_kv", action="store_true",
+                        help="paged front: int8 page pool with per-token scales")
+    parser.add_argument("--num_beams", type=int, default=1,
+                        help="beam-search width (whole-batch front only)")
     parser.add_argument("--length_penalty", type=float, default=0.0)
-    parser.add_argument("--draft_layers", type=int, default=0)
-    parser.add_argument("--draft_len", type=int, default=4)
+    parser.add_argument("--draft_layers", type=int, default=0,
+                        help="self-speculative decoding: the draft's depth (whole-batch "
+                             "front only; greedy)")
+    parser.add_argument("--draft_len", type=int, default=4,
+                        help="speculative chunk size g (g-1 proposals a verify)")
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--top_k", type=int, default=None)
     parser.add_argument("--top_p", type=float, default=None)
@@ -275,9 +353,10 @@ def main(argv=None):
         draft_layers=args.draft_layers, draft_len=args.draft_len,
         device=args.device, dtype=getattr(torch, args.dtype))
     quant = "".join(f", {f}" for f, on in (("int8", args.int8), ("int4", args.int4),
-                                           ("int8_vision", args.int8_vision)) if on)
-    print(f"Serving on http://{args.host}:{args.port} (paged, batch_size={args.batch_size}, "
-          f"device={args.device}{quant})")
+                                           ("int8_vision", args.int8_vision),
+                                           ("int8_kv", args.int8_kv)) if on)
+    print(f"Serving on http://{args.host}:{args.port} ({front_name(args)}, batch_size="
+          f"{args.batch_size}, max_wait_ms={args.max_wait_ms}, device={args.device}{quant})")
 
     import signal
 

@@ -4,6 +4,7 @@ multimodal_concept_learning_tpu/train/generate_answers.py).
     python -m multimodal_concept_learning_tpu_torch.train.generate_answers \\
         --results_dir RESULTS [--checkpoint best_model.pt] [--split test] \\
         [--max_new_tokens 8] [--limit N] [--int4 | --int8 [--int8_vision]] \\
+        [--num_beams K [--length_penalty A] | --draft_layers N [--draft_len G]] \\
         [--device cuda]
 
 Loads a trained results directory (the reference layout) through the
@@ -15,9 +16,9 @@ supervised answer span, and GENERATES the answer over dense KV caches
 answer against the target span.  ``--int4`` runs K5 in every decode
 projection, ``--int8`` the int8 product; ``--device`` (default ``cuda``)
 and ``--dtype`` (default ``bfloat16``, the JAX loader's compute dtype) are
-the port's own.  Beam search (``--num_beams > 1``) and self-speculative
-decoding (``--draft_layers > 0``) are not ported yet and raise
-NotImplementedError (ROADMAP.md, A8), as ImageNet datasets do.
+the port's own.  ``--num_beams K`` decodes by beam search
+(``models/beam.py``) and ``--draft_layers N`` by self-speculative greedy
+decoding (``models/speculative.py``), as the JAX CLI wires them.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ from multimodal_concept_learning_tpu_torch.data.datasets import (
 from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader
 from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 from multimodal_concept_learning_tpu_torch.device import resolve_device
+from multimodal_concept_learning_tpu_torch.models.beam import beam_generate
 from multimodal_concept_learning_tpu_torch.models.mllm import generate
+from multimodal_concept_learning_tpu_torch.models.speculative import speculative_generate
 from multimodal_concept_learning_tpu_torch.ops.losses import IGNORE_INDEX
 from multimodal_concept_learning_tpu_torch.ops.preprocess import images_from_batch
 
@@ -103,13 +106,14 @@ def main(argv=None):
     parser.add_argument("--sample_seed", type=int, default=0,
                         help="seed of the torch.Generator the sampler draws from")
     parser.add_argument("--draft_layers", type=int, default=0,
-                        help=">0: self-speculative greedy decoding (not ported yet)")
-    parser.add_argument("--draft_len", type=int, default=4,
-                        help="speculative draft length (not ported yet: only 4 is taken)")
+                        help=">0: self-speculative greedy decoding with this early-exit "
+                             "draft depth (models/speculative.py)")
+    parser.add_argument("--draft_len", type=int, default=4)
     parser.add_argument("--num_beams", type=int, default=1,
-                        help=">1: beam search of this width (not ported yet)")
+                        help=">1: beam search of this width (models/beam.py; greedy path "
+                             "when 1)")
     parser.add_argument("--length_penalty", type=float, default=0.0,
-                        help="beam search length penalty (not ported yet: only 0 is taken)")
+                        help="beam search: alpha dividing scores by len**a")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--dtype", type=str, default="bfloat16", choices=tuple(DTYPES))
     args = parser.parse_args(argv)
@@ -117,14 +121,6 @@ def main(argv=None):
         parser.error("--draft_layers implies greedy (temperature 0)")
     if args.num_beams > 1 and (args.temperature > 0 or args.draft_layers > 0):
         parser.error("--num_beams implies greedy, non-speculative decoding")
-    # the flags of beam search (models/beam.py) and self-speculative decoding
-    # (models/speculative.py): any other value than the default would be ignored
-    unported = {"--num_beams > 1": args.num_beams > 1, "--draft_layers > 0": args.draft_layers > 0,
-                "--draft_len": args.draft_len != 4, "--length_penalty": args.length_penalty != 0.0}
-    for flag, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{flag} (beam search / self-speculative decoding) is not "
-                                      "ported yet (ROADMAP.md, A8)")
     device = resolve_device(args.device)
 
     from multimodal_concept_learning_tpu_torch.serve.loader import load_trained_mllm
@@ -154,6 +150,21 @@ def main(argv=None):
     eos_id = getattr(tokenizer, "eos_token_id", None)
     pad_id = getattr(tokenizer, "pad_token_id", 0) or 0
     generator = torch.Generator(device=device).manual_seed(args.sample_seed)
+    common = dict(eos_id=eos_id, pad_id=pad_id)
+    if args.num_beams > 1:
+        def gen_fn(images, ids, mask):
+            return beam_generate(model, images, ids, mask, args.max_new_tokens, args.num_beams,
+                                 length_penalty=args.length_penalty, **common)
+    elif args.draft_layers > 0:
+        def gen_fn(images, ids, mask):
+            return speculative_generate(model, images, ids, mask, args.max_new_tokens,
+                                        draft_layers=args.draft_layers,
+                                        draft_len=args.draft_len, **common)
+    else:
+        def gen_fn(images, ids, mask):
+            return generate(model, images, ids, mask, args.max_new_tokens,
+                            generator=generator, temperature=args.temperature,
+                            top_k=args.top_k, top_p=args.top_p, **common)
 
     out_path = args.output or os.path.join(args.results_dir, "generations.jsonl")
     n_done = yes_correct = exact_correct = batches = 0
@@ -163,10 +174,8 @@ def main(argv=None):
             ids, mask = strip_answer_span(
                 batch["input_ids"], batch["attention_mask"], batch["labels"], pad_id)
             t0 = time.perf_counter()
-            gen = generate(model, _images(batch, device), torch.from_numpy(ids),
-                           torch.from_numpy(mask), args.max_new_tokens, eos_id=eos_id,
-                           pad_id=pad_id, generator=generator, temperature=args.temperature,
-                           top_k=args.top_k, top_p=args.top_p).cpu().numpy()
+            gen = gen_fn(_images(batch, device), torch.from_numpy(ids),
+                         torch.from_numpy(mask)).cpu().numpy()
             seconds += time.perf_counter() - t0
             batches += 1
             valid = batch.get("valid", np.ones(gen.shape[0], bool))

@@ -85,3 +85,46 @@ def prompt_batch(cfg, lens, seed: int = 0):
         mask[i, : nvt + n] = 1
     ids[mask == 0] = 0
     return images, ids, mask
+
+
+# the serving tests' requests and the JAX loader at float32 compute
+SERVE_PROMPTS = [
+    "Is the color of the circle red?",
+    "Is the color of the circle green?",
+    "Is the color of the circle blue?",
+    "Is the color of the circle orange?",
+]
+
+
+def circle(rgb, size=32):
+    """[3, size, size] float image in [0, 1] (the ToTensor eval transform), no PIL."""
+    yy, xx = np.mgrid[:size, :size]
+    inside = (xx - size // 2) ** 2 + (yy - size // 2) ** 2 <= (size // 3) ** 2
+    img = np.ones((3, size, size), np.float32)
+    img[:, inside] = np.asarray(rgb, np.float32)[:, None] / 255.0
+    return img
+
+
+SERVE_IMAGES = [circle([255, 0, 0]), circle([0, 255, 0]), circle([0, 0, 255]),
+                circle([255, 128, 0])]
+
+
+def jax_serving_load(results_dir, **quant):
+    """The JAX package's loaded model (serve/loader.py), switched to float32 compute."""
+    from multimodal_concept_learning_tpu.models.mllm import MLLM
+    from multimodal_concept_learning_tpu.serve import load_trained_mllm
+
+    loaded = load_trained_mllm(results_dir, verbose=False, **quant)
+    cfg = loaded.model.config
+    f32 = dataclasses.replace(cfg, dtype=jnp.float32,
+                              vision=dataclasses.replace(cfg.vision, dtype=jnp.float32),
+                              lm=dataclasses.replace(cfg.lm, dtype=jnp.float32))
+    return loaded._replace(model=MLLM(f32))
+
+
+def port_serving_load(results_dir, **quant):
+    """The port's loaded model on the CPU at float32."""
+    from multimodal_concept_learning_tpu_torch.serve.loader import load_trained_mllm
+
+    return load_trained_mllm(results_dir, device="cpu", dtype=torch.float32, verbose=False,
+                             **quant)

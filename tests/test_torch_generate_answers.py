@@ -3,11 +3,10 @@
 Both CLIs read one tiny results dir (vit-t-8 + nano, 32 px, seeded random
 weights written in the reference layout by the port) in float32 on the
 CPU and must write the same ``generations.jsonl`` (greedy) and print the
-same accuracy lines.  Also: the port's refusals (beam search and
-speculative decoding, and their flags off their defaults, raise
-NotImplementedError, as ROADMAP A8 says; the
-JAX parser's own errors; ``--int8 --int4``), and ``strip_answer_span``
-against the JAX function.
+same accuracy lines, greedy and with beam search (``--num_beams``,
+``--length_penalty``) and self-speculative decoding (``--draft_layers``,
+``--draft_len``).  Also: the port's refusals (the JAX parser's own errors;
+``--int8 --int4``), and ``strip_answer_span`` against the JAX function.
 """
 
 import dataclasses
@@ -90,23 +89,31 @@ def _lines(path):
         return [json.loads(line) for line in f]
 
 
-def test_cli_matches_jax(results_dir, tmp_path, monkeypatch, capsys):
+def _both_clis(results_dir, tmp_path, monkeypatch, capsys, extra, limit: int = 5):
+    """Run the JAX CLI and the port's on the same arguments: (JAX result,
+    port result, JAX stdout, port stdout, JAX rows, port rows)."""
     from multimodal_concept_learning_tpu.train.generate_answers import main as jax_main
 
     from multimodal_concept_learning_tpu_torch.train.generate_answers import main
 
-    common = ["--results_dir", results_dir, "--limit", "5", "--max_new_tokens", "3",
-              "--split", "train"]
+    common = ["--results_dir", results_dir, "--limit", str(limit), "--max_new_tokens", "3",
+              "--split", "train", *extra]
     _jax_float32_loader(monkeypatch)
     want = jax_main(common + ["--output", str(tmp_path / "jax.jsonl")])
     jax_out = capsys.readouterr().out
     got = main(common + ["--output", str(tmp_path / "port.jsonl"), "--device", "cpu",
                          "--dtype", "float32"])
     port_out = capsys.readouterr().out
+    return (want, got, jax_out, port_out, _lines(tmp_path / "jax.jsonl"),
+            _lines(tmp_path / "port.jsonl"))
+
+
+def test_cli_matches_jax(results_dir, tmp_path, monkeypatch, capsys):
+    want, got, jax_out, port_out, jax_rows, rows = _both_clis(results_dir, tmp_path,
+                                                              monkeypatch, capsys, [])
     assert got["n"] == want["n"] == 5 and got["batches"] == 2
     assert {k: got[k] for k in want} == want
-    rows = _lines(tmp_path / "port.jsonl")
-    assert rows == _lines(tmp_path / "jax.jsonl")
+    assert rows == jax_rows
     assert len(rows) == 5 and all(r["generated"] for r in rows)
     for prefix in ("Generated answers for 5 samples (train split)", "Yes/No Accuracy:",
                    "Exact-Match Accuracy:"):
@@ -114,11 +121,23 @@ def test_cli_matches_jax(results_dir, tmp_path, monkeypatch, capsys):
         assert line in port_out.splitlines()
 
 
+@pytest.mark.parametrize("extra", [
+    ["--num_beams", "2"],
+    ["--num_beams", "3", "--length_penalty", "0.6"],
+    ["--draft_layers", "1"],
+    ["--draft_layers", "2", "--draft_len", "3"],
+], ids=["beams2", "beams3-penalty", "draft1", "draft2-len3"])
+def test_cli_decoding_modes_match_jax(results_dir, tmp_path, monkeypatch, capsys, extra):
+    """Beam search and self-speculative decoding, as the JAX CLI wires
+    them: the same JSONL rows and accuracies."""
+    want, got, _, port_out, jax_rows, rows = _both_clis(results_dir, tmp_path, monkeypatch,
+                                                        capsys, extra, limit=4)
+    assert {k: got[k] for k in want} == want and got["n"] == 4
+    assert rows == jax_rows and all(r["generated"] for r in rows)
+    assert "Generated answers for 4 samples (train split)" in port_out
+
+
 @pytest.mark.parametrize("extra,error", [
-    (["--num_beams", "2"], NotImplementedError),
-    (["--draft_layers", "2"], NotImplementedError),
-    (["--draft_len", "6"], NotImplementedError),
-    (["--length_penalty", "0.6"], NotImplementedError),
     (["--num_beams", "2", "--temperature", "0.5"], SystemExit),
     (["--draft_layers", "1", "--temperature", "0.5"], SystemExit),
     (["--int8", "--int4"], ValueError),
@@ -126,10 +145,8 @@ def test_cli_matches_jax(results_dir, tmp_path, monkeypatch, capsys):
 def test_cli_refusals(results_dir, extra, error):
     from multimodal_concept_learning_tpu_torch.train.generate_answers import main
 
-    with pytest.raises(error) as info:
+    with pytest.raises(error):
         main(["--results_dir", results_dir, "--device", "cpu"] + extra)
-    if error is NotImplementedError:
-        assert "ROADMAP.md, A8" in str(info.value)
 
 
 def test_strip_answer_span_matches_jax():

@@ -20,6 +20,10 @@ REPO = Path(__file__).resolve().parents[1]
 MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.serve.server",
     "multimodal_concept_learning_tpu_torch.serve.continuous",
+    "multimodal_concept_learning_tpu_torch.serve.chunked",
+    "multimodal_concept_learning_tpu_torch.serve.engine",
+    "multimodal_concept_learning_tpu_torch.models.beam",
+    "multimodal_concept_learning_tpu_torch.models.speculative",
     "multimodal_concept_learning_tpu_torch.serve.paged",
     "multimodal_concept_learning_tpu_torch.serve.loader",
     "multimodal_concept_learning_tpu_torch.models.mllm",

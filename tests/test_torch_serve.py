@@ -5,8 +5,10 @@ Both packages load the same 1-epoch-trained tiny results dir (the
 paged engine must produce exactly the JAX ``PagedContinuousEngine``'s
 greedy tokens, and the port's HTTP server the JAX front's texts; so must
 the quantized models (``int4``; ``int8`` with ``int8_vision``), each side
-quantizing the same float checkpoint.  Also: the unported fronts refuse
-loudly, sampling filters match JAX.
+quantizing the same float checkpoint.  Also: ``make_server`` refuses
+what the JAX server refuses with the same messages, and multi-LoRA banks
+(unported) loudly; sampling filters match JAX.  The other fronts:
+``tests/test_torch_serve_fronts.py``.
 """
 
 import base64
@@ -23,40 +25,13 @@ import numpy as np
 import pytest
 import torch
 
-PROMPTS = [
-    "Is the color of the circle red?",
-    "Is the color of the circle green?",
-    "Is the color of the circle blue?",
-    "Is the color of the circle orange?",
-]
+from _torch_parity import SERVE_IMAGES as IMAGES
+from _torch_parity import SERVE_PROMPTS as PROMPTS
+from _torch_parity import jax_serving_load as _jax_load
+from _torch_parity import port_serving_load
+
 ENGINE_KW = dict(num_slots=4, max_new_tokens=4, max_prompt_len=16, page_size=8,
                  steps_per_call=2)
-
-
-def _circle(rgb, size=32):
-    """[3, size, size] float image in [0, 1] (the ToTensor eval transform), no PIL."""
-    yy, xx = np.mgrid[:size, :size]
-    inside = (xx - size // 2) ** 2 + (yy - size // 2) ** 2 <= (size // 3) ** 2
-    img = np.ones((3, size, size), np.float32)
-    img[:, inside] = np.asarray(rgb, np.float32)[:, None] / 255.0
-    return img
-
-
-IMAGES = [_circle([255, 0, 0]), _circle([0, 255, 0]), _circle([0, 0, 255]),
-          _circle([255, 128, 0])]
-
-
-def _jax_load(results_dir, **quant):
-    """The JAX package's loaded model, switched to float32 compute."""
-    from multimodal_concept_learning_tpu.models.mllm import MLLM
-    from multimodal_concept_learning_tpu.serve import load_trained_mllm
-
-    loaded = load_trained_mllm(results_dir, verbose=False, **quant)
-    cfg = loaded.model.config
-    f32 = dataclasses.replace(cfg, dtype=jnp.float32,
-                              vision=dataclasses.replace(cfg.vision, dtype=jnp.float32),
-                              lm=dataclasses.replace(cfg.lm, dtype=jnp.float32))
-    return loaded._replace(model=MLLM(f32))
 
 
 @pytest.fixture(scope="module")
@@ -66,10 +41,7 @@ def jax_loaded(trained_results_dir):
 
 @pytest.fixture(scope="module")
 def port_loaded(trained_results_dir):
-    from multimodal_concept_learning_tpu_torch.serve.loader import load_trained_mllm
-
-    return load_trained_mllm(trained_results_dir, device="cpu", dtype=torch.float32,
-                             verbose=False)
+    return port_serving_load(trained_results_dir)
 
 
 def test_paged_engine_tokens_match_jax(jax_loaded, port_loaded):
@@ -185,22 +157,34 @@ def test_paged_server_matches_jax_front(jax_loaded, trained_results_dir):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({}, "whole-batch front"),
-    ({"continuous": True}, "dense continuous front"),
-    ({"paged": True, "int4": True, "adapters": ["a"]}, "--adapters"),
-    ({"paged": True, "int8": True, "int8_kv": True}, "--int8_kv"),
-    ({"paged": True, "int8_kv": True}, "--int8_kv"),
-    ({"paged": True, "adapters": ["a"]}, "--adapters"),
-    ({"continuous": True, "chunked_prefill": 8}, "--chunked_prefill"),
-    ({"num_beams": 2}, "--num_beams"),
-    ({"draft_layers": 1}, "--draft_layers"),
+    ({"chunked_prefill": 8}, "requires --continuous"),
+    ({"continuous": True, "adapters": ["a"]}, "--adapters"),
+    ({"continuous": True, "paged": True, "chunked_prefill": 8}, "excludes --paged"),
+    ({"continuous": True, "int8_kv": True}, "requires --paged"),
+    ({"int8": True, "int8_vision": True, "adapters": ["a"]}, "--adapters"),
+    ({"continuous": True, "num_beams": 2}, "whole-batch front only"),
+    ({"paged": True, "draft_layers": 1}, "whole-batch front only"),
+    ({"paged": True, "adapters": ["a"]}, "exclude --paged"),
+    ({"int4": True, "adapters": ["a"]}, "not --int4"),
 ])
 def test_make_server_refuses_unported_modes(tmp_path, kwargs, match):
+    """Multi-LoRA banks are the one front option left unported: they raise
+    NotImplementedError naming the ROADMAP item, after the JAX server's own
+    ValueErrors (``serve/server.py:214-238``), which both packages raise
+    with the same message before any model loads."""
+    from multimodal_concept_learning_tpu.serve.server import make_server as jax_make_server
     from multimodal_concept_learning_tpu_torch.serve.server import make_server
 
-    with pytest.raises(NotImplementedError, match=match) as err:
+    if match == "--adapters":
+        with pytest.raises(NotImplementedError, match=match) as err:
+            make_server(str(tmp_path), device="cpu", **kwargs)
+        assert "ROADMAP.md, A8" in str(err.value)
+        return
+    with pytest.raises(ValueError, match=match) as err:
         make_server(str(tmp_path), device="cpu", **kwargs)
-    assert "ROADMAP.md" in str(err.value)
+    with pytest.raises(ValueError) as jax_err:
+        jax_make_server(str(tmp_path), **kwargs)
+    assert str(err.value) == str(jax_err.value)
 
 
 def test_quantized_server_matches_jax_front(trained_results_dir):
