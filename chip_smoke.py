@@ -109,7 +109,9 @@ Phases (each prints its results; any failure exits non-zero):
     width 1 equal greedy's; exact K1 launch counts, K3, K4 and K5 never;
     the int8-pool paged engine's codes within 1 of the CPU's, its decode
     logits within 0.05 of dense (JAX's bound), its decode attention K1
-    only (no K3 or K4);
+    only (no K3 or K4); beam search on tied scores (``copy_init_ood_rows``
+    over half the vocabulary, widths 2 and 3): the card's tokens and
+    scores are the CPU's, every token the lower of its twins;
 21. serving-fronts slice (run after phase 11, on phase 5's results dir, the
     full model in bf16): ``make_server`` with no front flag (the
     whole-batch front), ``continuous=True``, ``continuous=True,
@@ -117,7 +119,35 @@ Phases (each prints its results; any failure exits non-zero):
     16 threads each: /healthz and /metrics, requests/s, tokens/s, p50
     latency, the longest gap between a request's streamed tokens, launch
     counts (K1 exactly 38 + 26 x 7 a whole batch; K3, K4, K5 never) beside
-    phase 5's, and how many answers equal phase 5's (a count, not a gate).
+    phase 5's, and how many answers equal phase 5's (a count, not a gate);
+22. LoRA parity (run after phase 17; full widths, 2 + 2 layers, float32,
+    rank 8, alpha 16, both factors drawn nonzero): three ``language_lora``
+    micro-steps with accumulation 2 on the card and on the CPU give the
+    same losses and trained tensors (the 28 factors and the projector, all
+    moved), frozen tensors bitwise unchanged, and exactly the K1 forward,
+    dQ and dK/dV launches of the same steps without adapters; the merged
+    forward on the card within 1e-5 (+ 1e-5 relative) of the adapter
+    forward; a bank of
+    three (the identity and two seeded adapters) behind the whole-batch and
+    the dense continuous engines with mixed adapter ids: the card's tokens
+    (and the continuous engine's KV caches, 1e-4) are the CPU's, exact K1
+    counts, K3, K4 and K5 never, and the bank's hidden states are each
+    row's merged adapter model's (1e-4); an int8 bank's tokens on the card
+    are the CPU's;
+23. LoRA slice (run after phase 19, on phase 7's generated data): the
+    trainer CLI on a copy of the 12_colors_3k YAML with
+    ``trainable_params_setting: language_lora`` and ``lm_lora_rank: 8``
+    (the full model, bf16) for one epoch: micro-steps/s, K1 launches a
+    micro-step those of phase 7, factors and projector moved, frozen
+    tensors bitwise; the run served merged on the paged front (K1, K3) and
+    through the answer CLI, float and ``--int4`` (K5 7 x 26 a decode step);
+    a bank of the run and a seeded copy of it on the whole-batch and the
+    dense continuous fronts, 16 requests from 16 threads of adapters 0, 1
+    and 2: /healthz, /metrics, requests/s, p50, K1 exactly 38 + 26 x 7 a
+    whole batch, K3, K4 and K5 never, and how many adapter-1 answers equal
+    the merged server's (a count, not a gate);
+24. the port's multi-LoRA benchmark (``scripts/bench_multi_lora.py``) at
+    its defaults: plain and bank ms a token and fixed cost.
 
 Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
@@ -1492,7 +1522,10 @@ def time_int4(torch, gen, dev, plain: bool = False) -> dict:
                       for k in INT4_KERNELS)
           + "; torch._weight_int4pack_mm "
           + (f"{26 * sum(lib):.4f} ms" if None not in lib else "n/a") + "; bound "
-          f"{26 * sum(r['bound']['bound_ms'] for r in times['K5'].values()):.4f} ms", flush=True)
+          f"{26 * sum(r['bound']['bound_ms'] for r in times['K5'].values()):.4f} ms"
+          + ("; plain (event loops, summed) " + ", ".join(
+              f"{k} {26 * sum(r['plain_ms'] for r in times[k].values()):.3f} ms"
+              for k in INT4_KERNELS) if plain else ""), flush=True)
     return times
 
 
@@ -2030,6 +2063,14 @@ def _parity_model(window: int, data_seed: int):
         lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=window,
                                sliding_window_pattern=2))
     sd = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED)).state_dict()
+    return cfg, sd, _parity_inputs(data_seed)
+
+
+def _parity_inputs(data_seed: int) -> list:
+    """The parity phases' ragged prompt batch [images, ids, mask] (text
+    lengths 64, 40, 17 and 5 after 197 vision tokens) from ``data_seed``."""
+    import torch
+
     rng = np.random.default_rng(data_seed)
     lens = [64, 40, 17, 5]
     t = 197 + max(lens)
@@ -2040,7 +2081,7 @@ def _parity_model(window: int, data_seed: int):
     ids[mask == 0] = 0
     images = np.stack([_circle(c) for c in ([255, 0, 0], [0, 128, 255], [40, 200, 40],
                                             [250, 250, 0])])
-    return cfg, sd, [torch.from_numpy(x) for x in (images, ids, mask)]
+    return [torch.from_numpy(x) for x in (images, ids, mask)]
 
 
 def _dense_hidden(model, inputs) -> list:
@@ -2290,6 +2331,7 @@ def phase_fronts_parity() -> None:
     chunked_same = results["chunked-16"] == results["continuous-4"]
     print(f"[fronts-parity] speculative == greedy, beam-1 == greedy: True; chunked-16 == "
           f"one-shot admission on the card: {chunked_same} (not a gate)", flush=True)
+    _beam_ties(cfg, sd, inputs)
 
     # int8 pools: codes after admission, then the steps' launches
     pools, launched = {}, {}
@@ -2313,6 +2355,36 @@ def phase_fronts_parity() -> None:
           flush=True)
     if not (code_diff <= 1 and 0.0 < drift < 0.05 and launched == want):
         fail(f"fronts parity int8 pools: codes {code_diff}, drift {drift}, launches {launched}")
+
+
+def _beam_ties(cfg, sd, inputs) -> None:
+    """Phase 20's beams on tied scores: ``copy_init_ood_rows`` over half the
+    vocabulary, so token j and its copy j + V/2 take equal logits through
+    the tied head and every top-k ties.  Widths 2 and 3, 4 tokens, no EOS:
+    the card's tokens and scores (1e-4) are the CPU's, and every chosen
+    token is the lower of its twins (``jax.lax.top_k``'s order)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm
+    from multimodal_concept_learning_tpu_torch.models.beam import beam_generate
+    from multimodal_concept_learning_tpu_torch.models.mllm import copy_init_ood_rows
+
+    half = cfg.lm.vocab_size // 2
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = copy_init_ood_rows(build_mllm(cfg, sd, dev), half)
+        out[dev] = {w: beam_generate(model, *inputs, 4, w, return_scores=True) for w in (2, 3)}
+        del model
+    for w in (2, 3):
+        (card, card_scores), (cpu, cpu_scores) = out["cuda"][w], out["cpu"][w]
+        same = torch.equal(card.cpu(), cpu)
+        err = (card_scores.cpu() - cpu_scores).abs().max().item()
+        lower = bool((card < half).all())
+        print(f"[fronts-parity] beam-{w} on tied scores (copy_init_ood_rows over {half} rows): "
+              f"cuda tokens == cpu tokens {same}, scores max abs error {err:.2e}, every token "
+              f"the lower twin {lower}; cuda {card.tolist()}", flush=True)
+        if not (same and err <= 1e-4 and lower):
+            fail(f"beam ties width {w}: cpu {cpu.tolist()}, scores {err}, lower twins {lower}")
 
 
 def _slot_tokens_steps(engine, slots, steps: int) -> dict:
@@ -2400,7 +2472,7 @@ def _kernel_counters() -> dict:
             "int4_matmul": int4_matmul}
 
 
-def _serve(root: str, tag: str, front=None, **quant) -> dict:
+def _serve(root: str, tag: str, front=None, adapters=None, **quant) -> dict:
     """Serve the results dir ``root`` through the port's server
     (``make_server``, batch 8, 8 answer tokens; ``front`` its front flags,
     default the paged front with pages of 16): a warm-up request, then 16
@@ -2408,7 +2480,8 @@ def _serve(root: str, tag: str, front=None, **quant) -> dict:
     run's numbers, its answers and the serving path's launch counts
     (counted from 0 just before the first request).  Tokens are counted as
     they stream; the whole-batch front streams none and decodes each row's
-    whole budget, 8 tokens a request."""
+    whole budget, 8 tokens a request.  With ``adapters`` (a multi-LoRA bank
+    on ``root``) request i asks for adapter i % (len(adapters) + 1)."""
     import http.client
     import threading
 
@@ -2420,9 +2493,10 @@ def _serve(root: str, tag: str, front=None, **quant) -> dict:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     httpd, batcher = make_server(root, port=0, batch_size=8, max_new_tokens=8, page_size=16,
-                                 **front, **quant)
+                                 adapters=adapters, **front, **quant)
+    bank = f", a bank of {batcher.engine.num_adapters} adapters" if adapters else ""
     print(f"[{tag}] served in {time.perf_counter() - t0:.1f} s ({front or 'whole-batch'}, "
-          f"{quant or 'float weights'})", flush=True)
+          f"{quant or 'float weights'}{bank})", flush=True)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     with open(MAPPING) as f:
@@ -2445,6 +2519,7 @@ def _serve(root: str, tag: str, front=None, **quant) -> dict:
         def run(i):
             t = time.perf_counter()
             results[i] = batcher.submit(*requests[i],
+                                        adapter=i % (len(adapters) + 1) if adapters else 0,
                                         on_token=lambda _tok, i=i: stamps[i].append(
                                             time.perf_counter()))
             latency[i] = time.perf_counter() - t
@@ -2604,7 +2679,7 @@ def _answer_k1(tag: str, batches: int, new: int):
             batches * (PROMPT_K1 + per_iter * (new - 1)))
 
 
-def phase_answer_slice(root: str) -> None:
+def phase_answer_slice(root: str, runs=ANSWER_RUNS, prefix: str = "answers") -> dict:
     """Phase 15: the port's answer CLI on phase 7's results dir and data
     (the full 12_colors_3k model trained one epoch, bf16 compute): float,
     ``--int4``, ``--int8 --int8_vision``, beam search of width 4 and
@@ -2615,7 +2690,9 @@ def phase_answer_slice(root: str) -> None:
     beam search; speculative: 13 a draft proposal, 26 a verify, in the range
     of ``_answer_k1``); K5 7 x 26 a decode step under ``--int4``, else 0.
     Prints how many speculative rows equal the float greedy rows (bf16: the
-    chunked verify may round differently; a count, not a gate)."""
+    chunked verify may round differently; a count, not a gate).  ``runs``
+    and ``prefix`` select the runs and tag the lines (phase 23 runs the
+    first two on its LoRA run); returns {tag: generated rows}."""
     import contextlib
     import io
 
@@ -2626,8 +2703,8 @@ def phase_answer_slice(root: str) -> None:
     results = os.path.join(root, "results")
     counters = _kernel_counters()
     new, n = 8, 16
-    runs, rows_of = {}, {}
-    for tag, extra in ANSWER_RUNS:
+    timings, rows_of = {}, {}
+    for tag, extra in runs:
         out_path = os.path.join(root, f"generations_{tag}.jsonl")
         torch.cuda.empty_cache()
         for fn in counters.values():
@@ -2641,7 +2718,7 @@ def phase_answer_slice(root: str) -> None:
         launches = {name: fn.launches for name, fn in counters.items()}
         text = buf.getvalue()
         for line in text.splitlines():
-            print(f"[answers-{tag}] {line}", flush=True)
+            print(f"[{prefix}-{tag}] {line}", flush=True)
         with open(out_path) as f:
             rows = rows_of[tag] = [json.loads(line) for line in f]
         keys = {"prompt", "generated", "target", "yes_no_match", "exact_match"}
@@ -2657,8 +2734,8 @@ def phase_answer_slice(root: str) -> None:
                     and f"Wrote {out_path}" in text)
         rows_ok = (len(rows) == n and all(set(r) == keys and r["target"] for r in rows))
         samples_s, tokens_s = n / res["seconds"], n * new / res["seconds"]
-        runs[tag] = (samples_s, tokens_s, res)
-        print(f"[answers-{tag}] {n} samples x {new} tokens in {batches} batches: generation "
+        timings[tag] = (samples_s, tokens_s, res)
+        print(f"[{prefix}-{tag}] {n} samples x {new} tokens in {batches} batches: generation "
               f"{res['seconds']:.3f} s = {samples_s:.3f} samples/s, {tokens_s:.1f} tokens/s; "
               f"whole CLI {wall:.1f} s; launches {launches} (expected {expected}); rows "
               f"{rows[:2]} ...", flush=True)
@@ -2670,13 +2747,16 @@ def phase_answer_slice(root: str) -> None:
         if not (k1_low <= k1 <= k1_high and launches == expected):
             fail(f"answer slice {tag}: launches K1 {k1} (expected {k1_low}..{k1_high}), "
                  f"{launches} != {expected}")
-    same = sum(a["generated"] == b["generated"]
-               for a, b in zip(rows_of["spec13"], rows_of["float"]))
-    print(f"[answers] speculative rows equal to the float greedy rows: {same} of {n}",
-          flush=True)
-    print("[answers] " + "; ".join(
+    if "spec13" in rows_of:
+        same = sum(a["generated"] == b["generated"]
+                   for a, b in zip(rows_of["spec13"], rows_of["float"]))
+        print(f"[{prefix}] speculative rows equal to the float greedy rows: {same} of {n}",
+              flush=True)
+    print(f"[{prefix}] " + "; ".join(
         f"{tag}: {sps:.3f} samples/s, {tps:.1f} tokens/s, yes/no {res['yes_no_acc']:.2f}%, "
-        f"exact {res['exact_acc']:.2f}%" for tag, (sps, tps, res) in runs.items()), flush=True)
+        f"exact {res['exact_acc']:.2f}%" for tag, (sps, tps, res) in timings.items()),
+        flush=True)
+    return rows_of
 
 
 def phase_ab(report: dict) -> None:
@@ -2822,18 +2902,304 @@ def phase_train_parity() -> None:
         fail(f"training parity launches: cuda {claunch}, cpu {plaunch}")
 
 
+LORA_RANK, LORA_ALPHA = 8, 16.0  # phases 22 and 23
+
+
+def _lora_model(dev: str, rank: int = LORA_RANK):
+    """Phase 22's float32 MLLM (full widths, 2 ViT + 2 LM layers, the LM's
+    first layer sliding at window 64, rank-``rank`` adapters, alpha 16),
+    seeded from SEED with 6 ``<ood>`` rows copied, and its ``b`` factors
+    drawn normal(0.02) too: an adapter in training, where both factors take
+    gradients (at b = 0 the gradient of ``a`` is exactly 0).  Returns (cfg,
+    state dict)."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.models.mllm import (
+        MLLM,
+        MLLMConfig,
+        copy_init_ood_rows,
+    )
+
+    base = MLLMConfig.create(vocab_size=1148, dtype=torch.float32, lm_lora_rank=rank,
+                             lm_lora_alpha=LORA_ALPHA)
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, num_hidden_layers=2),
+        lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=64,
+                               sliding_window_pattern=2))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.device(dev):
+        model = init_random_weights_(MLLM(cfg), gen)
+    copy_init_ood_rows(model, 6)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("_lora.b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    return cfg, {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _adapter_tree(sd: dict, seed: int) -> dict:
+    """A trained-adapter stand-in, as JAX ``tests/test_multi_lora.py``
+    builds it: the adapter surface (LoRA factors, projector) replaced by
+    seeded normal(0.05) values."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops.multi_lora import is_adapter_name
+
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy((0.05 * rng.standard_normal(tuple(v.shape))).astype(np.float32))
+            if is_adapter_name(k) else v for k, v in sd.items()}
+
+
+def _micro_steps(cfg, sd: dict, dev: str, setting: str, batches: list):
+    """Three micro-steps (accumulation 2, lr 5e-4, weight decay 1e-4, clip
+    1) of ``setting`` as the trainer sets them up: (losses, final host state
+    dict, (K1 forward, dQ, dK/dV) launches, mask)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.device import cast_for_compute
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, trainable_mask
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_mllm_train_step,
+    )
+
+    with torch.device(dev):
+        model = MLLM(cfg)
+    model.load_state_dict(sd, strict=True)
+    mask = trainable_mask(model, setting)
+    opt = build_optimizer(model, 5e-4, weight_decay=1e-4, max_grad_norm=1.0,
+                          accumulation_steps=2)
+    cast_for_compute(model, cfg.dtype, only_frozen=True)
+    state, step = TrainState(model=model, optimizer=opt), make_mllm_train_step(model)
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    losses = [float(step(state, to_device(b, dev))[1]["loss"]) for b in batches]
+    return (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            tuple(fn.launches for fn in counters), mask)
+
+
+def _bank_loaded(cfg, state_dicts: list, device: str, int8: bool = False):
+    """A multi-LoRA bank of ``state_dicts`` (entry 0 first) as the serving
+    loader builds it, on ``device``, with the 12_colors_3k tokenizer."""
+    from multimodal_concept_learning_tpu_torch.ops.multi_lora import (
+        is_adapter_name,
+        stack_adapter_params,
+    )
+    from multimodal_concept_learning_tpu_torch.ops.quant import quantize_mllm_params
+
+    bank = stack_adapter_params(state_dicts)
+    if int8:
+        bank, cfg = quantize_mllm_params(bank, vision=False, lm=True), cfg.quantized(int8=True)
+    base = {k: v[0].clone() if is_adapter_name(k) else v for k, v in bank.items()}
+    loaded = _fronts_loaded(cfg, base, device)
+    surface = {k: v.to(device) for k, v in bank.items() if is_adapter_name(k)}
+    return loaded._replace(bank=surface, num_adapters=len(state_dicts))
+
+
+def phase_lora_parity() -> None:
+    """Phase 22: LoRA at full widths and 2 + 2 layers, float32, rank 8.
+    Three ``language_lora`` micro-steps (``_lora_model``: both factors
+    nonzero) on the card and on the CPU give the
+    same losses and trained tensors (the factors and the projector, all
+    moved), frozen tensors bitwise unchanged, and exactly the K1 forward,
+    dQ and dK/dV launches of the same steps without adapters.  The merged
+    forward on the card within 1e-5 (+ 1e-5 relative) of the adapter
+    forward.  A bank of three (the identity and two seeded adapters) behind
+    the whole-batch and the dense continuous engines with mixed adapter ids:
+    the card's tokens are the CPU's and each row's are its adapter's merged
+    model's, K1 exactly as phase 20 counts it and K3, K4, K5 never; then an
+    int8 bank: the card's tokens are the CPU's."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm
+    from multimodal_concept_learning_tpu_torch.ops.lora import merge_lora_params
+    from multimodal_concept_learning_tpu_torch.ops.multi_lora import identity_adapter_params
+    from multimodal_concept_learning_tpu_torch.serve.loader import build_tokenizer, training_config
+
+    with open(MAPPING) as f:
+        labels_mapping = json.load(f)
+    tokenizer, _ = build_tokenizer(training_config(dict(TRAINING_CONFIG,
+                                                        labels_mapping_path=MAPPING)))
+    cfg, sd = _lora_model("cpu")
+    cfg0 = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, lora_rank=0))
+    batches = [_train_batch(tokenizer, labels_mapping, seed=i) for i in range(3)]
+    runs = {dev: _micro_steps(cfg, sd, dev, "language_lora", batches) for dev in ("cuda", "cpu")}
+    plain = _micro_steps(cfg0, {k: v for k, v in sd.items() if "_lora." not in k}, "cuda",
+                         "language_lora", batches)
+    (cl, csd, claunch, mask), (pl, psd, plaunch, _) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, pl))
+    trained = [n for n, t in mask.items() if t]
+    # held as phase 6 holds them: norm-relative, and the largest element
+    # difference in units of the learning rate (Adam's first update is ~lr
+    # per element, whatever the gradient's size)
+    param_err = max(((csd[n] - psd[n]).norm() / psd[n].norm()).item() for n in trained)
+    worst = max((csd[n] - psd[n]).abs().max().item() for n in trained) / 5e-4
+    moved = all(not torch.equal(csd[n], sd[n]) for n in trained)
+    frozen_same = all(torch.equal(csd[n], sd[n]) and torch.equal(psd[n], sd[n])
+                      for n, t in mask.items() if not t)
+    print(f"[lora-parity] language_lora micro-steps: losses cuda {cl} cpu {pl}: max rel err "
+          f"{loss_err:.2e}; {len(trained)} trained tensors (factors + projector): max "
+          f"norm-relative err {param_err:.2e} (largest element difference {worst:.3f} lr), all "
+          f"moved {moved}; frozen bitwise unchanged {frozen_same}; kernel launches (fwd, dq, "
+          f"dkv) cuda {claunch}, without adapters {plain[2]}, cpu {plaunch}", flush=True)
+    if not (loss_err <= 1e-4 and param_err <= 1e-4 and moved and frozen_same
+            and len(trained) == 2 + 2 * 7 * cfg.lm.num_layers):
+        fail("LoRA training parity CUDA vs CPU")
+    if claunch != plain[2] or min(claunch) == 0 or max(plaunch) != 0:
+        fail(f"LoRA training launches {claunch}, without adapters {plain[2]}, cpu {plaunch}")
+
+    adapters = [identity_adapter_params(sd), _adapter_tree(sd, 1), _adapter_tree(sd, 2)]
+    inputs = _parity_inputs(SEED + 5)
+    with torch.inference_mode():
+        lora_h = build_mllm(cfg, adapters[1], "cuda")(*(x.cuda() for x in inputs))
+        merged = build_mllm(cfg0, merge_lora_params(adapters[1], LORA_ALPHA), "cuda")
+        merged_h = merged(*(x.cuda() for x in inputs))
+    diff = (merged_h["hidden_states"] - lora_h["hidden_states"]).abs()
+    excess = (diff - 1e-5 * lora_h["hidden_states"].abs()).max().item()
+    print(f"[lora-parity] merged vs adapter forward on the card: max abs error "
+          f"{diff.max().item():.2e} (max |hidden| {lora_h['hidden_states'].abs().max().item():.2f})"
+          f"; past 1e-5 relative by {excess:.2e}", flush=True)
+    if not excess <= 1e-5:
+        fail(f"merged vs adapter forward: {excess}")
+    del merged, lora_h, merged_h
+    _phase_lora_bank(cfg, cfg0, adapters)
+
+
+def _bank_hidden(model, inputs, rows=None) -> list:
+    """Prefill hidden states [B, T, H] (padding zeroed) and one decode
+    step's [B, 1, H] over dense caches, float32 on the host; under
+    ``rows`` (``bank_rows``' result) each row takes its own adapter."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.models.lm import init_kv_cache
+    from multimodal_concept_learning_tpu_torch.ops.lora import adapter_rows
+
+    dev = next(model.parameters()).device
+    images, ids, mask = (x.to(dev) for x in inputs)
+    lm = model.language_model
+    b, t = ids.shape
+    caches = init_kv_cache(lm.cfg, b, t + 1, dev)
+    seq = mask.sum(dim=1).to(torch.int32)
+    cache_mask = torch.nn.functional.pad(mask.to(torch.int32), (0, 1))
+    cache_mask[torch.arange(b, device=dev), seq.long()] = 1
+    with torch.inference_mode(), adapter_rows(rows or {}):
+        h0 = model.prefill(images, ids, mask, caches, kv_lens=seq) * mask[:, :, None]
+        h1 = lm.decode_step(lm.embed(ids[:, 200:201]), caches, seq, cache_mask)
+    return [h.float().cpu() for h in (h0, h1)]
+
+
+def _phase_lora_bank(cfg, cfg0, adapters: list) -> None:
+    """Phase 22's bank part (see ``phase_lora_parity``).  The random
+    weights decode one token everywhere, so each row's hidden states are
+    held too: under mixed ids, the bank's prefill and decode-step hidden
+    states are each row's merged adapter model's (1e-4 of the largest), and
+    the adapters' rows stand apart from the base's."""
+    import math
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops.lora import merge_lora_params
+    from multimodal_concept_learning_tpu_torch.ops.multi_lora import bank_rows
+    from multimodal_concept_learning_tpu_torch.serve.continuous import ContinuousEngine
+    from multimodal_concept_learning_tpu_torch.serve.engine import ServingEngine
+
+    with open(MAPPING) as f:
+        mapping = list(json.load(f).items())
+    reqs = [(_circle(_rgb(key)), f"Is the color of the circle {name}?")
+            for key, name in mapping[1:5]]
+    ids = [0, 2, 1, 2]
+    v_layers, l_layers, new = cfg.vision.num_hidden_layers, cfg.lm.num_layers, 8
+    counters = _kernel_counters()
+    images, prompts = [r[0] for r in reqs], [r[1] for r in reqs]
+    kw = dict(max_new_tokens=new, max_prompt_len=16)
+    steps = math.ceil((new - 1) / 4)
+    slots = [2, 0, 3, 1]
+    engines = {}
+
+    def whole_batch(ld):
+        return ServingEngine(ld, batch_size=4, **kw).generate_tokens(images, prompts, ids)
+
+    def continuous(ld):
+        eng = engines[ld.device.type] = ContinuousEngine(ld, num_slots=4, steps_per_call=4, **kw)
+        firsts = eng.admit_many([(s, *r, a) for s, r, a in zip(slots, reqs, ids)])
+        toks = _slot_tokens_steps(eng, slots, steps)
+        return np.asarray([[f, *toks[s]][:new] for s, f in zip(slots, firsts)])
+
+    prompt_k1 = v_layers + l_layers
+    for int8 in (False, True):
+        loaded = {dev: _bank_loaded(cfg, adapters, dev, int8=int8) for dev in ("cuda", "cpu")}
+        runs = (("whole-batch", whole_batch, prompt_k1 + (new - 1) * l_layers),
+                ("continuous", continuous, prompt_k1 + steps * 4 * l_layers))
+        for tag, fn, want_k1 in runs[:1] if int8 else runs:
+            for f in counters.values():
+                f.launches = 0
+            card = fn(loaded["cuda"])
+            launched = {n: f.launches for n, f in counters.items()}
+            cpu = fn(loaded["cpu"])
+            want = {"flash_attention_fwd": want_k1, "paged_decode_attention": 0,
+                    "paged_decode_attention_mp": 0, "int4_matmul": 0}
+            same = bool((card == cpu).all())
+            label = f"{'int8 ' if int8 else ''}bank {tag}"
+            print(f"[lora-parity] {label} (adapters {ids}): cuda tokens == cpu tokens {same}; "
+                  f"launches {launched} (expected {want}); cuda {card.tolist()}", flush=True)
+            if not same or launched != want:
+                fail(f"LoRA {label}: cpu {cpu.tolist()}, launches {launched}")
+        if int8:
+            break
+        caches = [max(((c[p].cpu() - g[p]).abs().max() / g[p].abs().max()).item()
+                      for p in ("k", "v"))
+                  for c, g in zip(engines["cuda"].caches, engines["cpu"].caches)]
+        print(f"[lora-parity] bank continuous: KV caches cuda vs cpu, max abs error / max |cpu| "
+              f"by layer {[f'{e:.2e}' for e in caches]}", flush=True)
+        if not max(caches) <= 1e-4:
+            fail(f"LoRA bank continuous caches cuda vs cpu: {caches}")
+        # each row's hidden states on the card: its merged adapter model's
+        inputs = _parity_inputs(SEED + 6)
+        model, bank = loaded["cuda"].model, loaded["cuda"].bank
+        got = _bank_hidden(model, inputs, bank_rows(model, bank, torch.tensor(ids).cuda()))
+        merged = {}
+        for a in sorted(set(ids)):
+            own = _fronts_loaded(cfg0, merge_lora_params(adapters[a], LORA_ALPHA), "cuda")
+            merged[a] = _bank_hidden(own.model, inputs)
+            del own
+        want = [torch.stack([merged[a][i][r] for r, a in enumerate(ids)]) for i in range(2)]
+        errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+        apart = min(((merged[a][1][r] - merged[0][1][r]).abs().max()
+                     / merged[0][1][r].abs().max()).item() for r, a in enumerate(ids) if a)
+        print(f"[lora-parity] bank hidden states on the card vs each row's merged adapter "
+              f"model, max abs error / max |merged| (prefill, decode step): {errs[0]:.2e}, "
+              f"{errs[1]:.2e}; an adapter row's decode step apart from the base's by at least "
+              f"{apart:.2e} of its max", flush=True)
+        if not (max(errs) <= 1e-4 and apart > 1e-2):
+            fail(f"LoRA bank hidden states: errors {errs}, adapters apart {apart}")
+        engines.clear()
+        del loaded, model, bank
+
+
 def _write_config(src: str, root: str, overrides: dict) -> dict:
-    """The YAML ``src`` with the top-level ``overrides`` written into
-    ``root/<name>``; returns {"path", "parsed"}."""
+    """The YAML ``src`` with the top-level ``overrides`` (set, or added
+    where ``src`` lacks them) written into ``root/<name>``; returns
+    {"path", "parsed"}."""
     from multimodal_concept_learning_tpu_torch import miniyaml
 
     with open(src) as f:
         text = f.read()
-    lines = []
+    lines, seen = [], set()
     for line in text.splitlines():
         key = line.split(":", 1)[0]
-        lines.append(f"{key}: {overrides[key]}" if key in overrides and not line.startswith(" ")
-                     else line)
+        top = key in overrides and not line.startswith(" ")
+        seen.update([key] if top else [])
+        lines.append(f"{key}: {overrides[key]}" if top else line)
+    lines += [f"{key}: {value}" for key, value in overrides.items() if key not in seen]
     path = os.path.join(root, os.path.basename(src))
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -2878,10 +3244,11 @@ def _generate_colors(root: str, images_per_color: int) -> tuple:
 
 
 def phase_train_slice(report: dict, root: str, images_per_color: int = 8,
-                      vision_path: str = None) -> None:
+                      vision_path: str = None) -> tuple:
     """The port's trainer CLI on the full 12_colors_3k model, one epoch; its
     vision tower warm-started from ``vision_path`` (phase 18's
-    ``best_model.pt``), which ``initial_model.pt`` must hold bitwise."""
+    ``best_model.pt``), which ``initial_model.pt`` must hold bitwise.
+    Returns the generated data (dataset dir, {split: size})."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.checkpoint import changed_frozen, load_state_dict
@@ -2956,6 +3323,149 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8,
         fail(f"training slice launch counts {launches} != expected {expected}")
     for name, n in launches.items():
         report[name]["launches"] = n
+    return data_dir, sizes
+
+
+MM_CONFIG = os.path.join(REPO, "experiments/multimodal/color/12_colors_3k.yaml")
+
+
+def _lora_adapter_copy(results: str, dst: str, seed: int) -> str:
+    """A copy of the results dir ``results`` (config, tokenizer,
+    ``best_model.pt``) whose LoRA factors and projector carry seeded normal
+    noise (0.02 of their values' scale: another adapter trained from the
+    same base), written by the port's checkpoint writer."""
+    import shutil
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict, save_state_dict
+    from multimodal_concept_learning_tpu_torch.ops.multi_lora import is_adapter_name
+
+    src, out = os.path.join(results, "models"), os.path.join(dst, "models")
+    os.makedirs(out)
+    for name in ("training_config.json", "tokenizer"):
+        (shutil.copytree if name == "tokenizer" else shutil.copy)(
+            os.path.join(src, name), os.path.join(out, name))
+    gen = torch.Generator().manual_seed(seed)
+    sd = load_state_dict(os.path.join(src, "best_model.pt"))
+    save_state_dict({k: v + 0.02 * torch.randn(v.shape, generator=gen) if is_adapter_name(k)
+                     else v for k, v in sd.items()}, os.path.join(out, "best_model.pt"))
+    return dst
+
+
+def phase_lora_slice(root: str, data: tuple) -> None:
+    """Phase 23 (run after phase 19, on phase 7's generated data): the full
+    12_colors_3k model (bf16) trained one epoch by the port's trainer CLI
+    with ``trainable_params_setting: language_lora``, ``lm_lora_rank: 8``
+    (a copy of the YAML under ``root``; vision tower from its seeded init):
+    micro-steps/s, K1 launches a micro-step those of phase 7 (38 forward,
+    26 dQ, 26 dK/dV; 38 an eval batch), the factors and projector moved,
+    the frozen tensors bitwise those of ``initial_model.pt``.  The run
+    served merged on the paged front (K1 and K3 launched, K4 and K5 not);
+    the answer CLI on it, float and ``--int4`` (K5 7 x 26 a decode step).
+    Then a bank of the run and a seeded copy of it on the whole-batch and
+    the dense continuous fronts, 16 requests of adapters 0, 1, 2 in turn:
+    /healthz and /metrics, requests/s and p50; K1 exactly 38 + 26 x 7 a
+    whole batch (at least 38 and 26 a decode step on the continuous front);
+    K3, K4 and K5 never; how many adapter-1 answers equal the merged
+    paged server's (bf16 merged and unmerged weights round apart: a count,
+    not a gate)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import changed_frozen, load_state_dict
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.multimodal_training import main as train_main
+
+    data_dir, sizes = data
+    lora_root = os.path.join(root, "lora")
+    os.makedirs(lora_root)
+    results = os.path.join(lora_root, "results")
+    cfg_path = _write_config(MM_CONFIG, lora_root, {
+        "mapping_path": os.path.join(data_dir, "train_mapping.csv"), "image_root": data_dir,
+        "labels_mapping_path": MAPPING, "results_dir": results, "epochs": "1",
+        "num_workers": "2", "trainable_params_setting": "language_lora",
+        "lm_lora_rank": str(LORA_RANK)})["path"]
+    torch.cuda.empty_cache()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, test_metrics, logged = train_main(["--config_path", cfg_path, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in zip(
+        ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"), counters)}
+    micro = sizes["train"] // 2
+    evals = -(-sizes["val"] // 2) + -(-sizes["test"] // 2)
+    expected = {"flash_attention_fwd": 38 * (micro + evals),
+                "flash_attention_bwd_dq": 26 * micro, "flash_attention_bwd_dkv": 26 * micro}
+    epoch = logged[0]
+    models = os.path.join(results, "models")
+    init_sd = load_state_dict(os.path.join(models, "initial_model.pt"))
+    best_sd = load_state_dict(os.path.join(models, "best_model.pt"))
+    trained = [n for n in init_sd if "_lora." in n or n.startswith("projector.")]
+    moved = all(not torch.equal(init_sd[n], best_sd[n]) for n in trained)
+    frozen_same = all(torch.equal(init_sd[n], best_sd[n]) for n in init_sd if n not in trained)
+    changed_on_card = changed_frozen(state.model, init_sd)
+    del init_sd, best_sd, state
+    finite = all(np.isfinite(epoch[k]) for k in ("train_loss", "val_loss"))
+    steps_per_s = epoch["micro_steps"] / epoch["train_time"]
+    print(f"[lora-train] one epoch of language_lora (rank {LORA_RANK}): {epoch['micro_steps']} "
+          f"micro-steps (batch 2) in {epoch['train_time']:.3f} s: {steps_per_s:.3f} "
+          f"micro-steps/s, {2 * steps_per_s:.3f} samples/s; whole CLI run {wall:.1f} s",
+          flush=True)
+    print(f"[lora-train] train loss {epoch['train_loss']}, val loss {epoch['val_loss']}, test "
+          f"{test_metrics}; kernel launches {launches} (expected {expected}, phase 7's a "
+          f"micro-step and eval batch); {len(trained)} trained tensors moved {moved}; frozen "
+          f"bitwise == initial_model.pt {frozen_same}, changed on the card {changed_on_card}",
+          flush=True)
+    if not (finite and moved and frozen_same and not changed_on_card and len(trained) == 366):
+        fail("LoRA training slice checks")
+    if launches != expected:
+        fail(f"LoRA training slice launch counts {launches} != expected {expected}")
+
+    merged = _serve(results, "lora-paged")  # merged by the loader
+    ml = merged["launches"]
+    if not (ml["flash_attention_fwd"] and ml["paged_decode_attention"]
+            and not ml["paged_decode_attention_mp"] and not ml["int4_matmul"]):
+        fail(f"LoRA merged paged serving launches {ml}")
+    phase_answer_slice(lora_root, runs=ANSWER_RUNS[:2], prefix="lora-answers")
+
+    copy = _lora_adapter_copy(results, os.path.join(lora_root, "adapter2"), SEED + 23)
+    for tag, front in (("whole-batch", {}), ("continuous", {"continuous": True})):
+        run = _serve(results, f"lora-bank-{tag}", front=front, adapters=[results, copy])
+        launches, steps = run["launches"], run["decode_steps"]
+        others = {n: launches[n] for n in ("paged_decode_attention", "paged_decode_attention_mp",
+                                          "int4_matmul")}
+        k1 = launches["flash_attention_fwd"]
+        if tag == "whole-batch":
+            want = run["batches"] * (PROMPT_K1 + LM_LAYERS * 7)
+            ok = k1 == want
+        else:
+            want = f">= {PROMPT_K1} + {LM_LAYERS} x {steps} decode steps"
+            ok = steps > 0 and k1 >= PROMPT_K1 + LM_LAYERS * steps
+        same = sum(run["answers"][i] == merged["answers"][i] for i in range(1, 16, 3))
+        print(f"[lora-bank-{tag}] K1 launches {k1} (expected {want}), others {others}; adapter-1 "
+              f"answers equal to the merged paged server's: {same} of 5", flush=True)
+        if not ok or any(others.values()):
+            fail(f"LoRA bank {tag}: K1 {k1} (expected {want}), others {others}")
+
+
+def phase_multi_lora_bench() -> None:
+    """Phase 24: the port's ``scripts/bench_multi_lora.py`` at its defaults
+    (gemma3-1b, vit-b-16, batch 8, rank 8, a bank of 4, lengths 2, 16 and
+    64): plain and bank ms a token and fixed cost, K1 launched by both."""
+    from multimodal_concept_learning_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_concept_learning_tpu_torch.scripts import bench_multi_lora
+
+    flash_attention.launches = 0
+    res = bench_multi_lora.main(["--device", "cuda"])
+    print(f"[multi-lora-bench] plain {res['plain']['ms_per_token']:.3f} ms/token + "
+          f"{res['plain']['fixed_ms']:.1f} ms fixed; bank {res['bank']['ms_per_token']:.3f} "
+          f"ms/token + {res['bank']['fixed_ms']:.1f} ms fixed; per-token overhead "
+          f"{100 * res['overhead']:+.1f}%; K1 launches {flash_attention.launches}", flush=True)
+    shapes = {k: v.shape for k, v in res["tokens"].items()}
+    if flash_attention.launches == 0 or shapes != {"plain": (8, 64), "bank": (8, 64)}:
+        fail(f"multi-LoRA bench: K1 {flash_attention.launches}, token shapes {shapes}")
 
 
 VISION_CONFIG = os.path.join(REPO, "experiments/vision/color/12_colors_3k.yaml")
@@ -4025,12 +4535,14 @@ def main(argv=None) -> None:
     serving_k1 = report["flash_attention_fwd"]["launches"]
     phase_train_parity()
     phase_vision_parity()
+    phase_lora_parity()
     root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
     try:
         vision_best = phase_vision_slice(report, os.path.join(root, "vision"))
-        phase_train_slice(report, root, vision_path=vision_best)
+        data = phase_train_slice(report, root, vision_path=vision_best)
         phase_answer_slice(root)  # on phase 7's results dir and data
         phase_analysis(root)
+        phase_lora_slice(root, data)  # on phase 7's data
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
@@ -4043,6 +4555,7 @@ def main(argv=None) -> None:
         phase_variant_slice(report, clip_run)  # on phase 9's generated data
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    phase_multi_lora_bench()
     phase_ab(report)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}

@@ -14,8 +14,9 @@
 - ``build_mllm``: an ``MLLM`` on a device from a state dict
   (``load_state_dict(strict=True)``), cast by the device policy.
 - ``init_random_weights_``: seeded random init (the JAX initialisers:
-  normal(0.02) kernels and embeddings, zero biases, unit LayerNorm scales,
-  zero RMSNorm weights; for CLIP also normal(0.01) text positions and
+  normal(0.02) kernels, embeddings and LoRA ``a`` factors, zero biases and
+  LoRA ``b`` factors, unit LayerNorm scales, zero RMSNorm weights; for
+  CLIP also normal(0.01) text positions and
   ``logit_scale`` = log(1/0.07)), for the MLLM and ``CLIPModel``.
 - ``save_results_dir`` / ``load_state_dict``: the reference layout
   ``models/{training_config.json, best_model.pt, tokenizer/}``.
@@ -39,6 +40,7 @@ from torch import nn
 from multimodal_concept_learning_tpu_torch.device import cast_for_compute, resolve_device
 from multimodal_concept_learning_tpu_torch.models.lm import RMSNorm
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
+from multimodal_concept_learning_tpu_torch.ops.lora import LoRAAdapter
 
 
 def _vit_export(rel: str, arr: np.ndarray, patch_size: int):
@@ -100,7 +102,8 @@ _LM_NORMS = ("input_layernorm", "post_attention_layernorm", "pre_feedforward_lay
 def _lm_entry_to_torch(rel: str, arr: np.ndarray):
     """One flax Gemma-style LM param as (HF Gemma name, array)
     (``checkpoint/torch_interop.py:_lm_entry_to_torch`` of the JAX package,
-    without the MoE and LoRA leaves, which the port does not run)."""
+    without the MoE leaves, which the port does not run).  LoRA factors keep
+    their JAX layout under ``<proj>_lora.{a,b}``."""
     parts = rel.split("/")
     if rel == "embed_tokens/embedding":
         return "model.embed_tokens.weight", arr
@@ -113,6 +116,8 @@ def _lm_entry_to_torch(rel: str, arr: np.ndarray):
             return f"{base}.{owner}.{parts[-1]}", arr
         if parts[1] == "self_attn":
             sub = parts[2]
+            if sub.endswith("_lora"):  # [in, r] / [r, out], verbatim
+                return f"{base}.self_attn.{sub}.{parts[3]}", arr
             if sub in ("q_norm", "k_norm"):  # (head_dim,) RMSNorm weights
                 return f"{base}.self_attn.{sub}.weight", arr
             if sub == "o_proj":  # (heads, hd, H)
@@ -121,6 +126,8 @@ def _lm_entry_to_torch(rel: str, arr: np.ndarray):
                 return f"{base}.self_attn.{sub}.weight", arr.reshape(arr.shape[0], -1).T
         if parts[1] in ("gate_proj", "up_proj", "down_proj"):
             return f"{base}.mlp.{parts[1]}.weight", arr.T
+        if parts[1].endswith("_lora"):  # the MLP's LoRA factors, verbatim
+            return f"{base}.mlp.{parts[1]}.{parts[2]}", arr
         if parts[1] in _LM_NORMS:
             return f"{base}.{parts[1]}.weight", arr
     raise KeyError(f"Unmapped LM param: {rel}")
@@ -260,6 +267,8 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator, std: floa
     for mod in model.modules():
         if isinstance(mod, RMSNorm):
             mod.weight.zero_()
+        elif isinstance(mod, LoRAAdapter):
+            mod.reset_parameters(generator, std)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

@@ -8,9 +8,10 @@ of row b are rows b*K .. b*K+K-1), then each step:
    ``CausalLM.decode_step`` (K1 in each layer on the card);
 2. scores the K*V continuations of each row (float32 log-softmax; a
    finished beam may only continue with ``pad_id`` at zero cost);
-3. keeps the top K by total log-probability and reorders the beam state
-   (token history, scores, done flags, lengths, cache mask and every
-   layer's cache) with one row gather (``index_select``).
+3. keeps the top K by total log-probability, the lower index first among
+   equal scores (``jax.lax.top_k``'s order: ``_top_k``), and reorders the
+   beam state (token history, scores, done flags, lengths, cache mask and
+   every layer's cache) with one row gather (``index_select``).
 
 Deterministic: no sampling.  Width 1 is greedy decoding.
 """
@@ -27,6 +28,16 @@ from multimodal_concept_learning_tpu_torch.ops.flash_attention import _NEG
 
 def _log_softmax(lm, hidden: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(lm.lm_head(hidden).float(), dim=-1)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest values of the last axis and their indices, the
+    lower index first among equal values, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` leaves ties in no set order).  Tied logits are
+    common here: ``copy_init_ood_rows`` copies embedding rows and the LM
+    head is tied to the embedding."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 @torch.inference_mode()
@@ -54,7 +65,7 @@ def beam_generate(model, images, input_ids, attention_mask, max_new_tokens: int,
     if k > v:
         raise ValueError("beam width cannot exceed the vocabulary")
 
-    scores, first = torch.topk(logprobs0, k, dim=-1)  # [B, K] both
+    scores, first = _top_k(logprobs0, k)  # [B, K] both
     first = first.to(torch.int32)
     done = (torch.zeros((b, k), dtype=torch.bool, device=dev) if eos_id is None
             else first == eos_id)
@@ -79,7 +90,7 @@ def beam_generate(model, images, input_ids, attention_mask, max_new_tokens: int,
         lp = _log_softmax(lm, h[:, 0]).reshape(b, k, v)
         lp = torch.where(done[:, :, None], done_row, lp)
         cand = scores[:, :, None] + lp  # [B, K, V]
-        scores, flat_idx = torch.topk(cand.reshape(b, k * v), k, dim=-1)
+        scores, flat_idx = _top_k(cand.reshape(b, k * v), k)
         parent = flat_idx // v  # [B, K]
         token = (flat_idx % v).to(torch.int32)
         gather = (base + parent).reshape(b * k)  # rows to keep

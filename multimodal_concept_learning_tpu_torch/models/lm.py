@@ -18,7 +18,9 @@ Every parameter is cast where it is used (``device.linear``), so the model
 trains float32 parameters in the compute dtype.  Serving may quantize the
 seven projections of every block: ``int8_weights`` (``ops/quant.py``) or
 ``int4_weights`` (``ops/int4.py``; a decode step runs the K5 kernel in each
-of them), never both; embedding, head and norms stay float.  Entry points: ``embed``,
+of them), never both; embedding, head and norms stay float.  ``lora_rank``
+adds a LoRA delta (``ops/lora.py``) to each of the seven projections, where
+the JAX module adds it.  Entry points: ``embed``,
 ``hidden_states``, ``prefill_paged`` (fills page pools in place),
 ``decode_step_paged``, ``lm_head``, and the dense-cache surface of the JAX
 module: ``init_kv_cache``, ``prefill``, ``decode_step`` and
@@ -48,6 +50,7 @@ from multimodal_concept_learning_tpu_torch.ops.attention import (
 )
 from multimodal_concept_learning_tpu_torch.ops.flash_attention import _NEG
 from multimodal_concept_learning_tpu_torch.ops.int4 import Int4Linear
+from multimodal_concept_learning_tpu_torch.ops.lora import LoRAAdapter
 from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     paged_decode_attention,
     quantize_kv,
@@ -78,6 +81,10 @@ class LMConfig:
     query_pre_attn_scalar: Optional[float] = None
     int8_weights: bool = False  # serving: int8 projections (ops/quant.py)
     int4_weights: bool = False  # serving: int4 projections through K5 (ops/int4.py)
+    # LoRA (ops/lora.py): rank-r deltas on the seven projections of every
+    # block; 0 = off.  The base projection may be float, int8 or int4.
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -141,6 +148,11 @@ def projection(cfg: LMConfig, in_features: int, out_features: int) -> nn.Module:
     return nn.Linear(in_features, out_features, bias=False)
 
 
+def lora_adapter(cfg: LMConfig, in_features: int, out_features: int) -> LoRAAdapter:
+    """The LoRA delta of one projection, as the config sets it."""
+    return LoRAAdapter(in_features, out_features, cfg.lora_rank, cfg.lora_alpha, cfg.dtype)
+
+
 def init_kv_cache(cfg: LMConfig, batch_size: int, cache_len: int, device) -> tuple:
     """Zero per-layer KV caches for ``CausalLM.prefill`` / ``decode_step``:
     one {"k", "v"} dict per layer, each [B, cache_len, kv_heads, head_dim]
@@ -190,6 +202,11 @@ class LMAttention(nn.Module):
         self.k_proj = projection(cfg, h, cfg.num_kv_heads * d)
         self.v_proj = projection(cfg, h, cfg.num_kv_heads * d)
         self.o_proj = projection(cfg, cfg.num_heads * d, h)
+        if cfg.lora_rank > 0:
+            self.q_proj_lora = lora_adapter(cfg, h, cfg.num_heads * d)
+            self.k_proj_lora = lora_adapter(cfg, h, cfg.num_kv_heads * d)
+            self.v_proj_lora = lora_adapter(cfg, h, cfg.num_kv_heads * d)
+            self.o_proj_lora = lora_adapter(cfg, cfg.num_heads * d, h)
         if cfg.use_qk_norm:
             self.q_norm = RMSNorm(d, cfg.rms_norm_eps)
             self.k_norm = RMSNorm(d, cfg.rms_norm_eps)
@@ -199,12 +216,24 @@ class LMAttention(nn.Module):
     def _qkv(self, x: torch.Tensor, rope: Rope):
         cfg = self.cfg
         b, t, _ = x.shape
-        q = linear(self.q_proj, x, cfg.dtype).view(b, t, cfg.num_heads, cfg.head_dim)
-        k = linear(self.k_proj, x, cfg.dtype).view(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = linear(self.v_proj, x, cfg.dtype).view(b, t, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v = (linear(p, x, cfg.dtype) for p in (self.q_proj, self.k_proj, self.v_proj))
+        if cfg.lora_rank > 0:  # on the projection outputs, before qk-norm and rope (as JAX)
+            q = q + self.q_proj_lora(x)
+            k = k + self.k_proj_lora(x)
+            v = v + self.v_proj_lora(x)
+        q = q.view(b, t, cfg.num_heads, cfg.head_dim)
+        k = k.view(b, t, cfg.num_kv_heads, cfg.head_dim)
+        v = v.view(b, t, cfg.num_kv_heads, cfg.head_dim)
         if cfg.use_qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         return apply_rope(q, rope), apply_rope(k, rope), v
+
+    def _out(self, attn: torch.Tensor) -> torch.Tensor:
+        """o_proj (plus its LoRA delta) of the flattened heads [B, T, heads * D]."""
+        out = linear(self.o_proj, attn, self.cfg.dtype)
+        if self.cfg.lora_rank > 0:
+            out = out + self.o_proj_lora(attn)
+        return out
 
     def forward(self, x, rope: Rope, *, kv_lens=None, window: Optional[int] = None,
                 bias=None, causal: bool = True, pool=None, page_table=None,
@@ -225,7 +254,7 @@ class LMAttention(nn.Module):
             cache["v"][:, :t] = v
         attn = multi_head_attention(q, k, v, bias, scale=self.scale, kv_lens=kv_lens,
                                     causal=causal, window=window)
-        return linear(self.o_proj, attn.reshape(b, t, -1), self.cfg.dtype)
+        return self._out(attn.reshape(b, t, -1))
 
     def decode_paged(self, x, rope: Rope, pool, page_table, seq_lens,
                      window: Optional[int]) -> torch.Tensor:
@@ -239,7 +268,7 @@ class LMAttention(nn.Module):
                                       scale=self.scale, window=window,
                                       pool_k_scale=pool.get("k_scale"),
                                       pool_v_scale=pool.get("v_scale"))
-        return linear(self.o_proj, attn.reshape(b, 1, -1), self.cfg.dtype)
+        return self._out(attn.reshape(b, 1, -1))
 
     def decode_dense(self, x, rope: Rope, cache, slots, bias) -> torch.Tensor:
         """G tokens per row (x [B, G, H]): write their K/V into ``cache`` at
@@ -252,21 +281,34 @@ class LMAttention(nn.Module):
         cache["k"][rows, slots] = k
         cache["v"][rows, slots] = v
         attn = multi_head_attention(q, cache["k"], cache["v"], bias, scale=self.scale)
-        return linear(self.o_proj, attn.reshape(b, g, -1), self.cfg.dtype)
+        return self._out(attn.reshape(b, g, -1))
 
 
 class LMMLP(nn.Module):
     def __init__(self, cfg: LMConfig):
         super().__init__()
         self.dtype = cfg.dtype
-        self.gate_proj = projection(cfg, cfg.hidden_size, cfg.intermediate_size)
-        self.up_proj = projection(cfg, cfg.hidden_size, cfg.intermediate_size)
-        self.down_proj = projection(cfg, cfg.intermediate_size, cfg.hidden_size)
+        self.lora = cfg.lora_rank > 0
+        h, f = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = projection(cfg, h, f)
+        self.up_proj = projection(cfg, h, f)
+        self.down_proj = projection(cfg, f, h)
+        if self.lora:
+            self.gate_proj_lora = lora_adapter(cfg, h, f)
+            self.up_proj_lora = lora_adapter(cfg, h, f)
+            self.down_proj_lora = lora_adapter(cfg, f, h)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        gate = F.gelu(linear(self.gate_proj, h, dt), approximate="tanh")
-        return linear(self.down_proj, gate * linear(self.up_proj, h, dt), dt)
+        gate, up = linear(self.gate_proj, h, dt), linear(self.up_proj, h, dt)
+        if self.lora:
+            gate = gate + self.gate_proj_lora(h)
+            up = up + self.up_proj_lora(h)
+        y = F.gelu(gate, approximate="tanh") * up
+        out = linear(self.down_proj, y, dt)
+        if self.lora:
+            out = out + self.down_proj_lora(y)
+        return out
 
 
 class LMBlock(nn.Module):

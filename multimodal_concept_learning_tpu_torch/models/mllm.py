@@ -8,7 +8,9 @@ spliced in front of the text embeddings by concatenation (the first
 ``generate`` / ``greedy_generate`` (dense KV caches) and ``paged_generate``
 are the JAX functions' decodes as plain loops (beam search and
 self-speculative decoding: ``models/beam.py``, ``models/speculative.py``).  Sampling draws from a
-``torch.Generator``: the same filters as JAX, other random streams.  ``trainable_mask`` sets ``requires_grad`` by state-dict name (the
+``torch.Generator``: the same filters as JAX, other random streams.  Under a
+multi-LoRA bank's ``adapter_rows`` (``ops/multi_lora.py``) the projector
+takes each row's own weights.  ``trainable_mask`` sets ``requires_grad`` by state-dict name (the
 JAX optax mask); when no vision parameter trains, the tower runs under
 ``torch.no_grad()``, so it costs no backward (XLA drops the frozen tower's
 backward in the JAX trainer).
@@ -25,6 +27,7 @@ from torch import nn
 from multimodal_concept_learning_tpu_torch.device import linear
 from multimodal_concept_learning_tpu_torch.models.lm import CausalLM, LMConfig, init_kv_cache
 from multimodal_concept_learning_tpu_torch.models.vit import ViTConfig, ViTEncoder
+from multimodal_concept_learning_tpu_torch.ops.lora import rows_of
 from multimodal_concept_learning_tpu_torch.ops.losses import (
     dense_causal_lm_cross_entropy,
     sparse_answer_cross_entropy,
@@ -49,11 +52,13 @@ class MLLMConfig:
     @classmethod
     def create(cls, vocab_size: int, vision_preset: str = "vit-b-16",
                lm_preset: str = "gemma3-1b", num_vision_tokens: int = 197,
-               image_size: int = 224, max_answer_tokens: int = 8,
+               image_size: int = 224, max_answer_tokens: int = 8, lm_lora_rank: int = 0,
+               lm_lora_alpha: float = 16.0,
                dtype: torch.dtype = torch.bfloat16) -> "MLLMConfig":
         vision = dataclasses.replace(ViTConfig.preset(vision_preset), image_size=image_size,
                                      dtype=dtype)
-        lm = dataclasses.replace(LMConfig.preset(lm_preset, vocab_size=vocab_size), dtype=dtype)
+        lm = dataclasses.replace(LMConfig.preset(lm_preset, vocab_size=vocab_size), dtype=dtype,
+                                 lora_rank=lm_lora_rank, lora_alpha=lm_lora_alpha)
         return cls(vision=vision, lm=lm, num_vision_tokens=num_vision_tokens,
                    max_answer_tokens=max_answer_tokens, dtype=dtype)
 
@@ -87,9 +92,20 @@ class MLLM(nn.Module):
                              f"config expects num_vision_tokens={nvt}")
         return image_embeds
 
+    def _project(self, image_embeds: torch.Tensor) -> torch.Tensor:
+        """The projector, or under a bank's ``adapter_rows`` each row's own
+        (weight [B, out, in], bias [B, out]; product, then bias, as JAX's
+        ``nn.Dense``)."""
+        dt = self.cfg.dtype
+        rows = rows_of(self.projector)
+        if rows is None:
+            return linear(self.projector, image_embeds, dt)
+        weight, bias = rows
+        return torch.bmm(image_embeds.to(dt), weight.to(dt).transpose(1, 2)) + bias.to(dt)[:, None]
+
     def prompt_embeds(self, images: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
         """Vision tower + splice: the [B, T, H] prompt embeddings."""
-        projected = linear(self.projector, self._vision(images), self.cfg.dtype)
+        projected = self._project(self._vision(images))
         text = self.language_model.embed(input_ids[:, self.cfg.num_vision_tokens:])
         return torch.cat([projected.to(text.dtype), text], dim=1)
 
@@ -136,17 +152,18 @@ def _is_trainable(name: str, setting: str) -> bool:
         return tower == "vision_model"
     if setting == "language_only":
         return tower == "language_model"
+    if setting == "language_lora":
+        return tower == "language_model" and any(
+            part.endswith("_lora") for part in name.split("."))
     return tower == "language_model" and ".embed_tokens." in name  # language_embed_only
 
 
 def trainable_mask(model: nn.Module, setting: str) -> Dict[str, bool]:
     """Set ``requires_grad`` by state-dict name (the projector always, plus
-    one tower or the LM embedding) and return {name: trainable}."""
+    one tower, the LM embedding or the LM's LoRA factors) and return
+    {name: trainable}."""
     if setting not in TRAINABLE_SETTINGS:
         raise ValueError(f"Unknown trainable_params_setting: {setting}")
-    if setting == "language_lora":
-        raise NotImplementedError(
-            "language_lora needs the LoRA adapters, not ported yet (ROADMAP.md, queue A)")
     mask = {}
     for name, p in model.named_parameters():
         mask[name] = _is_trainable(name, setting)

@@ -489,7 +489,8 @@ def quantize_lm_params_int4(state_dict: Dict[str, torch.Tensor], root: str = "mo
 def quantize_mllm_lm_params_int4(state_dict: Dict[str, torch.Tensor],
                                  group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
     """An MLLM state dict with its LM tower quantized to int4 (the vision
-    tower and projector as they are; compose with int8 vision)."""
+    tower, projector and any LoRA factors as they are; compose with int8
+    vision).  Serving quantizes merged float weights (serve/loader.py)."""
     return quantize_lm_params_int4(state_dict, "language_model.model.", group_size)
 
 

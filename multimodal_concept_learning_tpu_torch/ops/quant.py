@@ -144,8 +144,9 @@ def quantize_vit_params(state_dict: Dict[str, torch.Tensor], root: str = ""
 
 def quantize_mllm_params(state_dict: Dict[str, torch.Tensor], vision: bool = True,
                          lm: bool = True) -> Dict[str, torch.Tensor]:
-    """An MLLM state dict with the chosen towers int8 (projector and norms
-    stay float)."""
+    """An MLLM state dict with the chosen towers int8 (projector, LoRA
+    factors and norms stay float, untouched: a multi-LoRA bank's stacked
+    factors and projectors keep their leading bank axis)."""
     if lm:
         state_dict = quantize_lm_params(state_dict, "language_model.model.")
     if vision:

@@ -18,7 +18,8 @@ into bounded pieces that the batcher interleaves with decode steps:
    last real position's hidden state and the slot goes live (``seq_lens``,
    ``cache_mask``, ``last_tok``) for the ordinary decode loop.
 
-Dense caches, no adapter bank, one device: the ContinuousEngine's envelope.
+Dense caches and one device, as the ContinuousEngine; a multi-LoRA bank is
+refused, as JAX refuses it.
 """
 
 from __future__ import annotations

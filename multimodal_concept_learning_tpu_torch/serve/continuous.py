@@ -18,6 +18,11 @@ steps_per_call`` slots a row), ``seq_lens``, ``cache_mask`` and
   sacrificial write target of parked and finished rows);
 - **completion** frees a slot at once for the next queued request.
 
+On a multi-LoRA bank (``serve/loader.load_adapter_bank``) each slot keeps
+its request's adapter id: admission prefills each row under its own
+adapter and projector, and each step gathers the live slots' factors once
+for its ``steps_per_call`` tokens (``ops/multi_lora.bank_rows``).
+
 ``ContinuousBatcher`` is the request front over any slot-level engine:
 this one, the chunked-prefill engine (serve/chunked.py: admission returns
 ``None`` first tokens, ``advance_prefill`` completes them, prefilling
@@ -37,6 +42,8 @@ import numpy as np
 import torch
 
 from multimodal_concept_learning_tpu_torch.models.lm import init_kv_cache
+from multimodal_concept_learning_tpu_torch.ops.lora import adapter_rows
+from multimodal_concept_learning_tpu_torch.ops.multi_lora import bank_rows
 from multimodal_concept_learning_tpu_torch.ops.sampling import sample_logits
 from multimodal_concept_learning_tpu_torch.serve.engine import (
     EngineHostAPI,
@@ -78,6 +85,9 @@ class ContinuousEngine(EngineHostAPI):
         self.cache_mask = torch.zeros((num_slots, self.cache_len), **i32)
         self.last_tok = torch.zeros((num_slots,), **i32)
         self.decode_steps = 0  # decode_step calls (one per pass of the layer stack)
+        # multi-LoRA bank: each slot's adapter id (host side)
+        self.num_adapters = getattr(loaded, "num_adapters", 0)
+        self.adapter_ids = np.zeros((num_slots,), np.int32)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample_logits(logits, self._generator, **self._sampler)
@@ -86,26 +96,42 @@ class ContinuousEngine(EngineHostAPI):
         if not 0 < len(requests) <= self.num_slots:
             raise ValueError(f"admit 1..{self.num_slots} requests, got {len(requests)}")
         requests = [r if len(r) == 4 else (*r, 0) for r in requests]
-        if any(a for *_, a in requests):  # multi-LoRA banks: ROADMAP.md, A8
+        if any(a for *_, a in requests) and not self.num_adapters:
             raise ValueError("engine has no adapter bank (load_adapter_bank)")
+        for *_, a in requests:
+            if not 0 <= a < max(self.num_adapters, 1):
+                raise ValueError(f"adapter {a} out of range")
         return requests
+
+    def _rows(self, adapter_ids, projector: bool = True) -> dict:
+        """``adapter_rows``' argument for rows under ``adapter_ids`` (empty
+        without a bank: every module keeps its own weights)."""
+        if not self.num_adapters:
+            return {}
+        idx = torch.as_tensor(np.asarray(adapter_ids, np.int64)).to(self.device)
+        return bank_rows(self.loaded.model, self.loaded.bank, idx, projector=projector)
 
     def admit_many(self, requests) -> List[int]:
         """Install up to ``num_slots`` requests with one batched prefill.
         requests: (slot, image, prompt[, adapter]) with distinct free slots
-        (adapter 0: no banks).  Returns each request's first token."""
+        (adapter: an id of the engine's bank, 0 without one).  Returns each
+        request's first token."""
         requests = self._check_requests(requests)
-        _, img, ids, mask, _ = self._staging_arrays(requests)
-        return self._admit([slot for slot, *_ in requests], img, ids, mask)
+        a, img, ids, mask, _ = self._staging_arrays(requests)
+        aidx = np.zeros((a,), np.int32)
+        for i, (slot, *_, adapter) in enumerate(requests):
+            aidx[i] = self.adapter_ids[slot] = adapter
+        return self._admit([slot for slot, *_ in requests], img, ids, mask, aidx)
 
     @torch.inference_mode()
-    def _admit(self, slots, img, ids, mask) -> List[int]:
+    def _admit(self, slots, img, ids, mask, aidx) -> List[int]:
         dev, model = self.device, self.loaded.model
         img, ids, mask = (torch.from_numpy(x).to(dev) for x in (img, ids, mask))
         a, t = ids.shape
         small = init_kv_cache(model.cfg.lm, a, t, dev)
         plens = mask.sum(dim=1).to(torch.int32)
-        hidden = model.prefill(img, ids, mask, small, kv_lens=plens)
+        with adapter_rows(self._rows(aidx)):
+            hidden = model.prefill(img, ids, mask, small, kv_lens=plens)
         last = hidden[torch.arange(a, device=dev), (plens.long() - 1).clamp(min=0)]
         firsts = self._sample(model.language_model.lm_head(last))
         n = len(slots)
@@ -128,13 +154,15 @@ class ContinuousEngine(EngineHostAPI):
         active = torch.as_tensor(np.asarray(active, bool)).to(self.device)
         rows = torch.arange(self.num_slots, device=self.device)
         toks = []
+        lora_rows = self._rows(self.adapter_ids, projector=False)  # once for the whole call
         for _ in range(self.steps_per_call):
             can_write = active & (self.seq_lens < self.cache_len - 1)
             pos = self.seq_lens.long()
             self.cache_mask[rows, pos] = torch.maximum(self.cache_mask[rows, pos],
                                                        can_write.to(torch.int32))
-            hidden = lm.decode_step(lm.embed(self.last_tok[:, None]), self.caches,
-                                    self.seq_lens, self.cache_mask)
+            with adapter_rows(lora_rows):
+                hidden = lm.decode_step(lm.embed(self.last_tok[:, None]), self.caches,
+                                        self.seq_lens, self.cache_mask)
             self.decode_steps += 1
             nxt = self._sample(lm.lm_head(hidden[:, 0]))
             self.seq_lens += can_write.to(torch.int32)

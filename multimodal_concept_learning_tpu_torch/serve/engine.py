@@ -10,8 +10,11 @@ generate call runs the whole batch on the loaded model's device: greedy or
 sampled decoding over dense KV caches (``models/mllm.generate``; K1 in
 every prefill and decode attention on the card, K5 in every decode
 projection under ``--int4``), beam search (``models/beam.py``) or
-self-speculative decoding (``models/speculative.py``).  Token budgets,
-EOS and stop strings are cut on the host.
+self-speculative decoding (``models/speculative.py``).  On a multi-LoRA
+bank (``serve/loader.load_adapter_bank``) each request names its adapter
+and the batch generates through ``ops/multi_lora.multi_lora_generate``
+(the same K1 path; the per-row adapter products run beside the base's).
+Token budgets, EOS and stop strings are cut on the host.
 
 ``Batcher`` is the JAX dynamic-batching loop: the worker takes the first
 queued request, waits up to ``max_wait_ms`` for more (up to
@@ -133,7 +136,7 @@ class _Pending:
         self.result = None
         self.error = None
         self.on_token = on_token  # streaming hook: each raw token id as produced
-        self.adapter = adapter  # multi-LoRA adapter id (0 = base; banks not ported)
+        self.adapter = adapter  # multi-LoRA adapter id (bank engines; 0 = raw base)
         self.max_tokens = max_tokens  # per-request token budget (<= the engine's)
         self.stop = stop  # stop strings: earliest occurrence truncates
 
@@ -164,6 +167,7 @@ class ServingEngine(EngineHostAPI):
         from multimodal_concept_learning_tpu_torch.models.speculative import (
             speculative_generate,
         )
+        from multimodal_concept_learning_tpu_torch.ops.multi_lora import multi_lora_generate
 
         self.loaded = loaded
         self.batch_size = batch_size
@@ -175,6 +179,8 @@ class ServingEngine(EngineHostAPI):
         self.device = loaded.device
         self._generator = torch.Generator(device=loaded.device).manual_seed(seed)
         self._lock = threading.Lock()
+        # multi-LoRA bank: requests pick adapters per row
+        self.num_adapters = getattr(loaded, "num_adapters", 0)
         self.num_beams = num_beams
         self.draft_layers = draft_layers
         model = loaded.model
@@ -188,6 +194,11 @@ class ServingEngine(EngineHostAPI):
             if temperature > 0.0 or top_k is not None or top_p is not None:
                 raise ValueError("draft_layers implies greedy decoding — it "
                                  "excludes temperature/top_k/top_p sampling")
+            if self.num_adapters:
+                raise ValueError("draft_layers excludes multi-LoRA banks "
+                                 "(the draft/verify chunk programs take a "
+                                 "single param tree; serve a merged "
+                                 "checkpoint instead)")
             n_layers = model.cfg.lm.num_layers
             if not 1 <= draft_layers <= n_layers:
                 raise ValueError(f"draft_layers must be in [1, {n_layers}] "
@@ -195,7 +206,7 @@ class ServingEngine(EngineHostAPI):
             if draft_len < 2:
                 raise ValueError(f"draft_len must be >= 2 (g-1 proposals per "
                                  f"verify dispatch), got {draft_len}")
-            self._gen_fn = lambda img, ids, mask: speculative_generate(
+            self._gen_fn = lambda img, ids, mask, aidx: speculative_generate(
                 model, img, ids, mask, max_new_tokens, draft_layers=draft_layers,
                 draft_len=draft_len, **common)
         elif num_beams > 1:
@@ -203,13 +214,24 @@ class ServingEngine(EngineHostAPI):
             if temperature > 0.0 or top_k is not None or top_p is not None:
                 raise ValueError("num_beams > 1 is deterministic — it "
                                  "excludes temperature/top_k/top_p sampling")
-            self._gen_fn = lambda img, ids, mask: beam_generate(
+            if self.num_adapters:
+                raise ValueError("num_beams > 1 excludes multi-LoRA banks "
+                                 "(beam tiles the KV cache to B*K rows; the "
+                                 "bank vmap does not compose — serve a "
+                                 "merged checkpoint instead)")
+            self._gen_fn = lambda img, ids, mask, aidx: beam_generate(
                 model, img, ids, mask, max_new_tokens, num_beams,
                 length_penalty=length_penalty, **common)
         else:
-            self._gen_fn = lambda img, ids, mask: generate(
-                model, img, ids, mask, max_new_tokens, generator=self._generator,
-                temperature=temperature, top_k=top_k, top_p=top_p, **common)
+            sampler = dict(generator=self._generator, temperature=temperature, top_k=top_k,
+                           top_p=top_p, **common)
+            if self.num_adapters:
+                self._gen_fn = lambda img, ids, mask, aidx: multi_lora_generate(
+                    model, loaded.bank, aidx, img, ids, mask, max_new_tokens=max_new_tokens,
+                    **sampler)
+            else:
+                self._gen_fn = lambda img, ids, mask, aidx: generate(
+                    model, img, ids, mask, max_new_tokens, **sampler)
 
     def _encode_prompts(self, prompts: Sequence[str]):
         nvt = self.loaded.config.num_vision_tokens
@@ -223,21 +245,37 @@ class ServingEngine(EngineHostAPI):
             mask[i, :nvt + len(enc)] = 1
         return ids, mask
 
-    def generate_tokens(self, images: Sequence[np.ndarray],
-                        prompts: Sequence[str]) -> np.ndarray:
+    def _adapter_ids(self, adapters: Optional[Sequence[int]]) -> np.ndarray:
+        """Each row's adapter id [batch_size] (padding rows 0), with the JAX
+        engine's checks."""
+        aidx = np.zeros((self.batch_size,), np.int32)
+        if self.num_adapters:
+            for i, a in enumerate(adapters if adapters is not None else []):
+                if not 0 <= a < self.num_adapters:
+                    raise ValueError(f"adapter {a} out of range")
+                aidx[i] = a
+        elif adapters is not None and any(adapters):
+            raise ValueError("engine has no adapter bank (load_adapter_bank)")
+        return aidx
+
+    def generate_tokens(self, images: Sequence[np.ndarray], prompts: Sequence[str],
+                        adapters: Optional[Sequence[int]] = None) -> np.ndarray:
         """The raw tokens [n, max_new_tokens] of one padded batch (``pad_id``
-        after a row's EOS); ``len(prompts) <= batch_size``.  Thread-safe."""
+        after a row's EOS); ``len(prompts) <= batch_size``; ``adapters``:
+        each request's adapter id (bank engines).  Thread-safe."""
         n = len(prompts)
         if not (n == len(images) and 0 < n <= self.batch_size):
             raise ValueError(f"generate takes 1..{self.batch_size} (image, prompt) pairs, "
                              f"got {len(images)} images and {n} prompts")
+        aidx = self._adapter_ids(adapters)
         size = self.loaded.config.image_size
         img = np.zeros((self.batch_size, 3, size, size), np.float32)
         for i, a in enumerate(images):
             img[i] = a
         ids, mask = self._encode_prompts(prompts)
         with self._lock:
-            out = self._gen_fn(*(torch.from_numpy(x).to(self.device) for x in (img, ids, mask)))
+            out = self._gen_fn(*(torch.from_numpy(x).to(self.device)
+                                 for x in (img, ids, mask, aidx)))
             return out[:n].cpu().numpy()
 
     def generate(self, images: Sequence[np.ndarray], prompts: Sequence[str],
@@ -247,12 +285,11 @@ class ServingEngine(EngineHostAPI):
         """One answer per (image, prompt).  ``images``: preprocessed [3, H, W]
         arrays; ``max_tokens``: per-request budgets (the batch still decodes
         the engine's whole budget; the cut is on the host); ``stop``:
-        per-request stop-string lists.  Adapters other than 0 raise (no
-        bank: multi-LoRA banks are ROADMAP.md, A8).  Thread-safe."""
-        if adapters is not None and any(adapters):
-            raise ValueError("engine has no adapter bank (load_adapter_bank)")
+        per-request stop-string lists; ``adapters``: per-request adapter ids
+        (bank engines; default 0, the raw base; a bankless engine refuses any
+        other).  Thread-safe."""
         texts = []
-        for i, row in enumerate(self.generate_tokens(images, prompts)):
+        for i, row in enumerate(self.generate_tokens(images, prompts, adapters)):
             if max_tokens is not None and max_tokens[i] is not None:
                 row = row[: max(int(max_tokens[i]), 1)]
             text = self.decode_text(row)

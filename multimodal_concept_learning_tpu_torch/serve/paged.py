@@ -22,6 +22,8 @@ JAX engine's jitted scan is a Python loop here with the same
 ``can_write``/cap semantics.  Whole-lifetime reservation keeps the decode
 free of mid-flight allocation: the free list is the single backpressure
 point (``admissible_prefix``).  API-compatible with ``ContinuousBatcher``.
+Multi-LoRA banks are refused, as JAX refuses them: a ``language_lora``
+run is served here merged.
 """
 
 from __future__ import annotations
@@ -49,6 +51,12 @@ class PagedContinuousEngine(EngineHostAPI):
                  num_pages: Optional[int] = None, temperature: float = 0.0,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  seed: int = 0, steps_per_call: int = 1, quant_kv: bool = False):
+        if getattr(loaded, "num_adapters", 0):
+            raise ValueError(
+                "the paged front does not support multi-LoRA banks — serve "
+                "a bank through the dense fronts (ServingEngine or "
+                "ContinuousEngine), or merge one adapter for paged serving")
+        self.num_adapters = 0
         self.loaded = loaded
         self.num_slots = num_slots
         self.max_new_tokens = max_new_tokens

@@ -3,6 +3,7 @@
 POST /generate   {"prompt": str, "image_b64": <base64 image file>} or
                  {"prompt": str, "image_path": <server-local path>}
                  optional: "max_tokens": N, "stop": str|[str],
+                 "adapter": i (multi-LoRA banks: 0 = raw base),
                  "stream": true (NDJSON tokens)   -> {"text": str}
 GET  /healthz    -> {"ok": true, "draining": false, "requests": N, ...}
 GET  /metrics    -> stats + queue depth + sliding-window latency percentiles
@@ -31,8 +32,12 @@ Prefill attention runs K1 on the card everywhere, and so does every decode
 attention over dense caches.  ``--int4`` serves the LM with int4 weights
 (every decode-step projection runs K5), ``--int8`` with int8 weights,
 ``--int8_vision`` the ViT with int8 weights (combines with either).
-Multi-LoRA banks (``--adapters``) are not ported yet and raise
-NotImplementedError (ROADMAP.md, A8).
+A ``language_lora`` results dir is served with its adapter merged into the
+base weights.  ``--adapters DIR1,DIR2`` serves a multi-LoRA bank on the
+``language_lora`` run of ``--results_dir`` (``serve/loader.load_adapter_bank``:
+adapter 0 the raw base, i the i-th dir) through the whole-batch or the
+dense continuous front; each request picks its adapter with ``"adapter"``.
+Banks take ``--int8`` (the shared base) but not ``--int4`` or ``--paged``.
 
 Usage:
   python -m multimodal_concept_learning_tpu_torch.serve.server \
@@ -40,7 +45,7 @@ Usage:
       [--max_new_tokens 8] [--int4 | --int8] [--int8_vision]
       [--num_beams K [--length_penalty A] | --draft_layers N [--draft_len G]]
       [--continuous [--steps_per_call 4] [--chunked_prefill N]]
-      [--paged [--page_size 16] [--int8_kv]]
+      [--paged [--page_size 16] [--int8_kv]] [--adapters DIR1,DIR2]
 """
 
 from __future__ import annotations
@@ -54,8 +59,6 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
-
-_NOT_PORTED = "are not ported to the PyTorch package yet (ROADMAP.md, A8)"
 
 
 def build_app(batcher, drain_state=None):
@@ -119,8 +122,10 @@ def build_app(batcher, drain_state=None):
                 else:
                     raise KeyError("image_b64 or image_path required")
                 image = batcher.engine.preprocess_image(img)
-                if int(req.get("adapter", 0)):
-                    raise ValueError("multi-LoRA adapter banks " + _NOT_PORTED)
+                adapter = int(req.get("adapter", 0))
+                n_bank = getattr(batcher.engine, "num_adapters", 0)
+                if adapter and not 0 <= adapter < max(n_bank, 1):
+                    raise ValueError(f"adapter {adapter} out of range (bank size {n_bank})")
                 max_tokens = req.get("max_tokens")
                 if max_tokens is not None and int(max_tokens) < 1:
                     raise ValueError("max_tokens must be >= 1")
@@ -131,16 +136,17 @@ def build_app(batcher, drain_state=None):
                 self._reply(400, {"error": str(e)})
                 return
             if req.get("stream"):
-                self._stream(image, prompt, max_tokens, stop)
+                self._stream(image, prompt, adapter, max_tokens, stop)
                 return
             try:
-                text = batcher.submit(image, prompt, max_tokens=max_tokens, stop=stop)
+                text = batcher.submit(image, prompt, adapter=adapter, max_tokens=max_tokens,
+                                      stop=stop)
             except Exception as e:  # noqa: BLE001 — generation failure
                 self._reply(500, {"error": str(e)})
                 return
             self._reply(200, {"text": text})
 
-        def _stream(self, image, prompt, max_tokens=None, stop=None):
+        def _stream(self, image, prompt, adapter=0, max_tokens=None, stop=None):
             """NDJSON: one {"token_id": N} line per generated token, then
             {"done": true, "text": ...}; the connection closes at the end."""
             import queue as _queue
@@ -151,7 +157,8 @@ def build_app(batcher, drain_state=None):
             def run():
                 try:
                     holder["text"] = batcher.submit(image, prompt, on_token=tq.put,
-                                                    max_tokens=max_tokens, stop=stop)
+                                                    adapter=adapter, max_tokens=max_tokens,
+                                                    stop=stop)
                 except Exception as e:  # noqa: BLE001
                     holder["error"] = str(e)
                 tq.put(None)
@@ -190,9 +197,13 @@ def make_server(results_dir: str, port: int = 8077, host: str = "127.0.0.1",
                 draft_len: int = 4, device="cuda", dtype: torch.dtype = torch.bfloat16):
     """Build (ThreadingHTTPServer, batcher) on ``device``; the caller runs
     serve_forever().  The JAX ``make_server``'s signature, front selection
-    and ValueErrors, plus ``device``/``dtype``.  ``adapters`` raises
-    NotImplementedError after JAX's own checks."""
-    from multimodal_concept_learning_tpu_torch.serve.loader import load_trained_mllm
+    and ValueErrors, plus ``device``/``dtype``.  ``adapters``: results dirs
+    of a multi-LoRA bank on ``results_dir``'s base (requests pick one with
+    {"adapter": i}, 0 = raw base, i = the i-th dir)."""
+    from multimodal_concept_learning_tpu_torch.serve.loader import (
+        load_adapter_bank,
+        load_trained_mllm,
+    )
 
     if chunked_prefill and (paged or not continuous):
         raise ValueError("--chunked_prefill requires --continuous (and "
@@ -218,9 +229,12 @@ def make_server(results_dir: str, port: int = 8077, host: str = "127.0.0.1",
             raise ValueError("multi-LoRA banks support --int8, not --int4 "
                              "(the vmapped bank transform quantizes the "
                              "shared base via ops/quant only)")
-        raise NotImplementedError(f"multi-LoRA adapter banks (--adapters) {_NOT_PORTED}")
-    loaded = load_trained_mllm(results_dir, checkpoint=checkpoint, int8=int8,
-                               int8_vision=int8_vision, int4=int4, device=device, dtype=dtype)
+        loaded = load_adapter_bank(results_dir, adapters, checkpoint=checkpoint, int8=int8,
+                                   int8_vision=int8_vision, device=device, dtype=dtype)
+    else:
+        loaded = load_trained_mllm(results_dir, checkpoint=checkpoint, int8=int8,
+                                   int8_vision=int8_vision, int4=int4, device=device,
+                                   dtype=dtype)
     sampler = dict(temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
     if paged:
         from multimodal_concept_learning_tpu_torch.serve.continuous import ContinuousBatcher
@@ -320,7 +334,9 @@ def main(argv=None):
                         help="continuous front: admit prompts in N-token chunks between "
                              "decode steps (0 = one-shot admission)")
     parser.add_argument("--adapters", type=str, default=None,
-                        help="multi-LoRA banks (not ported yet)")
+                        help="comma-separated results dirs of a multi-LoRA bank on the "
+                             "language_lora base of --results_dir (whole-batch and "
+                             "continuous fronts; requests pick {\"adapter\": i}, 0 = base)")
     parser.add_argument("--int8_kv", action="store_true",
                         help="paged front: int8 page pool with per-token scales")
     parser.add_argument("--num_beams", type=int, default=1,
@@ -355,6 +371,8 @@ def main(argv=None):
     quant = "".join(f", {f}" for f, on in (("int8", args.int8), ("int4", args.int4),
                                            ("int8_vision", args.int8_vision),
                                            ("int8_kv", args.int8_kv)) if on)
+    if args.adapters:
+        quant += f", {batcher.engine.num_adapters} adapters"
     print(f"Serving on http://{args.host}:{args.port} ({front_name(args)}, batch_size="
           f"{args.batch_size}, max_wait_ms={args.max_wait_ms}, device={args.device}{quant})")
 

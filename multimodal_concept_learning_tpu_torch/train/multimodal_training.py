@@ -13,10 +13,12 @@ JAX initialisers; no pretrained download); ``vision_path`` warm-starts the
 vision tower from a ``.pt`` of either package's vision trainer (or of an
 MLLM), every tower tensor looked up as the JAX trainer does.  Compute is
 bf16 over float32 trained parameters; frozen linear weights are stored in
-bf16 once.
+bf16 once.  ``trainable_params_setting: language_lora`` with ``lm_lora_rank``
+(and ``lm_lora_alpha``) trains the projector and the LM's LoRA factors
+(``ops/lora.py``); the checkpoints hold them under the JAX package's names.
 
 Not ported yet (raise ``NotImplementedError``; ROADMAP.md): ``resume`` with
-its preemption guard, MoE and LoRA, and ImageNet (JPEG) data.
+its preemption guard, MoE, and ImageNet (JPEG) data.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
 def _refuse_unported(config: MultimodalTrainingConfig) -> None:
     for field, what in (("resume", "resume / preemption checkpoints"),
-                        ("lm_moe_experts", "MoE"), ("lm_lora_rank", "LoRA")):
+                        ("lm_moe_experts", "MoE")):
         if getattr(config, field, None):
             raise NotImplementedError(f"{what} ({field}) is not ported yet (ROADMAP.md, queue A)")
 

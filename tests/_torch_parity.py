@@ -109,17 +109,29 @@ SERVE_IMAGES = [circle([255, 0, 0]), circle([0, 255, 0]), circle([0, 0, 255]),
                 circle([255, 128, 0])]
 
 
-def jax_serving_load(results_dir, **quant):
-    """The JAX package's loaded model (serve/loader.py), switched to float32 compute."""
+def _jax_float32(loaded):
+    """A JAX ``LoadedMLLM`` switched to float32 compute."""
     from multimodal_concept_learning_tpu.models.mllm import MLLM
-    from multimodal_concept_learning_tpu.serve import load_trained_mllm
 
-    loaded = load_trained_mllm(results_dir, verbose=False, **quant)
     cfg = loaded.model.config
     f32 = dataclasses.replace(cfg, dtype=jnp.float32,
                               vision=dataclasses.replace(cfg.vision, dtype=jnp.float32),
                               lm=dataclasses.replace(cfg.lm, dtype=jnp.float32))
     return loaded._replace(model=MLLM(f32))
+
+
+def jax_serving_load(results_dir, **quant):
+    """The JAX package's loaded model (serve/loader.py), switched to float32 compute."""
+    from multimodal_concept_learning_tpu.serve import load_trained_mllm
+
+    return _jax_float32(load_trained_mllm(results_dir, verbose=False, **quant))
+
+
+def jax_bank_load(results_dir, adapter_dirs, **quant):
+    """The JAX package's multi-LoRA bank, switched to float32 compute."""
+    from multimodal_concept_learning_tpu.serve.loader import load_adapter_bank
+
+    return _jax_float32(load_adapter_bank(results_dir, adapter_dirs, verbose=False, **quant))
 
 
 def port_serving_load(results_dir, **quant):
@@ -128,3 +140,70 @@ def port_serving_load(results_dir, **quant):
 
     return load_trained_mllm(results_dir, device="cpu", dtype=torch.float32, verbose=False,
                              **quant)
+
+
+def port_bank_load(results_dir, adapter_dirs, **quant):
+    """The port's multi-LoRA bank on the CPU at float32."""
+    from multimodal_concept_learning_tpu_torch.serve.loader import load_adapter_bank
+
+    return load_adapter_bank(results_dir, adapter_dirs, device="cpu", dtype=torch.float32,
+                             verbose=False, **quant)
+
+
+# tiny language_lora results dirs, written by the port's checkpoint writer
+LORA_RANK = 4
+LORA_CONFIG = {
+    "prompt_template": "Is the color of the circle {class_name}?",
+    "dataset_name": "color_multimodal", "vision_model_name": "vit-t-8",
+    "language_model_name": "nano", "num_vision_tokens": 17, "image_size": 32,
+    "trainable_params_setting": "language_lora", "lm_lora_rank": LORA_RANK, "seed": 0,
+    "train_transforms": ["ToTensor"], "val_transforms": ["ToTensor"], "use_wandb": False,
+}
+
+
+def _surface_noise(sd, seed: int, scale: float = 0.05):
+    """``sd`` with seeded normal noise added to its adapter surface (the
+    LoRA factors and the projector), as a trained adapter differs from its
+    base."""
+    from multimodal_concept_learning_tpu_torch.ops.multi_lora import is_adapter_name
+
+    rng = np.random.default_rng(seed)
+    return {k: v + torch.from_numpy(scale * rng.standard_normal(tuple(v.shape)).astype(np.float32))
+            if is_adapter_name(k) else v for k, v in sd.items()}
+
+
+def write_lora_results_dir(root, seed: int = 0, **overrides) -> str:
+    """A random-init ``language_lora`` results dir (vit-t-8, nano, rank 4),
+    its LoRA factors and projector moved off the init; returns its path."""
+    from multimodal_concept_learning_tpu_torch.checkpoint import (
+        init_random_weights_,
+        save_results_dir,
+    )
+    from multimodal_concept_learning_tpu_torch.configs import MultimodalTrainingConfig
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM
+    from multimodal_concept_learning_tpu_torch.serve.loader import build_tokenizer, model_config
+
+    root = str(root)
+    config = MultimodalTrainingConfig.from_params(dict(LORA_CONFIG, results_dir=root,
+                                                       **overrides))
+    tokenizer, _ = build_tokenizer(config)
+    model = MLLM(model_config(config, len(tokenizer), torch.float32))
+    init_random_weights_(model, torch.Generator().manual_seed(seed))
+    model.load_state_dict(_surface_noise(model.state_dict(), seed))
+    save_results_dir(root, model, tokenizer, vars(config))
+    return root
+
+
+def adapter_copy(src: str, dst, seed: int) -> str:
+    """A copy of the results dir ``src`` whose adapter surface carries
+    seeded noise (another adapter trained from the same base)."""
+    import os
+    import shutil
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict, save_state_dict
+
+    dst = str(dst)
+    shutil.copytree(src, dst)
+    path = os.path.join(dst, "models", "best_model.pt")
+    save_state_dict(_surface_noise(load_state_dict(path), seed), path)
+    return dst

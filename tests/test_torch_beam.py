@@ -6,7 +6,9 @@ right-padded prompts go through the JAX ``beam_generate`` and the port's:
 widths 2 and 3, with length penalties 0 and 0.6 and an EOS that finishes
 beams early, give JAX's tokens exactly and its scores within 1e-5; width 1
 is the port's greedy decoding; the whole-batch engine's beam branch gives
-the JAX engine's texts.
+the JAX engine's texts.  With ``copy_init_ood_rows`` (the MLLM trainer's
+init) beams tie on equal scores and still give JAX's tokens: among equals
+the lower index comes first, as ``jax.lax.top_k`` orders them.
 """
 
 import jax
@@ -89,3 +91,37 @@ def test_serving_engine_beam_branch_matches_jax(trained_results_dir):
     assert ServingEngine(port, **kw).generate(tp.SERVE_IMAGES[:3], tp.SERVE_PROMPTS[:3]) == want
     with pytest.raises(ValueError, match="deterministic"):
         ServingEngine(port, **dict(kw, temperature=0.7))
+
+
+@pytest.fixture(scope="module")
+def tied_pair(pair):
+    """The beam pair with ``copy_init_ood_rows(params, 32)`` on its vocab of
+    64: token i and its copy i + 32 get equal logits through the tied head,
+    so beams tie on equal scores."""
+    from multimodal_concept_learning_tpu.models.mllm import copy_init_ood_rows
+    from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm, state_dict_from_jax
+
+    model, params, port, batch = pair
+    params = jax.tree_util.tree_map(
+        np.asarray, copy_init_ood_rows(jax.tree_util.tree_map(jnp.asarray, params), 32))
+    return model, params, build_mllm(port.cfg, state_dict_from_jax(params, 8), "cpu"), batch
+
+
+@pytest.mark.parametrize("width", [2, 3])
+def test_beam_ties_take_jax_order(tied_pair, width):
+    """Among equal scores the lower index comes first (``jax.lax.top_k``'s
+    order), so tied beams give JAX's tokens exactly and its scores within
+    1e-5 (4 new tokens, no EOS)."""
+    from multimodal_concept_learning_tpu.models.beam import beam_generate as jax_beam
+    from multimodal_concept_learning_tpu_torch.models.beam import _top_k, beam_generate
+
+    values, idx = _top_k(torch.tensor([0.0, 1.0, 1.0, 1.0, 0.5, 1.0]), 3)
+    assert idx.tolist() == [1, 2, 3] and values.tolist() == [1.0, 1.0, 1.0]
+    model, params, port, batch = tied_pair
+    run = jax.jit(lambda p, *a: jax_beam(model, p, *a, max_new_tokens=4, num_beams=width,
+                                         return_scores=True))
+    want, want_scores = run(params, *map(jnp.asarray, batch))
+    got, scores = beam_generate(port, *map(torch.from_numpy, batch), 4, width,
+                                return_scores=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(scores.numpy(), np.asarray(want_scores), atol=SCORE_TOL, rtol=0)

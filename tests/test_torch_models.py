@@ -296,11 +296,23 @@ def test_trainable_mask_matches_jax(gemma_pair, setting):
 
 
 def test_trainable_mask_refuses_lora_and_unknown(nano_pair):
+    """``language_lora`` on a model without adapters trains what JAX's mask
+    trains there (the projector alone); an unknown setting raises."""
+    from multimodal_concept_learning_tpu.checkpoint.torch_interop import mllm_params_to_torch
+    from multimodal_concept_learning_tpu.models.mllm import trainable_mask as jmask
     from multimodal_concept_learning_tpu_torch.models.mllm import trainable_mask
 
-    _, _, port = nano_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainable_mask(port, "language_lora")
+    _, params, port = nano_pair
+    as_leaves = jax.tree_util.tree_map(lambda m, p: np.full(np.shape(p), float(m), np.float32),
+                                       jmask(params, "language_lora"), params)
+    ref = {k: bool(v.all()) for k, v in mllm_params_to_torch(as_leaves, patch_size=8).items()}
+    try:
+        mask = trainable_mask(port, "language_lora")
+        assert mask == ref
+        assert sorted(n for n, t in mask.items() if t) == ["projector.bias", "projector.weight"]
+    finally:
+        for p in port.parameters():
+            p.requires_grad_(True)
     with pytest.raises(ValueError, match="Unknown"):
         trainable_mask(port, "everything")
 

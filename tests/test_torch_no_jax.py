@@ -34,6 +34,8 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.ops.paged_kv",
     "multimodal_concept_learning_tpu_torch.ops.int4",
     "multimodal_concept_learning_tpu_torch.ops.quant",
+    "multimodal_concept_learning_tpu_torch.ops.lora",
+    "multimodal_concept_learning_tpu_torch.ops.multi_lora",
     "multimodal_concept_learning_tpu_torch.ops._build",
     "multimodal_concept_learning_tpu_torch.ops.losses",
     "multimodal_concept_learning_tpu_torch.ops.preprocess",
@@ -58,6 +60,7 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.utils.logging",
     "multimodal_concept_learning_tpu_torch.train.generate_answers",
     "multimodal_concept_learning_tpu_torch.scripts.bench_int4_kernel",
+    "multimodal_concept_learning_tpu_torch.scripts.bench_multi_lora",
     "multimodal_concept_learning_tpu_torch.train.vision_training",
     "multimodal_concept_learning_tpu_torch.analysis.projection",
     "multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis",
@@ -187,9 +190,10 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     ("multimodal_concept_learning_tpu_torch.train.generate_answers", ["--results_dir", "x"]),
     ("multimodal_concept_learning_tpu_torch.scripts.bench_int4_kernel", ["--variants", "v3a"]),
     ("multimodal_concept_learning_tpu_torch.train.vision_training", ["--config_path", "x"]),
+    ("multimodal_concept_learning_tpu_torch.scripts.bench_multi_lora", ["--tiny"]),
 ])
 def test_answer_cli_and_ab_script_refuse_cuda_without_cuda(module, args):
-    """The answer CLI's, the A/B entry point's and the vision trainer's
+    """The answer CLI's, the A/B entry points' and the vision trainer's
     default --device cuda never falls back to the CPU."""
     out = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
                          env=_without_cuda_env(), capture_output=True, text=True, timeout=120)

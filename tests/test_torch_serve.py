@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity as tp
 from _torch_parity import SERVE_IMAGES as IMAGES
 from _torch_parity import SERVE_PROMPTS as PROMPTS
 from _torch_parity import jax_serving_load as _jax_load
@@ -168,17 +169,29 @@ def test_paged_server_matches_jax_front(jax_loaded, trained_results_dir):
     ({"int4": True, "adapters": ["a"]}, "not --int4"),
 ])
 def test_make_server_refuses_unported_modes(tmp_path, kwargs, match):
-    """Multi-LoRA banks are the one front option left unported: they raise
-    NotImplementedError naming the ROADMAP item, after the JAX server's own
-    ValueErrors (``serve/server.py:214-238``), which both packages raise
-    with the same message before any model loads."""
+    """The JAX server's ValueErrors (``serve/server.py:214-238``): both
+    packages raise them with the same message before any model loads.  The
+    two ``--adapters`` cases that JAX accepts build a multi-LoRA bank server
+    on tiny ``language_lora`` results dirs (a base and one adapter) and
+    answer a request under adapter 1, then one out of the bank's range."""
     from multimodal_concept_learning_tpu.serve.server import make_server as jax_make_server
     from multimodal_concept_learning_tpu_torch.serve.server import make_server
 
     if match == "--adapters":
-        with pytest.raises(NotImplementedError, match=match) as err:
-            make_server(str(tmp_path), device="cpu", **kwargs)
-        assert "ROADMAP.md, A8" in str(err.value)
+        base = tp.write_lora_results_dir(tmp_path / "base")
+        adapter = tp.adapter_copy(base, tmp_path / "adapter", seed=1)
+        httpd, batcher = make_server(base, port=0, device="cpu", dtype=torch.float32,
+                                     max_new_tokens=2, **dict(kwargs, adapters=[adapter]))
+        try:
+            assert batcher.engine.num_adapters == 2
+            assert type(batcher.engine).__name__ == (
+                "ContinuousEngine" if kwargs.get("continuous") else "ServingEngine")
+            assert isinstance(batcher.submit(IMAGES[0], PROMPTS[0], adapter=1), str)
+            with pytest.raises(ValueError, match="out of range"):
+                batcher.submit(IMAGES[0], PROMPTS[0], adapter=2)
+        finally:
+            httpd.server_close()
+            batcher.shutdown()
         return
     with pytest.raises(ValueError, match=match) as err:
         make_server(str(tmp_path), device="cpu", **kwargs)
