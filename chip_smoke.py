@@ -3542,9 +3542,10 @@ def phase_vision_parity() -> None:
             state, m = step(state, to_device(batch, dev))
             losses.append(float(m["loss"]))
         launched = tuple(n - b for n, b in zip(_k1_counts(fa), before))
-        runs[dev] = (losses, grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                     launched)
-    (cl, cg, csd, claunch), (pl, pg, psd, plaunch) = runs["cuda"], runs["cpu"]
+        runs[dev] = (losses, grads,
+                     {k: v.detach().float().cpu() for k, v in model.state_dict().items()},
+                     launched, {k: v.cpu() for k, v in (opt.master or {}).items()})
+    (cl, cg, csd, claunch, cmaster), (pl, pg, psd, plaunch, _) = runs["cuda"], runs["cpu"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, pl))
     held = [n for n in cg if not n.endswith("key.bias")]
     grad_errs = sorted((((cg[n] - pg[n]).norm() / pg[n].norm()).item(), n) for n in held)
@@ -3759,7 +3760,8 @@ def _clip_counters() -> dict:
             "fused_bwd_attn": fb.fused_bwd_attn}
 
 
-def _clip_parity(tag: str, fused: bool, expected: dict) -> None:
+def _clip_parity(tag: str, fused: bool, expected: dict, rows=None, bf16: bool = False,
+                 tol: float = 1e-4) -> dict:
     """Full widths (ViT-B/32; text 512 wide, 8 heads), 2 vision + 2 text
     layers, float32, batch 8, the JAX initialisers, on the card (kernels)
     and on the CPU (plain versions): the first batch's gradient of every
@@ -3767,7 +3769,11 @@ def _clip_parity(tag: str, fused: bool, expected: dict) -> None:
     same losses (1e-4 relative) and parameters (1e-4 relative in norm).
     ``fused`` puts the vision tower on K6; the card's launch counts over the
     four passes must equal ``expected`` (every other CLIP kernel 0), the
-    CPU's all 0.
+    CPU's all 0.  ``rows`` partitions the text embedding
+    (``active_vocab_rows``); ``bf16`` stores the parameters in bf16 with
+    float32 masters (``bf16_params``), and ``tol`` then bounds losses,
+    gradients and parameters alike.  Returns the card's run: {"losses",
+    "state" (host tensors after the steps), "init" (before), "launches"}.
 
     The parameters are held as one vector, and each tensor's own distance
     is printed.  AdamW divides each element's update by that element's own
@@ -3799,7 +3805,8 @@ def _clip_parity(tag: str, fused: bool, expected: dict) -> None:
     from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
 
     tokenizer = load_tokenizer("concept-tokenizer")
-    base = CLIPConfig.create(vocab_size=len(tokenizer), dtype=torch.float32)
+    base = CLIPConfig.create(vocab_size=len(tokenizer), dtype=torch.float32,
+                             active_vocab_rows=rows)
     cfg = dataclasses.replace(base, text_layers=2, vision=dataclasses.replace(
         base.vision, num_hidden_layers=2, fused_attention=fused))
     model0 = init_random_weights_(CLIPModel(cfg), torch.Generator().manual_seed(SEED))
@@ -3811,22 +3818,28 @@ def _clip_parity(tag: str, fused: bool, expected: dict) -> None:
         with torch.device(dev):
             model = CLIPModel(cfg)
         model.load_state_dict(sd, strict=True)
+        if bf16:
+            for p in model.parameters():
+                p.data = p.data.to(torch.bfloat16)
         before = {n: fn.launches for n, fn in counters.items()}
         first = to_device(batches[0], dev)
         contrastive_loss(*model(images_from_batch(first), first["input_ids"],
                                 first["attention_mask"])).backward()
-        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        grads = {n: p.grad.detach().float().cpu().clone() for n, p in model.named_parameters()
+                 if p.requires_grad}
         model.zero_grad(set_to_none=True)
-        opt = build_optimizer(model, 5e-4, weight_decay=0.2, max_grad_norm=1.0)
+        opt = build_optimizer(model, 5e-4, weight_decay=0.2, max_grad_norm=1.0,
+                              fp32_master=bf16)
         state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
         losses = []
         for batch in batches:
             state, m = step(state, to_device(batch, dev))
             losses.append(float(m["loss"]))
         launched = {n: fn.launches - before[n] for n, fn in counters.items()}
-        runs[dev] = (losses, grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                     launched)
-    (cl, cg, csd, claunch), (pl, pg, psd, plaunch) = runs["cuda"], runs["cpu"]
+        runs[dev] = (losses, grads,
+                     {k: v.detach().float().cpu() for k, v in model.state_dict().items()},
+                     launched, {k: v.cpu() for k, v in (opt.master or {}).items()})
+    (cl, cg, csd, claunch, cmaster), (pl, pg, psd, plaunch, _) = runs["cuda"], runs["cpu"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, pl))
 
     def rel(a, b, names):
@@ -3839,25 +3852,91 @@ def _clip_parity(tag: str, fused: bool, expected: dict) -> None:
     flat = torch.cat([csd[n].flatten() - psd[n].flatten() for n in sd])
     param_err = (flat.norm() / torch.cat([psd[n].flatten() for n in sd]).norm()).item()
     tensor_errs = rel(csd, psd, held)
-    moved = all(not torch.equal(csd[n], sd[n]) for n in sd)
+    frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+    init = {n: (t.bfloat16() if bf16 else t).float() for n, t in sd.items()}
+    # bf16: a step may stay below half a bf16 ulp (a LayerNorm scale at 1.0), so the
+    # float32 masters show the motion
+    after = dict(csd, **cmaster)
+    moved = all(torch.equal(after[n], init[n]) == (n in frozen) for n in sd)
     shown = {n: c for n, c in claunch.items() if c or expected.get(n)}
     print(f"[{tag}] losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; first "
           f"gradients of {len(held)} tensors: max norm-relative err {grad_errs[-1][0]:.2e} "
           f"(largest: " + ", ".join(f"{n} {e:.2e}" for e, n in grad_errs[-3:]) + "); "
           f"parameters after 3 steps: norm-relative err {param_err:.2e}, largest tensor "
-          + ", ".join(f"{n} {e:.2e}" for e, n in tensor_errs[-3:]) + f"; every tensor moved "
-          f"{moved}; kernel launches cuda {shown} (expected {expected}), cpu "
-          f"{sum(plaunch.values())}", flush=True)
-    if not (loss_err <= 1e-4 and grad_errs[-1][0] <= 1e-4 and param_err <= 1e-4 and moved):
+          + ", ".join(f"{n} {e:.2e}" for e, n in tensor_errs[-3:]) + f"; every trained tensor "
+          f"moved and the frozen ones {sorted(frozen)} bitwise unchanged {moved}; kernel "
+          f"launches cuda {shown} (expected {expected}), cpu {sum(plaunch.values())}; "
+          f"tolerance {tol:g}", flush=True)
+    if not (loss_err <= tol and grad_errs[-1][0] <= tol and param_err <= tol and moved):
         fail(f"{tag}: CLIP training parity CUDA vs CPU")
     if claunch != {n: expected.get(n, 0) for n in counters} or any(plaunch.values()):
         fail(f"{tag} launches: cuda {claunch} (expected {expected}), cpu {plaunch}")
+    return {"losses": cl, "state": csd, "init": init, "launches": claunch}
 
 
-def phase_clip_parity() -> None:
+CLIP_PARITY_K2 = {"attention_core_fwd": 16, "attention_core_bwd": 16}
+
+
+def phase_clip_parity() -> dict:
     """Phase 8: the default CLIP (K2 in both towers): 4 passes x (2 vision
-    + 2 text) layers of K2 forward and backward."""
-    _clip_parity("clip-parity", False, {"attention_core_fwd": 16, "attention_core_bwd": 16})
+    + 2 text) layers of K2 forward and backward.  Returns the card's run."""
+    return _clip_parity("clip-parity", False, CLIP_PARITY_K2)
+
+
+def phase_partitioned_parity(dense: dict) -> None:
+    """Phase 25: phase 8's CLIP with its text embedding partitioned
+    (``active_vocab_rows``: every id of phase 8's batches, padding
+    included).  On the card and the CPU, three steps at phase 8's
+    tolerances (``_clip_parity``); the card's partitioned run merged
+    (``merged_embedding`` with the inactive rows' decay) against phase 8's
+    dense card run ``dense`` (the same initial table) at
+    tests/test_sparse_embed.py's bounds, rtol 2e-5 and atol 1e-7 (key
+    biases, which softmax leaves rounding alone to move: 3 lr); the frozen
+    table bitwise unchanged; K2 launches equal to the dense run's.  Then the
+    same three steps under ``bf16_params``, card against CPU, within 1e-2: a
+    bf16 gradient or parameter one ulp (2^-8 relative) apart in two float32
+    summation orders moves AdamW's update by as much, so two ulps (7.8e-3)
+    rounded up."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops.sparse_embed import (
+        active_rows_from_corpus,
+        inactive_decay,
+        merged_embedding,
+    )
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+
+    tokenizer = load_tokenizer("concept-tokenizer")
+    batches = _noise_batches(len(tokenizer), tokenizer.pad_token_id, 3, 8, SEED)
+    rows = active_rows_from_corpus([b["input_ids"] for b in batches])
+    run = _clip_parity("partitioned-parity", False, CLIP_PARITY_K2, rows=rows)
+    table, active = "text.token_embedding.weight", "text.token_embedding.active"
+    psd, dsd = run["state"], dense["state"]
+    merged = merged_embedding(psd[table], psd[active], rows,
+                              inactive_decay([5e-4] * 3, 0.2))
+    worst, bitwise, largest = (float("-inf"), ""), 0, 0.0
+    for name, want in dsd.items():
+        got = merged if name == table else psd[name]
+        err = ((got - want).abs() - 1e-7 - 2e-5 * want.abs()).max().item()
+        if name.endswith(("key.bias", ".k.bias")):
+            err = (got - want).abs().max().item() - 3 * 5e-4
+        worst = max(worst, (err, name))
+        bitwise += torch.equal(got, want)
+        largest = max(largest, (got - want).abs().max().item())
+    frozen_same = torch.equal(psd[table], run["init"][table])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], dense["losses"]))
+    print(f"[partitioned-parity] {len(rows)} active rows of {len(tokenizer)}: merged against "
+          f"phase 8's dense card run: {bitwise} of {len(dsd)} tensors bitwise equal, largest "
+          f"difference {largest:.3e}, worst excess over rtol 2e-5 / atol 1e-7 {worst[0]:.3e} "
+          f"({worst[1]}), losses rel err {loss_err:.2e}; frozen table bitwise unchanged "
+          f"{frozen_same}; K2 launches {run['launches']} vs dense {dense['launches']}",
+          flush=True)
+    if not (worst[0] <= 0 and loss_err <= 1e-5 and frozen_same):
+        fail("partitioned CLIP against the dense run on the card")
+    if run["launches"] != dense["launches"]:
+        fail(f"partitioned launches {run['launches']} != dense {dense['launches']}")
+    _clip_parity("partitioned-parity bf16_params", False, CLIP_PARITY_K2, rows=rows, bf16=True,
+                 tol=1e-2)
 
 
 def phase_variant_parity() -> None:
@@ -3875,18 +3954,19 @@ def phase_variant_parity() -> None:
         del os.environ["MCL_ATTN_CORE_BD"]
 
 
-def _steady_step_ms(state, steps: int = 3) -> float:
-    """ms per train step of ``state.model`` on one fixed device batch of the
-    slice's circles and captions (no input path), after one warm-up step;
-    the model trains on."""
+def _steady_step_ms(state, steps: int = 3, batch=None) -> float:
+    """ms per train step of ``state.model`` on one fixed device batch
+    (``batch``, or the slice's circles and captions; no input path), after
+    one warm-up step; the model trains on."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
     from multimodal_concept_learning_tpu_torch.parallel.train_step import make_clip_train_step
     from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
 
-    batch = to_device(_clip_batches(load_tokenizer("concept-tokenizer"), 1, CLIP_BATCH)[0],
-                      "cuda")
+    if batch is None:
+        batch = to_device(_clip_batches(load_tokenizer("concept-tokenizer"), 1, CLIP_BATCH)[0],
+                          "cuda")
     step = make_clip_train_step(state.model)
     state, _ = step(state, batch)
     torch.cuda.synchronize()
@@ -3957,7 +4037,8 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> di
         fail(f"CLIP slice launch counts {launches} != expected {expected}")
     for name, n in launches.items():
         report[name]["launches"] = n
-    return {"config": config, "steps_per_s": rate, "images_per_s": CLIP_BATCH * rate,
+    return {"config": config, "data_dir": data_dir, "launches": launches,
+            "steps_per_s": rate, "images_per_s": CLIP_BATCH * rate,
             "peak_gib": peak_gib, "steady_ms": steady_ms}
 
 
@@ -4418,6 +4499,390 @@ def _time_loader(config, make_loader, images_per_color: int, return_synset: bool
           f"{1e3 * (stamps[1] - stamps[0]):.1f} ms{steady}", flush=True)
 
 
+def _run_cli(tag: str, fn, argv: list):
+    """(``fn(argv)``'s return, its stdout), each line printed under ``tag``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"[{tag}] {line}", flush=True)
+    return out, text
+
+
+def _bench_caption_ids(rng, batch: int = 128, context: int = 77, n_classes: int = 96):
+    """bench.py's CLIP captions (``_caption_ids``, bench.py:80-103): the
+    templated ids, their mask and the active rows (numpy)."""
+    template = np.asarray([49406, 320, 1125, 539, 320, 4532, 49407], np.int64)
+    class_ids = 2 + rng.choice(40000, size=(n_classes, 2), replace=False)
+    ids = np.zeros((batch, context), np.int64)
+    mask = np.zeros((batch, context), np.int64)
+    cls = rng.integers(0, n_classes, size=batch)
+    for i in range(batch):
+        row = np.concatenate([template[:-1], class_ids[cls[i]], template[-1:]])
+        ids[i, : len(row)] = row
+        mask[i, : len(row)] = 1
+    active = tuple(int(t) for t in np.unique(
+        np.concatenate([ids.ravel(), class_ids.ravel(), template])))
+    return ids.astype(np.int32), mask.astype(np.int32), active
+
+
+def _bench_clip_steps(card: str) -> None:
+    """bench.py's CLIP cell (bench.py:66-71, 105-170: ViT-B/32 + 12 x 512
+    text, vocab 49408, batch 128, context 77, its caption ids, noise images,
+    AdamW lr 1e-4, weight decay 0.2, clipping 1.0), built by the port (bf16
+    compute over float32 parameters, the seeded init on the card), dense and
+    with the text embedding partitioned to the captions' rows: the steady
+    step on one fixed device batch, dense / partitioned / dense /
+    partitioned, 5 steps each after one warm-up.  A measurement, no claim."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.models.clip import CLIPConfig, CLIPModel
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import TrainState
+
+    ids, mask, active = _bench_caption_ids(np.random.default_rng(1))
+    images = np.random.default_rng(0).normal(size=(128, 3, 224, 224)).astype(np.float32)
+    batch = to_device({"images": images, "input_ids": ids, "attention_mask": mask}, "cuda")
+    states = {}
+    for tag, rows in (("dense", None), ("partitioned", active)):
+        cfg = CLIPConfig.create(vocab_size=49408, vision_preset="vit-b-32", image_size=224,
+                                text_width=512, text_layers=12, text_heads=8, context_length=77,
+                                embed_dim=512, dtype=torch.bfloat16, active_vocab_rows=rows)
+        with torch.device("cuda"):
+            model = CLIPModel(cfg)
+        init_random_weights_(model, torch.Generator(device="cuda").manual_seed(SEED))
+        states[tag] = TrainState(model=model, optimizer=build_optimizer(
+            model, 1e-4, weight_decay=0.2, max_grad_norm=1.0))
+    times = []
+    for tag in ("dense", "partitioned", "dense", "partitioned"):
+        times.append((tag, _steady_step_ms(states[tag], 5, batch)))
+    print(f"[clip-bench-cell] {card}: steady step, bench.py's CLIP cell (batch 128, vocab "
+          f"49408, {len(active)} active rows): " + ", ".join(f"{t} {ms:.2f} ms"
+                                                              for t, ms in times), flush=True)
+
+
+def phase_partitioned_clip_slice(root: str, clip_run: dict, card: str) -> None:
+    """Phase 26: the contrastive CLI on a copy of
+    experiments/contrastive/color/12_colors_3k.yaml with
+    ``partition_text_embedding: true`` and ``bf16_params: true``, one epoch
+    on phase 9's data: JAX's "Partitioned text embedding" line with the
+    captions' rows, phase 9's exact K2 launches, a zero-shot accuracy, and
+    the saved table the merged one (the subtable's rows; the other rows the
+    initial bf16 table times the weight decay's product, rounded as JAX
+    rounds it), which a dense model loads ``strict=True``.  Then
+    ``_bench_clip_steps``."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict
+    from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+    from multimodal_concept_learning_tpu_torch.models.clip import CLIPModel
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops.sparse_embed import (
+        active_rows_from_corpus,
+        inactive_decay,
+    )
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+    from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model, main
+
+    sub = os.path.join(root, "partitioned")
+    os.makedirs(sub)
+    data_dir = clip_run["data_dir"]
+    cfg = _write_config(CLIP_CONFIG, sub, {
+        "mapping_path": os.path.join(data_dir, "train_mapping.csv"), "image_root": data_dir,
+        "results_dir": os.path.join(sub, "results"), "epochs": "1",
+        "partition_text_embedding": "true", "bf16_params": "true"})
+    config = ContrastiveTrainingConfig.from_params(cfg["parsed"])
+    assert config.partition_text_embedding and config.bf16_params and config.epochs == 1
+    tokenizer = load_tokenizer("concept-tokenizer")
+    collator = ClipCollator(tokenizer, config.caption_template, config.context_length)
+    rows = active_rows_from_corpus([collator.caption_ids(n)[0] for n in sorted(_color_names())])
+    torch.cuda.empty_cache()
+    ac.attention_core_fwd.launches = ac.attention_core_bwd.launches = 0
+    t0 = time.perf_counter()
+    out, text = _run_cli("clip-partitioned-cli", main,
+                         ["--config_path", cfg["path"], "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = {"attention_core_fwd": ac.attention_core_fwd.launches,
+                "attention_core_bwd": ac.attention_core_bwd.launches}
+    line = f"Partitioned text embedding: {len(rows)} active rows of {len(tokenizer)}"
+    state, epoch = out["state"], out["history"][0]
+    emb = state.model.text.token_embedding
+    sd = load_state_dict(out["checkpoint"])
+    init = init_model(config, len(tokenizer), "cuda", rows).text.token_embedding.weight
+    opt = state.optimizer
+    lrs = [float(np.float32(opt.lr(i))) for i in range(opt.count)]
+    decay = torch.tensor(inactive_decay(lrs, config.weight_decay), dtype=torch.float32)
+    want = (init.detach().bfloat16().float().cpu() * decay).bfloat16().float()
+    want[list(rows)] = emb.active.detach().float().cpu()
+    merged = torch.equal(sd["text.token_embedding.weight"], want)
+    frozen = torch.equal(emb.weight, init.detach().bfloat16())
+    with torch.device("meta"):
+        dense = CLIPModel(dataclasses.replace(state.model.cfg, active_vocab_rows=None))
+    dense.load_state_dict(sd, strict=True, assign=True)
+    acc = out["zero_shot_acc"]
+    print(f"[clip-partitioned] {card}: one epoch, {epoch['steps']} steps of batch "
+          f"{config.batch_size}, bf16 parameters, {len(rows)} active rows, in "
+          f"{epoch['epoch_time']:.3f} s ({epoch['steps'] / epoch['epoch_time']:.3f} steps/s; "
+          f"phase 9 dense {clip_run['steps_per_s']:.3f}); whole CLI {wall:.1f} s; train loss "
+          f"{epoch['train_loss']}, zero-shot {acc}%; log line {line in text}; saved table "
+          f"merged (decay {decay.item():.9f} over {opt.count} updates) {merged}; frozen "
+          f"table unchanged {frozen}; K2 launches {launches} (phase 9 "
+          f"{clip_run['launches']})", flush=True)
+    del out, state, emb, init, dense
+    if not (line in text and merged and frozen and np.isfinite(epoch["train_loss"])
+            and 0.0 <= acc <= 100.0 and decay.item() < 1.0):
+        fail("partitioned bf16_params CLIP CLI checks")
+    if launches != clip_run["launches"]:
+        fail(f"partitioned CLI launches {launches} != phase 9's {clip_run['launches']}")
+    _bench_clip_steps(card)
+
+
+def _snapshot(state) -> dict:
+    """A TrainState's model and optimizer tensors (clones on their device)."""
+    flat = {f"model.{k}": v.detach().clone() for k, v in state.model.state_dict().items()}
+    opt = state.optimizer.state_dict()
+    for key in ("mu", "nu", "master", "acc"):
+        flat.update({f"{key}.{n}": t.clone() for n, t in (opt[key] or {}).items()})
+    return flat
+
+
+def _same_run(tag: str, got: dict, want: dict, tol: float = 1e-4) -> str:
+    """'bitwise' when every tensor is equal; else every tensor within
+    ``tol`` relative in norm (phases 6 and 17's bound), or fail."""
+    import torch
+
+    assert sorted(got) == sorted(want)
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if not differ:
+        return "bitwise"
+    errs = sorted((((got[k].float() - want[k].float()).norm()
+                    / want[k].float().norm().clamp(min=1e-30)).item(), k) for k in differ)
+    print(f"[{tag}] {len(differ)} of {len(want)} tensors not bitwise equal; largest "
+          f"norm-relative differences " + ", ".join(f"{k} {e:.2e}" for e, k in errs[-3:]),
+          flush=True)
+    if errs[-1][0] > tol:
+        fail(f"{tag}: resumed run against the uninterrupted one beyond {tol:g}")
+    return f"within {tol:g} relative in norm, not bitwise"
+
+
+VISION_RESUME_IMAGES = 28  # a color: 264 train images, 4 micro-steps of 64, one update
+MM_RESUME_IMAGES = 4  # a color, a cut of phase 7's 8: 18 micro-steps and 6 eval batches
+
+
+def phase_vision_resume(root: str, card: str) -> None:
+    """Phase 27: the vision CLI on experiments/vision/color/12_colors_3k.yaml
+    at full width (vit-b-16, dropout 0.1, batch 64, 4 micro-steps an update)
+    with ``resume: true``, one epoch on ``VISION_RESUME_IMAGES`` images a
+    color: uninterrupted, then in a subprocess that sends itself SIGTERM
+    after micro-step 2 (between two micro-steps of an accumulation) and
+    saves, then resumed in this process (the dropout generator restored):
+    JAX's lines, the resumed run's K1 launches (12 a val or test batch, none
+    in a dropout micro-step), and its final model and optimizer against the
+    uninterrupted run's (``_same_run``)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.vision_training import main as vision_main
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    data_dir, sizes = _generate_colors(root, VISION_RESUME_IMAGES)
+    paths = {}
+    for tag in ("uninterrupted", "resumed"):
+        os.makedirs(os.path.join(root, tag))
+        cfg = _write_config(VISION_CONFIG, os.path.join(root, tag), {
+            "data_dir": data_dir, "mapping_path": data_dir, "epochs": "1", "resume": "true",
+            "results_dir": os.path.join(root, tag, "results")})
+        paths[tag] = cfg["path"]
+    b = cfg["parsed"]["batch_size"]
+    print(f"[vision-resume] {sizes} images generated in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    argv = ["--device", "cuda", "--config_path"]
+    ref, _ = _run_cli("vision-resume uninterrupted", vision_main, argv + [paths["uninterrupted"]])
+    want = _snapshot(ref["state"])
+    del ref
+    torch.cuda.empty_cache()
+    code = (
+        "import json, os, signal, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from multimodal_concept_learning_tpu_torch.train import vision_training as vt\n"
+        "make = vt.make_classifier_train_step\n"
+        "def preempting(*args, **kwargs):\n"
+        "    step, n = make(*args, **kwargs), [0]\n"
+        "    def run(state, batch):\n"
+        "        out = step(state, batch)\n"
+        "        n[0] += 1\n"
+        "        if n[0] == 2:\n"
+        "            os.kill(os.getpid(), signal.SIGTERM)\n"
+        "        return out\n"
+        "    return run\n"
+        "vt.make_classifier_train_step = preempting\n"
+        f"print('RESULT', json.dumps(vt.main({argv + [paths['resumed']]!r})))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"[vision-resume preempted] {line}", flush=True)
+    preempted_ok = (proc.returncode == 0 and 'RESULT {"preempted": true}' in proc.stdout
+                    and "Preempted (SIGTERM): saved mid-epoch checkpoint (epoch 1, batch 2); "
+                        "exiting" in proc.stdout)
+    print(f"[vision-resume] the preempted subprocess: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; lines {preempted_ok}", flush=True)
+    if not preempted_ok:
+        fail(f"vision preemption subprocess: {proc.stderr[-2000:]}")
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out, text = _run_cli("vision-resume resumed", vision_main, argv + [paths["resumed"]])
+    launches = tuple(n - b for n, b in zip((fa.flash_attention.launches,
+                                           fa.flash_attention_bwd_dq.launches,
+                                           fa.flash_attention_bwd_dkv.launches), before))
+    evals = -(-sizes["val"] // b) + -(-sizes["test"] // b)
+    expected = (cfg["parsed"]["num_hidden_layers"] * evals, 0, 0)
+    resume_dir = os.path.join(root, "resumed", "results", "resume")
+    line = (f"Resuming from epoch 0 checkpoint in {resume_dir} (mid-epoch: skipping 2 "
+            f"batches)")
+    how = _same_run("vision-resume", _snapshot(out["state"]), want)
+    print(f"[vision-resume] {card}: resumed run against the uninterrupted one: {how}; resume "
+          f"line {line in text}; K1 launches (fwd, dq, dkv) {launches} (expected {expected}); "
+          f"micro-steps after the resume {out['history'][0]['micro_steps']}", flush=True)
+    if not (line in text and "Epoch 1/1 completed in" in text):
+        fail("vision resume lines")
+    if launches != expected or out["history"][0]["micro_steps"] != sizes["train"] // b - 2:
+        fail(f"vision resume launches {launches} != {expected}")
+
+
+def phase_mllm_resume(root: str, card: str) -> None:
+    """Phase 28: the MLLM trainer CLI on experiments/multimodal/color/
+    12_colors_3k.yaml at full width (vit-b-16 + gemma3-1b, bf16, batch 2, 4
+    micro-steps an update, constant learning rate) with ``resume: true`` on
+    ``MM_RESUME_IMAGES`` images a color, every class mapped to an ``<ood N>``
+    answer (a yes/no question draws from the collator's stream, which no
+    checkpoint carries, in JAX as in the port: ROADMAP.md queue C):
+    uninterrupted for 2 epochs; then 1 epoch, and the config extended to 2,
+    resumed ("Resuming from epoch 0 checkpoint", no "Epoch 1/2"); the
+    resumed run's K1 launches exact (38 forward a micro-step or eval batch,
+    26 dQ and 26 dK/dV a micro-step), its final model and optimizer against
+    the uninterrupted run's (``_same_run``)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.multimodal_training import main as train_main
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    data_dir, sizes = _generate_colors(root, MM_RESUME_IMAGES)
+    mapping = os.path.join(root, "ood_mapping.json")
+    with open(mapping, "w") as f:
+        json.dump({n: f"<ood {i + 1}>" for i, n in enumerate(_color_names())}, f)
+
+    def config(tag: str, epochs: int) -> str:
+        os.makedirs(os.path.join(root, tag), exist_ok=True)
+        return _write_config(MM_CONFIG, os.path.join(root, tag), {
+            "mapping_path": os.path.join(data_dir, "train_mapping.csv"), "image_root": data_dir,
+            "labels_mapping_path": mapping, "results_dir": os.path.join(root, tag, "results"),
+            "epochs": str(epochs), "num_workers": "2", "vision_path": "null",
+            "resume": "true", "save_every_epoch": "false"})["path"]
+
+    print(f"[mllm-resume] {sizes} images generated in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    argv = ["--device", "cuda", "--config_path"]
+    ref, _ = _run_cli("mllm-resume uninterrupted", train_main, argv + [config("ref", 2)])
+    want = _snapshot(ref[0])
+    del ref
+    torch.cuda.empty_cache()
+    _run_cli("mllm-resume first epoch", train_main, argv + [config("run", 1)])
+    torch.cuda.empty_cache()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    out, text = _run_cli("mllm-resume resumed", train_main, argv + [config("run", 2)])
+    launches = tuple(fn.launches for fn in counters)
+    micro = sizes["train"] // 2
+    evals = -(-sizes["val"] // 2) + -(-sizes["test"] // 2)
+    expected = (38 * (micro + evals), 26 * micro, 26 * micro)
+    line = f"Resuming from epoch 0 checkpoint in {os.path.join(root, 'run', 'results', 'resume')}"
+    how = _same_run("mllm-resume", _snapshot(out[0]), want)
+    print(f"[mllm-resume] {card}: resumed run against the uninterrupted one: {how}; resume "
+          f"line {line in text}; K1 launches (fwd, dq, dkv) {launches} (expected {expected}: "
+          f"{micro} micro-steps, {evals} eval batches)", flush=True)
+    del out
+    torch.cuda.empty_cache()
+    if not (line in text and "Epoch 2/2" in text and "Epoch 1/2" not in text):
+        fail("MLLM resume lines")
+    if launches != expected:
+        fail(f"MLLM resume launches {launches} != {expected}")
+
+
+REFERENCE_VOCAB = 262_144  # Gemma-3's vocabulary: the reference checkpoint's table rows
+
+
+def phase_remap_chain(root: str, float_rows: list) -> None:
+    """Phase 29: phase 7's trained ``best_model.pt``, its embedding rows
+    scattered into a synthetic 262,144-row reference-layout table at
+    shuffled ids (a synthetic source vocabulary, the port tokenizer's tokens
+    at those ids and filler tokens elsewhere), remapped back by
+    ``vocab_remap.remap_state_dict_vocab`` (bitwise the original) into a
+    copy of phase 7's results dir, which the answer CLI (float) loads
+    ``strict=True`` into the full MLLM on the card: the same JSONL rows as
+    phase 15's float run on the weights loaded directly; then the analysis
+    CLI (phase 19's) on it."""
+    import shutil
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict, save_state_dict
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+    from multimodal_concept_learning_tpu_torch.vocab_remap import EMBED_KEY, remap_state_dict_vocab
+
+    t0 = time.perf_counter()
+    models = os.path.join(root, "results", "models")
+    sd = load_state_dict(os.path.join(models, "best_model.pt"))
+    dst_vocab = load_tokenizer(os.path.join(models, "tokenizer")).get_vocab()
+    emb = sd[EMBED_KEY]
+    assert sorted(dst_vocab.values()) == list(range(emb.shape[0]))
+    rng = np.random.default_rng(SEED)
+    src_ids = rng.permutation(REFERENCE_VOCAB)
+    src_vocab = {f"<synthetic {i}>": int(i) for i in src_ids[emb.shape[0]:]}
+    src_vocab.update({tok: int(src_ids[i]) for tok, i in dst_vocab.items()})
+    table = torch.zeros(REFERENCE_VOCAB, emb.shape[1])
+    table[torch.from_numpy(src_ids[:emb.shape[0]])] = emb
+    reference = dict(sd, **{EMBED_KEY: table})
+    remapped, copied = remap_state_dict_vocab(reference, src_vocab, dst_vocab,
+                                              torch.zeros_like(emb))
+    bitwise = sorted(remapped) == sorted(sd) and all(torch.equal(remapped[k], sd[k]) for k in sd)
+    remap_root = os.path.join(root, "remap")
+    out_models = os.path.join(remap_root, "results", "models")
+    os.makedirs(out_models)
+    shutil.copytree(os.path.join(models, "tokenizer"), os.path.join(out_models, "tokenizer"))
+    shutil.copy(os.path.join(models, "training_config.json"), out_models)
+    save_state_dict(remapped, os.path.join(out_models, "best_model.pt"))
+    # a one-epoch run: its epoch checkpoint is its best one
+    os.link(os.path.join(out_models, "best_model.pt"), os.path.join(out_models, "epoch_0_model.pt"))
+    os.link(os.path.join(models, "initial_model.pt"), os.path.join(out_models, "initial_model.pt"))
+    print(f"[remap] {len(src_vocab)}-token source vocabulary, a {tuple(table.shape)} table: "
+          f"{copied} rows copied back, the state dict bitwise the original {bitwise}; in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del sd, table, reference, remapped
+    if not (bitwise and copied == emb.shape[0] and len(src_vocab) == REFERENCE_VOCAB):
+        fail("remap chain: the remapped state dict is not the original")
+    rows = phase_answer_slice(remap_root, runs=ANSWER_RUNS[:1], prefix="remap-answers")["float"]
+    same = rows == float_rows
+    print(f"[remap] answer rows equal to phase 15's float rows on the weights loaded directly: "
+          f"{same} ({len(rows)} rows)", flush=True)
+    if not same:
+        fail("remap chain: the answers differ from phase 15's")
+    phase_analysis(remap_root)
+
+
 SOURCES = {
     "flash_attention_fwd": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_fwd.cu",
                             "multimodal_concept_learning_tpu/ops/flash_attention.py:31"),
@@ -4520,43 +4985,55 @@ def main(argv=None) -> None:
         profile_decode(args.profile_decode, int8_kv=args.int8_kv)
         return
     report: dict = {}
-    phase_kernels(report)
-    phase_parity()
-    phase_quant_parity()
-    phase_generate_parity()
-    phase_fronts_parity()
+
+    def timed(fn, *fn_args, **fn_kwargs):
+        t0 = time.perf_counter()
+        out = fn(*fn_args, **fn_kwargs)
+        print(f"[timing] {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    timed(phase_kernels, report)
+    timed(phase_parity)
+    timed(phase_quant_parity)
+    timed(phase_generate_parity)
+    timed(phase_fronts_parity)
     root = tempfile.mkdtemp(prefix="_smoke_results_", dir=REPO)  # listed in .gitignore
     try:
-        float_run = phase_slice(report, root)
-        phase_quant_slice(report, root, float_run)
-        phase_fronts_slice(root, float_run)
+        float_run = timed(phase_slice, report, root)
+        timed(phase_quant_slice, report, root, float_run)
+        timed(phase_fronts_slice, root, float_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     serving_k1 = report["flash_attention_fwd"]["launches"]
-    phase_train_parity()
-    phase_vision_parity()
-    phase_lora_parity()
+    timed(phase_train_parity)
+    timed(phase_vision_parity)
+    timed(phase_lora_parity)
     root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
     try:
-        vision_best = phase_vision_slice(report, os.path.join(root, "vision"))
-        data = phase_train_slice(report, root, vision_path=vision_best)
-        phase_answer_slice(root)  # on phase 7's results dir and data
-        phase_analysis(root)
-        phase_lora_slice(root, data)  # on phase 7's data
+        vision_best = timed(phase_vision_slice, report, os.path.join(root, "vision"))
+        data = timed(phase_train_slice, report, root, vision_path=vision_best)
+        answers = timed(phase_answer_slice, root)  # on phase 7's results dir and data
+        timed(phase_analysis, root)
+        timed(phase_lora_slice, root, data)  # on phase 7's data
+        timed(phase_remap_chain, root, answers["float"])  # phase 7's weights, 15's answers
+        timed(phase_vision_resume, os.path.join(root, "vision-resume"), card)
+        timed(phase_mllm_resume, os.path.join(root, "mllm-resume"), card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
           f"{report['flash_attention_fwd']['launches']}", flush=True)
-    phase_clip_parity()
-    phase_variant_parity()
+    dense_clip = timed(phase_clip_parity)
+    timed(phase_partitioned_parity, dense_clip)
+    timed(phase_variant_parity)
     root = tempfile.mkdtemp(prefix="_smoke_clip_", dir=REPO)
     try:
-        clip_run = phase_clip_slice(report, root)
-        phase_variant_slice(report, clip_run)  # on phase 9's generated data
+        clip_run = timed(phase_clip_slice, report, root)
+        timed(phase_variant_slice, report, clip_run)  # on phase 9's generated data
+        timed(phase_partitioned_clip_slice, root, clip_run, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    phase_multi_lora_bench()
-    phase_ab(report)
+    timed(phase_multi_lora_bench)
+    timed(phase_ab, report)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}
                for name, r in report.items()]

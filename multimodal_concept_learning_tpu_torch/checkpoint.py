@@ -17,7 +17,9 @@
   normal(0.02) kernels, embeddings and LoRA ``a`` factors, zero biases and
   LoRA ``b`` factors, unit LayerNorm scales, zero RMSNorm weights; for
   CLIP also normal(0.01) text positions and
-  ``logit_scale`` = log(1/0.07)), for the MLLM and ``CLIPModel``.
+  ``logit_scale`` = log(1/0.07); a partitioned text embedding draws its
+  table as the dense one does and copies the active rows), for the MLLM
+  and ``CLIPModel``.
 - ``save_results_dir`` / ``load_state_dict``: the reference layout
   ``models/{training_config.json, best_model.pt, tokenizer/}``.
 - ``host_state_dict`` / ``save_state_dict``: the trainer's checkpoints, a
@@ -41,6 +43,7 @@ from multimodal_concept_learning_tpu_torch.device import cast_for_compute, resol
 from multimodal_concept_learning_tpu_torch.models.lm import RMSNorm
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
 from multimodal_concept_learning_tpu_torch.ops.lora import LoRAAdapter
+from multimodal_concept_learning_tpu_torch.ops.sparse_embed import PartitionedEmbed
 
 
 def _vit_export(rel: str, arr: np.ndarray, patch_size: int):
@@ -181,8 +184,10 @@ def state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
 def _text_entry(rel: str, arr: np.ndarray):
     """One flax CLIP text-tower param as (port name under ``text.``, array)."""
     parts = rel.split("/")
-    if rel == "token_embedding/embedding":
+    if rel == "token_embedding/embedding":  # the dense table, or a partitioned one's full table
         return "token_embedding.weight", arr
+    if rel == "token_embedding/active":  # a partitioned table's trainable subtable
+        return "token_embedding.active", arr
     if rel == "positional_embedding":
         return "positional_embedding", arr
     leaf = {"scale": "weight", "bias": "bias", "kernel": "weight"}[parts[-1]]
@@ -206,7 +211,8 @@ def _text_entry(rel: str, arr: np.ndarray):
 def clip_state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
     """JAX ``CLIPModel`` params (numpy leaves, optionally under "params")
     -> the port's ``CLIPModel`` state dict of float32 tensors (load it with
-    ``strict=True``)."""
+    ``strict=True``).  A partitioned tree's ``text/token_embedding/
+    {embedding, active}`` become ``text.token_embedding.{weight, active}``."""
     params = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
     for key, arr in _flatten(params).items():
@@ -267,7 +273,7 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator, std: floa
     for mod in model.modules():
         if isinstance(mod, RMSNorm):
             mod.weight.zero_()
-        elif isinstance(mod, LoRAAdapter):
+        elif isinstance(mod, (LoRAAdapter, PartitionedEmbed)):
             mod.reset_parameters(generator, std)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)

@@ -19,17 +19,31 @@ a vision config with ``fused_attention=True`` (a ``dataclasses.replace`` of
 ``config.vision``, as ``scripts/bench_fused_attention.py`` builds it) runs
 every image block's attention sublayer through K6
 (``ops/fused_attention_block.py``).  The all-gather
-of ``contrastive_loss``'s ``axis_name`` (a sharded batch) and the
-partitioned text embedding (``active_vocab_rows``) are not ported yet.
-Parameter names follow the JAX tree (``checkpoint.clip_state_dict_from_jax``
-maps one onto the other).
+of ``contrastive_loss``'s ``axis_name`` (a sharded batch) is not ported
+yet.  ``active_vocab_rows`` (sorted ids, every one the caption corpus can
+produce) partitions the text embedding (``ops/sparse_embed.py``): a frozen
+full table under the dense name ``text.token_embedding.weight`` and the
+trainable subtable ``text.token_embedding.active``.  A dense model loads
+such a state dict with ``strict=True`` and ignores ``active``: in a saved
+checkpoint the table already holds the trained rows
+(``merged_embedding``); an unmerged pair (a resume checkpoint) loads into a
+partitioned model only.  The similarity scale is ``exp(minimum(logit_scale,
+log(100)))`` with the bound in the parameter's dtype and ``exp`` in
+float32: what XLA computes for JAX's jitted train step.  Under
+``bf16_params`` the bound rounds to bf16 (4.59375, a largest scale of
+98.86), and the bf16 rounding of ``exp``'s result, which an eager JAX
+``apply`` shows, is not kept once the scale feeds a float32 product (XLA's
+default excess precision); ``minimum`` splits the gradient at a tie, as
+JAX's does.  Parameter names
+follow the JAX tree (``checkpoint.clip_state_dict_from_jax`` maps one onto
+the other).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +52,7 @@ from torch import nn
 from multimodal_concept_learning_tpu_torch.device import linear
 from multimodal_concept_learning_tpu_torch.models.vit import ViTConfig, ViTEncoder, layer_norm_f32
 from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
+from multimodal_concept_learning_tpu_torch.ops.sparse_embed import PartitionedEmbed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,18 +65,24 @@ class CLIPConfig:
     context_length: int = 77
     embed_dim: int = 512
     dtype: torch.dtype = torch.bfloat16
+    # sorted ids the caption corpus can produce: the partitioned text
+    # embedding (ops/sparse_embed.py); None = the dense table
+    active_vocab_rows: Optional[Tuple[int, ...]] = None
 
     @classmethod
     def create(cls, vocab_size: int, vision_preset: str = "vit-b-32", image_size: int = 224,
                text_width: int = 512, text_layers: int = 12, text_heads: int = 8,
                context_length: int = 77, embed_dim: int = 512,
-               dtype: torch.dtype = torch.bfloat16) -> "CLIPConfig":
+               dtype: torch.dtype = torch.bfloat16,
+               active_vocab_rows: Optional[Tuple[int, ...]] = None) -> "CLIPConfig":
         vision = dataclasses.replace(ViTConfig.preset(vision_preset), image_size=image_size,
                                      gelu_approximate=True, attention_layout="pallas_core",
                                      dtype=dtype)
         return cls(vision=vision, vocab_size=vocab_size, text_width=text_width,
                    text_layers=text_layers, text_heads=text_heads,
-                   context_length=context_length, embed_dim=embed_dim, dtype=dtype)
+                   context_length=context_length, embed_dim=embed_dim, dtype=dtype,
+                   active_vocab_rows=(tuple(active_vocab_rows)
+                                      if active_vocab_rows is not None else None))
 
 
 class TextBlock(nn.Module):
@@ -94,11 +115,21 @@ class TextEncoder(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
-        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.text_width)
+        if cfg.active_vocab_rows is not None:
+            self.token_embedding = PartitionedEmbed(cfg.vocab_size, cfg.text_width,
+                                                    cfg.active_vocab_rows)
+        else:
+            self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.text_width)
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, cfg.text_width))
         self.blocks = nn.ModuleList(TextBlock(cfg.text_width, cfg.text_heads, cfg.dtype)
                                     for _ in range(cfg.text_layers))
         self.ln_final = nn.LayerNorm(cfg.text_width, eps=1e-6)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a dense table ignores a partitioned checkpoint's subtable (module docstring)
+        if isinstance(self.token_embedding, nn.Embedding):
+            state_dict.pop(prefix + "token_embedding.active", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -146,7 +177,9 @@ class CLIPModel(nn.Module):
     def forward(self, images, input_ids, attention_mask=None):
         img = self.encode_image(images)
         txt = self.encode_text(input_ids, attention_mask)
-        scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
+        ls = self.logit_scale  # the bound in its dtype, exp in float32 (module docstring)
+        bound = torch.tensor(math.log(100.0), device=ls.device).to(ls.dtype)
+        scale = torch.exp(torch.minimum(ls, bound).float())
         return img, txt, scale
 
 

@@ -19,6 +19,9 @@ it (as ``MultiSteps`` does on bf16 gradients), then upcast to float32, and
 AdamW runs on float32 master copies, whose bf16 rounding is written back
 after each update.
 Every update is plain tensor arithmetic on the parameters' device.
+``state_dict`` / ``load_state_dict`` carry everything a resumed run needs
+(the moments, masters, accumulator and both counters), so a run resumed
+between the micro-steps of one accumulation continues bitwise.
 """
 
 from __future__ import annotations
@@ -94,6 +97,27 @@ class Optimizer:
             grads[n] = p.grad if p.grad is not None else torch.zeros_like(p)
             p.grad = None
         return grads
+
+    def state_dict(self) -> dict:
+        """The optimizer's state: {count, mini_step, mu, nu, master, acc}
+        (tensors by parameter name; ``master`` / ``acc`` None when unused)."""
+        return {"count": self.count, "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu,
+                "master": self.master, "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy ``state`` (as ``state_dict`` returns it, on any device) into
+        this optimizer's tensors; the names and dtypes must be its own."""
+        for key in ("mu", "nu", "master", "acc"):
+            mine, theirs = getattr(self, key), state[key]
+            if (mine is None) != (theirs is None) or (mine is not None and set(mine) != set(theirs)):
+                raise ValueError(f"optimizer state {key!r} does not match this optimizer's")
+            for name, t in (mine or {}).items():
+                if theirs[name].dtype != t.dtype:
+                    raise ValueError(f"optimizer state {key}[{name!r}] is {theirs[name].dtype}, "
+                                     f"not {t.dtype}")
+                t.copy_(theirs[name])
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
 
     @torch.no_grad()
     def step(self) -> bool:

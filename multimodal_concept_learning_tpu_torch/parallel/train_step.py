@@ -43,6 +43,8 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     step: int = 0  # micro-steps taken
+    # the classifier's dropout stream, when it has one: a resumed run draws on from it
+    generator: Optional[torch.Generator] = None
 
 
 def make_classifier_train_step(model: ViTForImageClassification,

@@ -17,10 +17,25 @@ are saved as a ``.pt`` state dict of float32 tensors,
 ``results_dir/checkpoints/step_{N}.pt`` (the JAX trainer writes an orbax
 ``step_{N}`` directory).
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP.md): ``resume`` with
-its preemption guard, ``partition_text_embedding`` and ``bf16_params`` (in
-the JAX model a bf16 ``logit_scale`` also rounds ``exp(logit_scale)`` to
-bf16, which the port would have to reproduce).
+``partition_text_embedding: true`` builds the active rows from the caption
+corpus (every class's caption, padding included), prints "Partitioned text
+embedding: N active rows of V" and trains the partitioned table
+(``ops/sparse_embed.py``): the full table frozen, the subtable under AdamW.
+The final save folds the inactive rows' weight decay in (the schedule at
+updates ``0..n-1``, ``n`` the optimizer's update count, restored ones
+included) and writes the merged table under the dense name
+``text.token_embedding.weight``, so the dense ``CLIPModel`` and every
+reader of the dense layout get the trained values; the subtable stays
+beside it as ``text.token_embedding.active``, which a dense
+``strict=True`` load ignores (``models/clip.py``).  ``bf16_params: true``
+stores every parameter in bf16 (the frozen table too) with float32 masters
+in AdamW, as the other two trainers do; the similarity scale then follows
+JAX's jitted step (the clip bound in bf16, ``exp`` in float32;
+``models/clip.py``), and the merged table is rounded as JAX rounds it
+(``merged_embedding``).
+``resume: true`` saves the training state at each epoch's end and restores
+the newest on start; SIGTERM saves a mid-epoch checkpoint and ``main``
+returns ``{"preempted": True}`` (``train/common.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +61,12 @@ from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_
 from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 from multimodal_concept_learning_tpu_torch.device import resolve_device
 from multimodal_concept_learning_tpu_torch.models.clip import CLIPConfig, CLIPModel
+from multimodal_concept_learning_tpu_torch.ops.sparse_embed import (
+    PartitionedEmbed,
+    active_rows_from_corpus,
+    inactive_decay,
+    merged_embedding,
+)
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import (
     build_optimizer,
     linear_warmup_schedule,
@@ -56,45 +77,69 @@ from multimodal_concept_learning_tpu_torch.parallel.train_step import (
     make_zero_shot_step,
 )
 from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+from multimodal_concept_learning_tpu_torch.train.common import (
+    PreemptionGuard,
+    ResumeManager,
+    epoch_batches,
+    epoch_metric_mean,
+)
 from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
 
-def _refuse_unported(config: ContrastiveTrainingConfig) -> None:
-    for field, what in (("resume", "resume / preemption checkpoints"),
-                        ("partition_text_embedding", "the partitioned text embedding"),
-                        ("bf16_params", "bf16 parameter storage")):
-        if getattr(config, field):
-            raise NotImplementedError(f"{what} ({field}) is not ported yet (ROADMAP.md, queue A)")
-
-
-def init_model(config: ContrastiveTrainingConfig, vocab_size: int, device) -> CLIPModel:
+def init_model(config: ContrastiveTrainingConfig, vocab_size: int, device,
+               active_rows=None) -> CLIPModel:
     """The config's CLIP (bf16 compute) with float32 parameters on
     ``device``, from the seeded random init (``torch.Generator`` on the
-    device, seed ``config.seed``)."""
+    device, seed ``config.seed``); ``active_rows`` partitions its text
+    embedding (the same initial table as the dense model's)."""
     dev = resolve_device(device)
     cfg = CLIPConfig.create(vocab_size=vocab_size, vision_preset=config.vision_model_name,
                             image_size=config.image_size, text_width=config.text_width,
                             text_layers=config.text_layers, text_heads=config.text_heads,
                             context_length=config.context_length, embed_dim=config.embed_dim,
-                            dtype=torch.bfloat16)
+                            dtype=torch.bfloat16, active_vocab_rows=active_rows)
     with torch.device(dev):
         model = CLIPModel(cfg)
     return init_random_weights_(model, torch.Generator(device=dev).manual_seed(config.seed))
 
 
+def export_state_dict(state: TrainState, weight_decay: float):
+    """The model's float32 host state dict; a partitioned text embedding's
+    table merged (``merged_embedding``, rounded to the table's dtype) with
+    the inactive rows' weight decay over the optimizer's updates so far."""
+    model, optimizer = state.model, state.optimizer
+    sd = host_state_dict(model)
+    emb = model.text.token_embedding
+    if isinstance(emb, PartitionedEmbed):
+        # the learning rates AdamW applied (float32), evaluated on the host
+        lrs = [float(np.float32(optimizer.lr(i))) for i in range(optimizer.count)]
+        merged = merged_embedding(emb.weight, emb.active, emb.active_rows,
+                                  inactive_decay(lrs, weight_decay))
+        sd["text.token_embedding.weight"] = merged.to(emb.weight.dtype).float().cpu()
+    return sd
+
+
 def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConfig):
     """Train ``model`` (on its device) as the JAX ``run_training`` does and
-    save the final weights; returns (final TrainState, per-epoch metrics,
-    checkpoint path)."""
-    _refuse_unported(config)
+    save the final weights (``export_state_dict``); returns (final
+    TrainState, per-epoch metrics, checkpoint path), or None when SIGTERM
+    preempted the run."""
     device = next(model.parameters()).device
     accumulation_steps = max(1, config.effective_batch_size // config.batch_size)
     total_updates = max(1, (len(train_loader) * config.epochs) // accumulation_steps)
     schedule = linear_warmup_schedule(config.learning_rate, config.warmup_steps, total_updates)
+    if config.bf16_params:  # bf16 storage of every parameter, float32 masters in AdamW
+        for p in model.parameters():
+            p.data = p.data.to(torch.bfloat16)
     optimizer = build_optimizer(model, schedule, weight_decay=config.weight_decay,
                                 max_grad_norm=config.max_grad_norm,
-                                accumulation_steps=accumulation_steps)
+                                accumulation_steps=accumulation_steps,
+                                fp32_master=config.bf16_params)
     state = TrainState(model=model, optimizer=optimizer)
+    resume = ResumeManager(config.results_dir, config.resume)
+    state, start_epoch, meta = resume.restore(state)
+    guard = PreemptionGuard(enabled=config.resume)
+    skip_batches = int(meta.get("skip_batches", 0) or 0)
     train_step = make_clip_train_step(model)
     logger = MetricsLogger(enabled=True, use_wandb=config.use_wandb,
                            wandb_project=config.wandb_project,
@@ -102,14 +147,21 @@ def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConf
                            wandb_config=vars(config))
     os.makedirs(config.results_dir, exist_ok=True)
     history = []
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
         t0 = time.time()
         train_loader.set_epoch(epoch)
         losses = []  # 0-d device tensors: one host sync per epoch
-        for batch in train_loader:
+        done_in_epoch = skip_batches if epoch == start_epoch else 0
+        for batch in epoch_batches(train_loader, done_in_epoch):
             state, m = train_step(state, to_device(batch, device))
+            done_in_epoch += 1
             losses.append(m["loss"])
-        train_loss = float(torch.stack(losses).mean()) if losses else 0.0
+            if guard.preempted:
+                resume.save_preempted(state, epoch, done_in_epoch, {})
+                logger.finish()
+                guard.close()
+                return None
+        train_loss = epoch_metric_mean(losses)
         epoch_time = time.time() - t0
         metrics = {"epoch": epoch + 1, "train_loss": train_loss, "epoch_time": epoch_time,
                    "steps": len(losses)}
@@ -117,10 +169,13 @@ def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConf
               f"Train Loss: {train_loss:.4f}")
         logger.log(metrics)
         history.append(metrics)
+        resume.save(state, epoch, {})
+    resume.finalize()
+    guard.close()
     ckpt_dir = os.path.join(config.results_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{state.step}.pt")
-    save_state_dict(host_state_dict(model), path)
+    save_state_dict(export_state_dict(state, config.weight_decay), path)
     logger.finish()
     return state, history, path
 
@@ -145,7 +200,8 @@ def zero_shot_eval(model: CLIPModel, loader, class_names, collator: ClipCollator
 
 def main(argv=None):
     """The CLI; returns {"zero_shot_acc", "history" (per-epoch metrics),
-    "checkpoint" (path), "state" (the final TrainState)}."""
+    "checkpoint" (path), "state" (the final TrainState)}, or
+    ``{"preempted": True}`` after SIGTERM."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
@@ -154,7 +210,6 @@ def main(argv=None):
 
     with open(args.config_path) as f:
         config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
-    _refuse_unported(config)
     random.seed(config.seed)
     np.random.seed(config.seed)
     tokenizer = load_tokenizer("concept-tokenizer")
@@ -172,10 +227,19 @@ def main(argv=None):
           f"{len(class_names)} concepts")
 
     collator = ClipCollator(tokenizer, config.caption_template, config.context_length)
-    model = init_model(config, len(tokenizer), device)
+    active_rows = None
+    if config.partition_text_embedding:
+        # the caption corpus (one template x the class names) is enumerable:
+        # every id the text tower can gather, padding included
+        active_rows = active_rows_from_corpus([collator.caption_ids(n)[0] for n in class_names])
+        print(f"Partitioned text embedding: {len(active_rows)} active rows of {len(tokenizer)}")
+    model = init_model(config, len(tokenizer), device, active_rows)
     train_loader = BatchLoader(train_dataset, batch_size=config.batch_size, shuffle=True,
                                drop_last=True, collate_fn=collator, seed=config.seed)
-    state, history, path = run_training(model, train_loader, config)
+    out = run_training(model, train_loader, config)
+    if out is None:  # graceful preemption: resume later with resume: true
+        return {"preempted": True}
+    state, history, path = out
 
     def eval_collate(batch):
         images = np.stack([b[0] for b in batch]).astype(np.float32)

@@ -16,9 +16,14 @@ bf16 over float32 trained parameters; frozen linear weights are stored in
 bf16 once.  ``trainable_params_setting: language_lora`` with ``lm_lora_rank``
 (and ``lm_lora_alpha``) trains the projector and the LM's LoRA factors
 (``ops/lora.py``); the checkpoints hold them under the JAX package's names.
+``resume: true`` saves the training state at each epoch's end and restores
+the newest on start; SIGTERM saves a mid-epoch checkpoint and ``main``
+returns ``{"preempted": True}`` (``train/common.py``).  As in JAX, the
+collator's question stream is not part of that state: a resumed run draws
+the questions of a fresh process (ROADMAP.md, queue C).
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP.md): ``resume`` with
-its preemption guard, MoE, and ImageNet (JPEG) data.
+Not ported yet (raise ``NotImplementedError``; ROADMAP.md): MoE, and
+ImageNet (JPEG) data.
 """
 
 from __future__ import annotations
@@ -66,14 +71,18 @@ from multimodal_concept_learning_tpu_torch.parallel.train_step import (
     make_mllm_train_step,
 )
 from multimodal_concept_learning_tpu_torch.serve.loader import build_tokenizer, model_config
+from multimodal_concept_learning_tpu_torch.train.common import (
+    PreemptionGuard,
+    ResumeManager,
+    epoch_batches,
+    epoch_metric_mean,
+)
 from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
 
 def _refuse_unported(config: MultimodalTrainingConfig) -> None:
-    for field, what in (("resume", "resume / preemption checkpoints"),
-                        ("lm_moe_experts", "MoE")):
-        if getattr(config, field, None):
-            raise NotImplementedError(f"{what} ({field}) is not ported yet (ROADMAP.md, queue A)")
+    if getattr(config, "lm_moe_experts", None):
+        raise NotImplementedError("MoE (lm_moe_experts) is not ported yet (ROADMAP.md, queue A)")
 
 
 def load_vision_tower_(model: MLLM, path: str) -> None:
@@ -147,7 +156,8 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
                  config: MultimodalTrainingConfig):
     """Train ``model`` (on its device) as the JAX ``run_training`` does;
     returns (final TrainState, test metrics of the best checkpoint, the
-    metrics logged for each epoch)."""
+    metrics logged for each epoch); after SIGTERM (None,
+    {"preempted": True}, the metrics so far)."""
     assert config.effective_batch_size % config.batch_size == 0, (
         f"effective_batch_size ({config.effective_batch_size}) must be divisible "
         f"by batch_size ({config.batch_size})"
@@ -188,19 +198,30 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
                            wandb_project=config.wandb_project,
                            wandb_run_name=config.wandb_run_name or config.run_name,
                            wandb_config=vars(config))
-    best_loss = float("inf")
+    resume = ResumeManager(config.results_dir, config.resume)
+    state, start_epoch, meta = resume.restore(state)
+    guard = PreemptionGuard(enabled=config.resume)
+    skip_batches = int(meta.get("skip_batches", 0) or 0)
+    best_loss = float(meta.get("best_loss", float("inf")))
     history = []
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
         epoch_start = time.time()
         train_loader.set_epoch(epoch)
         losses = []  # 0-d device tensors: one host sync per epoch
-        for batch in train_loader:
+        done_in_epoch = skip_batches if epoch == start_epoch else 0
+        for batch in epoch_batches(train_loader, done_in_epoch):
             state, m = train_step(state, to_device(batch, device))
+            done_in_epoch += 1
             losses.append(m["loss"])
-        train_loss = float(torch.stack(losses).mean()) if losses else 0.0
+            if guard.preempted:
+                resume.save_preempted(state, epoch, done_in_epoch, {"best_loss": best_loss})
+                logger.finish()
+                guard.close()
+                return None, {"preempted": True}, history
+        train_loss = epoch_metric_mean(losses)
         train_time = time.time() - epoch_start
         val_losses = [eval_step(model, to_device(b, device))["loss"] for b in val_loader]
-        val_loss = float(torch.stack(val_losses).mean()) if val_losses else 0.0
+        val_loss = epoch_metric_mean(val_losses)
         epoch_time = time.time() - epoch_start
         current_lr = optimizer.lr(state.step // accumulation_steps)
 
@@ -222,6 +243,9 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
         logger.print_multimodal_epoch(metrics, config.epochs)
         logger.log(metrics)
         history.append(metrics)
+        resume.save(state, epoch, {"best_loss": best_loss})
+    resume.finalize()
+    guard.close()
 
     print(f"Best val loss: {best_loss:.4f}")
     print("\n" + "=" * 50)
@@ -244,7 +268,8 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
 
 
 def main(argv=None):
-    """The CLI; returns what ``run_training`` returns."""
+    """The CLI; returns what ``run_training`` returns, or
+    ``{"preempted": True}`` after SIGTERM."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
@@ -285,7 +310,8 @@ def main(argv=None):
                                drop_last=True, seed=config.seed, **loader_kwargs)
     val_loader = BatchLoader(val_dataset, batch_size=config.batch_size, **loader_kwargs)
     test_loader = BatchLoader(test_dataset, batch_size=config.batch_size, **loader_kwargs)
-    return run_training(model, tokenizer, train_loader, val_loader, test_loader, config)
+    out = run_training(model, tokenizer, train_loader, val_loader, test_loader, config)
+    return out[1] if out[0] is None else out  # {"preempted": True} after SIGTERM
 
 
 if __name__ == "__main__":

@@ -18,9 +18,13 @@ masters).  Metrics stay on the device until the end of each pass, one host
 sync a pass.  On the card every deterministic forward (validation, test)
 runs K1; a training forward with dropout runs the dense dropout branch
 (``ops/attention.py``), and one without dropout K1 and its backward.
+``resume: true`` saves the training state, dropout generator included, at
+each epoch's end and restores the newest on start; SIGTERM saves a
+mid-epoch checkpoint and ``main`` returns ``{"preempted": True}``
+(``train/common.py``).
 
-Not ported yet: ``resume`` (ROADMAP.md, A4) and ImageNet data (A10); both
-raise ``NotImplementedError``.
+Not ported yet: ImageNet data (ROADMAP.md, A10) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,13 +58,15 @@ from multimodal_concept_learning_tpu_torch.parallel.train_step import (
     make_classifier_eval_step,
     make_classifier_train_step,
 )
+from multimodal_concept_learning_tpu_torch.train.common import (
+    PreemptionGuard,
+    ResumeManager,
+    epoch_batches,
+)
 from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
 
 def _refuse_unported(config: VisionTrainingConfig) -> None:
-    if config.resume:
-        raise NotImplementedError(
-            "resume / preemption checkpoints (resume) are not ported yet (ROADMAP.md, A4)")
     if config.dataset_name == "imagenet100":
         raise NotImplementedError("ImageNet (JPEG) data is not ported yet (ROADMAP.md, A10)")
 
@@ -93,7 +99,8 @@ def _evaluate(eval_step, model, loader, device) -> tuple:
 def run_training(model: ViTForImageClassification, train_loader, val_loader,
                  config: VisionTrainingConfig, generator: torch.Generator):
     """Train ``model`` (on its device) as the JAX ``run_training`` does;
-    returns (final TrainState, the metrics of each epoch)."""
+    returns (final TrainState, the metrics of each epoch); the state is
+    None when SIGTERM preempted the run."""
     assert config.effective_batch_size % config.batch_size == 0, (
         f"effective_batch_size ({config.effective_batch_size}) must be divisible "
         f"by batch_size ({config.batch_size})"
@@ -110,7 +117,11 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
                                 max_grad_norm=1.0,  # fixed in the reference
                                 accumulation_steps=accumulation_steps,
                                 fp32_master=config.bf16_params)
-    state = TrainState(model=model, optimizer=optimizer)
+    state = TrainState(model=model, optimizer=optimizer, generator=generator)
+    resume = ResumeManager(config.results_dir, config.resume)
+    state, start_epoch, meta = resume.restore(state)
+    guard = PreemptionGuard(enabled=config.resume)
+    skip_batches = int(meta.get("skip_batches", 0) or 0)
     train_step = make_classifier_train_step(model, generator, config.label_smoothing)
     eval_step = make_classifier_eval_step(model, config.label_smoothing)
 
@@ -119,15 +130,22 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
                            wandb_run_name=config.wandb_run_name, wandb_config=vars(config))
     models_dir = os.path.join(config.results_dir, "models")
     os.makedirs(models_dir, exist_ok=True)
-    best_loss = float("inf")
+    best_loss = float(meta.get("best_loss", float("inf")))
     history = []
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
         epoch_start = time.time()
         train_loader.set_epoch(epoch)
         steps = []
-        for batch in train_loader:
+        done_in_epoch = skip_batches if epoch == start_epoch else 0
+        for batch in epoch_batches(train_loader, done_in_epoch):
             state, m = train_step(state, to_device(batch, device))
+            done_in_epoch += 1
             steps.append(m)
+            if guard.preempted:
+                resume.save_preempted(state, epoch, done_in_epoch, {"best_loss": best_loss})
+                logger.finish()
+                guard.close()
+                return None, history
         train_loss, train_acc = _totals(steps)
         train_time = time.time() - epoch_start
         val_loss, val_acc = _evaluate(eval_step, model, val_loader, device)
@@ -143,6 +161,9 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
         logger.print_vision_epoch(metrics, config.epochs)
         logger.log(metrics)
         history.append(metrics)
+        resume.save(state, epoch, {"best_loss": best_loss})
+    resume.finalize()
+    guard.close()
 
     print(f"Best val loss: {best_loss:.4f}")
     save_state_dict(host_state_dict(model), os.path.join(models_dir, "final_model.pt"))
@@ -163,7 +184,7 @@ def evaluate_model(model, test_loader, config: VisionTrainingConfig) -> dict:
 
 def main(argv=None):
     """The CLI; returns the test metrics with the per-epoch ``history`` and
-    the final ``state``."""
+    the final ``state``, or ``{"preempted": True}`` after SIGTERM."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
@@ -201,6 +222,8 @@ def main(argv=None):
     os.makedirs(config.results_dir, exist_ok=True)
     model = init_model(config, init_generator, device)
     state, history = run_training(model, train_loader, val_loader, config, dropout_generator)
+    if state is None:  # graceful preemption: resume later with resume: true
+        return {"preempted": True}
 
     print("\n" + "=" * 50)
     print("FINAL EVALUATION ON TEST SET")

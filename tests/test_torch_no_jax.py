@@ -66,6 +66,10 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis",
     "multimodal_concept_learning_tpu_torch.analysis.multi_token_embedding",
     "multimodal_concept_learning_tpu_torch.scripts.science_table",
+    "multimodal_concept_learning_tpu_torch.ops.sparse_embed",
+    "multimodal_concept_learning_tpu_torch.checkpoint_io",
+    "multimodal_concept_learning_tpu_torch.train.common",
+    "multimodal_concept_learning_tpu_torch.vocab_remap",
     "chip_smoke",
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}
@@ -97,6 +101,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     any import, at top level or inside a function."""
     files = sorted((REPO / "multimodal_concept_learning_tpu_torch").rglob("*.py"))
     assert len(files) > 30
+    port = REPO / "multimodal_concept_learning_tpu_torch"
+    for new in ("ops/sparse_embed.py", "checkpoint_io.py", "train/common.py", "vocab_remap.py"):
+        assert port / new in files, new
     bad = {str(f.relative_to(REPO)): sorted(_import_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
 

@@ -125,11 +125,19 @@ def test_cli_trains_and_its_checkpoint_loads_into_jax(trained):
 def test_cli_refuses_resume_and_imagenet(color_data, tmp_path):
     from multimodal_concept_learning_tpu_torch.train.vision_training import main
 
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import VisionTrainingConfig
+    from multimodal_concept_learning_tpu_torch.train.vision_training import _refuse_unported
+
     _, data_dir = color_data
-    for over, match in (({"resume": True}, "A4"), ({"dataset_name": "imagenet100"}, "A10")):
-        path = _write_yaml(tmp_path / "cfg.yaml", data_dir, str(tmp_path / "r"), **over)
-        with pytest.raises(NotImplementedError, match=match):
-            main(["--config_path", path, "--device", "cpu"])
+    path = _write_yaml(tmp_path / "cfg.yaml", data_dir, str(tmp_path / "r"),
+                       dataset_name="imagenet100")
+    with pytest.raises(NotImplementedError, match="A10"):
+        main(["--config_path", path, "--device", "cpu"])
+    # resume is ported (its runs: tests/test_torch_resume.py): no longer refused
+    path = _write_yaml(tmp_path / "cfg.yaml", data_dir, str(tmp_path / "r"), resume=True)
+    with open(path) as f:
+        _refuse_unported(VisionTrainingConfig.from_params(miniyaml.safe_load(f)))
     path = _write_yaml(tmp_path / "cfg.yaml", data_dir, str(tmp_path / "r"),
                        effective_batch_size=6)
     with pytest.raises(AssertionError, match=r"effective_batch_size \(6\).*batch_size \(4\)"):
