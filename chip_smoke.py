@@ -147,7 +147,28 @@ Phases (each prints its results; any failure exits non-zero):
     whole batch, K3, K4 and K5 never, and how many adapter-1 answers equal
     the merged server's (a count, not a gate);
 24. the port's multi-LoRA benchmark (``scripts/bench_multi_lora.py``) at
-    its defaults: plain and bank ms a token and fixed cost.
+    its defaults: plain and bank ms a token and fixed cost;
+30. ImageNet data on the host (this machine has no Pillow): every JPEG
+    fixture of tests/data/jpeg decoded by the port's C++ decoder (built
+    here) to the sha256 of Pillow's ``convert("RGB")``; the train and val
+    pipelines of the four ImageNet configs over them at two seeds to the
+    JAX pipelines' recorded sha256; ms an image of the decode alone at
+    500x375 and the loader's images/s alone (imagenet100's train pipeline,
+    batch 64, 8 workers);
+31. ImageNet vision: a synthetic tree of imagenet100's 100 synsets through
+    the port's builder CLI, then the vision CLI on a copy of
+    ``imagenet100.yaml`` (only paths and epochs changed: ViT-B/16, 100
+    labels, dropout 0.1, batch 64, 16 micro-steps an update; 1100 JPEGs,
+    one update), K1 exactly 12 a validation or test batch; three
+    classifier micro-steps at dropout 0 on JPEG-fed batches, card against
+    CPU (phase 17's tolerances);
+32. ImageNet MLLM: a synthetic tree of the 1000 synsets of
+    ``imagenet1k_vit``'s labels mapping through the port's imagenet_configs
+    and builder CLIs, the trainer CLI on a copy of ``imagenet1k_vit.yaml``
+    (only paths and epochs changed: vit-b-16 + gemma3-1b, bf16, batch 8,
+    32 micro-steps an update; 264 JPEGs, one update) with exact K1 forward,
+    dQ and dK/dV counts, ``generate_answers`` on its checkpoint and the
+    ImageNet analysis CLI on its epoch checkpoints.
 
 Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
@@ -226,6 +247,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -3384,7 +3406,10 @@ def phase_lora_slice(root: str, data: tuple) -> None:
         "mapping_path": os.path.join(data_dir, "train_mapping.csv"), "image_root": data_dir,
         "labels_mapping_path": MAPPING, "results_dir": results, "epochs": "1",
         "num_workers": "2", "trainable_params_setting": "language_lora",
-        "lm_lora_rank": str(LORA_RANK)})["path"]
+        "lm_lora_rank": str(LORA_RANK),
+        # no epoch checkpoint: nothing here reads it, and each full-width
+        # save writes ~3 GB of the call's disk budget
+        "save_every_epoch": "false"})["path"]
     torch.cuda.empty_cache()
     counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     for fn in counters:
@@ -3486,31 +3511,19 @@ def _k1_counts(fa) -> tuple:
             fa.flash_attention_bwd_dkv.launches)
 
 
-def phase_vision_parity() -> None:
-    """Phase 17: the full-width vit-b-16 classifier (12 labels) at 2 layers,
-    float32, batch 8.  Dropout 0, on the card (K1 forward, dQ and dK/dV:
-    exactly 2 of each a micro-step) and on the CPU (plain versions): the
-    first batch's gradient of every tensor within 1e-4 relative in norm
+def _classifier_parity(tag: str, cfg, sd: dict, batches: list) -> None:
+    """Three classifier micro-steps with accumulation 2, dropout 0, on the
+    card (K1 forward, dQ and dK/dV: exactly one of each a layer and
+    micro-step) and on the CPU (plain versions) from the weights ``sd``:
+    the first batch's gradient of every tensor within 1e-4 relative in norm
     (but the key biases, whose gradient is rounding alone: phase 8), then
-    three micro-steps with accumulation 2 with the same losses (1e-4
-    relative) and parameters (each tensor within 1e-4 relative in norm, but
-    the key biases: AdamW turns their rounding-alone gradients into full
-    steps of either sign).  Dropout 0.1 (the configs'): a training micro-step launches
-    no K1 kernel; a CUDA generator's masks are bitwise equal on a rerun with
-    its seed, another seed's are not; the keep rate lies within 4 sigma of
-    0.9."""
-    import dataclasses
-
+    the same losses (1e-4 relative) and parameters (each tensor within 1e-4
+    relative in norm, but the key biases)."""
     import torch
 
-    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
     from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
-    from multimodal_concept_learning_tpu_torch.models.vit import (
-        ViTConfig,
-        ViTForImageClassification,
-    )
+    from multimodal_concept_learning_tpu_torch.models.vit import ViTForImageClassification
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
-    from multimodal_concept_learning_tpu_torch.ops.attention import dropout
     from multimodal_concept_learning_tpu_torch.ops.losses import cross_entropy_loss
     from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
     from multimodal_concept_learning_tpu_torch.parallel.train_step import (
@@ -3518,12 +3531,6 @@ def phase_vision_parity() -> None:
         make_classifier_train_step,
     )
 
-    cfg = dataclasses.replace(ViTConfig.preset("vit-b-16", num_labels=12), num_hidden_layers=2,
-                              dtype=torch.float32)
-    model0 = init_random_weights_(ViTForImageClassification(cfg),
-                                  torch.Generator().manual_seed(SEED))
-    sd = {k: v.clone() for k, v in model0.state_dict().items()}
-    batches = _vision_batches(3, 8, 12, SEED)
     runs = {}
     for dev in ("cuda", "cpu"):
         with torch.device(dev):
@@ -3553,8 +3560,9 @@ def phase_vision_parity() -> None:
     param_err = (flat.norm() / torch.cat([psd[n].flatten() for n in sd]).norm()).item()
     tensor_errs = sorted((((csd[n] - psd[n]).norm() / psd[n].norm()).item(), n) for n in held)
     moved = sum(not torch.equal(csd[n], sd[n]) for n in csd)
-    expected = (2 * 3, 2 * 3, 2 * 3)  # 2 layers, 3 micro-steps
-    print(f"[vision-parity] dropout 0: losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; "
+    n = cfg.num_hidden_layers * len(batches)
+    expected = (n, n, n)  # one a layer and micro-step
+    print(f"[{tag}] dropout 0: losses cuda {cl} cpu {pl}: max rel err {loss_err:.2e}; "
           f"first gradients of {len(held)} tensors: max norm-relative err "
           f"{grad_errs[-1][0]:.2e} (largest: "
           + ", ".join(f"{n} {e:.2e}" for e, n in grad_errs[-3:]) + "); parameters after 3 "
@@ -3565,9 +3573,49 @@ def phase_vision_parity() -> None:
           f"(expected {expected}) cpu {plaunch}", flush=True)
     if not (loss_err <= 1e-4 and grad_errs[-1][0] <= 1e-4 and tensor_errs[-1][0] <= 1e-4
             and moved == len(csd)):
-        fail("vision training parity CUDA vs CPU")
+        fail(f"{tag}: classifier training parity CUDA vs CPU")
     if claunch != expected or max(plaunch) != 0:
-        fail(f"vision parity launches: cuda {claunch} != {expected}, cpu {plaunch}")
+        fail(f"{tag}: launches cuda {claunch} != {expected}, cpu {plaunch}")
+
+
+def phase_vision_parity() -> None:
+    """Phase 17: the full-width vit-b-16 classifier (12 labels) at 2 layers,
+    float32, batch 8.  Dropout 0, on the card (K1 forward, dQ and dK/dV:
+    exactly 2 of each a micro-step) and on the CPU (plain versions): the
+    first batch's gradient of every tensor within 1e-4 relative in norm
+    (but the key biases, whose gradient is rounding alone: phase 8), then
+    three micro-steps with accumulation 2 with the same losses (1e-4
+    relative) and parameters (each tensor within 1e-4 relative in norm, but
+    the key biases: AdamW turns their rounding-alone gradients into full
+    steps of either sign).  Dropout 0.1 (the configs'): a training micro-step launches
+    no K1 kernel; a CUDA generator's masks are bitwise equal on a rerun with
+    its seed, another seed's are not; the keep rate lies within 4 sigma of
+    0.9."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.models.vit import (
+        ViTConfig,
+        ViTForImageClassification,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.ops.attention import dropout
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_classifier_train_step,
+    )
+
+    cfg = dataclasses.replace(ViTConfig.preset("vit-b-16", num_labels=12), num_hidden_layers=2,
+                              dtype=torch.float32)
+    model0 = init_random_weights_(ViTForImageClassification(cfg),
+                                  torch.Generator().manual_seed(SEED))
+    sd = {k: v.clone() for k, v in model0.state_dict().items()}
+    batches = _vision_batches(3, 8, 12, SEED)
+    _classifier_parity("vision-parity", cfg, sd, batches)
 
     drop_cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.1,
                                    attention_probs_dropout_prob=0.1, dtype=torch.bfloat16)
@@ -4760,18 +4808,47 @@ def phase_vision_resume(root: str, card: str) -> None:
         fail(f"vision resume launches {launches} != {expected}")
 
 
+MM_RESUME_DEPTH = (2, 2)  # phase 28's ViT and LM layers
+
+
+@contextlib.contextmanager
+def _cut_depth(vision_layers: int, lm_layers: int):
+    """The MLLM trainer CLI builds its model at these depths, widths kept:
+    a full-depth MLLM checkpoint is ~3.1 GB, and what a call writes to its
+    disk counts against a fixed budget even once deleted."""
+    import dataclasses
+
+    from multimodal_concept_learning_tpu_torch.train import multimodal_training as mt
+
+    full = mt.model_config
+
+    def cut(*args, **kwargs):
+        cfg = full(*args, **kwargs)
+        return dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=vision_layers),
+            lm=dataclasses.replace(cfg.lm, num_layers=lm_layers))
+
+    mt.model_config = cut
+    try:
+        yield
+    finally:
+        mt.model_config = full
+
+
 def phase_mllm_resume(root: str, card: str) -> None:
     """Phase 28: the MLLM trainer CLI on experiments/multimodal/color/
-    12_colors_3k.yaml at full width (vit-b-16 + gemma3-1b, bf16, batch 2, 4
-    micro-steps an update, constant learning rate) with ``resume: true`` on
+    12_colors_3k.yaml at full width and ``MM_RESUME_DEPTH`` (vit-b-16 +
+    gemma3-1b widths at 2 + 2 layers, bf16, batch 2, 4 micro-steps an
+    update, constant learning rate) with ``resume: true`` on
     ``MM_RESUME_IMAGES`` images a color, every class mapped to an ``<ood N>``
     answer (a yes/no question draws from the collator's stream, which no
     checkpoint carries, in JAX as in the port: ROADMAP.md queue C):
     uninterrupted for 2 epochs; then 1 epoch, and the config extended to 2,
     resumed ("Resuming from epoch 0 checkpoint", no "Epoch 1/2"); the
-    resumed run's K1 launches exact (38 forward a micro-step or eval batch,
-    26 dQ and 26 dK/dV a micro-step), its final model and optimizer against
-    the uninterrupted run's (``_same_run``)."""
+    resumed run's K1 launches exact (one forward a layer of a micro-step or
+    eval batch, one dQ and one dK/dV an LM layer of a micro-step), its final
+    model and optimizer against the uninterrupted run's (``_same_run``).
+    Its three runs write ~1 GB at this depth, ~20 GB at full depth."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
@@ -4795,20 +4872,23 @@ def phase_mllm_resume(root: str, card: str) -> None:
     print(f"[mllm-resume] {sizes} images generated in {time.perf_counter() - t0:.1f} s",
           flush=True)
     argv = ["--device", "cuda", "--config_path"]
-    ref, _ = _run_cli("mllm-resume uninterrupted", train_main, argv + [config("ref", 2)])
-    want = _snapshot(ref[0])
-    del ref
-    torch.cuda.empty_cache()
-    _run_cli("mllm-resume first epoch", train_main, argv + [config("run", 1)])
-    torch.cuda.empty_cache()
-    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
-    for fn in counters:
-        fn.launches = 0
-    out, text = _run_cli("mllm-resume resumed", train_main, argv + [config("run", 2)])
+    vision_layers, lm_layers = MM_RESUME_DEPTH
+    with _cut_depth(vision_layers, lm_layers):
+        ref, _ = _run_cli("mllm-resume uninterrupted", train_main, argv + [config("ref", 2)])
+        want = _snapshot(ref[0])
+        del ref
+        torch.cuda.empty_cache()
+        _run_cli("mllm-resume first epoch", train_main, argv + [config("run", 1)])
+        torch.cuda.empty_cache()
+        counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+        for fn in counters:
+            fn.launches = 0
+        out, text = _run_cli("mllm-resume resumed", train_main, argv + [config("run", 2)])
     launches = tuple(fn.launches for fn in counters)
     micro = sizes["train"] // 2
     evals = -(-sizes["val"] // 2) + -(-sizes["test"] // 2)
-    expected = (38 * (micro + evals), 26 * micro, 26 * micro)
+    expected = ((vision_layers + lm_layers) * (micro + evals), lm_layers * micro,
+                lm_layers * micro)
     line = f"Resuming from epoch 0 checkpoint in {os.path.join(root, 'run', 'results', 'resume')}"
     how = _same_run("mllm-resume", _snapshot(out[0]), want)
     print(f"[mllm-resume] {card}: resumed run against the uninterrupted one: {how}; resume "
@@ -4881,6 +4961,475 @@ def phase_remap_chain(root: str, float_rows: list) -> None:
     if not same:
         fail("remap chain: the answers differ from phase 15's")
     phase_analysis(remap_root)
+
+
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+IMAGENET_CONFIGS = (
+    ("vision", "experiments/vision/imagenet/imagenet100.yaml"),
+    ("vision", "experiments/vision/imagenet/imagenet100_timm_settings.yaml"),
+    ("multimodal", "experiments/multimodal/imagenet/imagenet1k_vit.yaml"),
+    ("multimodal", "experiments/multimodal/imagenet/imagenet1k_timm_vit.yaml"),
+)
+IMAGENET_ROOT_WNID = "n00000001"  # the synthetic devkit's root synset
+
+
+def jpeg_fixtures() -> list:
+    """The fixture files of tests/data/jpeg (sorted; digests.json aside)."""
+    return sorted(n for n in os.listdir(JPEG_FIXTURES) if n != "digests.json")
+
+
+def write_imagenet_tree(root: str, names: dict, per_class: dict, n_val: int) -> str:
+    """A synthetic ILSVRC2012 layout under ``root``, images copied from the
+    JPEG fixtures in turn (a PNG named ``.JPEG`` among them, as ImageNet
+    has): ``train/<wnid>/<wnid>_<j>.JPEG`` (``per_class[wnid]`` files; every
+    wnid of ``names`` gets a directory), ``val/ILSVRC2012_val_<j>.JPEG``
+    with ground truth round robin over the wnids that have training images,
+    and ``ILSVRC2012_devkit_t12/data`` with ``words.txt`` (``names``),
+    ``wordnet.is_a.txt`` (a root over two internal synsets over the wnids
+    in turn), ``meta.mat`` written by ``scipy.io.savemat`` (ILSVRC2012_ID
+    1..N in ``names`` order) and the val ground truth.  Returns ``root``."""
+    import shutil
+
+    import scipy.io
+
+    files = [os.path.join(JPEG_FIXTURES, n) for n in jpeg_fixtures()]
+    wnids = list(names)
+    data = os.path.join(root, "ILSVRC2012_devkit_t12", "data")
+    os.makedirs(data, exist_ok=True)
+    mids = ("n00000002", "n00000003")
+    with open(os.path.join(data, "words.txt"), "w") as f:
+        f.write(f"{IMAGENET_ROOT_WNID}\tentity\n{mids[0]}\tgroup one\n{mids[1]}\tgroup two\n")
+        for wnid in wnids:
+            f.write(f"{wnid}\t{names[wnid]}\n")
+    with open(os.path.join(data, "wordnet.is_a.txt"), "w") as f:
+        f.write("".join(f"{IMAGENET_ROOT_WNID} {m}\n" for m in mids))
+        f.write("".join(f"{mids[i % 2]} {w}\n" for i, w in enumerate(wnids)))
+    dt = np.dtype([("ILSVRC2012_ID", "O"), ("WNID", "O")])
+    synsets = np.zeros((len(wnids), 1), dtype=dt)
+    for i, wnid in enumerate(wnids):
+        synsets[i, 0] = (np.array([[i + 1]]), np.array([wnid]))
+    scipy.io.savemat(os.path.join(data, "meta.mat"), {"synsets": synsets})
+    k = 0
+    for wnid in wnids:
+        d = os.path.join(root, "train", wnid)
+        os.makedirs(d, exist_ok=True)
+        for j in range(per_class.get(wnid, 0)):
+            shutil.copyfile(files[k % len(files)], os.path.join(d, f"{wnid}_{j}.JPEG"))
+            k += 1
+    os.makedirs(os.path.join(root, "val"), exist_ok=True)
+    with_images = [i + 1 for i, w in enumerate(wnids) if per_class.get(w, 0)]
+    truth = []
+    for j in range(n_val):
+        shutil.copyfile(files[(k + j) % len(files)],
+                        os.path.join(root, "val", f"ILSVRC2012_val_{j + 1:08d}.JPEG"))
+        truth.append(with_images[j % len(with_images)])
+    with open(os.path.join(data, "ILSVRC2012_validation_ground_truth.txt"), "w") as f:
+        f.write("".join(f"{t}\n" for t in truth))
+    return root
+
+
+def _load_training_config(kind: str, path: str):
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import (
+        MultimodalTrainingConfig,
+        VisionTrainingConfig,
+    )
+
+    cls = VisionTrainingConfig if kind == "vision" else MultimodalTrainingConfig
+    with open(path) as f:
+        return cls.from_params(miniyaml.safe_load(f))
+
+
+def pipeline_digests(images: list, seeds) -> dict:
+    """{config: {train|val: {seed: [sha256 of each output]}}}: the port's
+    train and val pipelines of the four ImageNet configs over ``images``
+    in order, one ``Compose`` per seed (tests/make_jpeg_fixtures.py records
+    the JAX pipelines' digests the same way)."""
+    import hashlib
+
+    from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
+
+    out = {}
+    for kind, rel in IMAGENET_CONFIGS:
+        config = _load_training_config(kind, os.path.join(REPO, rel))
+        out[rel] = {split: {str(seed): [
+            hashlib.sha256(np.ascontiguousarray(np.asarray(t(img), np.float32)).tobytes())
+            .hexdigest()
+            for t in [create_transforms(config, is_train=split == "train", seed=seed)]
+            for img in images] for seed in seeds} for split in ("train", "val")}
+    return out
+
+
+def phase_imagenet_data(root: str) -> None:
+    """Phase 30, on the host alone (this machine has no Pillow): every JPEG
+    fixture decoded by the port (``data/jpeg.py``, its C++ built here) to
+    the sha256 that Pillow's ``convert("RGB")`` gave when the fixtures were
+    written; the train and val pipelines of the four ImageNet configs over
+    the decoded fixtures at seeds 0 and 1 to the JAX pipelines' recorded
+    digests (every op bitwise: ROADMAP.md lists none as bounded); ms an
+    image of the decode alone at 500x375 (4:2:0, q75 and q95); and the
+    loader alone (``BatchLoader``, 8 workers) on imagenet100's train
+    pipeline at batch 64, images/s past the first batch."""
+    import hashlib
+
+    from multimodal_concept_learning_tpu_torch.data import jpeg
+    from multimodal_concept_learning_tpu_torch.data.datasets import ImageNetDataset
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader
+    from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
+
+    t0 = time.perf_counter()
+    jpeg.build()
+    print(f"[imagenet-data] JPEG decoder built in {time.perf_counter() - t0:.1f} s "
+          f"({jpeg.library_path().name})", flush=True)
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    names = jpeg_fixtures()
+    images, wrong = [], []
+    for name in names:
+        img = jpeg.read_image(os.path.join(JPEG_FIXTURES, name))
+        images.append(img)
+        want = digests["decode"][name]
+        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        if got != want["sha256"] or list(img.shape) != want["shape"]:
+            wrong.append(name)
+    print(f"[imagenet-data] {len(names) - len(wrong)} of {len(names)} fixtures decode to "
+          f"Pillow's recorded sha256; wrong {wrong}", flush=True)
+    if wrong or sorted(digests["decode"]) != names:
+        fail(f"JPEG decode differs from Pillow's: {wrong}")
+    t0 = time.perf_counter()
+    got = pipeline_digests(images, digests["seeds"])
+    seconds = time.perf_counter() - t0
+    bad = [(rel, split, seed, i) for rel, per in digests["pipelines"].items()
+           for split, by_seed in per.items() for seed, want in by_seed.items()
+           for i, (a, b) in enumerate(zip(got[rel][split][seed], want)) if a != b]
+    total = sum(len(w) for per in digests["pipelines"].values() for by_seed in per.values()
+                for w in by_seed.values())
+    print(f"[imagenet-data] pipelines (4 configs x train/val x seeds {digests['seeds']} x "
+          f"{len(images)} images): {total - len(bad)} of {total} outputs equal to the JAX "
+          f"pipelines' recorded sha256 in {seconds:.1f} s; different {bad[:8]}", flush=True)
+    if bad or sorted(got) != sorted(digests["pipelines"]):
+        fail("ImageNet pipelines differ from the JAX pipelines' digests")
+    for name in ("q75_420_500x375.jpg", "q95_420_500x375.jpg"):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        jpeg.decode_jpeg(data)
+        n = 50
+        t0 = time.perf_counter()
+        for _ in range(n):
+            jpeg.decode_jpeg(data)
+        print(f"[imagenet-data] decode alone, {name} ({len(data)} bytes): "
+              f"{1e3 * (time.perf_counter() - t0) / n:.2f} ms an image (one thread)",
+              flush=True)
+
+    csv_path = os.path.join(root, "loader_mapping.csv")
+    big = [n for n in names if n.startswith(("q75", "q95", "q90", "progressive_420"))]
+    with open(csv_path, "w") as f:
+        f.write("image_path,target_synset,class_name\n")
+        for i in range(640):
+            f.write(f"{big[i % len(big)]},n{i % 10:08d},class{i % 10}\n")
+    config = _load_training_config("vision", os.path.join(REPO, IMAGENET_CONFIGS[0][1]))
+    dataset = ImageNetDataset(csv_path, JPEG_FIXTURES, create_transforms(config, True, SEED),
+                              verbose=False)
+    loader = BatchLoader(dataset, 64, shuffle=True, drop_last=True, seed=SEED, num_workers=8,
+                         prefetch_batches=2)
+    stamps = [time.perf_counter()]
+    for batch in loader:
+        stamps.append(time.perf_counter())
+    n = len(stamps) - 1
+    shape = batch["images"].shape
+    steady = (n - 1) * 64 / (stamps[-1] - stamps[1])
+    print(f"[imagenet-data] loader alone (imagenet100 train pipeline: RandomResizedCrop 224, "
+          f"flip, RandAugment 2 ops, ToTensor, Normalize, RandomErasing; 8 workers): {n} "
+          f"batches of 64 {shape}, first batch {stamps[1] - stamps[0]:.3f} s, then "
+          f"{steady:.1f} images/s (the vision micro-step takes 909-1003 images/s: PERF.md)",
+          flush=True)
+    if shape != (64, 3, 224, 224) or not np.isfinite(batch["images"]).all():
+        fail(f"loader batch {shape}")
+
+
+def _imagenet100_tree(root: str) -> tuple:
+    """Phase 31's tree: the 100 target synsets of
+    experiments/datasets/imagenet/imagenet100.yaml, 12 training images
+    each and 100 val images; then the port's builder CLI on a copy of that
+    YAML with only the paths and the per-class counts (11 train, 1 val, 1
+    test) cut.  Returns (mapping dir, tree root, {split: size})."""
+    import csv
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.data.imagenet_builder import main as build_main
+
+    with open(os.path.join(REPO, "experiments/datasets/imagenet/imagenet100.yaml")) as f:
+        targets = miniyaml.safe_load(f)["target_synsets"]
+    tree = write_imagenet_tree(os.path.join(root, "imagenet"),
+                               {w: f"synset {w}" for w in targets}, dict.fromkeys(targets, 12),
+                               n_val=100)
+    os.makedirs(os.path.join(root, "dataset"))
+    cfg = _write_config(os.path.join(REPO, "experiments/datasets/imagenet/imagenet100.yaml"),
+                        os.path.join(root, "dataset"),
+                        {"data_dir": tree, "output_dir": root, "per_class_train": "11",
+                               "per_class_val": "1", "per_class_test": "1"})
+    _run_cli("imagenet-builder", build_main, ["--config_path", cfg["path"]])
+    mapping_dir = os.path.join(root, cfg["parsed"]["dataset_name"])
+    sizes = {}
+    for split in ("train", "val", "test"):
+        with open(os.path.join(mapping_dir, f"{split}_mapping.csv")) as f:
+            sizes[split] = sum(1 for _ in csv.DictReader(f))
+    return mapping_dir, tree, sizes
+
+
+def phase_imagenet_vision(root: str) -> None:
+    """Phase 31: the vision classifier on ImageNet.  A synthetic tree of
+    imagenet100's 100 target synsets (``_imagenet100_tree``, through the
+    port's builder CLI), then the vision CLI on a copy of
+    experiments/vision/imagenet/imagenet100.yaml with only the paths and
+    ``epochs`` (1) changed: ViT-B/16 at 224, 100 labels, dropout 0.1, label
+    smoothing 0.1, batch 64, 16 micro-steps an update, the full train
+    pipeline (RandomResizedCrop, flip, RandAugment, RandomErasing) over
+    JPEGs decoded by the port; 1100 training images, one update.  K1
+    forward exactly 12 a validation or test batch, none in training
+    (dropout), K1's backward never; then three classifier micro-steps at
+    dropout 0 (2 layers, float32, batch 8) on batches of the train
+    pipeline, card against CPU (``_classifier_parity``: phase 17's
+    tolerances)."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.configs import VisionTrainingConfig
+    from multimodal_concept_learning_tpu_torch.data.datasets import (
+        ImageNetDataset,
+        load_split_datasets,
+    )
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader
+    from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
+    from multimodal_concept_learning_tpu_torch.models.vit import (
+        ViTConfig,
+        ViTForImageClassification,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.vision_training import main as vision_main
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    mapping_dir, tree, sizes = _imagenet100_tree(root)
+    results = os.path.join(root, "results")
+    src = os.path.join(REPO, IMAGENET_CONFIGS[0][1])
+    cfg = _write_config(src, root, {"data_dir": tree, "mapping_path": mapping_dir,
+                                    "results_dir": results, "epochs": "1"})
+    parsed = VisionTrainingConfig.from_params(cfg["parsed"])
+    print(f"[imagenet-vision] tree and mapping CSVs ({sizes}) in "
+          f"{time.perf_counter() - t0:.1f} s; config {parsed.hidden_size} wide, "
+          f"{parsed.num_hidden_layers} layers, {parsed.image_size} px, batch "
+          f"{parsed.batch_size}, effective {parsed.effective_batch_size}, dropout "
+          f"{parsed.hidden_dropout_prob}, label smoothing {parsed.label_smoothing}", flush=True)
+    if sizes["train"] < parsed.effective_batch_size:
+        fail(f"imagenet vision: {sizes['train']} training images make no update")
+    torch.cuda.empty_cache()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                ac.attention_core_fwd, ac.attention_core_bwd)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, text = _run_cli("imagenet-vision-cli", vision_main,
+                         ["--config_path", cfg["path"], "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = tuple(fn.launches for fn in counters)
+    b = parsed.batch_size
+    micro = sizes["train"] // b
+    evals = -(-sizes["val"] // b) + -(-sizes["test"] // b)
+    expected = (parsed.num_hidden_layers * evals, 0, 0, 0, 0)
+    epoch = out["history"][0]
+    lines_ok = (f"Loaded imagenet100 dataset with {sizes['train']} train samples" in text
+                and all(re.search(p, text, re.M) for p in (
+                    r"^Epoch 1/1 completed in \d+\.\d\ds$", r"^Best val loss: \d+\.\d{4}$",
+                    r"^Test Accuracy: \d+\.\d\d%$")))
+    finite = all(np.isfinite(epoch[k]) for k in ("train_loss", "val_loss")) and np.isfinite(
+        out["test_loss"])
+    updates = out["state"].optimizer.count
+    steps_s = epoch["micro_steps"] / epoch["train_time"]
+    print(f"[imagenet-vision] one epoch: {epoch['micro_steps']} micro-steps, {updates} "
+          f"update(s) in {epoch['train_time']:.3f} s: {b * steps_s:.1f} images/s (loader "
+          f"included); epoch wall time {epoch['epoch_time']:.3f} s; whole CLI run {wall:.1f} s; "
+          f"launches (K1 fwd, dq, dkv, K2 fwd, bwd) {launches} (expected {expected}); "
+          f"{parsed.num_labels} labels; lines {lines_ok}", flush=True)
+    if not (lines_ok and finite and epoch["micro_steps"] == micro and updates >= 1
+            and parsed.num_labels == 100):
+        fail("imagenet vision slice checks")
+    if launches != expected:
+        fail(f"imagenet vision slice launches {launches} != {expected}")
+
+    vcfg = dataclasses.replace(ViTConfig.preset("vit-b-16", num_labels=100),
+                               num_hidden_layers=2, dtype=torch.float32)
+    model0 = init_random_weights_(ViTForImageClassification(vcfg),
+                                  torch.Generator().manual_seed(SEED))
+    sd = {k: v.clone() for k, v in model0.state_dict().items()}
+    train, _, _ = load_split_datasets(ImageNetDataset, mapping_dir, tree,
+                                      create_transforms(parsed, True, SEED),
+                                      create_transforms(parsed, False, SEED))
+    batches = []
+    for batch in BatchLoader(train, 8, shuffle=True, drop_last=True, seed=SEED, num_workers=8):
+        batches.append(batch)
+        if len(batches) == 3:
+            break
+    _classifier_parity("imagenet-parity", vcfg, sd, batches)
+
+
+def _imagenet1k_tree(root: str) -> tuple:
+    """Phase 32's tree: all 1000 synsets of the imagenet1k_vit config's
+    labels mapping (their names: the mapping's, OOD markers stripped), 264
+    of them with 2 training images, 16 val images; the port's
+    imagenet_configs CLI (1 train, 1 val, 1 test a class) and builder CLI
+    on it.  Returns (train CSV path, tree root, {split: size}, the
+    generated labels mapping equal to the repo's)."""
+    import contextlib
+    import csv
+    import io
+
+    from multimodal_concept_learning_tpu_torch.data.imagenet_builder import main as build_main
+    from multimodal_concept_learning_tpu_torch.data.imagenet_configs import main as configs_main
+
+    with open(IMAGENET1K_MAPPING) as f:
+        mapping = json.load(f)
+    names = {w: v[len("<ood_"):-1] if v.startswith("<ood_") else v for w, v in mapping.items()}
+    wnids = sorted(names)
+    per_class = dict.fromkeys(wnids[::3][:264], 2)
+    tree = write_imagenet_tree(os.path.join(root, "imagenet"), names, per_class, n_val=16)
+    name = "imagenet1k_100ood"
+    _, text = _run_cli("imagenet-configs", configs_main, [
+        "--data_dir", tree, "--dataset_name", name, "--num_ood", "100", "--per_class_train", "1",
+        "--per_class_val", "1", "--per_class_test", "1", "--output_root", root])
+    with open(os.path.join(root, "experiments", "multimodal", "imagenet",
+                           f"{name}_labels_mapping.json")) as f:
+        same_mapping = json.load(f) == mapping
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    os.chdir(root)  # the generated YAML's output_dir is relative, as the JAX CLI writes it
+    try:
+        with contextlib.redirect_stdout(buf):
+            build_main(["--config_path", os.path.join(
+                root, "experiments", "datasets", "imagenet", f"{name}.yaml")])
+    finally:
+        os.chdir(cwd)
+    lines = buf.getvalue().splitlines()
+    print(f"[imagenet-builder] {len(lines)} lines, "
+          f"{sum('No training images' in ln for ln in lines)} of them synsets without images; "
+          + "; ".join(ln for ln in lines if ln.startswith(("Created", "Dataset"))), flush=True)
+    mapping_dir = os.path.join(root, "data", "multimodal_concept_learning", "imagenet1k", name)
+    sizes = {}
+    for split in ("train", "val", "test"):
+        with open(os.path.join(mapping_dir, f"{split}_mapping.csv")) as f:
+            sizes[split] = sum(1 for _ in csv.DictReader(f))
+    return os.path.join(mapping_dir, "train_mapping.csv"), tree, sizes, same_mapping
+
+
+IMAGENET1K_MAPPING = os.path.join(
+    REPO, "experiments/multimodal/imagenet/imagenet1k_100ood_labels_mapping.json")
+
+
+def phase_imagenet_mllm(root: str) -> None:
+    """Phase 32: the MLLM on ImageNet.  A synthetic tree of the 1000
+    synsets of imagenet1k_vit's labels mapping (``_imagenet1k_tree``,
+    through the port's imagenet_configs and builder CLIs), then the trainer
+    CLI on a copy of experiments/multimodal/imagenet/imagenet1k_vit.yaml
+    with only the paths and ``epochs`` (1) changed: vit-b-16 + gemma3-1b,
+    bf16, batch 8, 32 micro-steps an update, language_embed_only, its
+    train pipeline (Resize 256, RandomResizedCrop 224, flip) over JPEGs
+    decoded by the port; 264 training images, one update.  K1 forward
+    exactly 38 a micro-step or eval batch, dQ and dK/dV exactly 26 a
+    micro-step, K2 never; then ``generate_answers`` on its checkpoint (16
+    test samples, 8 tokens, batch 8: K1 38 a prefill and 26 a decode step)
+    and the ImageNet analysis CLI on its epoch checkpoints with the
+    synthetic devkit's hierarchy."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis_imagenet import (
+        main as analysis_main,
+    )
+    from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.train.generate_answers import main as answers_main
+    from multimodal_concept_learning_tpu_torch.train.multimodal_training import main as train_main
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    train_csv, tree, sizes, same_mapping = _imagenet1k_tree(root)
+    results = os.path.join(root, "results")
+    cfg = _write_config(os.path.join(REPO, IMAGENET_CONFIGS[2][1]), root, {
+        "mapping_path": train_csv, "image_root": tree, "labels_mapping_path": IMAGENET1K_MAPPING,
+        "results_dir": results, "epochs": "1"})
+    parsed = _load_training_config("multimodal", cfg["path"])
+    print(f"[imagenet-mllm] tree and mapping CSVs ({sizes}) in "
+          f"{time.perf_counter() - t0:.1f} s; the generated labels mapping equals the repo's "
+          f"{same_mapping}; config {parsed.vision_model_name} + {parsed.language_model_name}, "
+          f"{parsed.mixed_precision}, batch {parsed.batch_size}, effective "
+          f"{parsed.effective_batch_size}, {parsed.trainable_params_setting}", flush=True)
+    if sizes["train"] < parsed.effective_batch_size:
+        fail(f"imagenet mllm: {sizes['train']} training images make no update")
+    torch.cuda.empty_cache()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                ac.attention_core_fwd, ac.attention_core_bwd)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    (state, test_metrics, logged), _ = _run_cli("imagenet-mllm-cli", train_main,
+                                                ["--config_path", cfg["path"], "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = tuple(fn.launches for fn in counters)
+    b = parsed.batch_size
+    micro = sizes["train"] // b
+    evals = -(-sizes["val"] // b) + -(-sizes["test"] // b)
+    expected = (38 * (micro + evals), 26 * micro, 26 * micro, 0, 0)
+    epoch = logged[0]
+    updates = state.optimizer.count
+    del state
+    finite = all(np.isfinite(epoch[k]) for k in ("train_loss", "val_loss")) and np.isfinite(
+        test_metrics["test_loss"])
+    models = os.path.join(results, "models")
+    layout = ["initial_model.pt", "best_model.pt", "epoch_0_model.pt", "training_config.json",
+              "tokenizer"]
+    missing = [n for n in layout if not os.path.exists(os.path.join(models, n))]
+    print(f"[imagenet-mllm] one epoch: {epoch['micro_steps']} micro-steps, {updates} update(s) "
+          f"in {epoch['train_time']:.3f} s: {b * epoch['micro_steps'] / epoch['train_time']:.2f} "
+          f"samples/s (loader included); whole CLI run {wall:.1f} s; train loss "
+          f"{epoch['train_loss']:.4f}, val loss {epoch['val_loss']:.4f}, test {test_metrics}; "
+          f"launches (K1 fwd, dq, dkv, K2 fwd, bwd) {launches} (expected {expected}); missing "
+          f"files {missing}", flush=True)
+    if not (finite and updates >= 1 and epoch["micro_steps"] == micro and not missing):
+        fail("imagenet mllm slice checks")
+    if launches != expected:
+        fail(f"imagenet mllm slice launches {launches} != {expected}")
+
+    torch.cuda.empty_cache()
+    out_path = os.path.join(root, "generations.jsonl")
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res, text = _run_cli("imagenet-answers", answers_main, [
+        "--results_dir", results, "--output", out_path, "--limit", "16", "--max_new_tokens", "8",
+        "--batch_size", "8", "--device", "cuda"])
+    launches = tuple(fn.launches for fn in counters)
+    expected = (_answer_k1("float", res["batches"], 8)[0], 0, 0, 0, 0)
+    with open(out_path) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"[imagenet-answers] {res['n']} test samples in {res['batches']} batches, "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches} (expected {expected}); rows "
+          f"{rows[:2]} ...", flush=True)
+    if not (res["n"] == min(16, sizes["test"]) == len(rows)
+            and re.search(r"^Exact-Match Accuracy: \d+\.\d\d%$", text, re.M)):
+        fail("imagenet answers")
+    if launches != expected:
+        fail(f"imagenet answers launches {launches} != {expected}")
+
+    t0 = time.perf_counter()
+    _, text = _run_cli("imagenet-analysis", analysis_main, [
+        "--results_dir", results, "--data_dir", tree, "--parent_level", "1",
+        "--output_dir", os.path.join(root, "plots")])
+    print(f"[imagenet-analysis] {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ("OOD tokens selected: 100" in text and "Regular tokens selected: 900" in text
+            and "Target epoch for plots: epoch_0" in text and "Analysis complete." in text):
+        fail("imagenet analysis")
 
 
 SOURCES = {
@@ -5033,6 +5582,13 @@ def main(argv=None) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed(phase_multi_lora_bench)
+    root = tempfile.mkdtemp(prefix="_smoke_imagenet_", dir=REPO)
+    try:
+        timed(phase_imagenet_data, root)
+        timed(phase_imagenet_vision, os.path.join(root, "vision"))
+        timed(phase_imagenet_mllm, os.path.join(root, "mllm"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     timed(phase_ab, report)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}

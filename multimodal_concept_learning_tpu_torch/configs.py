@@ -1,6 +1,7 @@
 """Training configs of the port (copies of
 multimodal_concept_learning_tpu/configs/{base,multimodal_training_config,
-contrastive_training_config,vision_training_config}.py, plain Python).
+contrastive_training_config,vision_training_config,imagenet_dataset_config}.py,
+plain Python).
 
 ``YamlConfig.from_params`` builds a dataclass from a parsed YAML mapping:
 unknown keys are ignored, ``int``/``float``/``bool`` fields are cast, and a
@@ -261,5 +262,26 @@ class VisionTrainingConfig(YamlConfig):
     bf16_params: bool = False  # bf16 parameter storage, float32 masters in AdamW
 
 
-__all__ = ["ContrastiveTrainingConfig", "MultimodalTrainingConfig", "VisionTrainingConfig",
-           "YamlConfig"]
+@dataclass
+class ImageNetDatasetConfig(YamlConfig):
+    """Configuration for creating ImageNet dataset mapping CSVs."""
+
+    data_dir: str = "/tmp/data"
+    train_dir: str = "train"
+    val_dir: str = "val"
+    val_ground_truth_file: str = "ILSVRC2012_validation_ground_truth.txt"
+
+    output_dir: str = "/tmp/output"
+    dataset_name: str = "imagenet_dataset"
+
+    target_synsets: List[str] = field(default_factory=list, metadata={"coerce": list})
+
+    per_class_train: int = 3000
+    per_class_val: int = 50
+    per_class_test: int = 50
+    allow_shortfall: bool = False
+    seed: int = 42
+
+
+__all__ = ["ContrastiveTrainingConfig", "ImageNetDatasetConfig", "MultimodalTrainingConfig",
+           "VisionTrainingConfig", "YamlConfig"]

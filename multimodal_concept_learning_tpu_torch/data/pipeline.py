@@ -4,8 +4,11 @@
 ``default_classification_collate``'s {images | images_u8, labels}): the
 same per-epoch shuffle (``PCG64([seed, epoch])``), fixed batch size,
 ``drop_last`` for training, and for evaluation a final partial batch padded
-by wrapping and flagged by ``valid``.  Samples are decoded by a thread pool and collated on a
-background thread ``prefetch_batches`` ahead.  With ``uint8_images`` and a
+by wrapping and flagged by ``valid``.  Samples are decoded and transformed
+by a thread pool and collated on a background thread ``prefetch_batches``
+ahead; a random transform's draws are made in sample order on that thread
+(``Compose.draw``), so a seed gives the JAX loader's batches whatever the
+number of workers.  With ``uint8_images`` and a
 ToTensor[+Normalize] transform, images stay uint8 [H, W, 3] and the batch
 carries ``norm_mean`` / ``norm_std`` for the device to normalise
 (``ops/preprocess.py``).  ``to_device`` moves a numpy batch to torch
@@ -83,6 +86,20 @@ class BatchLoader:
         spec = getattr(self.dataset.transform, "uint8_spec", None)
         return spec() if spec is not None else None
 
+    def _samples(self, pool, load, chunk, spec) -> list:
+        """The (image, label) samples of ``chunk``, decoded and transformed
+        by the pool.  A random transform draws on this thread, sample by
+        sample in order, from the decoded images' shapes (the JAX loader's
+        sequential ``__getitem__`` order); the pool then applies the draws."""
+        transform = getattr(self.dataset, "transform", None)
+        if (spec is not None or not hasattr(transform, "draw")
+                or not hasattr(self.dataset, "load_uint8")):
+            return list(pool.map(load, (int(i) for i in chunk)))
+        raw = list(pool.map(self.dataset.load_uint8, (int(i) for i in chunk)))
+        plans = [transform.draw(image.shape) for image, _ in raw]
+        return list(pool.map(lambda item, plan: (transform.apply(item[0], plan), item[1]),
+                             raw, plans))
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._index_batches()
         spec = self._uint8_spec()
@@ -98,7 +115,7 @@ class BatchLoader:
                     for chunk, valid in batches:
                         if stop.is_set():
                             return
-                        batch = self.collate_fn(list(pool.map(load, (int(i) for i in chunk))))
+                        batch = self.collate_fn(self._samples(pool, load, chunk, spec))
                         batch["valid"] = valid
                         if spec is not None:
                             batch["norm_mean"], batch["norm_std"] = spec

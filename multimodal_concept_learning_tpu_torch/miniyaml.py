@@ -8,6 +8,13 @@ plain scalars resolved as PyYAML's YAML 1.1 resolver does (null, bool, int,
 float; ``5e-4`` without a dot stays a string).  Anything else (anchors,
 tags, block scalars, several documents, sexagesimal numbers, multi-line
 flow collections) raises ``ValueError``.
+
+``dump(mapping, stream)`` writes what ``yaml.dump(mapping, stream,
+default_flow_style=False, sort_keys=False)`` writes for a mapping of str,
+int, bool, None and lists of str (a dataset config): plain scalars where
+PyYAML writes them plain, single quotes where a plain string would read
+back as another type or holds an indicator; a string PyYAML would fold or
+escape raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -266,4 +273,64 @@ def safe_load(stream):
     return value
 
 
-__all__ = ["safe_load"]
+_TIMESTAMP = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
+_DUMP_WIDTH = 80  # PyYAML's best_width
+
+
+def _plain_ok(text: str) -> bool:
+    """Whether PyYAML's emitter writes ``text`` as a plain scalar."""
+    if not text or text[0] in " #,[]{}&*!|>'\"%@`" or text[-1] == " ":
+        return False
+    if text[0] in "-?:" and (len(text) == 1 or text[1] == " "):
+        return False
+    if ": " in text or " #" in text or text.endswith(":") or "\t" in text:
+        return False
+    if text in ("<<", "=") or _TIMESTAMP.match(text):
+        return False
+    try:
+        return _resolve(text) == text
+    except ValueError:
+        return False
+
+
+def _dump_scalar(value, column: int) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if not isinstance(value, str):
+        raise ValueError(f"dump writes str, int, bool and None scalars, not {type(value)}")
+    if not all(" " <= c <= "~" for c in value):
+        raise ValueError(f"{value!r}: PyYAML would escape it; dump writes printable ASCII only")
+    text = value if _plain_ok(value) else "'" + value.replace("'", "''") + "'"
+    if " " in value and column + len(text) > _DUMP_WIDTH:
+        raise ValueError(f"{value!r}: PyYAML would fold this string across lines")
+    return text
+
+
+def dump(data: dict, stream=None):
+    """``yaml.dump(data, stream, default_flow_style=False, sort_keys=False)``
+    for a mapping of scalars and lists of scalars; the text when ``stream``
+    is None."""
+    lines = []
+    for key, value in data.items():
+        if not isinstance(key, str) or not _plain_ok(key):
+            raise ValueError(f"dump writes plain string keys, not {key!r}")
+        if isinstance(value, (list, tuple)):
+            if not value:
+                lines.append(f"{key}: []")
+                continue
+            lines.append(f"{key}:")
+            lines.extend(f"- {_dump_scalar(item, 2)}" for item in value)
+        else:
+            lines.append(f"{key}: {_dump_scalar(value, len(key) + 2)}")
+    text = "".join(line + "\n" for line in lines) if lines else "{}\n"
+    if stream is None:
+        return text
+    stream.write(text)
+    return None
+
+
+__all__ = ["dump", "safe_load"]

@@ -22,8 +22,10 @@ returns ``{"preempted": True}`` (``train/common.py``).  As in JAX, the
 collator's question stream is not part of that state: a resumed run draws
 the questions of a fresh process (ROADMAP.md, queue C).
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP.md): MoE, and
-ImageNet (JPEG) data.
+``dataset_name: imagenet_multimodal`` reads the ImageNet mapping CSVs beside
+``mapping_path`` over the JPEGs of ``image_root``
+(``data/datasets.ImageNetDataset``).  Not ported yet (raises
+``NotImplementedError``; ROADMAP.md): MoE.
 """
 
 from __future__ import annotations

@@ -21,10 +21,9 @@ runs K1; a training forward with dropout runs the dense dropout branch
 ``resume: true`` saves the training state, dropout generator included, at
 each epoch's end and restores the newest on start; SIGTERM saves a
 mid-epoch checkpoint and ``main`` returns ``{"preempted": True}``
-(``train/common.py``).
-
-Not ported yet: ImageNet data (ROADMAP.md, A10) raises
-``NotImplementedError``.
+(``train/common.py``).  ``dataset_name: imagenet100`` reads the ImageNet
+mapping CSVs of ``mapping_path`` over the JPEGs of ``data_dir``
+(``data/datasets.ImageNetDataset``).
 """
 
 from __future__ import annotations
@@ -44,7 +43,11 @@ from multimodal_concept_learning_tpu_torch.checkpoint import (
     save_state_dict,
 )
 from multimodal_concept_learning_tpu_torch.configs import VisionTrainingConfig
-from multimodal_concept_learning_tpu_torch.data.datasets import ColorDataset, load_split_datasets
+from multimodal_concept_learning_tpu_torch.data.datasets import (
+    ColorDataset,
+    ImageNetDataset,
+    load_split_datasets,
+)
 from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
 from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 from multimodal_concept_learning_tpu_torch.device import resolve_device
@@ -64,11 +67,6 @@ from multimodal_concept_learning_tpu_torch.train.common import (
     epoch_batches,
 )
 from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
-
-
-def _refuse_unported(config: VisionTrainingConfig) -> None:
-    if config.dataset_name == "imagenet100":
-        raise NotImplementedError("ImageNet (JPEG) data is not ported yet (ROADMAP.md, A10)")
 
 
 def init_model(config: VisionTrainingConfig, generator: torch.Generator,
@@ -105,7 +103,6 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
         f"effective_batch_size ({config.effective_batch_size}) must be divisible "
         f"by batch_size ({config.batch_size})"
     )
-    _refuse_unported(config)
     device = next(model.parameters()).device
     accumulation_steps = config.effective_batch_size // config.batch_size
     updates_per_epoch = max(1, len(train_loader) // accumulation_steps)
@@ -193,7 +190,6 @@ def main(argv=None):
 
     with open(args.config_path, "r") as f:
         config = VisionTrainingConfig.from_params(miniyaml.safe_load(f))
-    _refuse_unported(config)
     random.seed(config.seed)
     np.random.seed(config.seed)
     init_generator = torch.Generator(device=device).manual_seed(config.seed)
@@ -202,10 +198,14 @@ def main(argv=None):
 
     train_transform = create_transforms(config, is_train=True, seed=config.seed)
     val_transform = create_transforms(config, is_train=False, seed=config.seed)
-    if config.dataset_name != "color":
+    if config.dataset_name == "color":
+        dataset_cls = ColorDataset
+    elif config.dataset_name == "imagenet100":
+        dataset_cls = ImageNetDataset
+    else:
         raise ValueError(f"Dataset {config.dataset_name} not supported.")
     train_dataset, val_dataset, test_dataset = load_split_datasets(
-        ColorDataset, mapping_dir=config.mapping_path, data_dir=config.data_dir,
+        dataset_cls, mapping_dir=config.mapping_path, data_dir=config.data_dir,
         train_transform=train_transform, val_transform=val_transform)
     config.num_labels = train_dataset.num_classes
 

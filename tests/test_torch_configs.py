@@ -2,7 +2,8 @@
 
 - Every training and dataset YAML under ``experiments/`` gives equal fields
   in both packages' configs (the JAX side read with PyYAML, the port's with
-  ``miniyaml``), the vision trainer's YAMLs included.
+  ``miniyaml``), the vision trainer's YAMLs included, and the ImageNet
+  dataset YAMLs give equal ``ImageNetDatasetConfig``s.
 - The two ConceptTokenizers have the same vocabulary and give the same ids
   on every caption and prompt template the repo's YAMLs use, over every
   class name of the color datasets and labels mappings (plus the base
@@ -63,6 +64,18 @@ def test_color_dataset_yaml_parses_to_equal_configs(path):
         return [plain(x) for x in v] if isinstance(v, (list, tuple)) else v
 
     assert {k: plain(v) for k, v in got.items()} == {k: plain(v) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("path", _yamls("datasets/imagenet"))
+def test_imagenet_dataset_yaml_parses_to_equal_configs(path):
+    from multimodal_concept_learning_tpu.configs import ImageNetDatasetConfig as JConfig
+    from multimodal_concept_learning_tpu_torch.configs import ImageNetDatasetConfig
+
+    got = dataclasses.asdict(ImageNetDatasetConfig.from_params(_port_yaml(path)))
+    assert got == dataclasses.asdict(JConfig.from_params(_jax_yaml(path)))
+    assert [f.name for f in dataclasses.fields(ImageNetDatasetConfig)] == [
+        f.name for f in dataclasses.fields(JConfig)]
+    assert dataclasses.asdict(ImageNetDatasetConfig()) == dataclasses.asdict(JConfig())
 
 
 def _class_names():

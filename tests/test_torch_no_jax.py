@@ -70,6 +70,10 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.checkpoint_io",
     "multimodal_concept_learning_tpu_torch.train.common",
     "multimodal_concept_learning_tpu_torch.vocab_remap",
+    "multimodal_concept_learning_tpu_torch.data.jpeg",
+    "multimodal_concept_learning_tpu_torch.data.imagenet_builder",
+    "multimodal_concept_learning_tpu_torch.data.imagenet_configs",
+    "multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis_imagenet",
     "chip_smoke",
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}
@@ -102,7 +106,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     files = sorted((REPO / "multimodal_concept_learning_tpu_torch").rglob("*.py"))
     assert len(files) > 30
     port = REPO / "multimodal_concept_learning_tpu_torch"
-    for new in ("ops/sparse_embed.py", "checkpoint_io.py", "train/common.py", "vocab_remap.py"):
+    for new in ("ops/sparse_embed.py", "checkpoint_io.py", "train/common.py", "vocab_remap.py",
+                "data/jpeg.py", "data/imagenet_builder.py", "data/imagenet_configs.py",
+                "analysis/token_embedding_analysis_imagenet.py"):
         assert port / new in files, new
     bad = {str(f.relative_to(REPO)): sorted(_import_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}

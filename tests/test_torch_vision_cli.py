@@ -123,21 +123,23 @@ def test_cli_trains_and_its_checkpoint_loads_into_jax(trained):
 
 
 def test_cli_refuses_resume_and_imagenet(color_data, tmp_path):
+    """Neither resume nor imagenet100 is refused any more: imagenet100 reads
+    ImageNet mapping CSVs (its runs: tests/test_torch_imagenet.py), so a
+    color CSV fails on its missing target_synset column."""
     from multimodal_concept_learning_tpu_torch.train.vision_training import main
 
     from multimodal_concept_learning_tpu_torch import miniyaml
     from multimodal_concept_learning_tpu_torch.configs import VisionTrainingConfig
-    from multimodal_concept_learning_tpu_torch.train.vision_training import _refuse_unported
 
     _, data_dir = color_data
     path = _write_yaml(tmp_path / "cfg.yaml", data_dir, str(tmp_path / "r"),
                        dataset_name="imagenet100")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(KeyError, match="target_synset"):
         main(["--config_path", path, "--device", "cpu"])
-    # resume is ported (its runs: tests/test_torch_resume.py): no longer refused
+    # resume is ported (its runs: tests/test_torch_resume.py)
     path = _write_yaml(tmp_path / "cfg.yaml", data_dir, str(tmp_path / "r"), resume=True)
     with open(path) as f:
-        _refuse_unported(VisionTrainingConfig.from_params(miniyaml.safe_load(f)))
+        assert VisionTrainingConfig.from_params(miniyaml.safe_load(f)).resume is True
     path = _write_yaml(tmp_path / "cfg.yaml", data_dir, str(tmp_path / "r"),
                        effective_batch_size=6)
     with pytest.raises(AssertionError, match=r"effective_batch_size \(6\).*batch_size \(4\)"):
