@@ -168,7 +168,34 @@ Phases (each prints its results; any failure exits non-zero):
     (only paths and epochs changed: vit-b-16 + gemma3-1b, bf16, batch 8,
     32 micro-steps an update; 264 JPEGs, one update) with exact K1 forward,
     dQ and dK/dV counts, ``generate_answers`` on its checkpoint and the
-    ImageNet analysis CLI on its epoch checkpoints.
+    ImageNet analysis CLI on its epoch checkpoints;
+33. MoE parity (after phase 22): phase 4's model (full widths, 2 + 2
+    layers, float32) with a 4-expert top-2 MoE in every LM block, dense and
+    sparse at cf 1.25 and sparse at cf 0.5 (which drops), card against CPU:
+    hidden states and per-layer aux within 1e-4, the same drop fraction,
+    three ``language_only`` micro-steps (cf 1.25): losses, the first and the
+    accumulated gradients and each tensor's change by the update within
+    1e-4, equal greedy paged tokens, exact K1f / K1q / K1kv / K3 launches;
+34. MoE slice (after phase 28, on phase 7's data): the trainer CLI on a
+    copy of 12_colors_3k.yaml with ``lm_moe_experts: 4`` (the LM cut to 2
+    layers: a full-depth 4-expert checkpoint is ~10.6 GB), dense then
+    sparse, one epoch each (exact K1 counts, micro-steps/s, samples/s, peak
+    memory); the sparse results dir served on the paged front (16
+    requests) and through the answer CLI; ``--int4`` refused as in JAX;
+35. MoE bench (after phase 26): the port's ``scripts/bench_mllm.py`` at the
+    JAX script's cell (full depth, batch 16), E=4, top-2, cf 1.25, dense
+    against sparse with ``--moe_stats``: images/s and drop_frac (the A/B
+    BASELINE.md:559-584 owes; ``--profile-moe`` traces one step of each);
+36. data parallel at world size 1 (after phase 35): the MLLM (LM at 2
+    layers), vision and CLIP CLIs on small generated data, once in this
+    process and under ``torchrun --standalone --nproc_per_node 1`` (NCCL;
+    after a warm-up run in that process): the same losses and saved weights
+    (within 1e-6; bitwise expected), the same files written by rank 0; the
+    epochs' micro-steps/s beside the single process and phases 7, 18 and
+    9, and the steady micro-step rate of each trainer's full model on a
+    fixed device batch (the MLLM at phase 7's depth) in the torchrun
+    process, windows alternating between the group's path and the
+    single-process path.
 
 Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
@@ -234,7 +261,8 @@ chip_smoke.py --profile-mllm [ROOT]`` profiles the full MLLM micro-step
 with the port package of ROOT (default this checkout): device busy, idle
 share, aten ops and K1's forward, dQ and dK/dV in ms a micro-step;
 ``--profile-vision`` one vision-trainer micro-step at its slice's shape
-(batch 64, dropout 0.1) the same way; ``--profile-decode [ROOT]`` the full
+(batch 64, dropout 0.1) the same way, ``--profile-moe`` one step of phase
+35's E=4 bench cell in each dispatch; ``--profile-decode [ROOT]`` the full
 MLLM's paged decode step at batch 8
 (prompts of 262-269 tokens, a fixed batch): device busy, idle share and
 K3's ms a step (K4's under ``MCL_PAGED_KERNEL=2``; with ``--int8-kv``
@@ -3328,6 +3356,7 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8,
     finite = all(np.isfinite(epoch.get(k, float("nan"))) for k in ("train_loss", "val_loss"))
     finite = finite and np.isfinite(test_metrics["test_loss"])
     steps_per_s = epoch.get("micro_steps", 0) / epoch["train_time"] if epoch else 0.0
+    PLAIN_RUNS["mllm"] = steps_per_s
     print(f"[train] one epoch: {epoch.get('micro_steps')} micro-steps (batch 2, 4 per update) "
           f"in {epoch.get('train_time', float('nan')):.3f} s: {steps_per_s:.3f} micro-steps/s, "
           f"{2 * steps_per_s:.3f} samples/s; epoch wall time (train + val) "
@@ -3721,6 +3750,7 @@ def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> s
     finite = all(np.isfinite(epoch[k]) for k in ("train_loss", "val_loss")) and np.isfinite(
         out["test_loss"])
     steps_s = epoch["micro_steps"] / epoch["train_time"]
+    PLAIN_RUNS["vision"] = steps_s
     print(f"[vision] one epoch: {epoch['micro_steps']} micro-steps (batch {b}, "
           f"{parsed.effective_batch_size // b} per update) in {epoch['train_time']:.3f} s: "
           f"{steps_s:.3f} micro-steps/s, {b * steps_s:.1f} images/s; epoch wall time (train + "
@@ -4072,6 +4102,7 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> di
                if n not in trained or torch.equal(t.cpu(), trained[n])]
     del init, out
     rate = epoch["steps"] / epoch["epoch_time"]
+    PLAIN_RUNS["clip"] = rate
     print(f"[clip] one epoch: {epoch['steps']} steps of batch {CLIP_BATCH} in "
           f"{epoch['epoch_time']:.3f} s: {rate:.3f} steps/s, {CLIP_BATCH * rate:.1f} images/s; "
           f"whole CLI run {wall:.1f} s; peak memory {peak_gib:.2f} GiB; steady step on a "
@@ -4225,13 +4256,10 @@ K1_GROUPS = {"K1 forward": "flash_fwd", "K1 dQ": "flash_bwd_dq",
              "K1 dK/dV": "flash_bwd_dkv"}  # K1's kernels by name, both dtypes
 
 
-def profile_clip(steps: int = 6, warmup: int = 4) -> None:
-    """``--profile``: the full CLIP train step (batch 256, bf16 compute, the
-    trainer's optimizer) on a fixed device batch, on the default path (K2)
-    and on the kernel variants (fused vision tower under
-    MCL_ATTN_CORE_BD=1: K6 and K2-bd), then the input path alone."""
-    import torch
-
+def _clip_step_setup(variant: bool = False):
+    """(config, tokenizer, state, step, batch): the full CLIP train step
+    (batch 256, bf16 compute, the trainer's optimizer) on a fixed device
+    batch; ``variant``: the fused vision tower (K6, K2-bd)."""
     from multimodal_concept_learning_tpu_torch import miniyaml
     from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
     from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
@@ -4240,8 +4268,6 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
         TrainState,
         make_clip_train_step,
     )
-    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
-    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader
     from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
     from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model
 
@@ -4249,18 +4275,32 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
         config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
     tokenizer = load_tokenizer("concept-tokenizer")
     batch = to_device(_clip_batches(tokenizer, 1, CLIP_BATCH)[0], "cuda")
+    model = (_variant_model(config, len(tokenizer)) if variant
+             else init_model(config, len(tokenizer), "cuda"))
+    opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
+                          max_grad_norm=config.max_grad_norm)
+    return (config, tokenizer, TrainState(model=model, optimizer=opt),
+            make_clip_train_step(model), batch)
 
-    def run(tag, model):
-        opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
-                              max_grad_norm=config.max_grad_norm)
-        _profile_step(tag, TrainState(model=model, optimizer=opt), make_clip_train_step(model),
-                      batch, steps, warmup, CLIP_BATCH, "images")
 
-    run("default", init_model(config, len(tokenizer), "cuda"))
+def profile_clip(steps: int = 6, warmup: int = 4) -> None:
+    """``--profile``: the full CLIP train step (batch 256, bf16 compute, the
+    trainer's optimizer) on a fixed device batch, on the default path (K2)
+    and on the kernel variants (fused vision tower under
+    MCL_ATTN_CORE_BD=1: K6 and K2-bd), then the input path alone."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader
+
+    config, tokenizer, state, step, batch = _clip_step_setup()
+    _profile_step("default", state, step, batch, steps, warmup, CLIP_BATCH, "images")
+    del state, step
     torch.cuda.empty_cache()
     os.environ["MCL_ATTN_CORE_BD"] = "1"
     try:
-        run("variant", _variant_model(config, len(tokenizer)))
+        _, _, state, step, batch = _clip_step_setup(variant=True)
+        _profile_step("variant", state, step, batch, steps, warmup, CLIP_BATCH, "images")
     finally:
         del os.environ["MCL_ATTN_CORE_BD"]
     def clip_loader(train):
@@ -4271,14 +4311,11 @@ def profile_clip(steps: int = 6, warmup: int = 4) -> None:
     _time_loader(config, clip_loader, 108, True)
 
 
-def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
-    """``--profile-mllm [ROOT]``: the full 12_colors_3k MLLM micro-step
+def _mllm_step_setup():
+    """(config, state, step, batch): the full 12_colors_3k MLLM micro-step
     (batch 2, bf16 compute, the trainer's optimizer with 4 micro-steps an
     update, the vision tower and the LM's non-embedding weights frozen) on a
-    fixed device batch, from the port package of the checkout at ``root``
-    (``sys.path`` puts it first; a parent checkout, which has no such flag,
-    is profiled this way), with K1's forward, dQ and dK/dV in ms a
-    micro-step."""
+    fixed device batch."""
     import torch
 
     from multimodal_concept_learning_tpu_torch import miniyaml
@@ -4295,7 +4332,6 @@ def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
         init_model_and_tokenizer,
     )
 
-    print(f"[ab] kernels of {os.path.abspath(root)}", flush=True)
     with open(os.path.join(REPO, "experiments/multimodal/color/12_colors_3k.yaml")) as f:
         params = miniyaml.safe_load(f)
     config = MultimodalTrainingConfig.from_params(dict(params, labels_mapping_path=MAPPING))
@@ -4307,21 +4343,30 @@ def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
                           accumulation_steps=config.effective_batch_size // config.batch_size)
     cast_for_compute(model, model.cfg.dtype, only_frozen=True)
     batch = to_device(_train_batch(tokenizer, labels_mapping, seed=0), "cuda")
-    _profile_step("mllm", TrainState(model=model, optimizer=opt), make_mllm_train_step(model),
-                  batch, steps, warmup, config.batch_size, "samples", groups=K1_GROUPS)
+    return config, TrainState(model=model, optimizer=opt), make_mllm_train_step(model), batch
 
 
-def profile_vision(steps: int = 6, warmup: int = 4) -> None:
-    """``--profile-vision``: one micro-step of the vision trainer at its
-    slice's shape (experiments/vision/color/12_colors_3k.yaml: vit-b-16 at
-    224, bf16, dropout 0.1, batch 64, 4 micro-steps an update) on a fixed
-    device batch, with the CLI's model, optimizer and step; then the CLI's
-    input path alone."""
+def profile_mllm(root: str, steps: int = 6, warmup: int = 4) -> None:
+    """``--profile-mllm [ROOT]``: ``_mllm_step_setup``'s micro-step from the
+    port package of the checkout at ``root`` (``sys.path`` puts it first; a
+    parent checkout, which has no such flag, is profiled this way), with
+    K1's forward, dQ and dK/dV in ms a micro-step."""
+    print(f"[ab] kernels of {os.path.abspath(root)}", flush=True)
+    config, state, step, batch = _mllm_step_setup()
+    _profile_step("mllm", state, step, batch, steps, warmup, config.batch_size, "samples",
+                  groups=K1_GROUPS)
+
+
+def _vision_step_setup():
+    """(config, state, step, batch): one micro-step of the vision trainer
+    at its slice's shape (experiments/vision/color/12_colors_3k.yaml:
+    vit-b-16 at 224, bf16, dropout 0.1, batch 64, 4 micro-steps an update)
+    on a fixed device batch, with the CLI's model, optimizer and step."""
     import torch
 
     from multimodal_concept_learning_tpu_torch import miniyaml
     from multimodal_concept_learning_tpu_torch.configs import VisionTrainingConfig
-    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
     from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
     from multimodal_concept_learning_tpu_torch.parallel.train_step import (
         TrainState,
@@ -4337,11 +4382,20 @@ def profile_vision(steps: int = 6, warmup: int = 4) -> None:
                           accumulation_steps=config.effective_batch_size // config.batch_size)
     step = make_classifier_train_step(model, torch.Generator(device="cuda").manual_seed(SEED))
     batch = to_device(_vision_batches(1, config.batch_size, config.num_labels, SEED)[0], "cuda")
+    return config, TrainState(model=model, optimizer=opt), step, batch
+
+
+def profile_vision(steps: int = 6, warmup: int = 4) -> None:
+    """``--profile-vision``: ``_vision_step_setup``'s micro-step, then the
+    CLI's input path alone."""
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader
+
+    config, state, step, batch = _vision_step_setup()
     print(f"[profile vision] vit-b-16 classifier, batch {config.batch_size}, dropout "
           f"{config.hidden_dropout_prob} / {config.attention_dropout_prob}, bf16 compute",
           flush=True)
-    _profile_step("vision", TrainState(model=model, optimizer=opt), step, batch, steps, warmup,
-                  config.batch_size, "images", groups=K1_GROUPS)
+    _profile_step("vision", state, step, batch, steps, warmup, config.batch_size, "images",
+                  groups=K1_GROUPS)
 
     def vision_loader(train):  # the CLI's train loader
         return BatchLoader(train, batch_size=config.batch_size, shuffle=True, drop_last=True,
@@ -4813,14 +4867,16 @@ MM_RESUME_DEPTH = (2, 2)  # phase 28's ViT and LM layers
 
 @contextlib.contextmanager
 def _cut_depth(vision_layers: int, lm_layers: int):
-    """The MLLM trainer CLI builds its model at these depths, widths kept:
-    a full-depth MLLM checkpoint is ~3.1 GB, and what a call writes to its
+    """The MLLM trainer CLI, and the serving loader behind the fronts and
+    the answer CLI, build the model at these depths, widths kept: a
+    full-depth MLLM checkpoint is ~3.1 GB, and what a call writes to its
     disk counts against a fixed budget even once deleted."""
     import dataclasses
 
+    from multimodal_concept_learning_tpu_torch.serve import loader
     from multimodal_concept_learning_tpu_torch.train import multimodal_training as mt
 
-    full = mt.model_config
+    full = loader.model_config
 
     def cut(*args, **kwargs):
         cfg = full(*args, **kwargs)
@@ -4828,11 +4884,11 @@ def _cut_depth(vision_layers: int, lm_layers: int):
             cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=vision_layers),
             lm=dataclasses.replace(cfg.lm, num_layers=lm_layers))
 
-    mt.model_config = cut
+    mt.model_config = loader.model_config = cut
     try:
         yield
     finally:
-        mt.model_config = full
+        mt.model_config = loader.model_config = full
 
 
 def phase_mllm_resume(root: str, card: str) -> None:
@@ -5432,6 +5488,589 @@ def phase_imagenet_mllm(root: str) -> None:
         fail("imagenet analysis")
 
 
+MOE_EXPERTS, MOE_TOP_K = 4, 2  # phases 33-35: the owed cell (BASELINE.md:559-584)
+MOE_CASES = (("dense", 1.25), ("sparse", 1.25), ("sparse", 0.5))  # cf 0.5 drops
+PLAIN_RUNS: dict = {}  # phases 7, 18 and 9's epoch rates, printed beside phase 36's
+
+
+def _moe_parity_model(dispatch: str, cf: float):
+    """Phase 4's float32 MLLM (full widths, 2 ViT + 2 LM layers, window 64
+    on the first LM layer) with every LM MLP a 4-expert top-2 MoE:
+    (cfg, state dict from SEED)."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
+
+    base = MLLMConfig.create(vocab_size=1148, dtype=torch.float32)
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, num_hidden_layers=2),
+        lm=dataclasses.replace(base.lm, num_layers=2, sliding_window=64,
+                               sliding_window_pattern=2, moe_experts=MOE_EXPERTS,
+                               moe_top_k=MOE_TOP_K, moe_dispatch=dispatch,
+                               moe_capacity_factor=cf))
+    sd = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED)).state_dict()
+    return cfg, sd
+
+
+def _k_counts() -> dict:
+    from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
+    from multimodal_concept_learning_tpu_torch.ops.paged_attention_kernel import (
+        paged_decode_attention,
+    )
+
+    return {"K1f": fa.flash_attention, "K1q": fa.flash_attention_bwd_dq,
+            "K1kv": fa.flash_attention_bwd_dkv, "K3": paged_decode_attention}
+
+
+def _moe_run(cfg, sd, dev: str, inputs, batches) -> dict:
+    """One device's MoE parity run: hidden states and per-layer aux of the
+    prompt batch, greedy paged tokens, three language_only micro-steps
+    (accumulation 2) with the first micro-step's gradients and the
+    accumulated gradient that makes the update; the launches of each part
+    (from 0)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.models.mllm import (
+        MLLM,
+        paged_generate,
+        trainable_mask,
+    )
+    from multimodal_concept_learning_tpu_torch.ops.moe import MoEAux, router_stats
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_mllm_train_step,
+    )
+
+    counters = _k_counts()
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        got = fn()
+        return got, {k: c.launches for k, c in counters.items()}
+
+    out = {}
+    with torch.device(dev):
+        model = MLLM(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.eval()
+    rec = MoEAux(keep_logits=True)
+    args = [x.to(dev) for x in inputs]
+    with torch.no_grad():
+        hidden, out["fwd"] = counted(lambda: model(*args, moe_aux=rec)["hidden_states"])
+    out["hidden"] = hidden.float().cpu()
+    out["aux"] = [a.item() for a in rec.aux]
+    out["stats"] = router_stats(rec.logits, MOE_TOP_K, cfg.lm.moe_capacity_factor)
+    tokens, out["gen"] = counted(lambda: paged_generate(model, *inputs, max_new_tokens=8,
+                                                        page_size=16))
+    out["tokens"] = tokens.cpu().numpy()
+    if batches:
+        mask = trainable_mask(model, "language_only")
+        opt = build_optimizer(model, 5e-4, weight_decay=1e-4, max_grad_norm=1.0,
+                              accumulation_steps=2)
+        state, step = TrainState(model=model, optimizer=opt), make_mllm_train_step(model)
+        taken, take = [], opt._take_grads
+
+        def take_and_keep():  # micro-steps 1 and 2's raw gradients (the update's inputs)
+            grads = take()
+            if len(taken) < 2:
+                taken.append({n: g.detach().cpu().clone() for n, g in grads.items()})
+            return grads
+
+        opt._take_grads = take_and_keep
+
+        def steps():
+            return [float(step(state, to_device(b, dev))[1]["loss"]) for b in batches]
+
+        out["losses"], out["train"] = counted(steps)
+        g1, g2 = taken
+        out["grads"] = g1
+        # the optimizer's running mean over micro-steps 1-2, in its own arithmetic
+        out["grads12"] = {n: g1[n] + (g2[n] - g1[n]) / 2 for n in g1}
+        del taken, g2
+        out["trained"] = {n: p.detach().cpu() for n, p in model.named_parameters() if mask[n]}
+    del model
+    return out
+
+
+def phase_moe_parity() -> None:
+    """Phase 33: phase 4's model (full widths, 2 + 2 layers, float32) with a
+    4-expert top-2 MoE in every LM block, dense and sparse at cf 1.25 and
+    sparse at cf 0.5 (which drops), on the card and on the CPU: hidden
+    states and aux within 1e-4, the same router_stats drops, equal greedy
+    paged tokens; three language_only micro-steps with accumulation 2
+    (dense, sparse 1.25): losses within 1e-4 relative; for each trained
+    tensor, the first micro-step's gradient and the gradient accumulated
+    over micro-steps 1-2 (the update's) within 1e-4 of its norm, and the
+    change the update makes (p - p0) within 1e-4 of its norm, over the
+    elements whose CPU accumulated gradient is zero or above 1e-4 of the
+    tensor's RMS gradient (the gradient gate's tolerance an element:
+    Adam's first update moves an element by about one learning rate
+    whatever its gradient's size, so an element at roundoff may take
+    either sign under another summation order; their count is printed);
+    exact
+    launches on the card (a forward: K1f 2 ViT + 2 LM; a micro-step also
+    K1q 2, K1kv 2; generation: K1f 4, K3 2 a decode step), none on the
+    CPU."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.serve.loader import build_tokenizer, training_config
+
+    with open(MAPPING) as f:
+        labels_mapping = json.load(f)
+    tokenizer, _ = build_tokenizer(training_config(dict(TRAINING_CONFIG,
+                                                        labels_mapping_path=MAPPING)))
+    inputs = _parity_inputs(SEED)
+    batches = [_train_batch(tokenizer, labels_mapping, seed=i) for i in range(3)]
+    zero = {"K1f": 0, "K1q": 0, "K1kv": 0, "K3": 0}
+    want = {"fwd": dict(zero, K1f=4), "gen": dict(zero, K1f=4, K3=2 * 7),
+            "train": dict(zero, K1f=4 * 3, K1q=2 * 3, K1kv=2 * 3)}
+    for dispatch, cf in MOE_CASES:
+        cfg, sd = _moe_parity_model(dispatch, cf)
+        steps = batches if cf >= 1.0 else []
+        cuda, cpu = (_moe_run(cfg, sd, dev, inputs, steps) for dev in ("cuda", "cpu"))
+        mask = inputs[2].bool()
+        hid_err = (cuda["hidden"] - cpu["hidden"])[mask].abs().max().item()
+        aux_err = max(abs(a - b) for a, b in zip(cuda["aux"], cpu["aux"]))
+        same_tokens = bool((cuda["tokens"] == cpu["tokens"]).all())
+        drops = (cuda["stats"]["drop_frac"], cpu["stats"]["drop_frac"])
+        ok = hid_err <= 1e-4 and aux_err <= 1e-4 and same_tokens and drops[0] == drops[1]
+        line = (f"[moe-parity] {dispatch} cf {cf}: hidden max err {hid_err:.2e}, aux "
+                f"{cuda['aux']} (max err {aux_err:.2e}), router drop_frac cuda {drops[0]:.4f} "
+                f"cpu {drops[1]:.4f} (capacity {cuda['stats']['capacity']}), tokens equal "
+                f"{same_tokens} {cuda['tokens'].tolist()}")
+        if steps:
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(cuda["losses"], cpu["losses"]))
+
+            def rel(a, b):
+                return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+            grad_err = {n: rel(cuda["grads"][n], g) for n, g in cpu["grads"].items()}
+            acc_err = {n: rel(cuda["grads12"][n], g) for n, g in cpu["grads12"].items()}
+            delta_err, at_roundoff, elements = {}, 0, 0
+            for n, p in cpu["trained"].items():
+                g = cpu["grads12"][n]
+                keep = (g == 0) | (g.abs() > 1e-4 * g.square().mean().sqrt())
+                at_roundoff, elements = at_roundoff + int((~keep).sum()), elements + g.numel()
+                delta_err[n] = rel((cuda["trained"][n] - sd[n])[keep], (p - sd[n])[keep])
+            moved = all(not torch.equal(cpu["trained"][n], sd[n]) for n in cpu["trained"]
+                        if ".moe." in n)
+            worst = {k: max(e.items(), key=lambda kv: kv[1])
+                     for k, e in (("first", grad_err), ("accumulated", acc_err),
+                                  ("update", delta_err))}
+            ok = ok and loss_err <= 1e-4 and moved and all(e <= 1e-4 for _, e in worst.values())
+            line += (f"; micro-steps losses cuda {cuda['losses']} cpu {cpu['losses']} (max rel "
+                     f"err {loss_err:.2e}); worst norm-relative err a tensor: "
+                     + ", ".join(f"{k} gradient {e:.2e} ({n})" if k != "update" else
+                                 f"update p - p0 {e:.2e} ({n})" for k, (n, e) in worst.items())
+                     + f", {at_roundoff} of {elements} elements at roundoff left out of the "
+                     f"update's; experts and router moved {moved}")
+        launches = {k: cuda[k] for k in want if k in cuda}
+        line += f"; launches cuda {launches}, cpu {[cpu[k] for k in launches]}"
+        print(line, flush=True)
+        if not ok:
+            fail(f"MoE parity {dispatch} cf {cf}")
+        if launches != {k: want[k] for k in launches} or any(cpu[k] != zero for k in launches):
+            fail(f"MoE parity launches {launches} != {want}")
+        if cf < 1.0 and not drops[0] > 0:
+            fail("MoE parity: capacity factor 0.5 dropped nothing")
+
+
+MOE_SLICE_DEPTH = (12, 2)  # phase 34: the whole ViT, 2 MoE LM layers (~1.1 GB a checkpoint)
+
+
+def phase_moe_slice(root: str, data: tuple) -> None:
+    """Phase 34 (on phase 7's data): a copy of 12_colors_3k.yaml with
+    ``lm_moe_experts: 4`` (besides: paths, epochs, workers, no
+    ``vision_path``, ``save_every_epoch: false``; the LM cut to 2 layers,
+    since a full-depth 4-expert checkpoint is ~10.6 GB and a call's disk
+    budget is fixed) through the trainer CLI for one epoch, dense then
+    sparse (cf 1.25): exact K1f (14 a forward), K1q and K1kv (2 a
+    micro-step) counts, finite losses, the table and projector moved and
+    every other tensor (the experts too) bitwise, micro-steps/s, samples/s,
+    peak memory; the sparse run served on the paged front (16 requests; K1f
+    and K3, never K4 or K5) and through the answer CLI (float; K1f 14 a
+    prefill + 2 a decode step); ``--int4`` refused as in JAX."""
+    import contextlib
+    import io
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict
+    from multimodal_concept_learning_tpu_torch.train.generate_answers import main as answers_main
+    from multimodal_concept_learning_tpu_torch.train.multimodal_training import main as train_main
+
+    data_dir, sizes = data
+    vl, ll = MOE_SLICE_DEPTH
+    counters = _k_counts()
+    micro = sizes["train"] // 2
+    evals = -(-sizes["val"] // 2) + -(-sizes["test"] // 2)
+    trained = ("language_model.model.embed_tokens.weight", "projector.weight", "projector.bias")
+    results = None
+    with _cut_depth(vl, ll):
+        for dispatch in ("dense", "sparse"):
+            sub = os.path.join(root, dispatch)
+            os.makedirs(sub, exist_ok=True)
+            results = os.path.join(sub, "results")
+            cfg = _write_config(MM_CONFIG, sub, {
+                "mapping_path": os.path.join(data_dir, "train_mapping.csv"),
+                "image_root": data_dir, "labels_mapping_path": MAPPING, "results_dir": results,
+                "epochs": "1", "num_workers": "2", "vision_path": "null",
+                "save_every_epoch": "false", "lm_moe_experts": str(MOE_EXPERTS),
+                "lm_moe_top_k": str(MOE_TOP_K), "lm_moe_dispatch": dispatch,
+                "lm_moe_capacity_factor": "1.25"})
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            state, test_metrics, logged = train_main(["--config_path", cfg["path"],
+                                                      "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = {k: c.launches for k, c in counters.items()}
+            expected = {"K1f": (vl + ll) * (micro + evals), "K1q": ll * micro,
+                        "K1kv": ll * micro, "K3": 0}
+            epoch = logged[0]
+            models = os.path.join(results, "models")
+            init_sd = load_state_dict(os.path.join(models, "initial_model.pt"))
+            best_sd = load_state_dict(os.path.join(models, "best_model.pt"))
+            moved = all(not torch.equal(init_sd[n], best_sd[n]) for n in trained)
+            experts = [n for n in init_sd if ".moe." in n]
+            frozen = bool(experts) and all(torch.equal(init_sd[n], best_sd[n])
+                                           for n in init_sd if n not in trained)
+            del init_sd, best_sd, state
+            finite = all(np.isfinite(epoch[k]) for k in ("train_loss", "val_loss"))
+            rate = epoch["micro_steps"] / epoch["train_time"]
+            print(f"[moe-slice] {dispatch}: one epoch, {epoch['micro_steps']} micro-steps in "
+                  f"{epoch['train_time']:.3f} s: {rate:.3f} micro-steps/s, {2 * rate:.3f} "
+                  f"samples/s; whole CLI run {wall:.1f} s; peak memory {peak:.2f} GiB; train "
+                  f"loss {epoch['train_loss']}, val loss {epoch['val_loss']}, test "
+                  f"{test_metrics}; launches {launches} (expected {expected}); table and "
+                  f"projector moved {moved}, the rest ({len(experts)} MoE tensors among them) "
+                  f"bitwise {frozen}", flush=True)
+            if not (finite and moved and frozen):
+                fail(f"MoE slice {dispatch} checks")
+            if launches != expected:
+                fail(f"MoE slice {dispatch} launches {launches} != {expected}")
+        run = _serve(results, "moe-serve")
+        served = run["launches"]
+        if not (served["flash_attention_fwd"] and served["paged_decode_attention"]
+                and not served["paged_decode_attention_mp"] and not served["int4_matmul"]):
+            fail(f"MoE serving launches {served}")
+        for c in counters.values():
+            c.launches = 0
+        out_path = os.path.join(root, "moe_generations.jsonl")
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = answers_main(["--results_dir", results, "--output", out_path, *ANSWER_ARGS])
+        launches = {k: c.launches for k, c in counters.items()}
+        want_k1 = res["batches"] * (vl + ll + ll * 7)
+        print(f"[moe-answers] {res['n']} samples in {res['batches']} batches: "
+              f"{res['n'] / res['seconds']:.3f} samples/s, yes/no {res['yes_no_acc']:.2f}%; "
+              f"launches {launches} (K1f expected {want_k1})", flush=True)
+        if res["n"] != 16 or launches["K1f"] != want_k1 or launches["K3"]:
+            fail(f"MoE answer CLI: n {res['n']}, launches {launches}")
+        refused = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                answers_main(["--results_dir", results, "--output", out_path, *ANSWER_ARGS,
+                              "--int4"])
+        except ValueError as e:
+            refused = str(e)
+        print(f"[moe-answers] --int4 refused: {refused}", flush=True)
+        if not refused or "MoE expert" not in refused:
+            fail("the answer CLI did not refuse --int4 on an MoE model")
+
+
+BENCH_MOE = ["--batch", "16", "--moe_experts", str(MOE_EXPERTS), "--moe_top_k", str(MOE_TOP_K),
+             "--moe_capacity_factor", "1.25", "--moe_stats", "--device", "cuda"]
+
+
+def phase_moe_bench(card: str) -> None:
+    """Phase 35: the port's scripts/bench_mllm.py on the JAX script's cell
+    (vit-b-16 + gemma3-1b at full depth, language_embed_only, batch 16),
+    E=4, top-2, cf 1.25, dense against sparse dispatch, with --moe_stats:
+    images/s, concept-token updates/s, peak memory, drop_frac before and
+    after the steps, and exact K1 launches (38 forward, 26 dQ and 26 dK/dV
+    a step; 38 each router probe)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.scripts import bench_mllm
+
+    counters = _k_counts()
+    steps = bench_mllm.INNER * (1 + bench_mllm.REPEATS)
+    rows = {}
+    for dispatch in ("dense", "sparse"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            rec = bench_mllm.run(BENCH_MOE + ["--moe_dispatch", dispatch])
+        launches = {k: c.launches for k, c in counters.items()}
+        for line in err.getvalue().splitlines():
+            print(f"[moe-bench-{dispatch}] {line}", flush=True)
+        want = {"K1f": 38 * (steps + 2), "K1q": 26 * steps, "K1kv": 26 * steps, "K3": 0}
+        pre, post = rec["router_stats_pre"], rec["router_stats_post"]
+        rows[dispatch] = rec
+        print(f"[moe-bench] {dispatch}: {rec['value']} images/s, "
+              f"{rec['concept_token_updates_per_sec']} concept-token updates/s, "
+              f"{rec['steps_per_sec']:.4f} steps/s, peak {rec['peak_memory_gb']:.2f} GiB, "
+              f"loss {rec['loss']:.4f}; drop_frac at cf 1.25 before {pre['drop_frac']:.4f} "
+              f"after {post['drop_frac']:.4f} (worst layer {post['drop_frac_worst_layer']:.4f}, "
+              f"capacity {post['capacity']}, aux {post['aux']:.4f}, entropy "
+              f"{post['entropy']:.3f}); launches {launches} (expected {want}); {card}",
+              flush=True)
+        if not (np.isfinite(rec["loss"]) and rec["value"] > 0):
+            fail(f"MoE bench {dispatch}")
+        if launches != want:
+            fail(f"MoE bench {dispatch} launches {launches} != {want}")
+    print(f"[moe-bench] sparse / dense images/s: "
+          f"{rows['sparse']['value'] / rows['dense']['value']:.3f}", flush=True)
+
+
+def profile_moe(steps: int = 6, warmup: int = 4) -> None:
+    """``--profile-moe``: one step of phase 35's bench cell (E=4, top-2, cf
+    1.25, batch 16, full depth), dense then sparse dispatch, through
+    ``_profile_step``: device busy, idle share, aten ops and device time
+    by kernel."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.scripts import bench_mllm
+
+    for dispatch in ("dense", "sparse"):
+        args = bench_mllm.parse_args(BENCH_MOE + ["--moe_dispatch", dispatch])
+        model, batch = bench_mllm.build(args, torch.device("cuda"))
+        state, step = bench_mllm.train_state(model, args)
+        _profile_step(f"moe-{dispatch}", state, step, batch, steps, warmup, args.batch,
+                      "images", groups=K1_GROUPS)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+
+
+DP_CLIS = ("mllm", "vision", "clip")
+DP_IMAGES = {"mllm": 4, "vision": 28, "clip": 28}  # a color: 18, 4 and 1 (micro-)steps
+DP_STEADY = {"mllm": (_mllm_step_setup, 10), "vision": (_vision_step_setup, 10),
+             "clip": (lambda: _clip_step_setup()[2:], 8)}  # (setup, micro-steps a window)
+
+
+def _dp_steady_rates() -> dict:
+    """{trainer: {"group": [micro-steps/s], "alone": [...]}} under a
+    process group: each trainer's full model (the MLLM at phase 7's depth)
+    stepped on a fixed device batch, windows alternating (G A A G G A)
+    between the group's path (each collective a NCCL call) and the same
+    process with the collectives off (``multihost.is_distributed`` False
+    for the window: the single-process path), after 3 warm-up micro-steps
+    of each; one process, so the two differ by the collectives alone."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.parallel import multihost
+
+    in_group = multihost.is_distributed
+    rates = {}
+    for trainer in DP_CLIS:
+        setup, n = DP_STEADY[trainer]
+        *_, state, step, batch = setup()
+
+        def window(mode: str, k: int) -> float:
+            nonlocal state
+            multihost.is_distributed = in_group if mode == "group" else (lambda: False)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(k):
+                    state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                return k / (time.perf_counter() - t0)
+            finally:
+                multihost.is_distributed = in_group
+
+        window("group", 3)
+        window("alone", 3)
+        rates[trainer] = {"group": [], "alone": []}
+        for mode in ("group", "alone", "alone", "group", "group", "alone"):
+            rates[trainer][mode].append(window(mode, n))
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return rates
+
+
+def dp_worker(jobs_path: str) -> None:
+    """``--dp-worker JOBS``, run under torchrun: each job's CLI ``main``
+    (trainer, config, depth cut or None, device) twice in this one process
+    (the process group the first run joins serves the rest; the first run
+    of each warms the fresh process up, and the second, which overwrites
+    its files, is kept), then ``_dp_steady_rates`` under the group; writes
+    each kept run's epoch records, the cold run's, the group's backend and
+    world size, and the steady rates beside the jobs file."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.device import set_reference_numerics
+    from multimodal_concept_learning_tpu_torch.train import (
+        contrastive_training,
+        multimodal_training,
+        vision_training,
+    )
+
+    set_reference_numerics()
+    mains = {"mllm": multimodal_training.main, "vision": vision_training.main,
+             "clip": contrastive_training.main}
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    out = {}
+    for trainer, cfg_path, depth, device in jobs:
+        histories = []
+        for _ in range(2):  # the first run warms this fresh process up; the second is kept
+            with contextlib.ExitStack() as stack:
+                if depth:
+                    stack.enter_context(_cut_depth(*depth))
+                res = mains[trainer](["--config_path", cfg_path, "--device", device])
+            histories.append(res[2] if isinstance(res, tuple) else res["history"])
+            del res
+            torch.cuda.empty_cache()
+        out[trainer] = {"history": histories[1], "cold_history": histories[0],
+                        "backend": torch.distributed.get_backend(),
+                        "world": torch.distributed.get_world_size()}
+    out["steady"] = _dp_steady_rates()
+    with open(os.path.join(os.path.dirname(jobs_path), "dp_results.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _dp_rate(trainer: str, epoch: dict) -> float:
+    """Micro-steps (CLIP: steps) a second of an epoch's record."""
+    if trainer == "clip":
+        return epoch["steps"] / epoch["epoch_time"]
+    return epoch["micro_steps"] / epoch["train_time"]
+
+
+def _files(path: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), path)
+                  for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_dp(root: str, card: str) -> None:
+    """Phase 36: data parallel at world size 1.  Copies of the MLLM (the LM
+    cut to 2 layers in both runs: the disk budget), vision and CLIP configs
+    on small generated data, each run once in this process (no process
+    group) and under ``torchrun --standalone --nproc_per_node 1`` (NCCL;
+    every step's collectives, rank-0 writes; each CLI run twice there, the
+    second kept, the first warming the fresh process up): the same per-epoch
+    losses and saved weights (bitwise expected; held within 1e-6), the
+    same files, and the epochs' micro-steps/s beside the single process's
+    and phases 7, 18 and 9's; then ``_dp_steady_rates`` from the torchrun
+    process: the steady micro-step rates the DP layer's cost is read from
+    (the epochs above are a few micro-steps, mostly loader and start-up)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict
+    from multimodal_concept_learning_tpu_torch.train import (
+        contrastive_training,
+        multimodal_training,
+        vision_training,
+    )
+
+    srcs = {"mllm": MM_CONFIG, "vision": VISION_CONFIG, "clip": CLIP_CONFIG}
+    mains = {"mllm": multimodal_training.main, "vision": vision_training.main,
+             "clip": contrastive_training.main}
+    saved = {"mllm": "models/best_model.pt", "vision": "models/final_model.pt",
+             "clip": None}  # CLIP: its one checkpoints/step_{N}.pt
+    depth = {"mllm": list(MM_RESUME_DEPTH), "vision": None, "clip": None}
+    plain, jobs, results = {}, [], {}
+    for trainer in DP_CLIS:
+        sub = os.path.join(root, trainer)
+        os.makedirs(sub, exist_ok=True)
+        data_dir, _ = _generate_colors(sub, DP_IMAGES[trainer])
+        paths = {"vision": {"data_dir": data_dir, "mapping_path": data_dir},
+                 "mllm": {"mapping_path": os.path.join(data_dir, "train_mapping.csv"),
+                          "image_root": data_dir, "labels_mapping_path": MAPPING,
+                          "vision_path": "null", "save_every_epoch": "false",
+                          "num_workers": "2"},
+                 "clip": {"mapping_path": os.path.join(data_dir, "train_mapping.csv"),
+                          "image_root": data_dir}}[trainer]
+        for tag in ("plain", "dp"):
+            os.makedirs(os.path.join(sub, tag), exist_ok=True)
+            results[trainer, tag] = os.path.join(sub, tag, "results")
+            cfg = _write_config(srcs[trainer], os.path.join(sub, tag),
+                                dict(paths, results_dir=results[trainer, tag], epochs="1"))
+            if tag == "dp":
+                jobs.append((trainer, cfg["path"], depth[trainer], "cuda"))
+                continue
+            torch.cuda.empty_cache()
+            with contextlib.ExitStack() as stack:
+                if depth[trainer]:
+                    stack.enter_context(_cut_depth(*depth[trainer]))
+                res = mains[trainer](["--config_path", cfg["path"], "--device", "cuda"])
+            plain[trainer] = res[2] if isinstance(res, tuple) else res["history"]
+            del res
+    jobs_path = os.path.join(root, "dp_jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", os.path.join(REPO, "chip_smoke.py"),
+                           "--dp-worker", jobs_path], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = (proc.stdout + proc.stderr).splitlines()
+    for line in lines:
+        if line.startswith("distributed:"):
+            print(f"[dp-torchrun] {line}", flush=True)
+    if proc.returncode != 0:
+        print("\n".join(lines[-80:]), flush=True)
+        fail(f"torchrun exited {proc.returncode}")
+    with open(os.path.join(root, "dp_results.json")) as f:
+        dp = json.load(f)
+    print(f"[dp] torchrun --standalone --nproc_per_node 1 ran the three CLIs in {wall:.1f} s "
+          f"(one process)", flush=True)
+    for trainer in DP_CLIS:
+        got, want = dp[trainer], plain[trainer]
+        files, want_files = _files(results[trainer, "dp"]), _files(results[trainer, "plain"])
+        ckpt = saved[trainer] or next(f for f in want_files if f.startswith("checkpoints/"))
+        loss_keys = [k for k in ("train_loss", "val_loss") if k in want[0]]
+        loss_err = max(abs(got["history"][0][k] - want[0][k]) for k in loss_keys)
+        a = load_state_dict(os.path.join(results[trainer, "dp"], ckpt))
+        b = load_state_dict(os.path.join(results[trainer, "plain"], ckpt))
+        same_keys = sorted(a) == sorted(b)
+        w_err = max((a[n] - b[n]).abs().max().item() for n in b) if same_keys else float("inf")
+        bitwise = same_keys and all(torch.equal(a[n], b[n]) for n in b)
+        del a, b
+        rate, plain_rate = _dp_rate(trainer, got["history"][0]), _dp_rate(trainer, want[0])
+        cold = _dp_rate(trainer, got["cold_history"][0])
+        phase_rate = PLAIN_RUNS.get(trainer)
+        print(f"[dp] {trainer}: backend {got['backend']}, world {got['world']}; losses "
+              f"{[got['history'][0][k] for k in loss_keys]} vs single process "
+              f"{[want[0][k] for k in loss_keys]} (max err {loss_err:.2e}); {ckpt} "
+              f"bitwise {bitwise} (max err {w_err:.2e}); rank-0 files {files} (single "
+              f"process {want_files}); {rate:.3f} micro-steps/s (its cold first run {cold:.3f}) "
+              f"vs {plain_rate:.3f} single process, "
+              f"{'n/a' if phase_rate is None else f'{phase_rate:.3f}'} in its phase (7, 18, 9, "
+              f"other data); {card}", flush=True)
+        if got["backend"] != "nccl" or got["world"] != 1:
+            fail(f"DP {trainer}: backend {got['backend']}, world {got['world']}")
+        if not (loss_err <= 1e-6 and w_err <= 1e-6 and files == want_files):
+            fail(f"DP {trainer} at world size 1 differs from the single process")
+    for trainer in DP_CLIS:
+        got, want = dp["steady"][trainer]["group"], dp["steady"][trainer]["alone"]
+        print(f"[dp] {trainer} steady micro-steps/s over {DP_STEADY[trainer][1]} a window "
+              f"(full model, fixed device batch, the torchrun process, windows G A A G G A): "
+              f"the group's path (NCCL, world 1) {[round(r, 3) for r in got]}, the "
+              f"single-process path {[round(r, 3) for r in want]}; ratio of medians "
+              f"{np.median(got) / np.median(want):.3f}; {card}", flush=True)
+
+
 SOURCES = {
     "flash_attention_fwd": ("multimodal_concept_learning_tpu_torch/csrc/flash_attention_fwd.cu",
                             "multimodal_concept_learning_tpu/ops/flash_attention.py:31"),
@@ -5499,6 +6138,12 @@ def main(argv=None) -> None:
                              "(K3; MCL_PAGED_KERNEL=2: K4); no other phase")
     parser.add_argument("--int8-kv", action="store_true",
                         help="with --profile-decode: int8 page pools (gather, dequantize, K1)")
+    parser.add_argument("--profile-moe", action="store_true",
+                        help="build, then profile one step of phase 35's E=4 bench cell, "
+                             "dense then sparse dispatch; no other phase")
+    parser.add_argument("--dp-worker", metavar="JOBS",
+                        help="under torchrun (phase 36): run the trainer CLIs the JSON file "
+                             "JOBS lists in this process; no other phase")
     args = parser.parse_args(argv)
     ab_root = (args.time_forwards or args.time_variants or args.profile_mllm
                or args.profile_decode)
@@ -5512,6 +6157,9 @@ def main(argv=None) -> None:
     from multimodal_concept_learning_tpu_torch.device import set_reference_numerics
 
     set_reference_numerics()
+    if args.dp_worker:
+        dp_worker(args.dp_worker)
+        return
     t_start = time.perf_counter()
     card = phase_card()
     phase_build(check_spills=not ab_root)
@@ -5529,6 +6177,9 @@ def main(argv=None) -> None:
         return
     if args.profile_vision:
         profile_vision()
+        return
+    if args.profile_moe:
+        profile_moe()
         return
     if args.profile_decode:
         profile_decode(args.profile_decode, int8_kv=args.int8_kv)
@@ -5557,6 +6208,7 @@ def main(argv=None) -> None:
     timed(phase_train_parity)
     timed(phase_vision_parity)
     timed(phase_lora_parity)
+    timed(phase_moe_parity)
     root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
     try:
         vision_best = timed(phase_vision_slice, report, os.path.join(root, "vision"))
@@ -5567,6 +6219,7 @@ def main(argv=None) -> None:
         timed(phase_remap_chain, root, answers["float"])  # phase 7's weights, 15's answers
         timed(phase_vision_resume, os.path.join(root, "vision-resume"), card)
         timed(phase_mllm_resume, os.path.join(root, "mllm-resume"), card)
+        timed(phase_moe_slice, os.path.join(root, "moe"), data)  # on phase 7's data
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
@@ -5579,6 +6232,12 @@ def main(argv=None) -> None:
         clip_run = timed(phase_clip_slice, report, root)
         timed(phase_variant_slice, report, clip_run)  # on phase 9's generated data
         timed(phase_partitioned_clip_slice, root, clip_run, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed(phase_moe_bench, card)
+    root = tempfile.mkdtemp(prefix="_smoke_dp_", dir=REPO)
+    try:
+        timed(phase_dp, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed(phase_multi_lora_bench)

@@ -43,6 +43,7 @@ from multimodal_concept_learning_tpu_torch.device import cast_for_compute, resol
 from multimodal_concept_learning_tpu_torch.models.lm import RMSNorm
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
 from multimodal_concept_learning_tpu_torch.ops.lora import LoRAAdapter
+from multimodal_concept_learning_tpu_torch.ops.moe import MoEMLP
 from multimodal_concept_learning_tpu_torch.ops.sparse_embed import PartitionedEmbed
 
 
@@ -104,9 +105,10 @@ _LM_NORMS = ("input_layernorm", "post_attention_layernorm", "pre_feedforward_lay
 
 def _lm_entry_to_torch(rel: str, arr: np.ndarray):
     """One flax Gemma-style LM param as (HF Gemma name, array)
-    (``checkpoint/torch_interop.py:_lm_entry_to_torch`` of the JAX package,
-    without the MoE leaves, which the port does not run).  LoRA factors keep
-    their JAX layout under ``<proj>_lora.{a,b}``."""
+    (``checkpoint/torch_interop.py:_lm_entry_to_torch`` of the JAX package).
+    LoRA factors keep their JAX layout under ``<proj>_lora.{a,b}``; an MoE
+    layer's router kernel is transposed, its stacked expert tensors kept
+    verbatim."""
     parts = rel.split("/")
     if rel == "embed_tokens/embedding":
         return "model.embed_tokens.weight", arr
@@ -131,6 +133,10 @@ def _lm_entry_to_torch(rel: str, arr: np.ndarray):
             return f"{base}.mlp.{parts[1]}.weight", arr.T
         if parts[1].endswith("_lora"):  # the MLP's LoRA factors, verbatim
             return f"{base}.mlp.{parts[1]}.{parts[2]}", arr
+        if parts[1] == "moe":  # router/kernel [H, E]; experts_* [E, ...]
+            if parts[2] == "router":
+                return f"{base}.moe.router.weight", arr.T
+            return f"{base}.moe.{parts[2]}", arr
         if parts[1] in _LM_NORMS:
             return f"{base}.{parts[1]}.weight", arr
     raise KeyError(f"Unmapped LM param: {rel}")
@@ -273,7 +279,7 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator, std: floa
     for mod in model.modules():
         if isinstance(mod, RMSNorm):
             mod.weight.zero_()
-        elif isinstance(mod, (LoRAAdapter, PartitionedEmbed)):
+        elif isinstance(mod, (LoRAAdapter, PartitionedEmbed, MoEMLP)):
             mod.reset_parameters(generator, std)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)

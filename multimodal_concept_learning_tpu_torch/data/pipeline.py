@@ -11,8 +11,11 @@ ahead; a random transform's draws are made in sample order on that thread
 number of workers.  With ``uint8_images`` and a
 ToTensor[+Normalize] transform, images stay uint8 [H, W, 3] and the batch
 carries ``norm_mean`` / ``norm_std`` for the device to normalise
-(``ops/preprocess.py``).  ``to_device`` moves a numpy batch to torch
-tensors on a device.
+(``ops/preprocess.py``).  ``process_shard=(rank, n)`` is the JAX
+loader's multi-process striping: every rank applies the same shuffle, forms
+global batches of ``batch_size * n`` rows (the final one padded or dropped
+as above) and yields only its own ``batch_size`` rows and their ``valid``.
+``to_device`` moves a numpy batch to torch tensors on a device.
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  collate_fn: Optional[Callable] = None, drop_last: bool = False,
                  num_workers: int = 4, seed: int = 0, prefetch_batches: int = 2,
-                 uint8_images: bool = False):
+                 uint8_images: bool = False, process_shard=None):
+        if process_shard is not None:
+            rank, nproc = process_shard
+            if not 0 <= rank < nproc:
+                raise ValueError(f"process_shard rank {rank} not in [0, {nproc})")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -52,31 +60,39 @@ class BatchLoader:
         self.uint8_images = uint8_images
         self._epoch = 0
 
+    def _global_batch_size(self) -> int:
+        return self.batch_size * (self.process_shard[1] if self.process_shard else 1)
+
     def __len__(self):
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n, gbs = len(self.dataset), self._global_batch_size()
+        return n // gbs if self.drop_last else -(-n // gbs)
 
     def set_epoch(self, epoch: int):
         self._epoch = epoch
 
     def _index_batches(self):
-        """[(indices, valid)] of the current epoch."""
+        """[(indices, valid)] of the current epoch (this rank's stripes)."""
         n = len(self.dataset)
         indices = np.arange(n)
-        if self.shuffle:
+        if self.shuffle:  # the same shuffle on every rank
             rng = np.random.Generator(np.random.PCG64([self.seed, self._epoch]))
             rng.shuffle(indices)
+        gbs = self._global_batch_size()
         batches = []
-        for start in range(0, n, self.batch_size):
-            chunk = indices[start:start + self.batch_size]
-            if len(chunk) < self.batch_size:
+        for start in range(0, n, gbs):
+            chunk = indices[start:start + gbs]
+            if len(chunk) < gbs:
                 if self.drop_last:
                     break
-                pad = np.resize(indices, self.batch_size - len(chunk))
+                pad = np.resize(indices, gbs - len(chunk))
                 valid = np.concatenate([np.ones(len(chunk), bool), np.zeros(len(pad), bool)])
                 chunk = np.concatenate([chunk, pad])
             else:
-                valid = np.ones(self.batch_size, bool)
+                valid = np.ones(gbs, bool)
+            if self.process_shard is not None:
+                stripe = slice(self.process_shard[0] * self.batch_size,
+                               (self.process_shard[0] + 1) * self.batch_size)
+                chunk, valid = chunk[stripe], valid[stripe]
             batches.append((chunk, valid))
         return batches
 

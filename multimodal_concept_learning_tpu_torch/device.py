@@ -47,12 +47,17 @@ def cast_for_compute(module: nn.Module, dtype: torch.dtype,
                      only_frozen: bool = False) -> nn.Module:
     """Store the weights and biases of every ``nn.Linear`` / ``nn.Conv2d``
     in ``module`` in ``dtype``, in place (with ``only_frozen``: those with
-    ``requires_grad=False``); all other parameters keep their dtype."""
+    ``requires_grad=False``), and the parameters a module names in its
+    ``compute_dtype_params`` (an MoE layer's experts); all other
+    parameters keep their dtype."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
-            for p in m.parameters(recurse=False):
-                if not (only_frozen and p.requires_grad):
-                    p.data = p.data.to(dtype)
+            params = list(m.parameters(recurse=False))
+        else:
+            params = [getattr(m, n) for n in getattr(m, "compute_dtype_params", ())]
+        for p in params:
+            if not (only_frozen and p.requires_grad):
+                p.data = p.data.to(dtype)
     return module
 
 

@@ -51,6 +51,7 @@ from multimodal_concept_learning_tpu_torch.ops.attention import (
 from multimodal_concept_learning_tpu_torch.ops.flash_attention import _NEG
 from multimodal_concept_learning_tpu_torch.ops.int4 import Int4Linear
 from multimodal_concept_learning_tpu_torch.ops.lora import LoRAAdapter
+from multimodal_concept_learning_tpu_torch.ops.moe import MoEAux, MoEMLP
 from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     paged_decode_attention,
     quantize_kv,
@@ -85,11 +86,26 @@ class LMConfig:
     # block; 0 = off.  The base projection may be float, int8 or int4.
     lora_rank: int = 0
     lora_alpha: float = 16.0
+    # Mixture-of-Experts (ops/moe.py): 0 = the dense GeGLU MLP; > 0 puts a
+    # top-k routed MoEMLP in every block's MLP place ("dense" dispatch, or
+    # "sparse": GShard capacity, dropping over-capacity assignments)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_dispatch: str = "dense"
+    moe_capacity_factor: float = 1.25
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
         if self.int8_weights and self.int4_weights:
             raise ValueError("int8_weights and int4_weights are mutually exclusive")
+        if self.moe_experts > 0 and (self.int8_weights or self.int4_weights):
+            # the JAX refusal: quantizing only the attention projections
+            # would leave the expert weights, the bulk of the bytes, float
+            raise ValueError(
+                "int8_weights/int4_weights do not cover MoE expert MLPs "
+                "(moe_experts > 0) — the quantized path would skip the bulk "
+                "of the weight bytes; unset quantization or moe_experts"
+            )
 
     def layer_is_sliding(self, i: int) -> bool:
         """HF Gemma-3 layer_types: every ``pattern``-th layer is global."""
@@ -312,36 +328,59 @@ class LMMLP(nn.Module):
 
 
 class LMBlock(nn.Module):
+    """One decoder block.  Under ``moe_experts`` the MLP is a ``MoEMLP``
+    named ``moe`` (no MLP LoRA adapters, as in JAX; attention keeps its);
+    each forward path takes ``moe_aux`` (an ``ops.moe.MoEAux``), to which
+    the block appends its aux."""
+
     def __init__(self, cfg: LMConfig):
         super().__init__()
         self.cfg = cfg
         eps = cfg.rms_norm_eps
         self.self_attn = LMAttention(cfg)
-        self.mlp = LMMLP(cfg)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMLP(cfg.hidden_size, cfg.intermediate_size, cfg.moe_experts,
+                              top_k=cfg.moe_top_k, dtype=cfg.dtype, dispatch=cfg.moe_dispatch,
+                              capacity_factor=cfg.moe_capacity_factor)
+        else:
+            self.mlp = LMMLP(cfg)
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps)
         if cfg.sandwich_norms:
             self.pre_feedforward_layernorm = RMSNorm(cfg.hidden_size, eps)
             self.post_feedforward_layernorm = RMSNorm(cfg.hidden_size, eps)
 
-    def _residual(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, moe_aux: Optional[MoEAux]) -> torch.Tensor:
+        if self.cfg.moe_experts == 0:
+            return self.mlp(h)
+        out, aux = self.moe(h, moe_aux)
+        if moe_aux is not None:
+            moe_aux.aux.append(aux)
+        return out
+
+    def _residual(self, x: torch.Tensor, h: torch.Tensor, moe_aux=None) -> torch.Tensor:
         if self.cfg.sandwich_norms:
             # Gemma-2/3: the post-attn norm wraps the attention output before
             # the residual add; the MLP has its own pre/post norms
             x = x + self.post_attention_layernorm(h)
-            h = self.post_feedforward_layernorm(self.mlp(self.pre_feedforward_layernorm(x)))
+            h = self.post_feedforward_layernorm(
+                self._ffn(self.pre_feedforward_layernorm(x), moe_aux))
             return x + h
         x = x + h  # Gemma-1/llama: the post-attn norm is the pre-MLP norm
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + self._ffn(self.post_attention_layernorm(x), moe_aux)
 
-    def forward(self, x, rope: Rope, **attn_kwargs) -> torch.Tensor:
-        return self._residual(x, self.self_attn(self.input_layernorm(x), rope, **attn_kwargs))
+    def forward(self, x, rope: Rope, moe_aux: Optional[MoEAux] = None,
+                **attn_kwargs) -> torch.Tensor:
+        return self._residual(x, self.self_attn(self.input_layernorm(x), rope, **attn_kwargs),
+                              moe_aux)
 
-    def decode_paged(self, x, rope: Rope, *args) -> torch.Tensor:
-        return self._residual(x, self.self_attn.decode_paged(self.input_layernorm(x), rope, *args))
+    def decode_paged(self, x, rope: Rope, *args, moe_aux=None) -> torch.Tensor:
+        return self._residual(x, self.self_attn.decode_paged(self.input_layernorm(x), rope, *args),
+                              moe_aux)
 
-    def decode_dense(self, x, rope: Rope, *args) -> torch.Tensor:
-        return self._residual(x, self.self_attn.decode_dense(self.input_layernorm(x), rope, *args))
+    def decode_dense(self, x, rope: Rope, *args, moe_aux=None) -> torch.Tensor:
+        return self._residual(x, self.self_attn.decode_dense(self.input_layernorm(x), rope, *args),
+                              moe_aux)
 
 
 class _DecoderStack(nn.Module):
@@ -375,7 +414,7 @@ class CausalLM(nn.Module):
         return rope_global, rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
 
     def _prompt(self, inputs_embeds, attention_mask, kv_lens=None, pools=None, page_table=None,
-                caches=None):
+                caches=None, moe_aux=None):
         cfg = self.cfg
         b, t, _ = inputs_embeds.shape
         masks = [dict(causal=True, window=cfg.layer_window(i)) for i in range(cfg.num_layers)]
@@ -402,19 +441,22 @@ class CausalLM(nn.Module):
                 kw = dict(kw, pool=pools[i], page_table=page_table)
             if caches is not None:
                 kw = dict(kw, cache=caches[i])
-            x = layer(x, rope_sliding if cfg.layer_is_sliding(i) else rope_global, **kw)
+            x = layer(x, rope_sliding if cfg.layer_is_sliding(i) else rope_global,
+                      moe_aux=moe_aux, **kw)
         return self.model.norm(x)
 
     def hidden_states(self, inputs_embeds: torch.Tensor,
                       attention_mask: Optional[torch.Tensor] = None,
-                      kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      kv_lens: Optional[torch.Tensor] = None,
+                      moe_aux: Optional[MoEAux] = None) -> torch.Tensor:
         """Final-norm hidden states [B, T, H] under any [B, T] 1/0 mask.
         ``kv_lens`` [B] int32, the mask's row sums, says that the mask is
         right-padded (attention takes descriptors); without it the mask
-        goes to attention as a bias."""
+        goes to attention as a bias.  Under MoE, ``moe_aux`` collects each
+        layer's aux (the JAX module sows them)."""
         if kv_lens is not None and attention_mask is None:
             raise ValueError("kv_lens describes an attention mask; pass the mask too")
-        return self._prompt(inputs_embeds, attention_mask, kv_lens)
+        return self._prompt(inputs_embeds, attention_mask, kv_lens, moe_aux=moe_aux)
 
     def prefill_paged(self, inputs_embeds, attention_mask, pools, page_table) -> torch.Tensor:
         """Forward the prompt, writing K/V into the page pools IN PLACE.

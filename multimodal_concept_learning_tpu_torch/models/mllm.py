@@ -53,12 +53,16 @@ class MLLMConfig:
     def create(cls, vocab_size: int, vision_preset: str = "vit-b-16",
                lm_preset: str = "gemma3-1b", num_vision_tokens: int = 197,
                image_size: int = 224, max_answer_tokens: int = 8, lm_lora_rank: int = 0,
-               lm_lora_alpha: float = 16.0,
+               lm_lora_alpha: float = 16.0, lm_moe_experts: int = 0, lm_moe_top_k: int = 2,
+               lm_moe_dispatch: str = "dense", lm_moe_capacity_factor: float = 1.25,
                dtype: torch.dtype = torch.bfloat16) -> "MLLMConfig":
         vision = dataclasses.replace(ViTConfig.preset(vision_preset), image_size=image_size,
                                      dtype=dtype)
         lm = dataclasses.replace(LMConfig.preset(lm_preset, vocab_size=vocab_size), dtype=dtype,
-                                 lora_rank=lm_lora_rank, lora_alpha=lm_lora_alpha)
+                                 lora_rank=lm_lora_rank, lora_alpha=lm_lora_alpha,
+                                 moe_experts=lm_moe_experts, moe_top_k=lm_moe_top_k,
+                                 moe_dispatch=lm_moe_dispatch,
+                                 moe_capacity_factor=lm_moe_capacity_factor)
         return cls(vision=vision, lm=lm, num_vision_tokens=num_vision_tokens,
                    max_answer_tokens=max_answer_tokens, dtype=dtype)
 
@@ -111,14 +115,18 @@ class MLLM(nn.Module):
 
     def forward(self, images, input_ids, attention_mask, labels=None,
                 dense_loss: bool = False, row_valid=None,
-                kv_lens=None) -> Dict[str, torch.Tensor]:
+                kv_lens=None, moe_aux=None, loss_count=None) -> Dict[str, torch.Tensor]:
         """The JAX ``MLLM.__call__``: {"hidden_states"} without labels;
         {"loss", "hidden_states"} with ``dense_loss``; otherwise the sparse
         answer loss with its {"logits" [B, A, V], "positions", "valid"}.
         ``kv_lens``: the mask's row lengths when it is right-padded (see
-        ``CausalLM.hidden_states``)."""
+        ``CausalLM.hidden_states``).  ``moe_aux`` (``ops.moe.MoEAux``)
+        collects the MoE layers' aux values; ``loss_count`` divides the
+        sparse loss's sum in place of this batch's count of supervised
+        positions (a data-parallel step passes the global batch's)."""
         lm = self.language_model
-        hidden = lm.hidden_states(self.prompt_embeds(images, input_ids), attention_mask, kv_lens)
+        hidden = lm.hidden_states(self.prompt_embeds(images, input_ids), attention_mask, kv_lens,
+                                  moe_aux=moe_aux)
         if labels is None:
             return {"hidden_states": hidden}
         if dense_loss:
@@ -126,7 +134,7 @@ class MLLM(nn.Module):
                     "hidden_states": hidden}
         loss, logits, positions, valid = sparse_answer_cross_entropy(
             hidden, labels, lm.lm_head, max_positions=self.cfg.max_answer_tokens,
-            row_valid=row_valid)
+            row_valid=row_valid, count=loss_count)
         return {"loss": loss, "logits": logits, "positions": positions, "valid": valid,
                 "hidden_states": hidden}
 

@@ -20,9 +20,12 @@ IGNORE_INDEX = -100
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        label_smoothing: float = 0.0,
-                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       valid: Optional[torch.Tensor] = None,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean softmax CE of [B, C] logits against [B] int labels, optionally
-    label-smoothed; ``valid`` [B] bool excludes padded samples."""
+    label-smoothed; ``valid`` [B] bool excludes padded samples; ``count``
+    (with ``valid``) divides the sum in place of the valid count (a
+    data-parallel step's global count)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
     if label_smoothing > 0.0:
@@ -30,7 +33,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if valid is None:
         return nll.mean()
     validf = valid.float()
-    return (nll * validf).sum() / validf.sum().clamp(min=1.0)
+    return (nll * validf).sum() / (validf.sum() if count is None else count).clamp(min=1.0)
 
 
 def shift_labels(labels: torch.Tensor) -> torch.Tensor:
@@ -52,12 +55,13 @@ def gather_supervised_positions(labels: torch.Tensor,
 def sparse_answer_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
                                 lm_head_fn: Callable, max_positions: int,
                                 logits_softcap: Optional[float] = None,
-                                row_valid: Optional[torch.Tensor] = None):
+                                row_valid: Optional[torch.Tensor] = None,
+                                count: Optional[torch.Tensor] = None):
     """Causal-LM CE computed only at supervised positions.
 
     hidden [B, T, H]; labels [B, T] pre-shift (hidden[t] predicts
     labels[t + 1]).  Returns (mean loss, logits [B, A, V], positions [B, A],
-    valid [B, A])."""
+    valid [B, A]); ``count`` divides the sum in place of the valid count."""
     shifted = shift_labels(labels)
     positions, valid = gather_supervised_positions(shifted, max_positions)
     if row_valid is not None:
@@ -70,8 +74,18 @@ def sparse_answer_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, target.long()[..., None])[..., 0]
     validf = valid.float()
-    loss = (nll * validf).sum() / validf.sum().clamp(min=1.0)
+    loss = (nll * validf).sum() / (validf.sum() if count is None else count).clamp(min=1.0)
     return loss, logits, positions, valid
+
+
+def answer_count(labels: torch.Tensor, max_positions: int,
+                 row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The count of positions ``sparse_answer_cross_entropy`` averages over
+    (float32 0-d), from the labels alone."""
+    valid = gather_supervised_positions(shift_labels(labels), max_positions)[1]
+    if row_valid is not None:
+        valid = valid & row_valid.bool()[:, None]
+    return valid.float().sum()
 
 
 def dense_causal_lm_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
@@ -89,6 +103,7 @@ def dense_causal_lm_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
 
 __all__ = [
     "IGNORE_INDEX",
+    "answer_count",
     "cross_entropy_loss",
     "dense_causal_lm_cross_entropy",
     "gather_supervised_positions",

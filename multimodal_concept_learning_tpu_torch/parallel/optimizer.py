@@ -18,6 +18,8 @@ accumulated in their dtype, each operation of the running mean rounded to
 it (as ``MultiSteps`` does on bf16 gradients), then upcast to float32, and
 AdamW runs on float32 master copies, whose bf16 rounding is written back
 after each update.
+Under a process group each micro-step's gradients are summed over the
+ranks (``multihost.reduce_gradients``) before they enter the accumulator.
 Every update is plain tensor arithmetic on the parameters' device.
 ``state_dict`` / ``load_state_dict`` carry everything a resumed run needs
 (the moments, masters, accumulator and both counters), so a run resumed
@@ -30,6 +32,8 @@ import math
 from typing import Callable, Dict, Optional, Union
 
 import torch
+
+from multimodal_concept_learning_tpu_torch.parallel import multihost
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -122,6 +126,7 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> bool:
         grads = self._take_grads()
+        multihost.reduce_gradients(grads.values())
         if self.k > 1:
             n_acc = self.mini_step
             for n, g in grads.items():

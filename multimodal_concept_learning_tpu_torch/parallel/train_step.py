@@ -16,6 +16,18 @@ Batches are dicts of tensors already on the model's device.  Metrics stay
 on the device (0-d tensors) until the caller syncs once an epoch.  A
 batch's ``kv_lens`` (set by ``data.pipeline.to_device`` for a right-padded
 mask) goes to the model as the mask's descriptor.
+
+Under MoE the MLLM step adds ``MOE_AUX_COEF`` x the mean of the layers'
+Switch aux to the loss (JAX ``parallel/train_step.py:126-175``).  Every
+step takes this rank's stripe of the global batch and returns the global
+batch's metrics (``parallel/multihost.py``; in a single process the
+stripe is the batch and each collective the identity): every per-rank
+loss is built so that the ranks' gradients, summed by
+``Optimizer.step``, are the gradient of JAX's loss over the global batch
+(the MLLM's answer CE is its stripe's sum over the global count of answer
+positions, the MoE aux the product of the global batch's routing means,
+the classifier's mean a 1/world share, and CLIP's InfoNCE runs over the
+gathered [B, B] logits).
 """
 
 from __future__ import annotations
@@ -31,11 +43,21 @@ from multimodal_concept_learning_tpu_torch.models.mllm import MLLM
 from multimodal_concept_learning_tpu_torch.models.vit import ViTForImageClassification
 from multimodal_concept_learning_tpu_torch.ops.losses import (
     IGNORE_INDEX,
+    answer_count,
     cross_entropy_loss,
     shift_labels,
 )
+from multimodal_concept_learning_tpu_torch.ops.moe import MoEAux
 from multimodal_concept_learning_tpu_torch.ops.preprocess import images_from_batch
+from multimodal_concept_learning_tpu_torch.parallel.multihost import (
+    all_reduce_sum,
+    gather_rows,
+    global_routing_sums,
+    world_size,
+)
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import Optimizer
+
+MOE_AUX_COEF = 0.01  # Switch-convention load-balance coefficient
 
 
 @dataclasses.dataclass
@@ -53,68 +75,91 @@ def make_classifier_train_step(model: ViTForImageClassification,
     """(state, batch) -> (state, {"loss", "correct", "count"}): the
     classifier's forward with dropout from ``generator``, the label-smoothed
     cross entropy, backward and ``Optimizer.step``.  ``count`` is the batch
-    size (a training batch has no padding)."""
+    size; all three are the global batch's (equal stripes, no padding: the
+    mean is the mean of the ranks' means)."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model.train()
         labels = batch["labels"]
         logits = model(images_from_batch(batch), deterministic=False, generator=generator)
         loss = cross_entropy_loss(logits, labels, label_smoothing)
+        correct = (torch.argmax(logits.detach(), dim=-1) == labels).sum()
+        loss = loss / world_size()
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        correct = (torch.argmax(logits.detach(), dim=-1) == labels).sum()
-        return state, {"loss": loss.detach(), "correct": correct, "count": labels.shape[0]}
+        return state, {"loss": all_reduce_sum(loss.detach()), "correct": all_reduce_sum(correct),
+                       "count": labels.shape[0] * world_size()}
 
     return step
 
 
 def make_classifier_eval_step(model: ViTForImageClassification,
                               label_smoothing: float = 0.0) -> Callable:
-    """(model, batch) -> {"loss", "correct", "count"} over the batch's
-    ``valid`` rows (a padded final batch counts its real samples only),
-    deterministic, under ``torch.no_grad()``."""
+    """(model, batch) -> {"loss", "correct", "count"} over the global
+    batch's ``valid`` rows (a padded final batch counts its real samples
+    only), deterministic, under ``torch.no_grad()``."""
 
     @torch.no_grad()
     def step(model: ViTForImageClassification, batch: Dict[str, torch.Tensor]):
         model.eval()
         labels, valid = batch["labels"], batch["valid"]
         logits = model(images_from_batch(batch))
-        loss = cross_entropy_loss(logits, labels, label_smoothing, valid=valid)
         correct = ((torch.argmax(logits, dim=-1) == labels) & valid).sum()
-        return {"loss": loss, "correct": correct, "count": valid.sum()}
+        count = all_reduce_sum(valid.sum())
+        loss = cross_entropy_loss(logits, labels, label_smoothing, valid=valid,
+                                  count=count.float())
+        return {"loss": all_reduce_sum(loss), "correct": all_reduce_sum(correct),
+                "count": count}
 
     return step
 
 
 def make_mllm_train_step(model: MLLM) -> Callable:
     """(state, batch) -> (state, {"loss"}) for ``state.model is model``; the
-    loss is a 0-d tensor left on the device (the epoch loop syncs once per
-    epoch)."""
+    loss is the global batch's (see the module docstring), a 0-d tensor
+    left on the device (the epoch loop syncs once per epoch).  Under MoE it
+    includes ``MOE_AUX_COEF`` x the mean layer aux."""
+    moe_on = model.cfg.lm.moe_experts > 0
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model.train()
+        # the global batch's answer positions; a rank may hold none
+        count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens))
+        record = MoEAux(reduce=global_routing_sums) if moe_on else None
         out = model(images_from_batch(batch), batch["input_ids"], batch["attention_mask"],
-                    batch["labels"], kv_lens=batch.get("kv_lens"))
-        out["loss"].backward()
+                    batch["labels"], kv_lens=batch.get("kv_lens"), moe_aux=record,
+                    loss_count=count)
+        loss = out["loss"]
+        reported = all_reduce_sum(loss.detach())
+        if moe_on and record.aux:
+            # the same global value on every rank (see multihost.sum_over_ranks)
+            aux_term = MOE_AUX_COEF * sum(record.aux) / len(record.aux)
+            loss = loss + aux_term
+            reported = reported + aux_term.detach()
+        loss.backward()
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": out["loss"].detach()}
+        return state, {"loss": reported}
 
     return step
 
 
 def make_mllm_eval_step(model: MLLM) -> Callable:
     """(model, batch) -> {loss, pred_ids [B, A], target_ids [B, A] (-100
-    where not valid), valid [B, A]}, under ``torch.no_grad()``."""
+    where not valid), valid [B, A]}, under ``torch.no_grad()``: the loss is
+    the global batch's, the rest this rank's."""
 
     @torch.no_grad()
     def step(model: MLLM, batch: Dict[str, torch.Tensor]):
         model.eval()
+        count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens,
+                                            batch["valid"]))
         out = model(images_from_batch(batch), batch["input_ids"], batch["attention_mask"],
-                    batch["labels"], row_valid=batch["valid"], kv_lens=batch.get("kv_lens"))
+                    batch["labels"], row_valid=batch["valid"], kv_lens=batch.get("kv_lens"),
+                    loss_count=count)
         target = torch.gather(shift_labels(batch["labels"]), 1, out["positions"])
-        return {"loss": out["loss"],
+        return {"loss": all_reduce_sum(out["loss"]),
                 "pred_ids": torch.argmax(out["logits"], dim=-1),
                 "target_ids": torch.where(out["valid"], target, IGNORE_INDEX),
                 "valid": out["valid"]}
@@ -123,16 +168,17 @@ def make_mllm_eval_step(model: MLLM) -> Callable:
 
 
 def make_clip_train_step(model: CLIPModel) -> Callable:
-    """(state, batch) -> (state, {"loss"}): the symmetric InfoNCE of one
-    batch of (images, input_ids, attention_mask), backward and
+    """(state, batch) -> (state, {"loss"}): the symmetric InfoNCE of the
+    global batch of (images, input_ids, attention_mask), over the ranks'
+    features gathered with their gradient, backward and
     ``Optimizer.step``; the loss stays on the device."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model.train()
         img, txt, scale = model(images_from_batch(batch), batch["input_ids"],
                                 batch["attention_mask"])
-        loss = contrastive_loss(img, txt, scale)
-        loss.backward()
+        loss = contrastive_loss(gather_rows(img), gather_rows(txt), scale)
+        (loss / world_size()).backward()
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}
@@ -141,9 +187,9 @@ def make_clip_train_step(model: CLIPModel) -> Callable:
 
 
 def make_zero_shot_step(model: CLIPModel) -> Callable:
-    """(model, batch, class_features [C, E]) -> (correct, valid count) as
-    0-d tensors: each valid image takes the class whose caption feature is
-    nearest, under ``torch.no_grad()``."""
+    """(model, batch, class_features [C, E]) -> (correct, valid count) over
+    the global batch as 0-d tensors: each valid image takes the class whose
+    caption feature is nearest, under ``torch.no_grad()``."""
 
     @torch.no_grad()
     def step(model: CLIPModel, batch: Dict[str, torch.Tensor], class_features: torch.Tensor):
@@ -151,11 +197,11 @@ def make_zero_shot_step(model: CLIPModel) -> Callable:
         img = model.encode_image(images_from_batch(batch))
         preds = torch.argmax(img @ class_features.T, dim=-1)
         valid = batch["valid"]
-        return ((preds == batch["labels"]) & valid).sum(), valid.sum()
+        return all_reduce_sum(((preds == batch["labels"]) & valid).sum()), all_reduce_sum(valid.sum())
 
     return step
 
 
-__all__ = ["TrainState", "make_classifier_eval_step", "make_classifier_train_step",
+__all__ = ["MOE_AUX_COEF", "TrainState", "make_classifier_eval_step", "make_classifier_train_step",
            "make_clip_train_step", "make_mllm_eval_step", "make_mllm_train_step",
            "make_zero_shot_step"]

@@ -86,8 +86,6 @@ def build_tokenizer(config: MultimodalTrainingConfig):
 
 def model_config(config: MultimodalTrainingConfig, vocab_size: int,
                  dtype: torch.dtype) -> MLLMConfig:
-    if getattr(config, "lm_moe_experts", 0):
-        raise NotImplementedError("lm_moe_experts > 0 is not ported yet (ROADMAP.md, queue A)")
     return MLLMConfig.create(
         vocab_size=vocab_size,
         vision_preset=resolve_vision_preset(config.vision_model_name),
@@ -96,6 +94,10 @@ def model_config(config: MultimodalTrainingConfig, vocab_size: int,
         image_size=config.image_size,
         lm_lora_rank=getattr(config, "lm_lora_rank", 0),
         lm_lora_alpha=getattr(config, "lm_lora_alpha", 16.0),
+        lm_moe_experts=getattr(config, "lm_moe_experts", 0),
+        lm_moe_top_k=getattr(config, "lm_moe_top_k", 2),
+        lm_moe_dispatch=getattr(config, "lm_moe_dispatch", "dense"),
+        lm_moe_capacity_factor=getattr(config, "lm_moe_capacity_factor", 1.25),
         dtype=dtype,
     )
 

@@ -24,6 +24,16 @@ applied (the loader replays an epoch deterministically through
 ``set_epoch``).  As in JAX, nothing re-seeds the MLLM collator's question
 stream (``data/collator.py``): a resumed MLLM run draws the yes/no
 questions a fresh process draws (ROADMAP.md, queue C).
+
+Under a process group (``parallel/multihost.py``) rank 0 alone writes the
+checkpoints and the loop meta; on restore it picks the step and broadcasts
+it, and every rank loads that step (the JAX ``orbax_io`` restore agrees on
+the step the same way).  ``PreemptionGuard.agreed()`` makes a SIGTERM to
+any one rank stop every rank at the same step (an all-reduce MAX each
+step), where the JAX trainers poll their own process's flag.
+``process_local_loader_args`` and ``mesh_for_batch`` are the JAX helpers
+of the same names for one process per card: the world size must divide
+the batch (the JAX mesh shrinks to a divisor instead).
 """
 
 from __future__ import annotations
@@ -40,8 +50,33 @@ from multimodal_concept_learning_tpu_torch.checkpoint_io import (
     save_checkpoint,
     wait_for_checkpoints,
 )
+from multimodal_concept_learning_tpu_torch.parallel import multihost
 
 _PREEMPTION_KEYS = ("preempt_epoch", "step_in_epoch", "skip_batches")
+
+
+def process_local_loader_args(global_batch_size: int):
+    """(local batch size, ``process_shard``) for this rank's loaders: the
+    global batch divided over the ranks, each loading its stripe; (the
+    global size, None) in a single process.  ValueError when the world
+    size does not divide the batch."""
+    if not multihost.is_distributed():
+        return global_batch_size, None
+    nproc = multihost.world_size()
+    if global_batch_size % nproc:
+        raise ValueError(f"batch_size {global_batch_size} must divide across {nproc} processes")
+    return global_batch_size // nproc, (multihost.rank(), nproc)
+
+
+def mesh_for_batch(batch_size: int):
+    """The 1-D data mesh over every rank (None in a single process); the
+    world size must divide ``batch_size`` (ValueError)."""
+    if not multihost.is_distributed():
+        return None
+    process_local_loader_args(batch_size)
+    from multimodal_concept_learning_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh()
 
 
 def epoch_metric_mean(values) -> float:
@@ -80,6 +115,14 @@ class PreemptionGuard:
                 self._prev(signum, frame)
 
         signal.signal(signal.SIGTERM, handler)
+
+    def agreed(self) -> bool:
+        """``preempted`` on any rank (every rank must call it at the same
+        step: an all-reduce under a process group); this process's flag
+        otherwise, or when the guard is off."""
+        if not self._enabled or not multihost.is_distributed():
+            return self.preempted
+        return multihost.any_rank(self.preempted)
 
     def close(self) -> None:
         if self._enabled:
@@ -122,7 +165,12 @@ class ResumeManager:
         ``skip_batches`` after a mid-epoch preemption."""
         if not self.enabled:
             return state, 0, {}
-        saved, epoch = restore_checkpoint(self.ckpt_dir)
+        saved, epoch = (restore_checkpoint(self.ckpt_dir) if multihost.is_main_process()
+                        else (None, None))
+        if multihost.is_distributed():  # rank 0 picks the step, every rank loads it
+            epoch = multihost.broadcast(epoch)
+            if epoch is not None and saved is None:
+                saved, _ = restore_checkpoint(self.ckpt_dir, epoch)
         if saved is None:
             return state, 0, {}
         meta = {}
@@ -147,8 +195,8 @@ class ResumeManager:
         background) and write the loop meta without preemption keys.  A
         kill mid-save leaves only a temporary file, so a resume takes the
         previous epoch; the meta may then be one epoch ahead, which only
-        affects the remembered best_loss."""
-        if not self.enabled:
+        affects the remembered best_loss.  Rank 0 alone writes."""
+        if not self.enabled or not multihost.is_main_process():
             return
         save_checkpoint(self.ckpt_dir, train_state_dict(state), epoch)
         meta = {k: v for k, v in meta.items() if k not in _PREEMPTION_KEYS}
@@ -160,13 +208,16 @@ class ResumeManager:
         JAX's "Preempted (SIGTERM)" line.  The meta goes first: a save torn
         by the hard kill that follows leaves a ``preempt_epoch`` that matches
         no finished step, which ``restore`` ignores.  Waits until the
-        checkpoint is on disk."""
+        checkpoint is on disk (on every rank: rank 0 writes it)."""
         if not self.enabled:
             return False
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        with open(self.meta_path, "w") as f:
-            json.dump({**meta, "preempt_epoch": epoch, "step_in_epoch": int(step_in_epoch)}, f)
-        save_checkpoint(self.ckpt_dir, train_state_dict(state), epoch, wait=True)
+        if multihost.is_main_process():
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            with open(self.meta_path, "w") as f:
+                json.dump({**meta, "preempt_epoch": epoch, "step_in_epoch": int(step_in_epoch)},
+                          f)
+            save_checkpoint(self.ckpt_dir, train_state_dict(state), epoch, wait=True)
+        multihost.barrier()
         print(f"Preempted (SIGTERM): saved mid-epoch checkpoint "
               f"(epoch {epoch + 1}, batch {step_in_epoch}); exiting")
         return True
@@ -178,4 +229,5 @@ class ResumeManager:
 
 
 __all__ = ["PreemptionGuard", "ResumeManager", "epoch_batches", "epoch_metric_mean",
-           "load_train_state_", "train_state_dict"]
+           "load_train_state_", "mesh_for_batch", "process_local_loader_args",
+           "train_state_dict"]

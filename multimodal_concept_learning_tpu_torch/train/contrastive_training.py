@@ -35,7 +35,10 @@ JAX's jitted step (the clip bound in bf16, ``exp`` in float32;
 (``merged_embedding``).
 ``resume: true`` saves the training state at each epoch's end and restores
 the newest on start; SIGTERM saves a mid-epoch checkpoint and ``main``
-returns ``{"preempted": True}`` (``train/common.py``).
+returns ``{"preempted": True}`` (``train/common.py``).  Under ``torchrun``
+it trains data parallel, as the MLLM trainer does; the InfoNCE runs over
+the global batch's [B, B] logits (the ranks' features gathered with their
+gradient), and rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from multimodal_concept_learning_tpu_torch.ops.sparse_embed import (
     inactive_decay,
     merged_embedding,
 )
+from multimodal_concept_learning_tpu_torch.parallel import multihost
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import (
     build_optimizer,
     linear_warmup_schedule,
@@ -82,6 +86,7 @@ from multimodal_concept_learning_tpu_torch.train.common import (
     ResumeManager,
     epoch_batches,
     epoch_metric_mean,
+    process_local_loader_args,
 )
 from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
@@ -125,6 +130,7 @@ def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConf
     TrainState, per-epoch metrics, checkpoint path), or None when SIGTERM
     preempted the run."""
     device = next(model.parameters()).device
+    is_main = multihost.is_main_process()
     accumulation_steps = max(1, config.effective_batch_size // config.batch_size)
     total_updates = max(1, (len(train_loader) * config.epochs) // accumulation_steps)
     schedule = linear_warmup_schedule(config.learning_rate, config.warmup_steps, total_updates)
@@ -141,11 +147,12 @@ def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConf
     guard = PreemptionGuard(enabled=config.resume)
     skip_batches = int(meta.get("skip_batches", 0) or 0)
     train_step = make_clip_train_step(model)
-    logger = MetricsLogger(enabled=True, use_wandb=config.use_wandb,
+    logger = MetricsLogger(enabled=is_main, use_wandb=config.use_wandb,
                            wandb_project=config.wandb_project,
                            wandb_run_name=config.wandb_run_name or config.run_name,
                            wandb_config=vars(config))
-    os.makedirs(config.results_dir, exist_ok=True)
+    if is_main:
+        os.makedirs(config.results_dir, exist_ok=True)
     history = []
     for epoch in range(start_epoch, config.epochs):
         t0 = time.time()
@@ -156,7 +163,7 @@ def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConf
             state, m = train_step(state, to_device(batch, device))
             done_in_epoch += 1
             losses.append(m["loss"])
-            if guard.preempted:
+            if guard.agreed():
                 resume.save_preempted(state, epoch, done_in_epoch, {})
                 logger.finish()
                 guard.close()
@@ -165,17 +172,19 @@ def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConf
         epoch_time = time.time() - t0
         metrics = {"epoch": epoch + 1, "train_loss": train_loss, "epoch_time": epoch_time,
                    "steps": len(losses)}
-        print(f"Epoch {epoch + 1}/{config.epochs} completed in {epoch_time:.2f}s | "
-              f"Train Loss: {train_loss:.4f}")
+        if is_main:
+            print(f"Epoch {epoch + 1}/{config.epochs} completed in {epoch_time:.2f}s | "
+                  f"Train Loss: {train_loss:.4f}")
         logger.log(metrics)
         history.append(metrics)
         resume.save(state, epoch, {})
     resume.finalize()
     guard.close()
     ckpt_dir = os.path.join(config.results_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{state.step}.pt")
-    save_state_dict(export_state_dict(state, config.weight_decay), path)
+    if is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        save_state_dict(export_state_dict(state, config.weight_decay), path)
     logger.finish()
     return state, history, path
 
@@ -206,7 +215,11 @@ def main(argv=None):
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    if multihost.init_distributed(args.device):
+        device = multihost.process_device(args.device)
+        print(f"distributed: process {multihost.rank()}/{multihost.world_size()}")
+    else:
+        device = resolve_device(args.device)
 
     with open(args.config_path) as f:
         config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
@@ -234,8 +247,10 @@ def main(argv=None):
         active_rows = active_rows_from_corpus([collator.caption_ids(n)[0] for n in class_names])
         print(f"Partitioned text embedding: {len(active_rows)} active rows of {len(tokenizer)}")
     model = init_model(config, len(tokenizer), device, active_rows)
-    train_loader = BatchLoader(train_dataset, batch_size=config.batch_size, shuffle=True,
-                               drop_last=True, collate_fn=collator, seed=config.seed)
+    local_bs, pshard = process_local_loader_args(config.batch_size)
+    train_loader = BatchLoader(train_dataset, batch_size=local_bs, shuffle=True,
+                               drop_last=True, collate_fn=collator, seed=config.seed,
+                               process_shard=pshard)
     out = run_training(model, train_loader, config)
     if out is None:  # graceful preemption: resume later with resume: true
         return {"preempted": True}
@@ -246,7 +261,8 @@ def main(argv=None):
         labels = np.asarray([label_to_idx[b[1]] for b in batch], dtype=np.int32)
         return {"images": images, "labels": labels}
 
-    test_loader = BatchLoader(test_dataset, batch_size=config.batch_size, collate_fn=eval_collate)
+    test_loader = BatchLoader(test_dataset, batch_size=local_bs, collate_fn=eval_collate,
+                              process_shard=pshard)
     acc = zero_shot_eval(model, test_loader, class_names, collator, device)
     return {"zero_shot_acc": acc, "history": history, "checkpoint": path, "state": state}
 

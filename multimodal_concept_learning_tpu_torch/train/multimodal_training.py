@@ -24,8 +24,17 @@ the questions of a fresh process (ROADMAP.md, queue C).
 
 ``dataset_name: imagenet_multimodal`` reads the ImageNet mapping CSVs beside
 ``mapping_path`` over the JPEGs of ``image_root``
-(``data/datasets.ImageNetDataset``).  Not ported yet (raises
-``NotImplementedError``; ROADMAP.md): MoE.
+(``data/datasets.ImageNetDataset``).  ``lm_moe_experts`` (with
+``lm_moe_top_k``, ``lm_moe_dispatch``, ``lm_moe_capacity_factor``) puts a
+routed MoE in every LM block's MLP place (``ops/moe.py``), and the loss
+gains the 0.01-weighted aux.
+
+Data parallel: under ``torchrun --nproc_per_node N`` (or any launcher that
+sets RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT) each rank joins the
+process group (NCCL on ``cuda:LOCAL_RANK``, Gloo with ``--device cpu``),
+loads its stripe of every global batch of ``batch_size`` and sums its
+gradients with the other ranks', so each update is the global batch's;
+logs and every file come from rank 0 (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from multimodal_concept_learning_tpu_torch.models.mllm import (
     print_trainable_summary,
     trainable_mask,
 )
+from multimodal_concept_learning_tpu_torch.parallel import multihost
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import (
     build_optimizer,
     linear_warmup_schedule,
@@ -78,13 +88,9 @@ from multimodal_concept_learning_tpu_torch.train.common import (
     ResumeManager,
     epoch_batches,
     epoch_metric_mean,
+    process_local_loader_args,
 )
 from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
-
-
-def _refuse_unported(config: MultimodalTrainingConfig) -> None:
-    if getattr(config, "lm_moe_experts", None):
-        raise NotImplementedError("MoE (lm_moe_experts) is not ported yet (ROADMAP.md, queue A)")
 
 
 def load_vision_tower_(model: MLLM, path: str) -> None:
@@ -114,7 +120,6 @@ def init_model_and_tokenizer(config: MultimodalTrainingConfig, generator: torch.
     tokenizer plus the mapping's ``<ood ...>`` tokens, the MLLM with float32
     parameters on ``device`` from a seeded random init, the OOD rows copied
     from rows 0..k-1, and the vision tower from ``vision_path`` when set."""
-    _refuse_unported(config)
     dev = resolve_device(device)
     tokenizer, labels_mapping = build_tokenizer(config)
     num_ood = sum(1 for v in (labels_mapping or {}).values() if v.startswith("<ood"))
@@ -133,7 +138,8 @@ def _decode_is_yes(tokenizer, ids) -> bool:
 
 
 def evaluate_model(eval_step, model, loader, tokenizer, device):
-    """Yes/no string-match accuracy + mean loss, printed as the JAX trainer does."""
+    """Yes/no string-match accuracy + mean loss, printed as the JAX trainer
+    does (under a process group: over every rank's stripes)."""
     losses, correct, total = [], 0, 0
     for batch in loader:
         out = eval_step(model, to_device(batch, device))
@@ -146,6 +152,8 @@ def evaluate_model(eval_step, model, loader, tokenizer, device):
             correct += int(_decode_is_yes(tokenizer, pred_ids[i][valid[i]])
                            == _decode_is_yes(tokenizer, target_ids[i][valid[i]]))
             total += 1
+    both = multihost.all_reduce_sum(torch.tensor([correct, total], device=device))
+    correct, total = (int(v) for v in both.tolist())
     test_loss = float(np.mean(losses)) if losses else 0.0
     test_acc = 100.0 * correct / total if total > 0 else 0.0
     print("Test Results:")
@@ -164,8 +172,8 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
         f"effective_batch_size ({config.effective_batch_size}) must be divisible "
         f"by batch_size ({config.batch_size})"
     )
-    _refuse_unported(config)
     device = next(model.parameters()).device
+    is_main = multihost.is_main_process()
     accumulation_steps = config.effective_batch_size // config.batch_size
     if config.lr_scheduler_type == "linear":
         total_updates = max(1, (len(train_loader) * config.epochs) // accumulation_steps)
@@ -192,11 +200,12 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
     eval_step = make_mllm_eval_step(model)
 
     models_dir = os.path.join(config.results_dir, "models")
-    os.makedirs(models_dir, exist_ok=True)
-    save_state_dict(frozen, os.path.join(models_dir, "initial_model.pt"))
-    tokenizer.save_pretrained(os.path.join(models_dir, "tokenizer"))
+    if is_main:
+        os.makedirs(models_dir, exist_ok=True)
+        save_state_dict(frozen, os.path.join(models_dir, "initial_model.pt"))
+        tokenizer.save_pretrained(os.path.join(models_dir, "tokenizer"))
 
-    logger = MetricsLogger(enabled=True, use_wandb=config.use_wandb,
+    logger = MetricsLogger(enabled=is_main, use_wandb=config.use_wandb,
                            wandb_project=config.wandb_project,
                            wandb_run_name=config.wandb_run_name or config.run_name,
                            wandb_config=vars(config))
@@ -215,7 +224,7 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
             state, m = train_step(state, to_device(batch, device))
             done_in_epoch += 1
             losses.append(m["loss"])
-            if guard.preempted:
+            if guard.agreed():
                 resume.save_preempted(state, epoch, done_in_epoch, {"best_loss": best_loss})
                 logger.finish()
                 guard.close()
@@ -230,7 +239,7 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
         is_best = val_loss < best_loss
         if is_best:
             best_loss = val_loss
-        if is_best or config.save_every_epoch:
+        if (is_best or config.save_every_epoch) and is_main:
             sd = host_state_dict(model, frozen)
             if is_best:
                 save_state_dict(sd, os.path.join(models_dir, "best_model.pt"))
@@ -254,6 +263,7 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
     print("FINAL EVALUATION ON VALIDATION SET")
     print("=" * 50)
     best_path = os.path.join(models_dir, "best_model.pt")
+    multihost.barrier()  # rank 0's best_model.pt is on disk
     eval_model = model
     if os.path.exists(best_path):
         eval_model = copy.deepcopy(model)  # the returned state keeps the final weights
@@ -276,7 +286,11 @@ def main(argv=None):
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    if multihost.init_distributed(args.device):
+        device = multihost.process_device(args.device)
+        print(f"distributed: process {multihost.rank()}/{multihost.world_size()}")
+    else:
+        device = resolve_device(args.device)
 
     with open(args.config_path, "r") as f:
         config = MultimodalTrainingConfig.from_params(miniyaml.safe_load(f))
@@ -298,20 +312,22 @@ def main(argv=None):
         val_transform=val_transform, return_synset=True)
     print(f"Loaded multimodal dataset with {len(train_dataset)} train samples, "
           f"{len(val_dataset)} validation samples, and {len(test_dataset)} test samples.")
-    os.makedirs(os.path.join(config.results_dir, "models"), exist_ok=True)
+    if multihost.is_main_process():
+        os.makedirs(os.path.join(config.results_dir, "models"), exist_ok=True)
 
     model, tokenizer, labels_mapping, _ = init_model_and_tokenizer(config, generator, device)
     collator = MultimodalCollator(tokenizer=tokenizer, num_vision_tokens=config.num_vision_tokens,
                                   prompt_template=config.prompt_template,
                                   all_class_names=train_dataset.unique_labels,
                                   labels_mapping=labels_mapping, seed=config.seed)
+    local_bs, pshard = process_local_loader_args(config.batch_size)
     loader_kwargs = dict(collate_fn=collator, num_workers=config.num_workers,
                          prefetch_batches=config.prefetch_factor,
-                         uint8_images=config.device_normalize)
-    train_loader = BatchLoader(train_dataset, batch_size=config.batch_size, shuffle=True,
+                         uint8_images=config.device_normalize, process_shard=pshard)
+    train_loader = BatchLoader(train_dataset, batch_size=local_bs, shuffle=True,
                                drop_last=True, seed=config.seed, **loader_kwargs)
-    val_loader = BatchLoader(val_dataset, batch_size=config.batch_size, **loader_kwargs)
-    test_loader = BatchLoader(test_dataset, batch_size=config.batch_size, **loader_kwargs)
+    val_loader = BatchLoader(val_dataset, batch_size=local_bs, **loader_kwargs)
+    test_loader = BatchLoader(test_dataset, batch_size=local_bs, **loader_kwargs)
     out = run_training(model, tokenizer, train_loader, val_loader, test_loader, config)
     return out[1] if out[0] is None else out  # {"preempted": True} after SIGTERM
 

@@ -23,7 +23,10 @@ each epoch's end and restores the newest on start; SIGTERM saves a
 mid-epoch checkpoint and ``main`` returns ``{"preempted": True}``
 (``train/common.py``).  ``dataset_name: imagenet100`` reads the ImageNet
 mapping CSVs of ``mapping_path`` over the JPEGs of ``data_dir``
-(``data/datasets.ImageNetDataset``).
+(``data/datasets.ImageNetDataset``).  Under ``torchrun`` it trains data
+parallel, as the MLLM trainer does (rank 0 logs and writes; each rank's
+dropout draws from its own generator, seeded ``seed + 1 + rank * 2**32``,
+so rank 0 draws the single process's masks).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_
 from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 from multimodal_concept_learning_tpu_torch.device import resolve_device
 from multimodal_concept_learning_tpu_torch.models.vit import ViTConfig, ViTForImageClassification
+from multimodal_concept_learning_tpu_torch.parallel import multihost
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import (
     build_optimizer,
     cosine_epoch_schedule,
@@ -65,6 +69,7 @@ from multimodal_concept_learning_tpu_torch.train.common import (
     PreemptionGuard,
     ResumeManager,
     epoch_batches,
+    process_local_loader_args,
 )
 from multimodal_concept_learning_tpu_torch.utils.logging import MetricsLogger
 
@@ -104,6 +109,7 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
         f"by batch_size ({config.batch_size})"
     )
     device = next(model.parameters()).device
+    is_main = multihost.is_main_process()
     accumulation_steps = config.effective_batch_size // config.batch_size
     updates_per_epoch = max(1, len(train_loader) // accumulation_steps)
     schedule = cosine_epoch_schedule(config.learning_rate, config.epochs, updates_per_epoch)
@@ -122,11 +128,12 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
     train_step = make_classifier_train_step(model, generator, config.label_smoothing)
     eval_step = make_classifier_eval_step(model, config.label_smoothing)
 
-    logger = MetricsLogger(enabled=True, use_wandb=not config.disable_wandb,
+    logger = MetricsLogger(enabled=is_main, use_wandb=not config.disable_wandb,
                            wandb_project=config.wandb_project,
                            wandb_run_name=config.wandb_run_name, wandb_config=vars(config))
     models_dir = os.path.join(config.results_dir, "models")
-    os.makedirs(models_dir, exist_ok=True)
+    if is_main:
+        os.makedirs(models_dir, exist_ok=True)
     best_loss = float(meta.get("best_loss", float("inf")))
     history = []
     for epoch in range(start_epoch, config.epochs):
@@ -138,7 +145,7 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
             state, m = train_step(state, to_device(batch, device))
             done_in_epoch += 1
             steps.append(m)
-            if guard.preempted:
+            if guard.agreed():
                 resume.save_preempted(state, epoch, done_in_epoch, {"best_loss": best_loss})
                 logger.finish()
                 guard.close()
@@ -150,7 +157,8 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
         current_lr = float(schedule(min(epoch, config.epochs) * updates_per_epoch))
         if val_loss < best_loss:
             best_loss = val_loss
-            save_state_dict(host_state_dict(model), os.path.join(models_dir, "best_model.pt"))
+            if is_main:
+                save_state_dict(host_state_dict(model), os.path.join(models_dir, "best_model.pt"))
         metrics = {"epoch": epoch + 1, "train_loss": train_loss, "val_loss": val_loss,
                    "train_acc": train_acc, "val_acc": val_acc, "learning_rate": current_lr,
                    "epoch_time": epoch_time, "train_time": train_time,
@@ -163,7 +171,8 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
     guard.close()
 
     print(f"Best val loss: {best_loss:.4f}")
-    save_state_dict(host_state_dict(model), os.path.join(models_dir, "final_model.pt"))
+    if is_main:
+        save_state_dict(host_state_dict(model), os.path.join(models_dir, "final_model.pt"))
     logger.finish()
     return state, history
 
@@ -186,15 +195,22 @@ def main(argv=None):
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    if multihost.init_distributed(args.device):
+        device = multihost.process_device(args.device)
+        print(f"distributed: process {multihost.rank()}/{multihost.world_size()}")
+    else:
+        device = resolve_device(args.device)
 
     with open(args.config_path, "r") as f:
         config = VisionTrainingConfig.from_params(miniyaml.safe_load(f))
     random.seed(config.seed)
     np.random.seed(config.seed)
     init_generator = torch.Generator(device=device).manual_seed(config.seed)
-    # the dropout stream: a second generator (the JAX step key is fold_in(rng, 1))
-    dropout_generator = torch.Generator(device=device).manual_seed(config.seed + 1)
+    # the dropout stream: a second generator (the JAX step key is fold_in(rng, 1)),
+    # one a rank under a process group, seeded from (seed + 1, rank); rank 0
+    # draws the single process's stream
+    dropout_seed = config.seed + 1 + (multihost.rank() << 32)
+    dropout_generator = torch.Generator(device=device).manual_seed(dropout_seed)
 
     train_transform = create_transforms(config, is_train=True, seed=config.seed)
     val_transform = create_transforms(config, is_train=False, seed=config.seed)
@@ -209,9 +225,10 @@ def main(argv=None):
         train_transform=train_transform, val_transform=val_transform)
     config.num_labels = train_dataset.num_classes
 
-    loader_kwargs = dict(batch_size=config.batch_size, num_workers=config.num_workers,
+    local_bs, pshard = process_local_loader_args(config.batch_size)
+    loader_kwargs = dict(batch_size=local_bs, num_workers=config.num_workers,
                          prefetch_batches=config.prefetch_factor,
-                         uint8_images=config.device_normalize)
+                         uint8_images=config.device_normalize, process_shard=pshard)
     train_loader = BatchLoader(train_dataset, shuffle=True, drop_last=True, seed=config.seed,
                                **loader_kwargs)
     val_loader = BatchLoader(val_dataset, **loader_kwargs)
@@ -219,7 +236,8 @@ def main(argv=None):
     print(f"Loaded {config.dataset_name} dataset with {len(train_dataset)} train samples, "
           f"{len(val_dataset)} validation samples, and {len(test_dataset)} test samples.")
 
-    os.makedirs(config.results_dir, exist_ok=True)
+    if multihost.is_main_process():
+        os.makedirs(config.results_dir, exist_ok=True)
     model = init_model(config, init_generator, device)
     state, history = run_training(model, train_loader, val_loader, config, dropout_generator)
     if state is None:  # graceful preemption: resume later with resume: true

@@ -74,6 +74,15 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.data.imagenet_builder",
     "multimodal_concept_learning_tpu_torch.data.imagenet_configs",
     "multimodal_concept_learning_tpu_torch.analysis.token_embedding_analysis_imagenet",
+    "multimodal_concept_learning_tpu_torch.ops.moe",
+    "multimodal_concept_learning_tpu_torch.parallel",
+    "multimodal_concept_learning_tpu_torch.parallel.multihost",
+    "multimodal_concept_learning_tpu_torch.parallel.mesh",
+    "multimodal_concept_learning_tpu_torch.data.grain_pipeline",
+    "multimodal_concept_learning_tpu_torch.utils.profiling",
+    "multimodal_concept_learning_tpu_torch.utils.debugging",
+    "multimodal_concept_learning_tpu_torch.utils.seeding",
+    "multimodal_concept_learning_tpu_torch.scripts.bench_mllm",
     "chip_smoke",
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}
@@ -108,7 +117,10 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     port = REPO / "multimodal_concept_learning_tpu_torch"
     for new in ("ops/sparse_embed.py", "checkpoint_io.py", "train/common.py", "vocab_remap.py",
                 "data/jpeg.py", "data/imagenet_builder.py", "data/imagenet_configs.py",
-                "analysis/token_embedding_analysis_imagenet.py"):
+                "analysis/token_embedding_analysis_imagenet.py", "ops/moe.py",
+                "parallel/multihost.py", "parallel/mesh.py", "data/grain_pipeline.py",
+                "utils/profiling.py", "utils/debugging.py", "utils/seeding.py",
+                "scripts/bench_mllm.py"):
         assert port / new in files, new
     bad = {str(f.relative_to(REPO)): sorted(_import_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
