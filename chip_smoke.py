@@ -186,16 +186,26 @@ Phases (each prints its results; any failure exits non-zero):
     JAX script's cell (full depth, batch 16), E=4, top-2, cf 1.25, dense
     against sparse with ``--moe_stats``: images/s and drop_frac (the A/B
     BASELINE.md:559-584 owes; ``--profile-moe`` traces one step of each);
-36. data parallel at world size 1 (after phase 35): the MLLM (LM at 2
-    layers), vision and CLIP CLIs on small generated data, once in this
-    process and under ``torchrun --standalone --nproc_per_node 1`` (NCCL;
-    after a warm-up run in that process): the same losses and saved weights
+36. data parallel at world size 1: the MLLM (LM at 2 layers), vision and
+    CLIP CLIs on small generated data, once in the side process (below)
+    and once under ``torchrun --standalone --nproc_per_node 1`` (NCCL; the
+    first run in a fresh process): the same losses and saved weights
     (within 1e-6; bitwise expected), the same files written by rank 0; the
-    epochs' micro-steps/s beside the single process and phases 7, 18 and
-    9, and the steady micro-step rate of each trainer's full model on a
-    fixed device batch (the MLLM at phase 7's depth) in the torchrun
-    process, windows alternating between the group's path and the
-    single-process path.
+    epochs' micro-steps/s beside the single process's, and the steady
+    micro-step rate of each trainer's full model on a fixed device batch
+    (the MLLM at phase 7's depth) in the torchrun process, windows
+    alternating between the group's path and the single-process path;
+37-39. meshes: two ranks sharing the card over Gloo (``--mesh-worker``),
+    the 12_colors_3k MLLM at full widths with the LM cut to 6 blocks:
+    sharded serving (37), sharded training, TP, FSDP and EP (38), the
+    pipelined loss and ring attention (39), each against the single
+    process on the card.
+
+Processes: phases 3 and 16 run alone on the card (the kernels' times).
+Phases 27, 28, 30-32 and 36 run in a second process (``--side``) started
+after phase 3, and phases 37-39's two ranks start after phase 34; both run
+beside this process's phases, whose rates and seconds therefore share the
+card and the host's cores with them.
 
 Phase 3 also holds K2-bd (the block-diagonal attention core: the CLIP
 shapes, T 37, t_real < T, a sample with no valid key whose rows must be
@@ -285,6 +295,7 @@ import time
 
 import numpy as np
 
+PROCESS_T0 = time.perf_counter()  # a rank of phases 37-39 counts its start-up from here
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max abs error vs the plain version, unit-scale inputs
@@ -784,9 +795,11 @@ def sdpa_bwd_ms(torch, ac, qkv, heads, causal, kvm, grad_out) -> float:
 def _phase_core(torch, gen, dev, report: dict) -> None:
     """K2 forward and backward against their plain versions on the same
     inputs: float32 <= 1e-4 abs (outputs, lse, dqkv), bf16 outputs and
-    dqkv <= 2e-2 of the reference's max |value| (lse <= 1e-4); times at the
-    path's shapes in bf16 beside the bound and SDPA (each kernel and SDPA
-    call by CUDA graph replay, the plain versions by the event loop)."""
+    dqkv <= 2e-2 of the reference's max |value| (lse <= 1e-4); kernel and
+    plain times at the model shapes (CLIP's two, ViT-B/16, ViT-L/14; the
+    edge-case shapes are held, not timed), and at the path's shapes in
+    bf16 beside the bound and SDPA (each kernel and SDPA call by CUDA
+    graph replay, the plain versions by the event loop)."""
     from multimodal_concept_learning_tpu_torch.ops import attention_core as ac
 
     kf = report.setdefault("attention_core_fwd", {"max_abs_err": 0.0})
@@ -821,17 +834,20 @@ def _phase_core(torch, gen, dev, report: dict) -> None:
             # bf16: a fraction of the reference's largest value, outputs and gradients alike
             limit = TOL[tag] * (1.0 if dtype is torch.float32 else ref.abs().max().item())
             limit_d = TOL[tag] * (1.0 if dtype is torch.float32 else ref_d.abs().max().item())
-            # the forward as a training step runs it: lse only where the backward reads it
-            ms = graph_time_ms(lambda: ac.attention_core_fwd(qkv, heads, t_real, causal, kvm,
-                                                             with_lse=dtype is torch.float32))
-            bwd_ms = cuda_time_ms(bwd)
-            plain_ms = cuda_time_ms(lambda: ac.attention_core_reference(qkv, heads, t_real,
-                                                                        causal, kvm))
-            plain_bwd_ms = cuda_time_ms(lambda: ac.attention_core_backward_reference(
-                qkv, da, heads, t_real, causal, kvm))
+            times = "times taken at the model shapes only"
+            if on_path or name.startswith(("vit-b", "vit-l")):
+                # the forward as a training step runs it: lse only where the backward reads it
+                ms = graph_time_ms(lambda: ac.attention_core_fwd(
+                    qkv, heads, t_real, causal, kvm, with_lse=dtype is torch.float32))
+                bwd_ms = cuda_time_ms(bwd)
+                plain_ms = cuda_time_ms(lambda: ac.attention_core_reference(qkv, heads, t_real,
+                                                                            causal, kvm))
+                plain_bwd_ms = cuda_time_ms(lambda: ac.attention_core_backward_reference(
+                    qkv, da, heads, t_real, causal, kvm))
+                times = (f"fwd kernel {ms:.4f} ms plain {plain_ms:.4f} ms; bwd kernel "
+                         f"{bwd_ms:.4f} ms plain {plain_bwd_ms:.4f} ms")
             print(f"[kernels] K2 {name} {tag}: max_abs_err out {err:.3e} lse {err_lse:.3e} "
-                  f"dqkv {err_d:.3e}; fwd kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
-                  f"bwd kernel {bwd_ms:.4f} ms plain {plain_bwd_ms:.4f} ms", flush=True)
+                  f"dqkv {err_d:.3e}; {times}", flush=True)
             if not (err <= limit and err_lse <= TOL["float32"] and err_d <= limit_d):
                 fail(f"K2 {name} {tag}: errors out {err}, lse {err_lse}, dqkv {err_d}")
             kf["max_abs_err"] = max(kf["max_abs_err"], err)
@@ -1975,6 +1991,8 @@ def _phase_paged(torch, gen, dev, report: dict) -> None:
 
 
 def phase_kernels(report: dict) -> None:
+    from functools import partial
+
     import torch
 
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
@@ -1982,6 +2000,7 @@ def phase_kernels(report: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1 = report.setdefault("flash_attention_fwd", {"max_abs_err": 0.0})
+    t0 = time.perf_counter()
     with torch.no_grad():
         for name, q, k, v, kw in _flash_cases(torch, gen, dev):
             for dtype in (torch.float32, torch.bfloat16):
@@ -2001,19 +2020,24 @@ def phase_kernels(report: dict) -> None:
                 timing = time_k1_fwd(torch, fa, name, qd, kd, vd, kw)
                 if name.startswith("lm ["):  # the JSON line's numbers: LM prefill
                     k1.update(timing)
-        _phase_paged(torch, gen, dev, report)
-        _phase_flash_bwd(torch, fa, gen, dev, report)
-        _phase_core(torch, gen, dev, report)
-        _phase_core_bd(torch, gen, dev, report)
-        _phase_fused(torch, gen, dev, report)
-        _phase_past_cap(torch, gen, dev)
-        _phase_text_block_grads(torch, gen, dev)
-        _phase_lm_layer_grads(torch, gen, dev)
-        _phase_int4(torch, gen, dev, report)
-        _phase_layouts(torch, gen, dev)
-        _phase_int4_v3(torch, gen, dev, report)
-        _phase_int4_times(torch, gen, dev, report)
-        _phase_paged_mp(torch, gen, dev, report)
+        print(f"[timing]   K1 forward: {time.perf_counter() - t0:.1f} s", flush=True)
+        for part in (partial(_phase_paged, torch, gen, dev, report),
+                     partial(_phase_flash_bwd, torch, fa, gen, dev, report),
+                     partial(_phase_core, torch, gen, dev, report),
+                     partial(_phase_core_bd, torch, gen, dev, report),
+                     partial(_phase_fused, torch, gen, dev, report),
+                     partial(_phase_past_cap, torch, gen, dev),
+                     partial(_phase_text_block_grads, torch, gen, dev),
+                     partial(_phase_lm_layer_grads, torch, gen, dev),
+                     partial(_phase_int4, torch, gen, dev, report),
+                     partial(_phase_layouts, torch, gen, dev),
+                     partial(_phase_int4_v3, torch, gen, dev, report),
+                     partial(_phase_int4_times, torch, gen, dev, report),
+                     partial(_phase_paged_mp, torch, gen, dev, report)):
+            t0 = time.perf_counter()
+            part()
+            print(f"[timing]   {part.func.__name__}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
 
 def _rgb(name: str) -> list:
@@ -3356,7 +3380,6 @@ def phase_train_slice(report: dict, root: str, images_per_color: int = 8,
     finite = all(np.isfinite(epoch.get(k, float("nan"))) for k in ("train_loss", "val_loss"))
     finite = finite and np.isfinite(test_metrics["test_loss"])
     steps_per_s = epoch.get("micro_steps", 0) / epoch["train_time"] if epoch else 0.0
-    PLAIN_RUNS["mllm"] = steps_per_s
     print(f"[train] one epoch: {epoch.get('micro_steps')} micro-steps (batch 2, 4 per update) "
           f"in {epoch.get('train_time', float('nan')):.3f} s: {steps_per_s:.3f} micro-steps/s, "
           f"{2 * steps_per_s:.3f} samples/s; epoch wall time (train + val) "
@@ -3504,21 +3527,26 @@ def phase_lora_slice(root: str, data: tuple) -> None:
             fail(f"LoRA bank {tag}: K1 {k1} (expected {want}), others {others}")
 
 
+MLORA_LENGTHS = "2,8,32"  # phase 24's decode lengths (the script's default is 2,16,64)
+
+
 def phase_multi_lora_bench() -> None:
     """Phase 24: the port's ``scripts/bench_multi_lora.py`` at its defaults
-    (gemma3-1b, vit-b-16, batch 8, rank 8, a bank of 4, lengths 2, 16 and
-    64): plain and bank ms a token and fixed cost, K1 launched by both."""
+    (gemma3-1b, vit-b-16, batch 8, rank 8, a bank of 4) but for the
+    lengths, MLORA_LENGTHS: plain and bank ms a token and fixed cost, K1
+    launched by both."""
     from multimodal_concept_learning_tpu_torch.ops.flash_attention import flash_attention
     from multimodal_concept_learning_tpu_torch.scripts import bench_multi_lora
 
     flash_attention.launches = 0
-    res = bench_multi_lora.main(["--device", "cuda"])
+    res = bench_multi_lora.main(["--device", "cuda", "--lengths", MLORA_LENGTHS])
     print(f"[multi-lora-bench] plain {res['plain']['ms_per_token']:.3f} ms/token + "
           f"{res['plain']['fixed_ms']:.1f} ms fixed; bank {res['bank']['ms_per_token']:.3f} "
           f"ms/token + {res['bank']['fixed_ms']:.1f} ms fixed; per-token overhead "
           f"{100 * res['overhead']:+.1f}%; K1 launches {flash_attention.launches}", flush=True)
     shapes = {k: v.shape for k, v in res["tokens"].items()}
-    if flash_attention.launches == 0 or shapes != {"plain": (8, 64), "bank": (8, 64)}:
+    longest = int(MLORA_LENGTHS.rsplit(",", 1)[1])
+    if flash_attention.launches == 0 or shapes != {"plain": (8, longest), "bank": (8, longest)}:
         fail(f"multi-LoRA bench: K1 {flash_attention.launches}, token shapes {shapes}")
 
 
@@ -3750,7 +3778,6 @@ def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> s
     finite = all(np.isfinite(epoch[k]) for k in ("train_loss", "val_loss")) and np.isfinite(
         out["test_loss"])
     steps_s = epoch["micro_steps"] / epoch["train_time"]
-    PLAIN_RUNS["vision"] = steps_s
     print(f"[vision] one epoch: {epoch['micro_steps']} micro-steps (batch {b}, "
           f"{parsed.effective_batch_size // b} per update) in {epoch['train_time']:.3f} s: "
           f"{steps_s:.3f} micro-steps/s, {b * steps_s:.1f} images/s; epoch wall time (train + "
@@ -4102,7 +4129,6 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> di
                if n not in trained or torch.equal(t.cpu(), trained[n])]
     del init, out
     rate = epoch["steps"] / epoch["epoch_time"]
-    PLAIN_RUNS["clip"] = rate
     print(f"[clip] one epoch: {epoch['steps']} steps of batch {CLIP_BATCH} in "
           f"{epoch['epoch_time']:.3f} s: {rate:.3f} steps/s, {CLIP_BATCH * rate:.1f} images/s; "
           f"whole CLI run {wall:.1f} s; peak memory {peak_gib:.2f} GiB; steady step on a "
@@ -5181,7 +5207,7 @@ def phase_imagenet_data(root: str) -> None:
     big = [n for n in names if n.startswith(("q75", "q95", "q90", "progressive_420"))]
     with open(csv_path, "w") as f:
         f.write("image_path,target_synset,class_name\n")
-        for i in range(640):
+        for i in range(320):
             f.write(f"{big[i % len(big)]},n{i % 10:08d},class{i % 10}\n")
     config = _load_training_config("vision", os.path.join(REPO, IMAGENET_CONFIGS[0][1]))
     dataset = ImageNetDataset(csv_path, JPEG_FIXTURES, create_transforms(config, True, SEED),
@@ -5490,13 +5516,13 @@ def phase_imagenet_mllm(root: str) -> None:
 
 MOE_EXPERTS, MOE_TOP_K = 4, 2  # phases 33-35: the owed cell (BASELINE.md:559-584)
 MOE_CASES = (("dense", 1.25), ("sparse", 1.25), ("sparse", 0.5))  # cf 0.5 drops
-PLAIN_RUNS: dict = {}  # phases 7, 18 and 9's epoch rates, printed beside phase 36's
 
 
-def _moe_parity_model(dispatch: str, cf: float):
+def _moe_parity_model(dispatch: str, cf: float, sd: dict = None):
     """Phase 4's float32 MLLM (full widths, 2 ViT + 2 LM layers, window 64
-    on the first LM layer) with every LM MLP a 4-expert top-2 MoE:
-    (cfg, state dict from SEED)."""
+    on the first LM layer) with every LM MLP a 4-expert top-2 MoE: (cfg,
+    state dict from SEED; ``sd`` when given, the weights of another
+    dispatch or capacity factor, which hold the same tensors)."""
     import dataclasses
 
     import torch
@@ -5511,7 +5537,8 @@ def _moe_parity_model(dispatch: str, cf: float):
                                sliding_window_pattern=2, moe_experts=MOE_EXPERTS,
                                moe_top_k=MOE_TOP_K, moe_dispatch=dispatch,
                                moe_capacity_factor=cf))
-    sd = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED)).state_dict()
+    if sd is None:
+        sd = init_random_weights_(MLLM(cfg), torch.Generator().manual_seed(SEED)).state_dict()
     return cfg, sd
 
 
@@ -5630,10 +5657,16 @@ def phase_moe_parity() -> None:
     zero = {"K1f": 0, "K1q": 0, "K1kv": 0, "K3": 0}
     want = {"fwd": dict(zero, K1f=4), "gen": dict(zero, K1f=4, K3=2 * 7),
             "train": dict(zero, K1f=4 * 3, K1q=2 * 3, K1kv=2 * 3)}
+    runs, sd = {}, None
     for dispatch, cf in MOE_CASES:
-        cfg, sd = _moe_parity_model(dispatch, cf)
+        cfg, sd = _moe_parity_model(dispatch, cf, sd)
         steps = batches if cf >= 1.0 else []
-        cuda, cpu = (_moe_run(cfg, sd, dev, inputs, steps) for dev in ("cuda", "cpu"))
+        seconds = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[dev] = _moe_run(cfg, sd, dev, inputs, steps)
+            seconds[dev] = round(time.perf_counter() - t0, 1)
+        cuda, cpu = runs["cuda"], runs["cpu"]
         mask = inputs[2].bool()
         hid_err = (cuda["hidden"] - cpu["hidden"])[mask].abs().max().item()
         aux_err = max(abs(a - b) for a, b in zip(cuda["aux"], cpu["aux"]))
@@ -5671,7 +5704,8 @@ def phase_moe_parity() -> None:
                      + f", {at_roundoff} of {elements} elements at roundoff left out of the "
                      f"update's; experts and router moved {moved}")
         launches = {k: cuda[k] for k in want if k in cuda}
-        line += f"; launches cuda {launches}, cpu {[cpu[k] for k in launches]}"
+        line += (f"; launches cuda {launches}, cpu {[cpu[k] for k in launches]}; seconds "
+                 f"{seconds}")
         print(line, flush=True)
         if not ok:
             fail(f"MoE parity {dispatch} cf {cf}")
@@ -5859,8 +5893,8 @@ def profile_moe(steps: int = 6, warmup: int = 4) -> None:
 
 DP_CLIS = ("mllm", "vision", "clip")
 DP_IMAGES = {"mllm": 4, "vision": 28, "clip": 28}  # a color: 18, 4 and 1 (micro-)steps
-DP_STEADY = {"mllm": (_mllm_step_setup, 10), "vision": (_vision_step_setup, 10),
-             "clip": (lambda: _clip_step_setup()[2:], 8)}  # (setup, micro-steps a window)
+DP_STEADY = {"mllm": (_mllm_step_setup, 5), "vision": (_vision_step_setup, 5),
+             "clip": (lambda: _clip_step_setup()[2:], 4)}  # (setup, micro-steps a window)
 
 
 def _dp_steady_rates() -> dict:
@@ -5869,7 +5903,7 @@ def _dp_steady_rates() -> dict:
     stepped on a fixed device batch, windows alternating (G A A G G A)
     between the group's path (each collective a NCCL call) and the same
     process with the collectives off (``multihost.is_distributed`` False
-    for the window: the single-process path), after 3 warm-up micro-steps
+    for the window: the single-process path), after 2 warm-up micro-steps
     of each; one process, so the two differ by the collectives alone."""
     import torch
 
@@ -5894,8 +5928,8 @@ def _dp_steady_rates() -> dict:
             finally:
                 multihost.is_distributed = in_group
 
-        window("group", 3)
-        window("alone", 3)
+        window("group", 2)
+        window("alone", 2)
         rates[trainer] = {"group": [], "alone": []}
         for mode in ("group", "alone", "alone", "group", "group", "alone"):
             rates[trainer][mode].append(window(mode, n))
@@ -5906,12 +5940,12 @@ def _dp_steady_rates() -> dict:
 
 def dp_worker(jobs_path: str) -> None:
     """``--dp-worker JOBS``, run under torchrun: each job's CLI ``main``
-    (trainer, config, depth cut or None, device) twice in this one process
-    (the process group the first run joins serves the rest; the first run
-    of each warms the fresh process up, and the second, which overwrites
-    its files, is kept), then ``_dp_steady_rates`` under the group; writes
-    each kept run's epoch records, the cold run's, the group's backend and
-    world size, and the steady rates beside the jobs file."""
+    (trainer, config, depth cut or None, device) once in this one process
+    (the process group the first run joins serves the rest), then
+    ``_dp_steady_rates`` under the group, then phase 37's world-size-1
+    NCCL case (``_nccl_world_one``); writes each run's epoch records, the
+    group's backend and world size, the steady rates and the NCCL case
+    beside the jobs file."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.device import set_reference_numerics
@@ -5926,21 +5960,27 @@ def dp_worker(jobs_path: str) -> None:
              "clip": contrastive_training.main}
     with open(jobs_path) as f:
         jobs = json.load(f)
-    out = {}
+    out, seconds = {}, {"start": time.perf_counter() - PROCESS_T0}
     for trainer, cfg_path, depth, device in jobs:
-        histories = []
-        for _ in range(2):  # the first run warms this fresh process up; the second is kept
-            with contextlib.ExitStack() as stack:
-                if depth:
-                    stack.enter_context(_cut_depth(*depth))
-                res = mains[trainer](["--config_path", cfg_path, "--device", device])
-            histories.append(res[2] if isinstance(res, tuple) else res["history"])
-            del res
-            torch.cuda.empty_cache()
-        out[trainer] = {"history": histories[1], "cold_history": histories[0],
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if depth:
+                stack.enter_context(_cut_depth(*depth))
+            res = mains[trainer](["--config_path", cfg_path, "--device", device])
+        out[trainer] = {"history": res[2] if isinstance(res, tuple) else res["history"],
                         "backend": torch.distributed.get_backend(),
                         "world": torch.distributed.get_world_size()}
+        del res
+        torch.cuda.empty_cache()
+        seconds[trainer] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out["steady"] = _dp_steady_rates()
+    torch.cuda.empty_cache()
+    seconds["steady"], t0 = time.perf_counter() - t0, time.perf_counter()
+    nccl = _nccl_world_one()
+    out["nccl1"] = dict(nccl, tokens=nccl["tokens"].tolist())
+    seconds["nccl1"] = time.perf_counter() - t0
+    out["seconds"] = seconds
     with open(os.path.join(os.path.dirname(jobs_path), "dp_results.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -5958,18 +5998,18 @@ def _files(path: str) -> list:
                   for d, _, fs in os.walk(path) for f in fs)
 
 
-def phase_dp(root: str, card: str) -> None:
+def phase_dp(root: str, card: str) -> dict:
     """Phase 36: data parallel at world size 1.  Copies of the MLLM (the LM
     cut to 2 layers in both runs: the disk budget), vision and CLIP configs
     on small generated data, each run once in this process (no process
-    group) and under ``torchrun --standalone --nproc_per_node 1`` (NCCL;
-    every step's collectives, rank-0 writes; each CLI run twice there, the
-    second kept, the first warming the fresh process up): the same per-epoch
-    losses and saved weights (bitwise expected; held within 1e-6), the
-    same files, and the epochs' micro-steps/s beside the single process's
-    and phases 7, 18 and 9's; then ``_dp_steady_rates`` from the torchrun
-    process: the steady micro-step rates the DP layer's cost is read from
-    (the epochs above are a few micro-steps, mostly loader and start-up)."""
+    group) and once under ``torchrun --standalone --nproc_per_node 1``
+    (NCCL; every step's collectives, rank-0 writes; the first run in a
+    fresh process): the same per-epoch losses and saved weights (bitwise
+    expected; held within 1e-6), the same files, and the epochs'
+    micro-steps/s beside the single process's; then ``_dp_steady_rates`` from the torchrun process: the steady
+    micro-step rates the DP layer's cost is read from (the epochs above
+    are a few micro-steps, mostly loader and start-up).  Returns phase
+    37's world-size-1 NCCL case, run in the same torchrun process."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict
@@ -5985,7 +6025,7 @@ def phase_dp(root: str, card: str) -> None:
     saved = {"mllm": "models/best_model.pt", "vision": "models/final_model.pt",
              "clip": None}  # CLIP: its one checkpoints/step_{N}.pt
     depth = {"mllm": list(MM_RESUME_DEPTH), "vision": None, "clip": None}
-    plain, jobs, results = {}, [], {}
+    plain, plain_s, jobs, results = {}, {}, [], {}
     for trainer in DP_CLIS:
         sub = os.path.join(root, trainer)
         os.makedirs(sub, exist_ok=True)
@@ -6006,10 +6046,12 @@ def phase_dp(root: str, card: str) -> None:
                 jobs.append((trainer, cfg["path"], depth[trainer], "cuda"))
                 continue
             torch.cuda.empty_cache()
+            t0 = time.perf_counter()
             with contextlib.ExitStack() as stack:
                 if depth[trainer]:
                     stack.enter_context(_cut_depth(*depth[trainer]))
                 res = mains[trainer](["--config_path", cfg["path"], "--device", "cuda"])
+            plain_s[trainer] = round(time.perf_counter() - t0, 1)
             plain[trainer] = res[2] if isinstance(res, tuple) else res["history"]
             del res
     jobs_path = os.path.join(root, "dp_jobs.json")
@@ -6033,8 +6075,10 @@ def phase_dp(root: str, card: str) -> None:
         fail(f"torchrun exited {proc.returncode}")
     with open(os.path.join(root, "dp_results.json")) as f:
         dp = json.load(f)
-    print(f"[dp] torchrun --standalone --nproc_per_node 1 ran the three CLIs in {wall:.1f} s "
-          f"(one process)", flush=True)
+    print(f"[dp] torchrun --standalone --nproc_per_node 1 ran the three CLIs, the steady "
+          f"windows and phase 37's NCCL case in {wall:.1f} s (one process; seconds "
+          f"{ {k: round(v, 1) for k, v in dp['seconds'].items()} }, 'start' up to its "
+          f"first CLI; the single process's CLIs {plain_s})", flush=True)
     for trainer in DP_CLIS:
         got, want = dp[trainer], plain[trainer]
         files, want_files = _files(results[trainer, "dp"]), _files(results[trainer, "plain"])
@@ -6048,16 +6092,12 @@ def phase_dp(root: str, card: str) -> None:
         bitwise = same_keys and all(torch.equal(a[n], b[n]) for n in b)
         del a, b
         rate, plain_rate = _dp_rate(trainer, got["history"][0]), _dp_rate(trainer, want[0])
-        cold = _dp_rate(trainer, got["cold_history"][0])
-        phase_rate = PLAIN_RUNS.get(trainer)
         print(f"[dp] {trainer}: backend {got['backend']}, world {got['world']}; losses "
               f"{[got['history'][0][k] for k in loss_keys]} vs single process "
               f"{[want[0][k] for k in loss_keys]} (max err {loss_err:.2e}); {ckpt} "
               f"bitwise {bitwise} (max err {w_err:.2e}); rank-0 files {files} (single "
-              f"process {want_files}); {rate:.3f} micro-steps/s (its cold first run {cold:.3f}) "
-              f"vs {plain_rate:.3f} single process, "
-              f"{'n/a' if phase_rate is None else f'{phase_rate:.3f}'} in its phase (7, 18, 9, "
-              f"other data); {card}", flush=True)
+              f"process {want_files}); {rate:.3f} micro-steps/s (the torchrun process's "
+              f"first run of it) vs {plain_rate:.3f} single process; {card}", flush=True)
         if got["backend"] != "nccl" or got["world"] != 1:
             fail(f"DP {trainer}: backend {got['backend']}, world {got['world']}")
         if not (loss_err <= 1e-6 and w_err <= 1e-6 and files == want_files):
@@ -6069,6 +6109,956 @@ def phase_dp(root: str, card: str) -> None:
               f"the group's path (NCCL, world 1) {[round(r, 3) for r in got]}, the "
               f"single-process path {[round(r, 3) for r in want]}; ratio of medians "
               f"{np.median(got) / np.median(want):.3f}; {card}", flush=True)
+    return dp["nccl1"]
+
+
+# -- phases 37-39: meshes over two ranks sharing the card ---------------------------------
+
+MESH_WORLD = 2  # two ranks share the one card (Gloo, staged through host memory)
+MESH_NEW = 8  # tokens a prompt, phase 37
+MESH_LENS = [24, 20, 17, 12, 9, 24, 5, 14]  # the 8 prompts' text lengths (after 197 vision)
+MESH_PAGE = 16
+EP_DEPTH = (2, 2)  # phase 38's MoE case: phase 33's 2 ViT + 2 LM layers, full widths
+PIPE_MICRO = 4  # phase 39: 2 stages of 3 LM blocks, 4 microbatches of one row
+# phases 37-39's MLLM: the whole ViT, the LM cut to 6 of its 26 blocks (5 sliding-window
+# blocks and the global one, as gemma3-1b's pattern repeats), full widths
+MESH_DEPTH = (12, 6)
+RING_SHAPE = (2, 222, 4, 1, 256)  # [B, T, Hq, Hk, D]: the LM's training shape, T padded even
+
+
+def _mesh_cfg(dtype, moe: str = None, depth=MESH_DEPTH):
+    """The 12_colors_3k MLLM (vit-b-16 + gemma3-1b, vocabulary 1148) in
+    ``dtype`` at full widths, cut to ``depth`` (ViT, LM layers); ``moe``
+    puts a 4-expert top-2 MoE ("dense" or "sparse" at cf 2.0: no drops) in
+    every LM block."""
+    import dataclasses
+
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLMConfig
+
+    cfg = MLLMConfig.create(vocab_size=1148, dtype=dtype)
+    cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=depth[0]),
+        lm=dataclasses.replace(cfg.lm, num_layers=depth[1]))
+    if moe is not None:
+        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
+            cfg.lm, moe_experts=4, moe_top_k=2, moe_dispatch=moe, moe_capacity_factor=2.0))
+    return cfg
+
+
+def _mesh_model(cfg, trainable: str = None):
+    """The MLLM of ``cfg`` on the card, weights drawn on the card from SEED
+    (the same tensors in every process), float32 parameters; the linear
+    weights in the compute dtype (the frozen ones only, under a
+    ``trainable`` setting, as the trainer stores them)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
+    from multimodal_concept_learning_tpu_torch.device import cast_for_compute
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, trainable_mask
+
+    with torch.device("meta"):
+        model = MLLM(cfg)
+    model.to_empty(device="cuda")
+    init_random_weights_(model, torch.Generator(device="cuda").manual_seed(SEED))
+    if trainable is not None:
+        trainable_mask(model, trainable)
+        return cast_for_compute(model, cfg.dtype, only_frozen=True)
+    return cast_for_compute(model, cfg.dtype).eval()
+
+
+def _mesh_prompts():
+    """Phase 37's 8 right-padded prompts [images, ids, mask] (CPU tensors)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 37)
+    t = 197 + max(MESH_LENS)
+    ids = rng.integers(4, 1148, size=(len(MESH_LENS), t)).astype(np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(MESH_LENS):
+        mask[i, : 197 + n] = 1
+    ids[mask == 0] = 0
+    names = _color_names()
+    images = np.stack([_circle(_rgb(names[i % len(names)])) for i in range(len(MESH_LENS))])
+    return [torch.from_numpy(x) for x in (images, ids, mask)]
+
+
+def _mesh_requests():
+    """Phase 37's 8 engine submissions: (image, prompt)."""
+    names = _color_names()
+    return [(_circle(_rgb(names[i])).astype(np.float32),
+             TRAINING_CONFIG["prompt_template"].format(class_name=names[(i * 5) % len(names)]))
+            for i in range(8)]
+
+
+def _launches() -> dict:
+    return {k: w.launches for k, w in _k_counts().items()}
+
+
+def _zero_launches() -> None:
+    for w in _k_counts().values():
+        w.launches = 0
+
+
+def _serve_paths(model, mesh=None) -> dict:
+    """Phase 37's four serving paths on ``model`` (sharded over ``mesh``
+    when given): tokens, prefill last-position logits and, each path
+    driven with the counts set to 0 just before it, its kernel launches
+    and collectives."""
+    import threading
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.models.lm import init_kv_cache
+    from multimodal_concept_learning_tpu_torch.models.mllm import generate, paged_generate
+    from multimodal_concept_learning_tpu_torch.parallel import collectives as col
+    from multimodal_concept_learning_tpu_torch.parallel import multihost
+    from multimodal_concept_learning_tpu_torch.parallel.serving import (
+        make_sharded_generate,
+        make_sharded_paged_generate,
+    )
+    from multimodal_concept_learning_tpu_torch.serve.continuous import (
+        ContinuousBatcher,
+        ContinuousEngine,
+    )
+
+    images, ids, mask = _mesh_prompts()
+    out = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        _zero_launches()
+        col.reset_counts()
+        t0 = time.perf_counter()
+        tokens = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(tokens=tokens, launches=_launches(), collectives=dict(col.COUNTS),
+                         s=time.perf_counter() - t0)
+
+    if mesh is None:
+        run("generate", lambda: generate(model, images, ids, mask, MESH_NEW).cpu())
+        run("paged", lambda: paged_generate(model, images, ids, mask, MESH_NEW, MESH_PAGE).cpu())
+        run("paged_int8", lambda: paged_generate(model, images, ids, mask, MESH_NEW, MESH_PAGE,
+                                                 quant_kv=True).cpu())
+    else:
+        gen, _ = make_sharded_generate(model, mesh, MESH_NEW, data_axis="data")
+        run("generate", lambda: gen(images, ids, mask).cpu())
+        for name, quant in (("paged", False), ("paged_int8", True)):
+            pgen, _ = make_sharded_paged_generate(model, mesh, MESH_NEW, page_size=MESH_PAGE,
+                                                  quant_kv=quant)
+            run(name, lambda pgen=pgen: pgen(images, ids, mask).cpu())
+    lm = model.language_model
+    dev = torch.device("cuda")
+    def logits(rows):
+        with torch.inference_mode():
+            lens = mask[rows].sum(dim=1).to(torch.int32).to(dev)
+            caches = init_kv_cache(lm.cfg, len(rows), ids.shape[1], dev)
+            hidden = model.prefill(images[rows].to(dev), ids[rows].to(dev), mask[rows].to(dev),
+                                   caches, kv_lens=lens)
+            last = hidden[torch.arange(len(rows), device=dev), lens.long() - 1]
+            return lm.lm_head(last).float().cpu(), caches
+
+    trace = []  # the first LM blocks' attention and MLP outputs of the prefill
+    hooks = [mod.register_forward_hook(lambda m, a, o: trace.append(o.detach().float().cpu()))
+             for layer in lm.model.layers[:2] for mod in (layer.self_attn, layer.mlp)]
+    out["logits"], caches = logits(list(range(len(MESH_LENS))))
+    for h in hooks:
+        h.remove()
+    out["trace"] = trace
+    if mesh is None:  # the single process's own spread: the same rows in another batch order
+        back, _ = logits(list(reversed(range(len(MESH_LENS)))))
+        out["logits_reordered"] = back.flip(0)
+    out["heads"] = (lm.cfg.num_heads, lm.cfg.num_kv_heads, int(caches[0]["k"].shape[2]))
+
+    loaded = _fronts_loaded_model(model)
+    eng = ContinuousEngine(loaded, num_slots=8, max_new_tokens=MESH_NEW,
+                           max_prompt_len=max(MESH_LENS), mesh=mesh)
+    calls = {"admit": 0}
+    admit = eng._admit
+
+    def counted(*a, **kw):
+        calls["admit"] += 1
+        return admit(*a, **kw)
+
+    eng._admit = counted
+    torch.cuda.synchronize()
+    _zero_launches()
+    col.reset_counts()
+    t0 = time.perf_counter()
+    if multihost.rank() == 0:
+        batcher = ContinuousBatcher(eng)
+        results = {}
+
+        def call(i, img, prompt):
+            results[i] = batcher.submit(img, prompt, timeout=300)
+
+        threads = [threading.Thread(target=call, args=(i, *r))
+                   for i, r in enumerate(_mesh_requests())]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        batcher.shutdown()
+        eng.close()
+    else:
+        results = None
+        eng.follow()
+    torch.cuda.synchronize()
+    out["continuous"] = dict(texts=results, launches=_launches(), collectives=dict(col.COUNTS),
+                             admit_calls=calls["admit"], decode_steps=eng.decode_steps,
+                             s=time.perf_counter() - t0)
+    return out
+
+
+def _fronts_loaded_model(model):
+    """``model`` as a serving engine's loaded model (the 12_colors_3k
+    tokenizer and config)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.serve.loader import (
+        LoadedMLLM,
+        build_tokenizer,
+        training_config,
+    )
+
+    config = training_config(dict(TRAINING_CONFIG, labels_mapping_path=MAPPING,
+                                  results_dir=REPO))
+    tokenizer, mapping = build_tokenizer(config)
+    return LoadedMLLM(model, tokenizer, config, mapping, torch.device("cuda"))
+
+
+def _serving_k_counts(res: dict) -> dict:
+    """The exact launches of each path of ``_serve_paths`` (MESH_DEPTH: 12
+    ViT + 6 LM layers a prefill, 6 a decode step)."""
+    steps = MESH_NEW - 1
+    zero = {"K1f": 0, "K1q": 0, "K1kv": 0, "K3": 0}
+    cont = res["continuous"]
+    pre, lm = sum(MESH_DEPTH), MESH_DEPTH[1]
+    return {"generate": dict(zero, K1f=pre + lm * steps),
+            "paged": dict(zero, K1f=pre, K3=lm * steps),
+            "paged_int8": dict(zero, K1f=pre + lm * steps),
+            "continuous": dict(zero, K1f=pre * cont["admit_calls"] + lm * cont["decode_steps"])}
+
+
+def _train_micro_steps(model, batches, mesh=None, fsdp=None, model_axis="model"):
+    """Three micro-steps (accumulation 2) of the MLLM trainer's step on
+    ``model`` (sharded over ``mesh`` first when given): losses, each
+    micro-step's launches (from 0), the collectives, the gradients of the
+    first micro-step as the optimizer accumulated them (summed over the
+    data axes, before any update) and the trained tensors, both at their
+    full shape and by state-dict name."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.parallel import collectives as col
+    from multimodal_concept_learning_tpu_torch.parallel import sharding_rules as sr
+    from multimodal_concept_learning_tpu_torch.parallel.mesh import batch_sharding
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_mllm_train_step,
+    )
+
+    if mesh is not None:
+        sr.shard_params(model, mesh, model_axis=model_axis, fsdp_axis=fsdp)
+        place = batch_sharding(mesh, sr.layout_of(model).data_axes)
+        batches = [{k: place.local(torch.as_tensor(v)) for k, v in b.items()} for b in batches]
+    opt = build_optimizer(model, 5e-4, weight_decay=1e-4, max_grad_norm=1.0,
+                          accumulation_steps=2)
+    state, step = TrainState(model=model, optimizer=opt), make_mllm_train_step(model)
+    losses, launches, grads = [], [], {}
+    col.reset_counts()
+    seconds = 0.0
+    for batch in batches:
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, to_device(batch, "cuda"))
+        losses.append(float(m["loss"]))
+        launches.append(_launches())
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        if not grads:  # accumulation 2: the accumulator holds this micro-step's gradients
+            for n, acc in opt.acc.items():
+                g = acc.clone()
+                if mesh is not None:
+                    g._mcl_shard = opt.params[n]._mcl_shard
+                    g = sr.gather_full(g)
+                grads[sr.canonical_name(n)] = g.float().cpu()
+    trained = {n: p for n, p in sr.local_tensors(model).items()
+               if isinstance(p, torch.nn.Parameter) and p.requires_grad} if mesh is not None \
+        else {n: p for n, p in model.named_parameters() if p.requires_grad}
+    full = {n: sr.gather_full(p).float().cpu() for n, p in trained.items()}
+    return dict(losses=losses, launches=launches, collectives=dict(col.COUNTS), trained=full,
+                grads=grads, s=seconds)
+
+
+def _mesh_train_batches(n: int = 3, b: int = 2) -> list:
+    """``n`` collated 224px training batches of ``b`` 12_colors_3k prompts."""
+    from multimodal_concept_learning_tpu_torch.serve.loader import build_tokenizer, training_config
+
+    with open(MAPPING) as f:
+        labels_mapping = json.load(f)
+    tokenizer, _ = build_tokenizer(training_config(dict(TRAINING_CONFIG,
+                                                        labels_mapping_path=MAPPING)))
+    return [_train_batch(tokenizer, labels_mapping, seed=i, b=b) for i in range(n)]
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+
+
+def _of_max(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _ep_case(dispatch: str, mesh):
+    """Phase 38's expert-parallel case on this rank: the MoE MLLM (2 + 2
+    layers, full widths, float32) single-process and sharded over
+    ``mesh``'s model axis: the loss (a forward with labels and the aux),
+    the hidden states and the gradients of every trainable tensor
+    (language_only)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops.moe import MoEAux
+    from multimodal_concept_learning_tpu_torch.parallel import sharding_rules as sr
+
+    batch = {k: torch.as_tensor(v).cuda() for k, v in _mesh_train_batches()[0].items()}
+    runs = []
+    for sharded in (False, True):
+        model = _mesh_model(_mesh_cfg(torch.float32, moe=dispatch, depth=EP_DEPTH),
+                            trainable="language_only")
+        if sharded:
+            sr.shard_params(model, mesh)
+        aux = MoEAux()
+        _zero_launches()
+        out = model(batch["images"], batch["input_ids"], batch["attention_mask"],
+                    batch["labels"], moe_aux=aux)
+        loss = out["loss"] + 0.01 * sum(aux.aux) / len(aux.aux)
+        loss.backward()
+        grads = {sr.canonical_name(n): p for n, p in model.named_parameters()
+                 if p.requires_grad}
+        full = {}
+        for n, p in grads.items():
+            g = p.grad
+            if sharded:
+                g = g.clone()
+                g._mcl_shard = p._mcl_shard
+                g = sr.gather_full(g)
+            full[n] = g.float()
+        runs.append(dict(loss=float(loss), hidden=out["hidden_states"].detach().float(),
+                         grads=full, launches=_launches(),
+                         experts=int(sr.local_tensors(model)[
+                             "language_model.model.layers.0.moe.experts_gate"].shape[0])))
+        del model
+    single, ep = runs
+    return dict(loss=(ep["loss"], single["loss"]),
+                hidden_err=_of_max(ep["hidden"], single["hidden"]),
+                grad_err=max((_rel(ep["grads"][n], g), n) for n, g in single["grads"].items()),
+                local_experts=ep["experts"], launches=ep["launches"])
+
+
+def _pipeline_case(mesh):
+    """Phase 39's pipeline on this rank: the MLLM at full widths (float32,
+    language_only; the LM cut to MESH_DEPTH's 6 blocks) unpipelined and
+    with the LM stack over the pipe axis (3 blocks a stage, 4
+    microbatches of one row): the loss and every gradient this stage
+    holds."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.parallel import collectives as col
+    from multimodal_concept_learning_tpu_torch.parallel.pipeline import (
+        make_pipelined_mllm_loss,
+        shard_pipeline_params,
+    )
+
+    raw = _mesh_train_batches(n=1, b=PIPE_MICRO)[0]
+    batch = {k: torch.as_tensor(raw[k]).cuda()
+             for k in ("images", "input_ids", "attention_mask", "labels")}
+    cfg = _mesh_cfg(torch.float32)
+    plain = _mesh_model(cfg, trainable="language_only")
+    loss = plain(batch["images"], batch["input_ids"], batch["attention_mask"],
+                 batch["labels"])["loss"]
+    loss.backward()
+    want = {n: p.grad.detach() for n, p in plain.named_parameters() if p.requires_grad}
+    plain_loss = float(loss)
+    del plain, loss
+    torch.cuda.empty_cache()
+    model = _mesh_model(cfg, trainable="language_only")
+    shard_pipeline_params(model, mesh)
+    first = model.language_model._mcl_pipe["first"]
+    col.reset_counts()
+    _zero_launches()
+    t0 = time.perf_counter()
+    loss = make_pipelined_mllm_loss(model, mesh, PIPE_MICRO)(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    errs = []
+    for n, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        if ".layers." in n:
+            j = int(n.split(".layers.")[1].split(".")[0])
+            n = n.replace(f".layers.{j}.", f".layers.{first + j}.", 1)
+        errs.append((_rel(p.grad, want[n]), n))
+    return dict(loss=(float(loss), plain_loss), grad_err=max(errs), tensors=len(errs),
+                launches=_launches(), collectives=dict(col.COUNTS), s=seconds,
+                first=first, blocks=len(model.language_model.model.layers))
+
+
+def _dense_attention(q, k, v, bias, scale):
+    """The plain dense attention the ring is held to: float32 logits with
+    the -1e30 bias, softmax, GQA k/v repeated to the query heads."""
+    import torch
+
+    rep = q.shape[2] // k.shape[2]
+    k, v = (torch.repeat_interleave(x, rep, dim=2).float() for x in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k) + bias.float()
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v).to(q.dtype)
+
+
+def _ring_case(mesh, dtype):
+    """Phase 39's ring attention on this rank: [2, 222, 4/1, 256] blocks
+    over the seq axis, a padding bias (row 1's last 40 keys masked, and
+    the key that pads T to an even 222 in every row), output and
+    gradients (a fixed weighting of the output) against
+    ``_dense_attention`` on the card."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.ops.attention import make_attention_bias
+    from multimodal_concept_learning_tpu_torch.parallel import collectives as col
+    from multimodal_concept_learning_tpu_torch.parallel.ring_attention import (
+        make_ring_attention,
+        shard_seq,
+    )
+
+    b, t, hq, hk, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 39)
+    q = torch.randn(b, t, hq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, t, hk, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, t, hk, d, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(b, t, hq, d, generator=gen, device="cuda")
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    mask[:, -1] = 0
+    mask[1, -41:] = 0
+    bias = make_attention_bias(mask, True, t, t)
+    scale = 256.0 ** -0.5
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = _dense_attention(*leaves, bias, scale)
+    (want.float() * w).sum().backward()
+    want_grads = [x.grad for x in leaves]
+    ring = make_ring_attention(mesh)
+    group = col.mesh_group(mesh, "seq")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    col.reset_counts()
+    local = ring(*(shard_seq(x, mesh) for x in leaves), shard_seq(bias, mesh, dim=2), scale)
+    (local.float() * shard_seq(w, mesh)).sum().backward()
+    got = col.all_gather(local.detach(), group, 1)
+    got_grads = [col.all_reduce(x.grad, group) for x in leaves]
+    if dtype == torch.float32:  # JAX's test: output rtol/atol 2e-6, gradients rtol 2e-5 atol 2e-6
+        errs = [_over(got, want, 2e-6, 2e-6)] + [_over(a, e, 2e-5, 2e-6)
+                                                 for a, e in zip(got_grads, want_grads)]
+        what = "max |err| / (atol + rtol |want|), within 1"
+    else:
+        errs = [_of_max(got, want)] + [_of_max(a, e) for a, e in zip(got_grads, want_grads)]
+        what = "of each max, within 2e-2"
+    limit = 1.0 if dtype == torch.float32 else 2e-2
+    return dict(errs=errs, limit=limit, what=what, collectives=dict(col.COUNTS))
+
+
+def _over(a, e, rtol: float, atol: float) -> float:
+    """max |a - e| / (atol + rtol |e|): at most 1 where ``allclose`` holds."""
+    return ((a.float() - e.float()).abs() / (atol + rtol * e.float().abs())).max().item()
+
+
+def mesh_worker(argv) -> None:
+    """One rank of phases 37-39 (``chip_smoke.py --mesh-worker PHASES RANK
+    WORLD PORT JOBDIR BACKEND``): joins the group (two ranks on the one
+    card over Gloo), runs each of the comma-separated PHASES in turn and
+    writes ``JOBDIR/{phase}_rank{R}.pt`` as each one ends (written whole,
+    then renamed, so the parent reads only finished files), with the
+    ``time.perf_counter`` stamps of the process's start, its joining the
+    group and the phase's start and end (one monotonic clock for every
+    process of the machine)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.parallel import multihost, sharding_rules
+    from multimodal_concept_learning_tpu_torch.parallel.mesh import make_mesh
+
+    phases, rank, world, port, jobdir, backend = argv
+    rank, world = int(rank), int(world)
+    multihost.init_distributed("cuda", init_method=f"tcp://localhost:{port}", world_size=world,
+                               rank=rank, backend=backend, device_index=0, timeout_s=600)
+    joined = time.perf_counter()
+    for phase in phases.split(","):
+        t0 = time.perf_counter()
+        out = {"backend": torch.distributed.get_backend(), "world": world,
+               "stamps": {"began": PROCESS_T0, "joined": joined, "start": t0}}
+        if phase == "serve":
+            mesh = make_mesh("cuda", ("data", "model"), (1, world))
+            for dtype in (torch.float32, torch.bfloat16):
+                out[str(dtype)] = _serve_paths(_mesh_model(_mesh_cfg(dtype)), mesh)
+                torch.cuda.empty_cache()
+            out["int4"] = _int4_refused(mesh)
+        elif phase == "train":
+            batches = _mesh_train_batches()
+            for dtype in (torch.float32, torch.bfloat16):
+                for tag, shape, names, fsdp in (("tp", (world,), ("model",), None),
+                                                ("fsdp", (world,), ("data",), "data")):
+                    mesh = make_mesh("cuda", names, shape)
+                    model = _mesh_model(_mesh_cfg(dtype), trainable="language_embed_only")
+                    out[f"{tag}_{dtype}"] = _train_micro_steps(model, batches, mesh, fsdp)
+                    emb = [n for n in out[f"{tag}_{dtype}"]["trained"] if "embed_tokens" in n]
+                    out[f"{tag}_{dtype}"]["emb_local_rows"] = int(
+                        sharding_rules.local_tensors(model)[emb[0]].shape[0])
+                    out[f"{tag}_{dtype}"]["heads"] = (model.cfg.lm.num_heads,
+                                                      model.cfg.lm.num_kv_heads)
+                    del model
+                    torch.cuda.empty_cache()
+            mesh = make_mesh("cuda", ("model",), (world,))
+            for dispatch in ("dense", "sparse"):
+                out[f"ep_{dispatch}"] = _ep_case(dispatch, mesh)
+                torch.cuda.empty_cache()
+        elif phase == "pipe":
+            out["pipeline"] = _pipeline_case(make_mesh("cuda", ("pipe",), (world,)))
+            torch.cuda.empty_cache()
+            mesh = make_mesh("cuda", ("seq",), (world,))
+            for dtype in (torch.float32, torch.bfloat16):
+                out[f"ring_{dtype}"] = _ring_case(mesh, dtype)
+        else:
+            raise ValueError(f"unknown mesh phase {phase!r}")
+        out["s"] = time.perf_counter() - t0
+        out["stamps"]["end"] = time.perf_counter()
+        path = os.path.join(jobdir, f"{phase}_rank{rank}.pt")
+        torch.save(out, path + ".part")
+        os.replace(path + ".part", path)
+    multihost.barrier()
+    multihost.shutdown()
+
+
+def _int4_refused(mesh) -> bool:
+    import dataclasses
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM
+    from multimodal_concept_learning_tpu_torch.parallel.serving import (
+        make_sharded_generate,
+        make_sharded_paged_generate,
+    )
+
+    cfg = _mesh_cfg(torch.bfloat16)
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, int4_weights=True))
+    with torch.device("meta"):
+        model = MLLM(cfg)
+    refused = 0
+    for fn in (make_sharded_generate, make_sharded_paged_generate):
+        try:
+            fn(model, mesh, MESH_NEW)
+        except ValueError as e:
+            refused += "int4" in str(e)
+    return refused == 2
+
+
+def _nccl_world_one() -> dict:
+    """World size 1 over NCCL: ``make_sharded_generate`` on a (1 data x 1
+    model) mesh in float32, and every collective primitive once over a
+    one-rank NCCL group."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_concept_learning_tpu_torch.parallel import collectives as col
+    from multimodal_concept_learning_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_concept_learning_tpu_torch.parallel.serving import make_sharded_generate
+
+    mesh = make_mesh("cuda", ("data", "model"), (1, 1))
+    model = _mesh_model(_mesh_cfg(torch.float32))
+    gen, _ = make_sharded_generate(model, mesh, MESH_NEW)
+    images, ids, mask = _mesh_prompts()
+    tokens = gen(images, ids, mask).cpu()
+    group = col.AxisGroup(("one",), [0], dist.new_group([0]))
+    x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4)
+    col.reset_counts()
+    ok = (torch.equal(col.all_reduce(x, group), x)
+          and torch.equal(col.all_gather(x, group, 1), x)
+          and torch.equal(col.reduce_scatter(x, group, 0), x)
+          and torch.equal(col.broadcast(x, group, 0), x)
+          and float(col.all_reduce_max(x.max().reshape(1), group)) == 11.0)
+    return dict(tokens=tokens, primitives_ok=ok, collectives=dict(col.COUNTS),
+                backend=dist.get_backend())
+
+
+def timed(fn, *fn_args, **fn_kwargs):
+    """``fn(*fn_args, **fn_kwargs)``, its seconds printed as ``[timing]``."""
+    t0 = time.perf_counter()
+    out = fn(*fn_args, **fn_kwargs)
+    print(f"[timing] {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+SIDE_PHASES = "27, 28, 30-32 and 36"  # the phases the second process runs
+
+
+def side_worker(root: str) -> None:
+    """``--side ROOT``: the phases that share no state with the others
+    (phase 36, then 27, 28 and 30-32), each in its own directory under
+    ROOT, removed after it; phase 36's world-size-1 NCCL case goes to
+    ``ROOT/nccl1.json`` for phase 37."""
+    import shutil
+
+    card = phase_card()
+    nccl = timed(phase_dp, os.path.join(root, "dp"), card)
+    with open(os.path.join(root, "nccl1.json"), "w") as f:
+        json.dump(nccl, f)
+    for fn, sub in ((phase_vision_resume, "vision-resume"), (phase_mllm_resume, "mllm-resume"),
+                    (phase_imagenet_data, "imagenet"), (phase_imagenet_vision, "imagenet-vision"),
+                    (phase_imagenet_mllm, "imagenet-mllm")):
+        path = os.path.join(root, sub)
+        os.makedirs(path)
+        try:
+            timed(fn, path, card) if fn in (phase_vision_resume, phase_mllm_resume) \
+                else timed(fn, path)
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+    print("[side] every phase passed", flush=True)
+
+
+class _Side:
+    """The second process (this script's ``--side``): phases 27, 28, 30-32
+    and 36, started after phase 3 and run beside this process's phases
+    from 4 on (the rates and seconds of both share the card and the
+    host's cores); its output goes to ``ROOT/side.log``, printed here when
+    it is joined."""
+
+    def __init__(self, root: str, timeout: float):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        self.root, self.log = root, os.path.join(root, "side.log")
+        self.deadline = time.perf_counter() + timeout
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                                          "--side", root], cwd=REPO, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+
+    def join(self) -> dict:
+        """Waits for the process, prints its output and returns phase
+        36's NCCL case; fails if it failed."""
+        t0 = time.perf_counter()
+        try:
+            code = self.proc.wait(timeout=max(1.0, self.deadline - t0))
+        except subprocess.TimeoutExpired:
+            code = None
+        with open(self.log) as f:
+            text = f.read()
+        print(f"[side] the second process's output (phases {SIDE_PHASES}, run beside this "
+              f"process's; this one waited {time.perf_counter() - t0:.1f} s for it):", flush=True)
+        print(text.rstrip("\n"), flush=True)
+        if code != 0 or "[side] every phase passed" not in text:
+            self.stop()
+            fail(f"the second process (phases {SIDE_PHASES}) exited {code}")
+        with open(os.path.join(self.root, "nccl1.json")) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class _Ranks:
+    """The ``world`` ranks of phases 37-39, started once (this script's
+    --mesh-worker, all on the one card) to run ``phases`` in turn beside
+    this process's later phases; each rank's output goes to
+    ``JOBDIR/rank{R}.log``."""
+
+    def __init__(self, phases: tuple, jobdir: str, world: int, backend: str, timeout: float):
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        self.jobdir, self.world = jobdir, world
+        self.logs = [os.path.join(jobdir, f"rank{r}.log") for r in range(world)]
+        self.spawned = time.perf_counter()
+        self.deadline = self.spawned + timeout
+        self.procs = []
+        for r in range(world):
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mesh-worker",
+                     ",".join(phases), str(r), str(world), str(port), jobdir, backend],
+                    cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def _failed(self, why: str) -> None:
+        self.stop()
+        for r, path in enumerate(self.logs):
+            with open(path) as f:
+                print(f"[mesh] rank {r}'s output:\n{f.read()[-6000:]}", flush=True)
+        fail(why)
+
+    def results(self, phase: str) -> list:
+        """Each rank's results of ``phase``, in rank order, once all are
+        written; fails the phase if a rank exits without them (or the
+        ranks outlive their time)."""
+        import torch
+
+        t0 = time.perf_counter()
+        paths = [os.path.join(self.jobdir, f"{phase}_rank{r}.pt") for r in range(self.world)]
+        while not all(os.path.exists(p) for p in paths):
+            if time.perf_counter() > self.deadline:
+                self._failed(f"mesh phase {phase}: the ranks outlived their time")
+            for r, p in enumerate(self.procs):
+                code = p.poll()
+                if code is not None and (code != 0 or not os.path.exists(paths[r])):
+                    self._failed(f"mesh phase {phase}: rank {r} exited {code}")
+            time.sleep(0.2)
+        waited = time.perf_counter() - t0
+        out = [torch.load(p, weights_only=False) for p in paths]
+        for r, res in enumerate(out):
+            st = {k: v - self.spawned for k, v in res["stamps"].items()}
+            print(f"[mesh] {phase} rank {r}, seconds after the spawn: process began "
+                  f"{st['began']:.1f}, joined the group {st['joined']:.1f}, phase ran "
+                  f"{st['start']:.1f}-{st['end']:.1f} ({res['s']:.1f} s); this process waited "
+                  f"{waited:.1f} s for the ranks", flush=True)
+        return out
+
+    def join(self) -> None:
+        for r, p in enumerate(self.procs):
+            try:
+                code = p.wait(timeout=max(1.0, self.deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                self._failed(f"mesh ranks: rank {r} did not exit")
+            if code != 0:
+                self._failed(f"mesh ranks: rank {r} exited {code}")
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _compute_mode() -> str:
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"unknown ({e})"
+
+
+def phase_mesh_serving(procs: _Ranks, card: str, nccl: dict) -> None:
+    """Phase 37: sharded serving at full width.  The 12_colors_3k MLLM
+    (vit-b-16 + gemma3-1b at full widths, the LM cut to MESH_DEPTH's 6
+    blocks, seeded weights) on a (1 data x 2
+    model) mesh of two ranks sharing the card (Gloo), float32 then bf16:
+    ``make_sharded_generate``, ``make_sharded_paged_generate`` on float and
+    on int8 pools, and ``ContinuousEngine(mesh=)`` through its batcher (8
+    submissions), against the same paths single-process on the card.
+    Gates: float32 tokens (and the engine's texts) equal, prefill
+    last-position logits within 1e-4 of their max; bf16 last-position
+    logits no farther from the float32 single process's than the
+    single-process bf16 logits are, or within 2e-2 of the max.  Their
+    distance to the single-process bf16 logits is printed against 2e-2
+    of the max, met or missed, with the bf16 tokens, and not gated: two
+    bf16 runs differ by both runs' roundings (most of the first LM
+    block's outputs already differ by one); each rank's K1f and K3
+    launches exact, at 2 query heads and 1 KV head a rank; the
+    collectives counted; int4 refused.  Then the same
+    ``make_sharded_generate`` at world size 1 over NCCL (``nccl``: run in
+    phase 36's torchrun process, with each collective primitive once over
+    a one-rank NCCL group).  The ranks ran beside phases 8-35: the seconds
+    printed beside each other were not taken on a quiet card."""
+    import torch
+
+    print(f"[mesh] compute mode {_compute_mode()}; {MESH_WORLD} ranks share the card "
+          f"(Gloo, collectives staged through host memory); {card}", flush=True)
+    refs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _mesh_model(_mesh_cfg(dtype))
+        refs[dtype] = _serve_paths(model)
+        del model
+        torch.cuda.empty_cache()
+    ranks = procs.results("serve")
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = refs[dtype]
+        for r, res in enumerate(ranks):
+            got = res[str(dtype)]
+            want_k = _serving_k_counts(got)
+            for path in ("generate", "paged", "paged_int8", "continuous"):
+                same = (torch.equal(got[path]["tokens"], ref[path]["tokens"])
+                        if path != "continuous" else None)
+                if path == "continuous" and r == 0:
+                    same = got[path]["texts"] == ref[path]["texts"]
+                kexact = got[path]["launches"] == want_k[path]
+                print(f"[mesh-serve] {dtype} rank {r} {path}: tokens equal single-process "
+                      f"{same}; launches {got[path]['launches']} (want {want_k[path]}, "
+                      f"{'exact' if kexact else 'DIFFER'}); collectives "
+                      f"{got[path]['collectives']}; {got[path]['s']:.2f} s (single process "
+                      f"{ref[path]['s']:.2f} s); two-ranks-one-card, not scaling; {card}",
+                      flush=True)
+                ok = ok and kexact and (dtype != torch.float32 or same is not False)
+                ok = ok and sum(got[path]["collectives"].values()) > 0
+            err = _of_max(got["logits"], ref["logits"])
+            rows = [round(_of_max(a, b), 5) for a, b in zip(got["logits"], ref["logits"])]
+            floor = _of_max(ref["logits_reordered"], ref["logits"])
+            f32 = refs[torch.float32]["logits"]
+            own, single_own = _of_max(got["logits"], f32), _of_max(ref["logits"], f32)
+            layers = [(round(_of_max(a, b), 6), round(float((a != b).float().mean()), 6))
+                      for a, b in zip(got["trace"], ref["trace"])]
+            print(f"[mesh-serve] {dtype} rank {r}: logits against the float32 single process: "
+                  f"sharded {own:.4e}, single process {single_own:.4e}; first layers' "
+                  f"outputs sharded vs single (max of max, share differing) {layers}", flush=True)
+            heads_ok = got["heads"] == (2, 1, 1)
+            stated = "" if dtype == torch.float32 else (
+                f" (the 2e-2 bound against the single-process bf16 logits "
+                f"{'met' if err <= 2e-2 else 'MISSED'}; gated against float32 below)")
+            print(f"[mesh-serve] {dtype} rank {r}: prefill last-position logits within "
+                  f"{err:.4e} of their max{stated} (each row against its own max {rows}; the "
+                  f"single process against itself with the rows reversed {floor:.4e}); local "
+                  f"heads (q, kv, cache kv) {got['heads']}; int4 refused {res['int4']}",
+                  flush=True)
+            if dtype == torch.float32:
+                good = err <= 1e-4
+            else:  # the single process's bf16 logits carry their own error against float32:
+                # the sharded ones must be no farther from float32 than they are (or 2e-2)
+                good = own <= max(2e-2, single_own)
+            ok = ok and good and heads_ok and res["int4"]
+    if not ok:
+        fail("mesh serving (phase 37)")
+    want = refs[torch.float32]["generate"]["tokens"]
+    same = torch.equal(torch.tensor(nccl["tokens"], dtype=want.dtype), want)
+    print(f"[mesh-serve] world size 1 over {nccl['backend']}: tokens equal single-process "
+          f"{same}; the primitives over a one-rank NCCL group {nccl['primitives_ok']} "
+          f"{nccl['collectives']}", flush=True)
+    if not (same and nccl["primitives_ok"] and nccl["backend"] == "nccl"):
+        fail("mesh serving at world size 1 over NCCL")
+
+
+def phase_mesh_training(procs: _Ranks, card: str) -> None:
+    """Phase 38: sharded training at full width.  The MLLM trainer's step
+    at phase 7's settings (language_embed_only, batch 2, AdamW lr 5e-4,
+    accumulation 2) for 3 micro-steps on the 12_colors_3k MLLM at full
+    widths (the LM cut to MESH_DEPTH's 6 blocks),
+    float32 then bf16, on (model 2) tensor parallelism (the trainable
+    embedding vocab-sharded) and on (data 2) with FSDP over data (the
+    embedding vocab-extended), against the single process on the card.
+    Gates: the first micro-step's gradients, tensor by tensor, within
+    1e-4 of their norm in float32 and 5e-2 in bf16 (a gradient doubled,
+    halved or missing a rank's partial sum reads 0.5 or more); float32
+    losses within 1e-5 relative and trained tensors within 1e-4 of their
+    norm; bf16 losses within 2e-2; K1f 18, K1q 6, K1kv 6 a micro-step
+    on every rank.  The bf16 trained tensors are printed against 2e-2 of
+    each tensor's max, not gated: Adam's first update is about lr times
+    the gradient's sign, so an element whose bf16 gradient is near zero
+    moves by lr either way.  Then expert parallelism: the 4-expert MoE
+    MLLM (2 + 2 layers, full widths, float32) over (model 2), dense and
+    sparse at cf 2.0: loss, hidden states and every gradient against the
+    single process in the rank."""
+    import torch
+
+    refs = {}
+    batches = _mesh_train_batches()
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _mesh_model(_mesh_cfg(dtype), trainable="language_embed_only")
+        refs[dtype] = _train_micro_steps(model, batches)
+        del model
+        torch.cuda.empty_cache()
+    ranks = procs.results("train")
+    ok = True
+    want_k = {"K1f": sum(MESH_DEPTH), "K1q": MESH_DEPTH[1], "K1kv": MESH_DEPTH[1], "K3": 0}
+    f32 = refs[torch.float32]
+    noise = {n.rsplit(".", 2)[-2] + "." + n.rsplit(".", 1)[-1]: f"{_rel(g, f32['grads'][n]):.2e}"
+             for n, g in refs[torch.bfloat16]["grads"].items()}
+    print(f"[mesh-train] single-process bf16 gradients against float32, of each norm: {noise}",
+          flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = refs[dtype]
+        grad_tol = 1e-4 if dtype == torch.float32 else 5e-2
+        for tag in ("tp", "fsdp"):
+            for r, res in enumerate(ranks):
+                got = res[f"{tag}_{dtype}"]
+                loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+                g_errs = {n: _rel(got["grads"][n], g) for n, g in ref["grads"].items()}
+                g_err = max(g_errs.values())
+                short = {n.rsplit(".", 2)[-2] + "." + n.rsplit(".", 1)[-1]: f"{e:.2e}"
+                         for n, e in g_errs.items()}
+                good = (set(got["grads"]) == set(ref["grads"]) and g_err <= grad_tol
+                        and loss_err <= (1e-5 if dtype == torch.float32 else 2e-2))
+                if dtype == torch.float32:
+                    p_err = max(_rel(got["trained"][n], t) for n, t in ref["trained"].items())
+                    good = good and p_err <= 1e-4
+                    p_note = f"trained tensors within {p_err:.2e} of their norm"
+                else:
+                    p_err = max(_of_max(got["trained"][n], t) for n, t in ref["trained"].items())
+                    p_note = (f"trained tensors within {p_err:.2e} of each max (2e-2 "
+                              f"{'met' if p_err <= 2e-2 else 'missed'}; not gated)")
+                kexact = all(k == want_k for k in got["launches"])
+                print(f"[mesh-train] {dtype} {tag} rank {r}: losses {got['losses']} vs "
+                      f"{ref['losses']} (max rel err {loss_err:.2e}); first micro-step's "
+                      f"gradients of each norm {short} (within {grad_tol:g}: "
+                      f"{'met' if g_err <= grad_tol else 'MISSED'}); {p_note}; embedding rows "
+                      f"a rank {got['emb_local_rows']}; local heads {got['heads']}; launches a "
+                      f"micro-step {got['launches']} ({'exact' if kexact else 'DIFFER'}); "
+                      f"collectives {got['collectives']}; {got['s']:.2f} s for 3 micro-steps "
+                      f"(single process {ref['s']:.2f} s); two-ranks-one-card, not scaling; "
+                      f"{card}", flush=True)
+                ok = ok and good and kexact and got["emb_local_rows"] == 1148 // 2
+    for dispatch in ("dense", "sparse"):
+        for r, res in enumerate(ranks):
+            e = res[f"ep_{dispatch}"]
+            loss_err = abs(e["loss"][0] - e["loss"][1]) / abs(e["loss"][1])
+            print(f"[mesh-ep] {dispatch} rank {r}: loss {e['loss'][0]:.6f} vs single process "
+                  f"{e['loss'][1]:.6f} (rel err {loss_err:.2e}); hidden within "
+                  f"{e['hidden_err']:.2e} of max; worst gradient {e['grad_err'][0]:.2e} of its "
+                  f"norm ({e['grad_err'][1]}); local experts {e['local_experts']}; launches "
+                  f"{e['launches']}", flush=True)
+            ok = ok and loss_err <= 1e-5 and e["hidden_err"] <= 1e-4 and e["grad_err"][0] <= 1e-4
+            ok = ok and e["local_experts"] == 2
+    if not ok:
+        fail("mesh training (phase 38)")
+
+
+def phase_mesh_pipeline(procs: _Ranks, card: str) -> None:
+    """Phase 39: ``make_pipelined_mllm_loss`` over (pipe 2): the MLLM at
+    full widths (float32, language_only; the LM cut to MESH_DEPTH's 6
+    blocks), 3 LM blocks a stage, 4 microbatches: loss within 1e-5
+    relative and every gradient a stage holds within 1e-4 of its norm
+    against the unpipelined loss on the card; K1 launches a rank exact (a
+    stage's 3 blocks x 4 microbatches, plus the replicated ViT's 12).
+    Then ``make_ring_attention`` over (seq 2) at [2, 222, 4/1, 256] (the
+    LM's training shape, T padded to even with one masked key) with a
+    padding bias: output and gradients against the plain dense attention
+    on the card (float32 2e-6; bf16 2e-2 of the max)."""
+    import torch
+
+    ranks = procs.results("pipe")
+    procs.join()
+    ok = True
+    vit, stage = MESH_DEPTH[0], MESH_DEPTH[1] // MESH_WORLD
+    want_k = {"K1f": vit + stage * PIPE_MICRO, "K1q": stage * PIPE_MICRO,
+              "K1kv": stage * PIPE_MICRO, "K3": 0}
+    for r, res in enumerate(ranks):
+        p = res["pipeline"]
+        loss_err = abs(p["loss"][0] - p["loss"][1]) / abs(p["loss"][1])
+        kexact = p["launches"] == want_k
+        print(f"[mesh-pipe] rank {r} (blocks {p['first']}..{p['first'] + p['blocks'] - 1}): "
+              f"loss {p['loss'][0]:.6f} vs unpipelined {p['loss'][1]:.6f} (rel err "
+              f"{loss_err:.2e}); worst of {p['tensors']} gradients {p['grad_err'][0]:.2e} of "
+              f"its norm ({p['grad_err'][1]}); launches {p['launches']} "
+              f"({'exact' if kexact else 'DIFFER'}); collectives {p['collectives']}; "
+              f"{p['s']:.2f} s; two-ranks-one-card, not scaling; {card}", flush=True)
+        ok = ok and loss_err <= 1e-5 and p["grad_err"][0] <= 1e-4 and kexact
+        for dtype in (torch.float32, torch.bfloat16):
+            g = res[f"ring_{dtype}"]
+            print(f"[mesh-ring] {dtype} rank {r}: output, dq, dk, dv "
+                  f"{[f'{e:.2e}' for e in g['errs']]} ({g['what']}); collectives "
+                  f"{g['collectives']}", flush=True)
+            ok = ok and max(g["errs"]) <= g["limit"]
+    if not ok:
+        fail("pipeline / ring (phase 39)")
 
 
 SOURCES = {
@@ -6108,6 +7098,61 @@ SOURCES = {
 KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
+def serving_and_training_phases(report: dict, card: str) -> None:
+    """Phases 4-7, 10, 11, 14, 15, 17-23, 29, 33 and 34, in this process."""
+    import shutil
+    import tempfile
+
+    timed(phase_parity)
+    timed(phase_quant_parity)
+    timed(phase_generate_parity)
+    timed(phase_fronts_parity)
+    root = tempfile.mkdtemp(prefix="_smoke_results_", dir=REPO)  # listed in .gitignore
+    try:
+        float_run = timed(phase_slice, report, root)
+        timed(phase_quant_slice, report, root, float_run)
+        timed(phase_fronts_slice, root, float_run)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    serving_k1 = report["flash_attention_fwd"]["launches"]
+    timed(phase_train_parity)
+    timed(phase_vision_parity)
+    timed(phase_lora_parity)
+    timed(phase_moe_parity)
+    root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
+    try:
+        vision_best = timed(phase_vision_slice, report, os.path.join(root, "vision"))
+        data = timed(phase_train_slice, report, root, vision_path=vision_best)
+        answers = timed(phase_answer_slice, root)  # on phase 7's results dir and data
+        timed(phase_analysis, root)
+        timed(phase_lora_slice, root, data)  # on phase 7's data
+        timed(phase_remap_chain, root, answers["float"])  # phase 7's weights, 15's answers
+        timed(phase_moe_slice, os.path.join(root, "moe"), data)  # on phase 7's data
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
+          f"{report['flash_attention_fwd']['launches']}", flush=True)
+
+
+def clip_and_bench_phases(report: dict, card: str) -> None:
+    """Phases 8, 9, 12, 13, 24-26 and 35, in this process."""
+    import shutil
+    import tempfile
+
+    dense_clip = timed(phase_clip_parity)
+    timed(phase_partitioned_parity, dense_clip)
+    timed(phase_variant_parity)
+    root = tempfile.mkdtemp(prefix="_smoke_clip_", dir=REPO)
+    try:
+        clip_run = timed(phase_clip_slice, report, root)
+        timed(phase_variant_slice, report, clip_run)  # on phase 9's generated data
+        timed(phase_partitioned_clip_slice, root, clip_run, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed(phase_moe_bench, card)
+    timed(phase_multi_lora_bench)
+
+
 def main(argv=None) -> None:
     import argparse
     import shutil
@@ -6141,6 +7186,13 @@ def main(argv=None) -> None:
     parser.add_argument("--profile-moe", action="store_true",
                         help="build, then profile one step of phase 35's E=4 bench cell, "
                              "dense then sparse dispatch; no other phase")
+    parser.add_argument("--mesh-worker", nargs=6, metavar=("PHASES", "RANK", "WORLD", "PORT",
+                                                          "JOBDIR", "BACKEND"),
+                        help="one rank of phases 37-39 (started by this script): the "
+                             "comma-separated PHASES in turn; no other phase")
+    parser.add_argument("--side", metavar="ROOT",
+                        help=f"the second process (started by this script): phases "
+                             f"{SIDE_PHASES} under ROOT; no other phase")
     parser.add_argument("--dp-worker", metavar="JOBS",
                         help="under torchrun (phase 36): run the trainer CLIs the JSON file "
                              "JOBS lists in this process; no other phase")
@@ -6159,6 +7211,12 @@ def main(argv=None) -> None:
     set_reference_numerics()
     if args.dp_worker:
         dp_worker(args.dp_worker)
+        return
+    if args.mesh_worker:
+        mesh_worker(args.mesh_worker)
+        return
+    if args.side:
+        side_worker(args.side)
         return
     t_start = time.perf_counter()
     card = phase_card()
@@ -6185,70 +7243,26 @@ def main(argv=None) -> None:
         profile_decode(args.profile_decode, int8_kv=args.int8_kv)
         return
     report: dict = {}
-
-    def timed(fn, *fn_args, **fn_kwargs):
-        t0 = time.perf_counter()
-        out = fn(*fn_args, **fn_kwargs)
-        print(f"[timing] {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
-        return out
-
-    timed(phase_kernels, report)
-    timed(phase_parity)
-    timed(phase_quant_parity)
-    timed(phase_generate_parity)
-    timed(phase_fronts_parity)
-    root = tempfile.mkdtemp(prefix="_smoke_results_", dir=REPO)  # listed in .gitignore
+    timed(phase_kernels, report)  # alone on the card: the kernels' times
+    side = _Side(tempfile.mkdtemp(prefix="_smoke_side_", dir=REPO), 1100)
+    mesh_root, ranks = tempfile.mkdtemp(prefix="_smoke_mesh_", dir=REPO), None
     try:
-        float_run = timed(phase_slice, report, root)
-        timed(phase_quant_slice, report, root, float_run)
-        timed(phase_fronts_slice, root, float_run)
+        serving_and_training_phases(report, card)
+        # the ranks of phases 37-39 run beside the CLIP and bench phases
+        ranks = _Ranks(("serve", "train", "pipe"), mesh_root, MESH_WORLD, "gloo", 900)
+        clip_and_bench_phases(report, card)
+        nccl = side.join()
+        torch.cuda.empty_cache()
+        timed(phase_mesh_serving, ranks, card, nccl)
+        timed(phase_mesh_training, ranks, card)
+        timed(phase_mesh_pipeline, ranks, card)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    serving_k1 = report["flash_attention_fwd"]["launches"]
-    timed(phase_train_parity)
-    timed(phase_vision_parity)
-    timed(phase_lora_parity)
-    timed(phase_moe_parity)
-    root = tempfile.mkdtemp(prefix="_smoke_train_", dir=REPO)
-    try:
-        vision_best = timed(phase_vision_slice, report, os.path.join(root, "vision"))
-        data = timed(phase_train_slice, report, root, vision_path=vision_best)
-        answers = timed(phase_answer_slice, root)  # on phase 7's results dir and data
-        timed(phase_analysis, root)
-        timed(phase_lora_slice, root, data)  # on phase 7's data
-        timed(phase_remap_chain, root, answers["float"])  # phase 7's weights, 15's answers
-        timed(phase_vision_resume, os.path.join(root, "vision-resume"), card)
-        timed(phase_mllm_resume, os.path.join(root, "mllm-resume"), card)
-        timed(phase_moe_slice, os.path.join(root, "moe"), data)  # on phase 7's data
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    print(f"[timing] K1 forward launches: serving slice {serving_k1}, training slice "
-          f"{report['flash_attention_fwd']['launches']}", flush=True)
-    dense_clip = timed(phase_clip_parity)
-    timed(phase_partitioned_parity, dense_clip)
-    timed(phase_variant_parity)
-    root = tempfile.mkdtemp(prefix="_smoke_clip_", dir=REPO)
-    try:
-        clip_run = timed(phase_clip_slice, report, root)
-        timed(phase_variant_slice, report, clip_run)  # on phase 9's generated data
-        timed(phase_partitioned_clip_slice, root, clip_run, card)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    timed(phase_moe_bench, card)
-    root = tempfile.mkdtemp(prefix="_smoke_dp_", dir=REPO)
-    try:
-        timed(phase_dp, root, card)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    timed(phase_multi_lora_bench)
-    root = tempfile.mkdtemp(prefix="_smoke_imagenet_", dir=REPO)
-    try:
-        timed(phase_imagenet_data, root)
-        timed(phase_imagenet_vision, os.path.join(root, "vision"))
-        timed(phase_imagenet_mllm, os.path.join(root, "mllm"))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    timed(phase_ab, report)
+        if ranks is not None:
+            ranks.stop()
+        side.stop()
+        shutil.rmtree(mesh_root, ignore_errors=True)
+        shutil.rmtree(side.root, ignore_errors=True)
+    timed(phase_ab, report)  # alone on the card again
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], **{k: r[k] for k in KEYS}}
                for name, r in report.items()]

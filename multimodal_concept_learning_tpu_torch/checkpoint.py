@@ -165,10 +165,29 @@ def _tensor(name: str, arr: np.ndarray) -> torch.Tensor:
     return t
 
 
+def _lm_entries(rel: str, arr: np.ndarray):
+    """[(HF Gemma name, array)] of one flax LM leaf; a scanned stack's leaf
+    (``layers_scan/block/<sub>``, ``LMConfig.scan_layers``) splits on its
+    leading layer axis into ``layer_{i}/<sub>`` (JAX
+    ``checkpoint/torch_interop.py:459-467``)."""
+    if rel.startswith("layers_scan/block/"):
+        sub = rel[len("layers_scan/block/"):]
+        return [_lm_entry_to_torch(f"layer_{i}/{sub}", arr[i]) for i in range(arr.shape[0])]
+    return [_lm_entry_to_torch(rel, arr)]
+
+
+def lm_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A bare JAX ``CausalLM`` tree (scanned or not) -> the port's
+    ``CausalLM`` state dict (``model.*``; JAX ``lm_params_to_torch``)."""
+    params = params.get("params", params)
+    return {name: _tensor(name, t) for key, arr in _flatten(params).items()
+            for name, t in _lm_entries(key, arr)}
+
+
 def state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
     """JAX MLLM params (numpy leaves, optionally under "params") -> the
     port's state dict: float32 tensors, and the quantized leaves in their
-    own types."""
+    own types.  A scanned LM stack unstacks into per-layer names."""
     params = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
     for key, arr in _flatten(params).items():
@@ -178,8 +197,7 @@ def state_dict_from_jax(params, patch_size: int) -> Dict[str, torch.Tensor]:
         elif tower == "projector":
             pairs = [("projector.weight", arr.T) if rel == "kernel" else ("projector.bias", arr)]
         elif tower == "language_model":
-            name, t = _lm_entry_to_torch(rel, arr)
-            pairs = [(f"language_model.{name}", t)]
+            pairs = [(f"language_model.{name}", t) for name, t in _lm_entries(rel, arr)]
         else:
             raise KeyError(f"Unknown MLLM tower: {tower}")
         for name, t in pairs:
@@ -351,6 +369,7 @@ __all__ = [
     "clip_state_dict_from_jax",
     "host_state_dict",
     "init_random_weights_",
+    "lm_state_dict_from_jax",
     "load_state_dict",
     "save_results_dir",
     "save_state_dict",

@@ -11,8 +11,11 @@ save writes a temporary name (``step_{step}.pt.tmp-<pid>``) and then
 ``os.replace``s it, so a save torn by a kill is never listed, restored or
 kept (the next save deletes such leftovers); ``keep`` finished steps stay.
 The in-flight save is the process's, as orbax's checkpointer is
-process-wide.  One process only: the multi-process broadcast of the step
-to restore is not ported (ROADMAP.md, A11).
+process-wide, and a call touches no process group: under one, the
+trainers choose the step to restore on rank 0 and broadcast it
+(``train/common.py``), as the JAX package broadcasts it.  A sharded model
+saves ``parallel.multihost.host_fetchable(model)`` from rank 0 and loads
+the restored state with ``parallel.sharding_rules.load_full_state_dict``.
 """
 
 from __future__ import annotations

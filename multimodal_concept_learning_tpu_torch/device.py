@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_concept_learning_tpu_torch.parallel import collectives as col
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises if it names a CUDA device
@@ -65,11 +67,29 @@ def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     """``layer`` in the compute dtype: input, weight and bias cast to
     ``dtype`` at use (a no-op for a weight already stored in it).  A
     quantized projection (``ops/quant.QuantLinear``, ``ops/int4.Int4Linear``)
-    takes the input in ``dtype`` and returns its own result in it."""
+    takes the input in ``dtype`` and returns its own result in it.
+
+    A tensor-parallel projection (``layer._tp``, set by
+    ``parallel/sharding_rules.shard_params``) holds a shard of the weight:
+    column-parallel, its output features (the replicated input enters
+    through ``copy_to``); row-parallel, its input features (the partial
+    products are summed over the model axis in float32 and rounded once,
+    then the replicated bias is added)."""
     if not isinstance(layer, nn.Linear):
         return layer(x.to(dtype))
     bias = layer.bias
-    return F.linear(x.to(dtype), layer.weight.to(dtype), None if bias is None else bias.to(dtype))
+    tp = getattr(layer, "_tp", None)
+    if tp is None:
+        return F.linear(x.to(dtype), layer.weight.to(dtype),
+                        None if bias is None else bias.to(dtype))
+    if tp.kind == "col":
+        return F.linear(col.copy_to(x.to(dtype), tp.group), layer.weight.to(dtype),
+                        None if bias is None else bias.to(dtype))
+    partial = F.linear(x.to(dtype).float(), layer.weight.to(dtype).float())
+    out = col.reduce_from(partial, tp.group)
+    if bias is not None:
+        out = out + bias.to(dtype).float()
+    return out.to(dtype)
 
 
 __all__ = ["cast_for_compute", "linear", "resolve_device", "set_reference_numerics"]

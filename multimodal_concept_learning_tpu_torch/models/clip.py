@@ -18,9 +18,9 @@ call) puts K2-bd, the sample-merged kernels, in place of K2 in both towers;
 a vision config with ``fused_attention=True`` (a ``dataclasses.replace`` of
 ``config.vision``, as ``scripts/bench_fused_attention.py`` builds it) runs
 every image block's attention sublayer through K6
-(``ops/fused_attention_block.py``).  The all-gather
-of ``contrastive_loss``'s ``axis_name`` (a sharded batch) is not ported
-yet.  ``active_vocab_rows`` (sorted ids, every one the caption corpus can
+(``ops/fused_attention_block.py``).  ``contrastive_loss``'s ``group``
+(JAX's ``axis_name``: a batch striped over ranks) all-gathers the
+features with their gradient.  ``active_vocab_rows`` (sorted ids, every one the caption corpus can
 produce) partitions the text embedding (``ops/sparse_embed.py``): a frozen
 full table under the dense name ``text.token_embedding.weight`` and the
 trainable subtable ``text.token_embedding.active``.  A dense model loads
@@ -53,6 +53,7 @@ from multimodal_concept_learning_tpu_torch.device import linear
 from multimodal_concept_learning_tpu_torch.models.vit import ViTConfig, ViTEncoder, layer_norm_f32
 from multimodal_concept_learning_tpu_torch.ops.attention_core import attention_core_padded
 from multimodal_concept_learning_tpu_torch.ops.sparse_embed import PartitionedEmbed
+from multimodal_concept_learning_tpu_torch.parallel.multihost import gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,11 +184,22 @@ class CLIPModel(nn.Module):
         return img, txt, scale
 
 
-def contrastive_loss(img: torch.Tensor, txt: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Symmetric InfoNCE over the batch (one process: no all-gather)."""
-    labels = torch.arange(img.shape[0], device=img.device)
-    logits_per_image = scale * img @ txt.T
-    logits_per_text = scale * txt @ img.T
+def contrastive_loss(img: torch.Tensor, txt: torch.Tensor, scale: torch.Tensor,
+                     group=None) -> torch.Tensor:
+    """Symmetric InfoNCE over the batch.  With ``group`` (an
+    ``parallel.collectives.AxisGroup`` the batch is striped over: JAX's
+    ``axis_name``) the features are all-gathered with their gradient, so
+    the negatives span the global batch, and the value is this rank's
+    rows' loss (JAX's per-shard value; the train step instead takes the
+    global [B, B] loss over gathered features)."""
+    b = img.shape[0]
+    if group is None:
+        all_img, all_txt, offset = img, txt, 0
+    else:
+        all_img, all_txt, offset = gather_rows(img, group), gather_rows(txt, group), group.index * b
+    labels = offset + torch.arange(b, device=img.device)
+    logits_per_image = scale * img @ all_txt.T
+    logits_per_text = scale * txt @ all_img.T
     return 0.5 * (F.cross_entropy(logits_per_image, labels)
                   + F.cross_entropy(logits_per_text, labels))
 

@@ -59,6 +59,7 @@ from multimodal_concept_learning_tpu_torch.ops.paged_kv import (
     write_token_kv,
 )
 from multimodal_concept_learning_tpu_torch.ops.quant import QuantLinear
+from multimodal_concept_learning_tpu_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +150,10 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         var = x32.square().mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.eps)
-        return (y * (1.0 + self.weight.float())).to(x.dtype)
+        # under tensor parallelism a q/k norm over this rank's heads sees
+        # part of its gradient: summed over the model axis (shard_params)
+        weight = col.copy_to(self.weight, getattr(self, "_tp_partial", None))
+        return (y * (1.0 + weight.float())).to(x.dtype)
 
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
@@ -210,9 +214,17 @@ def _write_pool(write, pool, page_table, positions, k, v) -> None:
 
 
 class LMAttention(nn.Module):
+    """Gemma attention.  Under tensor parallelism (``self._tp``, a
+    ``parallel.sharding_rules.AttentionPlan``) ``self.cfg`` counts this
+    rank's query and KV heads and ``full_cfg`` the model's: the column-
+    parallel q/k/v outputs are this rank's heads (or are gathered when a
+    projection splits a head), a replicated K/V is narrowed to the heads
+    the local queries read, and the attention output enters the
+    row-parallel o projection as its local input rows."""
+
     def __init__(self, cfg: LMConfig):
         super().__init__()
-        self.cfg = cfg
+        self.cfg = self.full_cfg = cfg
         h, d = cfg.hidden_size, cfg.head_dim
         self.q_proj = projection(cfg, h, cfg.num_heads * d)
         self.k_proj = projection(cfg, h, cfg.num_kv_heads * d)
@@ -237,15 +249,30 @@ class LMAttention(nn.Module):
             q = q + self.q_proj_lora(x)
             k = k + self.k_proj_lora(x)
             v = v + self.v_proj_lora(x)
-        q = q.view(b, t, cfg.num_heads, cfg.head_dim)
-        k = k.view(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = v.view(b, t, cfg.num_kv_heads, cfg.head_dim)
+        plan = getattr(self, "_tp", None)
+        if plan is not None:  # columns split mid-head: the whole heads, on every rank
+            q, k, v = (col.gather_from(y, plan.group, -1) if mode == "gather" else y
+                       for y, mode in ((q, plan.q), (k, plan.k), (v, plan.k)))
+        q = q.view(b, t, -1, cfg.head_dim)
+        k = k.view(b, t, -1, cfg.head_dim)
+        v = v.view(b, t, -1, cfg.head_dim)
         if cfg.use_qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
-        return apply_rope(q, rope), apply_rope(k, rope), v
+        q, k = apply_rope(q, rope), apply_rope(k, rope)
+        if plan is not None and plan.kv_sel is not None:
+            # the replicated K/V heads this rank's queries read
+            sel = torch.tensor(plan.kv_sel, device=k.device)
+            k = col.copy_to(k, plan.group).index_select(2, sel)
+            v = col.copy_to(v, plan.group).index_select(2, sel)
+        return q, k, v
 
     def _out(self, attn: torch.Tensor) -> torch.Tensor:
         """o_proj (plus its LoRA delta) of the flattened heads [B, T, heads * D]."""
+        plan = getattr(self, "_tp", None)
+        if plan is not None and plan.o == "scatter":
+            attn = col.scatter_to(attn, plan.group, -1)
+        elif plan is not None and plan.o == "gather":
+            attn = col.gather_from(attn, plan.group, -1)
         out = linear(self.o_proj, attn, self.cfg.dtype)
         if self.cfg.lora_rank > 0:
             out = out + self.o_proj_lora(attn)
@@ -404,7 +431,15 @@ class CausalLM(nn.Module):
         # compute dtype first (as the JAX module does)
         dtype = self.cfg.dtype
         scale = torch.tensor(self.cfg.hidden_size ** 0.5, dtype=dtype, device=input_ids.device)
-        return self.model.embed_tokens(input_ids.long()).to(dtype) * scale
+        emb = self.model.embed_tokens
+        tp = getattr(emb, "_tp", None)
+        if tp is None:
+            return emb(input_ids.long()).to(dtype) * scale
+        # vocab-sharded table: this rank's rows, zeros elsewhere, summed over the model axis
+        local = input_ids.long() - tp.offset
+        mine = (local >= 0) & (local < tp.count)
+        rows = F.embedding(local.clamp(0, tp.count - 1), emb.weight) * mine[..., None]
+        return col.reduce_from(rows, tp.group).to(dtype) * scale
 
     def _ropes(self, positions: torch.Tensor) -> Tuple[Rope, Rope]:
         cfg = self.cfg
@@ -413,10 +448,11 @@ class CausalLM(nn.Module):
             return rope_global, rope_global
         return rope_global, rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
 
-    def _prompt(self, inputs_embeds, attention_mask, kv_lens=None, pools=None, page_table=None,
-                caches=None, moe_aux=None):
+    def layer_inputs(self, attention_mask, kv_lens, b: int, t: int, device):
+        """(per-layer attention keywords, global rope, sliding rope) of a
+        [B, T] prompt: mask descriptors under ``kv_lens``, else the JAX
+        bias built once per window; no mask is a causal [B, T] prompt."""
         cfg = self.cfg
-        b, t, _ = inputs_embeds.shape
         masks = [dict(causal=True, window=cfg.layer_window(i)) for i in range(cfg.num_layers)]
         if attention_mask is not None:
             positions = (attention_mask.long().cumsum(dim=1) - 1).clamp(min=0)
@@ -432,17 +468,29 @@ class CausalLM(nn.Module):
                         biases[w] = make_attention_bias(attention_mask, True, t, t, window=w)
                     m.update(bias=biases[w], causal=False)
         else:
-            positions = torch.arange(t, device=inputs_embeds.device)[None].expand(b, t)
+            positions = torch.arange(t, device=device)[None].expand(b, t)
         rope_global, rope_sliding = self._ropes(positions)
-        x = inputs_embeds.to(cfg.dtype)
+        return masks, rope_global, rope_sliding
+
+    def run_layer(self, i: int, layer, x, inputs, moe_aux=None, **kw) -> torch.Tensor:
+        """Block ``layer`` as global layer ``i`` (its window and rope) of
+        ``layer_inputs``' ``inputs``."""
+        masks, rope_global, rope_sliding = inputs
+        rope = rope_sliding if self.cfg.layer_is_sliding(i) else rope_global
+        return layer(x, rope, moe_aux=moe_aux, **masks[i], **kw)
+
+    def _prompt(self, inputs_embeds, attention_mask, kv_lens=None, pools=None, page_table=None,
+                caches=None, moe_aux=None):
+        b, t, _ = inputs_embeds.shape
+        inputs = self.layer_inputs(attention_mask, kv_lens, b, t, inputs_embeds.device)
+        x = inputs_embeds.to(self.cfg.dtype)
         for i, layer in enumerate(self.model.layers):
-            kw = masks[i]
+            kw = {}
             if pools is not None:
-                kw = dict(kw, pool=pools[i], page_table=page_table)
+                kw = dict(pool=pools[i], page_table=page_table)
             if caches is not None:
                 kw = dict(kw, cache=caches[i])
-            x = layer(x, rope_sliding if cfg.layer_is_sliding(i) else rope_global,
-                      moe_aux=moe_aux, **kw)
+            x = self.run_layer(i, layer, x, inputs, moe_aux=moe_aux, **kw)
         return self.model.norm(x)
 
     def hidden_states(self, inputs_embeds: torch.Tensor,
@@ -543,7 +591,12 @@ class CausalLM(nn.Module):
         einsum with preferred_element_type=float32)."""
         dtype = self.cfg.dtype
         emb = self.model.embed_tokens.weight.to(dtype).float()
-        logits = hidden.to(dtype).float() @ emb.T
+        tp = getattr(self.model.embed_tokens, "_tp", None)
+        if tp is None:
+            logits = hidden.to(dtype).float() @ emb.T
+        else:  # this rank's vocab columns, gathered over the model axis
+            logits = col.gather_from(col.copy_to(hidden.to(dtype).float(), tp.group) @ emb.T,
+                                     tp.group, -1)
         if self.cfg.final_logit_softcap is not None:
             cap = self.cfg.final_logit_softcap
             logits = torch.tanh(logits / cap) * cap

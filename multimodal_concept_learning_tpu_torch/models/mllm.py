@@ -255,18 +255,21 @@ def greedy_generate(model: MLLM, images, input_ids, attention_mask, max_new_toke
 @torch.inference_mode()
 def paged_generate(model: MLLM, images, input_ids, attention_mask, max_new_tokens: int,
                    page_size: int, eos_id: Optional[int] = None,
-                   pad_id: int = 0) -> torch.Tensor:
+                   pad_id: int = 0, quant_kv: bool = False) -> torch.Tensor:
     """Greedy decoding over a paged KV cache; tokens [B, max_new_tokens]
     int32, ``pad_id`` after a row's ``eos_id``.  Each row gets one
     consecutive run of ``pages_needed(T + max_new_tokens)`` pages from a
-    pool built for this call.  Inputs go to the model's device."""
+    pool built for this call (``quant_kv``: int8 pools, read by the
+    dequantizing gather, as JAX ``paged_generate(quant_kv=True)``).
+    Inputs go to the model's device."""
     dev = next(model.parameters()).device
     images, input_ids, attention_mask = (x.to(dev) for x in (images, input_ids, attention_mask))
     lm = model.language_model
     b, t = input_ids.shape
     rows = torch.arange(b, device=dev)
     np_max = pages_needed(t + max_new_tokens, page_size)
-    pools = init_paged_kv_cache(lm.cfg, 1 + b * np_max, page_size, device=dev)
+    pools = init_paged_kv_cache(lm.cfg, 1 + b * np_max, page_size, device=dev,
+                                quantized=quant_kv)
     pt = torch.arange(1, 1 + b * np_max, dtype=torch.int32, device=dev).reshape(b, np_max)
 
     hidden = model.prefill_paged(images, input_ids, attention_mask, pools, pt)

@@ -31,6 +31,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodal_concept_learning_tpu_torch.parallel import collectives as col
+
 # {module: per-row tensors} while a bank's rows are selected (adapter_rows)
 _ROWS: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar("lora_rows",
                                                                         default=None)
@@ -56,7 +58,12 @@ def adapter_rows(rows: Dict[nn.Module, Tuple[torch.Tensor, ...]]):
 
 class LoRAAdapter(nn.Module):
     """``scale * x @ a @ b``: a [in, rank] (normal(0.02) init), b [rank,
-    features] (zeros), scale = alpha / rank, computed in ``dtype``."""
+    features] (zeros), scale = alpha / rank, computed in ``dtype``.  The
+    factors are replicated under tensor parallelism; beside a column-
+    parallel base (``self._tp`` "col") the delta is its local output
+    columns (b's columns sliced on use), beside a row-parallel one ("row")
+    x holds local input features (a's rows sliced, ``x @ a`` summed over
+    the model axis in float32 and rounded once)."""
 
     def __init__(self, in_features: int, features: int, rank: int, alpha: float,
                  dtype: torch.dtype = torch.bfloat16):
@@ -78,7 +85,15 @@ class LoRAAdapter(nn.Module):
         dt = self.dtype
         x = x.to(dt)
         rows = rows_of(self)
-        if rows is None:
+        tp = getattr(self, "_tp", None)
+        if tp is not None and tp.kind == "col":
+            u = col.copy_to(x @ self.a.to(dt), tp.group)
+            y = u @ col.scatter_to(self.b, tp.group, 1).to(dt)
+        elif tp is not None:
+            a = col.scatter_to(self.a, tp.group, 0).to(dt)
+            u = col.reduce_from(x.float() @ a.float(), tp.group).to(dt)
+            y = u @ self.b.to(dt)
+        elif rows is None:
             y = (x @ self.a.to(dt)) @ self.b.to(dt)
         else:
             a, b = rows

@@ -30,6 +30,13 @@ multimodal_concept_learning_tpu/ops/moe.py).
   batch's: a data-parallel trainer takes the aux of the whole batch, not a
   mean of the ranks' (``parallel/multihost.py``).
 - ``router_stats``: host numpy routing diagnostics, the JAX function's dict.
+- Expert parallelism (``self._tp``, set by
+  ``parallel/sharding_rules.shard_params``: the experts sharded on E over
+  the model axis): every model rank routes the same N tokens (the
+  capacity, and so the drops, are the single process's), computes its
+  E/m experts (dense: their einsums; sparse: their rows of the [E, C, H]
+  buffer) under its slice of the gates, and the float32 partial outputs
+  are summed over the model axis and rounded once.
 
 The products are ``torch.einsum`` / ``torch.bmm``: JAX computes them in
 XLA einsums outside any Pallas kernel, so there is no kernel to port.
@@ -44,6 +51,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multimodal_concept_learning_tpu_torch.parallel import collectives as col
 
 EXPERT_PARAMS = ("experts_gate", "experts_up", "experts_down")
 
@@ -141,8 +150,19 @@ class MoEMLP(nn.Module):
 
         xd = x.to(dt)
         w_gate, w_up, w_down = (getattr(self, name).to(dt) for name in EXPERT_PARAMS)
+        tp = getattr(self, "_tp", None)
         if self.dispatch == "sparse":
-            out = sparse_moe(xd, gates, self.top_k, self.capacity_factor, w_gate, w_up, w_down)
+            out = sparse_moe(xd, gates, self.top_k, self.capacity_factor, w_gate, w_up, w_down,
+                             tp=tp)
+        elif tp is not None:  # this rank's experts under its columns of the gates
+            xd = col.copy_to(xd, tp.group)
+            g_local = col.scatter_to(gates, tp.group, -1).to(dt)
+            hidd = torch.einsum("bth,ehi->beti", xd, w_gate)
+            up = torch.einsum("bth,ehi->beti", xd, w_up)
+            act = F.gelu(hidd, approximate="tanh") * up
+            down = torch.einsum("beti,eih->beth", act, w_down)
+            partial = torch.einsum("beth,bte->bth", down.float(), g_local.float())
+            out = col.reduce_from(partial, tp.group).to(dt)
         else:
             hidd = torch.einsum("bth,ehi->beti", xd, w_gate)
             up = torch.einsum("bth,ehi->beti", xd, w_up)
@@ -153,11 +173,14 @@ class MoEMLP(nn.Module):
 
 
 def sparse_moe(x: torch.Tensor, gates: torch.Tensor, top_k: int, capacity_factor: float,
-               w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+               w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+               tp=None) -> torch.Tensor:
     """Capacity (GShard) dispatch of x [B, T, H] (compute dtype) under the
-    [B, T, E] gates the dense path uses (JAX ``_sparse_moe``)."""
+    [B, T, E] gates the dense path uses (JAX ``_sparse_moe``).  With ``tp``
+    (expert parallelism) the expert tensors are this rank's ``tp.count``
+    experts from ``tp.offset``."""
     b, t, h = x.shape
-    e = w_gate.shape[0]
+    e = gates.shape[-1]
     n = b * t
     n_assign = n * top_k
     capacity = capacity_of(n, top_k, e, capacity_factor)
@@ -181,11 +204,17 @@ def sparse_moe(x: torch.Tensor, gates: torch.Tensor, top_k: int, capacity_factor
     buf = torch.zeros(e * capacity + 1, h, dtype=x.dtype, device=dev)
     buf = buf.index_put((slot,), xf[tok_s])                      # the sentinel row is dropped
     eb = buf[: e * capacity].reshape(e, capacity, h)
+    if tp is not None:  # this rank's experts' rows; the others' outputs are zero here
+        eb = col.scatter_to(eb, tp.group, 0)
     act = F.gelu(torch.bmm(eb, w_gate), approximate="tanh") * torch.bmm(eb, w_up)
-    down = torch.bmm(act, w_down).reshape(e * capacity, h)
+    down = torch.bmm(act, w_down).reshape(-1, h)
+    if tp is not None:
+        before = tp.offset * capacity
+        down = F.pad(down.float(), (0, 0, before, e * capacity - before - down.shape[0]))
+        g_s = col.copy_to(g_s, tp.group)
 
     y = down[slot.clamp(max=e * capacity - 1)]                   # the sentinel's gate is 0
-    y = y * (g_s * keep).to(x.dtype)[:, None]
+    y = y * (g_s * keep).to(y.dtype)[:, None]
     # back to (token, expert-ascending) order: a permutation, then a fixed sum over k
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n_assign, device=dev)
@@ -195,6 +224,8 @@ def sparse_moe(x: torch.Tensor, gates: torch.Tensor, top_k: int, capacity_factor
     out = y_tok[:, 0]
     for j in range(1, top_k):
         out = out + y_tok[:, j]
+    if tp is not None:
+        out = col.reduce_from(out, tp.group).to(x.dtype)
     return out.reshape(b, t, h)
 
 

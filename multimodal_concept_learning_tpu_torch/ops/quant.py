@@ -34,6 +34,7 @@ from multimodal_concept_learning_tpu_torch.ops.int4 import (
     lm_projection_prefixes,
     quantize_state_dict,
 )
+from multimodal_concept_learning_tpu_torch.parallel import collectives as col
 
 _INT_MM_MIN_ROWS = 17  # cuBLAS int8 products take more than 16 rows, in multiples of 8
 
@@ -69,15 +70,25 @@ def int_mm_padded(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x_q, w_q)[:rows]
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                group=None) -> torch.Tensor:
     """``x [..., in] @ (w_q [in, *out] * scale [*out])`` with per-row
-    dynamic int8 activations; the result in x's dtype, [..., *out]."""
+    dynamic int8 activations; the result in x's dtype, [..., *out].
+    ``group`` (a row-parallel shard: x and w_q hold this rank's part of
+    ``in``): the row's absmax is the max over the group and the int32
+    partial products are summed over it, so the result is the unsharded
+    one exactly."""
     x32 = x.float()
-    sx = x32.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        absmax = col.all_reduce_max(absmax, group)
+    sx = absmax.clamp(min=1e-8) / 127.0
     x_q = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
     out_dims = tuple(w_q.shape[1:])
-    acc = _int_product(x_q.reshape(-1, x.shape[-1]), w_q.reshape(w_q.shape[0], -1)).float()
-    acc = acc.reshape(*x.shape[:-1], *out_dims)
+    acc = _int_product(x_q.reshape(-1, x.shape[-1]), w_q.reshape(w_q.shape[0], -1))
+    if group is not None:
+        acc = col.all_reduce(acc, group)
+    acc = acc.float().reshape(*x.shape[:-1], *out_dims)
     sx_b = sx.reshape(*sx.shape[:-1], *(1,) * len(out_dims))
     return (acc * sx_b * scale.float()).to(x.dtype)
 
@@ -85,7 +96,10 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
 class QuantLinear(nn.Module):
     """Int8 projection: buffers ``kernel`` int8 [in, F] and ``scale``
     float32 [F], optional float ``bias`` shaped like the features.
-    ``features`` as a tuple and ``axis`` give the JAX ``QuantDenseGeneral``."""
+    ``features`` as a tuple and ``axis`` give the JAX ``QuantDenseGeneral``.
+    Under tensor parallelism (``self._tp``) the kernel holds this rank's
+    output columns (col: the replicated scale is sliced to them) or input
+    rows (row: ``int8_matmul`` over the model group)."""
 
     def __init__(self, in_features: int, features: Union[int, Sequence[int]],
                  bias: bool = False, axis: Sequence[int] = (-1,)):
@@ -98,8 +112,16 @@ class QuantLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(self.features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int8_matmul(_contract(x, self.axis), self.kernel, self.scale)
-        y = y.reshape(*y.shape[:-1], *self.features)
+        x = _contract(x, self.axis)
+        tp = getattr(self, "_tp", None)
+        if tp is None:
+            y = int8_matmul(x, self.kernel, self.scale)
+            y = y.reshape(*y.shape[:-1], *self.features)
+        elif tp.kind == "col":
+            scale = col.scatter_to(self.scale, tp.group, 0)
+            y = int8_matmul(col.copy_to(x, tp.group), self.kernel, scale)
+        else:
+            y = int8_matmul(x, self.kernel, self.scale, group=tp.group)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 

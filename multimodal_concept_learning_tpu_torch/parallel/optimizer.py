@@ -19,7 +19,12 @@ it (as ``MultiSteps`` does on bf16 gradients), then upcast to float32, and
 AdamW runs on float32 master copies, whose bf16 rounding is written back
 after each update.
 Under a process group each micro-step's gradients are summed over the
-ranks (``multihost.reduce_gradients``) before they enter the accumulator.
+ranks (``multihost.reduce_gradients``; a sharded model's over its data
+axes) before they enter the accumulator, and the clipping norm is the
+global one (``multihost.global_sq_norm``: the shards' squared norms
+summed over their axes, the replicated parameters counted once; the
+plain sum when nothing is sharded).  Build the optimizer after ``shard_params``: it holds the
+shards.
 Every update is plain tensor arithmetic on the parameters' device.
 ``state_dict`` / ``load_state_dict`` carry everything a resumed run needs
 (the moments, masters, accumulator and both counters), so a run resumed
@@ -126,7 +131,7 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> bool:
         grads = self._take_grads()
-        multihost.reduce_gradients(grads.values())
+        multihost.reduce_gradients(list(grads.values()), [self.params[n] for n in grads])
         if self.k > 1:
             n_acc = self.mini_step
             for n, g in grads.items():
@@ -141,7 +146,8 @@ class Optimizer:
                 a.zero_()
         grads = {n: g.float() for n, g in grads.items()}
         if self.max_grad_norm:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            norm = torch.sqrt(multihost.global_sq_norm(
+                list(grads.values()), [self.params[n] for n in grads]))
             keep = norm < self.max_grad_norm
             grads = {n: torch.where(keep, g, (g / norm) * self.max_grad_norm)
                      for n, g in grads.items()}

@@ -27,7 +27,11 @@ loss is built so that the ranks' gradients, summed by
 (the MLLM's answer CE is its stripe's sum over the global count of answer
 positions, the MoE aux the product of the global batch's routing means,
 the classifier's mean a 1/world share, and CLIP's InfoNCE runs over the
-gathered [B, B] logits).
+gathered [B, B] logits).  On a model sharded by
+``parallel/sharding_rules.shard_params`` the steps run unchanged: the
+ranks of one data stripe (the model axis) compute the same loss, and
+these collectives run over the model's data axes
+(``multihost.data_group``) in place of the world.
 """
 
 from __future__ import annotations
@@ -51,9 +55,10 @@ from multimodal_concept_learning_tpu_torch.ops.moe import MoEAux
 from multimodal_concept_learning_tpu_torch.ops.preprocess import images_from_batch
 from multimodal_concept_learning_tpu_torch.parallel.multihost import (
     all_reduce_sum,
+    data_group,
     gather_rows,
     global_routing_sums,
-    world_size,
+    group_size,
 )
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import Optimizer
 
@@ -84,12 +89,14 @@ def make_classifier_train_step(model: ViTForImageClassification,
         logits = model(images_from_batch(batch), deterministic=False, generator=generator)
         loss = cross_entropy_loss(logits, labels, label_smoothing)
         correct = (torch.argmax(logits.detach(), dim=-1) == labels).sum()
-        loss = loss / world_size()
+        dp = data_group(model)
+        loss = loss / group_size(dp)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": all_reduce_sum(loss.detach()), "correct": all_reduce_sum(correct),
-                       "count": labels.shape[0] * world_size()}
+        return state, {"loss": all_reduce_sum(loss.detach(), dp),
+                       "correct": all_reduce_sum(correct, dp),
+                       "count": labels.shape[0] * group_size(dp)}
 
     return step
 
@@ -106,10 +113,11 @@ def make_classifier_eval_step(model: ViTForImageClassification,
         labels, valid = batch["labels"], batch["valid"]
         logits = model(images_from_batch(batch))
         correct = ((torch.argmax(logits, dim=-1) == labels) & valid).sum()
-        count = all_reduce_sum(valid.sum())
+        dp = data_group(model)
+        count = all_reduce_sum(valid.sum(), dp)
         loss = cross_entropy_loss(logits, labels, label_smoothing, valid=valid,
                                   count=count.float())
-        return {"loss": all_reduce_sum(loss), "correct": all_reduce_sum(correct),
+        return {"loss": all_reduce_sum(loss, dp), "correct": all_reduce_sum(correct, dp),
                 "count": count}
 
     return step
@@ -124,14 +132,16 @@ def make_mllm_train_step(model: MLLM) -> Callable:
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model.train()
+        dp = data_group(model)
         # the global batch's answer positions; a rank may hold none
-        count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens))
-        record = MoEAux(reduce=global_routing_sums) if moe_on else None
+        count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens), dp)
+        record = (MoEAux(reduce=lambda f, p, n: global_routing_sums(f, p, n, dp))
+                  if moe_on else None)
         out = model(images_from_batch(batch), batch["input_ids"], batch["attention_mask"],
                     batch["labels"], kv_lens=batch.get("kv_lens"), moe_aux=record,
                     loss_count=count)
         loss = out["loss"]
-        reported = all_reduce_sum(loss.detach())
+        reported = all_reduce_sum(loss.detach(), dp)
         if moe_on and record.aux:
             # the same global value on every rank (see multihost.sum_over_ranks)
             aux_term = MOE_AUX_COEF * sum(record.aux) / len(record.aux)
@@ -153,13 +163,14 @@ def make_mllm_eval_step(model: MLLM) -> Callable:
     @torch.no_grad()
     def step(model: MLLM, batch: Dict[str, torch.Tensor]):
         model.eval()
+        dp = data_group(model)
         count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens,
-                                            batch["valid"]))
+                                            batch["valid"]), dp)
         out = model(images_from_batch(batch), batch["input_ids"], batch["attention_mask"],
                     batch["labels"], row_valid=batch["valid"], kv_lens=batch.get("kv_lens"),
                     loss_count=count)
         target = torch.gather(shift_labels(batch["labels"]), 1, out["positions"])
-        return {"loss": all_reduce_sum(out["loss"]),
+        return {"loss": all_reduce_sum(out["loss"], dp),
                 "pred_ids": torch.argmax(out["logits"], dim=-1),
                 "target_ids": torch.where(out["valid"], target, IGNORE_INDEX),
                 "valid": out["valid"]}
@@ -177,8 +188,9 @@ def make_clip_train_step(model: CLIPModel) -> Callable:
         model.train()
         img, txt, scale = model(images_from_batch(batch), batch["input_ids"],
                                 batch["attention_mask"])
-        loss = contrastive_loss(gather_rows(img), gather_rows(txt), scale)
-        (loss / world_size()).backward()
+        dp = data_group(model)
+        loss = contrastive_loss(gather_rows(img, dp), gather_rows(txt, dp), scale)
+        (loss / group_size(dp)).backward()
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}
@@ -196,8 +208,9 @@ def make_zero_shot_step(model: CLIPModel) -> Callable:
         model.eval()
         img = model.encode_image(images_from_batch(batch))
         preds = torch.argmax(img @ class_features.T, dim=-1)
-        valid = batch["valid"]
-        return all_reduce_sum(((preds == batch["labels"]) & valid).sum()), all_reduce_sum(valid.sum())
+        valid, dp = batch["valid"], data_group(model)
+        return (all_reduce_sum(((preds == batch["labels"]) & valid).sum(), dp),
+                all_reduce_sum(valid.sum(), dp))
 
     return step
 

@@ -23,6 +23,19 @@ its request's adapter id: admission prefills each row under its own
 adapter and projector, and each step gathers the live slots' factors once
 for its ``steps_per_call`` tokens (``ops/multi_lora.bank_rows``).
 
+Across a device mesh (``mesh=``, JAX ``serve/continuous.py:55-140``) every
+rank builds the engine over the same loaded model: the parameters take
+the tensor-parallel layout (``parallel/sharding_rules.py``) on
+``model_axis`` and the slots split over ``data_axis`` (each rank keeps
+the persistent state of its ``num_slots / dp`` slots; the data-axis size
+must divide ``num_slots``).  Each ``admit_many`` / ``step`` is collective:
+rank 0 (where the ``ContinuousBatcher`` runs) broadcasts the call's
+inputs, every rank runs its slots (a stripe with no admitted request
+skips the prefill), and the first and step tokens are gathered over the
+data axis; the other ranks serve in ``follow()`` until rank 0's
+``close()``.  Each data stripe samples from its own generator (seeded
+``seed + stripe``).  Multi-LoRA banks are refused under a mesh, as in JAX.
+
 ``ContinuousBatcher`` is the request front over any slot-level engine:
 this one, the chunked-prefill engine (serve/chunked.py: admission returns
 ``None`` first tokens, ``advance_prefill`` completes them, prefilling
@@ -45,6 +58,8 @@ from multimodal_concept_learning_tpu_torch.models.lm import init_kv_cache
 from multimodal_concept_learning_tpu_torch.ops.lora import adapter_rows
 from multimodal_concept_learning_tpu_torch.ops.multi_lora import bank_rows
 from multimodal_concept_learning_tpu_torch.ops.sampling import sample_logits
+from multimodal_concept_learning_tpu_torch.parallel import collectives, multihost
+from multimodal_concept_learning_tpu_torch.parallel.sharding_rules import shard_params
 from multimodal_concept_learning_tpu_torch.serve.engine import (
     EngineHostAPI,
     LatencyTracker,
@@ -59,10 +74,23 @@ class ContinuousEngine(EngineHostAPI):
     def __init__(self, loaded, num_slots: int = 8, max_new_tokens: int = 8,
                  max_prompt_len: int = 64, temperature: float = 0.0,
                  top_k: Optional[int] = None, top_p: Optional[float] = None, seed: int = 0,
-                 steps_per_call: int = 1, mesh=None):
+                 steps_per_call: int = 1, mesh=None, data_axis: str = "data",
+                 model_axis: str = "model", fsdp_axis: Optional[str] = None):
+        self.mesh = mesh
+        self._dp = None  # the data axis's group under a mesh
+        self.slot0, self.local_slots = 0, num_slots
         if mesh is not None:
-            raise NotImplementedError("serving across a device mesh is not ported to the "
-                                      "PyTorch package yet (ROADMAP.md, A11)")
+            if getattr(loaded, "num_adapters", 0):
+                raise ValueError("mesh serving excludes multi-LoRA banks")
+            dp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(data_axis, 1)
+            assert num_slots % dp == 0, (
+                f"the data-axis size {dp} must divide num_slots {num_slots}")
+            shard_params(loaded.model, mesh, model_axis=model_axis, fsdp_axis=fsdp_axis)
+            if data_axis in mesh.mesh_dim_names:
+                self._dp = collectives.mesh_group(mesh, data_axis)
+                self.local_slots = num_slots // dp
+                self.slot0 = self._dp.index * self.local_slots
+                seed = seed + self._dp.index
         self.loaded = loaded
         self.num_slots = num_slots
         self.max_new_tokens = max_new_tokens
@@ -79,11 +107,12 @@ class ContinuousEngine(EngineHostAPI):
         self._sampler = dict(temperature=temperature, top_k=top_k, top_p=top_p)
         dev = self.device = loaded.device
         self._generator = torch.Generator(device=dev).manual_seed(seed)
-        self.caches = init_kv_cache(loaded.model.cfg.lm, num_slots, self.cache_len, dev)
+        local = self.local_slots
+        self.caches = init_kv_cache(loaded.model.cfg.lm, local, self.cache_len, dev)
         i32 = dict(dtype=torch.int32, device=dev)
-        self.seq_lens = torch.zeros((num_slots,), **i32)
-        self.cache_mask = torch.zeros((num_slots, self.cache_len), **i32)
-        self.last_tok = torch.zeros((num_slots,), **i32)
+        self.seq_lens = torch.zeros((local,), **i32)
+        self.cache_mask = torch.zeros((local, self.cache_len), **i32)
+        self.last_tok = torch.zeros((local,), **i32)
         self.decode_steps = 0  # decode_step calls (one per pass of the layer stack)
         # multi-LoRA bank: each slot's adapter id (host side)
         self.num_adapters = getattr(loaded, "num_adapters", 0)
@@ -111,17 +140,60 @@ class ContinuousEngine(EngineHostAPI):
         idx = torch.as_tensor(np.asarray(adapter_ids, np.int64)).to(self.device)
         return bank_rows(self.loaded.model, self.loaded.bank, idx, projector=projector)
 
+    def _collective(self, call: str, *args):
+        """Under a mesh, rank 0 sends the call to the followers first."""
+        if self.mesh is not None:
+            multihost.broadcast((call, args))
+        return getattr(self, "_" + call + "_here")(*args)
+
+    def follow(self) -> None:
+        """A follower rank's loop under a mesh: run each call rank 0
+        broadcasts until its ``close()``."""
+        while True:
+            call, args = multihost.broadcast(None)
+            if call == "close":
+                return
+            getattr(self, "_" + call + "_here")(*args)
+
+    def close(self) -> None:
+        """Rank 0 under a mesh: release the followers (a no-op otherwise)."""
+        if self.mesh is not None:
+            multihost.broadcast(("close", ()))
+
+    def _gather_slots(self, local: torch.Tensor) -> torch.Tensor:
+        """[local_slots, ...] of every data stripe -> [num_slots, ...]."""
+        if self._dp is None:
+            return local
+        return collectives.all_gather(local, self._dp, 0)
+
     def admit_many(self, requests) -> List[int]:
         """Install up to ``num_slots`` requests with one batched prefill.
         requests: (slot, image, prompt[, adapter]) with distinct free slots
         (adapter: an id of the engine's bank, 0 without one).  Returns each
         request's first token."""
         requests = self._check_requests(requests)
+        if self.mesh is not None:
+            return self._collective("admit_mesh", requests)
         a, img, ids, mask, _ = self._staging_arrays(requests)
         aidx = np.zeros((a,), np.int32)
         for i, (slot, *_, adapter) in enumerate(requests):
             aidx[i] = self.adapter_ids[slot] = adapter
         return self._admit([slot for slot, *_ in requests], img, ids, mask, aidx)
+
+    def _admit_mesh_here(self, requests) -> List[int]:
+        """This rank's slots of an admission, then every slot's first
+        token gathered over the data axis (-1 where none was admitted)."""
+        lo, hi = self.slot0, self.slot0 + self.local_slots
+        mine = [(slot - lo, *rest) for slot, *rest in requests if lo <= slot < hi]
+        firsts = torch.full((self.local_slots,), -1, dtype=torch.int32, device=self.device)
+        if mine:
+            _, img, ids, mask, _ = self._staging_arrays(mine)
+            got = self._admit([slot for slot, *_ in mine], img, ids, mask,
+                              np.zeros((len(ids),), np.int32))
+            firsts[[slot for slot, *_ in mine]] = torch.tensor(got, dtype=torch.int32,
+                                                               device=self.device)
+        every = self._gather_slots(firsts).cpu()
+        return [int(every[slot]) for slot, *_ in requests]
 
     @torch.inference_mode()
     def _admit(self, slots, img, ids, mask, aidx) -> List[int]:
@@ -146,13 +218,17 @@ class ContinuousEngine(EngineHostAPI):
         self.last_tok[sl] = firsts[:n]
         return [int(x) for x in firsts[:n].cpu()]
 
-    @torch.inference_mode()
     def step(self, active: np.ndarray) -> np.ndarray:
         """One decode call for all slots; returns [num_slots, steps_per_call]
         new tokens (tokens past a row's EOS are overshoot: callers cut)."""
+        return self._collective("step", np.asarray(active, bool))
+
+    @torch.inference_mode()
+    def _step_here(self, active: np.ndarray) -> np.ndarray:
         lm = self.loaded.model.language_model
+        active = active[self.slot0:self.slot0 + self.local_slots]
         active = torch.as_tensor(np.asarray(active, bool)).to(self.device)
-        rows = torch.arange(self.num_slots, device=self.device)
+        rows = torch.arange(self.local_slots, device=self.device)
         toks = []
         lora_rows = self._rows(self.adapter_ids, projector=False)  # once for the whole call
         for _ in range(self.steps_per_call):
@@ -168,7 +244,7 @@ class ContinuousEngine(EngineHostAPI):
             self.seq_lens += can_write.to(torch.int32)
             self.last_tok = torch.where(can_write, nxt, self.last_tok)
             toks.append(nxt)
-        return torch.stack(toks, dim=1).cpu().numpy()
+        return self._gather_slots(torch.stack(toks, dim=1)).cpu().numpy()
 
 
 class _Slot:

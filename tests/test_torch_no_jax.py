@@ -83,6 +83,11 @@ MAIN_PATH = [
     "multimodal_concept_learning_tpu_torch.utils.debugging",
     "multimodal_concept_learning_tpu_torch.utils.seeding",
     "multimodal_concept_learning_tpu_torch.scripts.bench_mllm",
+    "multimodal_concept_learning_tpu_torch.parallel.collectives",
+    "multimodal_concept_learning_tpu_torch.parallel.sharding_rules",
+    "multimodal_concept_learning_tpu_torch.parallel.serving",
+    "multimodal_concept_learning_tpu_torch.parallel.pipeline",
+    "multimodal_concept_learning_tpu_torch.parallel.ring_attention",
     "chip_smoke",
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_concept_learning_tpu"}
@@ -120,7 +125,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                 "analysis/token_embedding_analysis_imagenet.py", "ops/moe.py",
                 "parallel/multihost.py", "parallel/mesh.py", "data/grain_pipeline.py",
                 "utils/profiling.py", "utils/debugging.py", "utils/seeding.py",
-                "scripts/bench_mllm.py"):
+                "scripts/bench_mllm.py", "parallel/collectives.py", "parallel/sharding_rules.py",
+                "parallel/serving.py", "parallel/pipeline.py", "parallel/ring_attention.py"):
         assert port / new in files, new
     bad = {str(f.relative_to(REPO)): sorted(_import_roots(f) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
