@@ -199,10 +199,24 @@ Phases (each prints its results; any failure exits non-zero):
     the 12_colors_3k MLLM at full widths with the LM cut to 6 blocks:
     sharded serving (37), sharded training, TP, FSDP and EP (38), the
     pipelined loss and ring attention (39), each against the single
-    process on the card.
+    process on the card;
+40. the color generator's CLI (host, in the second process): ``python -m
+    multimodal_concept_learning_tpu_torch.data.color_generator`` on a copy
+    of experiments/datasets/color/12_colors_3k.yaml cut to 10 images a
+    color: the JAX CLI's lines, the three CSVs, files equal to the library
+    function's, with no PyYAML or Pillow on the machine;
+41. timm-layout serving (after phase 21): phase 5's checkpoint rewritten in
+    the reference's timm-tower layout (``hf_vit_sd_to_timm``, fused qkv)
+    with HF's pooler and tied ``lm_head`` added, served as phase 5 was:
+    its answers and its K1 and K3 launches;
+42. prefetch (before phase 8): 8 CLIP-shaped batches through
+    ``prefetch_to_device`` with a slow consumer, every tensor bitwise
+    ``to_device``'s; the generator closed early stops the loader's thread.
+The trainer phases and the card-vs-CPU step loops read their batches
+through ``prefetch_to_device``.
 
 Processes: phases 3 and 16 run alone on the card (the kernels' times).
-Phases 27, 28, 30-32 and 36 run in a second process (``--side``) started
+Phases 27, 28, 30-32, 36 and 40 run in a second process (``--side``) started
 after phase 3, and phases 37-39's two ranks start after phase 34; both run
 beside this process's phases, whose rates and seconds therefore share the
 card and the host's cores with them.
@@ -266,7 +280,12 @@ the vision shape, K1's backward at the LM training shape beside SDPA, and
 K5, K5v3a and K5v3b at the seven gemma3-1b projections, cold, beside
 ``torch._weight_int4pack_mm`` (with a digest of K5's outputs on phase 3's
 cases), and K3 and K4 at phase 3's timed shapes (an A/B between two
-checkouts runs either on each in turns).  ``python3
+checkouts runs either on each in turns).  ``--time-input ROOT`` runs the
+CLIP and vision CLIs for one epoch each with ROOT's checkout (its input
+path) and this one's in turns, 3 runs each, each in a process of its own,
+and prints their images/s and one ``torch.profiler`` window of this
+checkout's host-to-device copies beside the kernels; ``--mesh-probe`` runs
+phase 37 alone with the LM at its full 26 blocks.  ``python3
 chip_smoke.py --profile-mllm [ROOT]`` profiles the full MLLM micro-step
 with the port package of ROOT (default this checkout): device busy, idle
 share, aten ops and K1's forward, dQ and dK/dV in ms a micro-step;
@@ -2730,6 +2749,71 @@ def phase_fronts_slice(root: str, float_run: dict) -> None:
               flush=True)
 
 
+def phase_timm_slice(root: str, float_run: dict) -> None:
+    """Phase 41 (after phase 21, on phase 5's results dir): its checkpoint
+    rewritten in the reference's timm-tower layout (the vision tower through
+    ``hf_vit_sd_to_timm`` under ``vision_model.timm_model.*``, q/k/v fused),
+    with the keys the reference writes that the MLLM has no slot for (HF
+    ViTModel's pooler, Gemma3ForCausalLM's ``lm_head`` tied to the
+    embedding), in a results dir of its own, served through ``_serve`` as
+    phase 5 was: the same 16 answers and the same K1 and K3 launches (K4
+    and K5 none).  The tensors the served bf16 model stores in bf16 (every
+    ``nn.Linear`` and ``nn.Conv2d`` parameter) are written in bf16, as a
+    bf16 reference run saves them (1.6 GB instead of 3.1 written): rounding
+    to bf16 twice gives what rounding once gives, so the served weights are
+    phase 5's bit for bit."""
+    import shutil
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.checkpoint import hf_vit_sd_to_timm
+    from multimodal_concept_learning_tpu_torch.device import cast_for_compute
+    from multimodal_concept_learning_tpu_torch.models.mllm import MLLM
+    from multimodal_concept_learning_tpu_torch.serve.loader import (
+        build_tokenizer,
+        model_config,
+        training_config,
+    )
+
+    t0 = time.perf_counter()
+    timm_root = os.path.join(root, "timm")
+    models = os.path.join(timm_root, "models")
+    os.makedirs(models)
+    shutil.copy(os.path.join(root, "models", "training_config.json"), models)
+    shutil.copytree(os.path.join(root, "models", "tokenizer"), os.path.join(models, "tokenizer"))
+    with open(os.path.join(models, "training_config.json")) as f:
+        config = training_config(json.load(f))
+    with torch.device("meta"):
+        served = cast_for_compute(MLLM(model_config(config, len(build_tokenizer(config)[0]),
+                                                    torch.bfloat16)), torch.bfloat16)
+    in_bf16 = {n for n, t in served.state_dict().items() if t.dtype == torch.bfloat16}
+    sd = torch.load(os.path.join(root, "models", "best_model.pt"), map_location="cpu",
+                    weights_only=True)
+    sd = {k: v.to(torch.bfloat16) if k in in_bf16 else v for k, v in sd.items()}
+    tower = {k[len("vision_model."):]: sd.pop(k) for k in list(sd)
+             if k.startswith("vision_model.")}
+    sd.update({f"vision_model.timm_model.{k}": v for k, v in hf_vit_sd_to_timm(tower).items()})
+    width = tower["layernorm.weight"].shape[0]
+    gen = torch.Generator().manual_seed(SEED + 41)
+    sd["vision_model.pooler.dense.weight"] = torch.randn(width, width, generator=gen).bfloat16()
+    sd["vision_model.pooler.dense.bias"] = torch.randn(width, generator=gen).bfloat16()
+    sd["language_model.lm_head.weight"] = sd["language_model.model.embed_tokens.weight"]
+    fused = sum(1 for k in sd if k.endswith("attn.qkv.weight"))
+    path = os.path.join(models, "best_model.pt")
+    torch.save(sd, path)
+    del sd, tower, served
+    print(f"[timm] phase 5's checkpoint rewritten in the timm layout ({fused} fused qkv "
+          f"blocks, pooler and tied lm_head added; {len(in_bf16)} tensors in bf16, "
+          f"{os.path.getsize(path) / 2 ** 30:.2f} GiB) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    run = _serve(timm_root, "timm")
+    same = sum(a == b for a, b in zip(run["answers"], float_run["answers"]))
+    print(f"[timm] answers equal to phase 5's: {same} of 16; launches {run['launches']} "
+          f"(phase 5: {float_run['launches']})", flush=True)
+    if same != 16 or run["launches"] != float_run["launches"]:
+        fail("the timm-layout checkpoint did not serve phase 5's answers and launches")
+
+
 ANSWER_ARGS = ["--split", "train", "--batch_size", "8", "--limit", "16", "--max_new_tokens", "8",
                "--device", "cuda"]
 
@@ -2905,7 +2989,7 @@ def phase_train_parity() -> None:
     import torch
 
     from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
-    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.data.pipeline import prefetch_to_device
     from multimodal_concept_learning_tpu_torch.models.mllm import (
         MLLM,
         MLLMConfig,
@@ -2945,8 +3029,8 @@ def phase_train_parity() -> None:
         before = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
                   fa.flash_attention_bwd_dkv.launches)
         losses = []
-        for batch in batches:
-            state, m = step(state, to_device(batch, dev))
+        for batch in prefetch_to_device(batches, dev):
+            state, m = step(state, batch)
             losses.append(float(m["loss"]))
         launched = tuple(n - b for n, b in zip((fa.flash_attention.launches,
                                                fa.flash_attention_bwd_dq.launches,
@@ -3033,7 +3117,7 @@ def _micro_steps(cfg, sd: dict, dev: str, setting: str, batches: list):
     dict, (K1 forward, dQ, dK/dV) launches, mask)."""
     import torch
 
-    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.data.pipeline import prefetch_to_device
     from multimodal_concept_learning_tpu_torch.device import cast_for_compute
     from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, trainable_mask
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
@@ -3054,7 +3138,7 @@ def _micro_steps(cfg, sd: dict, dev: str, setting: str, batches: list):
     counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     for fn in counters:
         fn.launches = 0
-    losses = [float(step(state, to_device(b, dev))[1]["loss"]) for b in batches]
+    losses = [float(step(state, b)[1]["loss"]) for b in prefetch_to_device(batches, dev)]
     return (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
             tuple(fn.launches for fn in counters), mask)
 
@@ -3578,7 +3662,7 @@ def _classifier_parity(tag: str, cfg, sd: dict, batches: list) -> None:
     relative in norm, but the key biases)."""
     import torch
 
-    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.data.pipeline import prefetch_to_device, to_device
     from multimodal_concept_learning_tpu_torch.models.vit import ViTForImageClassification
     from multimodal_concept_learning_tpu_torch.ops import flash_attention as fa
     from multimodal_concept_learning_tpu_torch.ops.losses import cross_entropy_loss
@@ -3602,8 +3686,8 @@ def _classifier_parity(tag: str, cfg, sd: dict, batches: list) -> None:
         state = TrainState(model=model, optimizer=opt)
         step = make_classifier_train_step(model, torch.Generator(device=dev).manual_seed(SEED))
         before, losses = _k1_counts(fa), []
-        for batch in batches:
-            state, m = step(state, to_device(batch, dev))
+        for batch in prefetch_to_device(batches, dev):
+            state, m = step(state, batch)
             losses.append(float(m["loss"]))
         launched = tuple(n - b for n, b in zip(_k1_counts(fa), before))
         runs[dev] = (losses, grads,
@@ -3895,7 +3979,7 @@ def _clip_parity(tag: str, fused: bool, expected: dict, rows=None, bf16: bool = 
     import torch
 
     from multimodal_concept_learning_tpu_torch.checkpoint import init_random_weights_
-    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.data.pipeline import prefetch_to_device, to_device
     from multimodal_concept_learning_tpu_torch.models.clip import (
         CLIPConfig,
         CLIPModel,
@@ -3937,8 +4021,8 @@ def _clip_parity(tag: str, fused: bool, expected: dict, rows=None, bf16: bool = 
                               fp32_master=bf16)
         state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
         losses = []
-        for batch in batches:
-            state, m = step(state, to_device(batch, dev))
+        for batch in prefetch_to_device(batches, dev):
+            state, m = step(state, batch)
             losses.append(float(m["loss"]))
         launched = {n: fn.launches - before[n] for n, fn in counters.items()}
         runs[dev] = (losses, grads,
@@ -4625,6 +4709,277 @@ def _time_loader(config, make_loader, images_per_color: int, return_synset: bool
     print(f"[profile] input path alone: {n} batches of {b} ({loader.num_workers} workers) in "
           f"{dt:.3f} s = {1e3 * dt / n:.1f} ms a batch, {n * b / dt:.1f} images/s; first batch "
           f"{1e3 * (stamps[1] - stamps[0]):.1f} ms{steady}", flush=True)
+
+
+PREFETCH_BATCHES = 8  # phase 42: CLIP-shaped batches through prefetch_to_device
+SLOW_CONSUMER = 8192  # phase 42: a float32 [n, n] product a batch (tens of ms on the card)
+
+
+def _prefetched_equal(host: list, sync: bool) -> tuple:
+    """``host``'s batches through ``prefetch_to_device`` on the card, each
+    read after a float32 SLOW_CONSUMER² product queued on its stream and
+    held until the next one has arrived: (every tensor equal to
+    ``to_device``'s, at arrival and again once the next batch is in; ms the
+    consumer waited a batch; the run's seconds).  ``sync``: the host also
+    waits for each batch's product (a slow host), else only the card is
+    slow.  The comparisons are queued on the stream and read at the end."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.pipeline import prefetch_to_device, to_device
+
+    wants = [to_device(b, "cuda") for b in host]
+    w = torch.rand(SLOW_CONSUMER, SLOW_CONSUMER, device="cuda")
+    torch.cuda.synchronize()
+    flags, waits, prev, keys = [], [], None, True
+    t0 = time.perf_counter()
+    gen = prefetch_to_device(host, "cuda")
+    for i in range(len(host)):
+        tw = time.perf_counter()
+        batch = next(gen)
+        waits.append(1e3 * (time.perf_counter() - tw))
+        w.copy_(w @ w * (1.0 / SLOW_CONSUMER))
+        keys = keys and list(batch) == list(wants[i])
+        flags += [(batch[k] != wants[i][k]).any() for k in wants[i]]
+        if prev is not None:  # the previous batch, still held: its blocks not recycled
+            flags += [(prev[k] != wants[i - 1][k]).any() for k in wants[i - 1]]
+        prev = batch
+        if sync:
+            torch.cuda.synchronize()
+    ended = next(gen, None) is None
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    equal = keys and ended and not bool(torch.stack(flags).any())
+    return equal, waits, seconds
+
+
+def phase_prefetch() -> None:
+    """Phase 42: ``prefetch_to_device`` on the card (pinned buffers filled on
+    its helper thread, non-blocking copies on a side stream, the consumer's
+    stream made to wait, ``record_stream``).  PREFETCH_BATCHES CLIP-shaped
+    batches (256 x 3 x 224² float32 noise images, 77-token ids and
+    right-padded masks: ``kv_lens`` added) with a slow consumer
+    (``_prefetched_equal``), once slow on the card only and once on the
+    host too: every tensor bitwise ``to_device``'s (a pinned buffer
+    reused before its copy ran, or a device block recycled while a step
+    still reads it, would show).  Then a ``BatchLoader`` of CLIP-shaped
+    samples: the generator closed after 3 batches; the loader's and the
+    helper's threads must end."""
+    import threading
+
+    import torch
+
+    from multimodal_concept_learning_tpu_torch.data.pipeline import (
+        BatchLoader,
+        prefetch_to_device,
+        to_device,
+    )
+
+    host = _noise_batches(1148, 0, PREFETCH_BATCHES, CLIP_BATCH, SEED + 42)
+    t0 = time.perf_counter()
+    for b in host:
+        to_device(b, "cuda")
+    torch.cuda.synchronize()
+    sync_ms = 1e3 * (time.perf_counter() - t0) / len(host)
+    a = torch.rand(SLOW_CONSUMER, SLOW_CONSUMER, device="cuda")
+    consumer_ms = cuda_time_ms(lambda: a @ a, iters=3, warmup=1)
+    del a
+    ok = True
+    for sync in (False, True):
+        equal, waits, seconds = _prefetched_equal(host, sync)
+        ok = ok and equal
+        print(f"[prefetch] {len(host)} batches of {CLIP_BATCH} x 3 x 224² float32 + ids + masks "
+              f"({'host and card' if sync else 'card'} slow: a {consumer_ms:.1f} ms float32 "
+              f"product a batch): every tensor equal to to_device's, at arrival and after the "
+              f"next arrived, {equal}; the consumer waited {np.round(waits, 1).tolist()} ms; "
+              f"{seconds:.2f} s in all (to_device alone {sync_ms:.1f} ms a batch, synchronous)",
+              flush=True)
+
+    class ClipShaped:
+        def __len__(self):
+            return CLIP_BATCH * 6
+
+        def __getitem__(self, i):
+            return np.full((3, 224, 224), i % 251, np.float32), i % 12
+
+    loader = BatchLoader(ClipShaped(), batch_size=CLIP_BATCH, num_workers=4)
+    before = set(threading.enumerate())
+    gen = prefetch_to_device(loader, "cuda")
+    got = [next(gen) for _ in range(3)]
+    rows = all(torch.equal(g["images"][:, 0, 0, 0].cpu(),
+                           (torch.arange(j * CLIP_BATCH, (j + 1) * CLIP_BATCH) % 251).float())
+               for j, g in enumerate(got))
+    started = [t for t in threading.enumerate() if t not in before]
+    gen.close()
+    for t in started:
+        t.join(timeout=30)
+    alive = [t.name for t in started if t.is_alive()]
+    print(f"[prefetch] BatchLoader closed after 3 of 6 batches: rows in order {rows}; "
+          f"{len(started)} threads had started ({sorted(t.name for t in started)}), alive "
+          f"after the close {alive}", flush=True)
+    if not (ok and rows and started and not alive):
+        fail("prefetch_to_device on the card (phase 42)")
+
+
+INPUT_IMAGES = {"clip": 216, "vision": 128}  # a color: 8 CLIP steps of 256, 19 micro-steps of 64
+# one CLI epoch in a process of its own, from the checkout in the working directory
+INPUT_RUN = """import json, sys
+kind, path = sys.argv[1:3]
+if kind == "clip":
+    from multimodal_concept_learning_tpu_torch.train.contrastive_training import main
+else:
+    from multimodal_concept_learning_tpu_torch.train.vision_training import main
+h = main(["--config_path", path, "--device", "cuda"])["history"][0]
+print("[input-run] " + json.dumps({k: v for k, v in h.items() if isinstance(v, (int, float))}))
+"""
+
+
+def time_input(root: str) -> None:
+    """``--time-input ROOT``: the CLIP CLI (its config as it stands, batch
+    256) and the vision CLI (batch 64) for one epoch each, alone on the
+    card, with the checkout at ROOT (built first) and with this one in
+    turns (ROOT, this, this, ROOT, ROOT, this: 3 runs of each), each run a
+    process of its own on one generated 12-color dataset (INPUT_IMAGES a
+    color): the training loop's images/s (the CLI's own train seconds, the
+    first step's start-up included) and their spread; then one
+    ``torch.profiler`` window of this checkout's CLIP steps fed by its
+    loader: its host-to-device copies, their streams and the share of
+    their time that overlaps a kernel."""
+    import shutil
+    import tempfile
+
+    root = os.path.abspath(root)
+    if not os.path.isdir(os.path.join(root, "multimodal_concept_learning_tpu_torch")):
+        fail(f"--time-input: no port package under {root}")
+    t0 = time.perf_counter()
+    built = subprocess.run([sys.executable, "-c",
+                            "import chip_smoke; chip_smoke.phase_build(False)"],
+                           cwd=root, capture_output=True, text=True, timeout=900)
+    print(f"[time-input] kernels of {root} built (exit {built.returncode}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if built.returncode != 0:
+        fail(f"--time-input: the build at {root} failed: {built.stdout[-2000:]}")
+    tmp = tempfile.mkdtemp(prefix="_smoke_input_", dir=REPO)
+    try:
+        configs = {}
+        for kind, n in INPUT_IMAGES.items():
+            sub = os.path.join(tmp, kind)
+            data_dir, sizes = _generate_colors(sub, n)
+            if kind == "clip":
+                over = {"mapping_path": os.path.join(data_dir, "train_mapping.csv"),
+                        "image_root": data_dir}
+                src = CLIP_CONFIG
+            else:
+                over, src = {"data_dir": data_dir, "mapping_path": data_dir}, VISION_CONFIG
+            configs[kind] = _write_config(src, sub, dict(over, epochs="1", results_dir=os.path.join(
+                sub, "results")))
+            print(f"[time-input] {kind}: {n} images a color ({sizes})", flush=True)
+        rates = {}
+        for label, checkout in (("parent", root), ("this", REPO), ("this", REPO),
+                                ("parent", root), ("parent", root), ("this", REPO)):
+            for kind, cfg in configs.items():
+                shutil.rmtree(cfg["parsed"]["results_dir"], ignore_errors=True)
+                t0 = time.perf_counter()
+                out = subprocess.run([sys.executable, "-c", INPUT_RUN, kind, cfg["path"]],
+                                     cwd=checkout, capture_output=True, text=True, timeout=900,
+                                     env=dict(os.environ, PYTHONPATH=checkout))
+                runs = [ln for ln in out.stdout.splitlines() if ln.startswith("[input-run] ")]
+                if out.returncode != 0 or not runs:
+                    fail(f"--time-input: {kind} at {checkout} exited {out.returncode}: "
+                         f"{out.stderr[-3000:]}")
+                h = json.loads(runs[-1][len("[input-run] "):])
+                steps, seconds = ((h["steps"], h["epoch_time"]) if kind == "clip"
+                                  else (h["micro_steps"], h["train_time"]))
+                batch = int(cfg["parsed"]["batch_size"])
+                rate = steps * batch / seconds
+                rates.setdefault((kind, label), []).append(rate)
+                print(f"[time-input] {label} {kind}: {steps} steps of {batch} in {seconds:.3f} s "
+                      f"= {rate:.2f} images/s (process {time.perf_counter() - t0:.1f} s)",
+                      flush=True)
+        for (kind, label), r in sorted(rates.items()):
+            print(f"[time-input] {kind} {label}: {np.mean(r):.2f} images/s, runs "
+                  f"{[round(x, 2) for x in r]}, spread {min(r):.2f}-{max(r):.2f} "
+                  f"({(max(r) - min(r)) / np.mean(r):.3f} of the mean)", flush=True)
+        _copy_overlap(configs["clip"]["path"], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _copy_overlap(config_path: str, tmp: str, warmup: int = 2, steps: int = 3) -> None:
+    """One ``torch.profiler`` window (card activity only) of ``steps`` CLIP
+    train steps fed by the CLI's loader through ``prefetch_to_device``,
+    after ``warmup``: each host-to-device copy's stream, bytes and time, and
+    the share of the copies' time that overlaps a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
+    from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
+    from multimodal_concept_learning_tpu_torch.data.datasets import (
+        ColorDataset,
+        load_split_datasets,
+    )
+    from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
+    from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import build_optimizer
+    from multimodal_concept_learning_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_clip_train_step,
+    )
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+    from multimodal_concept_learning_tpu_torch.train.contrastive_training import init_model
+
+    with open(config_path) as f:
+        config = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
+    tokenizer = load_tokenizer("concept-tokenizer")
+    train, _, _ = load_split_datasets(
+        ColorDataset, os.path.dirname(config.mapping_path), config.image_root,
+        create_transforms(config, True, config.seed), create_transforms(config, False, config.seed),
+        True)
+    loader = BatchLoader(train, batch_size=config.batch_size, shuffle=True, drop_last=True,
+                         seed=config.seed, collate_fn=ClipCollator(
+                             tokenizer, config.caption_template, config.context_length))
+    model = init_model(config, len(tokenizer), "cuda")
+    opt = build_optimizer(model, config.learning_rate, weight_decay=config.weight_decay,
+                          max_grad_norm=config.max_grad_norm)
+    state, step = TrainState(model=model, optimizer=opt), make_clip_train_step(model)
+    batches = prefetch_to_device(loader, "cuda")
+    for _ in range(warmup):
+        state, _ = step(state, next(batches))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, next(batches))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    batches.close()
+    path = os.path.join(tmp, "copy_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    merged = []
+    for lo, hi in spans:
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    kernel_streams = sorted({e.get("args", {}).get("stream") for e in events
+                             if e.get("cat") == "kernel"}, key=str)
+    print(f"[time-input] profiler window of {steps} CLIP steps ({1e3 * wall / steps:.1f} ms a "
+          f"step, the loader's pace); kernel streams {kernel_streams}", flush=True)
+    for kind in sorted({e["name"] for e in copies}):
+        group = [e for e in copies if e["name"] == kind]
+        copy_us = sum(e["dur"] for e in group)
+        overlap_us = sum(max(0.0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo))
+                         for e in group for lo, hi in merged)
+        print(f"[time-input] {kind}: {len(group)} copies on streams "
+              f"{sorted({e.get('args', {}).get('stream') for e in group}, key=str)}, "
+              f"{sum(e.get('args', {}).get('bytes', 0) for e in group) / 2 ** 20:.3f} MiB, "
+              f"{copy_us / 1e3:.3f} ms of copy time, {overlap_us / 1e3:.3f} ms of it "
+              f"({overlap_us / max(copy_us, 1e-9):.3f}) beside a running kernel", flush=True)
 
 
 def _run_cli(tag: str, fn, argv: list):
@@ -5560,7 +5915,7 @@ def _moe_run(cfg, sd, dev: str, inputs, batches) -> dict:
     (from 0)."""
     import torch
 
-    from multimodal_concept_learning_tpu_torch.data.pipeline import to_device
+    from multimodal_concept_learning_tpu_torch.data.pipeline import prefetch_to_device
     from multimodal_concept_learning_tpu_torch.models.mllm import (
         MLLM,
         paged_generate,
@@ -5612,7 +5967,7 @@ def _moe_run(cfg, sd, dev: str, inputs, batches) -> dict:
         opt._take_grads = take_and_keep
 
         def steps():
-            return [float(step(state, to_device(b, dev))[1]["loss"]) for b in batches]
+            return [float(step(state, b)[1]["loss"]) for b in prefetch_to_device(batches, dev)]
 
         out["losses"], out["train"] = counted(steps)
         g1, g2 = taken
@@ -6123,6 +6478,7 @@ PIPE_MICRO = 4  # phase 39: 2 stages of 3 LM blocks, 4 microbatches of one row
 # phases 37-39's MLLM: the whole ViT, the LM cut to 6 of its 26 blocks (5 sliding-window
 # blocks and the global one, as gemma3-1b's pattern repeats), full widths
 MESH_DEPTH = (12, 6)
+MESH_PROBE_DEPTH = (12, 26)  # --mesh-probe: phase 37 at the LM's full depth, outside the run
 RING_SHAPE = (2, 222, 4, 1, 256)  # [B, T, Hq, Hk, D]: the LM's training shape, T padded even
 
 
@@ -6326,13 +6682,14 @@ def _fronts_loaded_model(model):
     return LoadedMLLM(model, tokenizer, config, mapping, torch.device("cuda"))
 
 
-def _serving_k_counts(res: dict) -> dict:
-    """The exact launches of each path of ``_serve_paths`` (MESH_DEPTH: 12
-    ViT + 6 LM layers a prefill, 6 a decode step)."""
+def _serving_k_counts(res: dict, depth=MESH_DEPTH) -> dict:
+    """The exact launches of each path of ``_serve_paths`` at ``depth`` (ViT,
+    LM layers): the ViT's and the LM's layers a prefill, the LM's a decode
+    step."""
     steps = MESH_NEW - 1
     zero = {"K1f": 0, "K1q": 0, "K1kv": 0, "K3": 0}
     cont = res["continuous"]
-    pre, lm = sum(MESH_DEPTH), MESH_DEPTH[1]
+    pre, lm = sum(depth), depth[1]
     return {"generate": dict(zero, K1f=pre + lm * steps),
             "paged": dict(zero, K1f=pre, K3=lm * steps),
             "paged_int8": dict(zero, K1f=pre + lm * steps),
@@ -6579,7 +6936,8 @@ def mesh_worker(argv) -> None:
     then renamed, so the parent reads only finished files), with the
     ``time.perf_counter`` stamps of the process's start, its joining the
     group and the phase's start and end (one monotonic clock for every
-    process of the machine)."""
+    process of the machine).  Phase "serve-deep" is phase 37's "serve" at
+    MESH_PROBE_DEPTH (``--mesh-probe``)."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.parallel import multihost, sharding_rules
@@ -6594,10 +6952,11 @@ def mesh_worker(argv) -> None:
         t0 = time.perf_counter()
         out = {"backend": torch.distributed.get_backend(), "world": world,
                "stamps": {"began": PROCESS_T0, "joined": joined, "start": t0}}
-        if phase == "serve":
+        if phase in ("serve", "serve-deep"):
             mesh = make_mesh("cuda", ("data", "model"), (1, world))
+            depth = MESH_DEPTH if phase == "serve" else MESH_PROBE_DEPTH
             for dtype in (torch.float32, torch.bfloat16):
-                out[str(dtype)] = _serve_paths(_mesh_model(_mesh_cfg(dtype)), mesh)
+                out[str(dtype)] = _serve_paths(_mesh_model(_mesh_cfg(dtype, depth=depth)), mesh)
                 torch.cuda.empty_cache()
             out["int4"] = _int4_refused(mesh)
         elif phase == "train":
@@ -6696,12 +7055,90 @@ def timed(fn, *fn_args, **fn_kwargs):
     return out
 
 
-SIDE_PHASES = "27, 28, 30-32 and 36"  # the phases the second process runs
+COLOR_CLI_IMAGES = 10  # phase 40: images a color (the config's 3000 cut; 8 / 1 / 1 a split)
+
+
+# ``python -m multimodal_concept_learning_tpu_torch.data.color_generator`` (runpy, as -m
+# runs it) with PyYAML and Pillow unimportable, whether or not the machine has them
+COLOR_CLI = ("import runpy, sys; sys.modules['yaml'] = None; sys.modules['PIL'] = None; "
+             "sys.argv[0] = 'color_generator'; "
+             "runpy.run_module('multimodal_concept_learning_tpu_torch.data.color_generator', "
+             "run_name='__main__', alter_sys=True)")
+
+
+def phase_color_cli(root: str) -> None:
+    """Phase 40 (host): the port's color generator CLI (``COLOR_CLI``: the
+    module run as ``python -m`` runs it, PyYAML and Pillow unimportable) on
+    a copy of experiments/datasets/color/12_colors_3k.yaml cut to
+    COLOR_CLI_IMAGES images a color, run in ``root`` (the config's
+    ``data_dir`` is relative): the JAX CLI's printed lines, the three CSVs
+    (every image listed once, under its color) and files equal to those the
+    library function writes for the same config."""
+    import csv
+    import importlib.util
+
+    from multimodal_concept_learning_tpu_torch.data.color_generator import (
+        ColorDatasetConfig,
+        compute_split_counts,
+        generate_color_dataset,
+    )
+
+    root = os.path.abspath(root)
+    cfg = _write_config(os.path.join(REPO, "experiments/datasets/color/12_colors_3k.yaml"),
+                        root, {"n_images_per_color": str(COLOR_CLI_IMAGES)})
+    parsed = cfg["parsed"]
+    present = [m for m in ("yaml", "PIL") if importlib.util.find_spec(m) is not None]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", COLOR_CLI, "--config_path", cfg["path"]],
+                         cwd=root, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    seconds = time.perf_counter() - t0
+    for line in out.stdout.splitlines():
+        print(f"[color-cli] {line}", flush=True)
+    rel = os.path.join(parsed["data_dir"], parsed["dataset_name"])
+    ratios = [r / sum(parsed["train_val_test_split"]) for r in parsed["train_val_test_split"]]
+    per_color = compute_split_counts(COLOR_CLI_IMAGES, ratios)
+    n_colors = len(parsed["colors"])
+    want = [f"Generated {COLOR_CLI_IMAGES} images for each of {n_colors} colors."]
+    want += [f"Created {split} mapping with {n * n_colors} images: "
+             f"{os.path.join(rel, f'{split}_mapping.csv')}"
+             for split, n in zip(("train", "val", "test"), per_color)]
+    want += [f"Dataset saved to: {os.path.join(root, rel)}",
+             f"Dataset generation completed. Output: {rel}"]
+    lib = generate_color_dataset(ColorDatasetConfig.from_params(
+        dict(parsed, data_dir=os.path.join(root, "library"))), verbose=False)
+    listed, same_files = [], True
+    for split in ("train", "val", "test"):
+        with open(os.path.join(root, rel, f"{split}_mapping.csv")) as f:
+            text = f.read()
+        with open(os.path.join(lib, f"{split}_mapping.csv")) as f:
+            same_files = same_files and text == f.read()
+        listed += [(r["image_path"], r["class_name"]) for r in csv.DictReader(text.splitlines())]
+    pngs = sorted(os.path.relpath(os.path.join(d, n), os.path.join(root, rel))
+                  for d, _, names in os.walk(os.path.join(root, rel)) for n in names
+                  if n.endswith(".png"))
+    for name in pngs:
+        with open(os.path.join(root, rel, name), "rb") as a, open(os.path.join(lib, name),
+                                                                   "rb") as b:
+            same_files = same_files and a.read() == b.read()
+    listing_ok = (sorted(p for p, _ in listed) == pngs
+                  and len(pngs) == COLOR_CLI_IMAGES * n_colors
+                  and all(p.split(os.sep)[0] == c for p, c in listed))
+    print(f"[color-cli] exit {out.returncode} in {seconds:.1f} s; lines as the JAX CLI prints "
+          f"them {out.stdout.splitlines() == want}; {len(pngs)} images, each listed once under its "
+          f"color {listing_ok}; CSVs and images equal the library's {same_files}; run with "
+          f"yaml and PIL unimportable (this machine has {present or 'neither'})", flush=True)
+    if not (out.returncode == 0 and out.stdout.splitlines() == want and listing_ok
+            and same_files):
+        fail(f"the color generator's CLI (phase 40): {out.stderr[-2000:]}")
+
+
+SIDE_PHASES = "27, 28, 30-32, 36 and 40"  # the phases the second process runs
 
 
 def side_worker(root: str) -> None:
     """``--side ROOT``: the phases that share no state with the others
-    (phase 36, then 27, 28 and 30-32), each in its own directory under
+    (phase 36, then 27, 28, 30-32 and 40), each in its own directory under
     ROOT, removed after it; phase 36's world-size-1 NCCL case goes to
     ``ROOT/nccl1.json`` for phase 37."""
     import shutil
@@ -6712,7 +7149,7 @@ def side_worker(root: str) -> None:
         json.dump(nccl, f)
     for fn, sub in ((phase_vision_resume, "vision-resume"), (phase_mllm_resume, "mllm-resume"),
                     (phase_imagenet_data, "imagenet"), (phase_imagenet_vision, "imagenet-vision"),
-                    (phase_imagenet_mllm, "imagenet-mllm")):
+                    (phase_imagenet_mllm, "imagenet-mllm"), (phase_color_cli, "color-cli")):
         path = os.path.join(root, sub)
         os.makedirs(path)
         try:
@@ -6724,8 +7161,8 @@ def side_worker(root: str) -> None:
 
 
 class _Side:
-    """The second process (this script's ``--side``): phases 27, 28, 30-32
-    and 36, started after phase 3 and run beside this process's phases
+    """The second process (this script's ``--side``): phases 27, 28, 30-32,
+    36 and 40, started after phase 3 and run beside this process's phases
     from 4 on (the rates and seconds of both share the card and the
     host's cores); its output goes to ``ROOT/side.log``, printed here when
     it is joined."""
@@ -6848,45 +7285,49 @@ def _compute_mode() -> str:
         return f"unknown ({e})"
 
 
-def phase_mesh_serving(procs: _Ranks, card: str, nccl: dict) -> None:
+def phase_mesh_serving(procs: _Ranks, card: str, nccl: dict, phase: str = "serve",
+                       depth=MESH_DEPTH) -> None:
     """Phase 37: sharded serving at full width.  The 12_colors_3k MLLM
-    (vit-b-16 + gemma3-1b at full widths, the LM cut to MESH_DEPTH's 6
-    blocks, seeded weights) on a (1 data x 2
+    (vit-b-16 + gemma3-1b at full widths, the LM cut to ``depth``'s
+    blocks: MESH_DEPTH's 6, or under ``--mesh-probe`` (``phase``
+    "serve-deep") MESH_PROBE_DEPTH's 26; seeded weights) on a (1 data x 2
     model) mesh of two ranks sharing the card (Gloo), float32 then bf16:
     ``make_sharded_generate``, ``make_sharded_paged_generate`` on float and
     on int8 pools, and ``ContinuousEngine(mesh=)`` through its batcher (8
     submissions), against the same paths single-process on the card.
-    Gates: float32 tokens (and the engine's texts) equal, prefill
-    last-position logits within 1e-4 of their max; bf16 last-position
-    logits no farther from the float32 single process's than the
-    single-process bf16 logits are, or within 2e-2 of the max.  Their
-    distance to the single-process bf16 logits is printed against 2e-2
-    of the max, met or missed, with the bf16 tokens, and not gated: two
-    bf16 runs differ by both runs' roundings (most of the first LM
-    block's outputs already differ by one); each rank's K1f and K3
+    Gates: tokens (and the engine's texts) equal in float32 and bf16,
+    float32 prefill last-position logits within 1e-4 of their max; bf16
+    last-position logits no farther from the float32 single process's
+    than the single-process bf16 logits are, or within 2e-2 of the max
+    (the bound agreed for 26 blocks, ROADMAP queue C).  Their distance to
+    the single-process bf16 logits is printed beside 2e-2 of the max and
+    not gated: two bf16 runs differ by both runs' roundings (most of the
+    first LM block's outputs already differ by one); each rank's K1f and K3
     launches exact, at 2 query heads and 1 KV head a rank; the
     collectives counted; int4 refused.  Then the same
     ``make_sharded_generate`` at world size 1 over NCCL (``nccl``: run in
     phase 36's torchrun process, with each collective primitive once over
-    a one-rank NCCL group).  The ranks ran beside phases 8-35: the seconds
-    printed beside each other were not taken on a quiet card."""
+    a one-rank NCCL group; None under ``--mesh-probe``).  In the full run
+    the ranks ran beside phases 8-35: the seconds printed beside each
+    other were not taken on a quiet card."""
     import torch
 
     print(f"[mesh] compute mode {_compute_mode()}; {MESH_WORLD} ranks share the card "
           f"(Gloo, collectives staged through host memory); {card}", flush=True)
     refs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        model = _mesh_model(_mesh_cfg(dtype))
+        model = _mesh_model(_mesh_cfg(dtype, depth=depth))
         refs[dtype] = _serve_paths(model)
         del model
         torch.cuda.empty_cache()
-    ranks = procs.results("serve")
+    print(f"[mesh-serve] the LM at {depth[1]} blocks, the ViT at {depth[0]}", flush=True)
+    ranks = procs.results(phase)
     ok = True
     for dtype in (torch.float32, torch.bfloat16):
         ref = refs[dtype]
         for r, res in enumerate(ranks):
             got = res[str(dtype)]
-            want_k = _serving_k_counts(got)
+            want_k = _serving_k_counts(got, depth)
             for path in ("generate", "paged", "paged_int8", "continuous"):
                 same = (torch.equal(got[path]["tokens"], ref[path]["tokens"])
                         if path != "continuous" else None)
@@ -6899,7 +7340,7 @@ def phase_mesh_serving(procs: _Ranks, card: str, nccl: dict) -> None:
                       f"{got[path]['collectives']}; {got[path]['s']:.2f} s (single process "
                       f"{ref[path]['s']:.2f} s); two-ranks-one-card, not scaling; {card}",
                       flush=True)
-                ok = ok and kexact and (dtype != torch.float32 or same is not False)
+                ok = ok and kexact and same is not False
                 ok = ok and sum(got[path]["collectives"].values()) > 0
             err = _of_max(got["logits"], ref["logits"])
             rows = [round(_of_max(a, b), 5) for a, b in zip(got["logits"], ref["logits"])]
@@ -6913,8 +7354,8 @@ def phase_mesh_serving(procs: _Ranks, card: str, nccl: dict) -> None:
                   f"outputs sharded vs single (max of max, share differing) {layers}", flush=True)
             heads_ok = got["heads"] == (2, 1, 1)
             stated = "" if dtype == torch.float32 else (
-                f" (the 2e-2 bound against the single-process bf16 logits "
-                f"{'met' if err <= 2e-2 else 'MISSED'}; gated against float32 below)")
+                f" ({'within' if err <= 2e-2 else 'past'} 2e-2 of the max against the "
+                f"single-process bf16 logits, not gated; gated against float32 below)")
             print(f"[mesh-serve] {dtype} rank {r}: prefill last-position logits within "
                   f"{err:.4e} of their max{stated} (each row against its own max {rows}; the "
                   f"single process against itself with the rows reversed {floor:.4e}); local "
@@ -6928,6 +7369,8 @@ def phase_mesh_serving(procs: _Ranks, card: str, nccl: dict) -> None:
             ok = ok and good and heads_ok and res["int4"]
     if not ok:
         fail("mesh serving (phase 37)")
+    if nccl is None:
+        return
     want = refs[torch.float32]["generate"]["tokens"]
     same = torch.equal(torch.tensor(nccl["tokens"], dtype=want.dtype), want)
     print(f"[mesh-serve] world size 1 over {nccl['backend']}: tokens equal single-process "
@@ -6935,6 +7378,24 @@ def phase_mesh_serving(procs: _Ranks, card: str, nccl: dict) -> None:
           f"{nccl['collectives']}", flush=True)
     if not (same and nccl["primitives_ok"] and nccl["backend"] == "nccl"):
         fail("mesh serving at world size 1 over NCCL")
+
+
+def mesh_probe(card: str) -> None:
+    """``--mesh-probe``: phase 37 alone, the LM at MESH_PROBE_DEPTH's 26
+    blocks (the full run cuts it to 6 for its time limit): two ranks
+    started for it, no world-size-1 NCCL case."""
+    import shutil
+    import tempfile
+
+    root, ranks = tempfile.mkdtemp(prefix="_smoke_mesh_", dir=REPO), None
+    try:
+        ranks = _Ranks(("serve-deep",), root, MESH_WORLD, "gloo", 900)
+        timed(phase_mesh_serving, ranks, card, None, "serve-deep", MESH_PROBE_DEPTH)
+        ranks.join()
+    finally:
+        if ranks is not None:
+            ranks.stop()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_mesh_training(procs: _Ranks, card: str) -> None:
@@ -7099,7 +7560,7 @@ KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "li
 
 
 def serving_and_training_phases(report: dict, card: str) -> None:
-    """Phases 4-7, 10, 11, 14, 15, 17-23, 29, 33 and 34, in this process."""
+    """Phases 4-7, 10, 11, 14, 15, 17-23, 29, 33, 34 and 41, in this process."""
     import shutil
     import tempfile
 
@@ -7112,6 +7573,7 @@ def serving_and_training_phases(report: dict, card: str) -> None:
         float_run = timed(phase_slice, report, root)
         timed(phase_quant_slice, report, root, float_run)
         timed(phase_fronts_slice, root, float_run)
+        timed(phase_timm_slice, root, float_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     serving_k1 = report["flash_attention_fwd"]["launches"]
@@ -7135,10 +7597,11 @@ def serving_and_training_phases(report: dict, card: str) -> None:
 
 
 def clip_and_bench_phases(report: dict, card: str) -> None:
-    """Phases 8, 9, 12, 13, 24-26 and 35, in this process."""
+    """Phases 8, 9, 12, 13, 24-26, 35 and 42, in this process."""
     import shutil
     import tempfile
 
+    timed(phase_prefetch)
     dense_clip = timed(phase_clip_parity)
     timed(phase_partitioned_parity, dense_clip)
     timed(phase_variant_parity)
@@ -7186,6 +7649,14 @@ def main(argv=None) -> None:
     parser.add_argument("--profile-moe", action="store_true",
                         help="build, then profile one step of phase 35's E=4 bench cell, "
                              "dense then sparse dispatch; no other phase")
+    parser.add_argument("--time-input", metavar="ROOT",
+                        help="build the kernels of the checkout at ROOT, then time the CLIP and "
+                             "vision CLIs' epochs with ROOT's and this checkout's input path in "
+                             "turns (3 runs each), and profile this one's host-to-device "
+                             "copies; no other phase")
+    parser.add_argument("--mesh-probe", action="store_true",
+                        help="build, then phase 37 (sharded serving, two ranks on the card) "
+                             "with the LM at its full 26 blocks; no other phase")
     parser.add_argument("--mesh-worker", nargs=6, metavar=("PHASES", "RANK", "WORLD", "PORT",
                                                           "JOBDIR", "BACKEND"),
                         help="one rank of phases 37-39 (started by this script): the "
@@ -7241,6 +7712,12 @@ def main(argv=None) -> None:
         return
     if args.profile_decode:
         profile_decode(args.profile_decode, int8_kv=args.int8_kv)
+        return
+    if args.time_input:
+        time_input(args.time_input)
+        return
+    if args.mesh_probe:
+        mesh_probe(card)
         return
     report: dict = {}
     timed(phase_kernels, report)  # alone on the card: the kernels' times

@@ -11,6 +11,12 @@
   ``vit_classifier_state_dict_from_jax`` for a JAX
   ``ViTForImageClassification`` tree (the names
   ``vit_classifier_params_to_torch`` writes: ``vit.*``, ``classifier.*``).
+- ``mllm_state_dict_from_torch``: a reference MLLM ``.pt`` as the port's
+  names (a timm tower translated, the keys the reference writes with no
+  slot here dropped); ``vit_classifier_state_dict_from_torch`` the same
+  for a classifier (HF, ``module.``-prefixed or raw timm names);
+  ``timm_vit_sd_to_hf`` / ``hf_vit_sd_to_timm`` translate a timm ViT's
+  names (fused qkv) and back.
 - ``build_mllm``: an ``MLLM`` on a device from a state dict
   (``load_state_dict(strict=True)``), cast by the device policy.
 - ``init_random_weights_``: seeded random init (the JAX initialisers:
@@ -276,6 +282,121 @@ def vit_classifier_state_dict_from_jax(params, patch_size: int) -> Dict[str, tor
     return sd
 
 
+# timm ViT naming: the reference's imagenet1k_timm_vit.yaml tower
+# (timm/vit_base_patch16_224.augreg_in1k) saves as vision_model.timm_model.<timm names>, its
+# q/k/v projections fused as blocks.{i}.attn.qkv (checkpoint/torch_interop.py:236-329 of the
+# JAX package)
+_TIMM_STATIC = {
+    "cls_token": "embeddings.cls_token",
+    "pos_embed": "embeddings.position_embeddings",
+    "patch_embed.proj.weight": "embeddings.patch_embeddings.projection.weight",
+    "patch_embed.proj.bias": "embeddings.patch_embeddings.projection.bias",
+    "norm.weight": "layernorm.weight",
+    "norm.bias": "layernorm.bias",
+}
+_TIMM_BLOCK = {
+    "norm1": "layernorm_before",
+    "norm2": "layernorm_after",
+    "attn.proj": "attention.output.dense",
+    "mlp.fc1": "intermediate.dense",
+    "mlp.fc2": "output.dense",
+}
+
+
+def timm_vit_sd_to_hf(sd: Dict) -> Dict:
+    """A timm ViT state dict (numpy arrays or tensors) in HF ViTModel names:
+    each fused ``blocks.{i}.attn.qkv`` split by rows into query, key and
+    value (timm's q, k, v order); other keys (``head.*``) pass through."""
+    out = {}
+    for key, arr in sd.items():
+        if key in _TIMM_STATIC:
+            out[_TIMM_STATIC[key]] = arr
+            continue
+        if key.startswith("blocks."):
+            _, i, rest = key.split(".", 2)
+            base = f"encoder.layer.{i}"
+            sub, leaf = rest.rsplit(".", 1)
+            if sub == "attn.qkv":
+                h = arr.shape[0] // 3
+                for j, nm in enumerate(("query", "key", "value")):
+                    out[f"{base}.attention.attention.{nm}.{leaf}"] = arr[j * h:(j + 1) * h]
+                continue
+            if sub in _TIMM_BLOCK:
+                out[f"{base}.{_TIMM_BLOCK[sub]}.{leaf}"] = arr
+                continue
+        out[key] = arr
+    return out
+
+
+def hf_vit_sd_to_timm(sd: Dict) -> Dict:
+    """The inverse of ``timm_vit_sd_to_hf``: query, key and value re-fused
+    into ``qkv`` (ValueError for a block that lacks one of them)."""
+    static_rev = {v: k for k, v in _TIMM_STATIC.items()}
+    block_rev = {v: k for k, v in _TIMM_BLOCK.items()}
+    out, pending = {}, {}
+    for key, arr in sd.items():
+        if key in static_rev:
+            out[static_rev[key]] = arr
+            continue
+        if key.startswith("encoder.layer."):
+            i, sub = key[len("encoder.layer."):].split(".", 1)
+            subpath, leaf = sub.rsplit(".", 1)
+            if subpath.startswith("attention.attention."):
+                pending.setdefault(f"blocks.{i}.attn.qkv.{leaf}", {})[subpath.split(".")[-1]] = arr
+                continue
+            if subpath in block_rev:
+                out[f"blocks.{i}.{block_rev[subpath]}.{leaf}"] = arr
+                continue
+        out[key] = arr
+    for fused_key, parts in pending.items():
+        missing = [nm for nm in ("query", "key", "value") if nm not in parts]
+        if missing:
+            raise ValueError(
+                f"Cannot re-fuse {fused_key}: state dict is missing the "
+                f"{'/'.join(missing)} projection(s) for this block "
+                f"(have: {sorted(parts)}) — truncated or filtered checkpoint?")
+        qkv = [parts["query"], parts["key"], parts["value"]]
+        out[fused_key] = (torch.cat(qkv) if isinstance(qkv[0], torch.Tensor)
+                          else np.concatenate(qkv, axis=0))
+    return out
+
+
+def _reference_only(key: str) -> bool:
+    """A key a reference MLLM checkpoint holds that the port's MLLM has no
+    slot for: HF ViTModel's pooler and Gemma3ForCausalLM's ``lm_head``
+    (tied to the embedding), found by diffing transformers' ``ViTModel`` and
+    ``Gemma3ForCausalLM`` state dicts against ``MLLM.state_dict()``.  JAX's
+    importer skips every key its template lacks
+    (checkpoint/torch_interop.py:486-488); the port skips only these."""
+    return key.startswith("vision_model.pooler.") or key == "language_model.lm_head.weight"
+
+
+def mllm_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference-layout MLLM state dict in the port's names: a timm tower
+    (``vision_model.timm_model.*``) translated to HF names, the keys of
+    ``_reference_only`` dropped (JAX ``mllm_params_from_torch``).  Every
+    other key passes through, so ``build_mllm``'s strict load still raises
+    on an unknown or a missing one (where JAX fills it from its template)."""
+    prefix = "vision_model.timm_model."
+    timm = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    out = {k: v for k, v in sd.items() if not k.startswith(prefix) and not _reference_only(k)}
+    out.update({f"vision_model.{k}": v for k, v in timm_vit_sd_to_hf(timm).items()})
+    return out
+
+
+def vit_classifier_state_dict_from_torch(sd: Dict[str, torch.Tensor]
+                                         ) -> Dict[str, torch.Tensor]:
+    """A classifier checkpoint in the port's ``ViTForImageClassification``
+    names (``vit.*``, ``classifier.*``): HF names, a DDP save's
+    ``module.``-prefixed ones, or a raw timm dict (``blocks.*``,
+    ``patch_embed.*``, the head at ``head.*``), as JAX
+    ``vit_classifier_params_from_torch`` takes them."""
+    if any(k.startswith(("blocks.", "patch_embed.")) for k in sd):
+        heads = {"head.weight": "classifier.weight", "head.bias": "classifier.bias"}
+        return {heads.get(k, f"vit.{k}"): v for k, v in timm_vit_sd_to_hf(sd).items()}
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
 def build_mllm(cfg: MLLMConfig, state_dict: Dict[str, torch.Tensor], device) -> MLLM:
     """An MLLM on ``device`` holding ``state_dict`` (strict), linear weights
     in ``cfg.dtype``.  Built on the meta device first, so no memory is spent
@@ -367,12 +488,16 @@ __all__ = [
     "build_mllm",
     "changed_frozen",
     "clip_state_dict_from_jax",
+    "hf_vit_sd_to_timm",
     "host_state_dict",
     "init_random_weights_",
     "lm_state_dict_from_jax",
     "load_state_dict",
+    "mllm_state_dict_from_torch",
     "save_results_dir",
     "save_state_dict",
     "state_dict_from_jax",
+    "timm_vit_sd_to_hf",
     "vit_classifier_state_dict_from_jax",
+    "vit_classifier_state_dict_from_torch",
 ]

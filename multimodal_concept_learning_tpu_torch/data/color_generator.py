@@ -7,10 +7,17 @@ JAX package's, whose fields and defaults it copies): one solid circle on white
 per image, random radius and center (and intensity factor) drawn from one
 ``PCG64(seed)`` generator in the same order, per-color shuffles and
 largest-remainder split counts.  Images are written by ``data/png.py``.
+
+    python -m multimodal_concept_learning_tpu_torch.data.color_generator \
+        --config_path experiments/datasets/color/12_colors_3k.yaml
+
+reads a dataset YAML with ``miniyaml`` (no PyYAML) and prints the JAX CLI's
+lines; a relative ``data_dir`` resolves against the working directory.
 """
 
 from __future__ import annotations
 
+import argparse
 import csv
 import dataclasses
 import os
@@ -18,6 +25,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from multimodal_concept_learning_tpu_torch import miniyaml
 from multimodal_concept_learning_tpu_torch.data.png import write_png
 
 
@@ -138,7 +146,25 @@ def generate_color_dataset(config, verbose: bool = True) -> str:
         if verbose:
             print(f"Created {split_name} mapping with {len(records[split_name])} images: "
                   f"{mapping_path}")
+    if verbose:
+        print(f"Dataset saved to: {os.path.abspath(dataset_dir)}")
     return dataset_dir
 
 
-__all__ = ["ColorDatasetConfig", "compute_split_counts", "generate_color_dataset"]
+def main(argv=None) -> str:
+    """The CLI (``--config_path``); returns the dataset dir."""
+    parser = argparse.ArgumentParser(description="Generate color dataset from config file")
+    parser.add_argument("--config_path", type=str, required=True, help="Path to YAML config file")
+    args = parser.parse_args(argv)
+    with open(args.config_path, "r") as f:
+        config = ColorDatasetConfig.from_params(miniyaml.safe_load(f))
+    output_path = generate_color_dataset(config)
+    print(f"Dataset generation completed. Output: {output_path}")
+    return output_path
+
+
+__all__ = ["ColorDatasetConfig", "compute_split_counts", "generate_color_dataset", "main"]
+
+
+if __name__ == "__main__":
+    main()

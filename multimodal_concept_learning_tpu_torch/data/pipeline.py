@@ -15,14 +15,19 @@ carries ``norm_mean`` / ``norm_std`` for the device to normalise
 loader's multi-process striping: every rank applies the same shuffle, forms
 global batches of ``batch_size * n`` rows (the final one padded or dropped
 as above) and yields only its own ``batch_size`` rows and their ``valid``.
-``to_device`` moves a numpy batch to torch tensors on a device.
+``to_device`` moves a numpy batch to torch tensors on a device;
+``prefetch_to_device`` (the JAX function of that name) does so for every
+batch of an iterator, ``size`` batches ahead: on a CUDA device through
+page-locked buffers filled on a helper thread and non-blocking copies on a
+side stream, so the copy overlaps the step.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -169,17 +174,120 @@ def right_padded_lengths(mask: np.ndarray) -> Optional[np.ndarray]:
     return lens if np.array_equal(mask.astype(bool), expect) else None
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A numpy batch as torch tensors on ``device`` (int32/bool/uint8/float
-    dtypes kept).  A right-padded ``attention_mask`` also gets its
-    ``kv_lens``, decided here on the host, so the model never reads the
-    mask back from the device."""
+def _host_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The batch's leaves as contiguous numpy arrays; a right-padded
+    ``attention_mask`` also gets its ``kv_lens``, decided here on the host,
+    so the model never reads the mask back from the device."""
     batch = dict(batch)
     if "attention_mask" in batch and "kv_lens" not in batch:
         lens = right_padded_lengths(np.asarray(batch["attention_mask"]))
         if lens is not None:
             batch["kv_lens"] = lens
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    return {k: np.ascontiguousarray(v) for k, v in batch.items()}
 
 
-__all__ = ["BatchLoader", "default_classification_collate", "right_padded_lengths", "to_device"]
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as torch tensors on ``device`` (int32/bool/uint8/float
+    dtypes kept, ``kv_lens`` added as ``_host_batch`` decides), copied
+    synchronously."""
+    return {k: torch.from_numpy(v).to(device) for k, v in _host_batch(batch).items()}
+
+
+class _PinnedStager:
+    """The CUDA side of ``prefetch_to_device``.  ``submit`` hands a host
+    batch to one helper thread, which copies each leaf into a page-locked
+    buffer and issues its copy to the card with ``non_blocking=True`` on a
+    side stream, then records an event there; ``take`` makes the caller's
+    current stream wait on that event and marks each device tensor as used
+    on it (``record_stream``), so the caching allocator keeps its block
+    until the step that reads it is done.  A buffer is reused only once the
+    event of the copy that last read it has completed; buffers are kept by
+    (shape, dtype), so a last, partial batch gets its own."""
+
+    def __init__(self, device: torch.device, keep: int):
+        self.device = device
+        self.keep = keep  # buffers a (shape, dtype) before waiting for the oldest
+        self.stream = torch.cuda.Stream(device)
+        self.buffers: Dict[tuple, collections.deque] = {}  # helper thread only
+        self.pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="prefetch_to_device")
+
+    def _buffer(self, shape, dtype) -> torch.Tensor:
+        ring = self.buffers.setdefault((tuple(shape), dtype), collections.deque())
+        if ring and (len(ring) >= self.keep or ring[0][1].query()):
+            buf, done = ring.popleft()
+            done.synchronize()  # its last copy has read it
+            return buf
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def _stage(self, batch) -> tuple:
+        out, used = {}, []
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            for k, v in _host_batch(batch).items():
+                src = torch.from_numpy(v)
+                buf = self._buffer(src.shape, src.dtype)
+                buf.copy_(src)
+                out[k] = buf.to(self.device, non_blocking=True)
+                used.append(buf)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        for buf in used:
+            self.buffers[(tuple(buf.shape), buf.dtype)].append((buf, done))
+        return out, done
+
+    def submit(self, batch) -> Future:
+        return self.pool.submit(self._stage, batch)
+
+    def take(self, staged: Future) -> Dict[str, torch.Tensor]:
+        out, done = staged.result()
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(done)
+        for t in out.values():
+            t.record_stream(stream)
+        return out
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+
+
+def prefetch_to_device(iterator, device, size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yield each numpy batch of ``iterator`` as ``to_device`` would, its
+    copy issued ``size`` batches ahead of the consumer (JAX
+    ``data/pipeline.prefetch_to_device``, which ``device_put``s ahead).
+
+    The pull order is JAX's: ``size`` batches are pulled first, then one
+    more before each yield.  On a CUDA device the copies go through
+    ``_PinnedStager`` (pinned buffers filled on a helper thread, a side
+    stream, the consumer's stream made to wait); a failed pin or copy
+    raises where its batch is yielded.  Elsewhere each batch is
+    ``to_device``'s.  Closing the generator (a ``break``, a preemption's
+    ``return``) closes ``iterator`` too, which stops a ``BatchLoader``'s
+    thread."""
+    device = torch.device(device)
+    stager = _PinnedStager(device, keep=size + 2) if device.type == "cuda" else None
+    put = stager.submit if stager else (lambda batch: to_device(batch, device))
+    take = stager.take if stager else (lambda batch: batch)
+    it = iter(iterator)
+    buf = collections.deque()
+    try:
+        try:
+            for _ in range(size):
+                buf.append(put(next(it)))
+        except StopIteration:
+            pass
+        while buf:
+            out = buf.popleft()
+            try:
+                buf.append(put(next(it)))
+            except StopIteration:
+                pass
+            yield take(out)
+    finally:
+        if stager is not None:
+            stager.close()
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+
+
+__all__ = ["BatchLoader", "default_classification_collate", "prefetch_to_device",
+           "right_padded_lengths", "to_device"]

@@ -23,7 +23,11 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
-from multimodal_concept_learning_tpu_torch.checkpoint import build_mllm, load_state_dict
+from multimodal_concept_learning_tpu_torch.checkpoint import (
+    build_mllm,
+    load_state_dict,
+    mllm_state_dict_from_torch,
+)
 from multimodal_concept_learning_tpu_torch.configs import MultimodalTrainingConfig
 from multimodal_concept_learning_tpu_torch.device import resolve_device
 from multimodal_concept_learning_tpu_torch.models.mllm import MLLM, MLLMConfig
@@ -124,14 +128,14 @@ def _quantize_for_serving(state_dict, cfg: MLLMConfig, int8: bool, int8_vision: 
 
 
 def _read_results_dir(results_dir: str, checkpoint: str, dtype: torch.dtype):
-    """(config, tokenizer, labels mapping, float32 CPU state dict, model
-    config, checkpoint path) of a results dir."""
+    """(config, tokenizer, labels mapping, float32 CPU state dict in the
+    port's names, model config, checkpoint path) of a results dir."""
     models_dir = os.path.join(results_dir, "models")
     with open(os.path.join(models_dir, "training_config.json")) as f:
         config = training_config(json.load(f))
     tokenizer, labels_mapping = build_tokenizer(config)
     ckpt_path = os.path.join(models_dir, checkpoint)
-    sd = load_state_dict(ckpt_path)
+    sd = mllm_state_dict_from_torch(load_state_dict(ckpt_path))
     rows = sd["language_model.model.embed_tokens.weight"].shape[0]
     if rows != len(tokenizer):
         raise ValueError(f"{ckpt_path} has {rows} embedding rows but the rebuilt tokenizer "

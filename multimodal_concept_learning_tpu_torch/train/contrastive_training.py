@@ -60,7 +60,7 @@ from multimodal_concept_learning_tpu_torch.checkpoint import (
 from multimodal_concept_learning_tpu_torch.configs import ContrastiveTrainingConfig
 from multimodal_concept_learning_tpu_torch.data.clip_collator import ClipCollator
 from multimodal_concept_learning_tpu_torch.data.datasets import ColorDataset, load_split_datasets
-from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 from multimodal_concept_learning_tpu_torch.device import resolve_device
 from multimodal_concept_learning_tpu_torch.models.clip import CLIPConfig, CLIPModel
@@ -159,8 +159,8 @@ def run_training(model: CLIPModel, train_loader, config: ContrastiveTrainingConf
         train_loader.set_epoch(epoch)
         losses = []  # 0-d device tensors: one host sync per epoch
         done_in_epoch = skip_batches if epoch == start_epoch else 0
-        for batch in epoch_batches(train_loader, done_in_epoch):
-            state, m = train_step(state, to_device(batch, device))
+        for batch in prefetch_to_device(epoch_batches(train_loader, done_in_epoch), device):
+            state, m = train_step(state, batch)
             done_in_epoch += 1
             losses.append(m["loss"])
             if guard.agreed():
@@ -198,8 +198,8 @@ def zero_shot_eval(model: CLIPModel, loader, class_names, collator: ClipCollator
                                            torch.from_numpy(np.stack(masks)).to(device))
     step = make_zero_shot_step(model)
     correct, total = 0, 0
-    for batch in loader:
-        c, n = step(model, to_device(batch, device), class_features)
+    for batch in prefetch_to_device(loader, device):
+        c, n = step(model, batch, class_features)
         correct += int(c)
         total += int(n)
     acc = 100.0 * correct / max(total, 1)

@@ -54,6 +54,7 @@ from multimodal_concept_learning_tpu_torch.checkpoint import (
     host_state_dict,
     init_random_weights_,
     load_state_dict,
+    mllm_state_dict_from_torch,
     save_state_dict,
 )
 from multimodal_concept_learning_tpu_torch.configs import MultimodalTrainingConfig
@@ -63,7 +64,7 @@ from multimodal_concept_learning_tpu_torch.data.datasets import (
     ImageNetDataset,
     load_split_datasets,
 )
-from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 from multimodal_concept_learning_tpu_torch.device import cast_for_compute, resolve_device
 from multimodal_concept_learning_tpu_torch.models.mllm import (
@@ -141,8 +142,8 @@ def evaluate_model(eval_step, model, loader, tokenizer, device):
     """Yes/no string-match accuracy + mean loss, printed as the JAX trainer
     does (under a process group: over every rank's stripes)."""
     losses, correct, total = [], 0, 0
-    for batch in loader:
-        out = eval_step(model, to_device(batch, device))
+    for batch in prefetch_to_device(loader, device):
+        out = eval_step(model, batch)
         losses.append(float(out["loss"]))
         pred_ids, target_ids, valid = (out[k].cpu().numpy()
                                        for k in ("pred_ids", "target_ids", "valid"))
@@ -220,8 +221,8 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
         train_loader.set_epoch(epoch)
         losses = []  # 0-d device tensors: one host sync per epoch
         done_in_epoch = skip_batches if epoch == start_epoch else 0
-        for batch in epoch_batches(train_loader, done_in_epoch):
-            state, m = train_step(state, to_device(batch, device))
+        for batch in prefetch_to_device(epoch_batches(train_loader, done_in_epoch), device):
+            state, m = train_step(state, batch)
             done_in_epoch += 1
             losses.append(m["loss"])
             if guard.agreed():
@@ -231,7 +232,7 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
                 return None, {"preempted": True}, history
         train_loss = epoch_metric_mean(losses)
         train_time = time.time() - epoch_start
-        val_losses = [eval_step(model, to_device(b, device))["loss"] for b in val_loader]
+        val_losses = [eval_step(model, b)["loss"] for b in prefetch_to_device(val_loader, device)]
         val_loss = epoch_metric_mean(val_losses)
         epoch_time = time.time() - epoch_start
         current_lr = optimizer.lr(state.step // accumulation_steps)
@@ -267,7 +268,8 @@ def run_training(model: MLLM, tokenizer, train_loader, val_loader, test_loader,
     eval_model = model
     if os.path.exists(best_path):
         eval_model = copy.deepcopy(model)  # the returned state keeps the final weights
-        eval_model.load_state_dict(load_state_dict(best_path), strict=True)
+        eval_model.load_state_dict(mllm_state_dict_from_torch(load_state_dict(best_path)),
+                                   strict=True)
         print(f"Loaded best model from {best_path}")
     else:
         print("Best model not found, using final model")

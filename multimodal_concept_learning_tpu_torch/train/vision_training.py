@@ -51,7 +51,7 @@ from multimodal_concept_learning_tpu_torch.data.datasets import (
     ImageNetDataset,
     load_split_datasets,
 )
-from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, to_device
+from multimodal_concept_learning_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
 from multimodal_concept_learning_tpu_torch.data.transforms import create_transforms
 from multimodal_concept_learning_tpu_torch.device import resolve_device
 from multimodal_concept_learning_tpu_torch.models.vit import ViTConfig, ViTForImageClassification
@@ -96,7 +96,7 @@ def _totals(metrics: list) -> tuple:
 
 
 def _evaluate(eval_step, model, loader, device) -> tuple:
-    return _totals([eval_step(model, to_device(batch, device)) for batch in loader])
+    return _totals([eval_step(model, batch) for batch in prefetch_to_device(loader, device)])
 
 
 def run_training(model: ViTForImageClassification, train_loader, val_loader,
@@ -141,8 +141,8 @@ def run_training(model: ViTForImageClassification, train_loader, val_loader,
         train_loader.set_epoch(epoch)
         steps = []
         done_in_epoch = skip_batches if epoch == start_epoch else 0
-        for batch in epoch_batches(train_loader, done_in_epoch):
-            state, m = train_step(state, to_device(batch, device))
+        for batch in prefetch_to_device(epoch_batches(train_loader, done_in_epoch), device):
+            state, m = train_step(state, batch)
             done_in_epoch += 1
             steps.append(m)
             if guard.agreed():
