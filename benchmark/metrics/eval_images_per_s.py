@@ -1,0 +1,8 @@
+"""eval_images_per_s: every image of the eval steps run in the window over
+the window's wall time (host clock, closed by a synchronize)."""
+
+
+def read(ctx):
+    if ctx.mode != "eval":
+        return None
+    return ctx.window.steps * ctx.images_per_step / ctx.window.wall_s
