@@ -33,6 +33,8 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from multimodal_concept_learning_tpu_torch.utils.profiling import span
+
 
 def default_classification_collate(batch) -> Dict[str, np.ndarray]:
     """(image, label index) pairs -> {"images" float32 NCHW | "images_u8"
@@ -261,7 +263,10 @@ def prefetch_to_device(iterator, device, size: int = 2) -> Iterator[Dict[str, to
     raises where its batch is yielded.  Elsewhere each batch is
     ``to_device``'s.  Closing the generator (a ``break``, a preemption's
     ``return``) closes ``iterator`` too, which stops a ``BatchLoader``'s
-    thread."""
+    thread.  The consumer's time in here between its batches (pulling the
+    next batch from ``iterator``, waiting for a staged one) is a root
+    ``data.wait`` span (``utils/profiling.py``), counted in the next step's
+    row."""
     device = torch.device(device)
     stager = _PinnedStager(device, keep=size + 2) if device.type == "cuda" else None
     put = stager.submit if stager else (lambda batch: to_device(batch, device))
@@ -269,18 +274,21 @@ def prefetch_to_device(iterator, device, size: int = 2) -> Iterator[Dict[str, to
     it = iter(iterator)
     buf = collections.deque()
     try:
-        try:
-            for _ in range(size):
-                buf.append(put(next(it)))
-        except StopIteration:
-            pass
-        while buf:
-            out = buf.popleft()
+        with span("data.wait"):
             try:
-                buf.append(put(next(it)))
+                for _ in range(size):
+                    buf.append(put(next(it)))
             except StopIteration:
                 pass
-            yield take(out)
+        while buf:
+            with span("data.wait"):
+                out = buf.popleft()
+                try:
+                    buf.append(put(next(it)))
+                except StopIteration:
+                    pass
+                batch = take(out)
+            yield batch
     finally:
         if stager is not None:
             stager.close()

@@ -34,6 +34,7 @@ from multimodal_concept_learning_tpu_torch.ops.flash_attention import (
     flash_attention,
     key_mask,
 )
+from multimodal_concept_learning_tpu_torch.utils.profiling import span
 
 
 def _keep_mask(shape, rate: float, generator: Optional[torch.Generator], device):
@@ -81,11 +82,14 @@ def multi_head_attention(q, k, v, bias=None, *, scale: Optional[float] = None,
                          deterministic: bool = True) -> torch.Tensor:
     """Scaled dot-product attention; q [B, Tq, Hq, D], k/v [B, Tk, Hk, D].
     K1 (or its plain version on the CPU) unless ``dropout_rate > 0`` and not
-    ``deterministic``, which takes the dense dropout branch."""
+    ``deterministic``, which takes the dense dropout branch.  An
+    ``attention`` span (``utils/profiling.py``): the dense branch's own, or
+    ``flash_attention``'s."""
     if dropout_rate > 0.0 and not deterministic:
-        return _dense_dropout_attention(q, k, v, bias, q.shape[-1] ** -0.5 if scale is None
-                                        else scale, kv_lens, causal, window, dropout_rate,
-                                        generator)
+        with span("attention"):
+            return _dense_dropout_attention(q, k, v, bias, q.shape[-1] ** -0.5 if scale is None
+                                            else scale, kv_lens, causal, window, dropout_rate,
+                                            generator)
     return flash_attention(q, k, v, bias, scale=scale, kv_lens=kv_lens,
                            causal=causal, window=window)
 

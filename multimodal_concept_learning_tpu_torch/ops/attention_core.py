@@ -66,6 +66,7 @@ from typing import Optional
 import torch
 
 from multimodal_concept_learning_tpu_torch.ops._build import cuda_operand
+from multimodal_concept_learning_tpu_torch.utils.profiling import span
 
 _NEG = -1e30  # the JAX kernel's finite mask value
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -443,29 +444,31 @@ def attention_core(qkv, heads: int, t_real: int, causal: bool = False, kv_mask=N
     valid key) masks per-sample padding.  ``block_diag`` picks K2-bd (None:
     ``MCL_ATTN_CORE_BD``, read now).  CUDA tensors run the kernels (counted
     in ``attention_core_fwd.launches`` / ``attention_core_bwd.launches``, or
-    the ``attention_core_bd_*`` pair); CPU tensors the plain versions."""
+    the ``attention_core_bd_*`` pair); CPU tensors the plain versions.  An
+    ``attention`` span (``utils/profiling.py``)."""
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_core runs on cpu or cuda tensors, got {qkv.device}")
-    bd = _block_diag_default() if block_diag is None else bool(block_diag)
-    b, t, _ = qkv.shape
-    kvm = _padded_mask(kv_mask, b, t, qkv.device)
-    if qkv.is_cuda:
-        _check(qkv, heads)
-        qkv = cuda_operand(qkv)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        return _AttentionCore.apply(qkv, kvm, heads, t_real, causal, bd)
-    if qkv.is_cuda:
-        fwd = attention_core_bd_fwd if bd else attention_core_fwd
-        return fwd(qkv, heads, t_real, causal, kvm, with_lse=False)[0]
-    ref = attention_core_bd_reference if bd else attention_core_reference
-    return ref(qkv, heads, t_real, causal, kvm)
+    with span("attention"):
+        bd = _block_diag_default() if block_diag is None else bool(block_diag)
+        b, t, _ = qkv.shape
+        kvm = _padded_mask(kv_mask, b, t, qkv.device)
+        if qkv.is_cuda:
+            _check(qkv, heads)
+            qkv = cuda_operand(qkv)
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return _AttentionCore.apply(qkv, kvm, heads, t_real, causal, bd)
+        if qkv.is_cuda:
+            fwd = attention_core_bd_fwd if bd else attention_core_fwd
+            return fwd(qkv, heads, t_real, causal, kvm, with_lse=False)[0]
+        ref = attention_core_bd_reference if bd else attention_core_reference
+        return ref(qkv, heads, t_real, causal, kvm)
 
 
 def attention_core_padded(qkv, heads: int, causal: bool = False, kv_mask=None,
                           block_diag=None) -> torch.Tensor:
     """Any-T entry with the JAX signature.  The JAX wrapper pads T to a
     multiple of 16 for the TPU; the kernels take any T, so this is
-    ``attention_core`` with ``t_real = T``."""
+    ``attention_core`` with ``t_real = T`` (its ``attention`` span too)."""
     return attention_core(qkv, heads, qkv.shape[1], causal, kv_mask, block_diag)
 
 

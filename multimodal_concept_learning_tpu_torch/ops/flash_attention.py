@@ -43,6 +43,7 @@ from typing import Optional
 import torch
 
 from multimodal_concept_learning_tpu_torch.ops._build import cuda_operand
+from multimodal_concept_learning_tpu_torch.utils.profiling import span
 
 _NEG = -1e30  # the JAX package's finite mask value (ops/attention.py)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -322,22 +323,23 @@ def flash_attention(q, k, v, bias=None, *, scale: Optional[float] = None,
     tensors run the K1 kernels (counted in ``flash_attention.launches``,
     ``flash_attention_bwd_dq.launches`` and
     ``flash_attention_bwd_dkv.launches``); CPU tensors run the plain
-    versions."""
+    versions.  An ``attention`` span (``utils/profiling.py``)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, bias))
-    if q.device.type == "cuda":
-        _check(q, k, v, bias, kv_lens)
-        q, k, v = (cuda_operand(t) for t in (q, k, v))
-    if grad:
-        return _FlashAttention.apply(q, k, v, bias, scale, kv_lens, causal, window)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, scale=scale, kv_lens=kv_lens,
-                                         causal=causal, window=window)
-    return _launch(q, k, v, bias, scale, kv_lens, causal, window)[0]
+    with span("attention"):
+        grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias))
+        if q.device.type == "cuda":
+            _check(q, k, v, bias, kv_lens)
+            q, k, v = (cuda_operand(t) for t in (q, k, v))
+        if grad:
+            return _FlashAttention.apply(q, k, v, bias, scale, kv_lens, causal, window)
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, bias, scale=scale, kv_lens=kv_lens,
+                                             causal=causal, window=window)
+        return _launch(q, k, v, bias, scale, kv_lens, causal, window)[0]
 
 
 flash_attention.launches = 0

@@ -26,6 +26,10 @@ summed over their axes, the replicated parameters counted once; the
 plain sum when nothing is sharded).  Build the optimizer after ``shard_params``: it holds the
 shards.
 Every update is plain tensor arithmetic on the parameters' device.
+``step`` is an ``optimizer`` span (``utils/profiling.py``) holding
+``optimizer.reduce`` (under a process group), ``optimizer.accumulate``,
+``optimizer.clip`` and ``optimizer.update``; the float32 cast of the
+gradients is the optimizer's own time.
 ``state_dict`` / ``load_state_dict`` carry everything a resumed run needs
 (the moments, masters, accumulator and both counters), so a run resumed
 between the micro-steps of one accumulation continues bitwise.
@@ -39,6 +43,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from multimodal_concept_learning_tpu_torch.parallel import multihost
+from multimodal_concept_learning_tpu_torch.utils.profiling import span
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -130,41 +135,51 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> bool:
+        with span("optimizer"):
+            return self._step()
+
+    def _step(self) -> bool:
         grads = self._take_grads()
-        multihost.reduce_gradients(list(grads.values()), [self.params[n] for n in grads])
+        if multihost.is_distributed():
+            with span("optimizer.reduce"):
+                multihost.reduce_gradients(list(grads.values()),
+                                           [self.params[n] for n in grads])
         if self.k > 1:
-            n_acc = self.mini_step
-            for n, g in grads.items():
-                acc = self.acc[n]
-                acc.copy_(acc + (g - acc) / (n_acc + 1))
-            self.mini_step += 1
-            if self.mini_step < self.k:
-                return False
-            self.mini_step = 0
-            grads = {n: a.clone() for n, a in self.acc.items()}
-            for a in self.acc.values():
-                a.zero_()
+            with span("optimizer.accumulate"):
+                n_acc = self.mini_step
+                for n, g in grads.items():
+                    acc = self.acc[n]
+                    acc.copy_(acc + (g - acc) / (n_acc + 1))
+                self.mini_step += 1
+                if self.mini_step < self.k:
+                    return False
+                self.mini_step = 0
+                grads = {n: a.clone() for n, a in self.acc.items()}
+                for a in self.acc.values():
+                    a.zero_()
         grads = {n: g.float() for n, g in grads.items()}
         if self.max_grad_norm:
-            norm = torch.sqrt(multihost.global_sq_norm(
-                list(grads.values()), [self.params[n] for n in grads]))
-            keep = norm < self.max_grad_norm
-            grads = {n: torch.where(keep, g, (g / norm) * self.max_grad_norm)
-                     for n, g in grads.items()}
-        self.count += 1
-        bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** self.count)
-        bc2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** self.count)
-        step_size = -self.lr(self.count - 1)
-        for n, g in grads.items():
-            mu, nu = self.mu[n], self.nu[n]
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            target = self.master[n] if self.master is not None else self.params[n]
-            upd = (upd + self.weight_decay * target.float()) * step_size
-            target.add_(upd)
-            if self.master is not None:
-                self.params[n].copy_(target.to(self.params[n].dtype))
+            with span("optimizer.clip"):
+                norm = torch.sqrt(multihost.global_sq_norm(
+                    list(grads.values()), [self.params[n] for n in grads]))
+                keep = norm < self.max_grad_norm
+                grads = {n: torch.where(keep, g, (g / norm) * self.max_grad_norm)
+                         for n, g in grads.items()}
+        with span("optimizer.update"):
+            self.count += 1
+            bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** self.count)
+            bc2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** self.count)
+            step_size = -self.lr(self.count - 1)
+            for n, g in grads.items():
+                mu, nu = self.mu[n], self.nu[n]
+                mu.copy_((1 - self.b1) * g + self.b1 * mu)
+                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                target = self.master[n] if self.master is not None else self.params[n]
+                upd = (upd + self.weight_decay * target.float()) * step_size
+                target.add_(upd)
+                if self.master is not None:
+                    self.params[n].copy_(target.to(self.params[n].dtype))
         return True
 
 

@@ -16,6 +16,10 @@ Batches are dicts of tensors already on the model's device.  Metrics stay
 on the device (0-d tensors) until the caller syncs once an epoch.  A
 batch's ``kv_lens`` (set by ``data.pipeline.to_device`` for a right-padded
 mask) goes to the model as the mask's descriptor.
+Each step is a root ``step`` span (``utils/profiling.py``; its id the
+micro-step count, or in evaluation the step function's call count) holding
+``forward`` (the model and the loss; in evaluation also the argmax),
+``backward`` and the optimizer's spans.
 
 Under MoE the MLLM step adds ``MOE_AUX_COEF`` x the mean of the layers'
 Switch aux to the loss (JAX ``parallel/train_step.py:126-175``).  Every
@@ -37,6 +41,7 @@ these collectives run over the model's data axes
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -61,6 +66,7 @@ from multimodal_concept_learning_tpu_torch.parallel.multihost import (
     group_size,
 )
 from multimodal_concept_learning_tpu_torch.parallel.optimizer import Optimizer
+from multimodal_concept_learning_tpu_torch.utils.profiling import span
 
 MOE_AUX_COEF = 0.01  # Switch-convention load-balance coefficient
 
@@ -84,19 +90,23 @@ def make_classifier_train_step(model: ViTForImageClassification,
     mean is the mean of the ranks' means)."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        model.train()
-        labels = batch["labels"]
-        logits = model(images_from_batch(batch), deterministic=False, generator=generator)
-        loss = cross_entropy_loss(logits, labels, label_smoothing)
-        correct = (torch.argmax(logits.detach(), dim=-1) == labels).sum()
-        dp = data_group(model)
-        loss = loss / group_size(dp)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": all_reduce_sum(loss.detach(), dp),
-                       "correct": all_reduce_sum(correct, dp),
-                       "count": labels.shape[0] * group_size(dp)}
+        with span("step", state.step):
+            model.train()
+            labels = batch["labels"]
+            with span("forward"):
+                logits = model(images_from_batch(batch), deterministic=False,
+                               generator=generator)
+                loss = cross_entropy_loss(logits, labels, label_smoothing)
+            correct = (torch.argmax(logits.detach(), dim=-1) == labels).sum()
+            dp = data_group(model)
+            loss = loss / group_size(dp)
+            with span("backward"):
+                loss.backward()
+            state.optimizer.step()
+            state.step += 1
+            return state, {"loss": all_reduce_sum(loss.detach(), dp),
+                           "correct": all_reduce_sum(correct, dp),
+                           "count": labels.shape[0] * group_size(dp)}
 
     return step
 
@@ -107,18 +117,22 @@ def make_classifier_eval_step(model: ViTForImageClassification,
     batch's ``valid`` rows (a padded final batch counts its real samples
     only), deterministic, under ``torch.no_grad()``."""
 
+    calls = itertools.count()
+
     @torch.no_grad()
     def step(model: ViTForImageClassification, batch: Dict[str, torch.Tensor]):
-        model.eval()
-        labels, valid = batch["labels"], batch["valid"]
-        logits = model(images_from_batch(batch))
-        correct = ((torch.argmax(logits, dim=-1) == labels) & valid).sum()
-        dp = data_group(model)
-        count = all_reduce_sum(valid.sum(), dp)
-        loss = cross_entropy_loss(logits, labels, label_smoothing, valid=valid,
-                                  count=count.float())
-        return {"loss": all_reduce_sum(loss, dp), "correct": all_reduce_sum(correct, dp),
-                "count": count}
+        with span("step", next(calls)):
+            model.eval()
+            labels, valid = batch["labels"], batch["valid"]
+            dp = data_group(model)
+            with span("forward"):
+                logits = model(images_from_batch(batch))
+                correct = ((torch.argmax(logits, dim=-1) == labels) & valid).sum()
+                count = all_reduce_sum(valid.sum(), dp)
+                loss = cross_entropy_loss(logits, labels, label_smoothing, valid=valid,
+                                          count=count.float())
+            return {"loss": all_reduce_sum(loss, dp), "correct": all_reduce_sum(correct, dp),
+                    "count": count}
 
     return step
 
@@ -131,26 +145,30 @@ def make_mllm_train_step(model: MLLM) -> Callable:
     moe_on = model.cfg.lm.moe_experts > 0
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        model.train()
-        dp = data_group(model)
-        # the global batch's answer positions; a rank may hold none
-        count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens), dp)
-        record = (MoEAux(reduce=lambda f, p, n: global_routing_sums(f, p, n, dp))
-                  if moe_on else None)
-        out = model(images_from_batch(batch), batch["input_ids"], batch["attention_mask"],
-                    batch["labels"], kv_lens=batch.get("kv_lens"), moe_aux=record,
-                    loss_count=count)
-        loss = out["loss"]
-        reported = all_reduce_sum(loss.detach(), dp)
-        if moe_on and record.aux:
-            # the same global value on every rank (see multihost.sum_over_ranks)
-            aux_term = MOE_AUX_COEF * sum(record.aux) / len(record.aux)
-            loss = loss + aux_term
-            reported = reported + aux_term.detach()
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": reported}
+        with span("step", state.step):
+            model.train()
+            dp = data_group(model)
+            # the global batch's answer positions; a rank may hold none
+            count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens),
+                                   dp)
+            record = (MoEAux(reduce=lambda f, p, n: global_routing_sums(f, p, n, dp))
+                      if moe_on else None)
+            with span("forward"):
+                out = model(images_from_batch(batch), batch["input_ids"],
+                            batch["attention_mask"], batch["labels"],
+                            kv_lens=batch.get("kv_lens"), moe_aux=record, loss_count=count)
+                loss = out["loss"]
+                reported = all_reduce_sum(loss.detach(), dp)
+                if moe_on and record.aux:
+                    # the same global value on every rank (see multihost.sum_over_ranks)
+                    aux_term = MOE_AUX_COEF * sum(record.aux) / len(record.aux)
+                    loss = loss + aux_term
+                    reported = reported + aux_term.detach()
+            with span("backward"):
+                loss.backward()
+            state.optimizer.step()
+            state.step += 1
+            return state, {"loss": reported}
 
     return step
 
@@ -160,20 +178,24 @@ def make_mllm_eval_step(model: MLLM) -> Callable:
     where not valid), valid [B, A]}, under ``torch.no_grad()``: the loss is
     the global batch's, the rest this rank's."""
 
+    calls = itertools.count()
+
     @torch.no_grad()
     def step(model: MLLM, batch: Dict[str, torch.Tensor]):
-        model.eval()
-        dp = data_group(model)
-        count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens,
-                                            batch["valid"]), dp)
-        out = model(images_from_batch(batch), batch["input_ids"], batch["attention_mask"],
-                    batch["labels"], row_valid=batch["valid"], kv_lens=batch.get("kv_lens"),
-                    loss_count=count)
-        target = torch.gather(shift_labels(batch["labels"]), 1, out["positions"])
-        return {"loss": all_reduce_sum(out["loss"], dp),
-                "pred_ids": torch.argmax(out["logits"], dim=-1),
-                "target_ids": torch.where(out["valid"], target, IGNORE_INDEX),
-                "valid": out["valid"]}
+        with span("step", next(calls)):
+            model.eval()
+            dp = data_group(model)
+            count = all_reduce_sum(answer_count(batch["labels"], model.cfg.max_answer_tokens,
+                                                batch["valid"]), dp)
+            with span("forward"):
+                out = model(images_from_batch(batch), batch["input_ids"],
+                            batch["attention_mask"], batch["labels"], row_valid=batch["valid"],
+                            kv_lens=batch.get("kv_lens"), loss_count=count)
+                pred_ids = torch.argmax(out["logits"], dim=-1)
+            target = torch.gather(shift_labels(batch["labels"]), 1, out["positions"])
+            return {"loss": all_reduce_sum(out["loss"], dp), "pred_ids": pred_ids,
+                    "target_ids": torch.where(out["valid"], target, IGNORE_INDEX),
+                    "valid": out["valid"]}
 
     return step
 
@@ -185,15 +207,18 @@ def make_clip_train_step(model: CLIPModel) -> Callable:
     ``Optimizer.step``; the loss stays on the device."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        model.train()
-        img, txt, scale = model(images_from_batch(batch), batch["input_ids"],
-                                batch["attention_mask"])
-        dp = data_group(model)
-        loss = contrastive_loss(gather_rows(img, dp), gather_rows(txt, dp), scale)
-        (loss / group_size(dp)).backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss.detach()}
+        with span("step", state.step):
+            model.train()
+            dp = data_group(model)
+            with span("forward"):
+                img, txt, scale = model(images_from_batch(batch), batch["input_ids"],
+                                        batch["attention_mask"])
+                loss = contrastive_loss(gather_rows(img, dp), gather_rows(txt, dp), scale)
+            with span("backward"):
+                (loss / group_size(dp)).backward()
+            state.optimizer.step()
+            state.step += 1
+            return state, {"loss": loss.detach()}
 
     return step
 
@@ -203,14 +228,18 @@ def make_zero_shot_step(model: CLIPModel) -> Callable:
     the global batch as 0-d tensors: each valid image takes the class whose
     caption feature is nearest, under ``torch.no_grad()``."""
 
+    calls = itertools.count()
+
     @torch.no_grad()
     def step(model: CLIPModel, batch: Dict[str, torch.Tensor], class_features: torch.Tensor):
-        model.eval()
-        img = model.encode_image(images_from_batch(batch))
-        preds = torch.argmax(img @ class_features.T, dim=-1)
-        valid, dp = batch["valid"], data_group(model)
-        return (all_reduce_sum(((preds == batch["labels"]) & valid).sum(), dp),
-                all_reduce_sum(valid.sum(), dp))
+        with span("step", next(calls)):
+            model.eval()
+            with span("forward"):
+                img = model.encode_image(images_from_batch(batch))
+                preds = torch.argmax(img @ class_features.T, dim=-1)
+            valid, dp = batch["valid"], data_group(model)
+            return (all_reduce_sum(((preds == batch["labels"]) & valid).sum(), dp),
+                    all_reduce_sum(valid.sum(), dp))
 
     return step
 

@@ -3,9 +3,8 @@ package's (CPU).  ``set_seed`` reseeds the host generators as JAX's does;
 ``host_rng`` gives JAX's streams for integer names and, for string names,
 the same stream in every process (two subprocesses with different
 ``PYTHONHASHSEED``), where JAX's string-named streams change with the
-hash salt; ``StepTimer``'s summary keys, ``checked`` and
-``assert_finite_tree`` behave as JAX's; ``trace`` writes a Chrome trace
-holding the ``annotate`` span.
+hash salt; ``checked`` and ``assert_finite_tree`` behave as JAX's;
+``trace`` writes a Chrome trace holding a ``span``.
 """
 
 import json
@@ -63,28 +62,11 @@ def test_host_rng_is_stable_across_hash_salts():
     assert runs[0][0] != runs[1][0]
 
 
-def test_step_timer_summary_matches_jax():
-    from multimodal_concept_learning_tpu.utils.profiling import StepTimer as JTimer
-    from multimodal_concept_learning_tpu_torch.utils.profiling import StepTimer
-
-    t, j = StepTimer(), JTimer()
-    for fence in (torch.ones(3), np.asarray([1.0]), None):
-        t.start()
-        t.stop(fence_array=fence)
-    j.start()
-    j.stop(np.asarray([1.0]))
-    assert sorted(t.summary()) == sorted(j.summary())
-    assert t.summary()["steps"] == 3 and t.summary()["mean_s"] >= 0.0
-    assert StepTimer().summary() == JTimer().summary() == {"steps": 0}
-    with pytest.raises(AssertionError):
-        StepTimer().stop()
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
-    from multimodal_concept_learning_tpu_torch.utils.profiling import annotate, trace
+    from multimodal_concept_learning_tpu_torch.utils.profiling import span, trace
 
     with trace(str(tmp_path)) as prof:
-        with annotate("probe_span"):
+        with span("probe_span"):
             torch.ones(8) @ torch.ones(8)
     events = json.load(open(tmp_path / "trace.json"))["traceEvents"]
     assert any(e.get("name") == "probe_span" for e in events)
