@@ -268,7 +268,16 @@ strided and offset views of their operands (the wrappers copy them; K3 and K4 th
 and times K3 and K4 side by side, warm and cold (pools cycled past the L2),
 at the gemma3 window-512 row, the serving shape (8 rows of 262-269 tokens,
 windows 512 and global) and 4 kv heads at ~1k context, pages of 16 and 64,
-printing each call's split S (its cluster size).  ``python3 chip_smoke.py
+printing each call's split S (its cluster size).  Phase 3 ends with the
+multi-tensor AdamW kernels (``ops/multi_tensor_adamw.py``) at both train
+cells' tensor lists (397 and 200 tensors), float32, bf16 with and without
+float32 masters, k 1 and 4, clipping engaged and not: every state bitwise
+the plain path's (where clipping engages, given the kernel's norm; the
+drift from the plain path's own norm printed), exact launch counts, the
+norm twice bitwise and beside the float64 sum, a resume bitwise the
+uninterrupted run; then each timed by CUDA graph replay beside its bound,
+the plain versions and ``torch.optim.AdamW(fused=True)``'s step
+(``--adamw`` runs only that part).  ``python3 chip_smoke.py
 --profile`` builds the kernels and profiles the full CLIP train step
 instead, on the default path and on the kernel variants (``torch.profiler``:
 idle share, aten ops and device time by kernel).  ``python3 chip_smoke.py
@@ -2009,6 +2018,335 @@ def _phase_paged(torch, gen, dev, report: dict) -> None:
             k3["max_abs_err"] = max(k3["max_abs_err"], err)
 
 
+ADAMW_TENSORS = {"clip_b32_train": 397, "vit_b16_train": 200}  # trained tensors a model has
+ADAMW_PAIRS = (("float32", False), ("bfloat16", True), ("bfloat16", False))  # (params, masters)
+ADAMW_UPDATES = 3
+# the kernel's squared norm against the float64 sum: 40x the gap seen on an H100 (2.4e-8), below
+# what one LayerNorm bias left out would move it (768 of CLIP's 126.6M values, ~6e-6)
+ADAMW_NORM_RTOL = 1e-6
+
+
+def _adamw_counters() -> tuple:
+    """The multi-tensor AdamW wrappers, whose ``.launches`` count their calls."""
+    from multimodal_concept_learning_tpu_torch.ops import multi_tensor_adamw as mta
+
+    return mta.multi_tensor_accumulate, mta.multi_tensor_sq_norm, mta.multi_tensor_adamw
+
+
+def _adamw_shapes() -> dict:
+    """{cell: [trained parameter shapes]} of the benchmark's two train
+    cells' models: the CLIs' ``init_model`` at full size on the card
+    (freed at once)."""
+    import torch
+
+    from multimodal_concept_learning_tpu_torch import miniyaml
+    from multimodal_concept_learning_tpu_torch.configs import (
+        ContrastiveTrainingConfig,
+        VisionTrainingConfig,
+    )
+    from multimodal_concept_learning_tpu_torch.tokenizer import load_tokenizer
+    from multimodal_concept_learning_tpu_torch.train import contrastive_training, vision_training
+
+    with open(CLIP_CONFIG) as f:
+        clip_cfg = ContrastiveTrainingConfig.from_params(miniyaml.safe_load(f))
+    with open(VISION_CONFIG) as f:
+        vision_cfg = VisionTrainingConfig.from_params(miniyaml.safe_load(f))
+    models = {
+        "clip_b32_train": lambda: contrastive_training.init_model(
+            clip_cfg, len(load_tokenizer("concept-tokenizer")), "cuda"),
+        "vit_b16_train": lambda: vision_training.init_model(
+            vision_cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda"),
+    }
+    shapes = {}
+    for cell, make in models.items():
+        model = make()
+        shapes[cell] = [tuple(p.shape) for p in model.parameters() if p.requires_grad]
+        del model
+        if len(shapes[cell]) != ADAMW_TENSORS[cell]:
+            fail(f"{cell}: {len(shapes[cell])} trained tensors, not {ADAMW_TENSORS[cell]}")
+    torch.cuda.empty_cache()
+    return shapes
+
+
+@contextlib.contextmanager
+def _plain_adamw(kernel_norm: bool = False):
+    """``parallel/optimizer.py`` on the plain versions of the multi-tensor
+    kernels (on whatever device its tensors are) while the block runs;
+    ``kernel_norm``: all but the norm, which stays the kernel's."""
+    from multimodal_concept_learning_tpu_torch.ops import multi_tensor_adamw as mta
+    from multimodal_concept_learning_tpu_torch.parallel import optimizer
+
+    names = ("multi_tensor_accumulate", "multi_tensor_adamw",
+             *(() if kernel_norm else ("multi_tensor_sq_norm",)))
+    saved = {n: getattr(optimizer, n) for n in names}
+    for n in names:
+        setattr(optimizer, n, getattr(mta, f"{n}_reference"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(optimizer, n, fn)
+
+
+def _adamw_params(torch, shapes, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return {f"p{i}": torch.nn.Parameter(
+        (torch.randn(s, generator=gen, device="cuda") * 0.02).to(dtype))
+        for i, s in enumerate(shapes)}
+
+
+def _adamw_grads(torch, params: dict, i: int, sigma: float) -> None:
+    """Micro-step ``i``'s gradients (seed SEED + 1 + i; the second tensor's
+    missing on even micro-steps)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1 + i)
+    for j, p in enumerate(params.values()):
+        p.grad = (None if j == 1 and i % 2 == 0 else
+                  (torch.randn(p.shape, generator=gen, device="cuda") * sigma).to(p.dtype))
+
+
+def _adamw_run(torch, shapes, dtype, master: bool, k: int, sigma: float, micro_steps: int,
+               plain: str = "", resume=None):
+    """(params, optimizer) after micro-steps 0..micro_steps-1 of AdamW (lr
+    5e-4, weight decay 0.2, clipping at 1.0, ``k`` micro-steps an update)
+    over seeded parameters of ``shapes``: through the kernels, or the same
+    optimizer on the plain versions on the card (``plain`` "all"; "update":
+    all but the norm, the kernel's).  ``resume``: (micro-step, params,
+    optimizer state) to start from."""
+    from multimodal_concept_learning_tpu_torch.parallel.optimizer import Optimizer
+
+    params = _adamw_params(torch, shapes, dtype)
+    start = 0
+    if resume is not None:
+        start, saved, _ = resume
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(saved[n])
+    opt = Optimizer(params, 5e-4, 0.2, 1.0, k, fp32_master=master)
+    if resume is not None:
+        opt.load_state_dict(resume[2])
+    with _plain_adamw(plain == "update") if plain else contextlib.nullcontext():
+        for i in range(start, micro_steps):
+            _adamw_grads(torch, params, i, sigma)
+            opt.step()
+    return params, opt
+
+
+def _adamw_state(params: dict, opt) -> dict:
+    """{what: [tensors]} of a run: parameters, masters, moments, accumulators."""
+    return {"param": [p.detach() for p in params.values()],
+            "master": list((opt.master or {}).values()), "mu": list(opt.mu.values()),
+            "nu": list(opt.nu.values()), "acc": list((opt.acc or {}).values())}
+
+
+def _adamw_bitwise(torch, tag: str, got: dict, want: dict, failures: list) -> dict:
+    """Note a failure for each tensor of two runs' states that differs;
+    returns {state: its largest |difference|} (0.0 where bitwise)."""
+    errs = {}
+    for what in want:
+        errs[what] = 0.0
+        for i, (a, b) in enumerate(zip(got[what], want[what])):
+            if not torch.equal(a, b):
+                failures.append(f"adamw {tag}: {what}[{i}] not bitwise")
+                errs[what] = max(errs[what], (a.float() - b.float()).abs().max().item())
+    return errs
+
+
+def _adamw_drift(torch, got: dict, want: dict) -> dict:
+    """{state: (the largest gap of a float32 tensor over its max |value|,
+    the elements that differ)} between two runs' states."""
+    drift = {}
+    for what in want:
+        worst, differ = 0.0, 0
+        for a, b in zip(got[what], want[what]):
+            if b.numel():
+                gap = (a.float() - b.float()).abs()
+                differ += int((gap > 0).sum())
+                if a.dtype == torch.float32:
+                    worst = max(worst, gap.max().item() / max(b.abs().max().item(), 1e-30))
+        if want[what]:
+            drift[what] = (worst, differ)
+    return drift
+
+
+def _adamw_checks(torch, shapes: dict, report: dict) -> None:
+    """The kernels against the plain versions on the card, each dtype pair
+    at each cell's tensor list, k 1 and 4, clipping engaged and not (the
+    gradients' scale); ADAMW_UPDATES updates and, at k 4, two micro-steps
+    more (the accumulators half full); exact launch counts.  Every state
+    bitwise the plain path's; where clipping engages, the plain path's
+    given the kernel's norm, and the drift from the plain path with its
+    own norm printed.  Then two norms of the same gradients bitwise equal
+    and within ADAMW_NORM_RTOL of the float64 sum (the plain version's
+    float32 sums printed beside them), and a resumed run bitwise the
+    uninterrupted one.  Fails
+    after all of them with every failure.  Records each kernel's largest
+    |difference| from its plain version: the accumulators' (accumulate),
+    the parameters', masters' and moments' (update), the squared norm's."""
+    from multimodal_concept_learning_tpu_torch.ops import multi_tensor_adamw as mta
+
+    failures, errs, norm_err = [], {}, 0.0
+    for cell, cell_shapes in shapes.items():
+        values = sum(int(np.prod(s)) for s in cell_shapes)
+        for dtype_name, master in ADAMW_PAIRS:
+            dtype = getattr(torch, dtype_name)
+            for k in (1, 4):
+                steps = ADAMW_UPDATES * k + (2 if k > 1 else 0)
+                for engaged, sigma in ((False, 1e-6), (True, 1e-2)):
+                    tag = (f"{cell} {dtype_name}{' + master' if master else ''} k {k} "
+                           f"clip {'engaged' if engaged else 'not engaged'}")
+                    before = {f: getattr(mta, f).launches for f in
+                              ("multi_tensor_accumulate", "multi_tensor_sq_norm",
+                               "multi_tensor_adamw")}
+                    t0 = time.perf_counter()
+                    got = _adamw_state(*_adamw_run(torch, shapes[cell], dtype, master, k, sigma,
+                                                   steps))
+                    counts = {f: getattr(mta, f).launches - n for f, n in before.items()}
+                    want_counts = {"multi_tensor_accumulate": steps if k > 1 else 0,
+                                   "multi_tensor_sq_norm": ADAMW_UPDATES,
+                                   "multi_tensor_adamw": ADAMW_UPDATES}
+                    if counts != want_counts:
+                        failures.append(f"adamw {tag}: launches {counts}, not {want_counts}")
+                    # bitwise the plain versions; where clipping engages, given the
+                    # kernel's norm (the plain float32 sums differ in the last bits)
+                    want = _adamw_state(*_adamw_run(torch, shapes[cell], dtype, master, k, sigma,
+                                                    steps, plain="update" if engaged else "all"))
+                    n = len(failures)
+                    for what, err in _adamw_bitwise(torch, tag, got, want, failures).items():
+                        errs[what] = max(errs.get(what, 0.0), err)
+                    line = f"{'bitwise' if len(failures) == n else 'NOT bitwise'} the plain path"
+                    if engaged:
+                        line += " on the kernel's norm; against the plain norm: " + ", ".join(
+                            f"{w} {g:.2e} of max, {d} differ" for w, (g, d) in _adamw_drift(
+                                torch, got, _adamw_state(*_adamw_run(
+                                    torch, shapes[cell], dtype, master, k, sigma, steps,
+                                    plain="all"))).items())
+                    print(f"[kernels] adamw {tag}: {len(shapes[cell])} tensors, {values} values, "
+                          f"{line} ({time.perf_counter() - t0:.1f} s)", flush=True)
+                    del got, want
+        # the norm: two calls bitwise equal, beside the plain version's
+        params = _adamw_params(torch, cell_shapes, torch.float32)
+        _adamw_grads(torch, params, 1, 1e-2)
+        ts = mta.Tensors(list(params.values()), None, [torch.zeros_like(p) for p in
+                                                        params.values()],
+                         [torch.zeros_like(p) for p in params.values()], None)
+        grads = [p.grad for p in params.values()]
+        first = mta.multi_tensor_sq_norm(ts, grads).clone()
+        second = mta.multi_tensor_sq_norm(ts, grads).clone()
+        plain = mta.multi_tensor_sq_norm_reference(ts, grads).item()
+        exact = sum(float((g.double() ** 2).sum()) for g in grads)
+        if not torch.equal(first, second):
+            failures.append(f"adamw {cell}: two norms of the same gradients differ")
+        norm_err = max(norm_err, abs(first.item() - plain))
+        rel = abs(first.item() - exact) / exact
+        print(f"[kernels] adamw {cell}: squared norm {first.item():.9e} twice "
+              f"{'bitwise' if torch.equal(first, second) else 'NOT bitwise'}; float64 "
+              f"{exact:.9e} (kernel {rel:.3e} off it, limit {ADAMW_NORM_RTOL:.0e}); plain "
+              f"{plain:.9e} ({abs(plain - exact) / exact:.3e} off it, "
+              f"{abs(first.item() - plain) / plain:.3e} off the kernel's)", flush=True)
+        if not rel <= ADAMW_NORM_RTOL:
+            failures.append(f"adamw {cell}: the squared norm is {rel} off the float64 sum")
+        del params, ts, grads
+    # a resume between updates, mid-accumulation: bitwise the uninterrupted run
+    for dtype_name, master in ADAMW_PAIRS[:2]:
+        dtype, k = getattr(torch, dtype_name), 4
+        steps, cut = ADAMW_UPDATES * k, k + 2
+        shapes_v = shapes["vit_b16_train"]
+        whole = _adamw_state(*_adamw_run(torch, shapes_v, dtype, master, k, 1e-2, steps))
+        params, opt = _adamw_run(torch, shapes_v, dtype, master, k, 1e-2, cut)
+        saved = ({n: p.detach().clone() for n, p in params.items()},
+                 {key: (v if not isinstance(v, dict) else {n: t.clone() for n, t in v.items()})
+                  for key, v in opt.state_dict().items()})
+        del params, opt
+        resumed = _adamw_state(*_adamw_run(torch, shapes_v, dtype, master, k, 1e-2, steps,
+                                           resume=(cut, *saved)))
+        n = len(failures)
+        _adamw_bitwise(torch, f"resume {dtype_name}", resumed, whole, failures)
+        print(f"[kernels] adamw resume at micro-step {cut} of {steps} ({dtype_name}"
+              f"{' + master' if master else ''}, k {k}): "
+              f"{'bitwise' if len(failures) == n else 'NOT bitwise'} the uninterrupted run",
+              flush=True)
+        del whole, resumed, saved
+    if failures:
+        fail("; ".join(failures))
+    measured = {"multi_tensor_accumulate": errs["acc"], "multi_tensor_sq_norm": norm_err,
+                "multi_tensor_adamw": max(errs[w] for w in ("param", "master", "mu", "nu"))}
+    print(f"[kernels] adamw max_abs_err against the plain versions: {measured}", flush=True)
+    for f, err in measured.items():
+        report.setdefault(f, {})["max_abs_err"] = err
+    torch.cuda.empty_cache()
+
+
+def _adamw_times(torch, shapes: dict, report: dict) -> None:
+    """Each cell's optimizer work at its shapes (float32 parameters, as the
+    cells train): CLIP's norm + update (k 1), ViT's accumulation and its
+    norm + update from the accumulators (k 4), by CUDA graph replay, beside
+    the bound (bytes over 3.35 TB/s), the plain versions (graph replay, and
+    by events: their host-paced time) and, beside the update alone, as a
+    yardstick the port never calls, ``torch.optim.AdamW(fused=True)``'s
+    step (events; no clipping).  No library call computes the accumulation
+    or the norm alone: their ``library_ms`` is None."""
+    from multimodal_concept_learning_tpu_torch.ops import multi_tensor_adamw as mta
+
+    hyper = dict(max_norm=1.0, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.2, bc1=0.1,
+                 bc2=0.001, step_size=-5e-4)
+    for cell, cell_shapes in shapes.items():
+        params = _adamw_params(torch, cell_shapes, torch.float32)
+        _adamw_grads(torch, params, 1, 1e-2)
+        plist = list(params.values())
+        grads = [p.grad for p in plist]
+        values = sum(p.numel() for p in plist)
+        k = 4 if cell == "vit_b16_train" else 1
+        zeros = lambda: [torch.zeros_like(p) for p in plist]  # noqa: E731
+        ts = mta.Tensors(plist, None, zeros(), zeros(), zeros() if k > 1 else None)
+        src = None if k > 1 else grads  # ViT's update reads the accumulators
+
+        def kernel_update(f=mta.multi_tensor_sq_norm, u=mta.multi_tensor_adamw):
+            u(ts, src, f(ts, src), **hyper)
+
+        def plain_update():
+            mta.multi_tensor_adamw_reference(
+                ts, src, mta.multi_tensor_sq_norm_reference(ts, src), **hyper)
+
+        rows = {"norm + update": (kernel_update, plain_update, 32 if k == 1 else 36)}
+        if k > 1:
+            rows["accumulate"] = (lambda: mta.multi_tensor_accumulate(ts, grads, 1),
+                                  lambda: mta.multi_tensor_accumulate_reference(ts, grads, 1), 12)
+        rows["norm"] = (lambda: mta.multi_tensor_sq_norm(ts, src),
+                        lambda: mta.multi_tensor_sq_norm_reference(ts, src), 4)
+        fused = torch.optim.AdamW(plist, lr=5e-4, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.2, fused=True)
+        library_ms = cuda_time_ms(fused.step)
+        del fused
+        for what, (kern, plain, per_value) in rows.items():
+            ms = graph_time_ms(kern)
+            plain_ms = graph_time_ms(plain, iters=5)
+            plain_host_ms = cuda_time_ms(plain, iters=5)
+            b = bound(per_value * values, 0.0)
+            key = {"norm + update": "multi_tensor_adamw", "accumulate": "multi_tensor_accumulate",
+                   "norm": "multi_tensor_sq_norm"}[what]
+            lib_ms = library_ms if key == "multi_tensor_adamw" else None
+            print(f"[kernels] adamw {cell} {what}: {ms:.4f} ms (bound {b['bound_ms']:.4f} ms, "
+                  f"{per_value} B a value, {100 * b['bound_ms'] / ms:.1f}% of it); plain "
+                  f"{plain_ms:.4f} ms device, {plain_host_ms:.4f} ms by events"
+                  + ("" if lib_ms is None else
+                     f"; torch.optim.AdamW(fused=True) step, no clip, {lib_ms:.4f} ms"), flush=True)
+            if cell == "clip_b32_train" or key == "multi_tensor_accumulate":
+                report.setdefault(key, {}).update(ms=ms, plain_ms=plain_host_ms,
+                                                  library_ms=lib_ms, **b)
+        del params, plist, grads, ts
+        torch.cuda.empty_cache()
+
+
+def _phase_adamw(torch, gen, dev, report: dict) -> None:
+    """The multi-tensor AdamW kernels (``ops/multi_tensor_adamw.py``):
+    ``_adamw_checks``, then ``_adamw_times``."""
+    shapes = _adamw_shapes()
+    t0 = time.perf_counter()
+    _adamw_checks(torch, shapes, report)
+    print(f"[timing]   adamw checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    _adamw_times(torch, shapes, report)
+
+
 def phase_kernels(report: dict) -> None:
     from functools import partial
 
@@ -2052,7 +2390,8 @@ def phase_kernels(report: dict) -> None:
                      partial(_phase_layouts, torch, gen, dev),
                      partial(_phase_int4_v3, torch, gen, dev, report),
                      partial(_phase_int4_times, torch, gen, dev, report),
-                     partial(_phase_paged_mp, torch, gen, dev, report)):
+                     partial(_phase_paged_mp, torch, gen, dev, report),
+                     partial(_phase_adamw, torch, gen, dev, report)):
             t0 = time.perf_counter()
             part()
             print(f"[timing]   {part.func.__name__}: {time.perf_counter() - t0:.1f} s",
@@ -3794,7 +4133,8 @@ def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> s
     Checks the reference-format lines, both checkpoints loading strict into
     the port's classifier, finite losses and exact K1 launches: 12 a
     validation or test batch, none in a training micro-step (dropout takes
-    the dense branch).  Returns the path of its ``best_model.pt``."""
+    the dense branch); exact AdamW launches (the kernels line's
+    accumulation count).  Returns the path of its ``best_model.pt``."""
     import contextlib
     import io
 
@@ -3826,7 +4166,7 @@ def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> s
     torch.cuda.reset_peak_memory_stats()
     counters = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
                 ac.attention_core_fwd, ac.attention_core_bwd)
-    for fn in counters:
+    for fn in (*counters, *_adamw_counters()):
         fn.launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -3835,6 +4175,7 @@ def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> s
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = tuple(fn.launches for fn in counters)
+    adamw = {fn.__name__: fn.launches for fn in _adamw_counters()}
     text = buf.getvalue()
     for line in text.splitlines():
         print(f"[vision-cli] {line}", flush=True)
@@ -3843,6 +4184,10 @@ def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> s
     micro = sizes["train"] // b  # drop_last
     evals = -(-sizes["val"] // b) + -(-sizes["test"] // b)
     expected = (parsed.num_hidden_layers * evals, 0, 0, 0, 0)
+    # the accumulation every micro-step; the norm (clipping at 1.0) and the update every k-th
+    k = parsed.effective_batch_size // b
+    adamw_expected = {"multi_tensor_accumulate": micro, "multi_tensor_sq_norm": micro // k,
+                      "multi_tensor_adamw": micro // k}
     epoch = out["history"][0]
     lines_ok = all(re.search(p, text, re.M) for p in (
         r"^Epoch 1/1 completed in \d+\.\d\ds$",
@@ -3870,12 +4215,15 @@ def phase_vision_slice(report: dict, root: str, images_per_color: int = 64) -> s
     print(f"[vision] train loss {epoch['train_loss']:.4f}, val loss {epoch['val_loss']:.4f}, "
           f"test {out['test_loss']:.4f} / {out['test_acc']:.2f}%; launches (K1 fwd, dq, dkv, "
           f"K2 fwd, bwd) {launches} (expected {expected}: one a layer of a val or test "
-          f"batch, 0 a training micro-step); lines {bool(lines_ok)}; checkpoints load strict {loaded}",
-          flush=True)
+          f"batch, 0 a training micro-step); AdamW launches {adamw} (expected {adamw_expected}: "
+          f"k {k}); lines {bool(lines_ok)}; checkpoints load strict {loaded}", flush=True)
     if not (lines_ok and all(loaded) and finite and epoch["micro_steps"] == micro):
         fail("vision slice checks")
     if launches != expected:
         fail(f"vision slice launches {launches} != {expected}")
+    if adamw != adamw_expected:
+        fail(f"vision slice AdamW launches {adamw} != {adamw_expected}")
+    report["multi_tensor_accumulate"]["launches"] = adamw["multi_tensor_accumulate"]
     return os.path.join(models, "best_model.pt")
 
 
@@ -4170,7 +4518,8 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> di
     """The port's contrastive CLI (``contrastive_training.main``) on the
     full CLIP of experiments/contrastive/color/12_colors_3k.yaml (ViT-B/32 +
     12 x 512 text tower, batch 256), one epoch on a generated 12-color
-    dataset; exact K2 launch counts, finite losses, every tensor moved."""
+    dataset; exact K2 and AdamW launch counts (the kernels line's), finite
+    losses, every tensor moved."""
     import torch
 
     from multimodal_concept_learning_tpu_torch.checkpoint import load_state_dict
@@ -4192,11 +4541,14 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> di
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ac.attention_core_fwd.launches = ac.attention_core_bwd.launches = 0
+    for fn in _adamw_counters():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = main(["--config_path", cfg["path"], "--device", "cuda"])
     wall = time.perf_counter() - t0
     launches = {"attention_core_fwd": ac.attention_core_fwd.launches,
                 "attention_core_bwd": ac.attention_core_bwd.launches}
+    adamw = {fn.__name__: fn.launches for fn in _adamw_counters()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady_ms = _steady_step_ms(out["state"])
 
@@ -4205,6 +4557,10 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> di
     # 12 vision + 12 text layers a step; the class captions once; 12 vision a test batch
     expected = {"attention_core_fwd": 24 * steps + 12 + 12 * test_batches,
                 "attention_core_bwd": 24 * steps}
+    # k 1: no accumulation, the norm (clipping on) and the update once a step
+    assert config.effective_batch_size == CLIP_BATCH and config.max_grad_norm
+    adamw_expected = {"multi_tensor_accumulate": 0, "multi_tensor_sq_norm": steps,
+                      "multi_tensor_adamw": steps}
     epoch, acc, ckpt = out["history"][0], out["zero_shot_acc"], out["checkpoint"]
     saved = os.path.exists(ckpt)
     trained = load_state_dict(ckpt) if saved else {}
@@ -4219,13 +4575,18 @@ def phase_clip_slice(report: dict, root: str, images_per_color: int = 108) -> di
           f"fixed device batch {steady_ms:.2f} ms", flush=True)
     print(f"[clip] train loss {epoch['train_loss']}, zero-shot accuracy {acc}%, checkpoint "
           f"{os.path.basename(ckpt)} saved {saved}; tensors unmoved {unmoved}; K2 launches "
-          f"{launches} (expected {expected})", flush=True)
+          f"{launches} (expected {expected}); AdamW launches {adamw} (expected "
+          f"{adamw_expected})", flush=True)
     if not (np.isfinite(epoch["train_loss"]) and 0.0 <= acc <= 100.0 and saved and not unmoved):
         fail("CLIP slice checks")
     if launches != expected:
         fail(f"CLIP slice launch counts {launches} != expected {expected}")
+    if adamw != adamw_expected:
+        fail(f"CLIP slice AdamW launch counts {adamw} != expected {adamw_expected}")
     for name, n in launches.items():
         report[name]["launches"] = n
+    for name in ("multi_tensor_sq_norm", "multi_tensor_adamw"):  # accumulate: the vision CLI's
+        report[name]["launches"] = adamw[name]
     return {"config": config, "data_dir": data_dir, "launches": launches,
             "steps_per_s": rate, "images_per_s": CLIP_BATCH * rate,
             "peak_gib": peak_gib, "steady_ms": steady_ms}
@@ -5959,9 +6320,10 @@ def _moe_run(cfg, sd, dev: str, inputs, batches) -> dict:
         taken, take = [], opt._take_grads
 
         def take_and_keep():  # micro-steps 1 and 2's raw gradients (the update's inputs)
-            grads = take()
+            grads = take()  # in the parameters' order, None where missing (zeros)
             if len(taken) < 2:
-                taken.append({n: g.detach().cpu().clone() for n, g in grads.items()})
+                taken.append({n: (torch.zeros_like(p) if g is None else g).detach().cpu().clone()
+                              for (n, p), g in zip(opt.params.items(), grads)})
             return grads
 
         opt._take_grads = take_and_keep
@@ -7555,6 +7917,9 @@ SOURCES = {
                         "scripts/bench_int4_kernel.py:49"),
     "int4_matmul_v3b": ("multimodal_concept_learning_tpu_torch/csrc/int4_matmul_v3.cu",
                         "scripts/bench_int4_kernel.py:66"),
+    **{name: ("multimodal_concept_learning_tpu_torch/csrc/multi_tensor_adamw.cu",
+              "none: XLA fuses optax's chain on the TPU")
+       for name in ("multi_tensor_accumulate", "multi_tensor_sq_norm", "multi_tensor_adamw")},
 }
 KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -7654,6 +8019,9 @@ def main(argv=None) -> None:
                              "vision CLIs' epochs with ROOT's and this checkout's input path in "
                              "turns (3 runs each), and profile this one's host-to-device "
                              "copies; no other phase")
+    parser.add_argument("--adamw", action="store_true",
+                        help="build, then phase 3's multi-tensor AdamW part alone: the kernels "
+                             "against their plain versions, then timed; no other phase")
     parser.add_argument("--mesh-probe", action="store_true",
                         help="build, then phase 37 (sharded serving, two ranks on the card) "
                              "with the LM at its full 26 blocks; no other phase")
@@ -7718,6 +8086,10 @@ def main(argv=None) -> None:
         return
     if args.mesh_probe:
         mesh_probe(card)
+        return
+    if args.adamw:
+        with torch.no_grad():
+            _phase_adamw(torch, None, None, {})
         return
     report: dict = {}
     timed(phase_kernels, report)  # alone on the card: the kernels' times

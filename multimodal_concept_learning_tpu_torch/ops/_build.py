@@ -29,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
            "paged_attention.cu", "attention_core.cu", "paged_attention_mp.cu", "int4_matmul.cu",
            "attention_core_bd.cu", "fused_attention_block.cu", "int4_matmul_v3.cu",
-           "merged_bwd_tc.cu")
+           "merged_bwd_tc.cu", "multi_tensor_adamw.cu")
 HEADERS = ("flash_attention_common.cuh", "merged_attention.cuh", "mma_tiles.cuh",
            "merged_tiles.cuh", "merged_bwd_tc.cuh", "paged_split.cuh", "int4_split.cuh")
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
@@ -67,6 +67,10 @@ _SIGNATURES = {
     "mcl_fused_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "mcl_int4_matmul_v3a": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mcl_int4_matmul_v3b": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mcl_multi_tensor_accumulate": (_P, _I, _I, _P),
+    "mcl_multi_tensor_sq_norm": (_P, _I, _I, _P, _I, _P),
+    "mcl_multi_tensor_sum": (_P, _I, _P, _P),
+    "mcl_multi_tensor_adamw": (_P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 

@@ -25,23 +25,38 @@ global one (``multihost.global_sq_norm``: the shards' squared norms
 summed over their axes, the replicated parameters counted once; the
 plain sum when nothing is sharded).  Build the optimizer after ``shard_params``: it holds the
 shards.
-Every update is plain tensor arithmetic on the parameters' device.
+On a CUDA device the accumulation, the norm and the update each run as
+one multi-tensor kernel over all the trained tensors
+(``ops/multi_tensor_adamw.py``: a few launches a step, no host sync; the
+norm is summed in a fixed order); on the CPU as the same module's plain
+per-tensor versions.  Under a shard layout the norm is
+``multihost.global_sq_norm``'s, handed to the update on the device.
 ``step`` is an ``optimizer`` span (``utils/profiling.py``) holding
 ``optimizer.reduce`` (under a process group), ``optimizer.accumulate``,
-``optimizer.clip`` and ``optimizer.update``; the float32 cast of the
-gradients is the optimizer's own time.
+``optimizer.clip`` (the norm) and ``optimizer.update`` (the clip factor
+applied, and AdamW).
 ``state_dict`` / ``load_state_dict`` carry everything a resumed run needs
 (the moments, masters, accumulator and both counters), so a run resumed
 between the micro-steps of one accumulation continues bitwise.
+``mu``, ``nu``, ``master`` and ``acc`` are read-only mappings of parameter
+name to tensor: the tensors change in place, and the kernels' table of
+them, packed once, stays theirs (``load_state_dict`` copies into them).
 """
 
 from __future__ import annotations
 
 import math
+from types import MappingProxyType
 from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from multimodal_concept_learning_tpu_torch.ops.multi_tensor_adamw import (
+    Tensors,
+    multi_tensor_accumulate,
+    multi_tensor_adamw,
+    multi_tensor_sq_norm,
+)
 from multimodal_concept_learning_tpu_torch.parallel import multihost
 from multimodal_concept_learning_tpu_torch.utils.profiling import span
 
@@ -93,30 +108,45 @@ class Optimizer:
         self.mini_step = 0
         self.count = 0  # inner updates (Adam's bias-correction and schedule count)
         with torch.no_grad():
-            self.master = ({n: p.detach().float().clone() for n, p in self.params.items()}
-                           if fp32_master else None)
-            self.mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
-            self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
-            self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
-                        if self.k > 1 else None)
+            master = ({n: p.detach().float().clone() for n, p in self.params.items()}
+                      if fp32_master else None)
+            mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
+            nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
+            acc = {n: torch.zeros_like(p) for n, p in self.params.items()} if self.k > 1 else None
+        self.mu, self.nu = MappingProxyType(mu), MappingProxyType(nu)
+        self.master = None if master is None else MappingProxyType(master)
+        self.acc = None if acc is None else MappingProxyType(acc)
+        names = list(self.params)
+        self._tensors = Tensors(
+            [self.params[n] for n in names],
+            None if self.master is None else [self.master[n] for n in names],
+            [self.mu[n] for n in names], [self.nu[n] for n in names],
+            None if self.acc is None else [self.acc[n] for n in names])
+        self._sharded = any(getattr(p, "_mcl_shard", None) is not None
+                            for p in self.params.values())
 
     def lr(self, count: int) -> float:
         """The learning rate of inner update ``count`` (0-based)."""
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
-    def _take_grads(self) -> Dict[str, torch.Tensor]:
-        grads = {}
-        for n, p in self.params.items():
-            grads[n] = p.grad if p.grad is not None else torch.zeros_like(p)
+    def _take_grads(self) -> list:
+        """The parameters' ``.grad`` in order (None where missing), cleared."""
+        grads = []
+        for p in self.params.values():
+            grads.append(p.grad)
             p.grad = None
         return grads
 
     def state_dict(self) -> dict:
         """The optimizer's state: {count, mini_step, mu, nu, master, acc}
-        (tensors by parameter name; ``master`` / ``acc`` None when unused)."""
-        return {"count": self.count, "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu,
-                "master": self.master, "acc": self.acc}
+        (dicts of its tensors by parameter name; ``master`` / ``acc`` None
+        when unused)."""
+        state = {"count": self.count, "mini_step": self.mini_step}
+        for key in ("mu", "nu", "master", "acc"):
+            mine = getattr(self, key)
+            state[key] = None if mine is None else dict(mine)
+        return state
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -140,46 +170,36 @@ class Optimizer:
 
     def _step(self) -> bool:
         grads = self._take_grads()
+        params = list(self.params.values())
+        if multihost.is_distributed() or self._sharded:  # collectives take every gradient
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         if multihost.is_distributed():
             with span("optimizer.reduce"):
-                multihost.reduce_gradients(list(grads.values()),
-                                           [self.params[n] for n in grads])
+                multihost.reduce_gradients(grads, params)
         if self.k > 1:
             with span("optimizer.accumulate"):
-                n_acc = self.mini_step
-                for n, g in grads.items():
-                    acc = self.acc[n]
-                    acc.copy_(acc + (g - acc) / (n_acc + 1))
+                multi_tensor_accumulate(self._tensors, grads, self.mini_step)
                 self.mini_step += 1
                 if self.mini_step < self.k:
                     return False
                 self.mini_step = 0
-                grads = {n: a.clone() for n, a in self.acc.items()}
-                for a in self.acc.values():
-                    a.zero_()
-        grads = {n: g.float() for n, g in grads.items()}
+                grads = None  # the update reads the accumulators and zeroes them
+        sq_norm = None
         if self.max_grad_norm:
             with span("optimizer.clip"):
-                norm = torch.sqrt(multihost.global_sq_norm(
-                    list(grads.values()), [self.params[n] for n in grads]))
-                keep = norm < self.max_grad_norm
-                grads = {n: torch.where(keep, g, (g / norm) * self.max_grad_norm)
-                         for n, g in grads.items()}
+                if self._sharded:
+                    sq_norm = multihost.global_sq_norm(
+                        self._tensors.acc if grads is None else grads, params)
+                else:
+                    sq_norm = multi_tensor_sq_norm(self._tensors, grads)
         with span("optimizer.update"):
             self.count += 1
             bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** self.count)
             bc2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** self.count)
-            step_size = -self.lr(self.count - 1)
-            for n, g in grads.items():
-                mu, nu = self.mu[n], self.nu[n]
-                mu.copy_((1 - self.b1) * g + self.b1 * mu)
-                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-                target = self.master[n] if self.master is not None else self.params[n]
-                upd = (upd + self.weight_decay * target.float()) * step_size
-                target.add_(upd)
-                if self.master is not None:
-                    self.params[n].copy_(target.to(self.params[n].dtype))
+            multi_tensor_adamw(self._tensors, grads, sq_norm, max_norm=self.max_grad_norm,
+                               b1=self.b1, b2=self.b2, eps=self.eps,
+                               weight_decay=self.weight_decay, bc1=bc1, bc2=bc2,
+                               step_size=-self.lr(self.count - 1))
         return True
 
 

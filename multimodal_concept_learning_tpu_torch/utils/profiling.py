@@ -65,6 +65,8 @@ LAUNCH_COUNTERS = (
                              "flash_attention_bwd_dkv")),
     ("ops.fused_attention_block", ("fused_attention_fwd", "fused_bwd_attn")),
     ("ops.int4", ("int4_matmul", "v3a_matmul", "v3b_matmul")),
+    ("ops.multi_tensor_adamw", ("multi_tensor_accumulate", "multi_tensor_sq_norm",
+                                "multi_tensor_adamw")),
     ("ops.paged_attention_kernel", ("paged_decode_attention",)),
     ("ops.paged_attention_mp_kernel", ("paged_decode_attention_mp",)),
 )
